@@ -1,0 +1,161 @@
+"""The PyTorch port's zero-shot serving slice, end to end, on the CPU.
+
+- Parity: ``ZeroShotClassifier.predict_batch`` of the port against the JAX
+  engine built as tests/test_int8_parity.py builds it, in the bf16 serving
+  configuration (attn_impl="pallas_static", ff_impl="pallas", fuse_qkv=True,
+  Pallas in interpret mode), on the same perturbed parameters, prompts and
+  volumes.  Under FP32_POLICY the tolerance is 1e-5 absolute on the
+  probabilities: fp32 on both sides, only the summation order differs.
+  Under the bf16 policy both sides round at the same points, but a bf16
+  rounding can flip where sums are ordered differently; the tolerance is
+  the 0.02 probability bound the JAX package holds its own precision
+  changes to (measured difference 3.5e-3).
+- Guards: the port imports neither JAX, flax nor the JAX package (checked in
+  a subprocess, since this process has JAX loaded); ``chip_smoke.py`` fails,
+  printing no "ok" line, without a GPU and without the rest of the repo.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from __graft_entry__ import _flagship_config
+from tests.test_torch_models import (DIM_LATENT, jax_params, jax_serving_model,
+                                     port_model)
+from vit_exp_tpu.eval import zero_shot as jzs
+from vit_exp_tpu_torch.eval import zero_shot as tzs
+
+ROOT = Path(__file__).resolve().parents[1]
+PATHS = ["Lung nodule", "Pleural effusion", "Emphysema"]
+TEXT_LEN = 12
+
+
+def _tokenizer(seed=0):
+    """Deterministic ids below the tiny vocab, with padded prompts."""
+    def tokenize(prompts, max_length):
+        r = np.random.default_rng(seed)
+        ids = r.integers(1, 128, (len(prompts), max_length)).astype(np.int32)
+        mask = np.ones_like(ids)
+        for i in range(len(prompts)):
+            mask[i, 4 + i % (max_length - 4):] = 0
+        return {"input_ids": ids, "attention_mask": mask}
+    return tokenize
+
+
+def test_prompts_match():
+    assert tzs.PATHOLOGIES == jzs.PATHOLOGIES
+    assert tzs.build_pathology_prompts() == jzs.build_pathology_prompts()
+
+
+@pytest.mark.parametrize("policy,atol", [("fp32", 1e-5), ("bf16", 0.02)])
+def test_zero_shot_probs_match_jax_engine(policy, atol):
+    config = _flagship_config(tiny=True)
+    params = jax_params(config, seed=3)
+    a = config.arch
+    vols = np.random.default_rng(4).uniform(
+        -1, 1, (2, 1, a.temporal_size, a.image_size, a.image_size)
+    ).astype(np.float32)
+
+    ref = jzs.ZeroShotClassifier(
+        jax_serving_model(config, policy), params, _tokenizer(),
+        pathologies=PATHS, max_text_len=TEXT_LEN, batch_size=2
+    ).predict_batch(vols)
+    eng = tzs.ZeroShotClassifier(port_model(config, params, policy),
+                                 _tokenizer(), pathologies=PATHS,
+                                 max_text_len=TEXT_LEN)
+    assert eng.prepare().shape == (2 * len(PATHS), DIM_LATENT)
+    out = eng.predict_batch(vols)
+    assert out.shape == ref.shape == (2, len(PATHS))
+    np.testing.assert_allclose(out, ref, atol=atol)
+
+
+_GUARD = """
+import json, sys, types
+import numpy as np
+import torch
+from vit_exp_tpu_torch.eval.zero_shot import ZeroShotClassifier
+from vit_exp_tpu_torch.models.bert import BertConfig
+from vit_exp_tpu_torch.models.factory import build_ctclip
+from vit_exp_tpu_torch.ops import _build, attention, flash_attention, fused_proj
+from vit_exp_tpu_torch.ops import geglu_ff, patches, posemb
+from vit_exp_tpu_torch.models import convert, ctclip, ctvit3d, layers
+arch = types.SimpleNamespace(dim=48, image_size=32, patch_size=8,
+    temporal_size=16, temporal_patch_size=4, transformer_blocks=2,
+    dim_head=8, heads=4, channels=1, use_flash_attention=True)
+model = build_ctclip(arch, BertConfig.tiny(), dim_latent=16)
+def tok(prompts, max_length):
+    ids = np.ones((len(prompts), max_length), np.int64)
+    return {"input_ids": ids, "attention_mask": np.ones_like(ids)}
+probs = ZeroShotClassifier(model, tok, max_text_len=8).predict_batch(
+    torch.randn(2, 1, 16, 32, 32))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "vit_exp_tpu", "triton"))
+print(json.dumps({"shape": list(probs.shape),
+                  "finite": bool(np.isfinite(probs).all()), "bad": bad}))
+"""
+
+
+def test_port_runs_without_jax_flax_or_the_jax_package():
+    res = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"shape": [2, 18], "finite": True, "bad": []}
+
+
+def _no_ok_line(stdout: str) -> bool:
+    return '"ok": true' not in stdout and '"ok":true' not in stdout
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert _no_ok_line(res.stdout)
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert _no_ok_line(res.stdout)
+
+
+def test_chip_smoke_phases_rehearse_on_cpu():
+    """chip_smoke's kernel cases and engines at a tiny size on the CPU (where
+    every wrapper runs its plain twin): each case names a real source and
+    the `def` line of the TPU kernel it replaces, and the kernel-path engine
+    agrees with the all-plain engine on the same weights."""
+    import torch
+
+    import chip_smoke as cs
+    from vit_exp_tpu_torch.models.bert import BertConfig
+
+    cpu = torch.device("cpu")
+    arch = dict(dim=48, image_size=32, patch_size=8, temporal_size=16,
+                temporal_patch_size=4, transformer_blocks=2, dim_head=32,
+                heads=2, channels=1, use_flash_attention=True)
+    for name, route, source, replaces, kern, plain in cs.kernel_cases(
+            cpu, arch, batch=1):
+        assert route == "cuda" and (ROOT / source).is_file()
+        path, line = replaces.split(":")
+        assert (ROOT / path).read_text().splitlines()[int(line) - 1].startswith(
+            "def _"), replaces
+        out, ref = kern(), plain()
+        for a, b in zip(out if isinstance(out, tuple) else (out,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert cs.compare(a, b)[:2] == (0.0, 0.0), name
+    eng = cs.build_engine(cpu, arch, BertConfig.tiny(), TEXT_LEN)
+    ref = cs.build_engine(cpu, arch, BertConfig.tiny(), TEXT_LEN,
+                          use_kernels=False, state_dict=eng.model.state_dict())
+    vol = torch.randn(1, 1, 16, 32, 32)
+    np.testing.assert_allclose(eng.predict_batch(vol), ref.predict_batch(vol),
+                               atol=1e-6)

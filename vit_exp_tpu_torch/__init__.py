@@ -1,0 +1,20 @@
+"""vit_exp_tpu_torch — the PyTorch / CUDA port of ``vit_exp_tpu`` for one
+NVIDIA H100 (Hopper, sm_90a).
+
+The JAX package ``vit_exp_tpu`` is the reference; this package mirrors its
+module paths so each counterpart is easy to find:
+
+- ``core``    precision policy
+- ``ops``     position embedding, patch embedding, fused LN+qkv projection,
+              fused GEGLU feed-forward, static-max cosine attention; every
+              Pallas kernel of the serving path is a hand-written CUDA kernel
+              here (sources in ``csrc/``, built by ``ops/_build.py``)
+- ``models``  CTViT3D image tower, BERT text tower, CTCLIP, factory,
+              parameter mapping from the JAX package
+- ``eval``    zero-shot classification engine
+
+Importing the package imports neither CUDA kernels nor the JAX package:
+kernels build on first launch, and only on a CUDA tensor.
+"""
+
+__version__ = "0.1.0"

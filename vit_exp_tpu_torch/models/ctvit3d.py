@@ -1,0 +1,153 @@
+"""CTViT3D image tower, encoder only (counterpart of
+vit_exp_tpu/models/ctvit3d.py on its serving path: fused patch embed, fused
+LN+qkv projection, static-max attention, fused GEGLU feed-forward).
+
+Module and parameter names follow the reference ``visual_transformer``:
+``to_patch_emb.{1,2,3}`` (LN in, Linear, LN out), ``enc_3D.layers.{i}.1``
+(attention) and ``.3`` (feed-forward), ``enc_3D.norm_out``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from vit_exp_tpu_torch.models.layers import (BiasLayerNorm, GEGLUFeedForward,
+                                             Linear, ScaleLayerNorm, empty_param)
+from vit_exp_tpu_torch.ops.attention import cosine_attention
+from vit_exp_tpu_torch.ops.fused_proj import fused_ln_qkv
+from vit_exp_tpu_torch.ops.patches import fused_patch_embed
+from vit_exp_tpu_torch.ops.posemb import sincos_pos_embed_3d
+
+
+class CosineSelfAttention(nn.Module):
+    """QK-l2norm self-attention with learned per-dim q/k scales and null kv.
+
+    k/v project from the PRE-LayerNorm x; only q sees the normed x (the
+    reference binds the kv input before its norm).  ``null_kv`` is laid out
+    'h (n r) d' with r = 2: k rows are the even entries, v rows the odd ones.
+    """
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32,
+                 num_null_kv: int = 2, scale: Optional[float] = None, *,
+                 policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
+                 device=None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head, self.num_null_kv = heads, dim_head, num_null_kv
+        self.scale = scale
+        self.policy = policy
+        self.use_kernels = use_kernels
+        kw = dict(policy=policy, device=device)
+        self.norm = ScaleLayerNorm(dim, **kw)
+        self.null_kv = empty_param(heads, 2 * num_null_kv, dim_head, **kw)
+        self.to_q = Linear(dim, inner, bias=False, **kw)
+        self.to_kv = Linear(dim, 2 * inner, bias=False, **kw)
+        self.q_scale = empty_param(dim_head, **kw)
+        self.k_scale = empty_param(dim_head, **kw)
+        self.to_out = Linear(inner, dim, bias=False, **kw)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.null_kv, 0.0, 1.0, generator=generator)
+        nn.init.ones_(self.q_scale)
+        nn.init.ones_(self.k_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        h, dh = self.heads, self.dim_head
+        q, kv = fused_ln_qkv(x.to(self.policy.compute_dtype), self.norm.gamma,
+                             self.to_q.weight.t(), self.to_kv.weight.t(),
+                             use_kernel=self.use_kernels)
+        k, v = kv.split(h * dh, dim=-1)
+
+        def heads_first(t):   # a strided view, no copy
+            return t.reshape(b, n, h, dh).transpose(1, 2)
+
+        nkv = self.null_kv.reshape(h, self.num_null_kv, 2, dh)
+        out = cosine_attention(
+            heads_first(q), heads_first(k), heads_first(v),
+            null_k=nkv[:, :, 0], null_v=nkv[:, :, 1],
+            q_scale=self.q_scale, k_scale=self.k_scale, scale=self.scale,
+            use_kernel=self.use_kernels)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
+
+
+class TransformerBlock(nn.Module):
+    """x + attn(x), then x + ff(x); children named 1 (attention) and 3
+    (feed-forward) as in the reference layer list."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 scale: Optional[float], ff_mult: float = 4.0, *,
+                 policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
+                 device=None):
+        super().__init__()
+        self.add_module("1", CosineSelfAttention(
+            dim, heads, dim_head, scale=scale, policy=policy,
+            use_kernels=use_kernels, device=device))
+        self.add_module("3", GEGLUFeedForward(
+            dim, ff_mult, policy=policy, use_kernel=use_kernels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self._modules["1"](x)
+        return x + self._modules["3"](x)
+
+
+class _Encoder(nn.Module):
+    def __init__(self, layers, norm_out):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.norm_out = norm_out
+
+
+class CTViT3D(nn.Module):
+    def __init__(self, dim: int = 768, image_size: int = 480,
+                 patch_size: int = 20, temporal_size: int = 240,
+                 temporal_patch_size: int = 10, transformer_blocks: int = 8,
+                 dim_head: int = 32, heads: int = 8, channels: int = 1,
+                 attn_scale: Optional[float] = None, *,
+                 policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
+                 device=None):
+        super().__init__()
+        self.dim = dim
+        self.patch_size, self.temporal_patch_size = patch_size, temporal_patch_size
+        self.grid = (temporal_size // temporal_patch_size,
+                     image_size // patch_size, image_size // patch_size)
+        self.policy = policy
+        self.use_kernels = use_kernels
+        kw = dict(policy=policy, device=device)
+        patch_dim = channels * patch_size * patch_size * temporal_patch_size
+        self.to_patch_emb = nn.ModuleDict({
+            "1": BiasLayerNorm(patch_dim, **kw),
+            "2": Linear(patch_dim, dim, **kw),
+            "3": BiasLayerNorm(dim, **kw),
+        })
+        self.enc_3D = _Encoder(
+            [TransformerBlock(dim, heads, dim_head, attn_scale,
+                              use_kernels=use_kernels, **kw)
+             for _ in range(transformer_blocks)],
+            ScaleLayerNorm(dim, **kw))
+        # fixed table; not part of the state dict
+        self.register_buffer(
+            "pos_embed",
+            torch.from_numpy(sincos_pos_embed_3d(dim, self.grid)).to(device),
+            persistent=False)
+
+    def forward(self, video: torch.Tensor) -> torch.Tensor:
+        """video: (b, c, T, H, W) → encoded tokens (b, t, h, w, dim)."""
+        b = video.shape[0]
+        n_t, n_h, n_w = self.grid
+        ln_in, proj, ln_out = (self.to_patch_emb[k] for k in "123")
+        x = fused_patch_embed(
+            video, ln_in.weight, ln_in.bias, proj.weight.t(), proj.bias,
+            self.temporal_patch_size, self.patch_size, self.patch_size,
+            compute_dtype=self.policy.compute_dtype,
+            use_kernel=self.use_kernels)
+        x = ln_out(x).reshape(b, n_t * n_h * n_w, self.dim)
+        x = x + self.pos_embed.to(self.policy.compute_dtype)[None]
+        for block in self.enc_3D.layers:
+            x = block(x)
+        x = self.enc_3D.norm_out(x)
+        return x.reshape(b, n_t, n_h, n_w, self.dim)

@@ -1,0 +1,62 @@
+"""Model factory (counterpart of vit_exp_tpu/models/factory.py).
+
+``config`` is duck-typed: anything with the fields of the JAX package's
+``ExperimentConfig`` (an ``arch`` with dim, image_size, patch_size,
+temporal_size, temporal_patch_size, transformer_blocks, dim_head, heads,
+channels, use_flash_attention; optionally ``extra["dim_latent"]``), or such
+an ``arch`` itself.  The port reads the fields and never imports the JAX
+package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from vit_exp_tpu_torch.models.bert import BertConfig
+from vit_exp_tpu_torch.models.ctclip import CTCLIP
+from vit_exp_tpu_torch.models.ctvit3d import CTViT3D
+
+
+def build_image_encoder(arch, *, device=None, policy: Policy = DEFAULT_POLICY,
+                        use_kernels: bool = True) -> CTViT3D:
+    return CTViT3D(
+        dim=arch.dim, image_size=arch.image_size, patch_size=arch.patch_size,
+        temporal_size=arch.temporal_size,
+        temporal_patch_size=arch.temporal_patch_size,
+        transformer_blocks=arch.transformer_blocks, dim_head=arch.dim_head,
+        heads=arch.heads, channels=getattr(arch, "channels", 1),
+        # production checkpoints use the SDPA convention 1/√dim_head
+        attn_scale=None if getattr(arch, "use_flash_attention", True) else 8.0,
+        policy=policy, use_kernels=use_kernels, device=device)
+
+
+def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
+    """Fill every parameter from one seeded generator on the model's device."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+
+
+def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
+                 device=None, policy: Policy = DEFAULT_POLICY,
+                 dim_latent: Optional[int] = None, use_kernels: bool = True,
+                 seed: int = 0) -> CTCLIP:
+    """CTCLIP with seeded random weights on ``device``.  ``use_kernels=False``
+    runs every kernel's plain PyTorch version instead (the reference path
+    on the card)."""
+    arch = getattr(config, "arch", config)
+    if dim_latent is None:
+        dim_latent = (getattr(config, "extra", None) or {}).get("dim_latent",
+                                                                768)
+    visual = build_image_encoder(arch, device=device, policy=policy,
+                                 use_kernels=use_kernels)
+    model = CTCLIP(visual, bert_config or BertConfig(), dim_latent=dim_latent,
+                   policy=policy, device=device)
+    init_parameters_(model, seed)
+    return model.eval()

@@ -1,0 +1,120 @@
+"""Shared building blocks (counterpart of vit_exp_tpu/models/layers.py).
+
+Parameters are created uninitialised (``torch.empty``) on the requested
+device; every module that owns parameters has ``reset_parameters(generator)``
+and the factory calls it with one seeded ``torch.Generator``.  Parameter
+names follow the reference PyTorch modules (``weight``/``bias`` for Linear
+and LayerNorm, ``gamma`` for the γ-only LayerNorm), so a reference
+``CTClip.*.pt`` state dict loads by name.
+"""
+
+from __future__ import annotations
+
+import math
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+from vit_exp_tpu_torch.ops.geglu_ff import fused_geglu_ff
+
+
+def empty_param(*shape, policy: Policy, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, device=device,
+                                    dtype=policy.param_dtype))
+
+
+class Linear(nn.Module):
+    """y = x @ Wᵀ (+ b) in the compute dtype; weight is (out, in) as in
+    torch.nn.Linear."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, *,
+                 policy: Policy = DEFAULT_POLICY, device=None):
+        super().__init__()
+        self.policy = policy
+        self.weight = empty_param(d_out, d_in, policy=policy, device=device)
+        self.bias = empty_param(d_out, policy=policy, device=device) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # lecun normal, as the JAX package's Dense init
+        nn.init.normal_(self.weight, 0.0, 1.0 / math.sqrt(self.weight.shape[1]),
+                        generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.policy.compute_dtype
+        y = F.linear(x.to(cd), self.weight.to(cd))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class ScaleLayerNorm(nn.Module):
+    """γ-only LayerNorm (β pinned to 0), eps 1e-5, fp32 statistics."""
+
+    def __init__(self, dim: int, *, policy: Policy = DEFAULT_POLICY,
+                 device=None):
+        super().__init__()
+        self.policy = policy
+        self.gamma = empty_param(dim, policy=policy, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.gamma)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(self.policy.reduce_dtype)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+        y = (x32 - mean) / torch.sqrt(var + 1e-5)
+        return (y * self.gamma.to(y.dtype)).to(self.policy.compute_dtype)
+
+
+class BiasLayerNorm(nn.Module):
+    """LayerNorm with weight and bias, fp32 statistics."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, *,
+                 policy: Policy = DEFAULT_POLICY, device=None):
+        super().__init__()
+        self.policy = policy
+        self.eps = eps
+        self.weight = empty_param(dim, policy=policy, device=device)
+        self.bias = empty_param(dim, policy=policy, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(self.policy.reduce_dtype)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+        y = (x32 - mean) / torch.sqrt(var + self.eps)
+        y = y * self.weight.to(y.dtype) + self.bias.to(y.dtype)
+        return y.to(self.policy.compute_dtype)
+
+
+class GEGLUFeedForward(nn.Module):
+    """LayerNorm → Linear(dim, 2·inner) → GEGLU (exact erf) → Linear(inner,
+    dim), inner = int(mult·2/3·dim); the first Linear's output is laid out
+    [val | gate].  Runs as the fused kernel K2.  Children are named as the
+    reference Sequential's indices: 0 (norm), 1 (wi), 4 (wo)."""
+
+    def __init__(self, dim: int, mult: float = 4.0, *,
+                 policy: Policy = DEFAULT_POLICY, use_kernel: bool = True,
+                 device=None):
+        super().__init__()
+        inner = int(mult * (2.0 / 3.0) * dim)
+        self.policy = policy
+        self.use_kernel = use_kernel
+        self.add_module("0", BiasLayerNorm(dim, policy=policy, device=device))
+        self.add_module("1", Linear(dim, 2 * inner, bias=False, policy=policy,
+                                    device=device))
+        self.add_module("4", Linear(inner, dim, bias=False, policy=policy,
+                                    device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        norm, wi, wo = self._modules["0"], self._modules["1"], self._modules["4"]
+        return fused_geglu_ff(x.to(self.policy.compute_dtype), norm.weight,
+                              norm.bias, wi.weight.t(), wo.weight.t(),
+                              use_kernel=self.use_kernel)

@@ -1,0 +1,143 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+The sources have a plain C interface.  On first use they are compiled by
+``nvcc`` for sm_90a, one object per file in parallel, linked into one shared
+library and loaded with ``ctypes``.  The library lives in ``build/torch_kernels/``
+at the root of the checkout (``build/`` is git-ignored) under a name that
+carries a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is reused.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()`` after the launch; :func:`launch` raises when that is
+not ``cudaSuccess``.  Pointers and the stream travel as ``c_void_p``.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C signature of every entry point (return type is int: a cudaError_t)
+SIGNATURES = {
+    # q, k, v, nk, nv, bound, out, q/k/v/out strides (b, h, n) ×4,
+    # B, H, Nq, Nkv, n_null, scale, stream
+    "vit_flash_static_fwd": [P, P, P, P, P, P, P] + [ctypes.c_longlong] * 12
+    + [I, I, I, I, I, F, P],
+    # x, mu, inv, w1p, d1, w2, out, M, D, I2, stream
+    "vit_geglu_ff_fwd": [P, P, P, P, P, P, P, I, I, I, P],
+    # x, mu, inv, w, c, out, M, K, F, Fq, stream
+    "vit_ln_qkv_fwd": [P, P, P, P, P, P, I, I, I, I, P],
+    # x, mu, sq, BT, CPT, H, W, p1, p2, stream
+    "vit_patch_stats_fwd": [P, P, P, I, I, I, I, I, I, P],
+}
+
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    return BUILD_DIR / f"libvit_kernels_{source_hash()}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _run(cmd):
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{res.stdout}\n{res.stderr}")
+    return res.stdout + res.stderr
+
+
+def build() -> Path:
+    """Compile the kernels if no library for the current sources exists;
+    return the library's path.  The compiler's output (with ptxas register
+    and shared-memory counts) is kept beside it, with the suffix .log."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = library_path()
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"tmp_{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    cus = sorted(CSRC.glob("*.cu"))
+    objs = [work / (p.stem + ".o") for p in cus]
+    with concurrent.futures.ThreadPoolExecutor(len(cus)) as pool:
+        logs = list(pool.map(
+            lambda so: _run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                             str(so[0]), "-o", str(so[1])]),
+            zip(cus, objs)))
+    tmp_lib = work / lib_path.name
+    logs.append(_run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp_lib),
+                      *map(str, objs)]))
+    os.replace(tmp_lib, lib_path)
+    shutil.rmtree(work, ignore_errors=True)
+    lib_path.with_suffix(".log").write_text("\n".join(logs))
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point ``name`` on PyTorch's current stream; raise if the
+    launch was refused."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device: the kernels take
+    nothing else, and nothing falls back to the plain version."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device, "
+                             f"got {t.device} and {dev}")

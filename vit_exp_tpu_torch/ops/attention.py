@@ -1,0 +1,60 @@
+"""Cosine-similarity attention (counterpart of vit_exp_tpu/ops/attention.py,
+static-max serving path).
+
+  1. null key/value pairs (learned, per head) join the keys;
+  2. q and k — the null k too — are l2-normalised along the head dim;
+  3. q/k are multiplied by learned per-dim scales;
+  4. softmax(q kᵀ · scale) over [nulls ++ kv], weighted sum of v.
+
+``scale=None`` is 1/√d_head, the convention production checkpoints use.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from vit_exp_tpu_torch.ops.flash_attention import flash_attention
+
+
+def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Normalise the last axis (norm clamped below at eps), fp32 norm."""
+    n = x.float().square().sum(dim=-1, keepdim=True).sqrt()
+    return (x / n.clamp_min(eps).to(x.dtype)).to(x.dtype)
+
+
+def logit_bound(q_scale: Optional[torch.Tensor],
+                k_scale: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """B = scale·max|q_scale|·max|k_scale| as a 0-dim fp32 device tensor
+    (no host read, so the forward never synchronises)."""
+    one = torch.ones((), dtype=torch.float32)
+    bq = one if q_scale is None else q_scale.float().abs().amax()
+    bk = one if k_scale is None else k_scale.float().abs().amax()
+    return (bq * bk) * scale
+
+
+def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
+                     k_scale=None, scale: Optional[float] = None,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """q, k, v: (b, h, n, d); null_k/null_v: (h, n_null, d); q_scale/k_scale:
+    (d,).  Returns (b, h, n, d)."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    nk = nv = None
+    if null_k is not None:
+        nk = l2norm(null_k.to(k.dtype))
+        if k_scale is not None:
+            nk = nk * k_scale.to(nk.dtype)
+        nv = null_v.to(v.dtype)
+    q = l2norm(q)
+    k = l2norm(k)
+    if q_scale is not None:
+        q = q * q_scale.to(q.dtype)
+    if k_scale is not None:
+        k = k * k_scale.to(k.dtype)
+    bound = logit_bound(q_scale, k_scale, scale).to(q.device)
+    return flash_attention(q, k, v, logit_bound=bound, scale=scale,
+                           null_k=nk, null_v=nv, use_kernel=use_kernel)
