@@ -1,5 +1,5 @@
-"""Card tests of the port's CUDA kernels (K1-K4) against their plain
-PyTorch versions at small, ragged shapes.
+"""Card tests of the port's CUDA kernels (K1-K4, the attention backward pair
+and K8) against their plain PyTorch versions at small, ragged shapes.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -8,8 +8,9 @@ no JAX, so on the card it runs without the repo's conftest:
 
 Tolerances: the kernels round to bf16 where the plain versions do, but sum
 in another order, so outputs differ by bf16 rounding of the last place:
-relative L2 error ≤ 1e-2 on bf16 outputs, 1e-5 on the fp32 statistics of
-K4 (its sums are exact in fp32 up to order).
+relative L2 error ≤ 1e-2 on bf16 outputs and on gradients (bf16 operands
+of fp32 sums on both sides), 1e-5 on the fp32 statistics of K4 and on K1's
+lse (fp32 sums of the same bf16-rounded p, up to order).
 """
 
 import math
@@ -107,3 +108,112 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 4, 40, 60, device=dev)          # fp32, not bf16
     with pytest.raises(ValueError):
         patches.patch_stats(x, 8, 6)
+
+
+def _attn_case(dev, nq, nkv, n_null, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, d = 2, 3, 32
+    q = l2norm(_randn(g, b, nq, h, d)).transpose(1, 2)      # strided view
+    k = l2norm(_randn(g, b, nkv, h, d)).transpose(1, 2)
+    v = _randn(g, b, nkv, h, d).transpose(1, 2)
+    nk = l2norm(_randn(g, h, n_null, d)) if n_null else None
+    nv = _randn(g, h, n_null, d) if n_null else None
+    return q, k, v, nk, nv, 1.0 / math.sqrt(d)
+
+
+@pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (13, 200, 8),
+                                           (128, 64, 0)])
+def test_k1_lse_matches_plain(dev, nq, nkv, n_null):
+    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null)
+    bound = torch.tensor(scale, device=dev)
+    out, lse = fa.attention_static(q, k, v, nk, nv, bound, scale, save_lse=True)
+    ref, lse_p = fa.attention_static_plain(q, k, v, nk, nv, bound, scale,
+                                           save_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (2, 3, nq) and lse.dtype == torch.float32
+    assert _rel(out, ref) < 1e-2 and _rel(lse, lse_p) < 1e-5
+
+
+@pytest.mark.parametrize("n,n_null", [(100, 0), (100, 2), (150, 8)])
+def test_attention_backward_matches_plain(dev, n, n_null):
+    """The dk/dv and dq kernels against the plain backward twin, and the
+    whole differentiable op (null terms included) against its plain path."""
+    q, k, v, nk, nv, scale = _attn_case(dev, n, n, n_null)
+    bound = torch.tensor(scale, device=dev)
+    dout = _randn(torch.Generator(device=dev).manual_seed(5), 2, n, 3, 32
+                  ).transpose(1, 2)
+    out, lse = fa.attention_static(q, k, v, nk, nv, bound, scale, save_lse=True)
+    delta = (dout.float() * out.float()).sum(-1)
+    before = (fa.attention_bwd_dkv.launches, fa.attention_bwd_dq.launches)
+    got = fa.attention_bwd(q, k, v, dout, lse, delta, scale)
+    ref = fa.attention_bwd_plain(q, k, v, dout, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.attention_bwd_dkv.launches,
+            fa.attention_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and _rel(a, r) < 1e-2
+
+    grads = []
+    for use_kernel in (True, False):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v) + ((nk, nv) if n_null else ())]
+        nulls = leaves[3:] if n_null else (None, None)
+        o = fa.flash_attention(*leaves[:3], logit_bound=bound, scale=scale,
+                               null_k=nulls[0], null_v=nulls[1],
+                               use_kernel=use_kernel)
+        o.backward(dout)
+        grads.append([t.grad for t in leaves])
+    for a, r in zip(*grads):
+        assert _rel(a, r) < 1e-2
+
+
+@pytest.mark.parametrize("m", [50, 96])
+def test_k8_matches_plain(dev, m):
+    g = torch.Generator(device=dev).manual_seed(6)
+    d, inner = 768, 256
+    x = _randn(g, m, d)
+    mu, inv = geglu_ff.ln_stats(x, 1e-5)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    beta = 0.1 * torch.randn(d, generator=g, device=dev)
+    w1 = torch.randn(d, 2 * inner, generator=g, device=dev) * d ** -0.5
+    w2 = torch.randn(inner, d, generator=g, device=dev) * inner ** -0.5
+    dout = _randn(g, m, d)
+    before = (geglu_ff.geglu_ff_bwd_tokens.launches,
+              geglu_ff.geglu_ff_bwd_weights.launches)
+    got = geglu_ff.geglu_ff_bwd(x, mu, inv, gamma, beta, w1, w2, dout)
+    ref = geglu_ff.geglu_ff_bwd_plain(x, mu, inv, gamma, beta, w1, w2, dout)
+    torch.cuda.synchronize()
+    assert (geglu_ff.geglu_ff_bwd_tokens.launches,
+            geglu_ff.geglu_ff_bwd_weights.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and _rel(a, r) < 1e-2
+
+
+def test_no_wrapper_returns_a_graphless_result(dev):
+    """A raw kernel wrapper refuses an input that requires grad; the ops
+    route through their autograd Functions, whose outputs carry a graph."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = _randn(g, 64, 768).requires_grad_()
+    mu, inv = geglu_ff.ln_stats(x.detach(), 1e-5)
+    w1p, w2 = _randn(g, 768, 512), _randn(g, 256, 768)
+    with pytest.raises(RuntimeError):
+        geglu_ff.geglu_ff(x, mu, inv, w1p, torch.zeros(512, device=dev), w2)
+    gamma = torch.ones(768, device=dev, requires_grad=True)
+    beta = torch.zeros(768, device=dev, requires_grad=True)
+    w1 = torch.randn(768, 512, device=dev, requires_grad=True)
+    w2f = torch.randn(256, 768, device=dev, requires_grad=True)
+    out = geglu_ff.fused_geglu_ff(x, gamma, beta, w1, w2f)
+    assert out.grad_fn is not None
+    out.float().sum().backward()
+    assert all(t.grad is not None for t in (x, gamma, beta, w1, w2f))
+    q, k, v, nk, nv, scale = _attn_case(dev, 70, 70, 2)
+    q = q.detach().requires_grad_()
+    with pytest.raises(RuntimeError):
+        fa.attention_static(q, k, v, nk, nv, torch.tensor(scale, device=dev),
+                            scale)
+    o = fa.flash_attention(q, k, v, logit_bound=torch.tensor(scale, device=dev),
+                           scale=scale, null_k=nk, null_v=nv)
+    assert o.grad_fn is not None
+    o.float().sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad.float()).all()

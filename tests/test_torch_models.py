@@ -7,7 +7,8 @@ temperature are not at their identity init), and the same parameters are
 loaded into the port through ``from_jax_params``.  The JAX side runs the
 serving configuration (attn_impl="pallas_static", ff_impl="pallas",
 fuse_qkv=True, Pallas in interpret mode) under FP32_POLICY; the port runs
-its plain versions on the CPU under its FP32_POLICY.
+the same configuration (``fuse_qkv=True``) with its plain versions on the
+CPU under its FP32_POLICY.
 
 Tolerance: 1e-4 absolute on fp32 module outputs of order one (both sides
 compute in fp32 and differ only in summation order).
@@ -58,9 +59,10 @@ def jax_params(config, seed=0):
     init_model = jax_build_ctclip(config, bert_config=JaxBertConfig.tiny(),
                                   policy=JAX_FP32, dim_latent=DIM_LATENT)
     video = jnp.zeros((1, 1, a.temporal_size, a.image_size, a.image_size))
-    params = nn.unbox(init_model.init(
-        jax.random.PRNGKey(seed), video, jnp.ones((1, TEXT_LEN), jnp.int32),
-        method=JaxCTCLIP.init_all))["params"]
+    init = jax.jit(lambda key, v, ids: init_model.init(
+        key, v, ids, method=JaxCTCLIP.init_all))
+    params = nn.unbox(init(jax.random.PRNGKey(seed), video,
+                           jnp.ones((1, TEXT_LEN), jnp.int32)))["params"]
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map(
         lambda p: np.asarray(p, np.float32)
@@ -68,9 +70,9 @@ def jax_params(config, seed=0):
         params)
 
 
-def port_model(config, params, policy="fp32"):
+def port_model(config, params, policy="fp32", fuse_qkv=True):
     model = build_ctclip(config, BertConfig.tiny(), policy=POLICIES[policy][1],
-                         dim_latent=DIM_LATENT)
+                         dim_latent=DIM_LATENT, fuse_qkv=fuse_qkv)
     res = model.load_state_dict(
         {k: torch.from_numpy(v) for k, v in from_jax_params(params).items()})
     assert not res.missing_keys and not res.unexpected_keys

@@ -10,9 +10,10 @@
   rounding can flip where sums are ordered differently; the tolerance is
   the 0.02 probability bound the JAX package holds its own precision
   changes to (measured difference 3.5e-3).
-- Guards: the port imports neither JAX, flax nor the JAX package (checked in
-  a subprocess, since this process has JAX loaded); ``chip_smoke.py`` fails,
-  printing no "ok" line, without a GPU and without the rest of the repo.
+- Guards: the port imports neither JAX, flax nor the JAX package, serving or
+  taking a train step (checked in a subprocess, since this process has JAX
+  loaded); ``chip_smoke.py`` fails, printing no "ok" line, without a GPU and
+  without the rest of the repo.
 """
 
 import json
@@ -84,20 +85,29 @@ from vit_exp_tpu_torch.models.bert import BertConfig
 from vit_exp_tpu_torch.models.factory import build_ctclip
 from vit_exp_tpu_torch.ops import _build, attention, flash_attention, fused_proj
 from vit_exp_tpu_torch.ops import geglu_ff, patches, posemb
-from vit_exp_tpu_torch.models import convert, ctclip, ctvit3d, layers
+from vit_exp_tpu_torch.models import convert, ctclip, ctvit3d, layers, losses
+from vit_exp_tpu_torch.train import optimizer, steps
 arch = types.SimpleNamespace(dim=48, image_size=32, patch_size=8,
     temporal_size=16, temporal_patch_size=4, transformer_blocks=2,
     dim_head=8, heads=4, channels=1, use_flash_attention=True)
-model = build_ctclip(arch, BertConfig.tiny(), dim_latent=16)
+model = build_ctclip(arch, BertConfig.tiny(), dim_latent=16, fuse_qkv=True)
 def tok(prompts, max_length):
     ids = np.ones((len(prompts), max_length), np.int64)
     return {"input_ids": ids, "attention_mask": np.ones_like(ids)}
 probs = ZeroShotClassifier(model, tok, max_text_len=8).predict_batch(
     torch.randn(2, 1, 16, 32, 32))
+model = build_ctclip(arch, BertConfig.tiny(), dim_latent=16).train()
+opt = optimizer.build_optimizer(types.SimpleNamespace(
+    lr=1e-3, wd=0.0, max_grad_norm=0.5, warmup_steps=0,
+    gradient_accumulation_steps=1), model.parameters())
+step = steps.make_train_steps(model, opt, types.SimpleNamespace())
+loss = float(step["imagereport"]({"image": torch.randn(2, 1, 16, 32, 32),
+    "input_ids": torch.ones(2, 8, dtype=torch.long)}, 1.0)["loss"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "vit_exp_tpu", "triton"))
 print(json.dumps({"shape": list(probs.shape),
-                  "finite": bool(np.isfinite(probs).all()), "bad": bad}))
+                  "finite": bool(np.isfinite(probs).all() and np.isfinite(loss)),
+                  "bad": bad}))
 """
 
 
@@ -129,11 +139,28 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert _no_ok_line(res.stdout)
 
 
+def test_chip_smoke_gradient_errors_hold_at_tiny_norms():
+    """The cosine of gradients with norms far below 1e-8 is still exact
+    (cosine_similarity's eps would drive it towards 0)."""
+    import torch
+
+    import chip_smoke as cs
+
+    a = torch.randn(64, generator=torch.Generator().manual_seed(0)) * 1e-11
+    b = a.clone()
+    b[0] += 1e-13
+    rel, cos = cs.grad_errors(a, b)
+    assert rel == pytest.approx(1e-13 / float(b.double().norm()), rel=1e-3)
+    assert cos == pytest.approx(1.0, abs=1e-6)
+    assert cs.grad_errors(a, -a) == pytest.approx((2.0, -1.0))
+
+
 def test_chip_smoke_phases_rehearse_on_cpu():
-    """chip_smoke's kernel cases and engines at a tiny size on the CPU (where
-    every wrapper runs its plain twin): each case names a real source and
-    the `def` line of the TPU kernel it replaces, and the kernel-path engine
-    agrees with the all-plain engine on the same weights."""
+    """chip_smoke's kernel cases, engines and train-step comparison at a tiny
+    size on the CPU (where every wrapper runs its plain twin): each case
+    names a real source and the `def` line of the TPU kernel it replaces,
+    and every launch counter has its own row; the kernel-path engine agrees with the all-plain engine
+    on the same weights; the two train steps agree."""
     import torch
 
     import chip_smoke as cs
@@ -143,8 +170,10 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     arch = dict(dim=48, image_size=32, patch_size=8, temporal_size=16,
                 temporal_patch_size=4, transformer_blocks=2, dim_head=32,
                 heads=2, channels=1, use_flash_attention=True)
-    for name, route, source, replaces, kern, plain in cs.kernel_cases(
-            cpu, arch, batch=1):
+    cases = (cs.kernel_cases(cpu, arch, batch=1)
+             + cs.training_kernel_cases(cpu, arch, batch=1))
+    assert {c[-1] for c in cases} == set(cs.kernel_counters())
+    for name, route, source, replaces, kern, plain, counter in cases:
         assert route == "cuda" and (ROOT / source).is_file()
         path, line = replaces.split(":")
         assert (ROOT / path).read_text().splitlines()[int(line) - 1].startswith(
@@ -153,6 +182,15 @@ def test_chip_smoke_phases_rehearse_on_cpu():
         for a, b in zip(out if isinstance(out, tuple) else (out,),
                         ref if isinstance(ref, tuple) else (ref,)):
             assert cs.compare(a, b)[:2] == (0.0, 0.0), name
+    res, launches, kern, batch = cs.compare_train_steps(
+        cpu, arch, BertConfig.tiny(), 2, TEXT_LEN)
+    assert res["loss_kernel"] == res["loss_plain"] and res["finite"]
+    assert res["norm_kernel"] == res["norm_plain"] > 0
+    assert not res["missing"] and len(res["tower"]) > 10
+    assert all(e == 0.0 and c == pytest.approx(1.0)
+               for e, c in res["tower"].values())
+    assert set(launches) == set(cs.kernel_counters())
+    assert np.isfinite(float(kern[2](batch, 1.0)["loss"]))
     eng = cs.build_engine(cpu, arch, BertConfig.tiny(), TEXT_LEN)
     ref = cs.build_engine(cpu, arch, BertConfig.tiny(), TEXT_LEN,
                           use_kernels=False, state_dict=eng.model.state_dict())

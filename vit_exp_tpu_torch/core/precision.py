@@ -22,3 +22,9 @@ class Policy:
 
 DEFAULT_POLICY = Policy()
 FP32_POLICY = Policy(compute_dtype=torch.float32)
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Arithmetic dtype of the kernels' plain versions for inputs of dtype:
+    fp32, or fp64 for fp64 (so gradcheck can see the plain backwards)."""
+    return torch.promote_types(dtype, torch.float32)

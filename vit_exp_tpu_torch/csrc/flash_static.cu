@@ -10,7 +10,9 @@
 // registers: lanes 2r and 2r+1 own query row r, one half of the columns
 // each).  O / l is written once at the end.  q, k, v and out are addressed
 // through (batch, head, row) strides with a contiguous head dim; the q and
-// kv tails are masked.  B is read from device memory.
+// kv tails are masked.  B is read from device memory.  When lse is not null
+// the block also writes lse = B + log l (fp32, (batch·head, Nq)), the
+// softmax statistic the backward (flash_bwd.cu) recomputes p from.
 #include "common.cuh"
 
 using namespace vit;
@@ -46,8 +48,9 @@ flash_static_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ nk,
                     const bf16* __restrict__ nv,
                     const float* __restrict__ bound_ptr, bf16* __restrict__ out,
-                    Strides qs, Strides ks, Strides vs, Strides os, int H,
-                    int Nq, int Nkv, int n_null, float scale) {
+                    float* __restrict__ lse, Strides qs, Strides ks,
+                    Strides vs, Strides os, int H, int Nq, int Nkv,
+                    int n_null, float scale) {
     __shared__ __align__(128) bf16 Qs[BQ * LDQ];
     __shared__ __align__(128) bf16 Ks[BKV * LDQ];
     __shared__ __align__(128) bf16 Vs[BKV * LDQ];
@@ -161,6 +164,8 @@ flash_static_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int d = 0; d < 16; ++d)
             orow[d] = __float2bfloat16(S[r * LDS + half * 16 + d] / l);
+        if (lse != nullptr && half == 0)
+            lse[(size_t)blockIdx.y * Nq + qi] = bound + logf(l);
     }
 }
 
@@ -168,7 +173,7 @@ flash_static_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 VIT_API int vit_flash_static_fwd(
     const void* q, const void* k, const void* v, const void* nk,
-    const void* nv, const void* bound, void* out, long long qsb,
+    const void* nv, const void* bound, void* out, void* lse, long long qsb,
     long long qsh, long long qsn, long long ksb, long long ksh, long long ksn,
     long long vsb, long long vsh, long long vsn, long long osb, long long osh,
     long long osn, int B, int H, int Nq, int Nkv, int n_null, float scale,
@@ -176,7 +181,7 @@ VIT_API int vit_flash_static_fwd(
     dim3 grid((Nq + BQ - 1) / BQ, B * H);
     flash_static_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)nk,
-        (const bf16*)nv, (const float*)bound, (bf16*)out,
+        (const bf16*)nv, (const float*)bound, (bf16*)out, (float*)lse,
         Strides{qsb, qsh, qsn}, Strides{ksb, ksh, ksn},
         Strides{vsb, vsh, vsn}, Strides{osb, osh, osn}, H, Nq, Nkv, n_null,
         scale);

@@ -6,6 +6,9 @@ so one ``load_state_dict`` serves both sources:
 
 - ``from_jax_params(params)``: pure numpy; maps the JAX package's flax
   parameter tree (numpy arrays) onto exactly the keys the port registers.
+  It only transposes and reshapes, so it is linear: it maps a JAX gradient
+  tree (``jax.grad`` of a loss in the params) onto the port's parameter
+  names as well, which is how the train-step tests compare gradients.
 - ``load_reference_state_dict(model, sd)``: loads a reference-layout state
   dict with ``strict=False`` and checks that nothing is missing and that the
   unexpected keys are exactly those the reference carries for modules the

@@ -1,6 +1,7 @@
 """CTCLIP dual encoder, contrastive/zero-shot surface (counterpart of
 vit_exp_tpu/models/ctclip.py; the segmentation and SSL heads wait for a
-later slice).
+later slice).  ``forward`` is the contrastive path the train step
+differentiates.
 
 Bias-free latent projections; the image latent is the token mean, then the
 projection, then l2norm (the projection is linear, so this equals the
@@ -59,3 +60,12 @@ class CTCLIP(nn.Module):
 
     def logit_scale(self) -> torch.Tensor:
         return self.temperature.exp()
+
+    def forward(self, video: torch.Tensor, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None):
+        """Contrastive path: l2-normalised latents and the temperature."""
+        hidden = self.encode_text_hidden(input_ids, attention_mask)
+        tokens = self.encode_image_tokens(video)
+        return {"text_latents": self.text_latents_from_hidden(hidden),
+                "image_latents": self.image_latents_from_tokens(tokens),
+                "temperature": self.temperature}

@@ -1,6 +1,9 @@
 """CTViT3D image tower, encoder only (counterpart of
-vit_exp_tpu/models/ctvit3d.py on its serving path: fused patch embed, fused
-LN+qkv projection, static-max attention, fused GEGLU feed-forward).
+vit_exp_tpu/models/ctvit3d.py with attn_impl="pallas_static" and
+ff_impl="pallas": fused patch embed, static-max attention, fused GEGLU
+feed-forward, every kernel differentiable).  ``fuse_qkv`` selects the fused
+LN+qkv projection (a serving switch, as in the JAX package); training keeps
+the unfused ScaleLayerNorm + to_q + to_kv, with the same parameters.
 
 Module and parameter names follow the reference ``visual_transformer``:
 ``to_patch_emb.{1,2,3}`` (LN in, Linear, LN out), ``enc_3D.layers.{i}.1``
@@ -29,18 +32,20 @@ class CosineSelfAttention(nn.Module):
     k/v project from the PRE-LayerNorm x; only q sees the normed x (the
     reference binds the kv input before its norm).  ``null_kv`` is laid out
     'h (n r) d' with r = 2: k rows are the even entries, v rows the odd ones.
+    ``fuse_qkv`` runs the norm and both projections as one kernel (K3).
     """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32,
                  num_null_kv: int = 2, scale: Optional[float] = None, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
-                 device=None):
+                 fuse_qkv: bool = False, device=None):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head, self.num_null_kv = heads, dim_head, num_null_kv
         self.scale = scale
         self.policy = policy
         self.use_kernels = use_kernels
+        self.fuse_qkv = fuse_qkv
         kw = dict(policy=policy, device=device)
         self.norm = ScaleLayerNorm(dim, **kw)
         self.null_kv = empty_param(heads, 2 * num_null_kv, dim_head, **kw)
@@ -58,9 +63,13 @@ class CosineSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
-        q, kv = fused_ln_qkv(x.to(self.policy.compute_dtype), self.norm.gamma,
-                             self.to_q.weight.t(), self.to_kv.weight.t(),
-                             use_kernel=self.use_kernels)
+        if self.fuse_qkv:
+            q, kv = fused_ln_qkv(x.to(self.policy.compute_dtype),
+                                 self.norm.gamma, self.to_q.weight.t(),
+                                 self.to_kv.weight.t(),
+                                 use_kernel=self.use_kernels)
+        else:
+            q, kv = self.to_q(self.norm(x)), self.to_kv(x)
         k, v = kv.split(h * dh, dim=-1)
 
         def heads_first(t):   # a strided view, no copy
@@ -82,11 +91,11 @@ class TransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
                  scale: Optional[float], ff_mult: float = 4.0, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
-                 device=None):
+                 fuse_qkv: bool = False, device=None):
         super().__init__()
         self.add_module("1", CosineSelfAttention(
             dim, heads, dim_head, scale=scale, policy=policy,
-            use_kernels=use_kernels, device=device))
+            use_kernels=use_kernels, fuse_qkv=fuse_qkv, device=device))
         self.add_module("3", GEGLUFeedForward(
             dim, ff_mult, policy=policy, use_kernel=use_kernels, device=device))
 
@@ -109,7 +118,7 @@ class CTViT3D(nn.Module):
                  dim_head: int = 32, heads: int = 8, channels: int = 1,
                  attn_scale: Optional[float] = None, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
-                 device=None):
+                 fuse_qkv: bool = False, device=None):
         super().__init__()
         self.dim = dim
         self.patch_size, self.temporal_patch_size = patch_size, temporal_patch_size
@@ -126,7 +135,7 @@ class CTViT3D(nn.Module):
         })
         self.enc_3D = _Encoder(
             [TransformerBlock(dim, heads, dim_head, attn_scale,
-                              use_kernels=use_kernels, **kw)
+                              use_kernels=use_kernels, fuse_qkv=fuse_qkv, **kw)
              for _ in range(transformer_blocks)],
             ScaleLayerNorm(dim, **kw))
         # fixed table; not part of the state dict

@@ -21,7 +21,8 @@ from vit_exp_tpu_torch.models.ctvit3d import CTViT3D
 
 
 def build_image_encoder(arch, *, device=None, policy: Policy = DEFAULT_POLICY,
-                        use_kernels: bool = True) -> CTViT3D:
+                        use_kernels: bool = True,
+                        fuse_qkv: bool = False) -> CTViT3D:
     return CTViT3D(
         dim=arch.dim, image_size=arch.image_size, patch_size=arch.patch_size,
         temporal_size=arch.temporal_size,
@@ -30,7 +31,8 @@ def build_image_encoder(arch, *, device=None, policy: Policy = DEFAULT_POLICY,
         heads=arch.heads, channels=getattr(arch, "channels", 1),
         # production checkpoints use the SDPA convention 1/√dim_head
         attn_scale=None if getattr(arch, "use_flash_attention", True) else 8.0,
-        policy=policy, use_kernels=use_kernels, device=device)
+        policy=policy, use_kernels=use_kernels, fuse_qkv=fuse_qkv,
+        device=device)
 
 
 def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
@@ -46,16 +48,18 @@ def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
 def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
                  device=None, policy: Policy = DEFAULT_POLICY,
                  dim_latent: Optional[int] = None, use_kernels: bool = True,
-                 seed: int = 0) -> CTCLIP:
+                 fuse_qkv: bool = False, seed: int = 0) -> CTCLIP:
     """CTCLIP with seeded random weights on ``device``.  ``use_kernels=False``
     runs every kernel's plain PyTorch version instead (the reference path
-    on the card)."""
+    on the card).  ``fuse_qkv=True`` is the serving switch (fused LN+qkv
+    projection, K3); training keeps the default False, as the JAX package
+    does.  The state dict is the same either way."""
     arch = getattr(config, "arch", config)
     if dim_latent is None:
         dim_latent = (getattr(config, "extra", None) or {}).get("dim_latent",
                                                                 768)
     visual = build_image_encoder(arch, device=device, policy=policy,
-                                 use_kernels=use_kernels)
+                                 use_kernels=use_kernels, fuse_qkv=fuse_qkv)
     model = CTCLIP(visual, bert_config or BertConfig(), dim_latent=dim_latent,
                    policy=policy, device=device)
     init_parameters_(model, seed)

@@ -32,13 +32,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 
 # C signature of every entry point (return type is int: a cudaError_t)
 SIGNATURES = {
-    # q, k, v, nk, nv, bound, out, q/k/v/out strides (b, h, n) ×4,
-    # B, H, Nq, Nkv, n_null, scale, stream
-    "vit_flash_static_fwd": [P, P, P, P, P, P, P] + [ctypes.c_longlong] * 12
-    + [I, I, I, I, I, F, P],
+    # q, k, v, nk, nv, bound, out, lse (or null), q/k/v/out strides
+    # (b, h, n) ×4, B, H, Nq, Nkv, n_null, scale, stream
+    "vit_flash_static_fwd": [P] * 8 + [L] * 12 + [I, I, I, I, I, F, P],
+    # q, k, v, dout, lse, delta, dk, dv, q/k/v/dout/dk/dv strides ×6,
+    # B, H, Nq, Nkv, scale, stream
+    "vit_flash_bwd_dkv": [P] * 8 + [L] * 18 + [I, I, I, I, F, P],
+    # q, k, v, dout, lse, delta, dq, q/k/v/dout/dq strides ×5,
+    # B, H, Nq, Nkv, scale, stream
+    "vit_flash_bwd_dq": [P] * 7 + [L] * 15 + [I, I, I, I, F, P],
+    # x, mu, inv, gamma, beta, w1, w2, dout, dx, dh, act, y, dgamma
+    # partials, dbeta partials, M, D, I2, stream
+    "vit_geglu_ff_bwd_tokens": [P] * 14 + [I, I, I, P],
+    # a, b, partials, M, P, Q, lda, ldb, S, seg, stream
+    "vit_wgrad": [P, P, P, I, I, I, I, I, I, I, P],
+    # partials, out, S, N, stream
+    "vit_sum_rows": [P, P, I, L, P],
     # x, mu, inv, w1p, d1, w2, out, M, D, I2, stream
     "vit_geglu_ff_fwd": [P, P, P, P, P, P, P, I, I, I, P],
     # x, mu, inv, w, c, out, M, K, F, Fq, stream
@@ -135,9 +148,15 @@ def launch(name: str, *args) -> None:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor lies on one CUDA device: the kernels take
-    nothing else, and nothing falls back to the plain version."""
+    nothing else, and nothing falls back to the plain version.  Also raise
+    when autograd would record the call: a launch writes through raw
+    pointers, so its output has no graph; differentiable callers go through
+    the ops' ``torch.autograd.Function``s, which launch with grad off."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device, "
                              f"got {t.device} and {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad; call the op's "
+                           f"autograd Function, not the raw kernel wrapper")

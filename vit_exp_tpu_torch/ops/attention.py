@@ -1,5 +1,5 @@
 """Cosine-similarity attention (counterpart of vit_exp_tpu/ops/attention.py,
-static-max serving path).
+static-max path, ``impl="pallas", static_max=True``), differentiable.
 
   1. null key/value pairs (learned, per head) join the keys;
   2. q and k — the null k too — are l2-normalised along the head dim;
@@ -28,10 +28,12 @@ def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 def logit_bound(q_scale: Optional[torch.Tensor],
                 k_scale: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     """B = scale·max|q_scale|·max|k_scale| as a 0-dim fp32 device tensor
-    (no host read, so the forward never synchronises)."""
+    (no host read, so the forward never synchronises).  Detached: softmax is
+    invariant to the shift, so B carries no gradient (the JAX package gives
+    it a zero cotangent)."""
     one = torch.ones((), dtype=torch.float32)
-    bq = one if q_scale is None else q_scale.float().abs().amax()
-    bk = one if k_scale is None else k_scale.float().abs().amax()
+    bq = one if q_scale is None else q_scale.detach().float().abs().amax()
+    bk = one if k_scale is None else k_scale.detach().float().abs().amax()
     return (bq * bk) * scale
 
 

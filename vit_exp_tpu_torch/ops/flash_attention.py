@@ -1,5 +1,5 @@
-"""Static-max attention forward with null kv (counterpart of the serving
-forward in vit_exp_tpu/ops/flash_attention.py).
+"""Static-max attention with null kv, forward and backward (counterpart of
+``_flash_core_static`` in vit_exp_tpu/ops/flash_attention.py).
 
 Cosine attention bounds every logit: q and k rows are unit-norm times learned
 per-dim scales, so q·k·scale ≤ B = scale·max|q_scale|·max|k_scale|.  With B
@@ -22,7 +22,18 @@ the walk; O/l is written once at the end.  Ragged q and kv tails are masked,
 and q/k/v/out are read and written through strides, so the (b, n, h·d)
 projection output is used in place and the output lands in the (b, n, h·d)
 layout the out-projection reads.  B arrives as a device pointer: the forward
-never synchronises with the host.
+never synchronises with the host.  On request K1 also writes lse = B + log l
+(l summed over the bf16-rounded p, nulls included), which the backward
+recomputes p from.
+
+The backward replaces vit_exp_tpu/ops/flash_attention.py::_bwd_fused_kernel
+(K5, exact tiling) and ::_dq_kernel / ::_dkv_kernel (K6/K7, ragged kv) with
+one pair of CUDA C++ kernels, csrc/flash_bwd.cu: ``attention_bwd_dkv`` is
+parallel over kv tiles and ``attention_bwd_dq`` over q tiles (design notes
+in the source).  δ = rowsum(dO·O) and the null-kv terms are plain torch, as
+the JAX package keeps them outside its kernels.  ``StaticAttention`` is the
+``torch.autograd.Function`` that ties forward and backward together; the
+bound B gets no gradient (softmax is invariant to the shift).
 """
 
 from __future__ import annotations
@@ -32,82 +43,248 @@ from typing import Optional
 
 import torch
 
+from vit_exp_tpu_torch.core.precision import acc_dtype
 from vit_exp_tpu_torch.ops import _build
 
 HEAD_DIM = 32
 MAX_NULL = 8
 
 
-def attention_static_plain(q, k, v, nk, nv, bound, scale: float):
+def attention_static_plain(q, k, v, nk, nv, bound, scale: float,
+                           save_lse: bool = False):
     """Plain version of K1.  q: (b, h, nq, d); k/v: (b, h, nkv, d); nk/nv:
     (h, n_null, d) or None; bound: 0-dim fp32 tensor.  fp32 arithmetic,
-    p rounded to q.dtype; processed in query chunks to bound memory."""
+    p rounded to q.dtype; processed in query chunks to bound memory.
+    With ``save_lse`` returns (out, lse), lse = B + log l of shape
+    (b, h, nq) in fp32 (fp64 for fp64 inputs)."""
     b, h, nq, d = q.shape
     nkv = k.shape[2]
-    kf, vf = k.float(), v.float()
+    acc_t = acc_dtype(q.dtype)
+    kf, vf = k.to(acc_t), v.to(acc_t)
     out = torch.empty((b, nq, h, d), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, nq), device=q.device, dtype=acc_t)
     chunk = max(1, (1 << 27) // (b * h * max(nkv, 1)))
-    bound = bound.float()
+    bound = bound.to(acc_t)
     for s in range(0, nq, chunk):
-        qs = q[:, :, s:s + chunk].float()
+        qs = q[:, :, s:s + chunk].to(acc_t)
         p = torch.exp(qs @ kf.transpose(-1, -2) * scale - bound)
-        p = p.to(q.dtype).float()
+        p = p.to(q.dtype).to(acc_t)
         acc = p @ vf
         l = p.sum(dim=-1, keepdim=True)
         if nk is not None and nk.shape[1]:
-            p0 = torch.exp(qs @ nk.float().transpose(-1, -2)[None] * scale
-                           - bound).to(q.dtype).float()
-            acc = acc + p0 @ nv.float()[None]
+            p0 = torch.exp(qs @ nk.to(acc_t).transpose(-1, -2)[None] * scale
+                           - bound).to(q.dtype).to(acc_t)
+            acc = acc + p0 @ nv.to(acc_t)[None]
             l = l + p0.sum(dim=-1, keepdim=True)
         out[:, s:s + chunk] = (acc / l).to(q.dtype).transpose(1, 2)
-    return out.transpose(1, 2)
+        lse[:, :, s:s + chunk] = bound + torch.log(l[..., 0])
+    out = out.transpose(1, 2)
+    return (out, lse) if save_lse else out
 
 
 def _row_strides(t: torch.Tensor, name: str):
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
             or t.data_ptr() % 16:
-        raise ValueError(f"attention_static kernel: {name} needs a contiguous "
+        raise ValueError(f"attention kernels: {name} needs a contiguous "
                          f"head dim and 16-byte aligned rows, got strides "
                          f"{t.stride()}")
     return t.stride()[:3]
 
 
-def attention_static(q, k, v, nk, nv, bound, scale: float):
+def _check_qkv(q, k, v, what: str):
+    b, h, nq, d = q.shape
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError(f"{what} takes bf16 q, k and v")
+    if (d != HEAD_DIM or k.shape != v.shape or k.shape[:2] != (b, h)
+            or k.shape[3] != d):
+        raise ValueError(f"{what} takes head dim {HEAD_DIM} and matching "
+                         f"shapes; got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _heads_last_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty (b, h, n, d) tensor laid out in memory as (b, n, h, d)."""
+    b, h, n, d = t.shape
+    return torch.empty((b, n, h, d), device=t.device,
+                       dtype=t.dtype).transpose(1, 2)
+
+
+def attention_static(q, k, v, nk, nv, bound, scale: float,
+                     save_lse: bool = False):
     """Kernel K1 on CUDA tensors, the plain version on CPU tensors.
-    Returns (b, h, nq, d), laid out in memory as (b, nq, h, d)."""
+    Returns (b, h, nq, d), laid out in memory as (b, nq, h, d), and with
+    ``save_lse`` also lse (b, h, nq) fp32."""
     if q.device.type == "cpu":
-        return attention_static_plain(q, k, v, nk, nv, bound, scale)
+        return attention_static_plain(q, k, v, nk, nv, bound, scale, save_lse)
     b, h, nq, d = q.shape
     nkv = k.shape[2]
     n_null = 0 if nk is None else nk.shape[1]
     if nk is None:
         nk = nv = torch.zeros((h, 1, d), device=q.device, dtype=q.dtype)
     _build.require_cuda("attention_static", q, k, v, nk, nv, bound)
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, nk, nv)):
-        raise ValueError("attention_static kernel takes bf16 q, k, v and nulls")
-    if (d != HEAD_DIM or n_null > MAX_NULL or k.shape != v.shape
-            or k.shape[:2] != (b, h) or k.shape[3] != d
-            or nk.shape != nv.shape or nk.shape[::2] != (h, d)):
-        raise ValueError(f"attention_static kernel takes head dim {HEAD_DIM}, "
-                         f"at most {MAX_NULL} nulls and matching shapes; got "
-                         f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}, nulls {tuple(nk.shape)}")
+    _check_qkv(q, k, v, "attention_static kernel")
+    if (nk.dtype != torch.bfloat16 or nv.dtype != torch.bfloat16
+            or n_null > MAX_NULL or nk.shape != nv.shape
+            or nk.shape[::2] != (h, d)):
+        raise ValueError(f"attention_static kernel takes at most {MAX_NULL} "
+                         f"bf16 nulls of shape (h, n_null, d); got "
+                         f"{tuple(nk.shape)}")
     nk, nv = nk.contiguous(), nv.contiguous()
     bound = bound.float().reshape(())
-    out = torch.empty((b, nq, h, d), device=q.device, dtype=q.dtype)
-    out_bhnd = out.transpose(1, 2)
-    strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"),
-                                 (out_bhnd, "out"))
+    out = _heads_last_like(q)
+    lse = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+           if save_lse else None)
+    strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
                for s in _row_strides(t, name)]
     _build.launch("vit_flash_static_fwd",
                   *(t.data_ptr() for t in (q, k, v, nk, nv, bound, out)),
-                  *strides,
-                  b, h, nq, nkv, n_null, float(scale))
+                  None if lse is None else lse.data_ptr(),
+                  *strides, b, h, nq, nkv, n_null, float(scale))
     attention_static.launches += 1
-    return out_bhnd
+    return (out, lse) if save_lse else out
 
 
 attention_static.launches = 0
+
+
+def attention_bwd_plain(q, k, v, dout, lse, delta, scale: float):
+    """Plain version of the backward kernel pair, over the real kv (the
+    null terms are ``null_kv_grads``).  lse, delta: (b, h, nq) fp32.
+    p = exp(q·k·scale − lse), dV = bf16(p)ᵀ dO, dS = p·(dO Vᵀ − δ)·scale
+    rounded to q.dtype, dQ = dS K, dK = dSᵀ Q; fp32 arithmetic in query
+    chunks, so no (nq, nkv) logit matrix is ever whole."""
+    b, h, nq, d = q.shape
+    nkv = k.shape[2]
+    acc_t = acc_dtype(q.dtype)
+    kf, vf = k.to(acc_t), v.to(acc_t)
+    dq = _heads_last_like(q)
+    dk = torch.zeros((b, h, nkv, d), device=q.device, dtype=acc_t)
+    dv = torch.zeros_like(dk)
+    chunk = max(1, (1 << 27) // (b * h * max(nkv, 1)))
+    for s in range(0, nq, chunk):
+        qs = q[:, :, s:s + chunk].to(acc_t)
+        dos = dout[:, :, s:s + chunk].to(acc_t)
+        p = torch.exp(qs @ kf.transpose(-1, -2) * scale
+                      - lse[:, :, s:s + chunk, None])
+        dp = dos @ vf.transpose(-1, -2)
+        ds = (p * (dp - delta[:, :, s:s + chunk, None]) * scale
+              ).to(q.dtype).to(acc_t)
+        dv += p.to(dout.dtype).to(acc_t).transpose(-1, -2) @ dos
+        dk += ds.transpose(-1, -2) @ qs
+        dq[:, :, s:s + chunk] = (ds @ kf).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_strides(q, k, v, dout, grads):
+    return [s for t, name in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout"),
+                              *grads)
+            for s in _row_strides(t, name)]
+
+
+def attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
+    """dK, dV kernel (csrc/flash_bwd.cu) on CUDA tensors, laid out in
+    memory as (b, nkv, h, d); the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, dout, lse, delta, scale)[1:]
+    _build.require_cuda("attention_bwd_dkv", q, k, v, dout, lse, delta)
+    _check_qkv(q, k, v, "attention_bwd_dkv kernel")
+    b, h, nq, d = q.shape
+    nkv = k.shape[2]
+    dk, dv = _heads_last_like(k), _heads_last_like(v)
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    strides = _bwd_strides(q, k, v, dout, ((dk, "dk"), (dv, "dv")))
+    _build.launch("vit_flash_bwd_dkv",
+                  *(t.data_ptr() for t in (q, k, v, dout, lse, delta, dk, dv)),
+                  *strides, b, h, nq, nkv, float(scale))
+    attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+attention_bwd_dkv.launches = 0
+
+
+def attention_bwd_dq(q, k, v, dout, lse, delta, scale: float):
+    """dQ kernel (csrc/flash_bwd.cu) on CUDA tensors, laid out in memory
+    as (b, nq, h, d); the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, dout, lse, delta, scale)[0]
+    _build.require_cuda("attention_bwd_dq", q, k, v, dout, lse, delta)
+    _check_qkv(q, k, v, "attention_bwd_dq kernel")
+    b, h, nq, d = q.shape
+    nkv = k.shape[2]
+    dq = _heads_last_like(q)
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    strides = _bwd_strides(q, k, v, dout, ((dq, "dq"),))
+    _build.launch("vit_flash_bwd_dq",
+                  *(t.data_ptr() for t in (q, k, v, dout, lse, delta, dq)),
+                  *strides, b, h, nq, nkv, float(scale))
+    attention_bwd_dq.launches += 1
+    return dq
+
+
+attention_bwd_dq.launches = 0
+
+
+def attention_bwd(q, k, v, dout, lse, delta, scale: float):
+    """(dq, dk, dv) over the real kv: the kernel pair on CUDA tensors, the
+    plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, dout, lse, delta, scale)
+    if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]):
+        dout = dout.contiguous()
+    dk, dv = attention_bwd_dkv(q, k, v, dout, lse, delta, scale)
+    return attention_bwd_dq(q, k, v, dout, lse, delta, scale), dk, dv
+
+
+def null_kv_grads(q, nk, nv, dout, lse, delta, scale: float):
+    """The null-kv terms of the backward in fp32, as the JAX package
+    computes them outside its kernels: (dq term (b, h, nq, d), dnk, dnv
+    (h, n_null, d)).  The nulls are shared by the batch, so their
+    gradients sum over it."""
+    acc_t = acc_dtype(q.dtype)
+    nkf, nvf = nk.to(acc_t), nv.to(acc_t)
+    qf, gf = q.to(acc_t), dout.to(acc_t)
+    p = torch.exp(torch.einsum("bhnd,hmd->bhnm", qf, nkf) * scale
+                  - lse[..., None])
+    dp = torch.einsum("bhnd,hmd->bhnm", gf, nvf)
+    ds = p * (dp - delta[..., None]) * scale
+    return (torch.einsum("bhnm,hmd->bhnd", ds, nkf),
+            torch.einsum("bhnm,bhnd->hmd", ds, qf),
+            torch.einsum("bhnm,bhnd->hmd", p, gf))
+
+
+class StaticAttention(torch.autograd.Function):
+    """Differentiable static-max attention (counterpart of the JAX
+    ``_flash_core_static`` custom VJP).  Inputs q, k, v (b, h, n, d), nulls
+    (h, n_null, d) or None, the bound B (no gradient), scale and
+    use_kernel: K1 with lse forward and the flash_bwd.cu pair backward, or
+    their plain versions when use_kernel is False or the tensors lie on the
+    CPU.  With no gradient to take (serving), K1 runs without lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, nk, nv, bound, scale, use_kernel):
+        fwd = attention_static if use_kernel else attention_static_plain
+        if not any(ctx.needs_input_grad[:5]):
+            return fwd(q, k, v, nk, nv, bound, scale)
+        out, lse = fwd(q, k, v, nk, nv, bound, scale, save_lse=True)
+        ctx.scale, ctx.use_kernel = scale, use_kernel
+        ctx.has_null = nk is not None and nk.shape[1] > 0
+        ctx.save_for_backward(q, k, v, nk, nv, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, nk, nv, out, lse = ctx.saved_tensors
+        scale = ctx.scale
+        delta = (g.to(lse.dtype) * out.to(lse.dtype)).sum(dim=-1)
+        bwd = attention_bwd if ctx.use_kernel else attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, g, lse, delta, scale)
+        dnk = dnv = None
+        if ctx.has_null:
+            dq_null, dnk, dnv = null_kv_grads(q, nk, nv, g, lse, delta, scale)
+            dq = (dq.to(dq_null.dtype) + dq_null).to(q.dtype)
+            dnk, dnv = dnk.to(nk.dtype), dnv.to(nv.dtype)
+        return dq, dk, dv, dnk, dnv, None, None, None
 
 
 def flash_attention(q, k, v, *, logit_bound: torch.Tensor,
@@ -116,11 +293,12 @@ def flash_attention(q, k, v, *, logit_bound: torch.Tensor,
                     null_v: Optional[torch.Tensor] = None,
                     use_kernel: bool = True):
     """Static-max softmax over [null_kv ++ kv] of (q kᵀ · scale), weighted
-    sum of v.  q/k/v: (b, h, n, d); null_k/null_v: (h, n_null, d);
-    logit_bound: 0-dim fp32 tensor bounding every logit."""
+    sum of v; differentiable in q, k, v and the nulls.  q/k/v: (b, h, n, d);
+    null_k/null_v: (h, n_null, d); logit_bound: 0-dim fp32 tensor bounding
+    every logit (it gets no gradient)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    fn = attention_static if use_kernel else attention_static_plain
     nk = None if null_k is None else null_k.to(k.dtype)
     nv = None if null_v is None else null_v.to(v.dtype)
-    return fn(q, k, v, nk, nv, logit_bound, scale)
+    return StaticAttention.apply(q, k, v, nk, nv, logit_bound, float(scale),
+                                 use_kernel)

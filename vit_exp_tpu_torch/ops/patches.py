@@ -16,7 +16,9 @@ is one memory-bound pass over the bf16 video (442 MB at batch 4, no
 tensor-core work): each block reduces one row of patches, threads walk
 neighbouring columns so every load is coalesced, column sums are combined
 per patch in shared memory.  x² is rounded to the input dtype before it is
-summed, as the TPU kernel does.
+summed, as the TPU kernel does.  ``PatchStatsFn`` makes it differentiable
+with the plain backward of the JAX custom VJP (patches.py:129-140); the
+training path never runs it, since the video carries no gradient.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from vit_exp_tpu_torch.core.precision import acc_dtype
 from vit_exp_tpu_torch.ops import _build
 
 
@@ -41,8 +44,9 @@ def patch_stats_plain(x: torch.Tensor, p1: int, p2: int):
     fp32; x² is rounded to x.dtype before the sum."""
     bt, cpt, H, W = x.shape
     hs, ws = H // p1, W // p2
-    xf = x.float()
-    x2 = (xf * xf).to(x.dtype).float()
+    acc_t = acc_dtype(x.dtype)
+    xf = x.to(acc_t)
+    x2 = (xf * xf).to(x.dtype).to(acc_t)
 
     def psum(v):
         return v.reshape(bt, cpt, hs, p1, ws, p2).sum(dim=(1, 3, 5))
@@ -71,6 +75,36 @@ def patch_stats(x: torch.Tensor, p1: int, p2: int):
 
 
 patch_stats.launches = 0
+
+
+class PatchStatsFn(torch.autograd.Function):
+    """Differentiable patch statistics: K4 (or its plain version) forward;
+    dx = up(dμ)/n + 2·x·up(dΣx²), up() broadcasting a patch value over its
+    (cpt, p1, p2) window."""
+
+    @staticmethod
+    def forward(ctx, x, p1, p2, use_kernel):
+        ctx.p = (p1, p2)
+        ctx.save_for_backward(x)
+        return (patch_stats if use_kernel else patch_stats_plain)(x, p1, p2)
+
+    @staticmethod
+    def backward(ctx, dmu, dsq):
+        (x,) = ctx.saved_tensors
+        p1, p2 = ctx.p
+        n = x.shape[1] * p1 * p2
+
+        def up(g):   # (bt, hs, ws) → (bt, 1, H, W)
+            return g.repeat_interleave(p1, dim=1).repeat_interleave(
+                p2, dim=2)[:, None]
+
+        acc_t = acc_dtype(x.dtype)
+        dx = torch.zeros(x.shape, device=x.device, dtype=acc_t)
+        if dmu is not None:
+            dx = dx + up(dmu.to(acc_t)) / n
+        if dsq is not None:
+            dx = dx + 2.0 * x.to(acc_t) * up(dsq.to(acc_t))
+        return dx.to(x.dtype), None, None, None
 
 
 def _conv_f32(x: torch.Tensor, kc: torch.Tensor, stride) -> torch.Tensor:
@@ -110,8 +144,7 @@ def fused_patch_embed(video: torch.Tensor, gamma: torch.Tensor,
         x = x.transpose(1, 2)
     x = x.reshape(b * t, c * pt, H, W).to(compute_dtype).contiguous()
 
-    stats = patch_stats if use_kernel else patch_stats_plain
-    mu, sq = stats(x, p1, p2)
+    mu, sq = PatchStatsFn.apply(x, p1, p2, use_kernel)
     mu, sq = mu[..., None], sq[..., None]                      # (bt, h, w, 1)
     y = _conv_f32(x, kc.to(compute_dtype), (p1, p2)).permute(0, 2, 3, 1)
 

@@ -1,0 +1,91 @@
+"""Optimizer factory (counterpart of vit_exp_tpu/train/optimizer.py, which
+builds it with optax):
+
+- wd == 0 → Adam(betas=(0.9, 0.99), eps=1e-8);
+- wd > 0  → AdamW, weight decay only on params of ndim >= 2;
+- gradients clipped by global norm first, with optax's rule: kept when
+  norm < max_norm, else multiplied by max_norm / norm
+  (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm and would not
+  match);
+- a constant learning rate, or a linear warmup from 0 over warmup_steps,
+  read at the number of updates already taken (optax's schedule count, so
+  the first update of a warmup uses lr 0).
+
+``trainer_cfg`` is duck-typed: anything with lr, wd, max_grad_norm,
+warmup_steps and gradient_accumulation_steps (the JAX package's
+``TrainerConfig``).  Accumulation over several micro-steps (optax.MultiSteps
+in the JAX package) waits for the trainer.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+
+
+def global_norm(grads) -> torch.Tensor:
+    """L2 norm over every gradient (0-dim fp32 tensor, no host read)."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """Scale ``grads`` in place by max_norm / norm when norm ≥ max_norm;
+    returns the norm before clipping."""
+    norm = global_norm(grads)
+    factor = torch.where(norm < max_norm, torch.ones_like(norm),
+                         max_norm / norm)
+    for g in grads:
+        g.mul_(factor.to(g.dtype))
+    return norm
+
+
+class Optimizer:
+    """Clip + Adam/AdamW + schedule over one set of parameters.  ``step()``
+    reads ``p.grad`` (a parameter without one counts as a zero gradient, as
+    in the JAX package, where every parameter has a gradient) and keeps
+    the global gradient norm before clipping as ``grad_norm`` (a 0-dim
+    tensor: reading it waits for the device)."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], *, lr: float,
+                 wd: float, max_grad_norm: float, warmup_steps: int):
+        self.params = [p for p in params if p.requires_grad]
+        self.max_grad_norm = max_grad_norm
+        self.grad_norm = None
+        kw = dict(lr=lr, betas=(0.9, 0.99), eps=1e-8)
+        if wd == 0:
+            self.opt = torch.optim.Adam(self.params, **kw)
+        else:
+            decay = [p for p in self.params if p.ndim >= 2]
+            rest = [p for p in self.params if p.ndim < 2]
+            self.opt = torch.optim.AdamW(
+                [{"params": decay, "weight_decay": wd},
+                 {"params": rest, "weight_decay": 0.0}], **kw)
+        lam = ((lambda n: min(n / warmup_steps, 1.0)) if warmup_steps > 0
+               else (lambda n: 1.0))
+        self.schedule = torch.optim.lr_scheduler.LambdaLR(self.opt, lam)
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        if self.max_grad_norm and self.max_grad_norm > 0:
+            self.grad_norm = clip_by_global_norm_(grads, self.max_grad_norm)
+        else:
+            self.grad_norm = global_norm(grads)
+        self.opt.step()
+        self.schedule.step()
+
+
+def build_optimizer(trainer_cfg, params) -> Optimizer:
+    if getattr(trainer_cfg, "gradient_accumulation_steps", 1) > 1:
+        raise NotImplementedError(
+            "gradient accumulation over micro-steps is not ported yet")
+    return Optimizer(params, lr=trainer_cfg.lr, wd=trainer_cfg.wd,
+                     max_grad_norm=trainer_cfg.max_grad_norm,
+                     warmup_steps=getattr(trainer_cfg, "warmup_steps", 0))
