@@ -7,19 +7,30 @@
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc``.
 3. Holds each kernel against its plain PyTorch version at the shapes of the
-   serving and training paths (batch 4, 13,824 tokens, width 768; the
-   training rows add K1's lse, the two attention backward kernels and
-   K8's two phases, one row per launch counter), bf16
-   inputs, relative L2 error ≤ REL_L2_TOL and max abs error ≤ MAX_ABS_TOL ·
-   max|plain|, and times both with CUDA events.
+   serving, training and int8 serving paths (batch 4, 13,824 tokens, width
+   768; one row per launch counter: K1-K4, K1 with lse, the two attention
+   backward kernels, K8's two phases, the int8 attention (K9/K10), K11,
+   K12/K13 and K14), relative L2 error ≤ REL_L2_TOL and max abs error ≤
+   MAX_ABS_TOL · max|plain|, and times both with CUDA events.  Each row also
+   carries its bound (the least time an H100 could take: bytes over the
+   memory rate or operations over the peak rate of their type, whichever
+   is larger) and, for K1 and the attention backward pair, the time of
+   torch's scaled_dot_product_attention on the same inputs (a yardstick,
+   never on the path).
 4. Runs the zero-shot serving path at full width (fused LN+qkv, as served):
    CTViT3D (8 blocks) + BERT-base with seeded random weights, 36 prompts of
-   512 tokens, 4 random volumes of (1, 240, 480, 480).  Checks finite
-   (4, 18) probabilities in [0, 1], the launch counts of one
+   512 tokens, 4 random volumes of (1, 240, 480, 480), first in bf16, then
+   int8 (W8A8, the JAX package's serving default) on the same weights.
+   Checks finite (4, 18) probabilities in [0, 1], the launch counts of one
    ``predict_batch``, and that volume 0 agrees with the all-plain path on
-   the card within PROB_TOL; times warm ``predict_batch`` calls, then
-   profiles one more (device time by kernel and idle share, torch.profiler;
-   the full table goes to chiprun_out/profile_serving.txt).
+   the card within PROB_TOL; for int8 also max |Δprob| ≤ INT8_PROB_TOL
+   against the bf16 engine over GATE_BATCHES batches of volumes with a
+   separable random field (the first half of
+   scripts/int8_accuracy_gate.py; per-label rank AUROC and Kendall τ are
+   printed, not bounded).  Times warm ``predict_batch`` calls, then
+   profiles one more (device time by kernel and idle share,
+   torch.profiler; the full tables go to chiprun_out/profile_serving.txt
+   and profile_serving_int8.txt).
 5. Runs the contrastive image-report train step at full width in the
    configuration of ``bench.py --train`` (batch 4, BERT-base at 512 tokens,
    lr 1e-5, max_grad_norm 0.5, Adam; unfused LN+qkv).  From one seeded
@@ -43,6 +54,7 @@ Any failed check raises, so the script exits non-zero and prints no "ok".
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -51,6 +63,7 @@ import sys
 import time
 import types
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -60,6 +73,10 @@ REL_L2_TOL = 1e-2   # bf16 outputs of the kernel vs fp32 plain arithmetic
 # output (both sides round the same fp32 value up to summation order)
 MAX_ABS_TOL = 2.0 ** -6
 PROB_TOL = 0.02     # kernel path vs all-plain path, probabilities
+# int8 engine vs bf16 engine on the same weights, max |Δprob| over
+# GATE_BATCHES batches (scripts/int8_accuracy_gate.py's first bound)
+INT8_PROB_TOL = 0.02
+GATE_BATCHES = 4
 # train step, kernel path vs plain path from the same state on the same batch
 # (both bf16 with the same rounding points; the bounds leave room for bf16
 # sums taken in another order through 8 blocks)
@@ -118,10 +135,96 @@ def compare(a: torch.Tensor, b: torch.Tensor):
     return rel, (a - b).abs().max().item(), b.abs().max().item()
 
 
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
+# kernel row is the larger of its bytes over HBM_BYTES_PER_S and the sum of
+# its operations of each type over that type's peak
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+
+@dataclasses.dataclass
+class Case:
+    """One kernel row: the kernel and its plain twin on the same inputs,
+    the launch counter the row reports, the work that sets its bound
+    (operations by type, bytes of the inputs; the outputs' bytes are added
+    when they exist) and, where one PyTorch call computes the same
+    function, a timer of that call (a yardstick, never on the path)."""
+    name: str
+    route: str
+    source: str
+    replaces: str
+    kern: Callable
+    plain: Callable
+    counter: str
+    ops: dict
+    in_bytes: int
+    library: Optional[Callable] = None
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(ops: dict, n_bytes: int):
+    """(least time in ms, what sets it) for the given work on one H100."""
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_ops(q, nkv, n_null=0, products=2):
+    """Tensor-core operations of `products` (n × nkv × d) products over all
+    (batch, head) rows, the nulls included."""
+    b, h, n, d = q.shape
+    return products * 2 * b * h * n * (nkv + n_null) * d
+
+
+def _sdpa_inputs(q, k, v, nk, nv, requires_grad=False):
+    """Contiguous bf16 (b, h, n, d) copies for scaled_dot_product_attention,
+    the nulls prepended to k and v."""
+    b = q.shape[0]
+    if nk is not None:
+        k = torch.cat([nk[None].expand(b, -1, -1, -1).to(k.dtype), k], dim=2)
+        v = torch.cat([nv[None].expand(b, -1, -1, -1).to(v.dtype), v], dim=2)
+    return [t.detach().contiguous().requires_grad_(requires_grad)
+            for t in (q, k, v)]
+
+
+def sdpa_forward_timer(q, k, v, nk, nv, scale):
+    """Timer of torch's scaled_dot_product_attention forward on the same q,
+    k, v and nulls (the yardstick of K1)."""
+    def timer():
+        import torch.nn.functional as F
+        qc, kc, vc = _sdpa_inputs(q, k, v, nk, nv)
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, scale=scale), 5)
+    return timer
+
+
+def sdpa_backward_timer(q, k, v, nk, nv, dout, scale):
+    """Timer of torch's scaled_dot_product_attention backward: forward plus
+    backward minus forward (the yardstick of the backward pair)."""
+    def timer():
+        import torch.nn.functional as F
+        qc, kc, vc = _sdpa_inputs(q, k, v, nk, nv, requires_grad=True)
+        g = dout.contiguous()
+
+        def fwd():
+            return F.scaled_dot_product_attention(qc, kc, vc, scale=scale)
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), (qc, kc, vc), g)
+
+        with torch.no_grad():
+            t_fwd = cuda_ms(fwd, 5)
+        return cuda_ms(fwd_bwd, 5) - t_fwd
+    return timer
+
+
 def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
-    """Inputs of K1-K4 at the serving path's shapes, as (name, route,
-    source, replaces, kernel_fn, plain_fn, counter) tuples; inputs are
-    bf16; counter names the launch count the row reports."""
+    """K1-K4 at the serving path's shapes, as Cases; inputs are bf16."""
     from vit_exp_tpu_torch.ops import fused_proj, geglu_ff, patches
     from vit_exp_tpu_torch.ops import flash_attention as fa
     from vit_exp_tpu_torch.ops.attention import l2norm
@@ -147,8 +250,8 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
     v = kvp[..., h * dh:].reshape(batch, n, h, dh).transpose(1, 2)
     nk, nv = l2norm(randn(h, 2, dh)), randn(h, 2, dh)
     scale = 1.0 / math.sqrt(dh)
-    bound = torch.tensor(scale, device=device)
-    k1 = (qp, k, v, nk, nv, bound, scale)
+    bound_t = torch.tensor(scale, device=device)
+    k1 = (qp, k, v, nk, nv, bound_t, scale)
 
     # K2 / K3: token matrix with its LN statistics
     x = randn(m, d)
@@ -165,31 +268,40 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
     p = arch["patch_size"]
 
     return [
-        ("K1 static-max attention", "cuda",
-         "vit_exp_tpu_torch/csrc/flash_static.cu",
-         "vit_exp_tpu/ops/flash_attention.py:78",
-         lambda: fa.attention_static(*k1), lambda: fa.attention_static_plain(*k1),
-         "K1"),
-        ("K2 fused GEGLU feed-forward", "cuda",
-         "vit_exp_tpu_torch/csrc/geglu_ff.cu", "vit_exp_tpu/ops/geglu_ff.py:63",
-         lambda: geglu_ff.geglu_ff(x, mu, inv, w1p, d1, w2),
-         lambda: geglu_ff.geglu_ff_plain(x, mu, inv, w1p, d1, w2), "K2"),
-        ("K3 fused LN + qkv projection", "cuda",
-         "vit_exp_tpu_torch/csrc/ln_qkv.cu", "vit_exp_tpu/ops/fused_proj.py:43",
-         lambda: fused_proj.ln_qkv(x, mu, inv, wf, c, h * dh),
-         lambda: fused_proj.ln_qkv_plain(x, mu, inv, wf, c, h * dh), "K3"),
-        ("K4 patch statistics", "cuda",
-         "vit_exp_tpu_torch/csrc/patch_stats.cu", "vit_exp_tpu/ops/patches.py:56",
-         lambda: patches.patch_stats(video, p, p),
-         lambda: patches.patch_stats_plain(video, p, p), "K4"),
+        Case("K1 static-max attention", "cuda",
+             "vit_exp_tpu_torch/csrc/flash_static.cu",
+             "vit_exp_tpu/ops/flash_attention.py:78",
+             lambda: fa.attention_static(*k1),
+             lambda: fa.attention_static_plain(*k1), "K1",
+             {"bf16": attention_ops(qp, n, 2)}, nbytes(qp, k, v, nk, nv),
+             sdpa_forward_timer(qp, k, v, nk, nv, scale)),
+        Case("K2 fused GEGLU feed-forward", "cuda",
+             "vit_exp_tpu_torch/csrc/geglu_ff.cu",
+             "vit_exp_tpu/ops/geglu_ff.py:63",
+             lambda: geglu_ff.geglu_ff(x, mu, inv, w1p, d1, w2),
+             lambda: geglu_ff.geglu_ff_plain(x, mu, inv, w1p, d1, w2), "K2",
+             {"bf16": 2 * m * (d * 2 * inner + inner * d)},
+             nbytes(x, mu, inv, w1p, d1, w2)),
+        Case("K3 fused LN + qkv projection", "cuda",
+             "vit_exp_tpu_torch/csrc/ln_qkv.cu",
+             "vit_exp_tpu/ops/fused_proj.py:43",
+             lambda: fused_proj.ln_qkv(x, mu, inv, wf, c, h * dh),
+             lambda: fused_proj.ln_qkv_plain(x, mu, inv, wf, c, h * dh), "K3",
+             {"bf16": 2 * m * d * wf.shape[1]}, nbytes(x, mu, inv, wf, c)),
+        Case("K4 patch statistics", "cuda",
+             "vit_exp_tpu_torch/csrc/patch_stats.cu",
+             "vit_exp_tpu/ops/patches.py:56",
+             lambda: patches.patch_stats(video, p, p),
+             lambda: patches.patch_stats_plain(video, p, p), "K4",
+             {"fp32": 2 * video.numel()}, nbytes(video)),
     ]
 
 
 def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
-    """The training path's kernel rows at its shapes, as kernel_cases gives
-    them: K1 with lse, the two attention backward kernels (each against its
-    outputs of the plain backward twin) and K8's two phases (both sides of
-    the weight phase take the kernel token phase's y, dh and act)."""
+    """The training path's kernel rows at its shapes: K1 with lse, the two
+    attention backward kernels (each against its outputs of the plain
+    backward twin) and K8's two phases (both sides of the weight phase take
+    the kernel token phase's y, dh and act)."""
     from vit_exp_tpu_torch.ops import geglu_ff
     from vit_exp_tpu_torch.ops import flash_attention as fa
     from vit_exp_tpu_torch.ops.attention import l2norm
@@ -214,8 +326,8 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
     v = heads(randn(batch, n, h * dh).to(bf))
     nk, nv = l2norm(randn(h, 2, dh).to(bf)), randn(h, 2, dh).to(bf)
     scale = 1.0 / math.sqrt(dh)
-    bound = torch.tensor(scale, device=device)
-    fwd = (q, k, v, nk, nv, bound, scale)
+    bound_t = torch.tensor(scale, device=device)
+    fwd = (q, k, v, nk, nv, bound_t, scale)
     dout = heads(randn(batch, n, h * dh, std=1e-3).to(bf))
     out, lse = fa.attention_static_plain(*fwd, save_lse=True)
     delta = (dout.float() * out.float()).sum(-1)
@@ -229,32 +341,127 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
                                                        std=inner ** -0.5)
     dout_ff = randn(m, d, std=1e-3).to(bf)
     ff = (x, mu, inv, gamma, beta, w1.to(bf), w2.to(bf), dout_ff)
-    dx, dh, act, y, dgp, dbp = geglu_ff.geglu_ff_bwd_tokens(*ff)
-    wgt = (y, dh, act, dout_ff, dgp, dbp)
+    dx, dh_, act, y, dgp, dbp = geglu_ff.geglu_ff_bwd_tokens(*ff)
+    wgt = (y, dh_, act, dout_ff, dgp, dbp)
     del dx
     flash_bwd = "vit_exp_tpu_torch/csrc/flash_bwd.cu"
     k5 = "vit_exp_tpu/ops/flash_attention.py:868"
     ff_bwd = "vit_exp_tpu_torch/csrc/geglu_ff_bwd.cu"
     k8 = "vit_exp_tpu/ops/geglu_ff.py:134"
+    sdpa_bwd = sdpa_backward_timer(q, k, v, nk, nv, dout, scale)
+    # the kv side of the backward: S, dP, dV, dK; the q side: S, dP, dQ
+    bwd_bytes = nbytes(q, k, v, dout, lse, delta)
 
     return [
-        ("K1 static-max attention + lse (training)", "cuda",
-         "vit_exp_tpu_torch/csrc/flash_static.cu",
-         "vit_exp_tpu/ops/flash_attention.py:78",
-         lambda: fa.attention_static(*fwd, save_lse=True),
-         lambda: fa.attention_static_plain(*fwd, save_lse=True), "K1"),
-        ("K5/K7 attention backward: dK/dV kernel", "cuda", flash_bwd, k5,
-         lambda: fa.attention_bwd_dkv(*bwd),
-         lambda: fa.attention_bwd_plain(*bwd)[1:], "dKdV"),
-        ("K5/K6 attention backward: dQ kernel", "cuda", flash_bwd, k5,
-         lambda: fa.attention_bwd_dq(*bwd),
-         lambda: fa.attention_bwd_plain(*bwd)[0], "dQ"),
-        ("K8 GEGLU backward: token phase (dx, dh, act, y)", "cuda", ff_bwd, k8,
-         lambda: geglu_ff.geglu_ff_bwd_tokens(*ff)[:4],
-         lambda: geglu_ff.geglu_ff_bwd_tokens_plain(*ff)[:4], "K8a"),
-        ("K8 GEGLU backward: weight phase (dW1, dW2, dgamma, dbeta)", "cuda",
-         ff_bwd, k8, lambda: geglu_ff.geglu_ff_bwd_weights(*wgt),
-         lambda: geglu_ff.geglu_ff_bwd_weights_plain(*wgt), "K8b"),
+        Case("K1 static-max attention + lse (training)", "cuda",
+             "vit_exp_tpu_torch/csrc/flash_static.cu",
+             "vit_exp_tpu/ops/flash_attention.py:78",
+             lambda: fa.attention_static(*fwd, save_lse=True),
+             lambda: fa.attention_static_plain(*fwd, save_lse=True), "K1",
+             {"bf16": attention_ops(q, n, 2)}, nbytes(q, k, v, nk, nv),
+             sdpa_forward_timer(q, k, v, nk, nv, scale)),
+        Case("K5/K7 attention backward: dK/dV kernel", "cuda", flash_bwd, k5,
+             lambda: fa.attention_bwd_dkv(*bwd),
+             lambda: fa.attention_bwd_plain(*bwd)[1:], "dKdV",
+             {"bf16": attention_ops(q, n, products=4)}, bwd_bytes, sdpa_bwd),
+        Case("K5/K6 attention backward: dQ kernel", "cuda", flash_bwd, k5,
+             lambda: fa.attention_bwd_dq(*bwd),
+             lambda: fa.attention_bwd_plain(*bwd)[0], "dQ",
+             {"bf16": attention_ops(q, n, products=3)}, bwd_bytes, sdpa_bwd),
+        Case("K8 GEGLU backward: token phase (dx, dh, act, y)", "cuda",
+             ff_bwd, k8, lambda: geglu_ff.geglu_ff_bwd_tokens(*ff)[:4],
+             lambda: geglu_ff.geglu_ff_bwd_tokens_plain(*ff)[:4], "K8a",
+             {"bf16": 2 * m * d * (2 * inner * 2 + inner)}, nbytes(*ff)),
+        Case("K8 GEGLU backward: weight phase (dW1, dW2, dgamma, dbeta)",
+             "cuda", ff_bwd, k8, lambda: geglu_ff.geglu_ff_bwd_weights(*wgt),
+             lambda: geglu_ff.geglu_ff_bwd_weights_plain(*wgt), "K8b",
+             {"bf16": 2 * m * d * (2 * inner + inner)}, nbytes(*wgt)),
+    ]
+
+
+def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
+    """The int8 serving path's kernel rows at its shapes, with inputs made
+    as the model makes them: weights quantized per channel, q/k after the
+    l2norm and their scales and then the prologue's quantization, v a
+    strided view of the packed v output, the nulls as the model prepares
+    them."""
+    from vit_exp_tpu_torch.ops import fused_proj, geglu_ff
+    from vit_exp_tpu_torch.ops import flash_attention as fa
+    from vit_exp_tpu_torch.ops.attention import l2norm, logit_bound
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=device) * std
+
+    d, h, dh = arch["dim"], arch["heads"], arch["dim_head"]
+    n = (arch["temporal_size"] // arch["temporal_patch_size"]
+         * (arch["image_size"] // arch["patch_size"]) ** 2)
+    m = batch * n
+    hd = h * dh
+    inner = int(4.0 * 2 / 3 * d)
+
+    x = randn(m, d).to(bf)
+    mu, inv = geglu_ff.ln_stats(x, 1e-5)
+    gamma, beta = 1 + 0.1 * randn(d), 0.1 * randn(d)
+
+    # K12/K13: [γ⊙Wq | Wkv] quantized per channel
+    w8, sc, c = fused_proj.int8_qkv_weights(
+        gamma, randn(d, hd, std=d ** -0.5), randn(d, 2 * hd, std=d ** -0.5))
+    qkv = (x, mu, inv, w8, sc, c, hd, hd)
+
+    # K9/K10: the prologue's int8 q/k and scales, v in place
+    def heads(t):
+        return t.reshape(batch, n, h, dh).transpose(1, 2)
+
+    q_scale, k_scale = 1 + 0.1 * randn(dh), 1 + 0.1 * randn(dh)
+    q = l2norm(heads(randn(batch, n, hd).to(bf))) * q_scale.to(bf)
+    k = l2norm(heads(randn(batch, n, hd).to(bf))) * k_scale.to(bf)
+    v = heads(randn(batch, n, hd).to(bf))
+    scale = 1.0 / math.sqrt(dh)
+    q8, k8, qe, qn = fa.quantize_qk(q, k, scale)
+    nk = l2norm(randn(h, 2, dh)) * k_scale
+    nv = randn(h, 2, dh).to(bf)
+    attn = (q8, k8, v, qe, qn, nk, nv, logit_bound(q_scale, k_scale, scale))
+    del q, k
+
+    # K11: W1, W2 quantized per channel
+    w1q, s1 = geglu_ff.quantize_per_channel(randn(d, 2 * inner,
+                                                  std=d ** -0.5))
+    w2q, s2 = geglu_ff.quantize_per_channel(randn(inner, d,
+                                                  std=inner ** -0.5))
+    ff = (x, mu, inv, gamma, beta, w1q, s1, w2q, s2)
+
+    # K14: the attention output (b·n, h·d) against to_out
+    xo = randn(m, hd, std=0.3).to(bf)
+    wo8, so = geglu_ff.quantize_per_channel(randn(hd, d, std=hd ** -0.5))
+
+    proj = "vit_exp_tpu_torch/csrc/ln_qkv_int8.cu"
+    return [
+        Case("K9/K10 int8 static-max attention", "cuda",
+             "vit_exp_tpu_torch/csrc/flash_static_int8.cu",
+             "vit_exp_tpu/ops/flash_attention.py:506",
+             lambda: fa.attention_static_int8(*attn),
+             lambda: fa.attention_static_int8_plain(*attn), "K9/K10",
+             {"int8": attention_ops(q8, n, 2, products=1),
+              "bf16": attention_ops(q8, n, 2, products=1)}, nbytes(*attn)),
+        Case("K11 W8A8 GEGLU feed-forward", "cuda",
+             "vit_exp_tpu_torch/csrc/geglu_ff_int8.cu",
+             "vit_exp_tpu/ops/geglu_ff.py:341",
+             lambda: geglu_ff.geglu_ff_int8(*ff),
+             lambda: geglu_ff.geglu_ff_int8_plain(*ff), "K11",
+             {"int8": 2 * m * (d * 2 * inner + inner * d)}, nbytes(*ff)),
+        Case("K12/K13 W8A8 LN + q/k/v projection", "cuda", proj,
+             "vit_exp_tpu/ops/fused_proj.py:260",
+             lambda: fused_proj.ln_qkv_int8(*qkv),
+             lambda: fused_proj.ln_qkv_int8_plain(*qkv), "K12/K13",
+             {"int8": 2 * m * d * 3 * hd}, nbytes(*qkv[:6])),
+        Case("K14 W8A8 out-projection", "cuda", proj,
+             "vit_exp_tpu/ops/fused_proj.py:358",
+             lambda: fused_proj.proj_int8(xo, wo8, so),
+             lambda: fused_proj.proj_int8_plain(xo, wo8, so), "K14",
+             {"int8": 2 * m * hd * d}, nbytes(xo, wo8, so)),
     ]
 
 
@@ -266,7 +473,14 @@ def kernel_counters():
             "K3": fused_proj.ln_qkv, "K4": patches.patch_stats,
             "dKdV": fa.attention_bwd_dkv, "dQ": fa.attention_bwd_dq,
             "K8a": geglu_ff.geglu_ff_bwd_tokens,
-            "K8b": geglu_ff.geglu_ff_bwd_weights}
+            "K8b": geglu_ff.geglu_ff_bwd_weights,
+            "K9/K10": fa.attention_static_int8, "K11": geglu_ff.geglu_ff_int8,
+            "K12/K13": fused_proj.ln_qkv_int8, "K14": fused_proj.proj_int8}
+
+
+def expected_launches(counts: dict) -> dict:
+    """Every launch counter at 0 but the ones given."""
+    return {k: counts.get(k, 0) for k in kernel_counters()}
 
 
 def count_launches(fn):
@@ -280,28 +494,35 @@ def count_launches(fn):
 
 
 def compare_kernels(cases):
-    """Hold each case's kernel against its plain version and time both;
-    returns the JSON rows (launches filled in later)."""
+    """Hold each case's kernel against its plain version and time both (and
+    the library call, where there is one); returns the JSON rows (launches
+    filled in later)."""
     rows = []
-    for name, route, source, replaces, kern, plain, counter in cases:
-        out_k, out_p = kern(), plain()
+    for case in cases:
+        out_k, out_p = case.kern(), case.plain()
         torch.cuda.synchronize()
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
         errs = [compare(a, b) for a, b in zip(outs_k, outs_p)]
         rel, mx = max(e[0] for e in errs), max(e[1] for e in errs)
         abs_ok = all(e[1] <= MAX_ABS_TOL * e[2] for e in errs)
-        ok_finite = all(torch.isfinite(a).all().item() for a in outs_k)
+        ok_finite = all(torch.isfinite(a.float()).all().item() for a in outs_k)
+        bound_ms, bound_by = bound(case.ops, case.in_bytes + nbytes(*outs_k))
         del out_k, out_p, outs_k, outs_p
-        ms = cuda_ms(kern, 5)
-        plain_ms = cuda_ms(plain, 2)
-        print(f"{name}: rel L2 {rel:.3e}, max abs {mx:.3e} (per output "
+        ms = cuda_ms(case.kern, 5)
+        plain_ms = cuda_ms(case.plain, 2)
+        library_ms = case.library() if case.library is not None else None
+        lib = "" if library_ms is None else f", library call {library_ms:.3f} ms"
+        print(f"{case.name}: rel L2 {rel:.3e}, max abs {mx:.3e} (per output "
               f"{[f'{e[0]:.2e}' for e in errs]}); kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms", flush=True)
-        check(ok_finite and rel <= REL_L2_TOL and abs_ok, (name, errs))
-        rows.append(dict(name=name, route=route, source=source,
-                         replaces=replaces, counter=counter, max_abs_err=mx,
-                         rel_l2=rel, ms=ms, plain_ms=plain_ms))
+              f"plain {plain_ms:.3f} ms{lib}; bound {bound_ms:.4f} ms "
+              f"({bound_by}), share {bound_ms / ms:.3f}", flush=True)
+        check(ok_finite and rel <= REL_L2_TOL and abs_ok, (case.name, errs))
+        rows.append(dict(name=case.name, route=case.route, source=case.source,
+                         replaces=case.replaces, counter=case.counter,
+                         max_abs_err=mx, rel_l2=rel, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms))
         torch.cuda.empty_cache()
     return rows
 
@@ -318,17 +539,87 @@ def random_tokenizer(vocab_size: int, seed: int):
 
 
 def build_engine(device, arch, bert_config, text_len, *, use_kernels=True,
-                 state_dict=None, seed=0):
+                 int8=False, state_dict=None, seed=0):
+    """The zero-shot engine as served (fused LN+qkv), bf16 or int8."""
     from vit_exp_tpu_torch.eval.zero_shot import ZeroShotClassifier
     from vit_exp_tpu_torch.models.factory import build_ctclip
 
     model = build_ctclip(types.SimpleNamespace(**arch), bert_config,
                          device=device, use_kernels=use_kernels,
-                         fuse_qkv=True, seed=seed)
+                         fuse_qkv=True, int8=int8, seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     tok = random_tokenizer(bert_config.vocab_size, seed)
     return ZeroShotClassifier(model, tok, max_text_len=text_len)
+
+
+def gate_volumes(base: torch.Tensor, seed: int) -> torch.Tensor:
+    """A batch for the int8 accuracy check, as scripts/int8_accuracy_gate.py
+    makes them: the base noise plus a separable low-frequency field (one
+    random vector per slice, row and column) at a random amplitude, so the
+    18 probabilities spread across volumes (a per-volume affine change
+    would be removed by the first LayerNorm)."""
+    g = torch.Generator(device=base.device).manual_seed(seed)
+    b, _, t, hh, ww = base.shape
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=base.device)
+
+    amp = 0.3 + 1.2 * torch.rand((b, 1, 1, 1, 1), generator=g,
+                                 device=base.device)
+    field = randn(b, 1, t, 1, 1) + randn(b, 1, 1, hh, 1) + randn(b, 1, 1, 1, ww)
+    return (base.float() + amp * field).to(base.dtype)
+
+
+def rank_auroc(scores: np.ndarray, labels: np.ndarray) -> float:
+    """AUROC of scores against 0/1 labels (Mann-Whitney U, ties averaged)."""
+    order = np.argsort(scores, kind="mergesort")
+    ranks = np.empty(len(scores))
+    ranks[order] = np.arange(1, len(scores) + 1)
+    _, inverse, counts = np.unique(scores, return_inverse=True,
+                                   return_counts=True)
+    ranks = (np.bincount(inverse, weights=ranks) / counts)[inverse]
+    n1 = int(labels.sum())
+    n0 = len(labels) - n1
+    return float((ranks[labels == 1].sum() - n1 * (n1 + 1) / 2) / (n0 * n1))
+
+
+def kendall_tau(a: np.ndarray, b: np.ndarray) -> float:
+    """Kendall tau-a, as scripts/int8_accuracy_gate.py computes it."""
+    da = np.sign(a[:, None] - a[None, :])
+    db = np.sign(b[:, None] - b[None, :])
+    iu = np.triu_indices(len(a), 1)
+    return float(np.mean(da[iu] * db[iu]))
+
+
+def int8_accuracy(eng8, eng, base, n_batches: int, seed: int = 100):
+    """The first half of scripts/int8_accuracy_gate.py on the port: the int8
+    engine against the bf16 engine over n_batches batches of gate volumes.
+    Returns max and mean |Δprob| and, per label with a median split of the
+    bf16 probabilities, the rank AUROC of the int8 ones and Kendall τ
+    (printed, not bounded: at random weights the ranking is
+    ill-conditioned)."""
+    p8, pb = [], []
+    for i in range(n_batches):
+        vols = gate_volumes(base, seed + i)
+        p8.append(eng8.predict_batch(vols))
+        pb.append(eng.predict_batch(vols))
+    p8, pb = np.concatenate(p8), np.concatenate(pb)
+    aurocs, taus = [], []
+    for c in range(pb.shape[1]):
+        labels = (pb[:, c] > np.median(pb[:, c])).astype(int)
+        if labels.min() == labels.max():
+            continue
+        aurocs.append(rank_auroc(p8[:, c], labels))
+        taus.append(kendall_tau(pb[:, c], p8[:, c]))
+    return dict(volumes=len(p8), dmax=float(np.abs(p8 - pb).max()),
+                dmean=float(np.abs(p8 - pb).mean()),
+                spread=float(np.std(pb, axis=0).mean()),
+                finite=bool(np.isfinite(p8).all() and np.isfinite(pb).all()),
+                auroc_min=min(aurocs, default=float("nan")),
+                auroc_mean=float(np.mean(aurocs)) if aurocs else float("nan"),
+                tau_min=min(taus, default=float("nan")),
+                tau_mean=float(np.mean(taus)) if taus else float("nan"))
 
 
 def build_trainer(device, arch, bert_config, *, use_kernels=True,
@@ -497,16 +788,18 @@ def main() -> int:
     (OUT_DIR / "kernel_build.log").write_text(
         lib_path.with_suffix(".log").read_text())
 
-    serving_cases = kernel_cases(device)
-    serve_rows = compare_kernels(serving_cases)
-    del serving_cases
-    training_cases = training_kernel_cases(device)
-    train_rows = compare_kernels(training_cases)
-    del training_cases
-    torch.cuda.empty_cache()
+    rows = {}
+    for phase, make in (("serve", kernel_cases),
+                        ("train", training_kernel_cases),
+                        ("int8", int8_kernel_cases)):
+        cases = make(device)
+        rows[phase] = compare_kernels(cases)
+        del cases
+        torch.cuda.empty_cache()
 
-    # the serving path at full width
+    # the bf16 serving path at full width
     bert = BertConfig()
+    blocks = ARCH["transformer_blocks"]
     eng = build_engine(device, ARCH, bert, TEXT_LEN)
     text = eng.prepare()
     check(text.shape == (N_PROMPTS, 768) and bool(torch.isfinite(text).all()),
@@ -516,13 +809,14 @@ def main() -> int:
              ARCH["image_size"])
     volumes = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
 
-    probs, serve_launches = count_launches(lambda: eng.predict_batch(volumes))
-    blocks = ARCH["transformer_blocks"]
-    expected = {"K1": blocks, "K2": blocks, "K3": blocks, "K4": 1, "dKdV": 0,
-                "dQ": 0, "K8a": 0, "K8b": 0}
-    print(f"launches in one predict_batch: {serve_launches} (expected "
-          f"{expected})", flush=True)
-    check(serve_launches == expected, serve_launches)
+    launches = {}
+    probs, launches["serve"] = count_launches(
+        lambda: eng.predict_batch(volumes))
+    expected = expected_launches({"K1": blocks, "K2": blocks, "K3": blocks,
+                                  "K4": 1})
+    print(f"launches in one bf16 predict_batch: {launches['serve']} "
+          f"(expected {expected})", flush=True)
+    check(launches["serve"] == expected, launches["serve"])
     check(probs.shape == (BATCH, 18) and bool(np.isfinite(probs).all())
           and bool(((probs >= 0) & (probs <= 1)).all()), probs)
 
@@ -543,19 +837,61 @@ def main() -> int:
         serve_times.append(time.perf_counter() - t0)
     vps = BATCH / statistics.median(serve_times)
     profile_call(lambda: eng.predict_batch(volumes),
-                 OUT_DIR / "profile_serving.txt", "one predict_batch")
-    del eng, volumes
+                 OUT_DIR / "profile_serving.txt", "one bf16 predict_batch")
+
+    # the int8 serving path (the JAX package's serving default) at full
+    # width, on the bf16 engine's weights
+    eng8 = build_engine(device, ARCH, bert, TEXT_LEN, int8=True,
+                        state_dict=eng.model.state_dict())
+    eng8.prepare()
+    probs8, launches["int8"] = count_launches(
+        lambda: eng8.predict_batch(volumes))
+    expected = expected_launches({"K4": 1, "K9/K10": blocks, "K11": blocks,
+                                  "K12/K13": blocks, "K14": blocks})
+    print(f"launches in one int8 predict_batch: {launches['int8']} "
+          f"(expected {expected})", flush=True)
+    check(launches["int8"] == expected, launches["int8"])
+    check(probs8.shape == (BATCH, 18) and bool(np.isfinite(probs8).all())
+          and bool(((probs8 >= 0) & (probs8 <= 1)).all()), probs8)
+    ref8 = build_engine(device, ARCH, bert, TEXT_LEN, int8=True,
+                        use_kernels=False, state_dict=eng.model.state_dict())
+    dprob8 = float(np.abs(probs8[:1] - ref8.predict_batch(volumes[:1])).max())
+    print(f"int8 volume 0: max |prob(kernels) - prob(plain)| = {dprob8:.3e} "
+          f"(tolerance {PROB_TOL})", flush=True)
+    check(dprob8 <= PROB_TOL, dprob8)
+    del ref8
+    torch.cuda.empty_cache()
+    acc = int8_accuracy(eng8, eng, volumes, GATE_BATCHES)
+    print(f"int8 vs bf16 over {acc['volumes']} volumes: max |Δprob| "
+          f"{acc['dmax']:.5f} (tolerance {INT8_PROB_TOL}), mean "
+          f"{acc['dmean']:.6f}; probability spread (mean per-label std) "
+          f"{acc['spread']:.4f}; per-label rank AUROC min "
+          f"{acc['auroc_min']:.4f} mean {acc['auroc_mean']:.4f}; Kendall "
+          f"tau min {acc['tau_min']:.4f} mean {acc['tau_mean']:.4f} "
+          f"(printed, not bounded)", flush=True)
+    check(acc["finite"] and acc["dmax"] <= INT8_PROB_TOL, acc)
+
+    int8_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng8.predict_batch(volumes)
+        int8_times.append(time.perf_counter() - t0)
+    vps8 = BATCH / statistics.median(int8_times)
+    profile_call(lambda: eng8.predict_batch(volumes),
+                 OUT_DIR / "profile_serving_int8.txt", "one int8 predict_batch")
+    del eng, eng8, volumes
     torch.cuda.empty_cache()
 
     # the contrastive train step at full width, kernels against plain
     torch.cuda.reset_peak_memory_stats()
-    res, train_launches, kern, batch = compare_train_steps(
+    res, launches["train"], kern, batch = compare_train_steps(
         device, ARCH, bert, BATCH, TEXT_LEN)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
-    expected = {"K1": blocks, "K2": blocks, "K3": 0, "K4": 1, "dKdV": blocks,
-                "dQ": blocks, "K8a": blocks, "K8b": blocks}
-    print(f"launches in one train step: {train_launches} (expected "
+    expected = expected_launches({"K1": blocks, "K2": blocks, "K4": 1,
+                                  "dKdV": blocks, "dQ": blocks, "K8a": blocks,
+                                  "K8b": blocks})
+    print(f"launches in one train step: {launches['train']} (expected "
           f"{expected})", flush=True)
     tower = res["tower"]
     (OUT_DIR / "train_grads.txt").write_text(
@@ -576,7 +912,7 @@ def main() -> int:
           f"{res['norm_plain']:.6f} (rel {dnorm:.3e}, tolerance "
           f"{GRAD_NORM_RTOL}); params without a kernel-path gradient: "
           f"{res['missing']}; peak device memory {peak_gb:.3f} GB", flush=True)
-    check(train_launches == expected, train_launches)
+    check(launches["train"] == expected, launches["train"])
     check(all(e <= TOWER_GRAD_RTOL for e, _ in tower.values()),
           (worst, tower[worst]))
     check(math.isfinite(res["loss_kernel"]) and math.isfinite(res["loss_plain"])
@@ -594,15 +930,19 @@ def main() -> int:
     profile_call(lambda: float(step(batch, 1.0)["loss"]),
                  OUT_DIR / "profile_train.txt", "one train step")
 
-    for rows, counts in ((serve_rows, serve_launches),
-                         (train_rows, train_launches)):
-        for row in rows:
-            row["launches"] = counts[row.pop("counter")]
-    print(json.dumps({"kernels": serve_rows + train_rows}))
+    kernels = []
+    for phase in ("serve", "train", "int8"):
+        for row in rows[phase]:
+            row["launches"] = launches[phase][row.pop("counter")]
+            kernels.append(row)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(f"zero-shot serving, batch {BATCH}, bf16: {vps:.3f} volumes/s "
           f"(median of 3 warm predict_batch calls, "
           f"{[round(t, 4) for t in serve_times]} s) on {card}")
+    print(f"zero-shot serving, batch {BATCH}, int8: {vps8:.3f} volumes/s "
+          f"(median of 3 warm predict_batch calls, "
+          f"{[round(t, 4) for t in int8_times]} s) on {card}")
     print(f"contrastive train step, batch {BATCH}, bf16: {sps:.3f} steps/s "
           f"(median of 3 warm steps, {[round(t, 4) for t in train_times]} s) "
           f"on {card}")

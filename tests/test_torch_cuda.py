@@ -1,5 +1,6 @@
-"""Card tests of the port's CUDA kernels (K1-K4, the attention backward pair
-and K8) against their plain PyTorch versions at small, ragged shapes.
+"""Card tests of the port's CUDA kernels (K1-K4, the attention backward pair,
+K8, and the int8 serving kernels: the int8 attention (K9/K10), K11, K12/K13
+and K14) against their plain PyTorch versions at small, ragged shapes.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -10,7 +11,9 @@ Tolerances: the kernels round to bf16 where the plain versions do, but sum
 in another order, so outputs differ by bf16 rounding of the last place:
 relative L2 error ≤ 1e-2 on bf16 outputs and on gradients (bf16 operands
 of fp32 sums on both sides), 1e-5 on the fp32 statistics of K4 and on K1's
-lse (fp32 sums of the same bf16-rounded p, up to order).
+lse (fp32 sums of the same bf16-rounded p, up to order).  The int8 kernels
+quantize with the plain twins' arithmetic and sum exact integers, so their
+bf16 outputs are held to the same 1e-2.
 """
 
 import math
@@ -20,7 +23,7 @@ import torch
 
 from vit_exp_tpu_torch.ops import fused_proj, geglu_ff, patches
 from vit_exp_tpu_torch.ops import flash_attention as fa
-from vit_exp_tpu_torch.ops.attention import l2norm
+from vit_exp_tpu_torch.ops.attention import l2norm, logit_bound
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +220,109 @@ def test_no_wrapper_returns_a_graphless_result(dev):
     assert o.grad_fn is not None
     o.float().sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad.float()).all()
+
+
+def _int8_attn_case(dev, nq, nkv, n_null, seed=8):
+    """The int8 attention's inputs as the model makes them: l2-normalised,
+    scaled q/k (strided views of packed projections) through the int8
+    prologue, v in place, fp32 null k and bf16 null v."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, d = 2, 3, 32
+    qsc = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    ksc = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    q = l2norm(_randn(g, b, nq, h, d)).transpose(1, 2) * qsc.bfloat16()
+    k = l2norm(_randn(g, b, nkv, h, d)).transpose(1, 2) * ksc.bfloat16()
+    v = _randn(g, b, nkv, h, d).transpose(1, 2)
+    scale = 1.0 / math.sqrt(d)
+    q8, k8, qe, qn = fa.quantize_qk(q, k, scale)
+    nk = nv = None
+    if n_null:
+        nk = l2norm(torch.randn(h, n_null, d, generator=g, device=dev)) * ksc
+        nv = _randn(g, h, n_null, d)
+    return q8, k8, v, qe, qn, nk, nv, logit_bound(qsc, ksc, scale)
+
+
+@pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (64, 64, 0),
+                                           (13, 200, 8)])
+def test_int8_attention_matches_plain(dev, nq, nkv, n_null):
+    args = _int8_attn_case(dev, nq, nkv, n_null)
+    before = fa.attention_static_int8.launches
+    out = fa.attention_static_int8(*args)
+    ref = fa.attention_static_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert fa.attention_static_int8.launches == before + 1
+    assert out.shape == (2, 3, nq, 32) and out.dtype == torch.bfloat16
+    assert out.transpose(1, 2).is_contiguous()
+    assert _rel(out, ref) < 1e-2
+
+
+@pytest.mark.parametrize("m", [50, 96])
+def test_k11_matches_plain(dev, m):
+    g = torch.Generator(device=dev).manual_seed(9)
+    d, inner = 768, 256
+    x = _randn(g, m, d)
+    mu, inv = geglu_ff.ln_stats(x, 1e-5)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    beta = 0.1 * torch.randn(d, generator=g, device=dev)
+    w1q, s1 = geglu_ff.quantize_per_channel(
+        torch.randn(d, 2 * inner, generator=g, device=dev))
+    w2q, s2 = geglu_ff.quantize_per_channel(
+        torch.randn(inner, d, generator=g, device=dev))
+    args = (x, mu, inv, gamma, beta, w1q, s1, w2q, s2)
+    before = geglu_ff.geglu_ff_int8.launches
+    out = geglu_ff.geglu_ff_int8(*args)
+    ref = geglu_ff.geglu_ff_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert geglu_ff.geglu_ff_int8.launches == before + 1
+    assert _rel(out, ref) < 1e-2
+
+
+@pytest.mark.parametrize("m", [100, 128])
+def test_k12_k13_matches_plain(dev, m):
+    g = torch.Generator(device=dev).manual_seed(10)
+    d, f = 96, 128
+    x = _randn(g, m, d) * 2 + 0.5
+    mu, inv = geglu_ff.ln_stats(x, 1e-5)
+    w8, sc, c = fused_proj.int8_qkv_weights(
+        torch.rand(d, device=dev) + 0.5,
+        torch.randn(d, f, generator=g, device=dev),
+        torch.randn(d, 2 * f, generator=g, device=dev))
+    args = (x, mu, inv, w8, sc, c, f, f)
+    before = fused_proj.ln_qkv_int8.launches
+    out = fused_proj.ln_qkv_int8(*args)
+    ref = fused_proj.ln_qkv_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_proj.ln_qkv_int8.launches == before + 1
+    for a, r in zip(out, ref):
+        assert a.shape == r.shape == (m, f) and _rel(a, r) < 1e-2
+
+
+@pytest.mark.parametrize("m", [100, 128])
+def test_k14_matches_plain(dev, m):
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = _randn(g, m, 256)
+    w8, sc = geglu_ff.quantize_per_channel(
+        torch.randn(256, 384, generator=g, device=dev))
+    before = fused_proj.proj_int8.launches
+    out = fused_proj.proj_int8(x, w8, sc)
+    ref = fused_proj.proj_int8_plain(x, w8, sc)
+    torch.cuda.synchronize()
+    assert fused_proj.proj_int8.launches == before + 1
+    assert out.shape == (m, 384) and _rel(out, ref) < 1e-2
+
+
+def test_int8_path_refuses_a_tensor_that_requires_grad(dev):
+    """The int8 path has no backward: a CUDA input that requires grad is
+    refused, by the raw wrappers and by the ops."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = _randn(g, 64, 256).requires_grad_()
+    w8, sc = geglu_ff.quantize_per_channel(
+        torch.randn(256, 128, generator=g, device=dev))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_proj.proj_int8(x, w8, sc)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_proj.int8_proj(x, torch.randn(256, 128, device=dev))
+    args = list(_int8_attn_case(dev, 64, 64, 2))
+    args[2] = args[2].detach().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.attention_static_int8(*args)

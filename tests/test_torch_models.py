@@ -70,9 +70,10 @@ def jax_params(config, seed=0):
         params)
 
 
-def port_model(config, params, policy="fp32", fuse_qkv=True):
-    model = build_ctclip(config, BertConfig.tiny(), policy=POLICIES[policy][1],
-                         dim_latent=DIM_LATENT, fuse_qkv=fuse_qkv)
+def port_model(config, params, policy="fp32", fuse_qkv=True, int8=False):
+    model = build_ctclip(config, BertConfig.tiny(), device="cpu",
+                         policy=POLICIES[policy][1], dim_latent=DIM_LATENT,
+                         fuse_qkv=fuse_qkv, int8=int8)
     res = model.load_state_dict(
         {k: torch.from_numpy(v) for k, v in from_jax_params(params).items()})
     assert not res.missing_keys and not res.unexpected_keys
@@ -177,8 +178,8 @@ def test_from_jax_params_agrees_with_export(setup, bert_buffers):
         params, grid=a.grid, heads=a.heads, bert_config=JaxBertConfig.tiny(),
         bert_buffers=bert_buffers)
     mine = from_jax_params(params)
-    model = build_ctclip(config, BertConfig.tiny(), policy=FP32_POLICY,
-                         dim_latent=DIM_LATENT)
+    model = build_ctclip(config, BertConfig.tiny(), device="cpu",
+                         policy=FP32_POLICY, dim_latent=DIM_LATENT)
     assert set(mine) == set(model.state_dict())
     for k, val in mine.items():
         np.testing.assert_array_equal(val, exported[k], err_msg=k)
@@ -197,8 +198,8 @@ def test_load_reference_refuses_a_foreign_key(setup):
     a = config.arch
     exported = export_ctclip_state_dict(params, grid=a.grid, heads=a.heads,
                                         bert_config=JaxBertConfig.tiny())
-    model = build_ctclip(config, BertConfig.tiny(), policy=FP32_POLICY,
-                         dim_latent=DIM_LATENT)
+    model = build_ctclip(config, BertConfig.tiny(), device="cpu",
+                         policy=FP32_POLICY, dim_latent=DIM_LATENT)
     with pytest.raises(ValueError):
         load_reference_state_dict(model, {**exported, "stray.weight": 0.0})
     del exported["temperature"]
@@ -208,12 +209,31 @@ def test_load_reference_refuses_a_foreign_key(setup):
 
 def test_seeded_init_is_deterministic():
     config = _flagship_config(tiny=True)
-    a = build_ctclip(config, BertConfig.tiny(), dim_latent=DIM_LATENT, seed=5)
-    b = build_ctclip(config, BertConfig.tiny(), dim_latent=DIM_LATENT, seed=5)
-    c = build_ctclip(config, BertConfig.tiny(), dim_latent=DIM_LATENT, seed=6)
+    a, b, c = (build_ctclip(config, BertConfig.tiny(), device="cpu",
+                            dim_latent=DIM_LATENT, seed=seed)
+               for seed in (5, 5, 6))
     for (k, va), vb, vc in zip(a.state_dict().items(), b.state_dict().values(),
                                c.state_dict().values()):
         torch.testing.assert_close(va, vb, rtol=0, atol=0)
     assert not torch.equal(a.state_dict()["to_text_latent.weight"],
                            c.state_dict()["to_text_latent.weight"])
     assert all(torch.isfinite(v).all() for v in a.state_dict().values())
+
+
+def test_build_ctclip_defaults_to_the_card():
+    """The entry points build on the card unless the caller asks for the
+    CPU; without a card the default raises torch's own error and never
+    falls back to the CPU."""
+    import inspect
+
+    from vit_exp_tpu_torch.models.factory import build_image_encoder
+
+    for fn in (build_ctclip, build_image_encoder):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    config = _flagship_config(tiny=True)
+    if torch.cuda.is_available():
+        model = build_ctclip(config, BertConfig.tiny(), dim_latent=DIM_LATENT)
+        assert {p.device.type for p in model.parameters()} == {"cuda"}
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            build_ctclip(config, BertConfig.tiny(), dim_latent=DIM_LATENT)

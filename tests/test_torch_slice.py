@@ -10,8 +10,9 @@
   rounding can flip where sums are ordered differently; the tolerance is
   the 0.02 probability bound the JAX package holds its own precision
   changes to (measured difference 3.5e-3).
-- Guards: the port imports neither JAX, flax nor the JAX package, serving or
-  taking a train step (checked in a subprocess, since this process has JAX
+- Guards: the port imports neither JAX, flax nor the JAX package, serving
+  (bf16 and int8) or taking a train step (checked in a subprocess, since
+  this process has JAX
   loaded); ``chip_smoke.py`` fails, printing no "ok" line, without a GPU and
   without the rest of the repo.
 """
@@ -90,13 +91,15 @@ from vit_exp_tpu_torch.train import optimizer, steps
 arch = types.SimpleNamespace(dim=48, image_size=32, patch_size=8,
     temporal_size=16, temporal_patch_size=4, transformer_blocks=2,
     dim_head=8, heads=4, channels=1, use_flash_attention=True)
-model = build_ctclip(arch, BertConfig.tiny(), dim_latent=16, fuse_qkv=True)
 def tok(prompts, max_length):
     ids = np.ones((len(prompts), max_length), np.int64)
     return {"input_ids": ids, "attention_mask": np.ones_like(ids)}
-probs = ZeroShotClassifier(model, tok, max_text_len=8).predict_batch(
-    torch.randn(2, 1, 16, 32, 32))
-model = build_ctclip(arch, BertConfig.tiny(), dim_latent=16).train()
+probs = [ZeroShotClassifier(build_ctclip(
+    arch, BertConfig.tiny(), device="cpu", dim_latent=16, fuse_qkv=True,
+    int8=int8), tok, max_text_len=8).predict_batch(
+        torch.randn(2, 1, 16, 32, 32)) for int8 in (False, True)]
+model = build_ctclip(arch, BertConfig.tiny(), device="cpu",
+                     dim_latent=16).train()
 opt = optimizer.build_optimizer(types.SimpleNamespace(
     lr=1e-3, wd=0.0, max_grad_norm=0.5, warmup_steps=0,
     gradient_accumulation_steps=1), model.parameters())
@@ -105,7 +108,7 @@ loss = float(step["imagereport"]({"image": torch.randn(2, 1, 16, 32, 32),
     "input_ids": torch.ones(2, 8, dtype=torch.long)}, 1.0)["loss"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "vit_exp_tpu", "triton"))
-print(json.dumps({"shape": list(probs.shape),
+print(json.dumps({"shape": [list(p.shape) for p in probs],
                   "finite": bool(np.isfinite(probs).all() and np.isfinite(loss)),
                   "bad": bad}))
 """
@@ -116,7 +119,7 @@ def test_port_runs_without_jax_flax_or_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out == {"shape": [2, 18], "finite": True, "bad": []}
+    assert out == {"shape": [[2, 18], [2, 18]], "finite": True, "bad": []}
 
 
 def _no_ok_line(stdout: str) -> bool:
@@ -159,8 +162,10 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     """chip_smoke's kernel cases, engines and train-step comparison at a tiny
     size on the CPU (where every wrapper runs its plain twin): each case
     names a real source and the `def` line of the TPU kernel it replaces,
-    and every launch counter has its own row; the kernel-path engine agrees with the all-plain engine
-    on the same weights; the two train steps agree."""
+    carries the work its bound is computed from, and every launch counter
+    has its own row; the kernel-path engines (bf16 and int8) agree with the
+    all-plain engines on the same weights; the int8 accuracy check runs;
+    the two train steps agree."""
     import torch
 
     import chip_smoke as cs
@@ -171,17 +176,22 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 temporal_patch_size=4, transformer_blocks=2, dim_head=32,
                 heads=2, channels=1, use_flash_attention=True)
     cases = (cs.kernel_cases(cpu, arch, batch=1)
-             + cs.training_kernel_cases(cpu, arch, batch=1))
-    assert {c[-1] for c in cases} == set(cs.kernel_counters())
-    for name, route, source, replaces, kern, plain, counter in cases:
-        assert route == "cuda" and (ROOT / source).is_file()
-        path, line = replaces.split(":")
+             + cs.training_kernel_cases(cpu, arch, batch=1)
+             + cs.int8_kernel_cases(cpu, arch, batch=1))
+    assert [c.counter for c in cases].count("K1") == 2
+    assert {c.counter for c in cases} == set(cs.kernel_counters())
+    for c in cases:
+        assert c.route == "cuda" and (ROOT / c.source).is_file()
+        path, line = c.replaces.split(":")
         assert (ROOT / path).read_text().splitlines()[int(line) - 1].startswith(
-            "def _"), replaces
-        out, ref = kern(), plain()
-        for a, b in zip(out if isinstance(out, tuple) else (out,),
-                        ref if isinstance(ref, tuple) else (ref,)):
-            assert cs.compare(a, b)[:2] == (0.0, 0.0), name
+            "def _"), c.replaces
+        out, ref = c.kern(), c.plain()
+        outs = out if isinstance(out, tuple) else (out,)
+        for a, b in zip(outs, ref if isinstance(ref, tuple) else (ref,)):
+            assert cs.compare(a, b)[:2] == (0.0, 0.0), c.name
+        ms, by = cs.bound(c.ops, c.in_bytes + cs.nbytes(*outs))
+        assert ms > 0 and by in ("bytes", "operations"), c.name
+        assert (c.library is not None) == (c.counter in ("K1", "dKdV", "dQ"))
     res, launches, kern, batch = cs.compare_train_steps(
         cpu, arch, BertConfig.tiny(), 2, TEXT_LEN)
     assert res["loss_kernel"] == res["loss_plain"] and res["finite"]
@@ -189,11 +199,34 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert not res["missing"] and len(res["tower"]) > 10
     assert all(e == 0.0 and c == pytest.approx(1.0)
                for e, c in res["tower"].values())
-    assert set(launches) == set(cs.kernel_counters())
+    assert launches == cs.expected_launches({})
     assert np.isfinite(float(kern[2](batch, 1.0)["loss"]))
-    eng = cs.build_engine(cpu, arch, BertConfig.tiny(), TEXT_LEN)
-    ref = cs.build_engine(cpu, arch, BertConfig.tiny(), TEXT_LEN,
-                          use_kernels=False, state_dict=eng.model.state_dict())
     vol = torch.randn(1, 1, 16, 32, 32)
-    np.testing.assert_allclose(eng.predict_batch(vol), ref.predict_batch(vol),
-                               atol=1e-6)
+    engines = {}
+    for int8 in (False, True):
+        eng = cs.build_engine(cpu, arch, BertConfig.tiny(), TEXT_LEN,
+                              int8=int8)
+        ref = cs.build_engine(cpu, arch, BertConfig.tiny(), TEXT_LEN,
+                              int8=int8, use_kernels=False,
+                              state_dict=eng.model.state_dict())
+        np.testing.assert_allclose(eng.predict_batch(vol),
+                                   ref.predict_batch(vol), atol=1e-6)
+        engines[int8] = eng
+    engines[True].model.load_state_dict(engines[False].model.state_dict())
+    acc = cs.int8_accuracy(engines[True], engines[False],
+                           vol.expand(2, -1, -1, -1, -1), 2)
+    assert acc["volumes"] == 4 and acc["finite"]
+    assert 0 < acc["dmax"] < cs.INT8_PROB_TOL
+    assert 0 <= acc["auroc_min"] <= 1 and -1 <= acc["tau_min"] <= 1
+
+
+def test_chip_smoke_rank_statistics():
+    """The accuracy check's AUROC and Kendall τ on hand-checked cases."""
+    import chip_smoke as cs
+
+    labels = np.array([0, 0, 1, 1])
+    assert cs.rank_auroc(np.array([0.1, 0.2, 0.3, 0.4]), labels) == 1.0
+    assert cs.rank_auroc(np.array([0.4, 0.3, 0.2, 0.1]), labels) == 0.0
+    assert cs.rank_auroc(np.array([0.1, 0.3, 0.3, 0.4]), labels) == 0.875
+    a = np.array([1.0, 2.0, 3.0, 4.0])
+    assert cs.kendall_tau(a, a) == 1.0 and cs.kendall_tau(a, -a) == -1.0

@@ -4,6 +4,10 @@ ff_impl="pallas": fused patch embed, static-max attention, fused GEGLU
 feed-forward, every kernel differentiable).  ``fuse_qkv`` selects the fused
 LN+qkv projection (a serving switch, as in the JAX package); training keeps
 the unfused ScaleLayerNorm + to_q + to_kv, with the same parameters.
+``int8`` is the W8A8 serving path (the JAX attn_impl="pallas_static_int8"
+with ff_impl="pallas_int8"): int8 attention and the int8 feed-forward, and
+with ``fuse_qkv`` the int8 LN+qkv projection and out-projection too.  The
+state dict is the same in every mode.
 
 Module and parameter names follow the reference ``visual_transformer``:
 ``to_patch_emb.{1,2,3}`` (LN in, Linear, LN out), ``enc_3D.layers.{i}.1``
@@ -21,7 +25,8 @@ from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from vit_exp_tpu_torch.models.layers import (BiasLayerNorm, GEGLUFeedForward,
                                              Linear, ScaleLayerNorm, empty_param)
 from vit_exp_tpu_torch.ops.attention import cosine_attention
-from vit_exp_tpu_torch.ops.fused_proj import fused_ln_qkv
+from vit_exp_tpu_torch.ops.fused_proj import (fused_ln_qkv, fused_ln_qkv_int8,
+                                              int8_proj)
 from vit_exp_tpu_torch.ops.patches import fused_patch_embed
 from vit_exp_tpu_torch.ops.posemb import sincos_pos_embed_3d
 
@@ -33,12 +38,16 @@ class CosineSelfAttention(nn.Module):
     reference binds the kv input before its norm).  ``null_kv`` is laid out
     'h (n r) d' with r = 2: k rows are the even entries, v rows the odd ones.
     ``fuse_qkv`` runs the norm and both projections as one kernel (K3).
+    ``int8`` runs the attention with int8 QKᵀ; with ``fuse_qkv`` too, the
+    route is the W8A8 LN+qkv kernel, int8 attention and the W8A8
+    out-projection (K12/K13 → K9/K10 → K14 in the JAX package); without
+    it, the unfused projections, int8 attention and the bf16 to_out.
     """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32,
                  num_null_kv: int = 2, scale: Optional[float] = None, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
-                 fuse_qkv: bool = False, device=None):
+                 fuse_qkv: bool = False, int8: bool = False, device=None):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head, self.num_null_kv = heads, dim_head, num_null_kv
@@ -46,6 +55,7 @@ class CosineSelfAttention(nn.Module):
         self.policy = policy
         self.use_kernels = use_kernels
         self.fuse_qkv = fuse_qkv
+        self.int8 = int8
         kw = dict(policy=policy, device=device)
         self.norm = ScaleLayerNorm(dim, **kw)
         self.null_kv = empty_param(heads, 2 * num_null_kv, dim_head, **kw)
@@ -63,14 +73,20 @@ class CosineSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
-        if self.fuse_qkv:
-            q, kv = fused_ln_qkv(x.to(self.policy.compute_dtype),
-                                 self.norm.gamma, self.to_q.weight.t(),
-                                 self.to_kv.weight.t(),
-                                 use_kernel=self.use_kernels)
+        cd = self.policy.compute_dtype
+        if self.fuse_qkv and self.int8:
+            q, k, v = fused_ln_qkv_int8(
+                x.to(cd), self.norm.gamma, self.to_q.weight.t(),
+                self.to_kv.weight.t(), use_kernel=self.use_kernels)
         else:
-            q, kv = self.to_q(self.norm(x)), self.to_kv(x)
-        k, v = kv.split(h * dh, dim=-1)
+            if self.fuse_qkv:
+                q, kv = fused_ln_qkv(x.to(cd), self.norm.gamma,
+                                     self.to_q.weight.t(),
+                                     self.to_kv.weight.t(),
+                                     use_kernel=self.use_kernels)
+            else:
+                q, kv = self.to_q(self.norm(x)), self.to_kv(x)
+            k, v = kv.split(h * dh, dim=-1)
 
         def heads_first(t):   # a strided view, no copy
             return t.reshape(b, n, h, dh).transpose(1, 2)
@@ -80,8 +96,12 @@ class CosineSelfAttention(nn.Module):
             heads_first(q), heads_first(k), heads_first(v),
             null_k=nkv[:, :, 0], null_v=nkv[:, :, 1],
             q_scale=self.q_scale, k_scale=self.k_scale, scale=self.scale,
-            use_kernel=self.use_kernels)
-        return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
+            use_kernel=self.use_kernels, quantized=self.int8)
+        out = out.transpose(1, 2).reshape(b, n, h * dh)
+        if self.int8 and self.fuse_qkv:
+            return int8_proj(out.to(cd), self.to_out.weight.t(),
+                             use_kernel=self.use_kernels)
+        return self.to_out(out)
 
 
 class TransformerBlock(nn.Module):
@@ -91,13 +111,15 @@ class TransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
                  scale: Optional[float], ff_mult: float = 4.0, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
-                 fuse_qkv: bool = False, device=None):
+                 fuse_qkv: bool = False, int8: bool = False, device=None):
         super().__init__()
         self.add_module("1", CosineSelfAttention(
             dim, heads, dim_head, scale=scale, policy=policy,
-            use_kernels=use_kernels, fuse_qkv=fuse_qkv, device=device))
+            use_kernels=use_kernels, fuse_qkv=fuse_qkv, int8=int8,
+            device=device))
         self.add_module("3", GEGLUFeedForward(
-            dim, ff_mult, policy=policy, use_kernel=use_kernels, device=device))
+            dim, ff_mult, policy=policy, use_kernel=use_kernels, int8=int8,
+            device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self._modules["1"](x)
@@ -118,7 +140,7 @@ class CTViT3D(nn.Module):
                  dim_head: int = 32, heads: int = 8, channels: int = 1,
                  attn_scale: Optional[float] = None, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
-                 fuse_qkv: bool = False, device=None):
+                 fuse_qkv: bool = False, int8: bool = False, device=None):
         super().__init__()
         self.dim = dim
         self.patch_size, self.temporal_patch_size = patch_size, temporal_patch_size
@@ -135,7 +157,8 @@ class CTViT3D(nn.Module):
         })
         self.enc_3D = _Encoder(
             [TransformerBlock(dim, heads, dim_head, attn_scale,
-                              use_kernels=use_kernels, fuse_qkv=fuse_qkv, **kw)
+                              use_kernels=use_kernels, fuse_qkv=fuse_qkv,
+                              int8=int8, **kw)
              for _ in range(transformer_blocks)],
             ScaleLayerNorm(dim, **kw))
         # fixed table; not part of the state dict

@@ -20,9 +20,10 @@ from vit_exp_tpu_torch.models.ctclip import CTCLIP
 from vit_exp_tpu_torch.models.ctvit3d import CTViT3D
 
 
-def build_image_encoder(arch, *, device=None, policy: Policy = DEFAULT_POLICY,
-                        use_kernels: bool = True,
-                        fuse_qkv: bool = False) -> CTViT3D:
+def build_image_encoder(arch, *, device="cuda",
+                        policy: Policy = DEFAULT_POLICY,
+                        use_kernels: bool = True, fuse_qkv: bool = False,
+                        int8: bool = False) -> CTViT3D:
     return CTViT3D(
         dim=arch.dim, image_size=arch.image_size, patch_size=arch.patch_size,
         temporal_size=arch.temporal_size,
@@ -31,7 +32,7 @@ def build_image_encoder(arch, *, device=None, policy: Policy = DEFAULT_POLICY,
         heads=arch.heads, channels=getattr(arch, "channels", 1),
         # production checkpoints use the SDPA convention 1/√dim_head
         attn_scale=None if getattr(arch, "use_flash_attention", True) else 8.0,
-        policy=policy, use_kernels=use_kernels, fuse_qkv=fuse_qkv,
+        policy=policy, use_kernels=use_kernels, fuse_qkv=fuse_qkv, int8=int8,
         device=device)
 
 
@@ -46,20 +47,27 @@ def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
 
 
 def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
-                 device=None, policy: Policy = DEFAULT_POLICY,
+                 device="cuda", policy: Policy = DEFAULT_POLICY,
                  dim_latent: Optional[int] = None, use_kernels: bool = True,
-                 fuse_qkv: bool = False, seed: int = 0) -> CTCLIP:
-    """CTCLIP with seeded random weights on ``device``.  ``use_kernels=False``
-    runs every kernel's plain PyTorch version instead (the reference path
-    on the card).  ``fuse_qkv=True`` is the serving switch (fused LN+qkv
-    projection, K3); training keeps the default False, as the JAX package
-    does.  The state dict is the same either way."""
+                 fuse_qkv: bool = False, int8: bool = False,
+                 seed: int = 0) -> CTCLIP:
+    """CTCLIP with seeded random weights on ``device``: the card unless the
+    caller asks for another device (without a card, the default raises
+    torch's own error).  ``use_kernels=False`` runs every kernel's plain
+    PyTorch version instead (the reference path on the card).
+    ``fuse_qkv=True`` is the serving switch (fused LN+qkv projection, K3);
+    training keeps the default False, as the JAX package does.
+    ``int8=True`` is the W8A8 serving path, the JAX package's serving
+    default: it switches attention and feed-forward together, so no
+    bf16/int8 hybrid runs (with ``fuse_qkv`` the qkv and out-projections
+    too); forward only.  The state dict is the same in every mode."""
     arch = getattr(config, "arch", config)
     if dim_latent is None:
         dim_latent = (getattr(config, "extra", None) or {}).get("dim_latent",
                                                                 768)
     visual = build_image_encoder(arch, device=device, policy=policy,
-                                 use_kernels=use_kernels, fuse_qkv=fuse_qkv)
+                                 use_kernels=use_kernels, fuse_qkv=fuse_qkv,
+                                 int8=int8)
     model = CTCLIP(visual, bert_config or BertConfig(), dim_latent=dim_latent,
                    policy=policy, device=device)
     init_parameters_(model, seed)

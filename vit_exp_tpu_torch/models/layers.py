@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
-from vit_exp_tpu_torch.ops.geglu_ff import fused_geglu_ff
+from vit_exp_tpu_torch.ops.geglu_ff import fused_geglu_ff, fused_geglu_ff_int8
 
 
 def empty_param(*shape, policy: Policy, device) -> nn.Parameter:
@@ -97,16 +97,19 @@ class BiasLayerNorm(nn.Module):
 class GEGLUFeedForward(nn.Module):
     """LayerNorm → Linear(dim, 2·inner) → GEGLU (exact erf) → Linear(inner,
     dim), inner = int(mult·2/3·dim); the first Linear's output is laid out
-    [val | gate].  Runs as the fused kernel K2.  Children are named as the
-    reference Sequential's indices: 0 (norm), 1 (wi), 4 (wo)."""
+    [val | gate].  Runs as the fused kernel K2, or with ``int8`` as the
+    serving-only W8A8 kernel K11 on the same parameters.  Children are
+    named as the reference Sequential's indices: 0 (norm), 1 (wi), 4
+    (wo)."""
 
     def __init__(self, dim: int, mult: float = 4.0, *,
                  policy: Policy = DEFAULT_POLICY, use_kernel: bool = True,
-                 device=None):
+                 int8: bool = False, device=None):
         super().__init__()
         inner = int(mult * (2.0 / 3.0) * dim)
         self.policy = policy
         self.use_kernel = use_kernel
+        self.int8 = int8
         self.add_module("0", BiasLayerNorm(dim, policy=policy, device=device))
         self.add_module("1", Linear(dim, 2 * inner, bias=False, policy=policy,
                                     device=device))
@@ -115,6 +118,6 @@ class GEGLUFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm, wi, wo = self._modules["0"], self._modules["1"], self._modules["4"]
-        return fused_geglu_ff(x.to(self.policy.compute_dtype), norm.weight,
-                              norm.bias, wi.weight.t(), wo.weight.t(),
-                              use_kernel=self.use_kernel)
+        fn = fused_geglu_ff_int8 if self.int8 else fused_geglu_ff
+        return fn(x.to(self.policy.compute_dtype), norm.weight, norm.bias,
+                  wi.weight.t(), wo.weight.t(), use_kernel=self.use_kernel)

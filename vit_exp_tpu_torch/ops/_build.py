@@ -58,6 +58,16 @@ SIGNATURES = {
     "vit_ln_qkv_fwd": [P, P, P, P, P, P, I, I, I, I, P],
     # x, mu, sq, BT, CPT, H, W, p1, p2, stream
     "vit_patch_stats_fwd": [P, P, P, I, I, I, I, I, I, P],
+    # q8, k8, v, qe, qn, nk, nv, bound, out, q8/k8/v/out/qe strides
+    # (b, h, n) ×5, B, H, Nq, Nkv, n_null, stream
+    "vit_flash_static_int8_fwd": [P] * 9 + [L] * 15 + [I] * 5 + [P],
+    # x, mu, inv, gamma, beta, w1 (k16), s1, w2 (k16), s2, out, M, D, I2,
+    # stream
+    "vit_geglu_ff_int8_fwd": [P] * 10 + [I, I, I, P],
+    # x, mu, inv, w (k16), sc, c, q, k, v, M, K, F, Fq, Fk, stream
+    "vit_ln_qkv_int8_fwd": [P] * 9 + [I] * 5 + [P],
+    # x, w (k16), sc, out, M, K, F, stream
+    "vit_proj_int8_fwd": [P] * 4 + [I, I, I, P],
 }
 
 _lib = None
@@ -157,6 +167,13 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device, "
                              f"got {t.device} and {dev}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: an input requires grad; call the op's "
-                           f"autograd Function, not the raw kernel wrapper")
+    refuse_grad(name, *tensors, why="call the op's autograd Function, not "
+                                     "the raw kernel wrapper")
+
+
+def refuse_grad(name: str, *tensors, why: str) -> None:
+    """Raise when autograd would record a call on these tensors (None
+    entries are skipped): the caller has no backward to offer."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad; {why}")

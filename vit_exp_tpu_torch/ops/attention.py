@@ -7,6 +7,11 @@ static-max path, ``impl="pallas", static_max=True``), differentiable.
   4. softmax(q kᵀ · scale) over [nulls ++ kv], weighted sum of v.
 
 ``scale=None`` is 1/√d_head, the convention production checkpoints use.
+``quantized=True`` is the int8 serving path (the JAX ``quantized=True`` of
+``cosine_attention`` and ``cosine_attention_packed``): int8 QKᵀ through
+``attention_static_int8``, forward only.  It refuses a scale with
+scale·1.5² > 4.8, as the JAX package does: q and k land on the int8 grid
+before the multiplication by the scale, and exp amplifies the error.
 """
 
 from __future__ import annotations
@@ -16,7 +21,10 @@ from typing import Optional
 
 import torch
 
-from vit_exp_tpu_torch.ops.flash_attention import flash_attention
+from vit_exp_tpu_torch.ops import _build
+from vit_exp_tpu_torch.ops.flash_attention import (attention_static_int8,
+                                                   attention_static_int8_plain,
+                                                   flash_attention, quantize_qk)
 
 
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -39,12 +47,16 @@ def logit_bound(q_scale: Optional[torch.Tensor],
 
 def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
                      k_scale=None, scale: Optional[float] = None,
-                     use_kernel: bool = True) -> torch.Tensor:
+                     use_kernel: bool = True,
+                     quantized: bool = False) -> torch.Tensor:
     """q, k, v: (b, h, n, d); null_k/null_v: (h, n_null, d); q_scale/k_scale:
     (d,).  Returns (b, h, n, d)."""
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if quantized:
+        return _int8_attention(q, k, v, null_k, null_v, q_scale, k_scale,
+                               scale, use_kernel)
     nk = nv = None
     if null_k is not None:
         nk = l2norm(null_k.to(k.dtype))
@@ -60,3 +72,33 @@ def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
     bound = logit_bound(q_scale, k_scale, scale).to(q.device)
     return flash_attention(q, k, v, logit_bound=bound, scale=scale,
                            null_k=nk, null_v=nv, use_kernel=use_kernel)
+
+
+def _int8_attention(q, k, v, null_k, null_v, q_scale, k_scale, scale: float,
+                    use_kernel: bool) -> torch.Tensor:
+    """The prologue of the JAX ``cosine_attention_packed`` (null k
+    normalised in fp32), then the int8 attention kernel or its plain twin;
+    the output in q.dtype."""
+    if scale * 1.5 ** 2 > 4.8:
+        raise ValueError(
+            f"quantized=True requires the SDPA scale convention (scale=None "
+            f"→ 1/√d); scale={scale} amplifies int8 quantization error "
+            f"beyond the validated envelope")
+    _build.refuse_grad("int8 attention", q, k, v, null_k, null_v, q_scale,
+                       k_scale, why="the int8 path is for serving and has "
+                                    "no backward")
+    nk = nv = None
+    if null_k is not None:
+        nk = l2norm(null_k.float())
+        if k_scale is not None:
+            nk = nk * k_scale.float()
+        nv = null_v.to(v.dtype)
+    q, k = l2norm(q), l2norm(k)
+    if q_scale is not None:
+        q = q * q_scale.to(q.dtype)
+    if k_scale is not None:
+        k = k * k_scale.to(k.dtype)
+    bound = logit_bound(q_scale, k_scale, scale).to(q.device)
+    q8, k8, qe, qn = quantize_qk(q, k, scale)
+    fn = attention_static_int8 if use_kernel else attention_static_int8_plain
+    return fn(q8, k8, v, qe, qn, nk, nv, bound).to(q.dtype)

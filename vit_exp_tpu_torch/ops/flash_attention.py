@@ -34,6 +34,24 @@ in the source).  δ = rowsum(dO·O) and the null-kv terms are plain torch, as
 the JAX package keeps them outside its kernels.  ``StaticAttention`` is the
 ``torch.autograd.Function`` that ties forward and backward together; the
 bound B gets no gradient (softmax is invariant to the shift).
+
+Kernel ``attention_static_int8`` replaces vit_exp_tpu/ops/flash_attention.py
+::_fwd_kernel_static_int8 (K9, ``_flash_fwd_static_int8``, the transpose
+route) and ::_fwd_kernel_static_hp (K10, ``flash_attention_serving_hp``,
+the heads-packed route): the two exist because Mosaic needed two layouts;
+here one kernel reads q8, k8 and v through strides.  CUDA C++,
+csrc/flash_static_int8.cu, built on K1: S = q8·k8ᵀ on the int8 tensor
+cores into int32, logits = S·qe − B, p = bf16(exp(·)), O += P·V on bf16
+tensor cores.  The prologue (``quantize_qk``) stays plain torch, as the JAX
+wrapper keeps it in XLA: q is quantized per (b, n, h) row, k with one
+global scale (a device tensor, never read by the host), and the scales
+fold into qe = s_q·s_k·scale per row; the nulls use the fp32 logits
+q8·nk·qn with qn = s_q·scale.  Under the fp32 policy K9 and K10 round
+differently; kernel and plain twin follow K10, the production route: p and
+v are bf16 for P·V and its row sum, the null probabilities are rounded to
+v's dtype for their P·V term but summed in fp32 into l.  Same bound as K1
+(the int8 product halves only the cheaper of the two products).  Serving
+only: no backward.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ import torch
 
 from vit_exp_tpu_torch.core.precision import acc_dtype
 from vit_exp_tpu_torch.ops import _build
+from vit_exp_tpu_torch.ops.geglu_ff import quant_rows
 
 HEAD_DIM = 32
 MAX_NULL = 8
@@ -83,7 +102,8 @@ def attention_static_plain(q, k, v, nk, nv, bound, scale: float,
 
 
 def _row_strides(t: torch.Tensor, name: str):
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+    per16 = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % per16 for s in t.stride()[:3]) \
             or t.data_ptr() % 16:
         raise ValueError(f"attention kernels: {name} needs a contiguous "
                          f"head dim and 16-byte aligned rows, got strides "
@@ -285,6 +305,95 @@ class StaticAttention(torch.autograd.Function):
             dq = (dq.to(dq_null.dtype) + dq_null).to(q.dtype)
             dnk, dnv = dnk.to(nk.dtype), dnv.to(nv.dtype)
         return dq, dk, dv, dnk, dnv, None, None, None
+
+
+def quantize_qk(q: torch.Tensor, k: torch.Tensor, scale: float):
+    """The int8 prologue of K10 on (b, h, n, d) q and k: q8 per row, k8 at
+    one global scale (a 0-dim device tensor), qe = s_q·s_k·scale and qn =
+    s_q·scale, each (b, h, n) fp32.  q8/k8 keep q/k's memory layout."""
+    q8, qs = quant_rows(q)
+    kf = k.float()
+    ks = kf.abs().amax().clamp_min(1e-8) / 127.0
+    k8 = torch.clamp(torch.round(kf / ks), -127, 127).to(torch.int8)
+    qs = qs[..., 0]
+    return q8, k8, qs * ks * scale, qs * scale
+
+
+def attention_static_int8_plain(q8, k8, v, qe, qn, nk, nv, bound):
+    """Plain version of the int8 attention kernel.  q8: (b, h, nq, d) int8;
+    k8: (b, h, nkv, d) int8; v: (b, h, nkv, d); qe/qn: (b, h, nq) fp32; nk:
+    (h, n_null, d) fp32 and nv: (h, n_null, d), or None; bound: 0-dim fp32.
+    fp32 arithmetic in query chunks, K10's rounding points; returns bf16
+    (b, h, nq, d), laid out in memory as (b, nq, h, d)."""
+    b, h, nq, d = q8.shape
+    nkv = k8.shape[2]
+    bf = torch.bfloat16
+    kf, vf = k8.float(), v.to(bf).float()
+    out = torch.empty((b, nq, h, d), device=q8.device, dtype=bf)
+    chunk = max(1, (1 << 27) // (b * h * max(nkv, 1)))
+    bound = bound.float()
+    for s in range(0, nq, chunk):
+        qs = q8[:, :, s:s + chunk].float()
+        logits = qs @ kf.transpose(-1, -2) * qe[:, :, s:s + chunk, None]
+        p = torch.exp(logits - bound).to(bf).float()
+        acc = p @ vf
+        l = p.sum(dim=-1, keepdim=True)
+        if nk is not None and nk.shape[1]:
+            nl = (qs @ nk.float().transpose(-1, -2)[None]
+                  * qn[:, :, s:s + chunk, None])
+            p0 = torch.exp(nl - bound)
+            acc = acc + p0.to(nv.dtype).float() @ nv.float()[None]
+            l = l + p0.sum(dim=-1, keepdim=True)
+        out[:, s:s + chunk] = (acc / l).to(bf).transpose(1, 2)
+    return out.transpose(1, 2)
+
+
+def attention_static_int8(q8, k8, v, qe, qn, nk, nv, bound):
+    """The int8 attention kernel (K9/K10) on CUDA tensors, the plain version
+    on CPU tensors.  Returns bf16 (b, h, nq, d), laid out in memory as
+    (b, nq, h, d)."""
+    if q8.device.type == "cpu":
+        return attention_static_int8_plain(q8, k8, v, qe, qn, nk, nv, bound)
+    b, h, nq, d = q8.shape
+    nkv = k8.shape[2]
+    n_null = 0 if nk is None else nk.shape[1]
+    if nk is None:
+        nk = torch.zeros((h, 1, d), device=q8.device)
+        nv = torch.zeros((h, 1, d), device=q8.device, dtype=torch.bfloat16)
+    _build.require_cuda("attention_static_int8", q8, k8, v, qe, qn, nk, nv,
+                        bound)
+    if (q8.dtype != torch.int8 or k8.dtype != torch.int8
+            or v.dtype != torch.bfloat16 or nk.dtype != torch.float32
+            or nv.dtype != torch.bfloat16 or qe.dtype != torch.float32
+            or qn.dtype != torch.float32):
+        raise ValueError("attention_static_int8 kernel takes int8 q/k, bf16 "
+                         "v and null v, fp32 null k, qe and qn")
+    if (d != HEAD_DIM or k8.shape != v.shape or k8.shape[:2] != (b, h)
+            or k8.shape[3] != d or qe.shape != (b, h, nq)
+            or qn.shape != qe.shape or qn.stride() != qe.stride()
+            or n_null > MAX_NULL or nk.shape != nv.shape
+            or nk.shape[::2] != (h, d)):
+        raise ValueError(f"attention_static_int8 kernel takes head dim "
+                         f"{HEAD_DIM}, at most {MAX_NULL} nulls and matching "
+                         f"shapes; got q8 {tuple(q8.shape)}, k8 "
+                         f"{tuple(k8.shape)}, v {tuple(v.shape)}, qe "
+                         f"{tuple(qe.shape)}, nk {tuple(nk.shape)}")
+    nk, nv = nk.contiguous(), nv.contiguous()
+    bound = bound.float().reshape(())
+    out = torch.empty((b, nq, h, d), device=q8.device,
+                      dtype=torch.bfloat16).transpose(1, 2)
+    strides = [s for t, name in ((q8, "q8"), (k8, "k8"), (v, "v"),
+                                 (out, "out"))
+               for s in _row_strides(t, name)]
+    _build.launch("vit_flash_static_int8_fwd",
+                  *(t.data_ptr() for t in (q8, k8, v, qe, qn, nk, nv, bound,
+                                           out)),
+                  *strides, *qe.stride(), b, h, nq, nkv, n_null)
+    attention_static_int8.launches += 1
+    return out
+
+
+attention_static_int8.launches = 0
 
 
 def flash_attention(q, k, v, *, logit_bound: torch.Tensor,

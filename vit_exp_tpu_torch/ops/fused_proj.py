@@ -21,6 +21,26 @@ never reaches device memory.
 ``LNQKVFn`` makes it differentiable; its backward is plain torch, as the JAX
 package's is (``_core_bwd``).  Training keeps the unfused projections
 (``fuse_qkv=False``), so this backward only has to be right.
+
+The int8 serving path (W8A8, no backward; raises on inputs that require
+grad) has two kernels here, CUDA C++ in csrc/ln_qkv_int8.cu:
+- ``ln_qkv_int8`` replaces vit_exp_tpu/ops/fused_proj.py::_fwd_int8_kernel
+  (K12, ``fused_ln_qkv_int8``) and ::_fwd_int8_kernel_3out (K13,
+  ``fused_ln_qkv3_int8``): the two differ only in how many outputs Mosaic
+  could write, so the port has one kernel with three output pointers (no
+  kv split is ever copied).  It quantizes the CENTRED input x − μ per token
+  (the int8 step then follows the centred std, not |x|), multiplies by
+  [γ⊙Wq | Wkv] quantized per output channel (γ folded in before the
+  quantization), and writes q = inv·deq and k/v = deq + μ·colsum(Wkv),
+  the colsums those of the dequantized weights.
+- ``proj_int8`` replaces ::_proj_int8_kernel (K14, ``int8_proj``), the
+  bias-free W8A8 out-projection: per-token activation scales times
+  per-channel weight scales.
+At M = 55,296 both are bound by the bytes of x and of the outputs (171 MB
+and 113 MB), not by their 65 and 22 G int8 operations.  One block owns 64
+token rows: it quantizes them into shared memory once, then walks the
+output columns in tiles of 128 (int8 tensor-core products, int32 sums)
+with the dequantizing epilogue in fp32.
 """
 
 from __future__ import annotations
@@ -29,7 +49,8 @@ import torch
 
 from vit_exp_tpu_torch.ops import _build
 from vit_exp_tpu_torch.core.precision import acc_dtype
-from vit_exp_tpu_torch.ops.geglu_ff import ln_stats
+from vit_exp_tpu_torch.ops.geglu_ff import (int8_matmul, k16_layout, ln_stats,
+                                            quant_rows, quantize_per_channel)
 
 
 def ln_qkv_plain(x2, mu, inv, wf, c, fq: int):
@@ -126,3 +147,120 @@ def fused_ln_qkv(x: torch.Tensor, gamma, wq, wkv, *, eps: float = 1e-5,
                         use_kernel)
     out = out.reshape(shape[:-1] + (out.shape[-1],))
     return out[..., :wq.shape[1]], out[..., wq.shape[1]:]
+
+
+# ---------------------------------------------------------------------------
+# int8 serving path (W8A8)
+# ---------------------------------------------------------------------------
+
+_NO_GRAD = "the int8 path is for serving and has no backward"
+
+
+def int8_qkv_weights(gamma, wq, wkv):
+    """[γ⊙Wq | Wkv] in fp32, quantized per output channel: (w8 (K, F) int8,
+    scales (F,), c (F,)) with c the column sums of the dequantized weights
+    on the kv columns and 0 on the q columns."""
+    wqf = wq.float() * gamma.float()[:, None]
+    w8, sc = quantize_per_channel(torch.cat([wqf, wkv.float()], dim=1))
+    cols = w8.float().sum(dim=0) * sc
+    c = torch.cat([torch.zeros_like(cols[:wq.shape[1]]), cols[wq.shape[1]:]])
+    return w8, sc, c
+
+
+def ln_qkv_int8_plain(x2, mu, inv, w8, sc, c, fq: int, fk: int):
+    """Plain version of K12/K13.  x2: (M, K); mu/inv: (M, 1) fp32; w8: (K, F)
+    int8 with scales sc (F,); c: (F,) fp32.  Returns q (M, fq), k (M, fk),
+    v (M, F − fq − fk) in x2.dtype; fp32 arithmetic."""
+    x8, sr = quant_rows(x2.float() - mu)
+    deq = int8_matmul(x8, w8) * sr * sc
+    q = inv * deq[:, :fq]
+    kv = deq[:, fq:] + mu * c[fq:]
+    return (q.to(x2.dtype), kv[:, :fk].to(x2.dtype), kv[:, fk:].to(x2.dtype))
+
+
+def _check_w8a8(name, x2, w8, sc):
+    M, K = x2.shape
+    F = w8.shape[1]
+    if x2.dtype != torch.bfloat16 or w8.dtype != torch.int8:
+        raise ValueError(f"{name} kernel takes bf16 x and int8 W")
+    if K % 16 or K > 2048 or F % 128 or w8.shape[0] != K or sc.numel() != F:
+        raise ValueError(f"{name} kernel takes K a multiple of 16 up to 2048, "
+                         f"F a multiple of 128 and matching shapes; got x "
+                         f"{tuple(x2.shape)}, W {tuple(w8.shape)}")
+    return M, K, F
+
+
+def ln_qkv_int8(x2, mu, inv, w8, sc, c, fq: int, fk: int):
+    """Kernel K12/K13 on CUDA tensors, the plain version on CPU tensors."""
+    if x2.device.type == "cpu":
+        return ln_qkv_int8_plain(x2, mu, inv, w8, sc, c, fq, fk)
+    _build.require_cuda("ln_qkv_int8", x2, mu, inv, w8, sc, c)
+    M, K, F = _check_w8a8("ln_qkv_int8", x2, w8, sc)
+    if (c.numel() != F or mu.numel() != M or inv.numel() != M
+            or not (0 < fq and 0 < fk and fq + fk < F)):
+        raise ValueError(f"ln_qkv_int8 kernel: bad c {tuple(c.shape)}, "
+                         f"mu/inv {mu.numel()}/{inv.numel()}, fq {fq}, fk {fk}")
+    x2, wc = x2.contiguous(), k16_layout(w8)
+    mu, inv, sc, c = (t.float().contiguous() for t in (mu, inv, sc, c))
+    outs = [torch.empty((M, f), device=x2.device, dtype=x2.dtype)
+            for f in (fq, fk, F - fq - fk)]
+    _build.launch("vit_ln_qkv_int8_fwd",
+                  *(t.data_ptr() for t in (x2, mu, inv, wc, sc, c, *outs)),
+                  M, K, F, fq, fk)
+    ln_qkv_int8.launches += 1
+    return tuple(outs)
+
+
+ln_qkv_int8.launches = 0
+
+
+def fused_ln_qkv_int8(x: torch.Tensor, gamma, wq, wkv, *, eps: float = 1e-5,
+                      use_kernel: bool = True):
+    """Serving-only W8A8 ``fused_ln_qkv`` (counterpart of the JAX
+    ``fused_ln_qkv3_int8``, and of ``fused_ln_qkv_int8`` with its kv split
+    into k and v).  x: (..., M, D); wq: (D, Fq); wkv: (D, 2·Fk).  Returns
+    q, k, v, each (..., M, F·) in x.dtype."""
+    _build.refuse_grad("fused_ln_qkv_int8", x, gamma, wq, wkv, why=_NO_GRAD)
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    mu, inv = ln_stats(x2, eps)
+    w8, sc, c = int8_qkv_weights(gamma, wq, wkv)
+    fn = ln_qkv_int8 if use_kernel else ln_qkv_int8_plain
+    outs = fn(x2, mu, inv, w8, sc, c, wq.shape[1], wkv.shape[1] // 2)
+    return tuple(t.reshape(shape[:-1] + (t.shape[-1],)) for t in outs)
+
+
+def proj_int8_plain(x2, w8, sc):
+    """Plain version of K14: x2 (M, K) quantized per row, times w8 (K, F)
+    int8 with scales sc (F,); fp32 arithmetic, output in x2.dtype."""
+    x8, sr = quant_rows(x2)
+    return (int8_matmul(x8, w8) * sr * sc).to(x2.dtype)
+
+
+def proj_int8(x2, w8, sc):
+    """Kernel K14 on CUDA tensors, the plain version on CPU tensors."""
+    if x2.device.type == "cpu":
+        return proj_int8_plain(x2, w8, sc)
+    _build.require_cuda("proj_int8", x2, w8, sc)
+    M, K, F = _check_w8a8("proj_int8", x2, w8, sc)
+    x2, wc, sc = x2.contiguous(), k16_layout(w8), sc.float().contiguous()
+    out = torch.empty((M, F), device=x2.device, dtype=x2.dtype)
+    _build.launch("vit_proj_int8_fwd",
+                  *(t.data_ptr() for t in (x2, wc, sc, out)), M, K, F)
+    proj_int8.launches += 1
+    return out
+
+
+proj_int8.launches = 0
+
+
+def int8_proj(x: torch.Tensor, w, *, use_kernel: bool = True) -> torch.Tensor:
+    """Serving-only W8A8 bias-free projection x @ w (counterpart of the JAX
+    ``int8_proj``): w (K, F) quantized per output channel on every call,
+    x per token.  Returns (..., F) in x.dtype."""
+    _build.refuse_grad("int8_proj", x, w, why=_NO_GRAD)
+    shape = x.shape
+    w8, sc = quantize_per_channel(w)
+    fn = proj_int8 if use_kernel else proj_int8_plain
+    out = fn(x.reshape(-1, shape[-1]), w8, sc)
+    return out.reshape(shape[:-1] + (out.shape[-1],))

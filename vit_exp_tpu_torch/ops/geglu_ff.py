@@ -30,6 +30,21 @@ backward, not the forward: y = bf16(x̂·γ + β), h = y@W1 in fp32 with no
 bf16 round, gelu'(g) = Φ(g) + g·φ(g), dh and act bf16.
 ``GEGLUFeedForwardFn`` is the ``torch.autograd.Function`` that ties K2 and
 K8 together; it saves what the JAX VJP saves: x, μ, inv, γ, β, W1, W2.
+
+The int8 serving path (W8A8: per-output-channel int8 weights, per-token
+int8 activations) keeps its one definition of the int8 envelope here, as
+the JAX package does: ``quantize_per_channel`` and ``quant_rows`` round half
+to even, clip to ±127 and divide by the scale max(amax, 1e-8)/127.
+Kernel K11 (``geglu_ff_int8``) replaces vit_exp_tpu/ops/geglu_ff.py::
+_ff_int8_kernel (``fused_geglu_ff_int8``).  CUDA C++, csrc/geglu_ff_int8.cu.
+It does K2's 522 G multiply-adds as int8 products (int32 sums): bound by
+the int8 tensor cores, and by the L2 reads of the 4.7 MB of int8 weights
+that every token tile streams.  Its rounding points differ from K2's:
+y = x̂·γ + β stays fp32 and is quantized per token, h = acc·s_y·s_W1
+stays fp32, act = gelu_erf(gate)·val stays fp32 and is quantized per
+token over its whole 2048-wide row, so the second product starts only
+once a tile's act rows are complete; the output is rounded once.  Serving
+only: no backward, and it raises on inputs that require grad.
 """
 
 from __future__ import annotations
@@ -92,6 +107,112 @@ def geglu_ff(x2, mu, inv, w1p, d1, w2):
 
 
 geglu_ff.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 serving path (W8A8)
+# ---------------------------------------------------------------------------
+
+
+def quantize_per_channel(w: torch.Tensor):
+    """Symmetric per-output-channel int8: w ≈ w8 · scale[None, :].  Returns
+    (w8 int8, scale fp32 (F,))."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8), scale
+
+
+def quant_rows(y: torch.Tensor):
+    """(..., d) → (int8 codes, per-row scale (..., 1) fp32): symmetric row
+    quantization, amax/127 with a 1e-8 floor, round half to even."""
+    y = y.float()
+    s = y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8), s
+
+
+def int8_matmul(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """The int32 product a8 @ b8 of two int8 matrices, as fp32 (the int32
+    value rounded once, as the kernels convert it).  Summed in fp64, where
+    every partial sum is an integer below 2⁵³ and so exact."""
+    return (a8.double() @ b8.double()).float()
+
+
+def k16_layout(w8: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 → (K/16, N, 16): for each 16-deep slice of the rows, each
+    column's 16 codes contiguous.  The int8 kernels load their weight
+    fragments (16 columns × 16 rows = 256 contiguous bytes) from this
+    layout, which keeps every fragment 32-byte aligned."""
+    K, N = w8.shape
+    return w8.reshape(K // 16, 16, N).transpose(1, 2).contiguous()
+
+
+def geglu_ff_int8_plain(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2):
+    """Plain version of K11.  x2: (M, D); mu/inv: (M, 1) fp32; gamma/beta:
+    (D,); w1q: (D, 2I) int8 [val | gate] with scales s1 (2I,); w2q: (I, D)
+    int8 with scales s2 (D,).  fp32 arithmetic with K11's rounding points;
+    the output in x2.dtype."""
+    inner = w1q.shape[1] // 2
+    xn = (x2.float() - mu) * inv
+    y = xn * gamma.float() + beta.float()
+    yq, ys = quant_rows(y)
+    h = int8_matmul(yq, w1q) * ys * s1
+    val, gate = h[:, :inner], h[:, inner:]
+    act = 0.5 * gate * (1.0 + torch.erf(gate * (2.0 ** -0.5))) * val
+    aq, as_ = quant_rows(act)
+    return (int8_matmul(aq, w2q) * as_ * s2).to(x2.dtype)
+
+
+def geglu_ff_int8(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2):
+    """Kernel K11 on CUDA tensors, the plain version on CPU tensors."""
+    if x2.device.type == "cpu":
+        return geglu_ff_int8_plain(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2)
+    _build.require_cuda("geglu_ff_int8", x2, mu, inv, gamma, beta, w1q, s1,
+                        w2q, s2)
+    M, D = x2.shape
+    I2 = w1q.shape[1]
+    if (x2.dtype != torch.bfloat16 or w1q.dtype != torch.int8
+            or w2q.dtype != torch.int8):
+        raise ValueError("geglu_ff_int8 kernel takes bf16 x and int8 W1, W2")
+    if (D != 768 or I2 % 32 or I2 > 4096 or w1q.shape[0] != D
+            or w2q.shape != (I2 // 2, D) or s1.numel() != I2
+            or s2.numel() != D or gamma.numel() != D or beta.numel() != D
+            or mu.numel() != M or inv.numel() != M):
+        raise ValueError(f"geglu_ff_int8 kernel takes D = 768, 2I a multiple "
+                         f"of 32 up to 4096 and matching shapes; got x "
+                         f"{tuple(x2.shape)}, W1 {tuple(w1q.shape)}, W2 "
+                         f"{tuple(w2q.shape)}")
+    x2 = x2.contiguous()
+    mu, inv, gamma, beta, s1, s2 = (t.float().contiguous() for t in
+                                    (mu, inv, gamma, beta, s1, s2))
+    w1c, w2c = k16_layout(w1q), k16_layout(w2q)
+    out = torch.empty_like(x2)
+    _build.launch("vit_geglu_ff_int8_fwd",
+                  *(t.data_ptr() for t in (x2, mu, inv, gamma, beta, w1c, s1,
+                                           w2c, s2, out)), M, D, I2)
+    geglu_ff_int8.launches += 1
+    return out
+
+
+geglu_ff_int8.launches = 0
+
+
+def fused_geglu_ff_int8(x: torch.Tensor, gamma, beta, w1, w2, *,
+                        eps: float = 1e-5,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """Serving-only W8A8 ``fused_geglu_ff`` (counterpart of the JAX
+    ``fused_geglu_ff_int8``): the weights are quantized per output channel
+    on every call (checkpoint layout preserved), the activations per token
+    inside K11.  x: (..., D); w1: (D, 2I) [val | gate]; w2: (I, D).
+    Raises when autograd would record the call."""
+    _build.refuse_grad("fused_geglu_ff_int8", x, gamma, beta, w1, w2,
+                       why="the int8 path is for serving and has no backward")
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    mu, inv = ln_stats(x2, eps)
+    w1q, s1 = quantize_per_channel(w1)
+    w2q, s2 = quantize_per_channel(w2)
+    fn = geglu_ff_int8 if use_kernel else geglu_ff_int8_plain
+    return fn(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2).reshape(shape)
 
 
 def geglu_ff_bwd_tokens_plain(x2, mu, inv, gamma, beta, w1, w2, dout,
