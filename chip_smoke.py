@@ -7,16 +7,18 @@
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc``.
 3. Holds each kernel against its plain PyTorch version at the shapes of the
-   serving, training and int8 serving paths (batch 4, 13,824 tokens, width
-   768; one row per launch counter: K1-K4, K1 with lse, the two attention
-   backward kernels, K8's two phases, the int8 attention (K9/K10), K11,
-   K12/K13 and K14), relative L2 error ≤ REL_L2_TOL and max abs error ≤
+   serving, training, int8 serving and run_train paths (batch 4, 13,824
+   tokens, width 768; one row per launch counter: K1-K4, K1 with lse, the
+   two attention backward kernels, K8's two phases, the int8 attention
+   (K9/K10), K11, K12/K13, K14, and K15 with and without lse and the two
+   attention backward kernels over the 13,826 keys of the nulls
+   concatenated to k/v), relative L2 error ≤ REL_L2_TOL and max abs error ≤
    MAX_ABS_TOL · max|plain|, and times both with CUDA events.  Each row also
    carries its bound (the least time an H100 could take: bytes over the
    memory rate or operations over the peak rate of their type, whichever
-   is larger) and, for K1 and the attention backward pair, the time of
-   torch's scaled_dot_product_attention on the same inputs (a yardstick,
-   never on the path).
+   is larger) and, for K1, K15 and the attention backward pair, the time
+   of torch's scaled_dot_product_attention on the same inputs (a
+   yardstick, never on the path).
 4. Runs the zero-shot serving path at full width (fused LN+qkv, as served):
    CTViT3D (8 blocks) + BERT-base with seeded random weights, 36 prompts of
    512 tokens, 4 random volumes of (1, 240, 480, 480), first in bf16, then
@@ -44,8 +46,20 @@
    GRAD_NORM_RTOL, and the launch counts of one step; prints the peak
    device memory; times warm steps and profiles one
    (chiprun_out/profile_train.txt; per-tensor errors in
-   chiprun_out/train_grads.txt).
-6. Prints one JSON line with every kernel's numbers, the card line, the
+   chiprun_out/train_grads.txt).  Then the same at run_train's default
+   attention, attn_impl="pallas": K15 forward and the backward pair over
+   the concatenated kv (chiprun_out/profile_train_pallas.txt,
+   train_grads_pallas.txt).
+6. Runs ``run_train.main`` at full width on a config derived from
+   configs/prod_sustained_synth.yaml (hook list dropped, results in a
+   temporary directory, removed at the end): 2 steps on 8 synthetic
+   samples, a restore of ckpt_2 held bit for bit to the state the run
+   ended with, ``--auto_resume`` to step 3; checks finite losses in
+   metrics.jsonl and ckpt_2 and ckpt_3.  Then 6 steps over 64 samples:
+   the trainer's steps/s, one profiled step's idle share
+   (chiprun_out/profile_run_train.txt), the loader's wait per batch and
+   the peak device memory.
+7. Prints one JSON line with every kernel's numbers, the card line, the
    throughput lines, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no "ok".
@@ -55,11 +69,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -465,6 +482,75 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     ]
 
 
+def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
+    """The run_train path's attention rows (attn_impl="pallas") at its
+    shapes: K15 with and without lse over the 2 nulls concatenated in
+    front of k/v (13,826 keys at full width, so the last 64-key tile holds
+    2 keys), and the backward pair over the same concatenated kv, each
+    against its plain twin; SDPA on the same q and concatenated k/v as the
+    yardstick."""
+    from vit_exp_tpu_torch.ops import flash_attention as fa
+    from vit_exp_tpu_torch.ops.attention import l2norm
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=device) * std
+
+    h, dh = arch["heads"], arch["dim_head"]
+    n = (arch["temporal_size"] // arch["temporal_patch_size"]
+         * (arch["image_size"] // arch["patch_size"]) ** 2)
+
+    def heads(t):   # (b, n, h·d) → strided (b, h, n, d) view
+        return t.reshape(batch, n, h, dh).transpose(1, 2)
+
+    def with_nulls(t, nt):
+        return torch.cat([nt[None].expand(batch, -1, -1, -1), t], dim=2)
+
+    q = l2norm(heads(randn(batch, n, h * dh).to(bf)))
+    k = with_nulls(l2norm(heads(randn(batch, n, h * dh).to(bf))),
+                   l2norm(randn(h, 2, dh).to(bf)))
+    v = with_nulls(heads(randn(batch, n, h * dh).to(bf)),
+                   randn(h, 2, dh).to(bf))
+    nkv = k.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    fwd = (q, k, v, scale)
+    dout = heads(randn(batch, n, h * dh, std=1e-3).to(bf))
+    out, lse = fa.attention_online_plain(*fwd, save_lse=True)
+    delta = (dout.float() * out.float()).sum(-1)
+    bwd = (q, k, v, dout, lse, delta, scale)
+    del out
+    src = "vit_exp_tpu_torch/csrc/flash_online.cu"
+    k15 = "vit_exp_tpu/ops/flash_attention.py:148"
+    flash_bwd = "vit_exp_tpu_torch/csrc/flash_bwd.cu"
+    sdpa_fwd = sdpa_forward_timer(q, k, v, None, None, scale)
+    sdpa_bwd = sdpa_backward_timer(q, k, v, None, None, dout, scale)
+    bwd_bytes = nbytes(q, k, v, dout, lse, delta)
+    return [
+        Case("K15 online-softmax attention", "cuda", src, k15,
+             lambda: fa.attention_online(*fwd),
+             lambda: fa.attention_online_plain(*fwd), "K15",
+             {"bf16": attention_ops(q, nkv)}, nbytes(q, k, v), sdpa_fwd),
+        Case("K15 online-softmax attention + lse (training)", "cuda", src,
+             k15, lambda: fa.attention_online(*fwd, save_lse=True),
+             lambda: fa.attention_online_plain(*fwd, save_lse=True), "K15",
+             {"bf16": attention_ops(q, nkv)}, nbytes(q, k, v), sdpa_fwd),
+        Case("K7 attention backward over the concatenated kv: dK/dV kernel",
+             "cuda", flash_bwd, "vit_exp_tpu/ops/flash_attention.py:758",
+             lambda: fa.attention_bwd_dkv(*bwd),
+             lambda: fa.attention_bwd_plain(*bwd)[1:], "dKdV",
+             {"bf16": attention_ops(q, nkv, products=4)}, bwd_bytes,
+             sdpa_bwd),
+        Case("K6 attention backward over the concatenated kv: dQ kernel",
+             "cuda", flash_bwd, "vit_exp_tpu/ops/flash_attention.py:725",
+             lambda: fa.attention_bwd_dq(*bwd),
+             lambda: fa.attention_bwd_plain(*bwd)[0], "dQ",
+             {"bf16": attention_ops(q, nkv, products=3)}, bwd_bytes,
+             sdpa_bwd),
+    ]
+
+
 def kernel_counters():
     from vit_exp_tpu_torch.ops import fused_proj, geglu_ff, patches
     from vit_exp_tpu_torch.ops import flash_attention as fa
@@ -475,7 +561,8 @@ def kernel_counters():
             "K8a": geglu_ff.geglu_ff_bwd_tokens,
             "K8b": geglu_ff.geglu_ff_bwd_weights,
             "K9/K10": fa.attention_static_int8, "K11": geglu_ff.geglu_ff_int8,
-            "K12/K13": fused_proj.ln_qkv_int8, "K14": fused_proj.proj_int8}
+            "K12/K13": fused_proj.ln_qkv_int8, "K14": fused_proj.proj_int8,
+            "K15": fa.attention_online}
 
 
 def expected_launches(counts: dict) -> dict:
@@ -623,15 +710,18 @@ def int8_accuracy(eng8, eng, base, n_batches: int, seed: int = 100):
 
 
 def build_trainer(device, arch, bert_config, *, use_kernels=True,
-                  state_dict=None, seed=0):
+                  attn_impl="pallas_static", state_dict=None, seed=0):
     """(model, optimizer, image-report step) in the training configuration:
-    unfused LN+qkv, bf16 compute, the trainer settings of bench.py --train."""
+    unfused LN+qkv, bf16 compute, the trainer settings of bench.py --train;
+    attn_impl "pallas_static" (K1, bench.py --train's) or "pallas" (K15,
+    run_train's default)."""
     from vit_exp_tpu_torch.models.factory import build_ctclip
     from vit_exp_tpu_torch.train.optimizer import build_optimizer
     from vit_exp_tpu_torch.train.steps import make_train_steps
 
     model = build_ctclip(types.SimpleNamespace(**arch), bert_config,
-                         device=device, use_kernels=use_kernels, seed=seed)
+                         device=device, use_kernels=use_kernels,
+                         attn_impl=attn_impl, seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model.train()
@@ -710,14 +800,16 @@ def grad_errors(a: torch.Tensor, b: torch.Tensor):
             float(a @ b / (na * nb).clamp_min(1e-30)))
 
 
-def compare_train_steps(device, arch, bert_config, batch_size, text_len):
+def compare_train_steps(device, arch, bert_config, batch_size, text_len,
+                        attn_impl="pallas_static"):
     """From one seeded state on one batch: the image tower's gradients for
     a seeded cotangent through the backward kernels and through their plain
     twins, then one step on the plain versions and one on the kernels (whose
     launches are counted).  Returns the numbers the checks read, the launch
     counts, the kernel trainer (stepped once) and the batch."""
-    kern = build_trainer(device, arch, bert_config)
+    kern = build_trainer(device, arch, bert_config, attn_impl=attn_impl)
     plain = build_trainer(device, arch, bert_config, use_kernels=False,
+                          attn_impl=attn_impl,
                           state_dict=kern[0].state_dict())
     batch = train_batch(device, arch, bert_config.vocab_size, batch_size,
                         text_len)
@@ -734,9 +826,10 @@ def compare_train_steps(device, arch, bert_config, batch_size, text_len):
                    for p in kern[0].parameters())), launches, kern, batch
 
 
-def profile_call(fn, path: Path, what: str) -> None:
+def profile_call(fn, path: Path, what: str):
     """Device time by kernel of one warm call of fn (torch.profiler,
-    CUPTI); the full table goes to ``path``, the top rows to stdout."""
+    CUPTI); the full table goes to ``path``, the top rows to stdout.
+    Returns (wall ms, device busy ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -760,6 +853,209 @@ def profile_call(fn, path: Path, what: str) -> None:
               f"{e.key[:110]}" for e in rows]
     path.write_text("\n".join(lines) + "\n")
     print("\n".join(lines[:16]), flush=True)
+    return wall * 1e3, busy
+
+
+def train_phase(device, bert_config, attn_impl: str, expected: dict,
+                tag: str):
+    """The contrastive train step at full width on the kernels against its
+    plain twins (compare_train_steps), its checks, then 3 timed warm steps
+    and one profiled.  Returns (launches of one step, steps/s, the step
+    times, peak device memory in GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, kern, batch = compare_train_steps(
+        device, ARCH, bert_config, BATCH, TEXT_LEN, attn_impl=attn_impl)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    print(f"launches in one train step ({attn_impl}): {launches} (expected "
+          f"{expected})", flush=True)
+    tower = res["tower"]
+    (OUT_DIR / f"train_grads{tag}.txt").write_text(
+        "image-tower gradients for a seeded cotangent, backward kernels vs "
+        "plain twins: relative L2 error, cosine\n" + "\n".join(
+            f"{n:64s} {e:.4e} {c:+.7f}" for n, (e, c) in tower.items()) + "\n")
+    worst = max(tower, key=lambda n: tower[n][0])
+    dloss = abs(res["loss_kernel"] - res["loss_plain"]) / abs(res["loss_plain"])
+    dnorm = abs(res["norm_kernel"] - res["norm_plain"]) / res["norm_plain"]
+    print(f"image-tower gradients ({attn_impl}), backward kernels vs plain "
+          f"twins, {len(tower)} tensors: relative L2 max "
+          f"{tower[worst][0]:.4e} ({worst}), tolerance {TOWER_GRAD_RTOL}; "
+          f"cosine min {min(c for _, c in tower.values()):.7f}", flush=True)
+    print(f"train step ({attn_impl}): loss kernels {res['loss_kernel']:.6f}, "
+          f"plain {res['loss_plain']:.6f} (rel {dloss:.3e}, tolerance "
+          f"{LOSS_RTOL}); grad norm kernels {res['norm_kernel']:.6f}, plain "
+          f"{res['norm_plain']:.6f} (rel {dnorm:.3e}, tolerance "
+          f"{GRAD_NORM_RTOL}); params without a kernel-path gradient: "
+          f"{res['missing']}; peak device memory {peak_gb:.3f} GB", flush=True)
+    check(launches == expected, launches)
+    check(all(e <= TOWER_GRAD_RTOL for e, _ in tower.values()),
+          (worst, tower[worst]))
+    check(math.isfinite(res["loss_kernel"]) and math.isfinite(res["loss_plain"])
+          and dloss <= LOSS_RTOL, res["loss_kernel"])
+    check(not res["missing"] and res["finite"], res["missing"])
+    check(dnorm <= GRAD_NORM_RTOL, dnorm)
+
+    step = kern[2]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        float(step(batch, 1.0)["loss"])
+        times.append(time.perf_counter() - t0)
+    profile_call(lambda: float(step(batch, 1.0)["loss"]),
+                 OUT_DIR / f"profile_train{tag}.txt",
+                 f"one train step ({attn_impl})")
+    return launches, 1.0 / statistics.median(times), times, peak_gb
+
+
+# configs/prod_sustained_synth.yaml: the flagship-width run of the trainer
+# (full width, batch 4, lr 1.25e-6, wd 0.01)
+RUN_TRAIN_CONFIG = ROOT / "configs" / "prod_sustained_synth.yaml"
+
+
+def run_train_config(folder: Path, name: str, overrides=None) -> str:
+    """RUN_TRAIN_CONFIG with its hook list dropped and its results folder
+    moved to ``folder``/``name``; ``overrides`` replaces top-level keys (the
+    CPU rehearsal's tiny arch).  Returns the written YAML's path."""
+    import yaml
+
+    cfg = yaml.safe_load(RUN_TRAIN_CONFIG.read_text())
+    cfg.pop("valid_test_list", None)
+    cfg["results_folder"] = str(folder / name)
+    cfg.update(overrides or {})
+    path = folder / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def state_equal(a, b) -> bool:
+    """Bit-for-bit equality of two nested dicts/lists of tensors and
+    values."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(state_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(map(state_equal, a, b)))
+    return a == b
+
+
+def trainer_state(trainer) -> dict:
+    """A host copy of the trainer's weights, optimizer state and step."""
+    from vit_exp_tpu_torch.train.checkpoint import to_host
+
+    return to_host({"model": trainer.model.state_dict(),
+                    "optimizer": trainer.optimizer.state_dict(),
+                    "step": trainer.step})
+
+
+def read_metrics(folder: Path) -> list:
+    with open(folder / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def release(device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def watch_steps(count_step: int):
+    """While open, every CTClipTrainer's train_step notes (the step it
+    starts, the host clock, the trainer's loader wait and batches so far)
+    as it starts, and step ``count_step`` runs with every launch count set
+    to 0 just before it and read just after.  Yields (the notes, the
+    counts)."""
+    from vit_exp_tpu_torch.train.trainer import CTClipTrainer
+
+    marks, launches = [], {}
+    inner = CTClipTrainer.train_step
+
+    def train_step(self):
+        marks.append((self.step + 1, time.perf_counter(), self.data_wait_s,
+                      self.batches))
+        if self.step + 1 != count_step:
+            return inner(self)
+        out, counts = count_launches(lambda: inner(self))
+        launches.update(counts)
+        return out
+
+    CTClipTrainer.train_step = train_step
+    try:
+        yield marks, launches
+    finally:
+        CTClipTrainer.train_step = inner
+
+
+def run_train_phase(device, folder: Path, overrides=None, synthetic=8,
+                    throughput_samples=64, throughput_steps=12, skip=3):
+    """``run_train.main`` at its default attn_impl="pallas" on the derived
+    config: 2 steps; a trainer restored with --auto_resume, held bit for
+    bit to the state the first run ended with; --auto_resume to 3 steps.
+    Then, in a folder of its own, a run of ``throughput_steps`` steps over
+    ``throughput_samples`` samples (one loader epoch at batch 4; the
+    8-sample set restarts it every 2 steps), whose last step's launches
+    are counted.  Its steps/s and loader wait per batch are taken over the
+    same steps, from the start of step ``skip`` + 1 (past the first loader
+    fill and the warm-up) to the start of the last step.  Returns (the
+    numbers, the throughput run's trainer)."""
+    from vit_exp_tpu_torch.cli import run_train
+    from vit_exp_tpu_torch.data.loader import collate
+
+    cfg = run_train_config(folder, "run", overrides)
+    base = ["--config", cfg, "--synthetic", str(synthetic), "--debug"]
+    t1 = run_train.main(base + ["--steps", "2"], device=device)
+    check(t1.status == "completed" and t1.step == 2
+          and t1.ckpt.all_steps() == [2], (t1.status, t1.step))
+    ckpt_gb = sum(f.stat().st_size for f in
+                  (Path(t1.ckpt.directory) / "ckpt_2").iterdir()) / 1e9
+    ended = trainer_state(t1)
+    del t1
+    release(device)
+    restored = run_train.make_trainer(
+        run_train.parse_args(base + ["--auto_resume"]), device)
+    same = restored.step == 2 and state_equal(trainer_state(restored), ended)
+    del restored, ended
+    release(device)
+    check(same, "a trainer restored from ckpt_2 differs from the state the "
+                "first run saved")
+    t2 = run_train.main(base + ["--auto_resume", "--steps", "3"],
+                        device=device)
+    lines = read_metrics(folder / "run")
+    losses = [d["ds0_cl_loss"] for d in lines]
+    check(t2.status == "completed" and t2.step == 3
+          and t2.ckpt.all_steps() == [2, 3], (t2.status, t2.ckpt.all_steps()))
+    check([d["step"] for d in lines] == [1, 2, 3]
+          and all(math.isfinite(x) for x in losses), lines)
+    del t2
+    release(device)
+    shutil.rmtree(folder / "run")
+
+    cfg = run_train_config(folder, "throughput", overrides)
+    with watch_steps(throughput_steps) as (marks, launches):
+        tt = run_train.main(["--config", cfg, "--synthetic",
+                             str(throughput_samples), "--debug", "--steps",
+                             str(throughput_steps)], device=device)
+    times = [d["step_time_s"] for d in read_metrics(folder / "throughput")]
+    check(tt.status == "completed" and len(times) == throughput_steps
+          and all(math.isfinite(t) for t in times), times)
+    check([m[0] for m in marks] == list(range(1, throughput_steps + 1)),
+          marks)
+    window = marks[skip:]
+    waits = [b[2] - a[2] for a, b in zip(window, window[1:])]
+    (_, t_a, w_a, b_a), (_, t_b, w_b, b_b) = window[0], window[-1]
+    ds = tt.datasets[0]
+    t0 = time.perf_counter()
+    collate([ds[i] for i in range(tt.loaders[0].loader.batch_size)])
+    collate_s = time.perf_counter() - t0
+    return dict(losses=losses, ckpt_gb=ckpt_gb, times=times,
+                window=(skip + 1, throughput_steps - 1),
+                sps=(len(window) - 1) / (t_b - t_a), waits=waits,
+                wait_s=(w_b - w_a) / (b_b - b_a), collate_s=collate_s,
+                launches=launches), tt
 
 
 def main() -> int:
@@ -791,7 +1087,8 @@ def main() -> int:
     rows = {}
     for phase, make in (("serve", kernel_cases),
                         ("train", training_kernel_cases),
-                        ("int8", int8_kernel_cases)):
+                        ("int8", int8_kernel_cases),
+                        ("online", online_kernel_cases)):
         cases = make(device)
         rows[phase] = compare_kernels(cases)
         del cases
@@ -882,56 +1179,44 @@ def main() -> int:
     del eng, eng8, volumes
     torch.cuda.empty_cache()
 
-    # the contrastive train step at full width, kernels against plain
-    torch.cuda.reset_peak_memory_stats()
-    res, launches["train"], kern, batch = compare_train_steps(
-        device, ARCH, bert, BATCH, TEXT_LEN)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    torch.cuda.empty_cache()
-    expected = expected_launches({"K1": blocks, "K2": blocks, "K4": 1,
-                                  "dKdV": blocks, "dQ": blocks, "K8a": blocks,
-                                  "K8b": blocks})
-    print(f"launches in one train step: {launches['train']} (expected "
-          f"{expected})", flush=True)
-    tower = res["tower"]
-    (OUT_DIR / "train_grads.txt").write_text(
-        "image-tower gradients for a seeded cotangent, backward kernels vs "
-        "plain twins: relative L2 error, cosine\n" + "\n".join(
-            f"{n:64s} {e:.4e} {c:+.7f}" for n, (e, c) in tower.items()) + "\n")
-    worst = max(tower, key=lambda n: tower[n][0])
-    dloss = abs(res["loss_kernel"] - res["loss_plain"]) / abs(res["loss_plain"])
-    dnorm = abs(res["norm_kernel"] - res["norm_plain"]) / res["norm_plain"]
-    print(f"image-tower gradients, backward kernels vs plain twins, "
-          f"{len(tower)} tensors: "
-          f"relative L2 max {tower[worst][0]:.4e} ({worst}), tolerance "
-          f"{TOWER_GRAD_RTOL}; cosine min "
-          f"{min(c for _, c in tower.values()):.7f}", flush=True)
-    print(f"train step: loss kernels {res['loss_kernel']:.6f}, plain "
-          f"{res['loss_plain']:.6f} (rel {dloss:.3e}, tolerance {LOSS_RTOL}); "
-          f"grad norm kernels {res['norm_kernel']:.6f}, plain "
-          f"{res['norm_plain']:.6f} (rel {dnorm:.3e}, tolerance "
-          f"{GRAD_NORM_RTOL}); params without a kernel-path gradient: "
-          f"{res['missing']}; peak device memory {peak_gb:.3f} GB", flush=True)
-    check(launches["train"] == expected, launches["train"])
-    check(all(e <= TOWER_GRAD_RTOL for e, _ in tower.values()),
-          (worst, tower[worst]))
-    check(math.isfinite(res["loss_kernel"]) and math.isfinite(res["loss_plain"])
-          and dloss <= LOSS_RTOL, res["loss_kernel"])
-    check(not res["missing"] and res["finite"], res["missing"])
-    check(dnorm <= GRAD_NORM_RTOL, dnorm)
+    # the contrastive train step at full width, kernels against plain: in
+    # bench.py --train's configuration (K1), then at run_train's default
+    # attention (K15 over the concatenated kv)
+    common = {"K2": blocks, "K4": 1, "dKdV": blocks, "dQ": blocks,
+              "K8a": blocks, "K8b": blocks}
+    launches["train"], sps, train_times, peak_gb = train_phase(
+        device, bert, "pallas_static",
+        expected_launches({"K1": blocks, **common}), "")
+    expected = expected_launches({"K15": blocks, **common})
+    _, sps_p, train_times_p, peak_gb_p = train_phase(
+        device, bert, "pallas", expected, "_pallas")
 
-    step = kern[2]
-    train_times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        float(step(batch, 1.0)["loss"])
-        train_times.append(time.perf_counter() - t0)
-    sps = 1.0 / statistics.median(train_times)
-    profile_call(lambda: float(step(batch, 1.0)["loss"]),
-                 OUT_DIR / "profile_train.txt", "one train step")
+    # run_train end to end at full width: train, save, resume; the K15
+    # rows take their launches from one step of its trainer loop
+    torch.cuda.reset_peak_memory_stats()
+    folder = Path(tempfile.mkdtemp(prefix="chip_smoke_run_train_"))
+    try:
+        rt, tt = run_train_phase(device, folder)
+        launches["online"] = rt["launches"]
+        print(f"launches in one run_train step: {launches['online']} "
+              f"(expected {expected})", flush=True)
+        check(launches["online"] == expected, launches["online"])
+        wall_ms, busy_ms = profile_call(
+            lambda: [float(v) for v in tt.train_step().values()],
+            OUT_DIR / "profile_run_train.txt", "one run_train step")
+        del tt
+        release(device)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    rt_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"run_train: losses {rt['losses']}; ckpt_2 {rt['ckpt_gb']:.3f} GB; "
+          f"resumed at step 2 bit for bit; throughput run step_time_s "
+          f"{[round(t, 4) for t in rt['times']]} s; loader wait in steps "
+          f"{rt['window'][0]}-{rt['window'][1]} "
+          f"{[round(w, 4) for w in rt['waits']]} s", flush=True)
 
     kernels = []
-    for phase in ("serve", "train", "int8"):
+    for phase in ("serve", "train", "int8", "online"):
         for row in rows[phase]:
             row["launches"] = launches[phase][row.pop("counter")]
             kernels.append(row)
@@ -944,7 +1229,20 @@ def main() -> int:
           f"(median of 3 warm predict_batch calls, "
           f"{[round(t, 4) for t in int8_times]} s) on {card}")
     print(f"contrastive train step, batch {BATCH}, bf16: {sps:.3f} steps/s "
-          f"(median of 3 warm steps, {[round(t, 4) for t in train_times]} s) "
+          f"(median of 3 warm steps, {[round(t, 4) for t in train_times]} s; "
+          f"peak device memory {peak_gb:.3f} GB) on {card}")
+    print(f"contrastive train step, batch {BATCH}, bf16, attn_impl=pallas "
+          f"(K15): {sps_p:.3f} steps/s (median of 3 warm steps, "
+          f"{[round(t, 4) for t in train_times_p]} s; peak device memory "
+          f"{peak_gb_p:.3f} GB) on {card}")
+    print(f"run_train, batch {BATCH}, synthetic data, attn_impl=pallas: "
+          f"{rt['sps']:.3f} steps/s and loader wait {rt['wait_s']:.3f} s "
+          f"per batch, both over steps {rt['window'][0]}-{rt['window'][1]} "
+          f"of a 64-sample run (wall time from the start of the first to the "
+          f"start of the step after the last); one profiled step: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; one batch collated on one thread "
+          f"{rt['collate_s']:.3f} s; peak device memory {rt_peak_gb:.3f} GB "
           f"on {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -170,6 +170,54 @@ def test_attention_backward_matches_plain(dev, n, n_null):
         assert _rel(a, r) < 1e-2
 
 
+def _online_case(dev, nq, nkv, n_null, seed=9):
+    """K15's inputs as the model makes them: q/k scaled past unit norm so
+    the running max moves, the nulls concatenated in front of k/v."""
+    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null, seed)
+    q, k = q * 3, k * 3
+    if n_null:
+        b = q.shape[0]
+        k = torch.cat([nk[None].expand(b, -1, -1, -1) * 3, k], dim=2)
+        v = torch.cat([nv[None].expand(b, -1, -1, -1), v], dim=2)
+    return q, k, v, scale
+
+
+@pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (13, 200, 8),
+                                           (128, 64, 0), (64, 1, 1)])
+def test_k15_matches_plain(dev, nq, nkv, n_null):
+    """With and without lse, at ragged q and kv (the tail tile masked)."""
+    q, k, v, scale = _online_case(dev, nq, nkv, n_null)
+    before = fa.attention_online.launches
+    out = fa.attention_online(q, k, v, scale)
+    out2, lse = fa.attention_online(q, k, v, scale, save_lse=True)
+    ref, lse_p = fa.attention_online_plain(q, k, v, scale, save_lse=True)
+    torch.cuda.synchronize()
+    assert fa.attention_online.launches == before + 2
+    assert out.shape == (2, 3, nq, 32) and lse.shape == (2, 3, nq)
+    assert torch.equal(out, out2)
+    assert _rel(out, ref) < 1e-2 and _rel(lse, lse_p) < 1e-5
+
+
+@pytest.mark.parametrize("n,n_null", [(100, 2), (150, 8)])
+def test_online_attention_backward_matches_plain(dev, n, n_null):
+    """OnlineAttention on the kernels against its plain path: gradients in
+    q, k, v and the nulls through torch.cat."""
+    q, k, v, nk, nv, scale = _attn_case(dev, n, n, n_null, seed=10)
+    dout = _randn(torch.Generator(device=dev).manual_seed(11), 2, n, 3, 32
+                  ).transpose(1, 2)
+    grads = []
+    for use_kernel in (True, False):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v, nk, nv)]
+        o = fa.flash_attention_online(*leaves[:3], scale=scale,
+                                      null_k=leaves[3], null_v=leaves[4],
+                                      use_kernel=use_kernel)
+        o.backward(dout)
+        grads.append([t.grad for t in leaves])
+    for a, r in zip(*grads):
+        assert _rel(a, r) < 1e-2
+
+
 @pytest.mark.parametrize("m", [50, 96])
 def test_k8_matches_plain(dev, m):
     g = torch.Generator(device=dev).manual_seed(6)

@@ -11,10 +11,11 @@
   the 0.02 probability bound the JAX package holds its own precision
   changes to (measured difference 3.5e-3).
 - Guards: the port imports neither JAX, flax nor the JAX package, serving
-  (bf16 and int8) or taking a train step (checked in a subprocess, since
-  this process has JAX
-  loaded); ``chip_smoke.py`` fails, printing no "ok" line, without a GPU and
-  without the rest of the repo.
+  (bf16 and int8), taking a train step or training through
+  ``run_train.main`` at attn_impl="pallas" with a checkpoint and a resume
+  (checked in a subprocess, since this process has JAX loaded);
+  ``chip_smoke.py`` fails, printing no "ok" line, without a GPU and without
+  the rest of the repo.
 """
 
 import json
@@ -78,7 +79,7 @@ def test_zero_shot_probs_match_jax_engine(policy, atol):
 
 
 _GUARD = """
-import json, sys, types
+import json, os, sys, tempfile, types
 import numpy as np
 import torch
 from vit_exp_tpu_torch.eval.zero_shot import ZeroShotClassifier
@@ -87,7 +88,12 @@ from vit_exp_tpu_torch.models.factory import build_ctclip
 from vit_exp_tpu_torch.ops import _build, attention, flash_attention, fused_proj
 from vit_exp_tpu_torch.ops import geglu_ff, patches, posemb
 from vit_exp_tpu_torch.models import convert, ctclip, ctvit3d, layers, losses
-from vit_exp_tpu_torch.train import optimizer, steps
+from vit_exp_tpu_torch.train import checkpoint, optimizer, sampler, steps
+from vit_exp_tpu_torch.train import trainer
+from vit_exp_tpu_torch.core import config, precision
+from vit_exp_tpu_torch.data import loader, synthetic, tokenizer
+from vit_exp_tpu_torch.utils import logging, profiling
+from vit_exp_tpu_torch.cli import run_train
 arch = types.SimpleNamespace(dim=48, image_size=32, patch_size=8,
     temporal_size=16, temporal_patch_size=4, transformer_blocks=2,
     dim_head=8, heads=4, channels=1, use_flash_attention=True)
@@ -106,10 +112,27 @@ opt = optimizer.build_optimizer(types.SimpleNamespace(
 step = steps.make_train_steps(model, opt, types.SimpleNamespace())
 loss = float(step["imagereport"]({"image": torch.randn(2, 1, 16, 32, 32),
     "input_ids": torch.ones(2, 8, dtype=torch.long)}, 1.0)["loss"])
+tmp = tempfile.mkdtemp()
+cfg = os.path.join(tmp, "tiny.yaml")
+with open(cfg, "w") as f:
+    json.dump({"results_folder": os.path.join(tmp, "run"),
+               "trainer": {"num_train_steps": 2},
+               "arch": dict(vars(arch), arch_name="ctvit_3d"),
+               "dim_latent": 16,
+               "text_encoder": {"hidden_size": 36, "num_hidden_layers": 1,
+                                "num_attention_heads": 3,
+                                "intermediate_size": 32,
+                                "max_position_embeddings": 128},
+               "train_data_list": [{"batch_size": 2, "num_workers": 1}]}, f)
+argv = ["--config", cfg, "--synthetic", "2", "--debug", "--attn_impl",
+        "pallas"]
+run = run_train.main(argv, device="cpu")
+run = run_train.main(argv + ["--auto_resume", "--steps", "3"], device="cpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "vit_exp_tpu", "triton"))
 print(json.dumps({"shape": [list(p.shape) for p in probs],
                   "finite": bool(np.isfinite(probs).all() and np.isfinite(loss)),
+                  "run_train": [run.status, run.step, run.ckpt.all_steps()],
                   "bad": bad}))
 """
 
@@ -119,7 +142,8 @@ def test_port_runs_without_jax_flax_or_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out == {"shape": [[2, 18], [2, 18]], "finite": True, "bad": []}
+    assert out == {"shape": [[2, 18], [2, 18]], "finite": True,
+                   "run_train": ["completed", 3, [2, 3]], "bad": []}
 
 
 def _no_ok_line(stdout: str) -> bool:
@@ -158,14 +182,15 @@ def test_chip_smoke_gradient_errors_hold_at_tiny_norms():
     assert cs.grad_errors(a, -a) == pytest.approx((2.0, -1.0))
 
 
-def test_chip_smoke_phases_rehearse_on_cpu():
-    """chip_smoke's kernel cases, engines and train-step comparison at a tiny
-    size on the CPU (where every wrapper runs its plain twin): each case
-    names a real source and the `def` line of the TPU kernel it replaces,
-    carries the work its bound is computed from, and every launch counter
-    has its own row; the kernel-path engines (bf16 and int8) agree with the
-    all-plain engines on the same weights; the int8 accuracy check runs;
-    the two train steps agree."""
+def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
+    """chip_smoke's kernel cases, engines, train-step comparisons and
+    run_train phase at a tiny size on the CPU (where every wrapper runs its
+    plain twin): each case names a real source and the `def` line of the
+    TPU kernel it replaces, carries the work its bound is computed from,
+    and every launch counter has its own row; the kernel-path engines (bf16
+    and int8) agree with the all-plain engines on the same weights; the
+    int8 accuracy check runs; the two train steps agree at both attention
+    kernels; run_train trains, saves and resumes bit for bit."""
     import torch
 
     import chip_smoke as cs
@@ -177,8 +202,10 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 heads=2, channels=1, use_flash_attention=True)
     cases = (cs.kernel_cases(cpu, arch, batch=1)
              + cs.training_kernel_cases(cpu, arch, batch=1)
-             + cs.int8_kernel_cases(cpu, arch, batch=1))
+             + cs.int8_kernel_cases(cpu, arch, batch=1)
+             + cs.online_kernel_cases(cpu, arch, batch=1))
     assert [c.counter for c in cases].count("K1") == 2
+    assert [c.counter for c in cases].count("K15") == 2
     assert {c.counter for c in cases} == set(cs.kernel_counters())
     for c in cases:
         assert c.route == "cuda" and (ROOT / c.source).is_file()
@@ -191,16 +218,30 @@ def test_chip_smoke_phases_rehearse_on_cpu():
             assert cs.compare(a, b)[:2] == (0.0, 0.0), c.name
         ms, by = cs.bound(c.ops, c.in_bytes + cs.nbytes(*outs))
         assert ms > 0 and by in ("bytes", "operations"), c.name
-        assert (c.library is not None) == (c.counter in ("K1", "dKdV", "dQ"))
-    res, launches, kern, batch = cs.compare_train_steps(
-        cpu, arch, BertConfig.tiny(), 2, TEXT_LEN)
-    assert res["loss_kernel"] == res["loss_plain"] and res["finite"]
-    assert res["norm_kernel"] == res["norm_plain"] > 0
-    assert not res["missing"] and len(res["tower"]) > 10
-    assert all(e == 0.0 and c == pytest.approx(1.0)
-               for e, c in res["tower"].values())
-    assert launches == cs.expected_launches({})
-    assert np.isfinite(float(kern[2](batch, 1.0)["loss"]))
+        assert (c.library is not None) == (c.counter in ("K1", "dKdV", "dQ",
+                                                         "K15"))
+    for attn_impl in ("pallas_static", "pallas"):
+        res, launches, kern, batch = cs.compare_train_steps(
+            cpu, arch, BertConfig.tiny(), 2, TEXT_LEN, attn_impl=attn_impl)
+        assert res["loss_kernel"] == res["loss_plain"] and res["finite"]
+        assert res["norm_kernel"] == res["norm_plain"] > 0
+        assert not res["missing"] and len(res["tower"]) > 10
+        assert all(e == 0.0 and c == pytest.approx(1.0)
+                   for e, c in res["tower"].values())
+        assert launches == cs.expected_launches({})
+        assert np.isfinite(float(kern[2](batch, 1.0)["loss"]))
+    tiny = {"arch": arch, "dim_latent": 16,
+            "text_encoder": {"hidden_size": 36, "num_hidden_layers": 1,
+                             "num_attention_heads": 3, "intermediate_size": 32,
+                             "max_position_embeddings": 128}}
+    rt, tt = cs.run_train_phase(cpu, tmp_path, tiny, synthetic=4,
+                                throughput_samples=8, throughput_steps=3,
+                                skip=1)
+    assert len(rt["losses"]) == 3 and len(rt["times"]) == 3
+    assert rt["ckpt_gb"] > 0 and rt["sps"] > 0 and rt["wait_s"] >= 0
+    assert rt["window"] == (2, 2) and len(rt["waits"]) == 1
+    assert rt["launches"] == cs.expected_launches({})
+    assert tt.step == 3 and tt.status == "completed"
     vol = torch.randn(1, 1, 16, 32, 32)
     engines = {}
     for int8 in (False, True):

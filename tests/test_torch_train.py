@@ -279,10 +279,13 @@ def test_optimizer_groups_and_guards():
     lin(torch.ones(1, 3)).sum().backward()
     opt.step()
     assert opt.opt.param_groups[0]["lr"] == pytest.approx(0.025)
-    with pytest.raises(NotImplementedError):
-        build_optimizer(types.SimpleNamespace(
-            **{**vars(cfg), "gradient_accumulation_steps": 2}),
-            lin.parameters())
+    # accumulation over 2 micro-steps: the first leaves the parameters be
+    acc = build_optimizer(types.SimpleNamespace(
+        **{**vars(cfg), "gradient_accumulation_steps": 2}), lin.parameters())
+    before = [p.detach().clone() for p in lin.parameters()]
+    acc.step()
+    assert acc.mini_step == 1
+    assert all(torch.equal(p, b) for p, b in zip(lin.parameters(), before))
 
 
 # --- the whole image-report step ----------------------------------------------

@@ -4,13 +4,18 @@ NVIDIA H100 (Hopper, sm_90a).
 The JAX package ``vit_exp_tpu`` is the reference; this package mirrors its
 module paths so each counterpart is easy to find:
 
-- ``core``    precision policy
+- ``core``    precision policy, experiment config (the YAML schema)
 - ``ops``     position embedding, patch embedding, fused LN+qkv projection,
-              fused GEGLU feed-forward, static-max cosine attention; every
-              Pallas kernel of the serving path is a hand-written CUDA kernel
-              here (sources in ``csrc/``, built by ``ops/_build.py``)
+              fused GEGLU feed-forward, static-max and online-softmax
+              cosine attention; every Pallas kernel of the JAX package is a
+              hand-written CUDA kernel here (sources in ``csrc/``, built by
+              ``ops/_build.py``)
 - ``models``  CTViT3D image tower, BERT text tower, CTCLIP, factory,
-              parameter mapping from the JAX package
+              losses, parameter mapping from the JAX package
+- ``data``    tokenizers, synthetic volumes, the threaded batch loader
+- ``train``   optimizer, train steps, dataset sampler, checkpoints, trainer
+- ``utils``   metric logger, step timer
+- ``cli``     ``run_train``
 - ``eval``    zero-shot classification engine
 
 Importing the package imports neither CUDA kernels nor the JAX package:

@@ -1,7 +1,11 @@
 """CTViT3D image tower, encoder only (counterpart of
-vit_exp_tpu/models/ctvit3d.py with attn_impl="pallas_static" and
-ff_impl="pallas": fused patch embed, static-max attention, fused GEGLU
-feed-forward, every kernel differentiable).  ``fuse_qkv`` selects the fused
+vit_exp_tpu/models/ctvit3d.py with ff_impl="pallas": fused patch embed,
+cosine attention, fused GEGLU feed-forward, every kernel differentiable).
+``attn_impl`` takes the JAX names: "pallas_static" (the default) is the
+static-max attention kernel K1, "pallas" (the JAX package's training
+default on its accelerator) the online-softmax kernel K15 over the nulls
+concatenated to k/v.  ``remat`` recomputes each block's forward in the
+backward (``torch.utils.checkpoint``, the JAX ``--remat``).  ``fuse_qkv`` selects the fused
 LN+qkv projection (a serving switch, as in the JAX package); training keeps
 the unfused ScaleLayerNorm + to_q + to_kv, with the same parameters.
 ``int8`` is the W8A8 serving path (the JAX attn_impl="pallas_static_int8"
@@ -20,6 +24,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from vit_exp_tpu_torch.models.layers import (BiasLayerNorm, GEGLUFeedForward,
@@ -30,6 +35,8 @@ from vit_exp_tpu_torch.ops.fused_proj import (fused_ln_qkv, fused_ln_qkv_int8,
 from vit_exp_tpu_torch.ops.patches import fused_patch_embed
 from vit_exp_tpu_torch.ops.posemb import sincos_pos_embed_3d
 
+ATTN_IMPLS = ("pallas_static", "pallas")
+
 
 class CosineSelfAttention(nn.Module):
     """QK-l2norm self-attention with learned per-dim q/k scales and null kv.
@@ -38,7 +45,9 @@ class CosineSelfAttention(nn.Module):
     reference binds the kv input before its norm).  ``null_kv`` is laid out
     'h (n r) d' with r = 2: k rows are the even entries, v rows the odd ones.
     ``fuse_qkv`` runs the norm and both projections as one kernel (K3).
-    ``int8`` runs the attention with int8 QKᵀ; with ``fuse_qkv`` too, the
+    ``attn_impl`` picks the attention kernel ("pallas_static": K1,
+    "pallas": K15).  ``int8`` runs the attention with int8 QKᵀ (static-max
+    only); with ``fuse_qkv`` too, the
     route is the W8A8 LN+qkv kernel, int8 attention and the W8A8
     out-projection (K12/K13 → K9/K10 → K14 in the JAX package); without
     it, the unfused projections, int8 attention and the bf16 to_out.
@@ -47,13 +56,21 @@ class CosineSelfAttention(nn.Module):
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32,
                  num_null_kv: int = 2, scale: Optional[float] = None, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
-                 fuse_qkv: bool = False, int8: bool = False, device=None):
+                 attn_impl: str = "pallas_static", fuse_qkv: bool = False,
+                 int8: bool = False, device=None):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                             f"{attn_impl!r}")
+        if int8 and attn_impl != "pallas_static":
+            raise ValueError("int8 attention is static-max only: pass "
+                             "attn_impl='pallas_static'")
         inner = heads * dim_head
         self.heads, self.dim_head, self.num_null_kv = heads, dim_head, num_null_kv
         self.scale = scale
         self.policy = policy
         self.use_kernels = use_kernels
+        self.static_max = attn_impl == "pallas_static"
         self.fuse_qkv = fuse_qkv
         self.int8 = int8
         kw = dict(policy=policy, device=device)
@@ -96,7 +113,8 @@ class CosineSelfAttention(nn.Module):
             heads_first(q), heads_first(k), heads_first(v),
             null_k=nkv[:, :, 0], null_v=nkv[:, :, 1],
             q_scale=self.q_scale, k_scale=self.k_scale, scale=self.scale,
-            use_kernel=self.use_kernels, quantized=self.int8)
+            use_kernel=self.use_kernels, static_max=self.static_max,
+            quantized=self.int8)
         out = out.transpose(1, 2).reshape(b, n, h * dh)
         if self.int8 and self.fuse_qkv:
             return int8_proj(out.to(cd), self.to_out.weight.t(),
@@ -111,12 +129,13 @@ class TransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
                  scale: Optional[float], ff_mult: float = 4.0, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
-                 fuse_qkv: bool = False, int8: bool = False, device=None):
+                 attn_impl: str = "pallas_static", fuse_qkv: bool = False,
+                 int8: bool = False, device=None):
         super().__init__()
         self.add_module("1", CosineSelfAttention(
             dim, heads, dim_head, scale=scale, policy=policy,
-            use_kernels=use_kernels, fuse_qkv=fuse_qkv, int8=int8,
-            device=device))
+            use_kernels=use_kernels, attn_impl=attn_impl, fuse_qkv=fuse_qkv,
+            int8=int8, device=device))
         self.add_module("3", GEGLUFeedForward(
             dim, ff_mult, policy=policy, use_kernel=use_kernels, int8=int8,
             device=device))
@@ -140,9 +159,11 @@ class CTViT3D(nn.Module):
                  dim_head: int = 32, heads: int = 8, channels: int = 1,
                  attn_scale: Optional[float] = None, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
+                 attn_impl: str = "pallas_static", remat: bool = False,
                  fuse_qkv: bool = False, int8: bool = False, device=None):
         super().__init__()
         self.dim = dim
+        self.remat = remat
         self.patch_size, self.temporal_patch_size = patch_size, temporal_patch_size
         self.grid = (temporal_size // temporal_patch_size,
                      image_size // patch_size, image_size // patch_size)
@@ -157,8 +178,8 @@ class CTViT3D(nn.Module):
         })
         self.enc_3D = _Encoder(
             [TransformerBlock(dim, heads, dim_head, attn_scale,
-                              use_kernels=use_kernels, fuse_qkv=fuse_qkv,
-                              int8=int8, **kw)
+                              use_kernels=use_kernels, attn_impl=attn_impl,
+                              fuse_qkv=fuse_qkv, int8=int8, **kw)
              for _ in range(transformer_blocks)],
             ScaleLayerNorm(dim, **kw))
         # fixed table; not part of the state dict
@@ -180,6 +201,10 @@ class CTViT3D(nn.Module):
         x = ln_out(x).reshape(b, n_t * n_h * n_w, self.dim)
         x = x + self.pos_embed.to(self.policy.compute_dtype)[None]
         for block in self.enc_3D.layers:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+            else:
+                x = block(x)
         x = self.enc_3D.norm_out(x)
         return x.reshape(b, n_t, n_h, n_w, self.dim)

@@ -20,9 +20,21 @@ from vit_exp_tpu_torch.models.ctclip import CTCLIP
 from vit_exp_tpu_torch.models.ctvit3d import CTViT3D
 
 
+def bert_config_for(config, tokenizer) -> BertConfig:
+    """BERT-base at the tokenizer's vocab size, with per-field overrides
+    from the yaml ``text_encoder:`` section (the JAX package's
+    ``bert_config_for``)."""
+    extra = getattr(config, "extra", None) or {}
+    kwargs = dict(extra.get("text_encoder") or {})
+    kwargs.setdefault("vocab_size", tokenizer.vocab_size)
+    return BertConfig(**kwargs)
+
+
 def build_image_encoder(arch, *, device="cuda",
                         policy: Policy = DEFAULT_POLICY,
-                        use_kernels: bool = True, fuse_qkv: bool = False,
+                        use_kernels: bool = True,
+                        attn_impl: str = "pallas_static", remat: bool = False,
+                        fuse_qkv: bool = False,
                         int8: bool = False) -> CTViT3D:
     return CTViT3D(
         dim=arch.dim, image_size=arch.image_size, patch_size=arch.patch_size,
@@ -32,8 +44,8 @@ def build_image_encoder(arch, *, device="cuda",
         heads=arch.heads, channels=getattr(arch, "channels", 1),
         # production checkpoints use the SDPA convention 1/√dim_head
         attn_scale=None if getattr(arch, "use_flash_attention", True) else 8.0,
-        policy=policy, use_kernels=use_kernels, fuse_qkv=fuse_qkv, int8=int8,
-        device=device)
+        policy=policy, use_kernels=use_kernels, attn_impl=attn_impl,
+        remat=remat, fuse_qkv=fuse_qkv, int8=int8, device=device)
 
 
 def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
@@ -49,12 +61,16 @@ def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
 def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
                  device="cuda", policy: Policy = DEFAULT_POLICY,
                  dim_latent: Optional[int] = None, use_kernels: bool = True,
+                 attn_impl: str = "pallas_static", remat: bool = False,
                  fuse_qkv: bool = False, int8: bool = False,
                  seed: int = 0) -> CTCLIP:
     """CTCLIP with seeded random weights on ``device``: the card unless the
     caller asks for another device (without a card, the default raises
     torch's own error).  ``use_kernels=False`` runs every kernel's plain
     PyTorch version instead (the reference path on the card).
+    ``attn_impl`` is "pallas_static" (K1) or "pallas" (K15, the JAX
+    package's training default on its accelerator); ``remat=True``
+    recomputes each image-tower block in the backward.
     ``fuse_qkv=True`` is the serving switch (fused LN+qkv projection, K3);
     training keeps the default False, as the JAX package does.
     ``int8=True`` is the W8A8 serving path, the JAX package's serving
@@ -66,8 +82,8 @@ def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
         dim_latent = (getattr(config, "extra", None) or {}).get("dim_latent",
                                                                 768)
     visual = build_image_encoder(arch, device=device, policy=policy,
-                                 use_kernels=use_kernels, fuse_qkv=fuse_qkv,
-                                 int8=int8)
+                                 use_kernels=use_kernels, attn_impl=attn_impl,
+                                 remat=remat, fuse_qkv=fuse_qkv, int8=int8)
     model = CTCLIP(visual, bert_config or BertConfig(), dim_latent=dim_latent,
                    policy=policy, device=device)
     init_parameters_(model, seed)

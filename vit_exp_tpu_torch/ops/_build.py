@@ -39,6 +39,9 @@ SIGNATURES = {
     # q, k, v, nk, nv, bound, out, lse (or null), q/k/v/out strides
     # (b, h, n) ×4, B, H, Nq, Nkv, n_null, scale, stream
     "vit_flash_static_fwd": [P] * 8 + [L] * 12 + [I, I, I, I, I, F, P],
+    # q, k, v, out, lse (or null), q/k/v/out strides (b, h, n) ×4, B, H, Nq,
+    # Nkv, scale, stream
+    "vit_flash_online_fwd": [P] * 5 + [L] * 12 + [I, I, I, I, F, P],
     # q, k, v, dout, lse, delta, dk, dv, q/k/v/dout/dk/dv strides ×6,
     # B, H, Nq, Nkv, scale, stream
     "vit_flash_bwd_dkv": [P] * 8 + [L] * 18 + [I, I, I, I, F, P],

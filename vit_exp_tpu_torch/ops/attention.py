@@ -1,5 +1,5 @@
 """Cosine-similarity attention (counterpart of vit_exp_tpu/ops/attention.py,
-static-max path, ``impl="pallas", static_max=True``), differentiable.
+``impl="pallas"``), differentiable.
 
   1. null key/value pairs (learned, per head) join the keys;
   2. q and k — the null k too — are l2-normalised along the head dim;
@@ -7,6 +7,11 @@ static-max path, ``impl="pallas", static_max=True``), differentiable.
   4. softmax(q kᵀ · scale) over [nulls ++ kv], weighted sum of v.
 
 ``scale=None`` is 1/√d_head, the convention production checkpoints use.
+``static_max`` is the JAX switch of the same name.  True (the port's
+default, its first route) is the static-max kernel K1: the logits are
+bounded by the cosine structure and the nulls seed its accumulator.  False
+(the JAX package's training default, attn_impl="pallas") prepends the nulls
+to k/v and runs the online-softmax kernel K15.
 ``quantized=True`` is the int8 serving path (the JAX ``quantized=True`` of
 ``cosine_attention`` and ``cosine_attention_packed``): int8 QKᵀ through
 ``attention_static_int8``, forward only.  It refuses a scale with
@@ -24,7 +29,9 @@ import torch
 from vit_exp_tpu_torch.ops import _build
 from vit_exp_tpu_torch.ops.flash_attention import (attention_static_int8,
                                                    attention_static_int8_plain,
-                                                   flash_attention, quantize_qk)
+                                                   flash_attention,
+                                                   flash_attention_online,
+                                                   quantize_qk)
 
 
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -47,7 +54,7 @@ def logit_bound(q_scale: Optional[torch.Tensor],
 
 def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
                      k_scale=None, scale: Optional[float] = None,
-                     use_kernel: bool = True,
+                     use_kernel: bool = True, static_max: bool = True,
                      quantized: bool = False) -> torch.Tensor:
     """q, k, v: (b, h, n, d); null_k/null_v: (h, n_null, d); q_scale/k_scale:
     (d,).  Returns (b, h, n, d)."""
@@ -55,6 +62,9 @@ def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if quantized:
+        if not static_max:
+            raise ValueError("quantized=True is only implemented with "
+                             "static_max=True")
         return _int8_attention(q, k, v, null_k, null_v, q_scale, k_scale,
                                scale, use_kernel)
     nk = nv = None
@@ -69,6 +79,9 @@ def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
         q = q * q_scale.to(q.dtype)
     if k_scale is not None:
         k = k * k_scale.to(k.dtype)
+    if not static_max:
+        return flash_attention_online(q, k, v, scale=scale, null_k=nk,
+                                      null_v=nv, use_kernel=use_kernel)
     bound = logit_bound(q_scale, k_scale, scale).to(q.device)
     return flash_attention(q, k, v, logit_bound=bound, scale=scale,
                            null_k=nk, null_v=nv, use_kernel=use_kernel)

@@ -1,5 +1,7 @@
 """Static-max attention with null kv, forward and backward (counterpart of
-``_flash_core_static`` in vit_exp_tpu/ops/flash_attention.py).
+``_flash_core_static`` in vit_exp_tpu/ops/flash_attention.py), and
+online-softmax attention over a concatenated kv (counterpart of
+``_flash_core`` with null_strategy="concat").
 
 Cosine attention bounds every logit: q and k rows are unit-norm times learned
 per-dim scales, so q·k·scale ≤ B = scale·max|q_scale|·max|k_scale|.  With B
@@ -34,6 +36,20 @@ in the source).  δ = rowsum(dO·O) and the null-kv terms are plain torch, as
 the JAX package keeps them outside its kernels.  ``StaticAttention`` is the
 ``torch.autograd.Function`` that ties forward and backward together; the
 bound B gets no gradient (softmax is invariant to the shift).
+
+Kernel K15 (``attention_online``) replaces
+vit_exp_tpu/ops/flash_attention.py::_fwd_kernel (``_flash_fwd``, via
+``_flash_core``), the forward of the JAX package's training default
+(attn_impl="pallas").  CUDA C++, csrc/flash_online.cu, built on K1: the
+nulls are ordinary keys at the front of k/v (nkv = 13,826 at production,
+so the last 64-key tile holds 2 keys and the rest is masked), and a
+running max m replaces the bound, with the per-tile correction
+exp(m − m_new) on l and O.  As the TPU kernel does, l sums the fp32 p and
+only the P·V operand is p rounded to bf16; lse = m + log l.
+``OnlineAttention`` runs it forward and the flash_bwd.cu pair backward over
+all nkv keys (the JAX ``_flash_bwd_concat`` route), so the null gradients
+are rows [:n_null] of dK/dV, summed over the batch by ``torch.cat``'s own
+backward.
 
 Kernel ``attention_static_int8`` replaces vit_exp_tpu/ops/flash_attention.py
 ::_fwd_kernel_static_int8 (K9, ``_flash_fwd_static_int8``, the transpose
@@ -168,8 +184,9 @@ attention_static.launches = 0
 
 
 def attention_bwd_plain(q, k, v, dout, lse, delta, scale: float):
-    """Plain version of the backward kernel pair, over the real kv (the
-    null terms are ``null_kv_grads``).  lse, delta: (b, h, nq) fp32.
+    """Plain version of the backward kernel pair over the given kv (on the
+    static route the real kv, whose null terms are ``null_kv_grads``; on
+    the online route the concatenated kv).  lse, delta: (b, h, nq) fp32.
     p = exp(q·k·scale − lse), dV = bf16(p)ᵀ dO, dS = p·(dO Vᵀ − δ)·scale
     rounded to q.dtype, dQ = dS K, dK = dSᵀ Q; fp32 arithmetic in query
     chunks, so no (nq, nkv) logit matrix is ever whole."""
@@ -305,6 +322,112 @@ class StaticAttention(torch.autograd.Function):
             dq = (dq.to(dq_null.dtype) + dq_null).to(q.dtype)
             dnk, dnv = dnk.to(nk.dtype), dnv.to(nv.dtype)
         return dq, dk, dv, dnk, dnv, None, None, None
+
+
+def attention_online_plain(q, k, v, scale: float, save_lse: bool = False):
+    """Plain version of K15.  q: (b, h, nq, d); k/v: (b, h, nkv, d), the
+    nulls (if any) already among the keys.  fp32 arithmetic in query
+    chunks: p = exp(q·k·scale − m) with m the row max, l = Σp in fp32, out
+    = (p rounded to v.dtype)·v / l.  With ``save_lse`` returns (out, lse),
+    lse = m + log l of shape (b, h, nq) in fp32 (fp64 for fp64 inputs)."""
+    b, h, nq, d = q.shape
+    nkv = k.shape[2]
+    acc_t = acc_dtype(q.dtype)
+    kf, vf = k.to(acc_t), v.to(acc_t)
+    out = torch.empty((b, nq, h, d), device=q.device, dtype=q.dtype)
+    lse = torch.empty((b, h, nq), device=q.device, dtype=acc_t)
+    chunk = max(1, (1 << 27) // (b * h * max(nkv, 1)))
+    for s in range(0, nq, chunk):
+        logits = q[:, :, s:s + chunk].to(acc_t) @ kf.transpose(-1, -2) * scale
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = p.to(v.dtype).to(acc_t) @ vf
+        out[:, s:s + chunk] = (acc / l).to(q.dtype).transpose(1, 2)
+        lse[:, :, s:s + chunk] = (m + torch.log(l))[..., 0]
+    out = out.transpose(1, 2)
+    return (out, lse) if save_lse else out
+
+
+def attention_online(q, k, v, scale: float, save_lse: bool = False):
+    """Kernel K15 on CUDA tensors, the plain version on CPU tensors.
+    Returns (b, h, nq, d), laid out in memory as (b, nq, h, d), and with
+    ``save_lse`` also lse (b, h, nq) fp32."""
+    if q.device.type == "cpu":
+        return attention_online_plain(q, k, v, scale, save_lse)
+    _build.require_cuda("attention_online", q, k, v)
+    _check_qkv(q, k, v, "attention_online kernel")
+    b, h, nq, d = q.shape
+    nkv = k.shape[2]
+    if nkv < 1:
+        raise ValueError("attention_online kernel needs at least one key")
+    out = _heads_last_like(q)
+    lse = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+           if save_lse else None)
+    strides = [s for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
+               for s in _row_strides(t, name)]
+    _build.launch("vit_flash_online_fwd",
+                  *(t.data_ptr() for t in (q, k, v, out)),
+                  None if lse is None else lse.data_ptr(),
+                  *strides, b, h, nq, nkv, float(scale))
+    attention_online.launches += 1
+    return (out, lse) if save_lse else out
+
+
+attention_online.launches = 0
+
+
+class OnlineAttention(torch.autograd.Function):
+    """Differentiable online-softmax attention over a concatenated kv
+    (counterpart of the JAX ``_flash_core`` custom VJP with
+    null_strategy="concat", and of ``_flash_core_lse``).  Inputs q, k, v
+    (b, h, n, d), scale, use_kernel and save_lse: K15 with lse forward and
+    the flash_bwd.cu pair backward over all nkv keys, or their plain
+    versions when use_kernel is False or the tensors lie on the CPU.  With
+    ``save_lse`` the output is (out, lse) and both are differentiable: an
+    lse cotangent shifts δ (∂lse/∂logits = p).  With no gradient to take
+    and no lse asked for, K15 runs without lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, use_kernel, save_lse):
+        fwd = attention_online if use_kernel else attention_online_plain
+        if not (save_lse or any(ctx.needs_input_grad[:3])):
+            return fwd(q, k, v, scale)
+        out, lse = fwd(q, k, v, scale, save_lse=True)
+        ctx.scale, ctx.use_kernel = scale, use_kernel
+        ctx.save_for_backward(q, k, v, out, lse)
+        return (out, lse) if save_lse else out
+
+    @staticmethod
+    def backward(ctx, g, glse=None):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = (g.to(lse.dtype) * out.to(lse.dtype)).sum(dim=-1)
+        if glse is not None:
+            delta = delta - glse
+        bwd = attention_bwd if ctx.use_kernel else attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, g, lse, delta, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_online(q, k, v, *, scale: Optional[float] = None,
+                           null_k: Optional[torch.Tensor] = None,
+                           null_v: Optional[torch.Tensor] = None,
+                           use_kernel: bool = True, return_lse: bool = False):
+    """Softmax over [null_kv ++ kv] of (q kᵀ · scale) with a running max,
+    weighted sum of v (the JAX ``flash_attention`` with
+    null_strategy="concat"; with no nulls and ``return_lse`` the JAX
+    ``flash_attention_with_lse``).  q/k/v: (b, h, n, d); null_k/null_v:
+    (h, n_null, d), cast to k's and v's dtype and prepended to every
+    (batch, head): their gradients come back through ``torch.cat`` and sum
+    over the batch.  Returns out, or (out, lse) with ``return_lse``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if null_k is not None:
+        b = q.shape[0]
+        nk = null_k.to(k.dtype)[None].expand(b, -1, -1, -1)
+        nv = null_v.to(v.dtype)[None].expand(b, -1, -1, -1)
+        k, v = torch.cat([nk, k], dim=2), torch.cat([nv, v], dim=2)
+    return OnlineAttention.apply(q, k, v, float(scale), use_kernel, return_lse)
 
 
 def quantize_qk(q: torch.Tensor, k: torch.Tensor, scale: float):

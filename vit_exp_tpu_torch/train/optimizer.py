@@ -9,12 +9,16 @@ builds it with optax):
   match);
 - a constant learning rate, or a linear warmup from 0 over warmup_steps,
   read at the number of updates already taken (optax's schedule count, so
-  the first update of a warmup uses lr 0).
+  the first update of a warmup uses lr 0);
+- with gradient_accumulation_steps k > 1, optax.MultiSteps semantics: each
+  micro-step folds its gradient into a running mean (Welford's update,
+  acc + (g − acc) / (n + 1), as optax writes it), and every k-th
+  micro-step clips that mean and applies Adam to it, then resets it; the
+  parameters are untouched in between.
 
 ``trainer_cfg`` is duck-typed: anything with lr, wd, max_grad_norm,
 warmup_steps and gradient_accumulation_steps (the JAX package's
-``TrainerConfig``).  Accumulation over several micro-steps (optax.MultiSteps
-in the JAX package) waits for the trainer.
+``TrainerConfig``).
 """
 
 from __future__ import annotations
@@ -42,17 +46,24 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 
 class Optimizer:
-    """Clip + Adam/AdamW + schedule over one set of parameters.  ``step()``
-    reads ``p.grad`` (a parameter without one counts as a zero gradient, as
-    in the JAX package, where every parameter has a gradient) and keeps
-    the global gradient norm before clipping as ``grad_norm`` (a 0-dim
-    tensor: reading it waits for the device)."""
+    """Clip + Adam/AdamW + schedule over one set of parameters, with
+    gradient accumulation over ``accumulation_steps`` micro-steps.
+    ``step()`` is called once per micro-step and reads ``p.grad`` (a
+    parameter without one counts as a zero gradient, as in the JAX package,
+    where every parameter has a gradient); it keeps the global norm of the
+    applied gradient before clipping as ``grad_norm`` (a 0-dim tensor:
+    reading it waits for the device)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], *, lr: float,
-                 wd: float, max_grad_norm: float, warmup_steps: int):
+                 wd: float, max_grad_norm: float, warmup_steps: int,
+                 accumulation_steps: int = 1):
         self.params = [p for p in params if p.requires_grad]
         self.max_grad_norm = max_grad_norm
         self.grad_norm = None
+        self.accumulation_steps = max(1, int(accumulation_steps))
+        self.mini_step = 0
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.accumulation_steps > 1 else None)
         kw = dict(lr=lr, betas=(0.9, 0.99), eps=1e-8)
         if wd == 0:
             self.opt = torch.optim.Adam(self.params, **kw)
@@ -70,9 +81,22 @@ class Optimizer:
         self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> None:
+        """One micro-step; returns after the update on every
+        ``accumulation_steps``-th call, after folding the gradient into the
+        running mean on the others."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.acc is not None:
+            n = self.mini_step
+            for a, p in zip(self.acc, self.params):
+                a.add_((p.grad - a) / (n + 1))
+            self.mini_step = (n + 1) % self.accumulation_steps
+            if self.mini_step:
+                return
+            for a, p in zip(self.acc, self.params):
+                p.grad.copy_(a)
+                a.zero_()
         grads = [p.grad for p in self.params]
         if self.max_grad_norm and self.max_grad_norm > 0:
             self.grad_norm = clip_by_global_norm_(grads, self.max_grad_norm)
@@ -81,11 +105,24 @@ class Optimizer:
         self.opt.step()
         self.schedule.step()
 
+    def state_dict(self) -> dict:
+        """Adam's moments and count, the schedule, and the accumulator."""
+        return {"opt": self.opt.state_dict(),
+                "schedule": self.schedule.state_dict(),
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["opt"])
+        self.schedule.load_state_dict(state["schedule"])
+        self.mini_step = int(state["mini_step"])
+        if self.acc is not None:
+            for a, saved in zip(self.acc, state["acc"]):
+                a.copy_(saved)
+
 
 def build_optimizer(trainer_cfg, params) -> Optimizer:
-    if getattr(trainer_cfg, "gradient_accumulation_steps", 1) > 1:
-        raise NotImplementedError(
-            "gradient accumulation over micro-steps is not ported yet")
     return Optimizer(params, lr=trainer_cfg.lr, wd=trainer_cfg.wd,
                      max_grad_norm=trainer_cfg.max_grad_norm,
-                     warmup_steps=getattr(trainer_cfg, "warmup_steps", 0))
+                     warmup_steps=getattr(trainer_cfg, "warmup_steps", 0),
+                     accumulation_steps=getattr(
+                         trainer_cfg, "gradient_accumulation_steps", 1))

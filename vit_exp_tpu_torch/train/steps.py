@@ -2,7 +2,9 @@
 
 The image-report step: the contrastive forward (``CTCLIP.forward``), the
 InfoNCE loss over the batch, times the data set's loss weight, backward
-through the kernels' autograd Functions, then clip + Adam.  The MLM and
+through the kernels' autograd Functions, then one micro-step of the
+optimizer (clip + Adam, on every k-th micro-step under gradient
+accumulation, as optax.MultiSteps does in the JAX package).  The MLM and
 visual-SSL terms of that step, and the segmentation and open-vocabulary
 steps, wait for a later slice.
 

@@ -1,0 +1,210 @@
+"""The training loop on one device (counterpart of
+vit_exp_tpu/train/trainer.py's ``CTClipTrainer``).
+
+- The model trains where it lies and from the weights it holds (no
+  re-initialisation: a caller may load weights first); the batches go to
+  the model's device.
+- One loader per ``train_data_list`` entry, each cycled without end, with
+  the entry's batch size, the config's seed and ``drop_last``.
+- Each train step draws per-dataset micro-step counts from the dataset
+  sampler and runs that many micro-steps of the data set's step function,
+  its loss times ``balance_loss_weight``; under gradient accumulation the
+  optimizer applies its update on every k-th micro-step.
+- The step's metrics stay device tensors and are read one step late, so
+  the host never waits on the step in flight: after dispatching step i it
+  reads step i−1's metrics.  The step timer therefore spans one full step
+  in steady state.
+- ``save_model_every`` saves in the background; the final save and the
+  save on preemption wait for the write.  ``resume_step`` restores a saved
+  step; ``-1`` restores the latest.
+- ``install_preemption_handler``: SIGTERM/SIGINT set a flag; the loop
+  finishes the step in flight, saves and returns "preempted".
+- ``profile_dir``: ``torch.profiler`` traces the run (CPU and CUDA) into
+  that directory.
+
+Not ported: the host-memory watchdog (a guard against a leak of the JAX
+package's TPU client) and the mesh and multi-host plumbing (the
+multi-device slice brings those), and the eval and sample hooks.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vit_exp_tpu_torch.data.loader import InfiniteLoader, Loader
+from vit_exp_tpu_torch.train.checkpoint import CheckpointManager
+from vit_exp_tpu_torch.train.optimizer import build_optimizer
+from vit_exp_tpu_torch.train.sampler import build_dataset_sampler
+from vit_exp_tpu_torch.train.steps import make_train_steps
+from vit_exp_tpu_torch.utils.logging import MetricLogger
+from vit_exp_tpu_torch.utils.profiling import StepTimer
+
+_BATCH_KEYS = ("image", "input_ids", "attention_mask")
+
+
+class CTClipTrainer:
+    def __init__(self, model: torch.nn.Module, config, *,
+                 datasets: Optional[List[Any]] = None,
+                 resume_step: Optional[int] = None, use_wandb: bool = True):
+        self.model = model.train()
+        self.device = next(model.parameters()).device
+        self.config = config
+        self.trainer_cfg = config.trainer
+        self.results_folder = config.results_folder
+        os.makedirs(self.results_folder, exist_ok=True)
+
+        self.datasets = datasets or []
+        self.loaders = [
+            InfiniteLoader(Loader(
+                ds, batch_size=int(spec.get("batch_size", 1)), shuffle=True,
+                seed=config.random_seed, drop_last=True,
+                num_workers=int(spec.get("num_workers", 4))))
+            for spec, ds in zip(config.train_data_list, self.datasets)]
+        self.data_types = [spec.get("type", "imagereport")
+                           for spec in config.train_data_list]
+        self.balance = (list(self.trainer_cfg.balance_loss_weight)
+                        or [1.0] * max(len(self.loaders), 1))
+        self.sampler = build_dataset_sampler(config.dataset_sampler,
+                                             seed=config.random_seed)
+
+        self.optimizer = build_optimizer(self.trainer_cfg, model.parameters())
+        self.steps_by_type = make_train_steps(model, self.optimizer, config)
+        self.step = 0
+        # host seconds spent waiting for the loaders, and batches taken
+        self.data_wait_s = 0.0
+        self.batches = 0
+
+        self.ckpt = CheckpointManager(
+            os.path.join(self.results_folder, "checkpoints"))
+        if resume_step == -1:   # --auto_resume: the latest saved step
+            resume_step = self.ckpt.latest_step()
+        if resume_step:
+            self.restore(resume_step)
+
+        self.logger = MetricLogger(self.results_folder,
+                                   project=config.project_name,
+                                   exp_name=config.exp_name,
+                                   use_wandb=use_wandb)
+        self.status: Optional[str] = None
+        self._preempted = False
+        self._prev_handlers: Dict[int, Any] = {}
+
+    # -- state ---------------------------------------------------------------
+
+    def save(self, *, wait: bool = False) -> None:
+        self.ckpt.save(self.step, self.model.state_dict(),
+                       {"optimizer": self.optimizer.state_dict(),
+                        "step": self.step}, wait=wait)
+
+    def restore(self, step: int) -> None:
+        saved = self.ckpt.restore(step)
+        self.model.load_state_dict(saved["model"], strict=True)
+        self.optimizer.load_state_dict(saved["train_state"]["optimizer"])
+        self.step = int(saved["train_state"]["step"])
+
+    # -- batch plumbing --------------------------------------------------------
+
+    def _next_batch(self, ds_idx: int) -> Dict[str, torch.Tensor]:
+        t0 = time.perf_counter()
+        batch = next(self.loaders[ds_idx])
+        self.data_wait_s += time.perf_counter() - t0
+        self.batches += 1
+        out = {}
+        for k in _BATCH_KEYS:
+            if k in batch:
+                v = torch.from_numpy(np.asarray(batch[k]))
+                if not v.is_floating_point():
+                    v = v.long()
+                out[k] = v.to(self.device, non_blocking=True)
+        return out
+
+    # -- the loop --------------------------------------------------------------
+
+    def train_step(self) -> Dict:
+        """One optimizer step of sampler-scheduled micro-steps over the
+        data sets.  Returns the step's metrics as device tensors (no host
+        read)."""
+        logs: Dict = {}
+        for ds_idx, n_micro in enumerate(self.sampler.sample(self.step)):
+            step_fn = self.steps_by_type[self.data_types[ds_idx]]
+            weight = float(self.balance[ds_idx])
+            for _ in range(int(n_micro)):
+                metrics = step_fn(self._next_batch(ds_idx), weight)
+                for k, v in metrics.items():
+                    logs[f"ds{ds_idx}_{k}"] = v
+        self.step += 1
+        return logs
+
+    def install_preemption_handler(self) -> None:
+        """SIGTERM and SIGINT set a flag: the loop finishes the step in
+        flight, saves the full state and returns "preempted", resumable
+        with --auto_resume.  ``train`` puts the previous handlers back when
+        it returns."""
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            self._prev_handlers[sig] = signal.signal(
+                sig, lambda *_: setattr(self, "_preempted", True))
+
+    def train(self, num_steps: Optional[int] = None,
+              profile_dir: Optional[str] = None) -> str:
+        """Run to ``num_steps`` (default: the config's num_train_steps);
+        returns "completed" or "preempted", and keeps it as ``status``."""
+        prof = None
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            os.makedirs(profile_dir, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+        try:
+            self.status = self._loop(num_steps
+                                     or self.trainer_cfg.num_train_steps)
+            return self.status
+        finally:
+            if prof is not None:
+                prof.stop()
+                prof.export_chrome_trace(os.path.join(profile_dir,
+                                                      "trace.json"))
+            for sig, handler in self._prev_handlers.items():
+                signal.signal(sig, handler)
+            self._prev_handlers = {}
+
+    def _loop(self, total: int) -> str:
+        tcfg = self.trainer_cfg
+        timer = StepTimer()
+        pending = None   # (step, logs with device tensors), read one late
+
+        def flush_pending():
+            nonlocal pending
+            if pending is not None:
+                pstep, plogs = pending
+                self.logger.log({k: float(v) for k, v in plogs.items()},
+                                step=pstep)
+                pending = None
+
+        while self.step < total:
+            if self._preempted:
+                flush_pending()
+                self.save(wait=True)
+                print(f"preempted at step {self.step}: state saved, exiting",
+                      flush=True)
+                return "preempted"
+            with timer:
+                logs = self.train_step()
+                flush_pending()
+            logs.update(timer.metrics())
+            pending = (self.step, logs)
+            if tcfg.save_model_every and self.step % tcfg.save_model_every == 0:
+                self.save()
+        flush_pending()
+        self.save(wait=True)
+        print("Training complete", flush=True)
+        return "completed"
