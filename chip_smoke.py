@@ -18,7 +18,10 @@
    memory rate or operations over the peak rate of their type, whichever
    is larger) and, for K1, K15 and the attention backward pair, the time
    of torch's scaled_dot_product_attention on the same inputs (a
-   yardstick, never on the path).
+   yardstick, never on the path; its backward is timed once per input set
+   and shared by the pair's two rows).  Checks that the backward pair
+   gives the same bits twice on the 13,826-key inputs (no atomics) and
+   prints the pair's summed time against the one SDPA backward.
 4. Runs the zero-shot serving path at full width (fused LN+qkv, as served):
    CTViT3D (8 blocks) + BERT-base with seeded random weights, 36 prompts of
    512 tokens, 4 random volumes of (1, 240, 480, 480), first in bf16, then
@@ -222,8 +225,16 @@ def sdpa_forward_timer(q, k, v, nk, nv, scale):
 
 def sdpa_backward_timer(q, k, v, nk, nv, dout, scale):
     """Timer of torch's scaled_dot_product_attention backward: forward plus
-    backward minus forward (the yardstick of the backward pair)."""
+    backward minus forward (the yardstick of the backward pair).  It times
+    once; the pair's two rows report that one time."""
+    measured = []
+
     def timer():
+        if not measured:
+            measured.append(time_sdpa_backward())
+        return measured[0]
+
+    def time_sdpa_backward():
         import torch.nn.functional as F
         qc, kc, vc = _sdpa_inputs(q, k, v, nk, nv, requires_grad=True)
         g = dout.contiguous()
@@ -482,13 +493,26 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     ]
 
 
+def pair_is_deterministic(bwd) -> bool:
+    """The attention backward pair, launched twice on the same inputs,
+    gives the same bits (it uses no atomics)."""
+    from vit_exp_tpu_torch.ops import flash_attention as fa
+
+    runs = [(*fa.attention_bwd_dkv(*bwd), fa.attention_bwd_dq(*bwd))
+            for _ in range(2)]
+    if bwd[0].is_cuda:
+        torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
     """The run_train path's attention rows (attn_impl="pallas") at its
     shapes: K15 with and without lse over the 2 nulls concatenated in
     front of k/v (13,826 keys at full width, so the last 64-key tile holds
     2 keys), and the backward pair over the same concatenated kv, each
     against its plain twin; SDPA on the same q and concatenated k/v as the
-    yardstick."""
+    yardstick.  Checks first that the pair is bitwise deterministic on
+    these inputs."""
     from vit_exp_tpu_torch.ops import flash_attention as fa
     from vit_exp_tpu_torch.ops.attention import l2norm
 
@@ -521,6 +545,10 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
     delta = (dout.float() * out.float()).sum(-1)
     bwd = (q, k, v, dout, lse, delta, scale)
     del out
+    same = pair_is_deterministic(bwd)
+    print(f"attention backward pair over {nkv} keys, twice on the same "
+          f"inputs: dQ, dK and dV bitwise equal: {same}", flush=True)
+    check(same, "the attention backward pair is not bit-reproducible")
     src = "vit_exp_tpu_torch/csrc/flash_online.cu"
     k15 = "vit_exp_tpu/ops/flash_attention.py:148"
     flash_bwd = "vit_exp_tpu_torch/csrc/flash_bwd.cu"
@@ -578,6 +606,21 @@ def count_launches(fn):
         c.launches = 0
     out = fn()
     return out, {k: c.launches for k, c in counters.items()}
+
+
+def pair_line(rows: dict, card: str) -> str:
+    """The backward pair's summed time against the one SDPA backward on the
+    same inputs, over the real kv (the training rows: 13,824 keys at full
+    width) and over the concatenated kv (the online rows: 13,826)."""
+    parts = []
+    for phase, kv_name in (("train", "real kv"), ("online", "concatenated kv")):
+        kv, dq = (next(r for r in rows[phase] if r["counter"] == c)
+                  for c in ("dKdV", "dQ"))
+        pair, sdpa = kv["ms"] + dq["ms"], kv["library_ms"]
+        parts.append(f"over the {kv_name} dK/dV {kv['ms']:.3f} + dQ "
+                     f"{dq['ms']:.3f} = {pair:.3f} ms against SDPA's backward "
+                     f"{sdpa:.3f} ms, factor {pair / sdpa:.3f}")
+    return f"attention backward pair: {'; '.join(parts)}; on {card}"
 
 
 def compare_kernels(cases):
@@ -1093,6 +1136,7 @@ def main() -> int:
         rows[phase] = compare_kernels(cases)
         del cases
         torch.cuda.empty_cache()
+    print(pair_line(rows, card), flush=True)
 
     # the bf16 serving path at full width
     bert = BertConfig()

@@ -137,24 +137,43 @@ def test_k1_lse_matches_plain(dev, nq, nkv, n_null):
     assert _rel(out, ref) < 1e-2 and _rel(lse, lse_p) < 1e-5
 
 
-@pytest.mark.parametrize("n,n_null", [(100, 0), (100, 2), (150, 8)])
-def test_attention_backward_matches_plain(dev, n, n_null):
+def _bwd_inputs(dev, nq, nkv, n_null):
+    """The backward pair's inputs from K1 with lse: q, k, v, dout, lse, δ,
+    scale, with the nulls and the bound for the whole op.  δ carries a
+    seeded lse cotangent (δ − glse, as OnlineAttention passes it), so dS
+    is not the near-cancellation p·(dP − δ) that a single key gives."""
+    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null)
+    bound = torch.tensor(scale, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dout = _randn(g, 2, nq, 3, 32).transpose(1, 2)
+    glse = torch.randn(2, 3, nq, generator=g, device=dev)
+    out, lse = fa.attention_static(q, k, v, nk, nv, bound, scale, save_lse=True)
+    delta = (dout.float() * out.float()).sum(-1) - glse
+    return (q, k, v, dout, lse, delta, scale), (nk, nv, bound)
+
+
+# every edge of the kernels' blocking (blocks of 128 rows, tiles of 64):
+# one query or one key, ragged tails of 1 and 2 past 128 and 256, fewer
+# keys than a tile, exact blocks, and the old square cases
+@pytest.mark.parametrize("nq,nkv,n_null", [
+    (100, 100, 0), (100, 100, 2), (150, 150, 8), (1, 300, 0), (300, 1, 0),
+    (129, 130, 2), (257, 258, 0), (200, 13, 8), (128, 128, 0), (64, 1, 1)])
+def test_attention_backward_matches_plain(dev, nq, nkv, n_null):
     """The dk/dv and dq kernels against the plain backward twin, and the
     whole differentiable op (null terms included) against its plain path."""
-    q, k, v, nk, nv, scale = _attn_case(dev, n, n, n_null)
-    bound = torch.tensor(scale, device=dev)
-    dout = _randn(torch.Generator(device=dev).manual_seed(5), 2, n, 3, 32
-                  ).transpose(1, 2)
-    out, lse = fa.attention_static(q, k, v, nk, nv, bound, scale, save_lse=True)
-    delta = (dout.float() * out.float()).sum(-1)
+    bwd, (nk, nv, bound) = _bwd_inputs(dev, nq, nkv, n_null)
+    q, k, v, dout, lse, delta, scale = bwd
     before = (fa.attention_bwd_dkv.launches, fa.attention_bwd_dq.launches)
-    got = fa.attention_bwd(q, k, v, dout, lse, delta, scale)
-    ref = fa.attention_bwd_plain(q, k, v, dout, lse, delta, scale)
+    got = fa.attention_bwd(*bwd)
+    ref = fa.attention_bwd_plain(*bwd)
     torch.cuda.synchronize()
     assert (fa.attention_bwd_dkv.launches,
             fa.attention_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
     for a, r in zip(got, ref):
         assert a.shape == r.shape and _rel(a, r) < 1e-2
+        # two bf16 ulps of the largest element (chip_smoke.MAX_ABS_TOL)
+        assert (a.float() - r.float()).abs().max() <= 2.0 ** -6 * r.float(
+            ).abs().max()
 
     grads = []
     for use_kernel in (True, False):
@@ -166,8 +185,27 @@ def test_attention_backward_matches_plain(dev, n, n_null):
                                use_kernel=use_kernel)
         o.backward(dout)
         grads.append([t.grad for t in leaves])
-    for a, r in zip(*grads):
-        assert _rel(a, r) < 1e-2
+    for i, (a, r) in enumerate(zip(*grads)):
+        if nkv + n_null == 1 and i < 2:
+            # one key: the softmax is constant, so q and k have no
+            # gradient and both paths give fp32 rounding noise
+            assert max(a.abs().max(), r.abs().max()) <= 1e-5 * grads[1][2].abs(
+                ).max()
+        else:
+            assert _rel(a, r) < 1e-2
+
+
+def test_attention_backward_is_deterministic(dev):
+    """No atomics: the pair gives the same bits on the same inputs."""
+    bwd, _ = _bwd_inputs(dev, 257, 258, 0)
+    before = (fa.attention_bwd_dkv.launches, fa.attention_bwd_dq.launches)
+    first = fa.attention_bwd(*bwd)
+    second = fa.attention_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert (fa.attention_bwd_dkv.launches,
+            fa.attention_bwd_dq.launches) == (before[0] + 2, before[1] + 2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _online_case(dev, nq, nkv, n_null, seed=9):

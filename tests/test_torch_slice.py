@@ -166,6 +166,31 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert _no_ok_line(res.stdout)
 
 
+def test_chip_smoke_pair_line_and_determinism_check():
+    """The pair's line sums dK/dV and dQ and divides by the one SDPA time
+    of each input set; the determinism check compares every gradient."""
+    import torch
+
+    import chip_smoke as cs
+
+    def rows(kv_ms, dq_ms, sdpa_ms):
+        return [dict(counter="K1", ms=9.0, library_ms=1.0),
+                dict(counter="dKdV", ms=kv_ms, library_ms=sdpa_ms),
+                dict(counter="dQ", ms=dq_ms, library_ms=sdpa_ms)]
+
+    line = cs.pair_line({"train": rows(5.0, 3.0, 8.0),
+                         "online": rows(6.0, 4.0, 5.0)}, "card")
+    assert ("real kv dK/dV 5.000 + dQ 3.000 = 8.000 ms against SDPA's "
+            "backward 8.000 ms, factor 1.000") in line
+    assert "concatenated kv dK/dV 6.000 + dQ 4.000 = 10.000 ms" in line
+    assert "factor 2.000" in line and line.endswith("on card")
+    g = torch.Generator().manual_seed(0)
+    q, k, v, dout = (torch.randn(1, 2, n, 32, generator=g)
+                     for n in (9, 7, 7, 9))
+    lse, delta = torch.randn(1, 2, 9, generator=g), torch.randn(1, 2, 9)
+    assert cs.pair_is_deterministic((q, k, v, dout, lse, delta, 0.2))
+
+
 def test_chip_smoke_gradient_errors_hold_at_tiny_norms():
     """The cosine of gradients with norms far below 1e-8 is still exact
     (cosine_similarity's eps would drive it towards 0)."""

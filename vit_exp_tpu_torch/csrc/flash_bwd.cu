@@ -2,98 +2,249 @@
 // vit_exp_tpu/ops/flash_attention.py::_bwd_fused_kernel (exact tiling) and
 // ::_dq_kernel / ::_dkv_kernel (ragged kv).
 //
-// With lse = B + log l from the forward (flash_static.cu), for one
-// (batch, head):  p = exp(q·k·scale − lse),  δ = rowsum(dO ⊙ O) (from the
-// caller),  dV = bf16(p)ᵀ dO,  dS = bf16(p ⊙ (dO Vᵀ − δ) · scale),
-// dK = dSᵀ Q,  dQ = dS K.  Head dim 32, fp32 accumulators, bf16 operands on
-// tensor cores (wmma 16×16×16), rounding points as in the TPU kernel.
+// With lse = B + log l from the forward (flash_static.cu, flash_online.cu),
+// for one (batch, head):  p = exp(q·k·scale − lse),  δ = rowsum(dO ⊙ O)
+// (from the caller),  dV = bf16(p)ᵀ dO,  dS = bf16(p ⊙ (dO Vᵀ − δ) · scale),
+// dK = dSᵀ Q,  dQ = dS K.  Head dim 32, fp32 accumulators, bf16 operands,
+// rounding points as in the TPU kernel.
 //
 // The TPU kernel sweeps (q block, kv block) pairs in order and keeps
 // full-sequence fp32 dk/dv in VMEM.  Blocks here run in no order, so the
 // work is split as the TPU's ragged pair is: one kernel parallel over kv
-// tiles (each block owns 64 keys and walks every q tile, dK and dV stay in
-// registers), one parallel over q tiles (each block owns 64 queries and
-// walks every kv tile, dQ stays in registers).  No atomics: the gradients
-// are deterministic.  Each logit is recomputed once per kernel, so the pair
-// costs 7 products per (q, kv) tile pair against the TPU sweep's 5; both
-// kernels are bound, as the forward is, by the exp and the per-logit
-// shared-memory round trips (S and dP stored, p and dS formed on the CUDA
-// cores, read back as fragments).  Ragged q and kv tails are masked; q, k,
-// v, dO and the gradients are addressed through (batch, head, row) strides
-// with a contiguous head dim.
+// (each block owns 128 keys and walks every 64-query tile; dK and dV stay in
+// registers), one parallel over q (each block owns 128 queries and walks
+// every 64-key tile; dQ stays in registers).  No atomics: the gradients are
+// bit-reproducible.  Each logit is recomputed once per kernel, so the pair
+// costs 7 products per (q, kv) pair against the TPU sweep's 5.
+//
+// What bounds it.  Per logit the pair does 7 · 2 · 32 tensor-core operations
+// on mma.sync (no wgmma here) and, in each kernel, one exp on the
+// special-function unit (16 per clock per SM) plus a handful of fp32
+// operations for p and dS.  The design keeps everything else off the
+// critical path:
+// - S, dP, p and dS never leave registers.  Products are PTX
+//   mma.sync.m16n8k16 (bf16 in, fp32 accumulate); the accumulator layout of
+//   two adjacent n8 tiles, packed to bf16, is exactly one k16 A fragment, so
+//   p and dS feed the next product straight from registers.
+// - Each warp owns 32 rows (two m16 tiles), so every B fragment read from
+//   shared memory by ldmatrix serves 32 keys (or queries): 8 bytes of
+//   shared-memory traffic per logit in dK/dV, 6 in dQ.
+// - Tiles stream through a 3-stage cp.async ring (16-byte cp.async.cg, zero
+//   fill past the end): tile t + 2 loads while tile t computes.  Rows are
+//   padded to a pitch of 40 bf16 (80 bytes), so the 8 row addresses of an
+//   ldmatrix fall on 8 distinct groups of 4 banks: conflict-free.
+// - p = ex2.approx(S · scale·log2e − lse·log2e): one FFMA and one MUFU per
+//   logit (exp2f minus its denormal path: a p below 2^-126 flushes to 0).
+//   lse·log2e is taken once per query (dK/dV: in the ring, by the thread
+//   that copied it; dQ: in registers for the thread's rows).
+// - Masking: a query row past Nq gets lse = +inf in the ring, so its p and
+//   dS are exactly 0 (its q and dO rows are zero-filled: no inf·0); in dQ,
+//   keys past Nkv (only in the last tile, a uniform branch) get dS = 0.
+//   Rows past the end are never stored.
+// - Registers: 4 warps of 32 rows, and __launch_bounds__ caps a thread at
+//   168 registers so that three blocks (12 warps) share an SM.  Fully
+//   unrolled, the chunk loops spill at that cap, so dK/dV unrolls its
+//   16-row chunks by 2 and dQ not at all; half the block streams each
+//   tensor of a tile, so a thread keeps one source pointer through the
+//   loop.  The ptxas log in build/torch_kernels/*.log gives the counts
+//   (dK/dV 168, dQ 136, no spills).
+// q, k, v, dO and the gradients are addressed through (batch, head, row)
+// strides with a contiguous head dim.
 #include "common.cuh"
 
 using namespace vit;
 
 namespace {
 
-constexpr int D = 32;        // head dim
-constexpr int BT = 64;       // rows per tile (queries or keys)
-constexpr int LDT = D + 8;   // bf16 pitch of a staged q/k/v/dO tile
-constexpr int LDS = BT + 4;  // fp32 pitch of a warp's 16 × 64 logits
-constexpr int LDP = BT + 8;  // bf16 pitch of a warp's 16 × 64 p / dS
+constexpr int D = 32;          // head dim
+constexpr int BT = 64;         // rows of a streamed tile (queries or keys)
+constexpr int WR = 32;         // rows a warp owns: two m16 tiles
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int BR = WARPS * WR; // rows a block owns: 128
+constexpr int STAGES = 3;      // depth of the cp.async ring
+constexpr int LDT = D + 8;     // bf16 pitch of a staged row (80 bytes)
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
     long long b, h, n;
 };
 
-constexpr int TILE_BYTES = BT * LDT * 2;          // 5,120
-constexpr int S_BYTES = 16 * LDS * 4;             // 4,352
-constexpr int P_BYTES = 16 * LDP * 2;             // 2,304
+// one stage of the dK/dV ring: a q tile, its dO tile, lse·log2e and δ
+struct DkvStage {
+    bf16 q[BT * LDT];
+    bf16 o[BT * LDT];
+    float lse[BT];
+    float delta[BT];
+};
 
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long sn, int row0, int nrows,
-                                          int tid) {
-    // BT rows of 32 bf16 = 4 × 16-byte vectors each; zero past nrows
-    for (int v = tid; v < BT * (D / 8); v += 128) {
-        int r = v / (D / 8), cv = v % (D / 8);
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (row0 + r < nrows)
-            val = *reinterpret_cast<const uint4*>(src + (row0 + r) * sn + cv * 8);
-        *reinterpret_cast<uint4*>(dst + r * LDT + cv * 8) = val;
+// one stage of the dQ ring: a k tile and its v tile
+struct DqStage {
+    bf16 k[BT * LDT];
+    bf16 v[BT * LDT];
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared; zero-fill (nothing read) when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 × 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of the
+// i-th, register i receives it (.trans: transposed)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p))
+        : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p))
+        : "memory");
+}
+
+// c (16 × 8 fp32) += a (16 × 16 bf16, row) · b (16 × 8 bf16, col).
+// Lane l, g = l / 4, t = l % 4: a = {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
+// (g+8, 2t+8..)}; b = {(k 2t..2t+1, n g), (k 2t+8.., n g)}; c = {(g, 2t),
+// (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// ROWS rows of a (row, 32) bf16 matrix copied by half the block (rows
+// row0.. of src, row stride sn, into dst at pitch LDT, zero past nrows):
+// thread tid copies chunk tid % 4 of rows (tid % 64) / 4 + 16i.  Each half
+// of the block streams one tensor, so a thread keeps one source pointer and
+// one stride; row offsets are 32-bit (the wrappers check rows · stride <
+// 2^31), which keeps dK/dV under the register cap without a spill.
+template <int ROWS>
+__device__ __forceinline__ void load_half(bf16* dst, const bf16* src, int sn,
+                                          int row0, int nrows, int tid) {
+    const int cv = tid & 3;
+#pragma unroll
+    for (int i = 0; i < ROWS / 16; ++i) {
+        const int r = ((tid & (THREADS / 2 - 1)) >> 2) + 16 * i;
+        const bool ok = row0 + r < nrows;
+        cp_async16(dst + r * LDT + cv * 8,
+                   ok ? src + (row0 + r) * sn + cv * 8 : src, ok);
     }
 }
 
-// 16 × 64 fp32 product A·Bᵀ of a warp's two A fragments (16 × 32) with the
-// 64 rows of a staged tile (64 × 32), stored row-major at out
-__device__ __forceinline__ void rows_times_tile_t(float* out, const FragA* a,
-                                                  const bf16* tile) {
+// A fragments of a warp's 32 staged rows (two m16 tiles × two k16 steps
+// over the head dim)
+__device__ __forceinline__ void load_a(uint32_t (&a)[2][2][4], const bf16* s,
+                                       int lane) {
 #pragma unroll
-    for (int nb = 0; nb < BT / 16; ++nb) {
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-            FragBT bt;   // col-major view of the tile rows is the tileᵀ
-            wmma::load_matrix_sync(bt, tile + nb * 16 * LDT + kk * 16, LDT);
-            wmma::mma_sync(acc, a[kk], bt, acc);
+        for (int ks = 0; ks < 2; ++ks)
+            ldsm_x4(a[mt][ks],
+                    s + (mt * 16 + (lane & 15)) * LDT + ks * 16 + (lane >> 4) * 8);
+}
+
+// S (the warp's 32 rows × tile rows r0..r0+7, one n8 tile) = A·tileᵀ over
+// the head dim; the B fragment is one plain ldmatrix of the 8 tile rows:
+// {b0, b1} of k step 0, then of k step 1
+__device__ __forceinline__ void rows_times_rows(float (&s)[2][4],
+                                                const uint32_t (&a)[2][2][4],
+                                                const bf16* tile, int r0,
+                                                int lane) {
+    uint32_t b[4];
+    ldsm_x4(b, tile + (r0 + (lane & 7)) * LDT + (lane >> 3) * 8);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][e] = 0.f;
+        mma(s[mt], a[mt][0], b[0], b[1]);
+        mma(s[mt], a[mt][1], b[2], b[3]);
+    }
+}
+
+// acc (the warp's 32 rows × 32) += a (32 × 16: its k16 A fragments) ·
+// tile rows r0..r0+15 (16 × 32, read transposed by ldmatrix)
+__device__ __forceinline__ void acc_times_tile(float (&acc)[2][4][4],
+                                               const uint32_t (&a)[2][4],
+                                               const bf16* s, int r0,
+                                               int lane) {
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+        uint32_t b[4];
+        ldsm_x4_t(b, s + (r0 + (lane & 15)) * LDT + nb * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+            mma(acc[mt][2 * nb], a[mt], b[0], b[1]);
+            mma(acc[mt][2 * nb + 1], a[mt], b[2], b[3]);
         }
-        wmma::store_matrix_sync(out + nb * 16, acc, LDS, wmma::mem_row_major);
     }
 }
 
-// write a warp's two 16 × 16 fp32 accumulators (16 rows × 32) as bf16 rows
+// the warp's 32 rows × 32 of acc as bf16, rows at or past nrows skipped
 __device__ __forceinline__ void store_rows(bf16* dst, long long sn, int row0,
-                                           int nrows, FragC* acc, float* stage,
+                                           int nrows, const float (&acc)[2][4][4],
                                            int lane) {
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(stage + j * 16, acc[j], LDS, wmma::mem_row_major);
-    __syncwarp();
-    const int r = lane >> 1, half = lane & 1;
-    if (row0 + r < nrows) {
-        bf16* row = dst + (row0 + r) * sn + half * 16;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int d = 0; d < 16; ++d)
-            row[d] = __float2bfloat16(stage[r * LDS + half * 16 + d]);
-    }
-    __syncwarp();
+        for (int half = 0; half < 2; ++half) {
+            const int row = row0 + mt * 16 + half * 8 + g;
+            if (row >= nrows) continue;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+                *reinterpret_cast<uint32_t*>(dst + row * sn + nt * 8 + 2 * t) =
+                    pack_bf16(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        }
 }
 
-// dK, dV: one block per (64 keys, batch·head); warp w owns keys 16w..16w+15.
-// Shared memory: the q and dO tiles, lse and δ of the tile, then per warp
-// S and dP (fp32) and p and dS (bf16), all transposed (keys × queries).
-__global__ void __launch_bounds__(128)
+// dK, dV: one block per (128 keys, batch·head); warp w owns keys
+// 32w..32w+31.  Per 16-query chunk of a tile: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ
+// (32 keys × 16 queries) in registers, p and dS formed there, then
+// dV += Pᵀ dO and dK += dSᵀ Q.
+__global__ void __launch_bounds__(THREADS, 3)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -102,99 +253,153 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      Strides os, Strides dks, Strides dvs, int H, int Nq,
                      int Nkv, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem);
-    bf16* Os = reinterpret_cast<bf16*>(smem + TILE_BYTES);
-    float* lse_s = reinterpret_cast<float*>(smem + 2 * TILE_BYTES);
-    float* delta_s = lse_s + BT;
-    unsigned char* wbase = smem + 2 * TILE_BYTES + 2 * BT * 4
-                           + (threadIdx.x >> 5) * (2 * S_BYTES + 2 * P_BYTES);
-    float* S = reinterpret_cast<float*>(wbase);
-    float* dP = reinterpret_cast<float*>(wbase + S_BYTES);
-    bf16* P = reinterpret_cast<bf16*>(wbase + 2 * S_BYTES);
-    bf16* dS = reinterpret_cast<bf16*>(wbase + 2 * S_BYTES + P_BYTES);
+    DkvStage* ring = reinterpret_cast<DkvStage*>(smem);
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int t = lane & 3;
     const int b = blockIdx.y / H, h = blockIdx.y % H;
-    const int k0 = blockIdx.x * BT;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* ob = dout + b * os.b + h * os.h;
-    const float* lse_b = lse + (size_t)blockIdx.y * Nq;
-    const float* delta_b = delta + (size_t)blockIdx.y * Nq;
+    const int k0 = blockIdx.x * BR;
+    const float c2 = scale * LOG2E;
+    // threads 0-63 stream q and lse, threads 64-127 dO and δ
+    const bool lo = tid < BT;
+    const bf16* src = lo ? q + b * qs.b + h * qs.h : dout + b * os.b + h * os.h;
+    const int sn = lo ? qs.n : os.n;
+    const float* stat = (lo ? lse : delta) + (size_t)blockIdx.y * Nq;
+    const int r = tid & (BT - 1);
 
-    // this warp's 16 keys and values as A fragments (staged through Qs/Os)
-    load_tile(Qs, k + b * ks.b + h * ks.h, ks.n, k0, Nkv, tid);
-    load_tile(Os, v + b * vs.b + h * vs.h, vs.n, k0, Nkv, tid);
-    __syncthreads();
-    FragA ka[2], va[2];
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-        wmma::load_matrix_sync(ka[kk], Qs + warp * 16 * LDT + kk * 16, LDT);
-        wmma::load_matrix_sync(va[kk], Os + warp * 16 * LDT + kk * 16, LDT);
-    }
-    FragC dka[2], dva[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-        wmma::fill_fragment(dka[j], 0.f);
-        wmma::fill_fragment(dva[j], 0.f);
-    }
-    const int r = lane >> 1, half = lane & 1;
-
-    for (int q0 = 0; q0 < Nq; q0 += BT) {
-        __syncthreads();   // every warp is done with the previous tiles
-        load_tile(Qs, qb, qs.n, q0, Nq, tid);
-        load_tile(Os, ob, os.n, q0, Nq, tid);
-        if (tid < BT) {
-            lse_s[tid] = q0 + tid < Nq ? lse_b[q0 + tid] : 0.f;
-        } else {
-            int t = tid - BT;
-            delta_s[t] = q0 + t < Nq ? delta_b[q0 + t] : 0.f;
-        }
+    // the block's keys (threads 0-63) and values (64-127) as A fragments,
+    // staged once through the ring's memory
+    {
+        bf16* Ks = reinterpret_cast<bf16*>(smem);
+        load_half<BR>(lo ? Ks : Ks + BR * LDT,
+                      lo ? k + b * ks.b + h * ks.h : v + b * vs.b + h * vs.h,
+                      lo ? ks.n : vs.n, k0, Nkv, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
         __syncthreads();
+    }
+    uint32_t ka[2][2][4], va[2][2][4];
+    load_a(ka, reinterpret_cast<bf16*>(smem) + warp * WR * LDT, lane);
+    load_a(va, reinterpret_cast<bf16*>(smem) + (BR + warp * WR) * LDT, lane);
+    __syncthreads();   // the ring takes the memory over
 
-        rows_times_tile_t(S, ka, Qs);    // Sᵀ = K Qᵀ   (16 keys × 64 queries)
-        rows_times_tile_t(dP, va, Os);   // dPᵀ = V dOᵀ
-        __syncwarp();
-
-#pragma unroll 8
-        for (int cc = 0; cc < BT / 2; ++cc) {
-            int col = half * (BT / 2) + cc;
-            float p = 0.f, ds = 0.f;
-            if (q0 + col < Nq) {
-                p = expf(S[r * LDS + col] * scale - lse_s[col]);
-                ds = p * (dP[r * LDS + col] - delta_s[col]) * scale;
-            }
-            P[r * LDP + col] = __float2bfloat16(p);
-            dS[r * LDP + col] = __float2bfloat16(ds);
+    const int n_tiles = (Nq + BT - 1) / BT;
+    auto issue = [&](int tile) {
+        if (tile < n_tiles) {
+            DkvStage& st = ring[tile % STAGES];
+            const int q0 = tile * BT;
+            load_half<BT>(lo ? st.q : st.o, src, sn, q0, Nq, tid);
+            float* dst = lo ? st.lse : st.delta;
+            if (q0 + r < Nq) cp_async4(dst + r, stat + q0 + r);
+            // a padded query: lse = +inf makes its p and dS exactly 0
+            else dst[r] = lo ? __int_as_float(0x7f800000) : 0.f;
         }
-        __syncwarp();
-
-        // dV += pᵀ dO,  dK += dSᵀ Q   (16 keys × 32)
+        cp_async_commit();   // an empty group past the end keeps the count
+    };
 #pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+    float dka[2][4][4], dva[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dka[mt][nt][e] = dva[mt][nt][e] = 0.f;
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        cp_async_wait<STAGES - 2>();   // this thread's copies of the tile
+        DkvStage& st = ring[tile % STAGES];
+        if (lo) st.lse[r] *= LOG2E;   // the element this thread copied
+        __syncthreads();   // every copy visible; the oldest stage is free
+        issue(tile + STAGES - 1);
+
+#pragma unroll 2   // fully unrolled, ptxas spills at the 168 cap
         for (int kk = 0; kk < BT / 16; ++kk) {
-            FragA pa, dsa;
-            wmma::load_matrix_sync(pa, P + kk * 16, LDP);
-            wmma::load_matrix_sync(dsa, dS + kk * 16, LDP);
+            // per n8 tile j of 8 queries: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, then
+            // p and dS in place; two n8 tiles of bf16 pairs = one k16 A
+            uint32_t pa[2][4], dsa[2][4];
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-                FragB of, qf;
-                wmma::load_matrix_sync(of, Os + kk * 16 * LDT + j * 16, LDT);
-                wmma::mma_sync(dva[j], pa, of, dva[j]);
-                wmma::load_matrix_sync(qf, Qs + kk * 16 * LDT + j * 16, LDT);
-                wmma::mma_sync(dka[j], dsa, qf, dka[j]);
+                const int r0 = kk * 16 + j * 8;
+                float s[2][4], dp[2][4];
+                rows_times_rows(s, ka, st.q, r0, lane);
+                rows_times_rows(dp, va, st.o, r0, lane);
+                const float2 L =
+                    *reinterpret_cast<const float2*>(&st.lse[r0 + 2 * t]);
+                const float2 dl =
+                    *reinterpret_cast<const float2*>(&st.delta[r0 + 2 * t]);
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                    float p[4], ds[4];
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const bool odd = e & 1;
+                        p[e] = exp2_approx(
+                            fmaf(s[mt][e], c2, -(odd ? L.y : L.x)));
+                        ds[e] = p[e] * (dp[mt][e] - (odd ? dl.y : dl.x))
+                                * scale;
+                    }
+                    pa[mt][2 * j] = pack_bf16(p[0], p[1]);
+                    pa[mt][2 * j + 1] = pack_bf16(p[2], p[3]);
+                    dsa[mt][2 * j] = pack_bf16(ds[0], ds[1]);
+                    dsa[mt][2 * j + 1] = pack_bf16(ds[2], ds[3]);
+                }
             }
+            acc_times_tile(dva, pa, st.o, kk * 16, lane);    // dV += Pᵀ dO
+            acc_times_tile(dka, dsa, st.q, kk * 16, lane);   // dK += dSᵀ Q
         }
     }
+    cp_async_wait<0>();
 
-    __syncwarp();
-    const int kr = k0 + warp * 16;
-    store_rows(dk + b * dks.b + h * dks.h, dks.n, kr, Nkv, dka, S, lane);
-    store_rows(dv + b * dvs.b + h * dvs.h, dvs.n, kr, Nkv, dva, S, lane);
+    const int kr = k0 + warp * WR;
+    store_rows(dk + b * dks.b + h * dks.h, dks.n, kr, Nkv, dka, lane);
+    store_rows(dv + b * dvs.b + h * dvs.h, dvs.n, kr, Nkv, dva, lane);
 }
 
-// dQ: one block per (64 queries, batch·head); warp w owns queries
-// 16w..16w+15.  Shared memory: the k and v tiles, then per warp S and dP
-// (fp32) and dS (bf16).
-__global__ void __launch_bounds__(128)
+// one 64-key tile of the dQ kernel; MASK: the tile holds keys past Nkv
+// (kv_left of its rows are real)
+template <bool MASK>
+__device__ __forceinline__ void dq_tile(float (&dqa)[2][4][4],
+                                        const uint32_t (&qa)[2][2][4],
+                                        const uint32_t (&oa)[2][2][4],
+                                        const float (&L)[2][2],
+                                        const float (&dl)[2][2],
+                                        const DqStage& st, int kv_left,
+                                        float c2, float scale, int lane) {
+    const int t = lane & 3;
+#pragma unroll 1   // unrolled, ptxas hoists every chunk's loads and spills
+    for (int kk = 0; kk < BT / 16; ++kk) {
+        // per n8 tile j of 8 keys: S = Q Kᵀ and dP = dO Vᵀ, then dS in place
+        uint32_t dsa[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const int r0 = kk * 16 + j * 8;
+            float s[2][4], dp[2][4];
+            rows_times_rows(s, qa, st.k, r0, lane);
+            rows_times_rows(dp, oa, st.v, r0, lane);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+                float ds[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int half = e >> 1;
+                    const float p =
+                        exp2_approx(fmaf(s[mt][e], c2, -L[mt][half]));
+                    ds[e] = p * (dp[mt][e] - dl[mt][half]) * scale;
+                    if (MASK && r0 + 2 * t + (e & 1) >= kv_left) ds[e] = 0.f;
+                }
+                dsa[mt][2 * j] = pack_bf16(ds[0], ds[1]);
+                dsa[mt][2 * j + 1] = pack_bf16(ds[2], ds[3]);
+            }
+        }
+        acc_times_tile(dqa, dsa, st.k, kk * 16, lane);   // dQ += dS K
+    }
+}
+
+// dQ: one block per (128 queries, batch·head); warp w owns queries
+// 32w..32w+31, with their lse·log2e and δ in registers.
+__global__ void __launch_bounds__(THREADS, 3)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -202,81 +407,88 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     Strides qs, Strides ks, Strides vs, Strides os,
                     Strides dqs, int H, int Nq, int Nkv, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem);
-    bf16* Vs = reinterpret_cast<bf16*>(smem + TILE_BYTES);
-    unsigned char* wbase = smem + 2 * TILE_BYTES
-                           + (threadIdx.x >> 5) * (2 * S_BYTES + P_BYTES);
-    float* S = reinterpret_cast<float*>(wbase);
-    float* dP = reinterpret_cast<float*>(wbase + S_BYTES);
-    bf16* dS = reinterpret_cast<bf16*>(wbase + 2 * S_BYTES);
+    DqStage* ring = reinterpret_cast<DqStage*>(smem);
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2;
     const int b = blockIdx.y / H, h = blockIdx.y % H;
-    const int q0 = blockIdx.x * BT;
-    const bf16* kb = k + b * ks.b + h * ks.h;
-    const bf16* vb = v + b * vs.b + h * vs.h;
-    const int r = lane >> 1, half = lane & 1;
-    const int qi = q0 + warp * 16 + r;
-    const float lse_r = qi < Nq ? lse[(size_t)blockIdx.y * Nq + qi] : 0.f;
-    const float delta_r = qi < Nq ? delta[(size_t)blockIdx.y * Nq + qi] : 0.f;
+    const int q0 = blockIdx.x * BR;
+    const float c2 = scale * LOG2E;
+    // threads 0-63 stream k, threads 64-127 v
+    const bool lo = tid < BT;
+    const bf16* src = lo ? k + b * ks.b + h * ks.h : v + b * vs.b + h * vs.h;
+    const int sn = lo ? ks.n : vs.n;
 
-    // this warp's 16 queries and output gradients as A fragments
-    load_tile(Ks, q + b * qs.b + h * qs.h, qs.n, q0, Nq, tid);
-    load_tile(Vs, dout + b * os.b + h * os.h, os.n, q0, Nq, tid);
+    // the block's queries (threads 0-63) and output gradients (64-127)
+    {
+        bf16* Qs = reinterpret_cast<bf16*>(smem);
+        load_half<BR>(lo ? Qs : Qs + BR * LDT,
+                      lo ? q + b * qs.b + h * qs.h : dout + b * os.b + h * os.h,
+                      lo ? qs.n : os.n, q0, Nq, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+    }
+    uint32_t qa[2][2][4], oa[2][2][4];
+    load_a(qa, reinterpret_cast<bf16*>(smem) + warp * WR * LDT, lane);
+    load_a(oa, reinterpret_cast<bf16*>(smem) + (BR + warp * WR) * LDT, lane);
     __syncthreads();
-    FragA qa[2], oa[2];
+
+    // lse·log2e and δ of the thread's rows g and g + 8 of each m16 tile;
+    // 0 past Nq (those rows' q and dO are zero, so p = 1 and dS = 0)
+    float L[2][2], dl[2][2];
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-        wmma::load_matrix_sync(qa[kk], Ks + warp * 16 * LDT + kk * 16, LDT);
-        wmma::load_matrix_sync(oa[kk], Vs + warp * 16 * LDT + kk * 16, LDT);
-    }
-    FragC dqa[2];
-    wmma::fill_fragment(dqa[0], 0.f);
-    wmma::fill_fragment(dqa[1], 0.f);
-
-    for (int t0 = 0; t0 < Nkv; t0 += BT) {
-        __syncthreads();
-        load_tile(Ks, kb, ks.n, t0, Nkv, tid);
-        load_tile(Vs, vb, vs.n, t0, Nkv, tid);
-        __syncthreads();
-
-        rows_times_tile_t(S, qa, Ks);    // S = Q Kᵀ
-        rows_times_tile_t(dP, oa, Vs);   // dP = dO Vᵀ
-        __syncwarp();
-
-#pragma unroll 8
-        for (int cc = 0; cc < BT / 2; ++cc) {
-            int col = half * (BT / 2) + cc;
-            float ds = 0.f;
-            if (t0 + col < Nkv) {
-                float p = expf(S[r * LDS + col] * scale - lse_r);
-                ds = p * (dP[r * LDS + col] - delta_r) * scale;
-            }
-            dS[r * LDP + col] = __float2bfloat16(ds);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int qi = q0 + warp * WR + mt * 16 + half * 8 + g;
+            const size_t i = (size_t)blockIdx.y * Nq + qi;
+            L[mt][half] = qi < Nq ? lse[i] * LOG2E : 0.f;
+            dl[mt][half] = qi < Nq ? delta[i] : 0.f;
         }
-        __syncwarp();
 
-        // dQ += dS K   (16 queries × 32)
-#pragma unroll
-        for (int kk = 0; kk < BT / 16; ++kk) {
-            FragA dsa;
-            wmma::load_matrix_sync(dsa, dS + kk * 16, LDP);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                FragB kf;
-                wmma::load_matrix_sync(kf, Ks + kk * 16 * LDT + j * 16, LDT);
-                wmma::mma_sync(dqa[j], dsa, kf, dqa[j]);
-            }
+    const int n_tiles = (Nkv + BT - 1) / BT;
+    auto issue = [&](int tile) {
+        if (tile < n_tiles) {
+            DqStage& st = ring[tile % STAGES];
+            load_half<BT>(lo ? st.k : st.v, src, sn, tile * BT, Nkv, tid);
         }
-    }
+        cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
-    __syncwarp();
-    store_rows(dq + b * dqs.b + h * dqs.h, dqs.n, q0 + warp * 16, Nq, dqa, S,
+    float dqa[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dqa[mt][nt][e] = 0.f;
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();
+        issue(tile + STAGES - 1);
+        const DqStage& st = ring[tile % STAGES];
+        const int kv_left = Nkv - tile * BT;
+        if (kv_left >= BT)
+            dq_tile<false>(dqa, qa, oa, L, dl, st, kv_left, c2, scale, lane);
+        else
+            dq_tile<true>(dqa, qa, oa, L, dl, st, kv_left, c2, scale, lane);
+    }
+    cp_async_wait<0>();
+
+    store_rows(dq + b * dqs.b + h * dqs.h, dqs.n, q0 + warp * WR, Nq, dqa,
                lane);
 }
 
-constexpr int DKV_SMEM = 2 * TILE_BYTES + 2 * BT * 4 + 4 * (2 * S_BYTES + 2 * P_BYTES);
-constexpr int DQ_SMEM = 2 * TILE_BYTES + 4 * (2 * S_BYTES + P_BYTES);
+constexpr int DKV_SMEM = STAGES * sizeof(DkvStage);   // 32,256
+constexpr int DQ_SMEM = STAGES * sizeof(DqStage);     // 30,720
+static_assert(DKV_SMEM >= 2 * BR * LDT * 2 && DQ_SMEM >= 2 * BR * LDT * 2,
+              "the ring must hold the block's own two 128-row tiles");
+static_assert(sizeof(DkvStage) % 16 == 0 && sizeof(DqStage) % 16 == 0,
+              "stages must keep 16-byte alignment");
 
 }  // namespace
 
@@ -292,8 +504,8 @@ VIT_API int vit_flash_bwd_dkv(
         flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         DKV_SMEM);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((Nkv + BT - 1) / BT, B * H);
-    flash_bwd_dkv_kernel<<<grid, 128, DKV_SMEM, (cudaStream_t)stream>>>(
+    dim3 grid((Nkv + BR - 1) / BR, B * H);
+    flash_bwd_dkv_kernel<<<grid, THREADS, DKV_SMEM, (cudaStream_t)stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
         (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
         Strides{qsb, qsh, qsn}, Strides{ksb, ksh, ksn}, Strides{vsb, vsh, vsn},
@@ -313,8 +525,8 @@ VIT_API int vit_flash_bwd_dq(
         flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         DQ_SMEM);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((Nq + BT - 1) / BT, B * H);
-    flash_bwd_dq_kernel<<<grid, 128, DQ_SMEM, (cudaStream_t)stream>>>(
+    dim3 grid((Nq + BR - 1) / BR, B * H);
+    flash_bwd_dq_kernel<<<grid, THREADS, DQ_SMEM, (cudaStream_t)stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
         (const float*)lse, (const float*)delta, (bf16*)dq,
         Strides{qsb, qsh, qsn}, Strides{ksb, ksh, ksn}, Strides{vsb, vsh, vsn},

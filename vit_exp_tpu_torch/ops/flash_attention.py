@@ -31,8 +31,14 @@ recomputes p from.
 The backward replaces vit_exp_tpu/ops/flash_attention.py::_bwd_fused_kernel
 (K5, exact tiling) and ::_dq_kernel / ::_dkv_kernel (K6/K7, ragged kv) with
 one pair of CUDA C++ kernels, csrc/flash_bwd.cu: ``attention_bwd_dkv`` is
-parallel over kv tiles and ``attention_bwd_dq`` over q tiles (design notes
-in the source).  δ = rowsum(dO·O) and the null-kv terms are plain torch, as
+parallel over blocks of 128 keys and ``attention_bwd_dq`` over blocks of
+128 queries, each walking the other axis in 64-row tiles (no atomics, so
+bit-reproducible).  The logits S, dP and the p and dS formed from them stay
+in ``mma.sync`` registers and feed the next product from there; tiles
+stream through a 3-stage ``cp.async`` ring; p = exp2(S·scale·log2e −
+lse·log2e).  So the pair is bound by its tensor-core products (7 per logit)
+and the exp, not by shared-memory traffic (design notes in the source).
+δ = rowsum(dO·O) and the null-kv terms are plain torch, as
 the JAX package keeps them outside its kernels.  ``StaticAttention`` is the
 ``torch.autograd.Function`` that ties forward and backward together; the
 bound B gets no gradient (softmax is invariant to the shift).
@@ -213,6 +219,11 @@ def attention_bwd_plain(q, k, v, dout, lse, delta, scale: float):
 
 
 def _bwd_strides(q, k, v, dout, grads):
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout")):
+        if t.shape[2] * t.stride(2) >= 2 ** 31:   # 32-bit row offsets
+            raise ValueError(f"attention backward kernels: {name} has "
+                             f"{t.shape[2]} rows of stride {t.stride(2)}, "
+                             f"past 2^31 elements")
     return [s for t, name in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout"),
                               *grads)
             for s in _row_strides(t, name)]
