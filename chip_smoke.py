@@ -14,14 +14,19 @@
    attention backward kernels over the 13,826 keys of the nulls
    concatenated to k/v), relative L2 error ≤ REL_L2_TOL and max abs error ≤
    MAX_ABS_TOL · max|plain|, and times both with CUDA events.  Each row also
-   carries its bound (the least time an H100 could take: bytes over the
-   memory rate or operations over the peak rate of their type, whichever
-   is larger) and, for K1, K15 and the attention backward pair, the time
-   of torch's scaled_dot_product_attention on the same inputs (a
-   yardstick, never on the path; its backward is timed once per input set
-   and shared by the pair's two rows).  Checks that the backward pair
-   gives the same bits twice on the 13,826-key inputs (no atomics) and
-   prints the pair's summed time against the one SDPA backward.
+   carries its bound (the least time an H100 could take: the largest of
+   its bytes over the memory rate, its tensor-core and CUDA-core
+   operations over the peak rates of their types, and, for the attention
+   rows, its exps over the special-function units' rate, 16 per clock per
+   SM at the SM clock nvidia-smi reports as clocks.max.sm) and, for K1,
+   K15 and the attention backward pair, the time of torch's
+   scaled_dot_product_attention on the same inputs (a yardstick, never on
+   the path; its backward is timed once per input set and shared by the
+   pair's two rows).  Checks that K1 (with lse, 13,824 keys), K15 (with
+   lse, 13,826 keys) and the backward pair (13,826 keys) each give the
+   same bits twice (no atomics), and prints each forward's times against
+   SDPA's forward and the pair's summed time against the one SDPA
+   backward.
 4. Runs the zero-shot serving path at full width (fused LN+qkv, as served):
    CTViT3D (8 blocks) + BERT-base with seeded random weights, 36 prompts of
    512 tokens, 4 random volumes of (1, 240, 480, 480), first in bf16, then
@@ -156,10 +161,12 @@ def compare(a: torch.Tensor, b: torch.Tensor):
 
 
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
-# kernel row is the larger of its bytes over HBM_BYTES_PER_S and the sum of
-# its operations of each type over that type's peak
+# kernel row is the largest of its bytes over HBM_BYTES_PER_S, the sum of
+# its operations of each type over that type's peak, and its exps ("exp"
+# in a Case's ops) over exp_per_s(), the special-function units' own pipe
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+EXP_PER_SM_CLOCK = 16   # MUFU ex2 results per clock per SM (sm_90)
 
 
 @dataclasses.dataclass
@@ -186,19 +193,44 @@ def nbytes(*tensors) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def bound(ops: dict, n_bytes: int):
-    """(least time in ms, what sets it) for the given work on one H100."""
-    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+_EXP_PER_S = []
+
+
+def exp_per_s() -> float:
+    """The card's exp rate: EXP_PER_SM_CLOCK × its SMs × the SM clock that
+    nvidia-smi reports as clocks.max.sm (queried once)."""
+    if not _EXP_PER_S:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            check=True).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _EXP_PER_S.append(EXP_PER_SM_CLOCK * sms * mhz * 1e6)
+        print(f"exp unit: {EXP_PER_SM_CLOCK} per clock per SM × {sms} SMs × "
+              f"{mhz:.0f} MHz (clocks.max.sm) = {_EXP_PER_S[0]:.4e} exps/s",
+              flush=True)
+    return _EXP_PER_S[0]
+
+
+def bound(ops: dict, n_bytes: int, exps_per_s: float):
+    """(least time in ms, what sets it, the pipe) for the given work on one
+    H100 whose exp unit gives exps_per_s: "operations" on the tensor or
+    CUDA cores ("ops") or on the exp unit ("exp"), or "bytes"."""
+    times = {"ops": sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()
+                        if kind != "exp"),
+             "exp": ops.get("exp", 0) / exps_per_s,
+             "bytes": n_bytes / HBM_BYTES_PER_S}
+    pipe = max(times, key=times.get)
+    return (times[pipe] * 1e3, "bytes" if pipe == "bytes" else "operations",
+            pipe)
 
 
 def attention_ops(q, nkv, n_null=0, products=2):
     """Tensor-core operations of `products` (n × nkv × d) products over all
-    (batch, head) rows, the nulls included."""
+    (batch, head) rows, the nulls included, and one exp per logit."""
     b, h, n, d = q.shape
-    return products * 2 * b * h * n * (nkv + n_null) * d
+    logits = b * h * n * (nkv + n_null)
+    return {"bf16": products * 2 * logits * d, "exp": logits}
 
 
 def _sdpa_inputs(q, k, v, nk, nv, requires_grad=False):
@@ -297,11 +329,11 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
 
     return [
         Case("K1 static-max attention", "cuda",
-             "vit_exp_tpu_torch/csrc/flash_static.cu",
+             "vit_exp_tpu_torch/csrc/flash_fwd.cu",
              "vit_exp_tpu/ops/flash_attention.py:78",
              lambda: fa.attention_static(*k1),
              lambda: fa.attention_static_plain(*k1), "K1",
-             {"bf16": attention_ops(qp, n, 2)}, nbytes(qp, k, v, nk, nv),
+             attention_ops(qp, n, 2), nbytes(qp, k, v, nk, nv),
              sdpa_forward_timer(qp, k, v, nk, nv, scale)),
         Case("K2 fused GEGLU feed-forward", "cuda",
              "vit_exp_tpu_torch/csrc/geglu_ff.cu",
@@ -357,6 +389,8 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
     bound_t = torch.tensor(scale, device=device)
     fwd = (q, k, v, nk, nv, bound_t, scale)
     dout = heads(randn(batch, n, h * dh, std=1e-3).to(bf))
+    same_bits_twice(lambda: fa.attention_static(*fwd, save_lse=True),
+                    f"K1 with lse over {n} keys and 2 nulls: out and lse")
     out, lse = fa.attention_static_plain(*fwd, save_lse=True)
     delta = (dout.float() * out.float()).sum(-1)
     bwd = (q, k, v, dout, lse, delta, scale)
@@ -382,20 +416,20 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
 
     return [
         Case("K1 static-max attention + lse (training)", "cuda",
-             "vit_exp_tpu_torch/csrc/flash_static.cu",
+             "vit_exp_tpu_torch/csrc/flash_fwd.cu",
              "vit_exp_tpu/ops/flash_attention.py:78",
              lambda: fa.attention_static(*fwd, save_lse=True),
              lambda: fa.attention_static_plain(*fwd, save_lse=True), "K1",
-             {"bf16": attention_ops(q, n, 2)}, nbytes(q, k, v, nk, nv),
+             attention_ops(q, n, 2), nbytes(q, k, v, nk, nv),
              sdpa_forward_timer(q, k, v, nk, nv, scale)),
         Case("K5/K7 attention backward: dK/dV kernel", "cuda", flash_bwd, k5,
              lambda: fa.attention_bwd_dkv(*bwd),
              lambda: fa.attention_bwd_plain(*bwd)[1:], "dKdV",
-             {"bf16": attention_ops(q, n, products=4)}, bwd_bytes, sdpa_bwd),
+             attention_ops(q, n, products=4), bwd_bytes, sdpa_bwd),
         Case("K5/K6 attention backward: dQ kernel", "cuda", flash_bwd, k5,
              lambda: fa.attention_bwd_dq(*bwd),
              lambda: fa.attention_bwd_plain(*bwd)[0], "dQ",
-             {"bf16": attention_ops(q, n, products=3)}, bwd_bytes, sdpa_bwd),
+             attention_ops(q, n, products=3), bwd_bytes, sdpa_bwd),
         Case("K8 GEGLU backward: token phase (dx, dh, act, y)", "cuda",
              ff_bwd, k8, lambda: geglu_ff.geglu_ff_bwd_tokens(*ff)[:4],
              lambda: geglu_ff.geglu_ff_bwd_tokens_plain(*ff)[:4], "K8a",
@@ -472,8 +506,8 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
              "vit_exp_tpu/ops/flash_attention.py:506",
              lambda: fa.attention_static_int8(*attn),
              lambda: fa.attention_static_int8_plain(*attn), "K9/K10",
-             {"int8": attention_ops(q8, n, 2, products=1),
-              "bf16": attention_ops(q8, n, 2, products=1)}, nbytes(*attn)),
+             {"int8": attention_ops(q8, n, 2, products=1)["bf16"],
+              **attention_ops(q8, n, 2, products=1)}, nbytes(*attn)),
         Case("K11 W8A8 GEGLU feed-forward", "cuda",
              "vit_exp_tpu_torch/csrc/geglu_ff_int8.cu",
              "vit_exp_tpu/ops/geglu_ff.py:341",
@@ -493,16 +527,16 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     ]
 
 
-def pair_is_deterministic(bwd) -> bool:
-    """The attention backward pair, launched twice on the same inputs,
-    gives the same bits (it uses no atomics)."""
-    from vit_exp_tpu_torch.ops import flash_attention as fa
-
-    runs = [(*fa.attention_bwd_dkv(*bwd), fa.attention_bwd_dq(*bwd))
-            for _ in range(2)]
-    if bwd[0].is_cuda:
+def same_bits_twice(fn, what: str) -> None:
+    """fn, launched twice on the same inputs, gives the same bits (the
+    attention kernels use no atomics); prints and checks it."""
+    runs = [fn() for _ in range(2)]
+    if runs[0][0].is_cuda:
         torch.cuda.synchronize()
-    return all(torch.equal(a, b) for a, b in zip(*runs))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"{what}, twice on the same inputs: bitwise equal: {same}",
+          flush=True)
+    check(same, f"{what} is not bit-reproducible")
 
 
 def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
@@ -511,8 +545,8 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
     front of k/v (13,826 keys at full width, so the last 64-key tile holds
     2 keys), and the backward pair over the same concatenated kv, each
     against its plain twin; SDPA on the same q and concatenated k/v as the
-    yardstick.  Checks first that the pair is bitwise deterministic on
-    these inputs."""
+    yardstick.  Checks first that K15 and the pair are bitwise
+    deterministic on these inputs."""
     from vit_exp_tpu_torch.ops import flash_attention as fa
     from vit_exp_tpu_torch.ops.attention import l2norm
 
@@ -541,15 +575,16 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
     scale = 1.0 / math.sqrt(dh)
     fwd = (q, k, v, scale)
     dout = heads(randn(batch, n, h * dh, std=1e-3).to(bf))
+    same_bits_twice(lambda: fa.attention_online(*fwd, save_lse=True),
+                    f"K15 with lse over {nkv} keys: out and lse")
     out, lse = fa.attention_online_plain(*fwd, save_lse=True)
     delta = (dout.float() * out.float()).sum(-1)
     bwd = (q, k, v, dout, lse, delta, scale)
     del out
-    same = pair_is_deterministic(bwd)
-    print(f"attention backward pair over {nkv} keys, twice on the same "
-          f"inputs: dQ, dK and dV bitwise equal: {same}", flush=True)
-    check(same, "the attention backward pair is not bit-reproducible")
-    src = "vit_exp_tpu_torch/csrc/flash_online.cu"
+    same_bits_twice(lambda: (*fa.attention_bwd_dkv(*bwd),
+                             fa.attention_bwd_dq(*bwd)),
+                    f"attention backward pair over {nkv} keys: dK, dV, dQ")
+    src = "vit_exp_tpu_torch/csrc/flash_fwd.cu"
     k15 = "vit_exp_tpu/ops/flash_attention.py:148"
     flash_bwd = "vit_exp_tpu_torch/csrc/flash_bwd.cu"
     sdpa_fwd = sdpa_forward_timer(q, k, v, None, None, scale)
@@ -559,22 +594,22 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
         Case("K15 online-softmax attention", "cuda", src, k15,
              lambda: fa.attention_online(*fwd),
              lambda: fa.attention_online_plain(*fwd), "K15",
-             {"bf16": attention_ops(q, nkv)}, nbytes(q, k, v), sdpa_fwd),
+             attention_ops(q, nkv), nbytes(q, k, v), sdpa_fwd),
         Case("K15 online-softmax attention + lse (training)", "cuda", src,
              k15, lambda: fa.attention_online(*fwd, save_lse=True),
              lambda: fa.attention_online_plain(*fwd, save_lse=True), "K15",
-             {"bf16": attention_ops(q, nkv)}, nbytes(q, k, v), sdpa_fwd),
+             attention_ops(q, nkv), nbytes(q, k, v), sdpa_fwd),
         Case("K7 attention backward over the concatenated kv: dK/dV kernel",
              "cuda", flash_bwd, "vit_exp_tpu/ops/flash_attention.py:758",
              lambda: fa.attention_bwd_dkv(*bwd),
              lambda: fa.attention_bwd_plain(*bwd)[1:], "dKdV",
-             {"bf16": attention_ops(q, nkv, products=4)}, bwd_bytes,
+             attention_ops(q, nkv, products=4), bwd_bytes,
              sdpa_bwd),
         Case("K6 attention backward over the concatenated kv: dQ kernel",
              "cuda", flash_bwd, "vit_exp_tpu/ops/flash_attention.py:725",
              lambda: fa.attention_bwd_dq(*bwd),
              lambda: fa.attention_bwd_plain(*bwd)[0], "dQ",
-             {"bf16": attention_ops(q, nkv, products=3)}, bwd_bytes,
+             attention_ops(q, nkv, products=3), bwd_bytes,
              sdpa_bwd),
     ]
 
@@ -623,6 +658,22 @@ def pair_line(rows: dict, card: str) -> str:
     return f"attention backward pair: {'; '.join(parts)}; on {card}"
 
 
+def forward_lines(rows: dict, card: str) -> list:
+    """Each attention forward's times against SDPA's forward on the same
+    inputs: K1 on the serving and training rows (13,824 keys and 2 nulls),
+    K15 with and without lse (13,826 concatenated keys)."""
+    lines = []
+    for counter, phases in (("K1", ("serve", "train")), ("K15", ("online",))):
+        parts = [f"{r['name']} {r['ms']:.3f} ms against SDPA's forward "
+                 f"{r['library_ms']:.3f} ms, factor "
+                 f"{r['ms'] / r['library_ms']:.3f} (bound {r['bound_ms']:.3f} "
+                 f"ms)" for phase in phases for r in rows[phase]
+                 if r["counter"] == counter]
+        lines.append(f"attention forward {counter}: {'; '.join(parts)}; on "
+                     f"{card}")
+    return lines
+
+
 def compare_kernels(cases):
     """Hold each case's kernel against its plain version and time both (and
     the library call, where there is one); returns the JSON rows (launches
@@ -637,7 +688,8 @@ def compare_kernels(cases):
         rel, mx = max(e[0] for e in errs), max(e[1] for e in errs)
         abs_ok = all(e[1] <= MAX_ABS_TOL * e[2] for e in errs)
         ok_finite = all(torch.isfinite(a.float()).all().item() for a in outs_k)
-        bound_ms, bound_by = bound(case.ops, case.in_bytes + nbytes(*outs_k))
+        bound_ms, bound_by, pipe = bound(
+            case.ops, case.in_bytes + nbytes(*outs_k), exp_per_s())
         del out_k, out_p, outs_k, outs_p
         ms = cuda_ms(case.kern, 5)
         plain_ms = cuda_ms(case.plain, 2)
@@ -646,7 +698,7 @@ def compare_kernels(cases):
         print(f"{case.name}: rel L2 {rel:.3e}, max abs {mx:.3e} (per output "
               f"{[f'{e[0]:.2e}' for e in errs]}); kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms{lib}; bound {bound_ms:.4f} ms "
-              f"({bound_by}), share {bound_ms / ms:.3f}", flush=True)
+              f"({bound_by}: {pipe}), share {bound_ms / ms:.3f}", flush=True)
         check(ok_finite and rel <= REL_L2_TOL and abs_ok, (case.name, errs))
         rows.append(dict(name=case.name, route=case.route, source=case.source,
                          replaces=case.replaces, counter=case.counter,
@@ -1046,7 +1098,6 @@ def run_train_phase(device, folder: Path, overrides=None, synthetic=8,
     fill and the warm-up) to the start of the last step.  Returns (the
     numbers, the throughput run's trainer)."""
     from vit_exp_tpu_torch.cli import run_train
-    from vit_exp_tpu_torch.data.loader import collate
 
     cfg = run_train_config(folder, "run", overrides)
     base = ["--config", cfg, "--synthetic", str(synthetic), "--debug"]
@@ -1090,9 +1141,9 @@ def run_train_phase(device, folder: Path, overrides=None, synthetic=8,
     window = marks[skip:]
     waits = [b[2] - a[2] for a, b in zip(window, window[1:])]
     (_, t_a, w_a, b_a), (_, t_b, w_b, b_b) = window[0], window[-1]
-    ds = tt.datasets[0]
+    loader = tt.loaders[0].loader
     t0 = time.perf_counter()
-    collate([ds[i] for i in range(tt.loaders[0].loader.batch_size)])
+    loader.load_batch(list(range(loader.batch_size)))
     collate_s = time.perf_counter() - t0
     return dict(losses=losses, ckpt_gb=ckpt_gb, times=times,
                 window=(skip + 1, throughput_steps - 1),
@@ -1137,6 +1188,8 @@ def main() -> int:
         del cases
         torch.cuda.empty_cache()
     print(pair_line(rows, card), flush=True)
+    for line in forward_lines(rows, card):
+        print(line, flush=True)
 
     # the bf16 serving path at full width
     bert = BertConfig()

@@ -1,5 +1,5 @@
-"""Card tests of the port's CUDA kernels (K1-K4, the attention backward pair,
-K8, and the int8 serving kernels: the int8 attention (K9/K10), K11, K12/K13
+"""Card tests of the port's CUDA kernels (K1-K4, K15, the attention backward
+pair, K8, and the int8 serving kernels: the int8 attention (K9/K10), K11, K12/K13
 and K14) against their plain PyTorch versions at small, ragged shapes.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
@@ -10,8 +10,10 @@ no JAX, so on the card it runs without the repo's conftest:
 Tolerances: the kernels round to bf16 where the plain versions do, but sum
 in another order, so outputs differ by bf16 rounding of the last place:
 relative L2 error ≤ 1e-2 on bf16 outputs and on gradients (bf16 operands
-of fp32 sums on both sides), 1e-5 on the fp32 statistics of K4 and on K1's
-lse (fp32 sums of the same bf16-rounded p, up to order).  The int8 kernels
+of fp32 sums on both sides), and on the forwards' outputs also max abs
+error ≤ two bf16 ulps of the largest element; 1e-5 on the fp32 statistics
+of K4 and on K1's and K15's lse (fp32 sums of the same p, up to order and
+ex2.approx's last bits).  The int8 kernels
 quantize with the plain twins' arithmetic and sum exact integers, so their
 bf16 outputs are held to the same 1e-2.
 """
@@ -47,8 +49,23 @@ def _rel(a, b):
     return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
 
 
-@pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (64, 64, 0),
-                                           (13, 200, 8)])
+def _close(a, r):
+    """Relative L2 within 1e-2 and max abs error within two bf16 ulps of the
+    largest element (chip_smoke.REL_L2_TOL, MAX_ABS_TOL)."""
+    assert a.shape == r.shape and torch.isfinite(a.float()).all()
+    assert _rel(a, r) < 1e-2
+    assert (a.float() - r.float()).abs().max() <= 2.0 ** -6 * r.float(
+        ).abs().max()
+
+
+# the edges of the forward's blocking (blocks of 128 queries, 64-key tiles,
+# K1's nulls in one 16-key tile): nq 13, 129 and 200 (not multiples of
+# 128), kv tails of 1 and 2 keys (65, 130), 0, 2 and 8 nulls
+FWD_EDGES = [(100, 70, 2), (64, 64, 0), (13, 200, 8), (129, 65, 2),
+             (200, 130, 0), (13, 65, 8), (129, 130, 8), (200, 65, 0)]
+
+
+@pytest.mark.parametrize("nq,nkv,n_null", FWD_EDGES)
 def test_k1_matches_plain(dev, nq, nkv, n_null):
     g = torch.Generator(device=dev).manual_seed(0)
     b, h, d = 2, 3, 32
@@ -65,7 +82,7 @@ def test_k1_matches_plain(dev, nq, nkv, n_null):
     torch.cuda.synchronize()
     assert fa.attention_static.launches == before + 1
     assert out.shape == (b, h, nq, d)
-    assert _rel(out, ref) < 1e-2
+    _close(out, ref)
 
 
 @pytest.mark.parametrize("m", [50, 96])
@@ -125,7 +142,8 @@ def _attn_case(dev, nq, nkv, n_null, seed=4):
 
 
 @pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (13, 200, 8),
-                                           (128, 64, 0)])
+                                           (128, 64, 0), (129, 65, 0),
+                                           (200, 130, 2), (13, 130, 8)])
 def test_k1_lse_matches_plain(dev, nq, nkv, n_null):
     q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null)
     bound = torch.tensor(scale, device=dev)
@@ -134,7 +152,8 @@ def test_k1_lse_matches_plain(dev, nq, nkv, n_null):
                                            save_lse=True)
     torch.cuda.synchronize()
     assert lse.shape == (2, 3, nq) and lse.dtype == torch.float32
-    assert _rel(out, ref) < 1e-2 and _rel(lse, lse_p) < 1e-5
+    _close(out, ref)
+    assert _rel(lse, lse_p) < 1e-5
 
 
 def _bwd_inputs(dev, nq, nkv, n_null):
@@ -221,7 +240,9 @@ def _online_case(dev, nq, nkv, n_null, seed=9):
 
 
 @pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (13, 200, 8),
-                                           (128, 64, 0), (64, 1, 1)])
+                                           (128, 64, 0), (64, 1, 1),
+                                           (129, 63, 2), (200, 128, 2),
+                                           (13, 129, 1), (200, 1, 0)])
 def test_k15_matches_plain(dev, nq, nkv, n_null):
     """With and without lse, at ragged q and kv (the tail tile masked)."""
     q, k, v, scale = _online_case(dev, nq, nkv, n_null)
@@ -233,7 +254,52 @@ def test_k15_matches_plain(dev, nq, nkv, n_null):
     assert fa.attention_online.launches == before + 2
     assert out.shape == (2, 3, nq, 32) and lse.shape == (2, 3, nq)
     assert torch.equal(out, out2)
-    assert _rel(out, ref) < 1e-2 and _rel(lse, lse_p) < 1e-5
+    _close(out, ref)
+    assert _rel(lse, lse_p) < 1e-5
+
+
+def _wide_case(dev, nq, nkv, n_null):
+    """Logits spread over [-144, 144] (scale 1, q/k rows of norm 12): most p
+    lie far below the row's largest, many below 2^-126, where
+    ex2.approx.ftz flushes them to 0."""
+    q, k, v, nk, nv, _ = _attn_case(dev, nq, nkv, n_null, seed=12)
+    return q * 12, k * 12, v, None if nk is None else nk * 12, nv, 1.0
+
+
+@pytest.mark.parametrize("online", [False, True], ids=["K1", "K15"])
+def test_forward_wide_logit_spread(dev, online):
+    q, k, v, nk, nv, scale = _wide_case(dev, 200, 300, 0 if online else 8)
+    keys = k if online else torch.cat(
+        [nk[None].expand(q.shape[0], -1, -1, -1), k], dim=2)
+    logits = q.float() @ keys.float().transpose(-1, -2) * scale
+    assert (logits.amax(-1) - logits.amin(-1)).min() > 100   # the spread
+    if online:
+        out, lse = fa.attention_online(q, k, v, scale, save_lse=True)
+        ref, lse_p = fa.attention_online_plain(q, k, v, scale, save_lse=True)
+    else:
+        # the tightest bound: K1's p of a row's largest logit stays normal
+        bound = logits.max()
+        out, lse = fa.attention_static(q, k, v, nk, nv, bound, scale,
+                                       save_lse=True)
+        ref, lse_p = fa.attention_static_plain(q, k, v, nk, nv, bound, scale,
+                                               save_lse=True)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    assert _rel(lse, lse_p) < 1e-5
+
+
+def test_forwards_are_deterministic(dev):
+    """No atomics: K1 and K15 give the same bits over two launches."""
+    q, k, v, nk, nv, scale = _attn_case(dev, 257, 258, 2)
+    bound = torch.tensor(scale, device=dev)
+    static = [fa.attention_static(q, k, v, nk, nv, bound, scale,
+                                  save_lse=True) for _ in range(2)]
+    online = [fa.attention_online(q, k, v, scale, save_lse=True)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in (static, online):
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n,n_null", [(100, 2), (150, 8)])

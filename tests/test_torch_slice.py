@@ -184,11 +184,52 @@ def test_chip_smoke_pair_line_and_determinism_check():
             "backward 8.000 ms, factor 1.000") in line
     assert "concatenated kv dK/dV 6.000 + dQ 4.000 = 10.000 ms" in line
     assert "factor 2.000" in line and line.endswith("on card")
+    from vit_exp_tpu_torch.ops import flash_attention as fa
+
     g = torch.Generator().manual_seed(0)
     q, k, v, dout = (torch.randn(1, 2, n, 32, generator=g)
                      for n in (9, 7, 7, 9))
     lse, delta = torch.randn(1, 2, 9, generator=g), torch.randn(1, 2, 9)
-    assert cs.pair_is_deterministic((q, k, v, dout, lse, delta, 0.2))
+    bwd = (q, k, v, dout, lse, delta, 0.2)
+    cs.same_bits_twice(lambda: (*fa.attention_bwd_dkv(*bwd),
+                                fa.attention_bwd_dq(*bwd)), "the pair")
+
+
+def test_chip_smoke_forward_lines_and_bound():
+    """Each forward's line divides its time by SDPA's from the same row;
+    the bound is the largest of the tensor-core, exp-unit and bytes times;
+    the bitwise check passes on equal runs and fails on unequal ones."""
+    import torch
+
+    import chip_smoke as cs
+
+    rows = {"serve": [dict(name="K1 a", counter="K1", ms=6.0, library_ms=3.0,
+                           bound_ms=1.5)],
+            "train": [dict(name="K1 b", counter="K1", ms=4.5, library_ms=3.0,
+                           bound_ms=1.5),
+                      dict(name="dQ", counter="dQ", ms=1.0, library_ms=9.0,
+                           bound_ms=1.5)],
+            "online": [dict(name="K15 c", counter="K15", ms=3.0,
+                            library_ms=4.0, bound_ms=1.5)]}
+    k1, k15 = cs.forward_lines(rows, "card")
+    assert k1.startswith("attention forward K1: K1 a 6.000 ms against "
+                         "SDPA's forward 3.000 ms, factor 2.000")
+    assert "K1 b 4.500 ms" in k1 and "factor 1.500" in k1
+    assert "dQ" not in k1 and k1.endswith("on card")
+    assert "K15 c 3.000 ms" in k15 and "factor 0.750" in k15
+    # 2·10^12 logits: 1 ms of exps at 2·10^15 exps/s, 0.5 ms of products
+    ops = {"bf16": 989e9 / 2, "exp": 2e12}
+    ms, by, pipe = cs.bound(ops, 0, 2e15)
+    assert (by, pipe) == ("operations", "exp") and ms == pytest.approx(1.0)
+    ms, by, pipe = cs.bound(ops, 0, 2e16)
+    assert (by, pipe) == ("operations", "ops") and ms == pytest.approx(0.5)
+    ms, by, pipe = cs.bound(ops, 3.35e10, 2e16)
+    assert (by, pipe) == ("bytes", "bytes") and ms == pytest.approx(10.0)
+    t = torch.arange(4.0)
+    cs.same_bits_twice(lambda: (t, t + 1), "equal runs")
+    flips = iter([0.0, 1.0])
+    with pytest.raises(RuntimeError, match="not bit-reproducible"):
+        cs.same_bits_twice(lambda: (t + next(flips),), "unequal runs")
 
 
 def test_chip_smoke_gradient_errors_hold_at_tiny_norms():
@@ -205,6 +246,9 @@ def test_chip_smoke_gradient_errors_hold_at_tiny_norms():
     assert rel == pytest.approx(1e-13 / float(b.double().norm()), rel=1e-3)
     assert cos == pytest.approx(1.0, abs=1e-6)
     assert cs.grad_errors(a, -a) == pytest.approx((2.0, -1.0))
+
+
+ATTENTION_COUNTERS = ("K1", "dKdV", "dQ", "K9/K10", "K15")
 
 
 def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
@@ -241,8 +285,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
         outs = out if isinstance(out, tuple) else (out,)
         for a, b in zip(outs, ref if isinstance(ref, tuple) else (ref,)):
             assert cs.compare(a, b)[:2] == (0.0, 0.0), c.name
-        ms, by = cs.bound(c.ops, c.in_bytes + cs.nbytes(*outs))
+        # an H100 SXM's exp rate at its 1,980 MHz clocks.max.sm
+        ms, by, pipe = cs.bound(c.ops, c.in_bytes + cs.nbytes(*outs),
+                                cs.EXP_PER_SM_CLOCK * 132 * 1.98e9)
         assert ms > 0 and by in ("bytes", "operations"), c.name
+        assert (by == "bytes") == (pipe == "bytes"), c.name
+        assert ("exp" in c.ops) == (c.counter in ATTENTION_COUNTERS), c.name
         assert (c.library is not None) == (c.counter in ("K1", "dKdV", "dQ",
                                                          "K15"))
     for attn_impl in ("pallas_static", "pallas"):

@@ -159,6 +159,23 @@ def test_synthetic_dataset_matches_jax():
         tsynthetic.SyntheticCTDataset("imageseg")
 
 
+def test_synthetic_batch_drawn_in_place_matches_jax():
+    """collate_batch draws the volumes in chunks into one batch array: the
+    bytes of JAX's items collated, also with _CHUNK cut to 1,000 values,
+    so that a tiny volume spans several chunks and a ragged last one."""
+    tds, jds = _datasets(5, seed=4)
+    idx = [3, 0, 4]
+    ref = jloader.collate([jds[i] for i in idx])
+    _assert_same_item(tds.collate_batch(idx), ref)
+    chunk = tsynthetic._CHUNK
+    tsynthetic._CHUNK = 1000   # several chunks and a ragged last one
+    try:
+        _assert_same_item(tds.collate_batch(idx), ref)
+        _assert_same_item(tds[4], jds[4])
+    finally:
+        tsynthetic._CHUNK = chunk
+
+
 @pytest.mark.parametrize("drop_last", [True, False])
 def test_loader_order_and_bytes_match_jax(drop_last):
     tds, jds = _datasets(7)
@@ -215,7 +232,9 @@ def test_accumulation_matches_optax_multisteps(k):
                                    state, jp)
         jp = optax.apply_updates(jp, updates)
         for n, p in tp.items():
-            p.grad = torch.from_numpy(g[n])
+            # a copy: the clip scales p.grad in place, and JAX may still be
+            # reading g[n] (jnp.asarray shares host memory, dispatch is async)
+            p.grad = torch.from_numpy(g[n].copy())
         opt.step()
         for n, p in tp.items():
             assert _rel(p.detach(), jp[n]) < 1e-6, (i, n)

@@ -2,7 +2,7 @@
 // vit_exp_tpu/ops/flash_attention.py::_bwd_fused_kernel (exact tiling) and
 // ::_dq_kernel / ::_dkv_kernel (ragged kv).
 //
-// With lse = B + log l from the forward (flash_static.cu, flash_online.cu),
+// With lse = B + log l from the forward (flash_fwd.cu, K1 or K15),
 // for one (batch, head):  p = exp(q·k·scale − lse),  δ = rowsum(dO ⊙ O)
 // (from the caller),  dV = bf16(p)ᵀ dO,  dS = bf16(p ⊙ (dO Vᵀ − δ) · scale),
 // dK = dSᵀ Q,  dQ = dS K.  Head dim 32, fp32 accumulators, bf16 operands,
@@ -50,20 +50,20 @@
 //   (dK/dV 168, dQ 136, no spills).
 // q, k, v, dO and the gradients are addressed through (batch, head, row)
 // strides with a contiguous head dim.
-#include "common.cuh"
+#include "attn_mma.cuh"
 
 using namespace vit;
 
 namespace {
 
-constexpr int D = 32;          // head dim
+constexpr int D = ATT_D;       // head dim
 constexpr int BT = 64;         // rows of a streamed tile (queries or keys)
 constexpr int WR = 32;         // rows a warp owns: two m16 tiles
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int BR = WARPS * WR; // rows a block owns: 128
 constexpr int STAGES = 3;      // depth of the cp.async ring
-constexpr int LDT = D + 8;     // bf16 pitch of a staged row (80 bytes)
+constexpr int LDT = ATT_LDT;   // bf16 pitch of a staged row (80 bytes)
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
@@ -84,77 +84,6 @@ struct DqStage {
     bf16 v[BT * LDT];
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared; zero-fill (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 × 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of the
-// i-th, register i receives it (.trans: transposed)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p))
-        : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p))
-        : "memory");
-}
-
-// c (16 × 8 fp32) += a (16 × 16 bf16, row) · b (16 × 8 bf16, col).
-// Lane l, g = l / 4, t = l % 4: a = {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
-// (g+8, 2t+8..)}; b = {(k 2t..2t+1, n g), (k 2t+8.., n g)}; c = {(g, 2t),
-// (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
 // ROWS rows of a (row, 32) bf16 matrix copied by half the block (rows
 // row0.. of src, row stride sn, into dst at pitch LDT, zero past nrows):
 // thread tid copies chunk tid % 4 of rows (tid % 64) / 4 + 16i.  Each half
@@ -171,54 +100,6 @@ __device__ __forceinline__ void load_half(bf16* dst, const bf16* src, int sn,
         const bool ok = row0 + r < nrows;
         cp_async16(dst + r * LDT + cv * 8,
                    ok ? src + (row0 + r) * sn + cv * 8 : src, ok);
-    }
-}
-
-// A fragments of a warp's 32 staged rows (two m16 tiles × two k16 steps
-// over the head dim)
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][2][4], const bf16* s,
-                                       int lane) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks)
-            ldsm_x4(a[mt][ks],
-                    s + (mt * 16 + (lane & 15)) * LDT + ks * 16 + (lane >> 4) * 8);
-}
-
-// S (the warp's 32 rows × tile rows r0..r0+7, one n8 tile) = A·tileᵀ over
-// the head dim; the B fragment is one plain ldmatrix of the 8 tile rows:
-// {b0, b1} of k step 0, then of k step 1
-__device__ __forceinline__ void rows_times_rows(float (&s)[2][4],
-                                                const uint32_t (&a)[2][2][4],
-                                                const bf16* tile, int r0,
-                                                int lane) {
-    uint32_t b[4];
-    ldsm_x4(b, tile + (r0 + (lane & 7)) * LDT + (lane >> 3) * 8);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mt][e] = 0.f;
-        mma(s[mt], a[mt][0], b[0], b[1]);
-        mma(s[mt], a[mt][1], b[2], b[3]);
-    }
-}
-
-// acc (the warp's 32 rows × 32) += a (32 × 16: its k16 A fragments) ·
-// tile rows r0..r0+15 (16 × 32, read transposed by ldmatrix)
-__device__ __forceinline__ void acc_times_tile(float (&acc)[2][4][4],
-                                               const uint32_t (&a)[2][4],
-                                               const bf16* s, int r0,
-                                               int lane) {
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb) {
-        uint32_t b[4];
-        ldsm_x4_t(b, s + (r0 + (lane & 15)) * LDT + nb * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-            mma(acc[mt][2 * nb], a[mt], b[0], b[1]);
-            mma(acc[mt][2 * nb + 1], a[mt], b[2], b[3]);
-        }
     }
 }
 

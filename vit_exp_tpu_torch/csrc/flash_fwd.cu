@@ -1,0 +1,350 @@
+// K1 and K15: attention forward, one kernel template with two softmax
+// policies.  Replaces, in vit_exp_tpu/ops/flash_attention.py:
+// - running max (K15): ::_fwd_kernel (``_flash_fwd``, reached through
+//   ``_flash_core`` with null_strategy="concat": the null kv are ordinary
+//   keys 0 .. n_null-1 of every (batch, head)).  p = exp(q·k·scale − m), m
+//   the running row max; l sums the fp32 p, only the P·V operand is p
+//   rounded to bf16; lse = m + log l;
+// - static bound (K1): ::_fwd_kernel_static (``_flash_fwd_static``).  p =
+//   bf16(exp(q·k·scale − B)) with B a traced bound on every logit (no
+//   running max); up to 8 nulls per head, shared by the batch, seed O and
+//   l; l sums the bf16-rounded p (the TPU kernel's ones column in v);
+//   lse = B + log l.
+// out = O / l in bf16; lse (natural-log units, fp32, (batch·head, Nq)) only
+// when the pointer is not null: the statistic the backward pair
+// (flash_bwd.cu) recomputes p from.  q, k, v and out are addressed through
+// (batch, head, row) strides with a contiguous head dim of 32.
+//
+// What bounds it.  Per logit: two products of 2·32 operations on the
+// tensor cores (0.79 ms at the production shape, 6.12 G logits per layer,
+// at the bf16 peak; mma.sync reaches a part of that) and one exp on the
+// special-function unit, 16 per clock per SM: ≈ 1.65 ms per layer at
+// 1.755 GHz, the tighter of the two.  Around them a handful of fp32
+// operations (scale, max, sum, pack).  The design keeps everything else off
+// the critical path (it is the backward pair's, flash_bwd.cu):
+// - S, p and O never leave registers.  Products are PTX mma.sync.m16n8k16
+//   (bf16 in, fp32 accumulate); two adjacent n8 accumulator tiles of p,
+//   packed to bf16, are exactly one k16 A fragment of P·V.  K15 rescales O
+//   and l in registers once per tile.  The row max is a quad reduction (two
+//   shfl_xor over the 4 lanes of a row); l stays per lane and is reduced
+//   once at the end (its partial sums share the row's rescale).
+// - 4 warps of 32 query rows (two m16 tiles), 128 queries per block: every
+//   K and V fragment read by ldmatrix serves 32 queries.  Q's A fragments
+//   are loaded once and stay in registers.
+// - K and V stream in 64-key tiles through a 3-stage cp.async ring
+//   (16-byte cp.async.cg, zero fill past the end): tile t + 2 loads while
+//   tile t computes, one barrier per tile.  Rows padded to 80 bytes, so
+//   ldmatrix is conflict-free.
+// - p = ex2.approx(S · scale·log2e − m·log2e): one FFMA and one MUFU per
+//   logit; m is kept in log2 units (K1: the per-block constant B·log2e).
+//   A p below 2^-126 flushes to 0: K15's p are relative to the row max;
+//   K1's are rounded to bf16, whose denormals stop at 2^-133.
+// - Masking: keys ≥ Nkv (zero-filled) get S = −∞, only in the last tile (a
+//   uniform branch); query rows past Nq are zero-filled and never stored.
+//   K1's nulls are one extra 16-key tile staged once beside Q and masked
+//   past n_null: the same code path as a kv tile, a quarter of one tile's
+//   work, against a per-lane fp32 loop over the nulls.
+// - No atomics: two launches on the same inputs give the same bits.
+// - Registers: __launch_bounds__ asks for three blocks (12 warps) per SM,
+//   a cap of 168.  O is 32 fp32 per lane, Q's fragments 16, a 64-key S 64.
+//   K1 takes a 64-key tile in one pass (156 registers on an H100 build);
+//   K15 also keeps its rescale live beside S and spilled at 64 keys, so it
+//   takes two 32-key passes per tile (168, no spill).  Two blocks per SM
+//   with one 64-key pass ran slower in a trial; four blocks (a cap of 128)
+//   spill.  The ptxas counts are in build/torch_kernels/*.log.
+#include "attn_mma.cuh"
+
+using namespace vit;
+
+namespace {
+
+constexpr int D = ATT_D;
+constexpr int LDT = ATT_LDT;
+constexpr int BKV = 64;          // keys of a streamed tile
+constexpr int NULL_ROWS = 16;    // K1's nulls: one k16 tile
+constexpr int MAX_NULL = 8;
+constexpr int WR = 32;           // query rows a warp owns: two m16 tiles
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int BQ = WARPS * WR;   // query rows a block owns: 128
+constexpr int STAGES = 3;        // depth of the cp.async ring
+constexpr int MIN_BLOCKS = 3;    // per SM, for __launch_bounds__
+// keys a warp takes through S → p → P·V at once: a 64-key tile in one pass
+// (K1) or two (K15)
+constexpr int SUB_STATIC = 64, SUB_ONLINE = 32;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+struct Strides {
+    long long b, h, n;
+};
+
+struct Smem {
+    bf16 q[BQ * LDT];
+    bf16 nk[NULL_ROWS * LDT];
+    bf16 nv[NULL_ROWS * LDT];
+    bf16 k[STAGES][BKV * LDT];
+    bf16 v[STAGES][BKV * LDT];
+};
+
+__device__ __forceinline__ float neg_inf() {
+    return __int_as_float(0xff800000);
+}
+
+// ROWS rows of a (row, 32) bf16 matrix (rows row0.. of src, row stride sn)
+// into dst at pitch LDT by the whole block, zero past nrows: thread tid
+// copies 16-byte chunk tid % 4 of rows tid / 4 + 32i
+template <int ROWS>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
+                                          long long sn, int row0, int nrows,
+                                          int tid) {
+    const int cv = tid & 3;
+#pragma unroll
+    for (int i = 0; i < (ROWS * 4 + THREADS - 1) / THREADS; ++i) {
+        const int r = (tid >> 2) + (THREADS / 4) * i;
+        if (r < ROWS) {
+            const bool ok = row0 + r < nrows;
+            cp_async16(dst + r * LDT + cv * 8,
+                       ok ? src + (row0 + r) * sn + cv * 8 : src, ok);
+        }
+    }
+}
+
+// One tile of KEYS keys staged at pitch LDT (ks, vs) against the warp's 32
+// queries (qa).  MASK: keys at or past kv_left are not keys (the last kv
+// tile, K1's nulls).  ONLINE (K15): m is the running row max in log2
+// units, O and l are rescaled by ex2(m_old − m_new); else (K1) m holds
+// B·log2e and never moves, and l sums the bf16-rounded p.  Lane (g, t)
+// holds rows g and g + 8 of each m16 tile (index half), keys 2t, 2t + 1 of
+// each n8 tile.
+template <int KEYS, bool MASK, bool ONLINE>
+__device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
+                                            float (&m)[2][2], float (&l)[2][2],
+                                            const uint32_t (&qa)[2][2][4],
+                                            const bf16* ks, const bf16* vs,
+                                            int kv_left, float c2, int lane) {
+    constexpr int NT = KEYS / 8;
+    const int t = lane & 3;
+    float s[NT][2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) rows_times_rows(s[j], qa, ks, j * 8, lane);
+    if (MASK) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (j * 8 + 2 * t + (e & 1) >= kv_left)
+                        s[j][mt][e] = neg_inf();
+    }
+    if (ONLINE) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                float mx = neg_inf();
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+                    mx = fmaxf(mx, fmaxf(s[j][mt][2 * half],
+                                         s[j][mt][2 * half + 1]));
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+                // finite: the pass's first key is a key
+                const float m_new = fmaxf(m[mt][half], mx * c2);
+                const float corr = exp2_approx(m[mt][half] - m_new);
+                m[mt][half] = m_new;
+                l[mt][half] *= corr;
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) {
+                    o[mt][nt][2 * half] *= corr;
+                    o[mt][nt][2 * half + 1] *= corr;
+                }
+            }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk) {
+        uint32_t pa[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+            const int j = 2 * kk + jj;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+                float p[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    p[e] = exp2_approx(fmaf(s[j][mt][e], c2, -m[mt][e >> 1]));
+                const uint32_t lo = pack_bf16(p[0], p[1]);
+                const uint32_t hi = pack_bf16(p[2], p[3]);
+                pa[mt][2 * jj] = lo;
+                pa[mt][2 * jj + 1] = hi;
+                if (ONLINE) {
+                    l[mt][0] += p[0] + p[1];
+                    l[mt][1] += p[2] + p[3];
+                } else {   // the bf16 values the P·V operand holds
+                    l[mt][0] += __uint_as_float(lo << 16) +
+                                __uint_as_float(lo & 0xffff0000u);
+                    l[mt][1] += __uint_as_float(hi << 16) +
+                                __uint_as_float(hi & 0xffff0000u);
+                }
+            }
+        }
+        acc_times_tile(o, pa, vs, kk * 16, lane);   // O += P·V
+    }
+}
+
+// one block per (128 queries, batch·head); warp w owns queries 32w..32w+31;
+// each staged tile goes through attend_tile in passes of SUB keys
+template <bool ONLINE, int SUB>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ nk,
+                 const bf16* __restrict__ nv,
+                 const float* __restrict__ bound_ptr, bf16* __restrict__ out,
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 Strides os, int H, int Nq, int Nkv, int n_null, float scale) {
+    __shared__ __align__(128) Smem sm;
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int b = blockIdx.y / H, h = blockIdx.y % H;
+    const int q0 = blockIdx.x * BQ;
+    const bf16* kb = k + b * ks.b + h * ks.h;
+    const bf16* vb = v + b * vs.b + h * vs.h;
+    const float c2 = scale * LOG2E;
+
+    // the first group: the block's queries and K1's nulls
+    copy_rows<BQ>(sm.q, q + b * qs.b + h * qs.h, qs.n, q0, Nq, tid);
+    if (!ONLINE && n_null > 0) {
+        const size_t n0 = (size_t)h * n_null * D;
+        copy_rows<NULL_ROWS>(sm.nk, nk + n0, D, 0, n_null, tid);
+        copy_rows<NULL_ROWS>(sm.nv, nv + n0, D, 0, n_null, tid);
+    }
+    cp_async_commit();
+
+    const int n_tiles = (Nkv + BKV - 1) / BKV;
+    auto issue = [&](int tile) {
+        if (tile < n_tiles) {
+            const int st = tile % STAGES;
+            copy_rows<BKV>(sm.k[st], kb, ks.n, tile * BKV, Nkv, tid);
+            copy_rows<BKV>(sm.v[st], vb, vs.n, tile * BKV, Nkv, tid);
+        }
+        cp_async_commit();   // an empty group past the end keeps the count
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+    cp_async_wait<STAGES - 1>();   // this thread's queries and nulls
+    __syncthreads();
+    uint32_t qa[2][2][4];
+    load_a(qa, sm.q + warp * WR * LDT, lane);
+
+    float o[2][4][4], m[2][2], l[2][2];
+    const float m0 = ONLINE ? neg_inf() : *bound_ptr * LOG2E;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            m[mt][half] = m0;
+            l[mt][half] = 0.f;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[mt][nt][e] = 0.f;
+    }
+    if (!ONLINE && n_null > 0)
+        attend_tile<NULL_ROWS, true, false>(o, m, l, qa, sm.nk, sm.nv, n_null,
+                                            c2, lane);
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        cp_async_wait<STAGES - 2>();   // this thread's copies of the tile
+        __syncthreads();   // every copy visible; the oldest stage is free
+        issue(tile + STAGES - 1);
+        const bf16* kt = sm.k[tile % STAGES];
+        const bf16* vt = sm.v[tile % STAGES];
+        const int kv_left = Nkv - tile * BKV;
+        if (kv_left >= BKV) {
+#pragma unroll
+            for (int c = 0; c < BKV / SUB; ++c)
+                attend_tile<SUB, false, ONLINE>(o, m, l, qa, kt + c * SUB * LDT,
+                                                vt + c * SUB * LDT, SUB, c2,
+                                                lane);
+        } else {   // the last tile: passes holding a key, masked
+            for (int c = 0; c * SUB < kv_left; ++c)
+                attend_tile<SUB, true, ONLINE>(o, m, l, qa, kt + c * SUB * LDT,
+                                               vt + c * SUB * LDT,
+                                               kv_left - c * SUB, c2, lane);
+        }
+    }
+    cp_async_wait<0>();
+
+    // out = O / l; lse = m + log l (K1: B + log l)
+    bf16* ob = out + b * os.b + h * os.h;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            float lt = l[mt][half];
+            lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+            lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+            const int row = q0 + warp * WR + mt * 16 + half * 8 + g;
+            if (row >= Nq) continue;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+                *reinterpret_cast<uint32_t*>(ob + row * os.n + nt * 8 + 2 * t) =
+                    pack_bf16(o[mt][nt][2 * half] / lt,
+                              o[mt][nt][2 * half + 1] / lt);
+            if (lse != nullptr && t == 0)
+                lse[(size_t)blockIdx.y * Nq + row] =
+                    (ONLINE ? m[mt][half] * LN2 : *bound_ptr) + logf(lt);
+        }
+}
+
+static_assert(sizeof(Smem) <= 48 * 1024, "static shared memory");
+static_assert(sizeof(bf16) * BKV * LDT % 16 == 0,
+              "stages must keep 16-byte alignment");
+
+template <bool ONLINE>
+int launch(const void* q, const void* k, const void* v, const void* nk,
+           const void* nv, const void* bound, void* out, void* lse,
+           Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
+           int Nq, int Nkv, int n_null, float scale, void* stream) {
+    // K15 needs a key in every row; K1 may run on its nulls alone
+    if (Nkv < (ONLINE ? 1 : 0) || n_null < 0 || n_null > MAX_NULL)
+        return (int)cudaErrorInvalidValue;
+    dim3 grid((Nq + BQ - 1) / BQ, B * H);
+    flash_fwd_kernel<ONLINE, ONLINE ? SUB_ONLINE : SUB_STATIC>
+        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)nk,
+        (const bf16*)nv, (const float*)bound, (bf16*)out, (float*)lse, qs, ks,
+        vs, os, H, Nq, Nkv, n_null, scale);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+VIT_API int vit_flash_static_fwd(
+    const void* q, const void* k, const void* v, const void* nk,
+    const void* nv, const void* bound, void* out, void* lse, long long qsb,
+    long long qsh, long long qsn, long long ksb, long long ksh, long long ksn,
+    long long vsb, long long vsh, long long vsn, long long osb, long long osh,
+    long long osn, int B, int H, int Nq, int Nkv, int n_null, float scale,
+    void* stream) {
+    return launch<false>(q, k, v, nk, nv, bound, out, lse,
+                         Strides{qsb, qsh, qsn}, Strides{ksb, ksh, ksn},
+                         Strides{vsb, vsh, vsn}, Strides{osb, osh, osn}, B, H,
+                         Nq, Nkv, n_null, scale, stream);
+}
+
+VIT_API int vit_flash_online_fwd(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    long long qsb, long long qsh, long long qsn, long long ksb, long long ksh,
+    long long ksn, long long vsb, long long vsh, long long vsn, long long osb,
+    long long osh, long long osn, int B, int H, int Nq, int Nkv, float scale,
+    void* stream) {
+    return launch<true>(q, k, v, nullptr, nullptr, nullptr, out, lse,
+                        Strides{qsb, qsh, qsn}, Strides{ksb, ksh, ksn},
+                        Strides{vsb, vsh, vsn}, Strides{osb, osh, osn}, B, H,
+                        Nq, Nkv, 0, scale, stream);
+}

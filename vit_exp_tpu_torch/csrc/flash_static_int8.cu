@@ -11,8 +11,9 @@
 // bf16(p0)·nv, l gets p0 unrounded (K10 sums its null probabilities in
 // fp32).  out = O / l in bf16.
 //
-// K1's structure (csrc/flash_static.cu) with int8 Q and K tiles: one block
-// owns 64 queries of one (batch, head), four warps 16 queries each; the
+// K1's first design (wmma, before csrc/flash_fwd.cu) with int8 Q and K
+// tiles: one block owns 64 queries of one (batch, head), four warps 16
+// queries each; the
 // block walks the keys in tiles of 64 staged in shared memory (q8 and k8 in
 // the k16 layout, 2 KB each).  Bound like K1's: at 13,824 tokens and 32
 // (batch, head) rows, 6.1 G logits per layer, each needing one exp and one

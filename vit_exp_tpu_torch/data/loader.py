@@ -4,7 +4,9 @@ numpy batches ahead of consumption, with at most ``num_workers + prefetch``
 batches submitted and not yet consumed.  For a seed the shuffle order is
 the JAX package's: ``default_rng((seed, epoch))`` permutes the indices.
 String fields are collated to lists; per-class prompt tensors that repeat
-across samples are collapsed to one copy."""
+across samples are collapsed to one copy.  A dataset with a
+``collate_batch(indices)`` method builds its own batches (the same dict,
+made without the per-item copies)."""
 
 from __future__ import annotations
 
@@ -68,6 +70,13 @@ class Loader:
             batches.pop()
         return batches
 
+    def load_batch(self, indices) -> Dict:
+        """The batch of the given dataset indices (what one worker does)."""
+        fill = getattr(self.dataset, "collate_batch", None)
+        if fill is not None:
+            return fill(indices)
+        return collate([self.dataset[i] for i in indices])
+
     def __iter__(self) -> Iterator[Dict]:
         batches = self._batch_indices()
         self.epoch += 1
@@ -75,9 +84,6 @@ class Loader:
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
-
-        def load_batch(indices):
-            return collate([self.dataset[i] for i in indices])
 
         def put_or_stop(item) -> bool:
             """Bounded put that gives up once the consumer has gone, so an
@@ -96,7 +102,7 @@ class Loader:
                 it = iter(batches)
                 pending: List = []
                 for b in it:
-                    pending.append(pool.submit(load_batch, b))
+                    pending.append(pool.submit(self.load_batch, b))
                     if len(pending) >= self.num_workers + self.prefetch:
                         break
                 while pending:
@@ -110,7 +116,7 @@ class Loader:
                         return
                     nxt = next(it, None)
                     if nxt is not None:
-                        pending.append(pool.submit(load_batch, nxt))
+                        pending.append(pool.submit(self.load_batch, nxt))
                 put_or_stop(("done", None))
             finally:
                 pool.shutdown(wait=False, cancel_futures=True)

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from vit_exp_tpu_torch.core.config import CTClipArchConfig
 from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from vit_exp_tpu_torch.models.bert import BertConfig, BertModel
 from vit_exp_tpu_torch.models.ctvit3d import CTViT3D
@@ -25,10 +26,12 @@ from vit_exp_tpu_torch.ops.attention import l2norm
 
 class CTCLIP(nn.Module):
     def __init__(self, visual: CTViT3D, bert_config: BertConfig, *,
-                 dim_latent: int = 768, policy: Policy = DEFAULT_POLICY,
-                 device=None):
+                 dim_latent: int = 768,
+                 clip_arch: Optional[CTClipArchConfig] = None,
+                 policy: Policy = DEFAULT_POLICY, device=None):
         super().__init__()
         kw = dict(policy=policy, device=device)
+        self.clip_arch = clip_arch or CTClipArchConfig()
         self.visual_transformer = visual
         self.text_transformer = BertModel(bert_config, **kw)
         self.to_text_latent = Linear(bert_config.hidden_size, dim_latent,
@@ -46,7 +49,13 @@ class CTCLIP(nn.Module):
 
     def encode_text_hidden(self, input_ids: torch.Tensor,
                            attention_mask: Optional[torch.Tensor] = None):
-        return self.text_transformer(input_ids, attention_mask)
+        """BERT's hidden states; under ``fix_text_encoder`` detached (JAX's
+        stop_gradient), so BERT's parameters get no ``.grad`` and the
+        optimizer steps them on a zero gradient, as optax does."""
+        hidden = self.text_transformer(input_ids, attention_mask)
+        if self.clip_arch.fix_text_encoder:
+            hidden = hidden.detach()
+        return hidden
 
     def image_latents_from_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token mean (fp32) → projection → l2norm."""

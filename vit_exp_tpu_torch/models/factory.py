@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from vit_exp_tpu_torch.core.config import CTClipArchConfig
 from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from vit_exp_tpu_torch.models.bert import BertConfig
 from vit_exp_tpu_torch.models.ctclip import CTCLIP
@@ -76,8 +77,17 @@ def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
     ``int8=True`` is the W8A8 serving path, the JAX package's serving
     default: it switches attention and feed-forward together, so no
     bf16/int8 hybrid runs (with ``fuse_qkv`` the qkv and out-projections
-    too); forward only.  The state dict is the same in every mode."""
+    too); forward only.  The state dict is the same in every mode.
+    ``config.ct_clip_arch`` (the port's ``CTClipArchConfig`` defaults when
+    the config has none) goes to ``CTCLIP``; the segmentation heads are not
+    ported yet, so ``use_seg`` and ``use_open_seg`` raise here."""
     arch = getattr(config, "arch", config)
+    clip_arch = getattr(config, "ct_clip_arch", None) or CTClipArchConfig()
+    for switch in ("use_seg", "use_open_seg"):
+        if getattr(clip_arch, switch, False):
+            raise NotImplementedError(
+                f"ct_clip_arch.{switch}: the segmentation and open-vocabulary "
+                f"heads are not ported yet (ROADMAP M4)")
     if dim_latent is None:
         dim_latent = (getattr(config, "extra", None) or {}).get("dim_latent",
                                                                 768)
@@ -85,6 +95,6 @@ def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
                                  use_kernels=use_kernels, attn_impl=attn_impl,
                                  remat=remat, fuse_qkv=fuse_qkv, int8=int8)
     model = CTCLIP(visual, bert_config or BertConfig(), dim_latent=dim_latent,
-                   policy=policy, device=device)
+                   clip_arch=clip_arch, policy=policy, device=device)
     init_parameters_(model, seed)
     return model.eval()

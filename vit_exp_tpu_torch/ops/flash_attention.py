@@ -12,21 +12,25 @@ TPU kernel's bf16 p·[v | 1] product does.
 
 Kernel K1 (``attention_static``) replaces
 vit_exp_tpu/ops/flash_attention.py::_fwd_kernel_static (``_flash_fwd_static``,
-via ``_flash_core_static``).  CUDA C++, csrc/flash_static.cu.  With head dim
-32 the two products per logit are cheap next to the exp and the per-logit
-shared-memory traffic: at 13,824 tokens and 32 (batch · head) rows it is 6.1
-G logits per layer, bound by the exp unit and by how often each logit is
-touched.  One block owns 64 queries of one (batch, head); four warps each
-hold 16 of them.  The block walks the keys in tiles of 64 staged in shared
-memory: S = QKᵀ on tensor cores, p = bf16(exp(S·scale − B)) with the row sum
-l kept in registers, O += P·V on tensor cores.  The nulls seed O and l before
-the walk; O/l is written once at the end.  Ragged q and kv tails are masked,
-and q/k/v/out are read and written through strides, so the (b, n, h·d)
-projection output is used in place and the output lands in the (b, n, h·d)
-layout the out-projection reads.  B arrives as a device pointer: the forward
-never synchronises with the host.  On request K1 also writes lse = B + log l
-(l summed over the bf16-rounded p, nulls included), which the backward
-recomputes p from.
+via ``_flash_core_static``), and K15 (``attention_online``, below) replaces
+::_fwd_kernel: one CUDA C++ kernel template, csrc/flash_fwd.cu, with two
+softmax policies.  With head dim 32 the two products per logit are cheap
+next to the exp: at 13,824 tokens and 32 (batch · head) rows it is 6.1 G
+logits per layer, bound by the exp unit (≈ 1.5-1.65 ms on an H100) more than
+by the products (0.79 ms).  The design is the backward pair's: one block
+owns 128 queries of one (batch, head), four warps 32 each; K and V stream in
+64-key tiles through a 3-stage ``cp.async`` ring; S = QKᵀ and O += P·V are
+``mma.sync`` products whose accumulators never leave registers (p is packed
+from S's accumulators into P·V's A fragment); p = bf16(exp2(S·scale·log2e −
+B·log2e)), one FFMA and one ex2 per logit, with the row sum l in registers.
+The nulls are one 16-key tile staged beside the queries; O/l is written once
+at the end.  Ragged q and kv tails are masked, and q/k/v/out are read and
+written through strides, so the (b, n, h·d) projection output is used in
+place and the output lands in the (b, n, h·d) layout the out-projection
+reads.  B arrives as a device pointer: the forward never synchronises with
+the host.  On request K1 also writes lse = B + log l (natural log; l summed
+over the bf16-rounded p, nulls included), which the backward recomputes p
+from.
 
 The backward replaces vit_exp_tpu/ops/flash_attention.py::_bwd_fused_kernel
 (K5, exact tiling) and ::_dq_kernel / ::_dkv_kernel (K6/K7, ragged kv) with
@@ -46,12 +50,13 @@ bound B gets no gradient (softmax is invariant to the shift).
 Kernel K15 (``attention_online``) replaces
 vit_exp_tpu/ops/flash_attention.py::_fwd_kernel (``_flash_fwd``, via
 ``_flash_core``), the forward of the JAX package's training default
-(attn_impl="pallas").  CUDA C++, csrc/flash_online.cu, built on K1: the
-nulls are ordinary keys at the front of k/v (nkv = 13,826 at production,
-so the last 64-key tile holds 2 keys and the rest is masked), and a
-running max m replaces the bound, with the per-tile correction
-exp(m − m_new) on l and O.  As the TPU kernel does, l sums the fp32 p and
-only the P·V operand is p rounded to bf16; lse = m + log l.
+(attn_impl="pallas").  It is K1's kernel template (csrc/flash_fwd.cu) under
+its other policy: the nulls are ordinary keys at the front of k/v (nkv =
+13,826 at production, so the last 64-key tile holds 2 keys and the rest is
+masked), and a running max m (log2 units, a quad reduction per row)
+replaces the bound, with the per-tile correction exp2(m − m_new) on l and
+O in registers.  As the TPU kernel does, l sums the fp32 p and only the
+P·V operand is p rounded to bf16; lse = m + log l.
 ``OnlineAttention`` runs it forward and the flash_bwd.cu pair backward over
 all nkv keys (the JAX ``_flash_bwd_concat`` route), so the null gradients
 are rows [:n_null] of dK/dV, summed over the batch by ``torch.cat``'s own
@@ -172,6 +177,8 @@ def attention_static(q, k, v, nk, nv, bound, scale: float,
                          f"bf16 nulls of shape (h, n_null, d); got "
                          f"{tuple(nk.shape)}")
     nk, nv = nk.contiguous(), nv.contiguous()
+    if nk.data_ptr() % 16 or nv.data_ptr() % 16:   # staged by cp.async
+        nk, nv = nk.clone(), nv.clone()
     bound = bound.float().reshape(())
     out = _heads_last_like(q)
     lse = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
