@@ -5,14 +5,17 @@
 
 1. Requires a CUDA device (exits non-zero without one) and prints the card's
    name and power limit as nvidia-smi reports them.
-2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc``.
+2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc`` and
+   prints ptxas's registers and spills for K8's kernels and the int8
+   attention (none may spill).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
    tokens, width 768; one row per launch counter: K1-K4, K1 with lse, the
-   two attention backward kernels, K8's two phases, the int8 attention
-   (K9/K10), K11, K12/K13, K14, and K15 with and without lse and the two
-   attention backward kernels over the 13,826 keys of the nulls
-   concatenated to k/v), relative L2 error ≤ REL_L2_TOL and max abs error ≤
+   two attention backward kernels, K8's six kernels (y, dh/act, dy, dx,
+   the weight GEMM, the ordered sums), the int8 attention (K9/K10), K11,
+   K12/K13, K14, and K15 with and without lse and the two attention
+   backward kernels over the 13,826 keys of the nulls concatenated to
+   k/v), relative L2 error ≤ REL_L2_TOL and max abs error ≤
    MAX_ABS_TOL · max|plain|, and times both with CUDA events.  Each row also
    carries its bound (the least time an H100 could take: the largest of
    its bytes over the memory rate, its tensor-core and CUDA-core
@@ -22,8 +25,9 @@
    K15 and the attention backward pair, the time of torch's
    scaled_dot_product_attention on the same inputs (a yardstick, never on
    the path; its backward is timed once per input set and shared by the
-   pair's two rows).  Checks that K1 (with lse, 13,824 keys), K15 (with
-   lse, 13,826 keys) and the backward pair (13,826 keys) each give the
+   pair's two rows) and, for K8's weight GEMM, torch.mm's.  Checks that K1
+   (with lse, 13,824 keys), K15 (with lse, 13,826 keys), the backward pair
+   (13,826 keys), K8 (both phases) and the int8 attention each give the
    same bits twice (no atomics), and prints each forward's times against
    SDPA's forward and the pair's summed time against the one SDPA
    backward.
@@ -80,6 +84,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -360,8 +365,10 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
 def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
     """The training path's kernel rows at its shapes: K1 with lse, the two
     attention backward kernels (each against its outputs of the plain
-    backward twin) and K8's two phases (both sides of the weight phase take
-    the kernel token phase's y, dh and act)."""
+    backward twin) and K8's six kernels, one row each (each row's kernel and
+    twin take the kernel chain's inputs; the weight GEMM's row carries
+    torch.mm as its yardstick).  Checks first that K8 as a whole gives the
+    same bits twice."""
     from vit_exp_tpu_torch.ops import geglu_ff
     from vit_exp_tpu_torch.ops import flash_attention as fa
     from vit_exp_tpu_torch.ops.attention import l2norm
@@ -399,13 +406,21 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
     x = randn(m, d).to(bf)
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
     gamma, beta = 1 + 0.1 * randn(d), 0.1 * randn(d)
-    w1, w2 = randn(d, 2 * inner, std=d ** -0.5), randn(inner, d,
-                                                       std=inner ** -0.5)
+    w1 = randn(d, 2 * inner, std=d ** -0.5).to(bf)
+    w2 = randn(inner, d, std=inner ** -0.5).to(bf)
     dout_ff = randn(m, d, std=1e-3).to(bf)
-    ff = (x, mu, inv, gamma, beta, w1.to(bf), w2.to(bf), dout_ff)
-    dx, dh_, act, y, dgp, dbp = geglu_ff.geglu_ff_bwd_tokens(*ff)
-    wgt = (y, dh_, act, dout_ff, dgp, dbp)
-    del dx
+    ff = (x, mu, inv, gamma, beta, w1, w2, dout_ff)
+    same_bits_twice(lambda: geglu_ff.geglu_ff_bwd(*ff),
+                    f"K8, both phases, over {m} tokens: dx, dW1, dW2, dgamma, "
+                    f"dbeta")
+    # each stage's row takes the kernel chain's inputs
+    y = geglu_ff.geglu_bwd_y(x, mu, inv, gamma, beta)
+    dh_, act = geglu_ff.geglu_bwd_dh(y, dout_ff, w1, w2)
+    dy = geglu_ff.geglu_bwd_dy(dh_, w1)
+    _, dgp, dbp = geglu_ff.geglu_bwd_dx(x, mu, inv, gamma, dy)
+    gemms = [(a, b, *geglu_ff.wgrad_plan(m, a.shape[1], b.shape[1]))
+             for a, b in ((y, dh_), (act, dout_ff))]
+    sums = [geglu_ff.wgrad_partials(*gm) for gm in gemms] + [dgp, dbp]
     flash_bwd = "vit_exp_tpu_torch/csrc/flash_bwd.cu"
     k5 = "vit_exp_tpu/ops/flash_attention.py:868"
     ff_bwd = "vit_exp_tpu_torch/csrc/geglu_ff_bwd.cu"
@@ -430,15 +445,54 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
              lambda: fa.attention_bwd_dq(*bwd),
              lambda: fa.attention_bwd_plain(*bwd)[0], "dQ",
              attention_ops(q, n, products=3), bwd_bytes, sdpa_bwd),
-        Case("K8 GEGLU backward: token phase (dx, dh, act, y)", "cuda",
-             ff_bwd, k8, lambda: geglu_ff.geglu_ff_bwd_tokens(*ff)[:4],
-             lambda: geglu_ff.geglu_ff_bwd_tokens_plain(*ff)[:4], "K8a",
-             {"bf16": 2 * m * d * (2 * inner * 2 + inner)}, nbytes(*ff)),
-        Case("K8 GEGLU backward: weight phase (dW1, dW2, dgamma, dbeta)",
-             "cuda", ff_bwd, k8, lambda: geglu_ff.geglu_ff_bwd_weights(*wgt),
-             lambda: geglu_ff.geglu_ff_bwd_weights_plain(*wgt), "K8b",
-             {"bf16": 2 * m * d * (2 * inner + inner)}, nbytes(*wgt)),
+        Case("K8 GEGLU backward, token phase: y = bf16(x̂·γ + β)", "cuda",
+             ff_bwd, k8, lambda: geglu_ff.geglu_bwd_y(x, mu, inv, gamma, beta),
+             lambda: geglu_ff.geglu_bwd_y_plain(x, mu, inv, gamma, beta),
+             "K8y", {}, nbytes(x, mu, inv, gamma, beta)),
+        Case("K8 GEGLU backward, token phase: dh and act (dO·W2ᵀ, y·W1, "
+             "the GEGLU derivative)", "cuda", ff_bwd, k8,
+             lambda: geglu_ff.geglu_bwd_dh(y, dout_ff, w1, w2),
+             lambda: geglu_ff.geglu_bwd_dh_plain(y, dout_ff, w1, w2), "K8dh",
+             {"bf16": 2 * m * d * 3 * inner}, nbytes(y, dout_ff, w1, w2)),
+        Case("K8 GEGLU backward, token phase: dy = dh·W1ᵀ (fp32)", "cuda",
+             ff_bwd, k8, lambda: geglu_ff.geglu_bwd_dy(dh_, w1),
+             lambda: geglu_ff.geglu_bwd_dy_plain(dh_, w1), "K8dy",
+             {"bf16": 2 * m * 2 * inner * d}, nbytes(dh_, w1)),
+        Case("K8 GEGLU backward, token phase: dx and the dgamma/dbeta "
+             "partials", "cuda", ff_bwd, k8,
+             lambda: geglu_ff.geglu_bwd_dx(x, mu, inv, gamma, dy),
+             lambda: geglu_ff.geglu_bwd_dx_plain(x, mu, inv, gamma, dy),
+             "K8dx", {}, nbytes(x, mu, inv, gamma, dy)),
+        Case("K8 GEGLU backward, weight phase: split-K partials of dW1 = "
+             "yᵀdh and dW2 = actᵀdO", "cuda", ff_bwd, k8,
+             lambda: tuple(geglu_ff.wgrad_partials(*gm) for gm in gemms),
+             lambda: tuple(geglu_ff.wgrad_partials_plain(*gm) for gm in gemms),
+             "K8w", {"bf16": 2 * m * d * 3 * inner},
+             nbytes(y, dh_, act, dout_ff),
+             mm_timer([gm[:2] for gm in gemms])),
+        Case("K8 GEGLU backward, weight phase: ordered sums of the partials "
+             "(dW1, dW2, dgamma, dbeta)", "cuda", ff_bwd, k8,
+             lambda: tuple(geglu_ff.sum_rows(t) for t in sums),
+             lambda: tuple(geglu_ff.sum_rows_plain(t) for t in sums),
+             "K8sum", {}, nbytes(*sums)),
     ]
+
+
+def mm_timer(pairs):
+    """Timer of torch.mm(a.t(), b) over the (a, b) pairs: the weight
+    GEMM's yardstick, never on the path.  fp32 output (out_dtype) where the
+    installed torch takes it, else bf16; it prints which."""
+    def timer():
+        a, b = pairs[0]
+        try:
+            torch.mm(a[:8].t(), b[:8], out_dtype=torch.float32)
+            kw, kind = {"out_dtype": torch.float32}, "fp32 output (out_dtype)"
+        except (TypeError, RuntimeError):
+            kw, kind = {}, "bf16 output (this torch's mm takes no out_dtype)"
+        print(f"weight GEMM yardstick: torch.mm(a.t(), b) with {kind}",
+              flush=True)
+        return cuda_ms(lambda: [torch.mm(a.t(), b, **kw) for a, b in pairs], 5)
+    return timer
 
 
 def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
@@ -487,6 +541,8 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     nv = randn(h, 2, dh).to(bf)
     attn = (q8, k8, v, qe, qn, nk, nv, logit_bound(q_scale, k_scale, scale))
     del q, k
+    same_bits_twice(lambda: (fa.attention_static_int8(*attn),),
+                    f"K9/K10 over {n} keys and 2 nulls: out")
 
     # K11: W1, W2 quantized per channel
     w1q, s1 = geglu_ff.quantize_per_channel(randn(d, 2 * inner,
@@ -614,6 +670,38 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
     ]
 
 
+# the kernels whose ptxas registers and spills are printed (and must not
+# spill): K8's six and the int8 attention
+REPORTED_KERNELS = ("geglu_bwd_y_kernel", "geglu_bwd_dh_kernel",
+                    "geglu_bwd_dy_kernel", "geglu_bwd_dx_kernel",
+                    "wgrad_kernel", "sum_rows_kernel",
+                    "flash_static_int8_kernel")
+
+
+def ptxas_report(log: str, names) -> dict:
+    """name → (registers, spill store bytes, spill load bytes) for each
+    entry function whose (mangled) name holds one of ``names``, read from
+    nvcc's -Xptxas -v output."""
+    out, entry, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            for name in names:
+                if name in entry:
+                    out[name] = (int(m.group(1)), *spills)
+            entry = None
+    return out
+
+
 def kernel_counters():
     from vit_exp_tpu_torch.ops import fused_proj, geglu_ff, patches
     from vit_exp_tpu_torch.ops import flash_attention as fa
@@ -621,8 +709,9 @@ def kernel_counters():
     return {"K1": fa.attention_static, "K2": geglu_ff.geglu_ff,
             "K3": fused_proj.ln_qkv, "K4": patches.patch_stats,
             "dKdV": fa.attention_bwd_dkv, "dQ": fa.attention_bwd_dq,
-            "K8a": geglu_ff.geglu_ff_bwd_tokens,
-            "K8b": geglu_ff.geglu_ff_bwd_weights,
+            "K8y": geglu_ff.geglu_bwd_y, "K8dh": geglu_ff.geglu_bwd_dh,
+            "K8dy": geglu_ff.geglu_bwd_dy, "K8dx": geglu_ff.geglu_bwd_dx,
+            "K8w": geglu_ff.wgrad_partials, "K8sum": geglu_ff.sum_rows,
             "K9/K10": fa.attention_static_int8, "K11": geglu_ff.geglu_ff_int8,
             "K12/K13": fused_proj.ln_qkv_int8, "K14": fused_proj.proj_int8,
             "K15": fa.attention_online}
@@ -1175,8 +1264,16 @@ def main() -> int:
     print(f"kernels {'loaded' if prebuilt else 'built'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "kernel_build.log").write_text(
-        lib_path.with_suffix(".log").read_text())
+    build_log = lib_path.with_suffix(".log").read_text()
+    (OUT_DIR / "kernel_build.log").write_text(build_log)
+    ptxas = ptxas_report(build_log, REPORTED_KERNELS)
+    for name in REPORTED_KERNELS:
+        regs, st, ld = ptxas.get(name, (None, None, None))
+        print(f"ptxas {name}: {regs} registers, spill stores {st} bytes, "
+              f"spill loads {ld} bytes", flush=True)
+    check(set(ptxas) == set(REPORTED_KERNELS)
+          and all(st == ld == 0 for _, st, ld in ptxas.values()),
+          ("ptxas registers and spills", ptxas))
 
     rows = {}
     for phase, make in (("serve", kernel_cases),
@@ -1279,8 +1376,11 @@ def main() -> int:
     # the contrastive train step at full width, kernels against plain: in
     # bench.py --train's configuration (K1), then at run_train's default
     # attention (K15 over the concatenated kv)
+    # per block K8 launches y, dh, dy and dx once, the weight GEMM twice
+    # (dW1, dW2) and the ordered sum four times (dW1, dW2, dgamma, dbeta)
     common = {"K2": blocks, "K4": 1, "dKdV": blocks, "dQ": blocks,
-              "K8a": blocks, "K8b": blocks}
+              "K8y": blocks, "K8dh": blocks, "K8dy": blocks, "K8dx": blocks,
+              "K8w": 2 * blocks, "K8sum": 4 * blocks}
     launches["train"], sps, train_times, peak_gb = train_phase(
         device, bert, "pallas_static",
         expected_launches({"K1": blocks, **common}), "")

@@ -322,10 +322,18 @@ def test_online_attention_backward_matches_plain(dev, n, n_null):
         assert _rel(a, r) < 1e-2
 
 
-@pytest.mark.parametrize("m", [50, 96])
-def test_k8_matches_plain(dev, m):
+K8_STAGES = (geglu_ff.geglu_bwd_y, geglu_ff.geglu_bwd_dh, geglu_ff.geglu_bwd_dy,
+             geglu_ff.geglu_bwd_dx, geglu_ff.wgrad_partials, geglu_ff.sum_rows)
+
+
+# the edges of K8's blocking: dh/dy tiles of 128 tokens, dx blocks of 64
+# rows, weight-GEMM steps of 32 tokens (M 50, 96, 129, 300, 4113); 64
+# inner columns per dh tile and 128 × 128 weight tiles (inner 256 and 2048)
+@pytest.mark.parametrize("inner", [256, 2048])
+@pytest.mark.parametrize("m", [50, 96, 129, 300, 4113])
+def test_k8_matches_plain(dev, m, inner):
     g = torch.Generator(device=dev).manual_seed(6)
-    d, inner = 768, 256
+    d = 768
     x = _randn(g, m, d)
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
     gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
@@ -333,16 +341,51 @@ def test_k8_matches_plain(dev, m):
     w1 = torch.randn(d, 2 * inner, generator=g, device=dev) * d ** -0.5
     w2 = torch.randn(inner, d, generator=g, device=dev) * inner ** -0.5
     dout = _randn(g, m, d)
-    before = (geglu_ff.geglu_ff_bwd_tokens.launches,
-              geglu_ff.geglu_ff_bwd_weights.launches)
+    before = [f.launches for f in K8_STAGES]
     got = geglu_ff.geglu_ff_bwd(x, mu, inv, gamma, beta, w1, w2, dout)
+    again = geglu_ff.geglu_ff_bwd(x, mu, inv, gamma, beta, w1, w2, dout)
     ref = geglu_ff.geglu_ff_bwd_plain(x, mu, inv, gamma, beta, w1, w2, dout)
     torch.cuda.synchronize()
-    assert (geglu_ff.geglu_ff_bwd_tokens.launches,
-            geglu_ff.geglu_ff_bwd_weights.launches) == (before[0] + 1,
-                                                         before[1] + 1)
-    for a, r in zip(got, ref):
-        assert a.shape == r.shape and _rel(a, r) < 1e-2
+    # per call: y, dh, dy and dx once, two weight GEMMs, four ordered sums
+    assert [f.launches - b for f, b in zip(K8_STAGES, before)] == [
+        2, 2, 2, 2, 4, 8]
+    for a, a2, r in zip(got, again, ref):
+        assert a.shape == r.shape and torch.isfinite(a).all()
+        assert torch.equal(a, a2)   # no atomics
+        assert _rel(a, r) < 1e-2
+
+
+@pytest.mark.parametrize("m", [129, 4113])
+def test_k8_stages_match_their_twins(dev, m):
+    """Each K8 stage against its plain twin on the kernel chain's inputs."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    d, inner = 768, 512
+    x = _randn(g, m, d)
+    mu, inv = geglu_ff.ln_stats(x, 1e-5)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    beta = 0.1 * torch.randn(d, generator=g, device=dev)
+    w1 = _randn(g, d, 2 * inner, std=d ** -0.5)
+    w2 = _randn(g, inner, d, std=inner ** -0.5)
+    dout = _randn(g, m, d)
+    y = geglu_ff.geglu_bwd_y(x, mu, inv, gamma, beta)
+    dh, act = geglu_ff.geglu_bwd_dh(y, dout, w1, w2)
+    dy = geglu_ff.geglu_bwd_dy(dh, w1)
+    dx = geglu_ff.geglu_bwd_dx(x, mu, inv, gamma, dy)
+    plan = geglu_ff.wgrad_plan(m, d, 2 * inner)
+    part = geglu_ff.wgrad_partials(y, dh, *plan)
+    checks = [
+        ((y,), (geglu_ff.geglu_bwd_y_plain(x, mu, inv, gamma, beta),)),
+        ((dh, act), geglu_ff.geglu_bwd_dh_plain(y, dout, w1, w2)),
+        ((dy,), (geglu_ff.geglu_bwd_dy_plain(dh, w1),)),
+        (dx, geglu_ff.geglu_bwd_dx_plain(x, mu, inv, gamma, dy)),
+        ((part,), (geglu_ff.wgrad_partials_plain(y, dh, *plan),)),
+        ((geglu_ff.sum_rows(part),), (geglu_ff.sum_rows_plain(part),)),
+    ]
+    torch.cuda.synchronize()
+    for got, ref in checks:
+        for a, r in zip(got, ref):
+            assert a.shape == r.shape and a.dtype == r.dtype
+            assert _rel(a, r) < 1e-2
 
 
 def test_no_wrapper_returns_a_graphless_result(dev):
@@ -394,18 +437,41 @@ def _int8_attn_case(dev, nq, nkv, n_null, seed=8):
     return q8, k8, v, qe, qn, nk, nv, logit_bound(qsc, ksc, scale)
 
 
+# the edges of the int8 kernel's blocking (blocks of 128 queries, 64-key
+# tiles): nq 13, 100 and 129, kv tails of 6, 8 and 2 keys, 0, 2 and 8
+# nulls, and the production key count
 @pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (64, 64, 0),
-                                           (13, 200, 8)])
+                                           (13, 200, 8), (129, 13826, 2)])
 def test_int8_attention_matches_plain(dev, nq, nkv, n_null):
     args = _int8_attn_case(dev, nq, nkv, n_null)
     before = fa.attention_static_int8.launches
     out = fa.attention_static_int8(*args)
+    again = fa.attention_static_int8(*args)
     ref = fa.attention_static_int8_plain(*args)
     torch.cuda.synchronize()
-    assert fa.attention_static_int8.launches == before + 1
+    assert fa.attention_static_int8.launches == before + 2
     assert out.shape == (2, 3, nq, 32) and out.dtype == torch.bfloat16
     assert out.transpose(1, 2).is_contiguous()
+    assert torch.equal(out, again)   # no atomics
     assert _rel(out, ref) < 1e-2
+
+
+def test_int8_attention_wide_logit_spread(dev):
+    """Int8 logits spread over more than 100 (q/k rows of norm 12, scale
+    1) with the tightest bound: most p lie far below the row's largest,
+    many below 2^-126, where ex2.approx.ftz flushes them to 0."""
+    q8, k8, v, qe, qn, nk, nv, _ = _int8_attn_case(dev, 200, 300, 8, seed=13)
+    qe, qn = qe * 12 * 12 * math.sqrt(32), qn * 12 * math.sqrt(32)
+    nk = nk * 12
+    logits = q8.float() @ k8.float().transpose(-1, -2) * qe[..., None]
+    nulls = q8.float() @ nk.transpose(-1, -2)[None] * qn[..., None]
+    assert (logits.amax(-1) - logits.amin(-1)).min() > 100   # the spread
+    bound = torch.maximum(logits.max(), nulls.max())
+    args = (q8, k8, v, qe, qn, nk, nv, bound)
+    out = fa.attention_static_int8(*args)
+    ref = fa.attention_static_int8_plain(*args)
+    torch.cuda.synchronize()
+    _close(out, ref)
 
 
 @pytest.mark.parametrize("m", [50, 96])

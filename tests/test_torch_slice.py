@@ -292,7 +292,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
         assert (by == "bytes") == (pipe == "bytes"), c.name
         assert ("exp" in c.ops) == (c.counter in ATTENTION_COUNTERS), c.name
         assert (c.library is not None) == (c.counter in ("K1", "dKdV", "dQ",
-                                                         "K15"))
+                                                         "K15", "K8w"))
     for attn_impl in ("pallas_static", "pallas"):
         res, launches, kern, batch = cs.compare_train_steps(
             cpu, arch, BertConfig.tiny(), 2, TEXT_LEN, attn_impl=attn_impl)
@@ -332,6 +332,31 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
     assert acc["volumes"] == 4 and acc["finite"]
     assert 0 < acc["dmax"] < cs.INT8_PROB_TOL
     assert 0 <= acc["auroc_min"] <= 1 and -1 <= acc["tau_min"] <= 1
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119geglu_bwd_dh_kernelEPK13__nv_bfloat16ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119geglu_bwd_dh_kernelEPK13__nv_bfloat16ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112wgrad_kernelEPKfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112wgrad_kernelEPKfii
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 440 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z9other_kernelv' for 'sm_90a'
+ptxas info    : Used 20 registers, 352 bytes cmem[0]
+"""
+
+
+def test_chip_smoke_ptxas_report():
+    """The build log's registers and spills per named kernel; an entry
+    without a spill line counts none."""
+    import chip_smoke as cs
+
+    rep = cs.ptxas_report(PTXAS_LOG, ("geglu_bwd_dh_kernel", "wgrad_kernel",
+                                      "other_kernel", "missing_kernel"))
+    assert rep == {"geglu_bwd_dh_kernel": (168, 0, 0),
+                   "wgrad_kernel": (128, 12, 16), "other_kernel": (20, 0, 0)}
 
 
 def test_chip_smoke_rank_statistics():

@@ -1,5 +1,6 @@
-// PTX helpers of the attention kernels (flash_fwd.cu, flash_bwd.cu):
-// cp.async copies into a shared-memory ring, ldmatrix fragment loads,
+// PTX helpers of the attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_static_int8.cu) and of gemm_mma.cuh: cp.async copies into a
+// shared-memory ring, ldmatrix fragment loads,
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and ex2.approx, plus the
 // fragment patterns of head dim 32 staged at a pitch of ATT_LDT bf16.
 //
@@ -32,6 +33,25 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                      smem_u32(dst)),
                  "l"(src)
                  : "memory");
+}
+
+// ROWS rows of a (row, 32) bf16 matrix (rows row0.. of src, row stride sn)
+// into dst at pitch ATT_LDT by a block of THREADS, zero past nrows: thread
+// tid copies 16-byte chunk tid % 4 of rows tid / 4 + (THREADS / 4)·i
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
+                                          long long sn, int row0, int nrows,
+                                          int tid) {
+    const int cv = tid & 3;
+#pragma unroll
+    for (int i = 0; i < (ROWS * 4 + THREADS - 1) / THREADS; ++i) {
+        const int r = (tid >> 2) + (THREADS / 4) * i;
+        if (r < ROWS) {
+            const bool ok = row0 + r < nrows;
+            cp_async16(dst + r * ATT_LDT + cv * 8,
+                       ok ? src + (row0 + r) * sn + cv * 8 : src, ok);
+        }
+    }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

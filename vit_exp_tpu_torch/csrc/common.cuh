@@ -20,7 +20,6 @@ namespace wmma = nvcuda::wmma;
 // 16 x 16 x 16 tensor-core tiles, bf16 operands, fp32 accumulators
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // round to bf16 and back: the rounding points of the TPU kernels
@@ -29,9 +28,10 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // 16 x 16 x 16 int8 tensor-core tiles, int32 accumulators.  The int8
-// kernels keep their operands in the "k16" layout: an R x K matrix is
-// stored as K/16 slices of R rows of 16 contiguous codes, so a fragment
-// (16 rows x 16 codes) is 256 contiguous bytes, 32-byte aligned, ldm 16.
+// wmma kernels (K11-K14) keep their operands in the "k16" layout: an R x K
+// matrix is stored as K/16 slices of R rows of 16 contiguous codes, so a
+// fragment (16 rows x 16 codes) is 256 contiguous bytes, 32-byte aligned,
+// ldm 16.
 using FragA8 = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
                               wmma::row_major>;
 using FragB8 = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,

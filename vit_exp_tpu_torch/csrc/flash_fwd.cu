@@ -91,25 +91,6 @@ __device__ __forceinline__ float neg_inf() {
     return __int_as_float(0xff800000);
 }
 
-// ROWS rows of a (row, 32) bf16 matrix (rows row0.. of src, row stride sn)
-// into dst at pitch LDT by the whole block, zero past nrows: thread tid
-// copies 16-byte chunk tid % 4 of rows tid / 4 + 32i
-template <int ROWS>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
-                                          long long sn, int row0, int nrows,
-                                          int tid) {
-    const int cv = tid & 3;
-#pragma unroll
-    for (int i = 0; i < (ROWS * 4 + THREADS - 1) / THREADS; ++i) {
-        const int r = (tid >> 2) + (THREADS / 4) * i;
-        if (r < ROWS) {
-            const bool ok = row0 + r < nrows;
-            cp_async16(dst + r * LDT + cv * 8,
-                       ok ? src + (row0 + r) * sn + cv * 8 : src, ok);
-        }
-    }
-}
-
 // One tile of KEYS keys staged at pitch LDT (ks, vs) against the warp's 32
 // queries (qa).  MASK: keys at or past kv_left are not keys (the last kv
 // tile, K1's nulls).  ONLINE (K15): m is the running row max in log2
@@ -214,11 +195,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float c2 = scale * LOG2E;
 
     // the first group: the block's queries and K1's nulls
-    copy_rows<BQ>(sm.q, q + b * qs.b + h * qs.h, qs.n, q0, Nq, tid);
+    copy_rows<BQ, THREADS>(sm.q, q + b * qs.b + h * qs.h, qs.n, q0, Nq, tid);
     if (!ONLINE && n_null > 0) {
         const size_t n0 = (size_t)h * n_null * D;
-        copy_rows<NULL_ROWS>(sm.nk, nk + n0, D, 0, n_null, tid);
-        copy_rows<NULL_ROWS>(sm.nv, nv + n0, D, 0, n_null, tid);
+        copy_rows<NULL_ROWS, THREADS>(sm.nk, nk + n0, D, 0, n_null, tid);
+        copy_rows<NULL_ROWS, THREADS>(sm.nv, nv + n0, D, 0, n_null, tid);
     }
     cp_async_commit();
 
@@ -226,8 +207,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     auto issue = [&](int tile) {
         if (tile < n_tiles) {
             const int st = tile % STAGES;
-            copy_rows<BKV>(sm.k[st], kb, ks.n, tile * BKV, Nkv, tid);
-            copy_rows<BKV>(sm.v[st], vb, vs.n, tile * BKV, Nkv, tid);
+            copy_rows<BKV, THREADS>(sm.k[st], kb, ks.n, tile * BKV, Nkv, tid);
+            copy_rows<BKV, THREADS>(sm.v[st], vb, vs.n, tile * BKV, Nkv, tid);
         }
         cp_async_commit();   // an empty group past the end keeps the count
     };

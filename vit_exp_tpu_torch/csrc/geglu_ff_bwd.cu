@@ -4,215 +4,231 @@
 // With x̂ = (x − μ)·inv, y = bf16(x̂·γ + β), h = y@W1 (fp32, [val | gate]):
 //   dact = dO@W2ᵀ;  dval = dact·gelu(gate);  dgate = dact·val·gelu'(gate)
 //   with gelu'(g) = Φ(g) + g·φ(g);  dh = bf16([dval | dgate]);
-//   act = bf16(gelu(gate)·val);  dy = dh@W1ᵀ;
+//   act = bf16(gelu(gate)·val);  dy = dh@W1ᵀ (fp32);
 //   dW1 = yᵀ dh,  dW2 = actᵀ dO,  dγ = Σ dy·x̂,  dβ = Σ dy,
 //   dx = inv·(dx̂ − mean(dx̂) − x̂·mean(dx̂·x̂)) with dx̂ = dy·γ.
 //
 // The TPU kernel accumulates dW1 (768 × 4096) and dW2 (2048 × 768) in
 // 19 MB of fp32 VMEM over a grid that runs in order.  A Hopper block has
-// 227 KB of shared memory and blocks run in no order, so the work is split
-// in two phases:
-// - Phase A (geglu_bwd_tokens_kernel), one block of 8 warps per 32 tokens:
-//   builds y in shared memory, walks the inner dimension in chunks of 64 as
-//   K2 does (h and dact for the chunk on tensor cores, the GEGLU derivative
-//   on the CUDA cores), writes dh, act and y to device memory for phase B,
-//   and accumulates dy = dh@W1ᵀ for the 32 × 768 tile in registers; the
-//   LayerNorm backward runs in its epilogue, and per-tile partial sums of
-//   dγ and dβ go to device memory.  Per token it does 3·2·768·4096/2 +
-//   2·2·768·2048/2 multiply-adds: tensor-core bound, with W1 and W2 read
-//   through L2.
-// - Phase B (wgrad_kernel + sum_rows_kernel): dW = Aᵀ B over tokens as a
-//   tensor-core GEMM whose token (K) dimension is split into S segments;
-//   each segment writes an fp32 partial and the partials are summed in a
-//   fixed order, so the result is deterministic.  The same sum reduces the
-//   dγ/dβ tile partials.
-// The intermediates (dh, act, y: 0.8 GB at 55,296 tokens) pass through
-// device memory; keeping them on chip is later work.
-#include "common.cuh"
+// 227 KB of shared memory, blocks run in no order, and the fp32 sums of
+// dy (tokens × 768) and dW do not fit on chip, so the work is a chain of
+// tensor-core GEMMs with fused epilogues on the mainloop of gemm_mma.cuh
+// (mma.sync m16n8k16, a cp.async ring, accumulators in registers):
+// - token phase (per token: 3·768·2048 + 768·4096 multiply-adds, 870 GFLOP
+//   at 55,296 tokens, tensor-core bound):
+//   geglu_bwd_y_kernel: y = bf16(x̂·γ + β) once (the weight phase needs it
+//     too).  Bytes bound.
+//   geglu_bwd_dh_kernel: per tile of 128 tokens × 64 inner columns c,
+//     dact = dO·W2[c, :]ᵀ, then val = y·W1[:, c] and gate = y·W1[:, I + c]
+//     (one A tile, two B tiles per step), all three in the same lanes'
+//     registers, so the GEGLU derivative (erf, exp, two products) runs on
+//     the accumulators and the epilogue writes dh and act in bf16.  Every
+//     staged weight tile serves the block's 128 tokens; the grid runs the
+//     column tiles of one token tile together, so y and dO come from
+//     device memory once and W1, W2 (9.4 MB) stay in L2.
+//   geglu_bwd_dy_kernel: dy = dh·W1ᵀ (K = 2I, N = 768) in 128 × 128 tiles,
+//     two blocks per SM, written in fp32.
+//   geglu_bwd_dx_kernel: a row pass, one warp per row: the LayerNorm row
+//     sums, dx, and per-block partial sums of dγ and dβ over 64 rows.
+// - weight phase (522 GFLOP): wgrad_kernel, dW = Aᵀ B over tokens (A and
+//   B token-major, read k-major by ldmatrix.trans) in 128 × 128 tiles,
+//   split into token segments (the plan is ops/geglu_ff.py::wgrad_plan);
+//   each segment writes an fp32 partial and sum_rows_kernel adds the
+//   partials in a fixed order, as it does the dγ/dβ partials.
+// Tilings, from trials on an H100: steps of 64 ran dh and dy faster than
+// steps of 32 (the weight GEMM alike either way), dh with a 4-stage ring
+// a little faster than with 3 (dy holds two blocks per SM with 3); 128 × 256 tiles of 64 × 64 per warp (over 220
+// registers, one block per SM) were no faster than 128 × 128 at two
+// blocks per SM; 192-token dh tiles spilled at the 168-register cap of 12
+// warps.
+// No atomics: two launches on the same inputs give the same bits.  The
+// intermediates (y, dh, act: 0.68 GB at 55,296 tokens, and dy in fp32,
+// 0.17 GB) pass through device memory: ≈ 0.5 ms of the 3.35 TB/s.
+#include "gemm_mma.cuh"
 
 using namespace vit;
 
 namespace {
 
-constexpr int BM = 32;          // tokens per phase-A block
-constexpr int CH = 64;          // inner columns per chunk
-constexpr int NW = 8;           // warps per phase-A block
+constexpr int D = 768;          // model width
+constexpr int DX_ROWS = 64;     // rows of a dx block (one dγ/dβ partial)
+constexpr int SEG_STEP = 32;    // weight-GEMM segments are multiples of it
 
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+// dh: 128 tokens × 64 inner columns; dact = dO · W2ᵀ (W2 is (I, D):
+// index-major B), then h = y · W1 (k-major B, two B operands: the val and
+// gate columns); 8 warps of 32 × 32 per product: 96 accumulators a lane,
+// one block per SM
+constexpr int DH_TOKENS = 128, DH_COLS = 64, DH_BK = 64, DH_STAGES = 4;
+constexpr int DH_WM = 4, DH_WN = 2, DH_BLOCKS = 1;
+using DactCfg = GemmCfg<DH_TOKENS, DH_COLS, DH_BK, DH_WM, DH_WN, DH_STAGES,
+                        false, false, 1>;
+using HCfg = GemmCfg<DH_TOKENS, DH_COLS, DH_BK, DH_WM, DH_WN, DH_STAGES,
+                     false, true, 2>;
+constexpr int DH_SMEM = DactCfg::SMEM_BYTES > HCfg::SMEM_BYTES
+                            ? DactCfg::SMEM_BYTES : HCfg::SMEM_BYTES;
+static_assert(DactCfg::MT == HCfg::MT && DactCfg::NT == HCfg::NT,
+              "dact, val and gate share the lanes' accumulator layout");
+// dy = dh · W1ᵀ (W1 is (D, 2I): index-major B); 8 warps of 64 × 32
+constexpr int DY_TOKENS = 128, DY_COLS = 128, DY_BK = 64, DY_STAGES = 3;
+constexpr int DY_WM = 2, DY_WN = 4, DY_BLOCKS = 2;
+using DyCfg = GemmCfg<DY_TOKENS, DY_COLS, DY_BK, DY_WM, DY_WN, DY_STAGES,
+                      false, false, 1>;
+// dW = Aᵀ B over tokens, both token-major: k-major A and B; 8 warps of
+// 64 × 32
+constexpr int WG_P = 128, WG_Q = 128, WG_BK = 32, WG_STAGES = 4;
+constexpr int WG_WM = 2, WG_WN = 4, WG_BLOCKS = 2;
+using WgCfg = GemmCfg<WG_P, WG_Q, WG_BK, WG_WM, WG_WN, WG_STAGES, true, true,
+                      1>;
 
-template <int D>
-struct Layout {
-    static constexpr int LDX = D + 8;        // bf16 pitch of y and dO
-    static constexpr int LDY = D + 4;        // fp32 pitch of dy (epilogue)
-    static constexpr int LDH = 2 * CH + 4;   // fp32 pitch of h
-    static constexpr int LDA = CH + 4;       // fp32 pitch of dact
-    static constexpr int LDB = 2 * CH + 8;   // bf16 pitch of dh
-    static constexpr int WCOLS = D / NW;     // dy columns per warp
-    static constexpr int NCF = WCOLS / 16;   // dy fragments per warp row
-    static constexpr int X_BYTES = BM * LDX * 2;
-    static constexpr int H_BYTES = BM * LDH * 4;
-    static constexpr int A_BYTES = BM * LDA * 4;
-    static constexpr int B_BYTES = BM * LDB * 2;
-    static constexpr int SMEM = 2 * X_BYTES + H_BYTES + A_BYTES + B_BYTES;
-    static_assert(BM * LDY * 4 <= 2 * X_BYTES, "dy staging fits over y and dO");
-    static_assert(D % (NW * 16) == 0, "D must split into 16-wide warp slices");
-    static_assert(X_BYTES % 128 == 0 && H_BYTES % 128 == 0 && A_BYTES % 128 == 0,
-                  "alignment");
-};
+__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
 
-template <int D>
-__global__ void __launch_bounds__(NW * 32, 1)
-geglu_bwd_tokens_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
-                        const float* __restrict__ inv,
-                        const float* __restrict__ gamma,
-                        const float* __restrict__ beta,
-                        const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                        const bf16* __restrict__ dout, bf16* __restrict__ dx,
-                        bf16* __restrict__ dh, bf16* __restrict__ act,
-                        bf16* __restrict__ y, float* __restrict__ dgp,
-                        float* __restrict__ dbp, int M, int I2) {
-    using L = Layout<D>;
-    extern __shared__ __align__(128) unsigned char smem[];
-    bf16* Ys = reinterpret_cast<bf16*>(smem);
-    bf16* Os = reinterpret_cast<bf16*>(smem + L::X_BYTES);
-    float* Hs = reinterpret_cast<float*>(smem + 2 * L::X_BYTES);
-    float* As = reinterpret_cast<float*>(smem + 2 * L::X_BYTES + L::H_BYTES);
-    bf16* Bs = reinterpret_cast<bf16*>(smem + 2 * L::X_BYTES + L::H_BYTES
-                                       + L::A_BYTES);
-    float* DYs = reinterpret_cast<float*>(smem);   // epilogue, over Ys and Os
+// y = bf16((x − μ)·inv·γ + β), 8 elements per thread
+__global__ void __launch_bounds__(256)
+geglu_bwd_y_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
+                   const float* __restrict__ inv,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta, bf16* __restrict__ y,
+                   int M) {
+    const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+    if (e >= (long long)M * (D / 8)) return;
+    const int r = (int)(e / (D / 8)), c = (int)(e % (D / 8)) * 8;
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + (size_t)r * D + c);
+    const bf16* xs = reinterpret_cast<const bf16*>(&xv);
+    const float m = mu[r], iv = inv[r];
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int j = c + 2 * i;
+        o[i] = pack_bf16(
+            (__bfloat162float(xs[2 * i]) - m) * iv * gamma[j] + beta[j],
+            (__bfloat162float(xs[2 * i + 1]) - m) * iv * gamma[j + 1] +
+                beta[j + 1]);
+    }
+    *reinterpret_cast<uint4*>(y + (size_t)r * D + c) = out;
+}
 
-    const int inner = I2 / 2;
+// dh and act for 128 tokens × 64 inner columns; grid (I / 64, tokens / 128)
+__global__ void __launch_bounds__(DactCfg::THREADS, DH_BLOCKS)
+geglu_bwd_dh_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
+                    const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                    bf16* __restrict__ dh, bf16* __restrict__ act, int M,
+                    int inner) {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+    const int n0 = blockIdx.x * DH_COLS, m0 = blockIdx.y * DH_TOKENS;
+
+    float da[1][DactCfg::MT][DactCfg::NT][4];
+    float h[2][HCfg::MT][HCfg::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < HCfg::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < HCfg::NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                da[0][mt][nt][e] = h[0][mt][nt][e] = h[1][mt][nt][e] = 0.f;
+
+    const Mat w2t[1] = {{w2, D, inner, D}};
+    gemm_mainloop<DactCfg>(da, Mat{dout, D, M, D}, w2t, m0, n0, 0, D, smem);
+    const Mat w1vg[2] = {{w1, 2 * inner, D, inner},
+                         {w1 + inner, 2 * inner, D, inner}};
+    gemm_mainloop<HCfg>(h, Mat{y, D, M, D}, w1vg, m0, n0, 0, D, smem);
+
+    // the GEGLU derivative on the accumulators: lane-local (row, column)
+#pragma unroll
+    for (int mt = 0; mt < HCfg::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < HCfg::NT; ++nt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int row = m0 + acc_row<HCfg>(mt, 2 * half);
+                const int col = n0 + acc_col<HCfg>(nt, 0);
+                if (row >= M || col >= inner) continue;   // inner % 8 == 0
+                float dv[2], dg[2], ac[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const float val = h[0][mt][nt][2 * half + e];
+                    const float g = h[1][mt][nt][2 * half + e];
+                    const float d = da[0][mt][nt][2 * half + e];
+                    const float cdf = 0.5f * (1.f + erff(g * 0.70710678118654752f));
+                    const float gelu = g * cdf;
+                    const float pdf = expf(-0.5f * g * g) * 0.3989422804014327f;
+                    dv[e] = d * gelu;
+                    dg[e] = d * val * (cdf + g * pdf);
+                    ac[e] = gelu * val;
+                }
+                bf16* dhr = dh + (size_t)row * (2 * inner);
+                store_bf16x2(dhr + col, dv[0], dv[1]);
+                store_bf16x2(dhr + inner + col, dg[0], dg[1]);
+                store_bf16x2(act + (size_t)row * inner + col, ac[0], ac[1]);
+            }
+}
+
+// dy = dh · W1ᵀ in fp32; grid (768 / DY_COLS, tokens / DY_TOKENS)
+__global__ void __launch_bounds__(DyCfg::THREADS, DY_BLOCKS)
+geglu_bwd_dy_kernel(const bf16* __restrict__ dh, const bf16* __restrict__ w1,
+                    float* __restrict__ dy, int M, int I2) {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    const int n0 = blockIdx.x * DY_COLS, m0 = blockIdx.y * DY_TOKENS;
+    float acc[1][DyCfg::MT][DyCfg::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < DyCfg::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < DyCfg::NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0.f;
+    const Mat w1m[1] = {{w1, I2, D, I2}};
+    gemm_mainloop<DyCfg>(acc, Mat{dh, I2, M, I2}, w1m, m0, n0, 0, I2,
+                         reinterpret_cast<bf16*>(smem_raw));
+#pragma unroll
+    for (int mt = 0; mt < DyCfg::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < DyCfg::NT; ++nt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int row = m0 + acc_row<DyCfg>(mt, 2 * half);
+                if (row >= M) continue;
+                *reinterpret_cast<float2*>(
+                    dy + (size_t)row * D + n0 + acc_col<DyCfg>(nt, 0)) =
+                    make_float2(acc[0][mt][nt][2 * half],
+                                acc[0][mt][nt][2 * half + 1]);
+            }
+}
+
+// dx and the dγ/dβ partials of 64 rows; one warp per row, lane l holds
+// columns 8(l + 32i) .. + 7, i < 3
+__global__ void __launch_bounds__(256)
+geglu_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
+                    const float* __restrict__ inv,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ dy, bf16* __restrict__ dx,
+                    float* __restrict__ dgp, float* __restrict__ dbp, int M) {
+    constexpr int CH = D / 256;   // 8-column chunks per lane
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int m0 = blockIdx.x * BM;
-
-    // y = bf16(x̂·γ + β) to shared and device memory; dO to shared memory
-    for (int e = tid; e < BM * D / 2; e += NW * 32) {
-        int r = e / (D / 2), c = 2 * (e % (D / 2));
-        __nv_bfloat162 val = __floats2bfloat162_rn(0.f, 0.f);
-        if (m0 + r < M) {
-            __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(
-                x + (size_t)(m0 + r) * D + c);
-            float m = mu[m0 + r], iv = inv[m0 + r];
-            val = __floats2bfloat162_rn(
-                (__low2float(xv) - m) * iv * gamma[c] + beta[c],
-                (__high2float(xv) - m) * iv * gamma[c + 1] + beta[c + 1]);
-            *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m0 + r) * D + c) = val;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(Ys + r * L::LDX + c) = val;
-    }
-    for (int e = tid; e < BM * D / 8; e += NW * 32) {
-        int r = e / (D / 8), cv = e % (D / 8);
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (m0 + r < M)
-            val = *reinterpret_cast<const uint4*>(dout + (size_t)(m0 + r) * D + cv * 8);
-        *reinterpret_cast<uint4*>(Os + r * L::LDX + cv * 8) = val;
-    }
-    __syncthreads();
-
-    FragC dyacc[2][L::NCF];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int cf = 0; cf < L::NCF; ++cf) wmma::fill_fragment(dyacc[i][cf], 0.f);
-
-    // h: warps 0-3 the chunk's val columns, 4-7 its gate columns
-    const int hcol = (warp < 4) ? warp * 16 : CH + (warp - 4) * 16;
-    // dact: warp w owns rows 16·(w / 4), columns 16·(w % 4) of the chunk
-    const int ai = warp >> 2, aj = (warp & 3) * 16;
-
-    for (int ch = 0; ch < inner; ch += CH) {
-        const int wcol = (warp < 4) ? ch + warp * 16 : inner + ch + (warp - 4) * 16;
-        FragC hacc[2];
-        wmma::fill_fragment(hacc[0], 0.f);
-        wmma::fill_fragment(hacc[1], 0.f);
-        FragC aacc;
-        wmma::fill_fragment(aacc, 0.f);
-#pragma unroll 4
-        for (int k = 0; k < D; k += 16) {
-            FragB bw;
-            wmma::load_matrix_sync(bw, w1 + (size_t)k * I2 + wcol, I2);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                FragA a;
-                wmma::load_matrix_sync(a, Ys + i * 16 * L::LDX + k, L::LDX);
-                wmma::mma_sync(hacc[i], a, bw, hacc[i]);
-            }
-            // W2ᵀ[k.., ch + aj..] read as a col-major view of W2's rows
-            FragBT bt;
-            wmma::load_matrix_sync(bt, w2 + (size_t)(ch + aj) * D + k, D);
-            FragA o;
-            wmma::load_matrix_sync(o, Os + ai * 16 * L::LDX + k, L::LDX);
-            wmma::mma_sync(aacc, o, bt, aacc);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-            wmma::store_matrix_sync(Hs + i * 16 * L::LDH + hcol, hacc[i], L::LDH,
-                                    wmma::mem_row_major);
-        wmma::store_matrix_sync(As + ai * 16 * L::LDA + aj, aacc, L::LDA,
-                                wmma::mem_row_major);
-        __syncthreads();
-
-        for (int e = tid; e < BM * CH; e += NW * 32) {
-            int r = e / CH, j = e % CH;
-            float val = Hs[r * L::LDH + j];
-            float g = Hs[r * L::LDH + CH + j];
-            float da = As[r * L::LDA + j];
-            float cdf = 0.5f * (1.f + erff(g * 0.70710678118654752f));
-            float gelu = g * cdf;
-            float pdf = expf(-0.5f * g * g) * 0.3989422804014327f;
-            bf16 dv = __float2bfloat16(da * gelu);
-            bf16 dg = __float2bfloat16(da * val * (cdf + g * pdf));
-            Bs[r * L::LDB + j] = dv;
-            Bs[r * L::LDB + CH + j] = dg;
-            if (m0 + r < M) {
-                size_t row = (size_t)(m0 + r);
-                dh[row * I2 + ch + j] = dv;
-                dh[row * I2 + inner + ch + j] = dg;
-                act[row * inner + ch + j] = __float2bfloat16(gelu * val);
-            }
-        }
-        __syncthreads();
-
-        // dy += dh[:, chunk] @ W1[:, chunk]ᵀ
-#pragma unroll
-        for (int kk = 0; kk < 2 * CH; kk += 16) {
-            const int wc = (kk < CH) ? ch + kk : inner + ch + (kk - CH);
-            FragA a[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(a[i], Bs + i * 16 * L::LDB + kk, L::LDB);
-#pragma unroll
-            for (int cf = 0; cf < L::NCF; ++cf) {
-                FragBT bt;   // col-major view of W1's rows is W1ᵀ
-                wmma::load_matrix_sync(
-                    bt, w1 + (size_t)(warp * L::WCOLS + cf * 16) * I2 + wc, I2);
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-                    wmma::mma_sync(dyacc[i][cf], a[i], bt, dyacc[i][cf]);
-            }
-        }
-    }
-    __syncthreads();   // y and dO are dead: dy is staged over them
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int cf = 0; cf < L::NCF; ++cf)
-            wmma::store_matrix_sync(DYs + i * 16 * L::LDY + warp * L::WCOLS + cf * 16,
-                                    dyacc[i][cf], L::LDY, wmma::mem_row_major);
-    __syncthreads();
-
-    // LayerNorm backward, one warp per row
-    for (int r = warp; r < BM; r += NW) {
-        if (m0 + r >= M) continue;
-        const bf16* xr = x + (size_t)(m0 + r) * D;
-        const float m = mu[m0 + r], iv = inv[m0 + r];
+    const int r0 = blockIdx.x * DX_ROWS, r_end = min(M, r0 + DX_ROWS);
+    for (int r = r0 + warp; r < r_end; r += 8) {
+        const float m = mu[r], iv = inv[r];
+        float xn[CH][8], dxn[CH][8];
         float s1 = 0.f, s2 = 0.f;
-        for (int c = lane; c < D; c += 32) {
-            float xn = (__bfloat162float(xr[c]) - m) * iv;
-            float dxn = DYs[r * L::LDY + c] * gamma[c];
-            s1 += dxn;
-            s2 += dxn * xn;
+#pragma unroll
+        for (int i = 0; i < CH; ++i) {
+            const int c = 8 * (lane + 32 * i);
+            const uint4 xv = *reinterpret_cast<const uint4*>(x + (size_t)r * D + c);
+            const bf16* xs = reinterpret_cast<const bf16*>(&xv);
+            const float4* dyr = reinterpret_cast<const float4*>(dy + (size_t)r * D + c);
+            const float4* gr = reinterpret_cast<const float4*>(gamma + c);
+            const float4 d4[2] = {dyr[0], dyr[1]}, g4[2] = {gr[0], gr[1]};
+            const float* dys = reinterpret_cast<const float*>(d4);
+            const float* gs = reinterpret_cast<const float*>(g4);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                xn[i][j] = (__bfloat162float(xs[j]) - m) * iv;
+                dxn[i][j] = dys[j] * gs[j];
+                s1 += dxn[i][j];
+                s2 += dxn[i][j] * xn[i][j];
+            }
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) {
@@ -221,21 +237,25 @@ geglu_bwd_tokens_kernel(const bf16* __restrict__ x, const float* __restrict__ mu
         }
         s1 /= D;
         s2 /= D;
-        bf16* dxr = dx + (size_t)(m0 + r) * D;
-        for (int c = lane; c < D; c += 32) {
-            float xn = (__bfloat162float(xr[c]) - m) * iv;
-            float dxn = DYs[r * L::LDY + c] * gamma[c];
-            dxr[c] = __float2bfloat16(iv * (dxn - s1 - xn * s2));
+#pragma unroll
+        for (int i = 0; i < CH; ++i) {
+            uint4 out;
+            uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                o[j] = pack_bf16(
+                    iv * (dxn[i][2 * j] - s1 - xn[i][2 * j] * s2),
+                    iv * (dxn[i][2 * j + 1] - s1 - xn[i][2 * j + 1] * s2));
+            *reinterpret_cast<uint4*>(dx + (size_t)r * D + 8 * (lane + 32 * i)) =
+                out;
         }
     }
-
-    // per-tile partial sums of dγ = Σ dy·x̂ and dβ = Σ dy
-    for (int c = tid; c < D; c += NW * 32) {
+    // partial sums of dγ = Σ dy·x̂ and dβ = Σ dy over the block's rows
+    for (int c = tid; c < D; c += 256) {
         float sg = 0.f, sb = 0.f;
-        for (int r = 0; r < BM && m0 + r < M; ++r) {
-            float xn = (__bfloat162float(x[(size_t)(m0 + r) * D + c]) - mu[m0 + r])
-                       * inv[m0 + r];
-            float d = DYs[r * L::LDY + c];
+        for (int r = r0; r < r_end; ++r) {
+            const float xn = (__bfloat162float(x[(size_t)r * D + c]) - mu[r]) * inv[r];
+            const float d = dy[(size_t)r * D + c];
             sg += d * xn;
             sb += d;
         }
@@ -244,68 +264,39 @@ geglu_bwd_tokens_kernel(const bf16* __restrict__ x, const float* __restrict__ mu
     }
 }
 
-// Phase B: partial[s] = A[seg s]ᵀ B[seg s] with A (M, P), B (M, Q) bf16
-// row-major (row pitches lda, ldb) and partial (S, P, Q) fp32.  One block of
-// 4 warps per 64 × 64 output tile and segment; each warp owns 32 × 32.
-constexpr int GT = 64;           // output tile edge
-constexpr int GK = 32;           // tokens per step
-constexpr int LDG = GT + 8;      // bf16 pitch of the staged tiles
-
-__global__ void __launch_bounds__(128)
+// part[s] = A[seg s]ᵀ B[seg s] with A (M, P), B (M, Q) bf16 row-major (row
+// pitches lda, ldb) and part (S, P, Q) fp32; grid (Q / WG_Q, P / WG_P, S)
+__global__ void __launch_bounds__(WgCfg::THREADS, WG_BLOCKS)
 wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
              float* __restrict__ part, int M, int P, int Q, int lda, int ldb,
              int seg) {
-    __shared__ __align__(128) bf16 As[GK * LDG];
-    __shared__ __align__(128) bf16 Bs[GK * LDG];
-    const int tid = threadIdx.x, warp = tid >> 5;
-    const int q0 = blockIdx.x * GT, p0 = blockIdx.y * GT, s = blockIdx.z;
-    const int t_begin = s * seg, t_end = min(M, t_begin + seg);
-    const int wp = (warp >> 1) * 32, wq = (warp & 1) * 32;
-
-    FragC acc[2][2];
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    const int q0 = blockIdx.x * WG_Q, p0 = blockIdx.y * WG_P;
+    const int s = blockIdx.z, t0 = s * seg, t1 = min(M, t0 + seg);
+    float acc[1][WgCfg::MT][WgCfg::NT][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int mt = 0; mt < WgCfg::MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    for (int t0 = t_begin; t0 < t_end; t0 += GK) {
-        __syncthreads();
-        for (int v = tid; v < GK * (GT / 8); v += 128) {
-            int r = v / (GT / 8), cv = v % (GT / 8);
-            uint4 av = make_uint4(0, 0, 0, 0), bv = av;
-            if (t0 + r < t_end) {
-                av = *reinterpret_cast<const uint4*>(a + (size_t)(t0 + r) * lda + p0 + cv * 8);
-                bv = *reinterpret_cast<const uint4*>(b + (size_t)(t0 + r) * ldb + q0 + cv * 8);
-            }
-            *reinterpret_cast<uint4*>(As + r * LDG + cv * 8) = av;
-            *reinterpret_cast<uint4*>(Bs + r * LDG + cv * 8) = bv;
-        }
-        __syncthreads();
+        for (int nt = 0; nt < WgCfg::NT; ++nt)
 #pragma unroll
-        for (int kk = 0; kk < GK; kk += 16) {
-            FragAc fa[2];   // col-major view of the A rows is Aᵀ
-            FragB fb[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(fa[i], As + kk * LDG + wp + i * 16, LDG);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(fb[j], Bs + kk * LDG + wq + j * 16, LDG);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-    }
+            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0.f;
+    const Mat bm[1] = {{b, ldb, M, Q}};
+    gemm_mainloop<WgCfg>(acc, Mat{a, lda, M, P}, bm, p0, q0, t0, t1,
+                         reinterpret_cast<bf16*>(smem_raw));
     float* out = part + (size_t)s * P * Q;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int mt = 0; mt < WgCfg::MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(
-                out + (size_t)(p0 + wp + i * 16) * Q + q0 + wq + j * 16,
-                acc[i][j], Q, wmma::mem_row_major);
+        for (int nt = 0; nt < WgCfg::NT; ++nt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int row = p0 + acc_row<WgCfg>(mt, 2 * half);
+                const int col = q0 + acc_col<WgCfg>(nt, 0);
+                if (row >= P || col >= Q) continue;   // Q % 8 == 0
+                *reinterpret_cast<float2*>(out + (size_t)row * Q + col) =
+                    make_float2(acc[0][mt][nt][2 * half],
+                                acc[0][mt][nt][2 * half + 1]);
+            }
 }
 
 // out[i] = Σ_s part[s·N + i], s in order: a deterministic reduction
@@ -318,34 +309,78 @@ __global__ void sum_rows_kernel(const float* __restrict__ part,
     out[i] = acc;
 }
 
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 }  // namespace
 
-VIT_API int vit_geglu_ff_bwd_tokens(
-    const void* x, const void* mu, const void* inv, const void* gamma,
-    const void* beta, const void* w1, const void* w2, const void* dout,
-    void* dx, void* dh, void* act, void* y, void* dgp, void* dbp, int M,
-    int D, int I2, void* stream) {
-    if (D != 768 || I2 % (2 * CH)) return (int)cudaErrorInvalidValue;
-    constexpr int smem = Layout<768>::SMEM;
-    cudaError_t e = cudaFuncSetAttribute(
-        geglu_bwd_tokens_kernel<768>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    geglu_bwd_tokens_kernel<768><<<(M + BM - 1) / BM, NW * 32, smem,
-                                   (cudaStream_t)stream>>>(
+VIT_API int vit_geglu_bwd_y(const void* x, const void* mu, const void* inv,
+                            const void* gamma, const void* beta, void* y,
+                            int M, int Dm, void* stream) {
+    if (Dm != D || M < 1) return (int)cudaErrorInvalidValue;
+    const long long chunks = (long long)M * (D / 8);
+    geglu_bwd_y_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0,
+                         (cudaStream_t)stream>>>(
         (const bf16*)x, (const float*)mu, (const float*)inv,
-        (const float*)gamma, (const float*)beta, (const bf16*)w1,
-        (const bf16*)w2, (const bf16*)dout, (bf16*)dx, (bf16*)dh, (bf16*)act,
-        (bf16*)y, (float*)dgp, (float*)dbp, M, I2);
+        (const float*)gamma, (const float*)beta, (bf16*)y, M);
+    return (int)cudaGetLastError();
+}
+
+VIT_API int vit_geglu_bwd_dh(const void* y, const void* dout, const void* w1,
+                             const void* w2, void* dh, void* act, int M,
+                             int Dm, int I2, void* stream) {
+    const int inner = I2 / 2;
+    if (Dm != D || M < 1 || inner < 8 || inner % 8 || I2 % 2)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(geglu_bwd_dh_kernel, DH_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((inner + DH_COLS - 1) / DH_COLS, (M + DH_TOKENS - 1) / DH_TOKENS);
+    geglu_bwd_dh_kernel<<<grid, DactCfg::THREADS, DH_SMEM,
+                          (cudaStream_t)stream>>>(
+        (const bf16*)y, (const bf16*)dout, (const bf16*)w1, (const bf16*)w2,
+        (bf16*)dh, (bf16*)act, M, inner);
+    return (int)cudaGetLastError();
+}
+
+VIT_API int vit_geglu_bwd_dy(const void* dh, const void* w1, void* dy, int M,
+                             int Dm, int I2, void* stream) {
+    if (Dm != D || M < 1 || I2 < 8 || I2 % 8) return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(geglu_bwd_dy_kernel, DyCfg::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((D + DY_COLS - 1) / DY_COLS, (M + DY_TOKENS - 1) / DY_TOKENS);
+    geglu_bwd_dy_kernel<<<grid, DyCfg::THREADS, DyCfg::SMEM_BYTES,
+                          (cudaStream_t)stream>>>(
+        (const bf16*)dh, (const bf16*)w1, (float*)dy, M, I2);
+    return (int)cudaGetLastError();
+}
+
+VIT_API int vit_geglu_bwd_dx(const void* x, const void* mu, const void* inv,
+                             const void* gamma, const void* dy, void* dx,
+                             void* dgp, void* dbp, int M, int Dm,
+                             void* stream) {
+    if (Dm != D || M < 1) return (int)cudaErrorInvalidValue;
+    geglu_bwd_dx_kernel<<<(M + DX_ROWS - 1) / DX_ROWS, 256, 0,
+                          (cudaStream_t)stream>>>(
+        (const bf16*)x, (const float*)mu, (const float*)inv,
+        (const float*)gamma, (const float*)dy, (bf16*)dx, (float*)dgp,
+        (float*)dbp, M);
     return (int)cudaGetLastError();
 }
 
 VIT_API int vit_wgrad(const void* a, const void* b, void* part, int M, int P,
                       int Q, int lda, int ldb, int S, int seg, void* stream) {
-    if (P % GT || Q % GT || lda % 8 || ldb % 8 || seg % GK)
+    if (M < 1 || P < 8 || Q < 8 || P % 8 || Q % 8 || lda % 8 || ldb % 8 ||
+        seg % SEG_STEP || seg < SEG_STEP || (long long)(S - 1) * seg >= M ||
+        (long long)S * seg < M)
         return (int)cudaErrorInvalidValue;
-    dim3 grid(Q / GT, P / GT, S);
-    wgrad_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+    cudaError_t e = allow_smem(wgrad_kernel, WgCfg::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((Q + WG_Q - 1) / WG_Q, (P + WG_P - 1) / WG_P, S);
+    wgrad_kernel<<<grid, WgCfg::THREADS, WgCfg::SMEM_BYTES,
+                   (cudaStream_t)stream>>>(
         (const bf16*)a, (const bf16*)b, (float*)part, M, P, Q, lda, ldb, seg);
     return (int)cudaGetLastError();
 }

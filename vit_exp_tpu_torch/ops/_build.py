@@ -48,9 +48,15 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, q/k/v/dout/dq strides ×5,
     # B, H, Nq, Nkv, scale, stream
     "vit_flash_bwd_dq": [P] * 7 + [L] * 15 + [I, I, I, I, F, P],
-    # x, mu, inv, gamma, beta, w1, w2, dout, dx, dh, act, y, dgamma
-    # partials, dbeta partials, M, D, I2, stream
-    "vit_geglu_ff_bwd_tokens": [P] * 14 + [I, I, I, P],
+    # x, mu, inv, gamma, beta, y, M, D, stream
+    "vit_geglu_bwd_y": [P] * 6 + [I, I, P],
+    # y, dout, w1, w2, dh, act, M, D, I2, stream
+    "vit_geglu_bwd_dh": [P] * 6 + [I, I, I, P],
+    # dh, w1, dy, M, D, I2, stream
+    "vit_geglu_bwd_dy": [P] * 3 + [I, I, I, P],
+    # x, mu, inv, gamma, dy, dx, dgamma partials, dbeta partials, M, D,
+    # stream
+    "vit_geglu_bwd_dx": [P] * 8 + [I, I, P],
     # a, b, partials, M, P, Q, lda, ldb, S, seg, stream
     "vit_wgrad": [P, P, P, I, I, I, I, I, I, I, P],
     # partials, out, S, N, stream

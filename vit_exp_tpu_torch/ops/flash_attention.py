@@ -67,17 +67,19 @@ Kernel ``attention_static_int8`` replaces vit_exp_tpu/ops/flash_attention.py
 route) and ::_fwd_kernel_static_hp (K10, ``flash_attention_serving_hp``,
 the heads-packed route): the two exist because Mosaic needed two layouts;
 here one kernel reads q8, k8 and v through strides.  CUDA C++,
-csrc/flash_static_int8.cu, built on K1: S = q8·k8ᵀ on the int8 tensor
-cores into int32, logits = S·qe − B, p = bf16(exp(·)), O += P·V on bf16
-tensor cores.  The prologue (``quantize_qk``) stays plain torch, as the JAX
+csrc/flash_static_int8.cu, K1's register-resident design: S = q8·k8ᵀ by
+mma.sync m16n8k32 on the int8 tensor cores into exact int32 (recovered as
+a float by one FADD of a biased accumulator), logits = S·qe − B, p =
+bf16(exp(·)) through ex2, O += P·V on bf16 tensor cores.  The prologue (``quantize_qk``) stays plain torch, as the JAX
 wrapper keeps it in XLA: q is quantized per (b, n, h) row, k with one
 global scale (a device tensor, never read by the host), and the scales
 fold into qe = s_q·s_k·scale per row; the nulls use the fp32 logits
 q8·nk·qn with qn = s_q·scale.  Under the fp32 policy K9 and K10 round
 differently; kernel and plain twin follow K10, the production route: p and
 v are bf16 for P·V and its row sum, the null probabilities are rounded to
-v's dtype for their P·V term but summed in fp32 into l.  Same bound as K1
-(the int8 product halves only the cheaper of the two products).  Serving
+v's dtype for their P·V term but summed in fp32 into l.  Same bound as K1,
+the exp unit (the int8 product halves only the cheaper of the two
+products).  Serving
 only: no backward.
 """
 

@@ -19,15 +19,21 @@ the block's 32 × 768 fp32 output tile, which stays in registers across the
 whole walk.  Rounding points follow the TPU kernel: x̂, h and act are bf16.
 
 Kernel K8 (``geglu_ff_bwd``) replaces vit_exp_tpu/ops/geglu_ff.py::
-_ff_bwd_kernel (``_ff_bwd_impl``).  CUDA C++, csrc/geglu_ff_bwd.cu, in two
-phases: ``geglu_ff_bwd_tokens`` (per 32-token tile: recompute y and h,
-dact = dO@W2ᵀ, the GEGLU derivative, dy = dh@W1ᵀ in registers, the LayerNorm
-backward → dx, and per-tile dγ/dβ partials; dh, act and y go to device
-memory) and ``geglu_ff_bwd_weights`` (dW1 = yᵀdh and dW2 = actᵀdO as
-split-K tensor-core GEMMs over tokens, partials summed in a fixed order, and
-the same sum over the dγ/dβ partials).  Its rounding follows the TPU
-backward, not the forward: y = bf16(x̂·γ + β), h = y@W1 in fp32 with no
-bf16 round, gelu'(g) = Φ(g) + g·φ(g), dh and act bf16.
+_ff_bwd_kernel (``_ff_bwd_impl``).  CUDA C++, csrc/geglu_ff_bwd.cu: a chain
+of tensor-core GEMMs with fused epilogues on the mainloop of
+csrc/gemm_mma.cuh, each stage a kernel with its plain twin here (composed
+by ``geglu_ff_bwd`` and ``geglu_ff_bwd_plain``).  Token phase:
+``geglu_bwd_y`` (y = bf16(x̂·γ + β)),
+``geglu_bwd_dh`` (dact = dO@W2ᵀ, val and gate = y@W1 for a tile of tokens
+× inner columns in registers, the GEGLU derivative on them → dh, act),
+``geglu_bwd_dy`` (dy = dh@W1ᵀ, fp32) and ``geglu_bwd_dx`` (the LayerNorm
+backward → dx, and per-block dγ/dβ partials).  Weight phase:
+``wgrad_partials`` (dW1 = yᵀdh and dW2 =
+actᵀdO as split-K GEMMs over token segments, planned by ``wgrad_plan``)
+and ``sum_rows`` (the partials summed in a fixed order, as are the dγ/dβ
+partials).  Its rounding follows the TPU backward, not the forward: y =
+bf16(x̂·γ + β), h = y@W1 in fp32 with no bf16 round, gelu'(g) = Φ(g) +
+g·φ(g), dh and act bf16, dy fp32.
 ``GEGLUFeedForwardFn`` is the ``torch.autograd.Function`` that ties K2 and
 K8 together; it saves what the JAX VJP saves: x, μ, inv, γ, β, W1, W2.
 
@@ -215,156 +221,303 @@ def fused_geglu_ff_int8(x: torch.Tensor, gamma, beta, w1, w2, *,
     return fn(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2).reshape(shape)
 
 
-def geglu_ff_bwd_tokens_plain(x2, mu, inv, gamma, beta, w1, w2, dout,
-                              chunk: int = 4096):
-    """Plain version of K8's token phase.  x2, dout: (M, D); mu/inv: (M, 1)
-    fp32; gamma/beta: (D,); w1: (D, 2I) [val | gate]; w2: (I, D).  Returns
-    dx, dh (M, 2I), act (M, I) and y (M, D) in x2.dtype, and dγ/dβ partial
-    sums (one row per chunk of tokens); fp32 arithmetic in token chunks,
-    rounded to x2.dtype where K8 rounds."""
-    cdt, acc_t = x2.dtype, acc_dtype(x2.dtype)
-    M, inner = x2.shape[0], w1.shape[1] // 2
-    w1c, w2c = w1.to(cdt).to(acc_t), w2.to(cdt).to(acc_t)
-    g32, b32 = gamma.to(acc_t), beta.to(acc_t)
-    dx, y = torch.empty_like(x2), torch.empty_like(x2)
-    dh = torch.empty((M, 2 * inner), device=x2.device, dtype=cdt)
-    act = torch.empty((M, inner), device=x2.device, dtype=cdt)
-    n_chunks = -(-M // chunk)
-    dgp = torch.empty((n_chunks, x2.shape[1]), device=x2.device, dtype=acc_t)
-    dbp = torch.empty_like(dgp)
-    for i, s in enumerate(range(0, M, chunk)):
-        sl = slice(s, s + chunk)
-        xn = (x2[sl].to(acc_t) - mu[sl]) * inv[sl]
-        y[sl] = (xn * g32 + b32).to(cdt)
-        h = y[sl].to(acc_t) @ w1c
+# K8's stages on the card (csrc/geglu_ff_bwd.cu).  Token phase: y, then
+# dh and act, then dy, then dx with the dγ/dβ partials; weight phase: the
+# split-K partials of dW1 and dW2 and their ordered sums, and those of dγ
+# and dβ.  Each stage has its plain twin; composed, the twins are
+# geglu_ff_bwd_plain.
+DX_ROWS = 64         # rows of a dx block: one dγ/dβ partial row each
+PLAIN_CHUNK = 4096   # token rows per fp32 product in the plain twins
+WGRAD_TILE = 128     # output tile edge of the weight GEMM
+WGRAD_STEP = 32      # tokens per k step of the weight GEMM
+# blocks a weight GEMM aims for: 4 waves at 2 blocks per SM of 132
+WGRAD_BLOCKS = 1056
+
+
+def _check_bf16(name, *tensors):
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError(f"{name} kernel takes bf16 operands, got "
+                         f"{[t.dtype for t in tensors]}")
+
+
+def _check_width(name, x2, D=768):
+    if x2.dim() != 2 or x2.shape[1] != D or x2.shape[0] < 1:
+        raise ValueError(f"{name} kernel takes (M ≥ 1, {D}) rows, got "
+                         f"{tuple(x2.shape)}")
+
+
+def geglu_bwd_y_plain(x2, mu, inv, gamma, beta):
+    """Plain version of K8's y stage: y = bf16(x̂·γ + β) in x2.dtype."""
+    acc_t = acc_dtype(x2.dtype)
+    xn = (x2.to(acc_t) - mu) * inv
+    return (xn * gamma.to(acc_t) + beta.to(acc_t)).to(x2.dtype)
+
+
+def geglu_bwd_y(x2, mu, inv, gamma, beta):
+    """K8's y stage on CUDA tensors, its plain version on CPU tensors."""
+    if x2.device.type == "cpu":
+        return geglu_bwd_y_plain(x2, mu, inv, gamma, beta)
+    _build.require_cuda("geglu_bwd_y", x2, mu, inv, gamma, beta)
+    _check_bf16("geglu_bwd_y", x2)
+    _check_width("geglu_bwd_y", x2)
+    M = x2.shape[0]
+    x2 = x2.contiguous()
+    mu, inv, gamma, beta = (t.float().contiguous() for t in (mu, inv, gamma,
+                                                               beta))
+    if mu.numel() != M or inv.numel() != M or gamma.numel() != 768 \
+            or beta.numel() != 768:
+        raise ValueError("geglu_bwd_y kernel takes one μ and inv per row and "
+                         "768 γ and β")
+    y = torch.empty_like(x2)
+    _build.launch("vit_geglu_bwd_y", *(t.data_ptr() for t in (
+        x2, mu, inv, gamma, beta, y)), M, 768)
+    geglu_bwd_y.launches += 1
+    return y
+
+
+geglu_bwd_y.launches = 0
+
+
+def geglu_bwd_dh_plain(y, dout, w1, w2):
+    """Plain version of K8's dh stage.  y, dout: (M, D); w1: (D, 2I) [val |
+    gate]; w2: (I, D), all in one dtype.  h = y@W1 and dact = dO@W2ᵀ in
+    fp32, then the GEGLU derivative; returns dh (M, 2I) and act (M, I)
+    rounded to y.dtype.  fp32 arithmetic in chunks of PLAIN_CHUNK tokens."""
+    cdt, acc_t = y.dtype, acc_dtype(y.dtype)
+    M, inner = y.shape[0], w1.shape[1] // 2
+    w1f, w2f = w1.to(acc_t), w2.to(acc_t)
+    dh = torch.empty((M, 2 * inner), device=y.device, dtype=cdt)
+    act = torch.empty((M, inner), device=y.device, dtype=cdt)
+    for s in range(0, M, PLAIN_CHUNK):
+        sl = slice(s, s + PLAIN_CHUNK)
+        h = y[sl].to(acc_t) @ w1f
         val, gate = h[:, :inner], h[:, inner:]
         cdf = 0.5 * (1.0 + torch.erf(gate * (2.0 ** -0.5)))
         gelu = gate * cdf
-        dact = dout[sl].to(cdt).to(acc_t) @ w2c.t()
+        dact = dout[sl].to(acc_t) @ w2f.t()
         pdf = torch.exp(-0.5 * gate * gate) * INV_SQRT_2PI
         dh[sl] = torch.cat([dact * gelu, dact * val * (cdf + gate * pdf)],
                            dim=1).to(cdt)
         act[sl] = (gelu * val).to(cdt)
-        dy = dh[sl].to(acc_t) @ w1c.t()
-        dgp[i] = (dy * xn).sum(dim=0)
-        dbp[i] = dy.sum(dim=0)
-        dxn = dy * g32
-        m1 = dxn.mean(dim=-1, keepdim=True)
-        m2 = (dxn * xn).mean(dim=-1, keepdim=True)
-        dx[sl] = (inv[sl] * (dxn - m1 - xn * m2)).to(cdt)
-    return dx, dh, act, y, dgp, dbp
+    return dh, act
 
 
-def geglu_ff_bwd_weights_plain(y, dh, act, dout, dgp, dbp):
-    """Plain version of K8's weight phase: (yᵀdh, actᵀdO, Σ dγ partials,
-    Σ dβ partials) in fp32."""
-    acc_t = acc_dtype(y.dtype)
-    return (y.to(acc_t).t() @ dh.to(acc_t),
-            act.to(acc_t).t() @ dout.to(y.dtype).to(acc_t),
-            dgp.sum(dim=0), dbp.sum(dim=0))
+def geglu_bwd_dh(y, dout, w1, w2):
+    """K8's dh stage on CUDA tensors, its plain version on CPU tensors."""
+    if y.device.type == "cpu":
+        return geglu_bwd_dh_plain(y, dout, w1, w2)
+    _build.require_cuda("geglu_bwd_dh", y, dout, w1, w2)
+    _check_bf16("geglu_bwd_dh", y, dout, w1, w2)
+    _check_width("geglu_bwd_dh", y)
+    M, D = y.shape
+    I2 = w1.shape[1]
+    if (dout.shape != y.shape or w1.shape[0] != D or I2 % 16 or I2 < 16
+            or w2.shape != (I2 // 2, D)):
+        raise ValueError(f"geglu_bwd_dh kernel takes 2I a multiple of 16 and "
+                         f"matching shapes; got y {tuple(y.shape)}, dout "
+                         f"{tuple(dout.shape)}, W1 {tuple(w1.shape)}, W2 "
+                         f"{tuple(w2.shape)}")
+    y, dout, w1, w2 = (t.contiguous() for t in (y, dout, w1, w2))
+    dh = torch.empty((M, I2), device=y.device, dtype=y.dtype)
+    act = torch.empty((M, I2 // 2), device=y.device, dtype=y.dtype)
+    _build.launch("vit_geglu_bwd_dh", *(t.data_ptr() for t in (
+        y, dout, w1, w2, dh, act)), M, D, I2)
+    geglu_bwd_dh.launches += 1
+    return dh, act
 
 
-def geglu_ff_bwd_plain(x2, mu, inv, gamma, beta, w1, w2, dout):
-    """Plain version of K8, both phases: dx in x2.dtype and dW1, dW2, dγ,
-    dβ in fp32."""
-    dx, dh, act, y, dgp, dbp = geglu_ff_bwd_tokens_plain(
-        x2, mu, inv, gamma, beta, w1, w2, dout)
-    return (dx,) + geglu_ff_bwd_weights_plain(y, dh, act, dout, dgp, dbp)
+geglu_bwd_dh.launches = 0
 
 
-def geglu_ff_bwd_tokens(x2, mu, inv, gamma, beta, w1c, w2c, dout):
-    """K8's token phase on CUDA tensors, its plain version on CPU tensors:
-    (dx, dh, act, y, dγ partials, dβ partials); w1c/w2c are W1/W2 in
-    x2.dtype."""
-    if x2.device.type == "cpu":
-        return geglu_ff_bwd_tokens_plain(x2, mu, inv, gamma, beta, w1c, w2c,
-                                         dout)
-    _build.require_cuda("geglu_ff_bwd_tokens", x2, mu, inv, gamma, beta, w1c,
-                        w2c, dout)
+def geglu_bwd_dy_plain(dh, w1):
+    """Plain version of K8's dy stage: dy = dh@W1ᵀ in fp32 (M, D)."""
+    acc_t = acc_dtype(dh.dtype)
+    w1f = w1.to(acc_t)
+    dy = torch.empty((dh.shape[0], w1.shape[0]), device=dh.device,
+                     dtype=acc_t)
+    for s in range(0, dh.shape[0], PLAIN_CHUNK):
+        dy[s:s + PLAIN_CHUNK] = dh[s:s + PLAIN_CHUNK].to(acc_t) @ w1f.t()
+    return dy
+
+
+def geglu_bwd_dy(dh, w1):
+    """K8's dy stage on CUDA tensors, its plain version on CPU tensors."""
+    if dh.device.type == "cpu":
+        return geglu_bwd_dy_plain(dh, w1)
+    _build.require_cuda("geglu_bwd_dy", dh, w1)
+    _check_bf16("geglu_bwd_dy", dh, w1)
+    M, I2 = dh.shape
+    if w1.shape != (768, I2) or I2 % 8 or I2 < 8 or M < 1:
+        raise ValueError(f"geglu_bwd_dy kernel takes dh (M, 2I) and W1 "
+                         f"(768, 2I), 2I a multiple of 8; got dh "
+                         f"{tuple(dh.shape)}, W1 {tuple(w1.shape)}")
+    dh, w1 = dh.contiguous(), w1.contiguous()
+    dy = torch.empty((M, 768), device=dh.device, dtype=torch.float32)
+    _build.launch("vit_geglu_bwd_dy", dh.data_ptr(), w1.data_ptr(),
+                  dy.data_ptr(), M, 768, I2)
+    geglu_bwd_dy.launches += 1
+    return dy
+
+
+geglu_bwd_dy.launches = 0
+
+
+def geglu_bwd_dx_plain(x2, mu, inv, gamma, dy):
+    """Plain version of K8's dx stage: the LayerNorm backward of dy (fp32,
+    (M, D)) → dx in x2.dtype, and the dγ = Σ dy·x̂ and dβ = Σ dy partial
+    sums of each block of DX_ROWS rows, (ceil(M / DX_ROWS), D) fp32."""
+    acc_t = acc_dtype(x2.dtype)
     M, D = x2.shape
-    I2 = w1c.shape[1]
-    if any(t.dtype != torch.bfloat16 for t in (x2, w1c, w2c, dout)):
-        raise ValueError("geglu_ff_bwd kernel takes bf16 x, W1, W2 and dout")
-    if (D != 768 or I2 % 128 or w1c.shape[0] != D or w2c.shape != (I2 // 2, D)
-            or dout.shape != x2.shape or gamma.numel() != D
-            or beta.numel() != D or mu.numel() != M or inv.numel() != M):
-        raise ValueError(f"geglu_ff_bwd kernel takes D = 768, 2I a multiple of "
-                         f"128 and matching shapes; got x {tuple(x2.shape)}, "
-                         f"W1 {tuple(w1c.shape)}, W2 {tuple(w2c.shape)}, dout "
-                         f"{tuple(dout.shape)}")
-    x2, dout = x2.contiguous(), dout.contiguous()
-    w1c, w2c = w1c.contiguous(), w2c.contiguous()
-    mu, inv, gamma, beta = (t.float().contiguous() for t in (mu, inv, gamma,
-                                                               beta))
+    xn = (x2.to(acc_t) - mu) * inv
+    dxn = dy * gamma.to(acc_t)
+    m1 = dxn.mean(dim=-1, keepdim=True)
+    m2 = (dxn * xn).mean(dim=-1, keepdim=True)
+    dx = (inv * (dxn - m1 - xn * m2)).to(x2.dtype)
+    pad = -(-M // DX_ROWS) * DX_ROWS - M
+
+    def partials(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, pad)).reshape(
+            -1, DX_ROWS, D).sum(dim=1)
+
+    return dx, partials(dy * xn), partials(dy)
+
+
+def geglu_bwd_dx(x2, mu, inv, gamma, dy):
+    """K8's dx stage on CUDA tensors, its plain version on CPU tensors."""
+    if x2.device.type == "cpu":
+        return geglu_bwd_dx_plain(x2, mu, inv, gamma, dy)
+    _build.require_cuda("geglu_bwd_dx", x2, mu, inv, gamma, dy)
+    _check_bf16("geglu_bwd_dx", x2)
+    _check_width("geglu_bwd_dx", x2)
+    M, D = x2.shape
+    if (dy.dtype != torch.float32 or dy.shape != x2.shape or mu.numel() != M
+            or inv.numel() != M or gamma.numel() != D):
+        raise ValueError(f"geglu_bwd_dx kernel takes fp32 dy shaped like x "
+                         f"and one μ, inv per row; got x {tuple(x2.shape)}, "
+                         f"dy {tuple(dy.shape)} {dy.dtype}")
+    x2, dy = x2.contiguous(), dy.contiguous()
+    mu, inv, gamma = (t.float().contiguous() for t in (mu, inv, gamma))
     dx = torch.empty_like(x2)
-    dh = torch.empty((M, I2), device=x2.device, dtype=x2.dtype)
-    act = torch.empty((M, I2 // 2), device=x2.device, dtype=x2.dtype)
-    y = torch.empty_like(x2)
-    tiles = -(-M // 32)
+    tiles = -(-M // DX_ROWS)
     dgp = torch.empty((tiles, D), device=x2.device, dtype=torch.float32)
     dbp = torch.empty_like(dgp)
-    _build.launch("vit_geglu_ff_bwd_tokens",
-                  *(t.data_ptr() for t in (x2, mu, inv, gamma, beta, w1c, w2c,
-                                           dout, dx, dh, act, y, dgp, dbp)),
-                  M, D, I2)
-    geglu_ff_bwd_tokens.launches += 1
-    return dx, dh, act, y, dgp, dbp
+    _build.launch("vit_geglu_bwd_dx", *(t.data_ptr() for t in (
+        x2, mu, inv, gamma, dy, dx, dgp, dbp)), M, D)
+    geglu_bwd_dx.launches += 1
+    return dx, dgp, dbp
 
 
-geglu_ff_bwd_tokens.launches = 0
+geglu_bwd_dx.launches = 0
 
 
-def _sum_rows(part: torch.Tensor) -> torch.Tensor:
-    out = torch.empty(part.shape[1:], device=part.device, dtype=torch.float32)
-    _build.launch("vit_sum_rows", part.data_ptr(), out.data_ptr(),
-                  part.shape[0], out.numel())
-    return out
+def wgrad_plan(M: int, P: int, Q: int):
+    """Split-K plan of the weight GEMM aᵀb (a: (M, P), b: (M, Q)): (splits,
+    seg).  Segment s covers tokens [s·seg, min(M, (s + 1)·seg)); seg is a
+    multiple of WGRAD_STEP, every segment holds a token, and together they
+    cover [0, M) once, in order.  ``splits`` makes about WGRAD_BLOCKS
+    blocks of WGRAD_TILE² output tiles."""
+    if M < 1:
+        raise ValueError(f"wgrad_plan needs a token, got M = {M}")
+    tiles = -(-P // WGRAD_TILE) * -(-Q // WGRAD_TILE)
+    splits = max(1, min(-(-WGRAD_BLOCKS // tiles), -(-M // WGRAD_STEP)))
+    seg = -(-M // (WGRAD_STEP * splits)) * WGRAD_STEP
+    return -(-M // seg), seg
 
 
-def _wgrad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """aᵀ b (a: (M, P), b: (M, Q), bf16) in fp32: split-K partials over
-    token segments, summed in order."""
+def wgrad_partials_plain(a, b, splits: int, seg: int):
+    """Plain version of the weight GEMM: (splits, P, Q) fp32, partial s =
+    a[seg s]ᵀ b[seg s]."""
+    acc_t = acc_dtype(a.dtype)
+    return torch.stack([a[s * seg:(s + 1) * seg].to(acc_t).t()
+                        @ b[s * seg:(s + 1) * seg].to(acc_t)
+                        for s in range(splits)])
+
+
+def wgrad_partials(a, b, splits: int, seg: int):
+    """The weight GEMM's split-K partials on CUDA tensors, the plain version
+    on CPU tensors.  a: (M, P), b: (M, Q) bf16; P, Q and the row pitches
+    multiples of 8."""
+    if a.device.type == "cpu":
+        return wgrad_partials_plain(a, b, splits, seg)
+    _build.require_cuda("wgrad_partials", a, b)
+    _check_bf16("wgrad_partials", a, b)
     M, P = a.shape
     Q = b.shape[1]
-    tiles = (P // 64) * (Q // 64)
-    # about 16 blocks per SM of the 132 in flight, segments a multiple of 32
-    splits = max(1, min(-(-2112 // tiles), -(-M // 32)))
-    seg = -(-M // (32 * splits)) * 32
-    splits = -(-M // seg)
+    if (b.shape[0] != M or a.stride(1) != 1 or b.stride(1) != 1
+            or P % 8 or Q % 8 or a.stride(0) % 8 or b.stride(0) % 8
+            or seg < WGRAD_STEP or seg % WGRAD_STEP
+            or not (splits - 1) * seg < M <= splits * seg):
+        raise ValueError(f"wgrad kernel takes a (M, P), b (M, Q) with "
+                         f"unit-stride rows, P, Q and pitches multiples of "
+                         f"8, and a split plan of segments that are "
+                         f"multiples of {WGRAD_STEP} covering M; got a "
+                         f"{tuple(a.shape)}, b {tuple(b.shape)}, plan "
+                         f"{(splits, seg)}")
     part = torch.empty((splits, P, Q), device=a.device, dtype=torch.float32)
     _build.launch("vit_wgrad", a.data_ptr(), b.data_ptr(), part.data_ptr(),
                   M, P, Q, a.stride(0), b.stride(0), splits, seg)
-    return _sum_rows(part)
+    wgrad_partials.launches += 1
+    return part
 
 
-def geglu_ff_bwd_weights(y, dh, act, dout, dgp, dbp):
-    """K8's weight phase on CUDA tensors, its plain version on CPU tensors:
-    (dW1, dW2, dγ, dβ) in fp32."""
-    if y.device.type == "cpu":
-        return geglu_ff_bwd_weights_plain(y, dh, act, dout, dgp, dbp)
-    _build.require_cuda("geglu_ff_bwd_weights", y, dh, act, dout, dgp, dbp)
-    for t in (y, dh, act, dout):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.shape[1] % 64:
-            raise ValueError("geglu_ff_bwd_weights kernel takes contiguous "
-                             "bf16 operands with widths a multiple of 64")
-    dw1 = _wgrad(y, dh)
-    dw2 = _wgrad(act, dout.contiguous())
-    dg, db = _sum_rows(dgp.contiguous()), _sum_rows(dbp.contiguous())
-    geglu_ff_bwd_weights.launches += 1
-    return dw1, dw2, dg, db
+wgrad_partials.launches = 0
 
 
-geglu_ff_bwd_weights.launches = 0
+def sum_rows_plain(part):
+    """Plain version of the ordered sum: Σ_s part[s] in fp32."""
+    return part.sum(dim=0)
+
+
+def sum_rows(part):
+    """Σ_s part[s], s in order (deterministic), on CUDA tensors; the plain
+    version on CPU tensors."""
+    if part.device.type == "cpu":
+        return sum_rows_plain(part)
+    _build.require_cuda("sum_rows", part)
+    if part.dtype != torch.float32:
+        raise ValueError("sum_rows kernel takes fp32 partials")
+    part = part.contiguous()
+    out = torch.empty(part.shape[1:], device=part.device, dtype=torch.float32)
+    _build.launch("vit_sum_rows", part.data_ptr(), out.data_ptr(),
+                  part.shape[0], out.numel())
+    sum_rows.launches += 1
+    return out
+
+
+sum_rows.launches = 0
+
+
+def _ff_bwd(stages, x2, mu, inv, gamma, beta, w1, w2, dout):
+    """K8 as the chain of its stages (y, dh, dy, dx, weight partials,
+    ordered sums), each given by ``stages``: dx, dW1, dW2, dγ, dβ."""
+    y_fn, dh_fn, dy_fn, dx_fn, part_fn, sum_fn = stages
+    cdt = x2.dtype
+    dout, w1c, w2c = dout.to(cdt), w1.to(cdt), w2.to(cdt)
+    y = y_fn(x2, mu, inv, gamma, beta)
+    dh, act = dh_fn(y, dout, w1c, w2c)
+    dx, dgp, dbp = dx_fn(x2, mu, inv, gamma, dy_fn(dh, w1c))
+    dws = [sum_fn(part_fn(a, b, *wgrad_plan(a.shape[0], a.shape[1],
+                                            b.shape[1])))
+           for a, b in ((y, dh), (act, dout))]
+    return (dx, *dws, sum_fn(dgp), sum_fn(dbp))
+
+
+def geglu_ff_bwd_plain(x2, mu, inv, gamma, beta, w1, w2, dout):
+    """Plain version of K8, both phases: the chain of its stages' plain
+    twins.  x2, dout: (M, D); mu/inv: (M, 1) fp32; gamma/beta: (D,); w1:
+    (D, 2I) [val | gate]; w2: (I, D).  Returns dx in x2.dtype and dW1, dW2,
+    dγ, dβ in fp32."""
+    return _ff_bwd((geglu_bwd_y_plain, geglu_bwd_dh_plain, geglu_bwd_dy_plain,
+                    geglu_bwd_dx_plain, wgrad_partials_plain, sum_rows_plain),
+                   x2, mu, inv, gamma, beta, w1, w2, dout)
 
 
 def geglu_ff_bwd(x2, mu, inv, gamma, beta, w1, w2, dout):
-    """Kernel K8 (both phases) on CUDA tensors, the plain version on CPU
-    tensors.  Returns dx, dW1, dW2, dγ, dβ."""
-    dout = dout.to(x2.dtype)
-    dx, dh, act, y, dgp, dbp = geglu_ff_bwd_tokens(
-        x2, mu, inv, gamma, beta, w1.to(x2.dtype), w2.to(x2.dtype), dout)
-    dw1, dw2, dg, db = geglu_ff_bwd_weights(y, dh, act, dout, dgp, dbp)
-    return dx, dw1, dw2, dg, db
+    """Kernel K8 (both phases, six kernels) on CUDA tensors, the plain
+    stages on CPU tensors.  Returns dx, dW1, dW2, dγ, dβ."""
+    return _ff_bwd((geglu_bwd_y, geglu_bwd_dh, geglu_bwd_dy, geglu_bwd_dx,
+                    wgrad_partials, sum_rows),
+                   x2, mu, inv, gamma, beta, w1, w2, dout)
 
 
 class GEGLUFeedForwardFn(torch.autograd.Function):
