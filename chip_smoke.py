@@ -10,9 +10,11 @@
    attention (none may spill).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
-   tokens, width 768; one row per launch counter: K1-K4, K1 with lse, the
+   tokens, width 768; one row per launch counter: K1, K2's three kernels
+   (x̂, act, out), K3, K4, K1 with lse, the
    two attention backward kernels, K8's six kernels (y, dh/act, dy, dx,
-   the weight GEMM, the ordered sums), the int8 attention (K9/K10), K11,
+   the weight GEMM, the ordered sums), the int8 attention (K9/K10), K11's
+   four kernels (y8, act, a8, out),
    K12/K13, K14, and K15 with and without lse and the two attention
    backward kernels over the 13,826 keys of the nulls concatenated to
    k/v), relative L2 error ≤ REL_L2_TOL and max abs error ≤
@@ -25,10 +27,13 @@
    K15 and the attention backward pair, the time of torch's
    scaled_dot_product_attention on the same inputs (a yardstick, never on
    the path; its backward is timed once per input set and shared by the
-   pair's two rows) and, for K8's weight GEMM, torch.mm's.  Checks that K1
+   pair's two rows), for K8's weight GEMM torch.mm's, and for the products
+   of K2 and K11 torch.mm's and torch._int_mm's (the products only, not the
+   same function).  Checks that K1
    (with lse, 13,824 keys), K15 (with lse, 13,826 keys), the backward pair
-   (13,826 keys), K8 (both phases) and the int8 attention each give the
-   same bits twice (no atomics), and prints each forward's times against
+   (13,826 keys), K2, K8 (both phases), the int8 attention and K11 each
+   give the same bits twice (no atomics), prints K2's and K11's times as
+   a whole, each forward's times against
    SDPA's forward and the pair's summed time against the one SDPA
    backward.
 4. Runs the zero-shot serving path at full width (fused LN+qkv, as served):
@@ -327,6 +332,15 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
     c = torch.cat([wf[:, :h * dh].float().sum(0),
                    torch.zeros(2 * h * dh, device=device)])
 
+    # K2's stages take the kernel chain's inputs
+    k2 = (x, mu, inv, w1p, d1, w2)
+    whole_kernel(lambda: (geglu_ff.geglu_ff(*k2),),
+                 f"K2 over {m} tokens (x̂, act, out)", device)
+    xn = geglu_ff.geglu_ff_x(x, mu, inv)
+    act = geglu_ff.geglu_ff_h(xn, w1p, d1)
+    ff = "vit_exp_tpu_torch/csrc/geglu_ff.cu"
+    k2_src = "vit_exp_tpu/ops/geglu_ff.py:63"
+
     # K4: the video as (b·t, c·pt, H, W)
     video = randn(batch * t, arch["channels"] * arch["temporal_patch_size"],
                   arch["image_size"], arch["image_size"])
@@ -340,13 +354,23 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
              lambda: fa.attention_static_plain(*k1), "K1",
              attention_ops(qp, n, 2), nbytes(qp, k, v, nk, nv),
              sdpa_forward_timer(qp, k, v, nk, nv, scale)),
-        Case("K2 fused GEGLU feed-forward", "cuda",
-             "vit_exp_tpu_torch/csrc/geglu_ff.cu",
-             "vit_exp_tpu/ops/geglu_ff.py:63",
-             lambda: geglu_ff.geglu_ff(x, mu, inv, w1p, d1, w2),
-             lambda: geglu_ff.geglu_ff_plain(x, mu, inv, w1p, d1, w2), "K2",
-             {"bf16": 2 * m * (d * 2 * inner + inner * d)},
-             nbytes(x, mu, inv, w1p, d1, w2)),
+        Case("K2 GEGLU feed-forward: x̂ = bf16((x − μ)·inv)", "cuda", ff,
+             k2_src, lambda: geglu_ff.geglu_ff_x(x, mu, inv),
+             lambda: geglu_ff.geglu_ff_x_plain(x, mu, inv), "K2x", {},
+             nbytes(x, mu, inv)),
+        Case("K2 GEGLU feed-forward: act (x̂·W1' + d1, the GEGLU in the "
+             "epilogue)", "cuda", ff, k2_src,
+             lambda: geglu_ff.geglu_ff_h(xn, w1p, d1),
+             lambda: geglu_ff.geglu_ff_h_plain(xn, w1p, d1), "K2h",
+             {"bf16": 2 * m * d * 2 * inner}, nbytes(xn, w1p, d1),
+             product_timer("K2's act stage: torch.mm(x̂, W1')",
+                           lambda: torch.mm(xn, w1p))),
+        Case("K2 GEGLU feed-forward: out = act·W2", "cuda", ff, k2_src,
+             lambda: geglu_ff.geglu_ff_o(act, w2),
+             lambda: geglu_ff.geglu_ff_o_plain(act, w2), "K2o",
+             {"bf16": 2 * m * inner * d}, nbytes(act, w2),
+             product_timer("K2's out stage: torch.mm(act, W2)",
+                           lambda: torch.mm(act, w2))),
         Case("K3 fused LN + qkv projection", "cuda",
              "vit_exp_tpu_torch/csrc/ln_qkv.cu",
              "vit_exp_tpu/ops/fused_proj.py:43",
@@ -495,6 +519,41 @@ def mm_timer(pairs):
     return timer
 
 
+def product_timer(what: str, fn):
+    """Timer of one library call that computes a stage's product alone,
+    not the same function as the stage (a yardstick, never on the path);
+    it prints which call."""
+    def timer():
+        print(f"yardstick of {what} (the products only, not the same "
+              f"function)", flush=True)
+        return cuda_ms(fn, 5)
+    return timer
+
+
+def int_mm_timer(what: str, a8, b8):
+    """product_timer of torch._int_mm(a8, b8) (int32 out) where the
+    installed torch has it, else a timer that prints so and gives None."""
+    def timer():
+        try:
+            torch._int_mm(a8[:32], b8)
+        except (AttributeError, RuntimeError) as e:
+            print(f"yardstick of {what}: torch._int_mm not available "
+                  f"({type(e).__name__}: {e})", flush=True)
+            return None
+        return product_timer(f"{what}: torch._int_mm",
+                             lambda: torch._int_mm(a8, b8))()
+    return timer
+
+
+def whole_kernel(fn, what: str, device) -> None:
+    """fn, a kernel's stages composed, gives the same bits twice; on the
+    card also prints its time as a whole (mean of 5 launches after a
+    warm-up)."""
+    same_bits_twice(fn, what)
+    if device.type == "cuda":
+        print(f"{what} as a whole: {cuda_ms(fn, 5):.3f} ms", flush=True)
+
+
 def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     """The int8 serving path's kernel rows at its shapes, with inputs made
     as the model makes them: weights quantized per channel, q/k after the
@@ -550,6 +609,16 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     w2q, s2 = geglu_ff.quantize_per_channel(randn(inner, d,
                                                   std=inner ** -0.5))
     ff = (x, mu, inv, gamma, beta, w1q, s1, w2q, s2)
+    whole_kernel(lambda: (geglu_ff.geglu_ff_int8(*ff),),
+                 f"K11 over {m} tokens (y8, act, a8, out)", device)
+    # K11's stages take the kernel chain's inputs; the weights transposed
+    # as geglu_ff_int8 hands them over
+    w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()
+    y8, sy = geglu_ff.geglu_ff_int8_y(x, mu, inv, gamma, beta)
+    act, part = geglu_ff.geglu_ff_int8_h(y8, sy, w1t, s1)
+    a8, sa = geglu_ff.geglu_ff_int8_q(act, part)
+    ff8 = "vit_exp_tpu_torch/csrc/geglu_ff_int8.cu"
+    k11 = "vit_exp_tpu/ops/geglu_ff.py:341"
 
     # K14: the attention output (b·n, h·d) against to_out
     xo = randn(m, hd, std=0.3).to(bf)
@@ -564,12 +633,26 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
              lambda: fa.attention_static_int8_plain(*attn), "K9/K10",
              {"int8": attention_ops(q8, n, 2, products=1)["bf16"],
               **attention_ops(q8, n, 2, products=1)}, nbytes(*attn)),
-        Case("K11 W8A8 GEGLU feed-forward", "cuda",
-             "vit_exp_tpu_torch/csrc/geglu_ff_int8.cu",
-             "vit_exp_tpu/ops/geglu_ff.py:341",
-             lambda: geglu_ff.geglu_ff_int8(*ff),
-             lambda: geglu_ff.geglu_ff_int8_plain(*ff), "K11",
-             {"int8": 2 * m * (d * 2 * inner + inner * d)}, nbytes(*ff)),
+        Case("K11 W8A8 GEGLU feed-forward: y8, s_y (y = x̂·γ + β per "
+             "token)", "cuda", ff8, k11,
+             lambda: geglu_ff.geglu_ff_int8_y(x, mu, inv, gamma, beta),
+             lambda: geglu_ff.geglu_ff_int8_y_plain(x, mu, inv, gamma, beta),
+             "K11y", {}, nbytes(x, mu, inv, gamma, beta)),
+        Case("K11 W8A8 GEGLU feed-forward: act and its partial amaxes "
+             "(y8·W1, the GEGLU in the epilogue)", "cuda", ff8, k11,
+             lambda: geglu_ff.geglu_ff_int8_h(y8, sy, w1t, s1),
+             lambda: geglu_ff.geglu_ff_int8_h_plain(y8, sy, w1t, s1), "K11h",
+             {"int8": 2 * m * d * 2 * inner}, nbytes(y8, sy, w1t, s1),
+             int_mm_timer("K11's act stage", y8, w1t.t())),
+        Case("K11 W8A8 GEGLU feed-forward: a8, s_a", "cuda", ff8, k11,
+             lambda: geglu_ff.geglu_ff_int8_q(act, part),
+             lambda: geglu_ff.geglu_ff_int8_q_plain(act, part), "K11q", {},
+             nbytes(act, part)),
+        Case("K11 W8A8 GEGLU feed-forward: out = a8·W2·s_a·s_W2", "cuda",
+             ff8, k11, lambda: geglu_ff.geglu_ff_int8_o(a8, sa, w2t, s2),
+             lambda: geglu_ff.geglu_ff_int8_o_plain(a8, sa, w2t, s2), "K11o",
+             {"int8": 2 * m * inner * d}, nbytes(a8, sa, w2t, s2),
+             int_mm_timer("K11's out stage", a8, w2t.t())),
         Case("K12/K13 W8A8 LN + q/k/v projection", "cuda", proj,
              "vit_exp_tpu/ops/fused_proj.py:260",
              lambda: fused_proj.ln_qkv_int8(*qkv),
@@ -671,11 +754,15 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
 
 
 # the kernels whose ptxas registers and spills are printed (and must not
-# spill): K8's six and the int8 attention
-REPORTED_KERNELS = ("geglu_bwd_y_kernel", "geglu_bwd_dh_kernel",
+# spill): K2's three, K8's six, the int8 attention and K11's four
+REPORTED_KERNELS = ("geglu_ff_x_kernel", "geglu_ff_h_kernel",
+                    "geglu_ff_o_kernel",
+                    "geglu_bwd_y_kernel", "geglu_bwd_dh_kernel",
                     "geglu_bwd_dy_kernel", "geglu_bwd_dx_kernel",
                     "wgrad_kernel", "sum_rows_kernel",
-                    "flash_static_int8_kernel")
+                    "flash_static_int8_kernel",
+                    "geglu_int8_y_kernel", "geglu_int8_h_kernel",
+                    "geglu_int8_q_kernel", "geglu_int8_o_kernel")
 
 
 def ptxas_report(log: str, names) -> dict:
@@ -706,13 +793,16 @@ def kernel_counters():
     from vit_exp_tpu_torch.ops import fused_proj, geglu_ff, patches
     from vit_exp_tpu_torch.ops import flash_attention as fa
 
-    return {"K1": fa.attention_static, "K2": geglu_ff.geglu_ff,
+    return {"K1": fa.attention_static, "K2x": geglu_ff.geglu_ff_x,
+            "K2h": geglu_ff.geglu_ff_h, "K2o": geglu_ff.geglu_ff_o,
             "K3": fused_proj.ln_qkv, "K4": patches.patch_stats,
             "dKdV": fa.attention_bwd_dkv, "dQ": fa.attention_bwd_dq,
             "K8y": geglu_ff.geglu_bwd_y, "K8dh": geglu_ff.geglu_bwd_dh,
             "K8dy": geglu_ff.geglu_bwd_dy, "K8dx": geglu_ff.geglu_bwd_dx,
             "K8w": geglu_ff.wgrad_partials, "K8sum": geglu_ff.sum_rows,
-            "K9/K10": fa.attention_static_int8, "K11": geglu_ff.geglu_ff_int8,
+            "K9/K10": fa.attention_static_int8,
+            "K11y": geglu_ff.geglu_ff_int8_y, "K11h": geglu_ff.geglu_ff_int8_h,
+            "K11q": geglu_ff.geglu_ff_int8_q, "K11o": geglu_ff.geglu_ff_int8_o,
             "K12/K13": fused_proj.ln_qkv_int8, "K14": fused_proj.proj_int8,
             "K15": fa.attention_online}
 
@@ -1303,8 +1393,8 @@ def main() -> int:
     launches = {}
     probs, launches["serve"] = count_launches(
         lambda: eng.predict_batch(volumes))
-    expected = expected_launches({"K1": blocks, "K2": blocks, "K3": blocks,
-                                  "K4": 1})
+    k2 = {"K2x": blocks, "K2h": blocks, "K2o": blocks}
+    expected = expected_launches({"K1": blocks, **k2, "K3": blocks, "K4": 1})
     print(f"launches in one bf16 predict_batch: {launches['serve']} "
           f"(expected {expected})", flush=True)
     check(launches["serve"] == expected, launches["serve"])
@@ -1337,8 +1427,10 @@ def main() -> int:
     eng8.prepare()
     probs8, launches["int8"] = count_launches(
         lambda: eng8.predict_batch(volumes))
-    expected = expected_launches({"K4": 1, "K9/K10": blocks, "K11": blocks,
-                                  "K12/K13": blocks, "K14": blocks})
+    expected = expected_launches({"K4": 1, "K9/K10": blocks, "K11y": blocks,
+                                  "K11h": blocks, "K11q": blocks,
+                                  "K11o": blocks, "K12/K13": blocks,
+                                  "K14": blocks})
     print(f"launches in one int8 predict_batch: {launches['int8']} "
           f"(expected {expected})", flush=True)
     check(launches["int8"] == expected, launches["int8"])
@@ -1378,7 +1470,7 @@ def main() -> int:
     # attention (K15 over the concatenated kv)
     # per block K8 launches y, dh, dy and dx once, the weight GEMM twice
     # (dW1, dW2) and the ordered sum four times (dW1, dW2, dgamma, dbeta)
-    common = {"K2": blocks, "K4": 1, "dKdV": blocks, "dQ": blocks,
+    common = {**k2, "K4": 1, "dKdV": blocks, "dQ": blocks,
               "K8y": blocks, "K8dh": blocks, "K8dy": blocks, "K8dx": blocks,
               "K8w": 2 * blocks, "K8sum": 4 * blocks}
     launches["train"], sps, train_times, peak_gb = train_phase(

@@ -1,6 +1,8 @@
-"""Card tests of the port's CUDA kernels (K1-K4, K15, the attention backward
-pair, K8, and the int8 serving kernels: the int8 attention (K9/K10), K11, K12/K13
-and K14) against their plain PyTorch versions at small, ragged shapes.
+"""Card tests of the port's CUDA kernels (K1, K2's three stages, K3, K4,
+K15, the attention backward pair, K8, and the int8 serving kernels: the int8
+attention (K9/K10), K11's four stages, K12/K13 and K14) against their plain
+PyTorch versions at small, ragged shapes (K2 and K11 also at 4,113 tokens
+and the widths D 384 and 768).
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -85,18 +87,49 @@ def test_k1_matches_plain(dev, nq, nkv, n_null):
     _close(out, ref)
 
 
-@pytest.mark.parametrize("m", [50, 96])
-def test_k2_matches_plain(dev, m):
-    g = torch.Generator(device=dev).manual_seed(1)
-    d, inner = 768, 256
+# K2 and K11: token counts on and off the 128-token tiles, the mid arch's
+# widths (D 384, 2I 2,048) and production's (768, 4,096)
+FF_SHAPES = [(384, 2048), (768, 4096)]
+K2_STAGES = (geglu_ff.geglu_ff_x, geglu_ff.geglu_ff_h, geglu_ff.geglu_ff_o)
+
+
+def _k2_case(dev, m, d, i2, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = _randn(g, m, d)
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
-    w1p, w2 = _randn(g, d, 2 * inner, std=d ** -0.5), _randn(g, inner, d)
-    d1 = _randn(g, 2 * inner, std=0.1).float()
-    out = geglu_ff.geglu_ff(x, mu, inv, w1p, d1, w2)
-    ref = geglu_ff.geglu_ff_plain(x, mu, inv, w1p, d1, w2)
+    w1p = _randn(g, d, i2, std=d ** -0.5)
+    w2 = _randn(g, i2 // 2, d, std=(i2 // 2) ** -0.5)
+    d1 = _randn(g, i2, std=0.1).float()
+    return x, mu, inv, w1p, d1, w2
+
+
+@pytest.mark.parametrize("d,i2", FF_SHAPES)
+@pytest.mark.parametrize("m", [50, 4113])
+def test_k2_matches_plain(dev, m, d, i2):
+    args = _k2_case(dev, m, d, i2)
+    before = [f.launches for f in K2_STAGES]
+    out = geglu_ff.geglu_ff(*args)
+    again = geglu_ff.geglu_ff(*args)
+    ref = geglu_ff.geglu_ff_plain(*args)
     torch.cuda.synchronize()
-    assert _rel(out, ref) < 1e-2
+    assert [f.launches - b for f, b in zip(K2_STAGES, before)] == [2, 2, 2]
+    assert torch.equal(out, again)   # no atomics
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("d,i2", FF_SHAPES)
+def test_k2_stages_match_their_twins(dev, d, i2):
+    """Each K2 stage against its plain twin on the kernel chain's inputs."""
+    x, mu, inv, w1p, d1, w2 = _k2_case(dev, 4113, d, i2, seed=12)
+    xn = geglu_ff.geglu_ff_x(x, mu, inv)
+    act = geglu_ff.geglu_ff_h(xn, w1p, d1)
+    checks = [(xn, geglu_ff.geglu_ff_x_plain(x, mu, inv)),
+              (act, geglu_ff.geglu_ff_h_plain(xn, w1p, d1)),
+              (geglu_ff.geglu_ff_o(act, w2), geglu_ff.geglu_ff_o_plain(act, w2))]
+    torch.cuda.synchronize()
+    for a, r in checks:
+        assert a.dtype == r.dtype == torch.bfloat16
+        _close(a, r)
 
 
 @pytest.mark.parametrize("m", [100, 128])
@@ -128,6 +161,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(4, 4, 40, 60, device=dev)          # fp32, not bf16
     with pytest.raises(ValueError):
         patches.patch_stats(x, 8, 6)
+    # K2 and K11 take D and 2I on the multiples of 64 only, and check every
+    # operand before the first launch
+    for d, i2 in ((96, 256), (128, 96)):
+        k2 = _k2_case(dev, 50, d, i2)
+        k11 = _k11_case(dev, 50, d, i2)
+        before = [f.launches for f in K2_STAGES + K11_STAGES]
+        with pytest.raises(ValueError):
+            geglu_ff.geglu_ff(*k2)
+        with pytest.raises(ValueError):
+            geglu_ff.geglu_ff_int8(*k11)
+        assert [f.launches for f in K2_STAGES + K11_STAGES] == before
 
 
 def _attn_case(dev, nq, nkv, n_null, seed=4):
@@ -474,25 +518,63 @@ def test_int8_attention_wide_logit_spread(dev):
     _close(out, ref)
 
 
-@pytest.mark.parametrize("m", [50, 96])
-def test_k11_matches_plain(dev, m):
-    g = torch.Generator(device=dev).manual_seed(9)
-    d, inner = 768, 256
+K11_STAGES = (geglu_ff.geglu_ff_int8_y, geglu_ff.geglu_ff_int8_h,
+              geglu_ff.geglu_ff_int8_q, geglu_ff.geglu_ff_int8_o)
+
+
+def _k11_case(dev, m, d, i2, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = _randn(g, m, d)
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
     gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
     beta = 0.1 * torch.randn(d, generator=g, device=dev)
     w1q, s1 = geglu_ff.quantize_per_channel(
-        torch.randn(d, 2 * inner, generator=g, device=dev))
+        torch.randn(d, i2, generator=g, device=dev))
     w2q, s2 = geglu_ff.quantize_per_channel(
-        torch.randn(inner, d, generator=g, device=dev))
-    args = (x, mu, inv, gamma, beta, w1q, s1, w2q, s2)
-    before = geglu_ff.geglu_ff_int8.launches
+        torch.randn(i2 // 2, d, generator=g, device=dev))
+    return x, mu, inv, gamma, beta, w1q, s1, w2q, s2
+
+
+@pytest.mark.parametrize("d,i2", FF_SHAPES)
+@pytest.mark.parametrize("m", [50, 4113])
+def test_k11_matches_plain(dev, m, d, i2):
+    args = _k11_case(dev, m, d, i2)
+    before = [f.launches for f in K11_STAGES]
     out = geglu_ff.geglu_ff_int8(*args)
+    again = geglu_ff.geglu_ff_int8(*args)
     ref = geglu_ff.geglu_ff_int8_plain(*args)
     torch.cuda.synchronize()
-    assert geglu_ff.geglu_ff_int8.launches == before + 1
-    assert _rel(out, ref) < 1e-2
+    assert [f.launches - b for f, b in zip(K11_STAGES, before)] == [2] * 4
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("d,i2", FF_SHAPES)
+def test_k11_stages_match_their_twins(dev, d, i2):
+    """Each K11 stage against its plain twin on the kernel chain's inputs;
+    the codes within one step of the twin's (a different fp32 erf or
+    product order may cross a rounding boundary), the scales and the
+    partial amaxes as fp32 values."""
+    x, mu, inv, gamma, beta, w1q, s1, w2q, s2 = _k11_case(dev, 4113, d, i2,
+                                                          seed=14)
+    w1t, w2t = w1q.t().contiguous(), w2q.t().contiguous()
+    y8, sy = geglu_ff.geglu_ff_int8_y(x, mu, inv, gamma, beta)
+    act, part = geglu_ff.geglu_ff_int8_h(y8, sy, w1t, s1)
+    a8, sa = geglu_ff.geglu_ff_int8_q(act, part)
+    out = geglu_ff.geglu_ff_int8_o(a8, sa, w2t, s2)
+    checks = [((y8, sy), geglu_ff.geglu_ff_int8_y_plain(x, mu, inv, gamma,
+                                                         beta)),
+              ((act, part), geglu_ff.geglu_ff_int8_h_plain(y8, sy, w1t, s1)),
+              ((a8, sa), geglu_ff.geglu_ff_int8_q_plain(act, part)),
+              ((out,), (geglu_ff.geglu_ff_int8_o_plain(a8, sa, w2t, s2),))]
+    torch.cuda.synchronize()
+    for got, ref in checks:
+        for a, r in zip(got, ref):
+            assert a.shape == r.shape and a.dtype == r.dtype
+            if a.dtype == torch.int8:
+                assert (a.int() - r.int()).abs().max() <= 1
+            else:
+                _close(a, r)
 
 
 @pytest.mark.parametrize("m", [100, 128])

@@ -396,7 +396,8 @@ def test_state_dict_is_the_same_in_every_mode(setups):
 
 
 def test_int8_wrappers_take_the_plain_path_on_cpu_without_counting():
-    counters = (tfa.attention_static_int8, tff.geglu_ff_int8,
+    counters = (tfa.attention_static_int8, tff.geglu_ff_int8_y,
+                tff.geglu_ff_int8_h, tff.geglu_ff_int8_q, tff.geglu_ff_int8_o,
                 tproj.ln_qkv_int8, tproj.proj_int8)
     before = [fn.launches for fn in counters]
     r = _rng(34)
@@ -410,5 +411,5 @@ def test_int8_wrappers_take_the_plain_path_on_cpu_without_counting():
                             torch.randn(64, 64))
     tff.fused_geglu_ff_int8(x, torch.ones(64), torch.zeros(64),
                             torch.randn(64, 64), torch.randn(32, 64))
-    assert [fn.launches for fn in counters] == before == [0, 0, 0, 0]
+    assert [fn.launches for fn in counters] == before == [0] * 7
     assert math.isfinite(float(out.sum()))

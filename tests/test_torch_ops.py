@@ -242,8 +242,8 @@ def test_logit_bound_bounds_every_logit():
 def test_wrappers_take_the_plain_path_on_cpu_without_counting():
     """On CPU tensors each kernel wrapper runs its plain version and its
     launch counter does not move."""
-    counters = (tfa.attention_static, tff.geglu_ff, tproj.ln_qkv,
-                tpatch.patch_stats)
+    counters = (tfa.attention_static, tff.geglu_ff_x, tff.geglu_ff_h,
+                tff.geglu_ff_o, tproj.ln_qkv, tpatch.patch_stats)
     before = [fn.launches for fn in counters]
     r = _rng(12)
     q = torch.from_numpy(r.standard_normal((1, 2, 8, 32)).astype(np.float32))
@@ -257,7 +257,7 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
                  torch.randn(32, 48))
     tproj.ln_qkv(x, mu, inv, torch.randn(48, 96), torch.zeros(96), 32)
     tpatch.patch_stats(torch.randn(2, 4, 16, 16), 8, 8)
-    assert [fn.launches for fn in counters] == before == [0, 0, 0, 0]
+    assert [fn.launches for fn in counters] == before == [0] * 6
 
 
 def test_wrappers_refuse_other_devices():

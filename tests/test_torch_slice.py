@@ -291,8 +291,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
         assert ms > 0 and by in ("bytes", "operations"), c.name
         assert (by == "bytes") == (pipe == "bytes"), c.name
         assert ("exp" in c.ops) == (c.counter in ATTENTION_COUNTERS), c.name
-        assert (c.library is not None) == (c.counter in ("K1", "dKdV", "dQ",
-                                                         "K15", "K8w"))
+        assert (c.library is not None) == (c.counter in (
+            "K1", "dKdV", "dQ", "K15", "K8w", "K2h", "K2o", "K11h", "K11o"))
     for attn_impl in ("pallas_static", "pallas"):
         res, launches, kern, batch = cs.compare_train_steps(
             cpu, arch, BertConfig.tiny(), 2, TEXT_LEN, attn_impl=attn_impl)

@@ -1,8 +1,9 @@
 // PTX helpers of the attention kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_static_int8.cu) and of gemm_mma.cuh: cp.async copies into a
-// shared-memory ring, ldmatrix fragment loads,
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate) and ex2.approx, plus the
-// fragment patterns of head dim 32 staged at a pitch of ATT_LDT bf16.
+// shared-memory ring, ldmatrix fragment loads (int8 rows read as b16 units),
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) and m16n8k32 (int8 in,
+// int32 accumulate) and ex2.approx, plus the fragment patterns of head dim
+// 32 staged at a pitch of ATT_LDT bf16.
 //
 // Staged rows are 32 bf16 padded to 40 (80 bytes), so the 8 row addresses
 // of an ldmatrix fall on 8 distinct groups of 4 banks: conflict-free.
@@ -94,10 +95,31 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ldmatrix.x4 over int8 rows (read as b16 units)
+__device__ __forceinline__ void ldsm_x4_s8(uint32_t (&r)[4],
+                                           const signed char* p) {
+    ldsm_x4(r, reinterpret_cast<const bf16*>(p));
+}
+
+// c (16 × 8 s32) += a (16 × 32 s8, row) · b (32 × 8 s8, col).  Lane l, g =
+// l / 4, t = l % 4: a = {(g, 4t..4t+3), (g+8, 4t..), (g, 16+4t..), (g+8,
+// 16+4t..)}; b = {(k 4t..4t+3, n g), (k 16+4t.., n g)}; c as mma()'s
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two fp32 rounded to bf16 (round to nearest even), lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
 }
 
 // 2^x on the special-function unit: exp2f minus its denormal path (a

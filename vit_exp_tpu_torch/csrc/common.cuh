@@ -28,7 +28,7 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // 16 x 16 x 16 int8 tensor-core tiles, int32 accumulators.  The int8
-// wmma kernels (K11-K14) keep their operands in the "k16" layout: an R x K
+// wmma kernels (K12-K14) keep their operands in the "k16" layout: an R x K
 // matrix is stored as K/16 slices of R rows of 16 contiguous codes, so a
 // fragment (16 rows x 16 codes) is 256 contiguous bytes, 32-byte aligned,
 // ldm 16.

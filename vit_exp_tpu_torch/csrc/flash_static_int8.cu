@@ -84,23 +84,6 @@ __device__ __forceinline__ void copy_rows8(signed char* dst,
     }
 }
 
-// ldmatrix.x4 over int8 rows (read as b16 units)
-__device__ __forceinline__ void ldsm_x4_s8(uint32_t (&r)[4],
-                                           const signed char* p) {
-    ldsm_x4(r, reinterpret_cast<const bf16*>(p));
-}
-
-// c (16 × 8 s32) += a (16 × 32 s8, row) · b (32 × 8 s8, col).  Lane l, g =
-// l / 4, t = l % 4: a = {(g, 4t..4t+3), (g+8, 4t..), (g, 16+4t..), (g+8,
-// 16+4t..)}; b = {(k 4t..4t+3, n g), (k 16+4t.., n g)}; c as mma()'s
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One 64-key tile (ks int8 at pitch LD8, vs bf16 at LDV) against the warp's
 // 32 queries (qa).  c2: qe·log2e of the lane's rows [m16 tile][half]; b2:
 // B·log2e.  MASK: keys at or past kv_left are not keys (the last tile).

@@ -80,10 +80,6 @@ constexpr int WG_WM = 2, WG_WN = 4, WG_BLOCKS = 2;
 using WgCfg = GemmCfg<WG_P, WG_Q, WG_BK, WG_WM, WG_WN, WG_STAGES, true, true,
                       1>;
 
-__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
-}
-
 // y = bf16((x − μ)·inv·γ + β), 8 elements per thread
 __global__ void __launch_bounds__(256)
 geglu_bwd_y_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
@@ -307,12 +303,6 @@ __global__ void sum_rows_kernel(const float* __restrict__ part,
     float acc = 0.f;
     for (int s = 0; s < S; ++s) acc += part[(size_t)s * N + i];
     out[i] = acc;
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace

@@ -61,8 +61,12 @@ SIGNATURES = {
     "vit_wgrad": [P, P, P, I, I, I, I, I, I, I, P],
     # partials, out, S, N, stream
     "vit_sum_rows": [P, P, I, L, P],
-    # x, mu, inv, w1p, d1, w2, out, M, D, I2, stream
-    "vit_geglu_ff_fwd": [P, P, P, P, P, P, P, I, I, I, P],
+    # x, mu, inv, xn, M, D, stream
+    "vit_geglu_ff_x": [P] * 4 + [I, I, P],
+    # xn, w1p, d1, act, M, D, I2, stream
+    "vit_geglu_ff_h": [P] * 4 + [I, I, I, P],
+    # act, w2, out, M, D, I2, stream
+    "vit_geglu_ff_o": [P] * 3 + [I, I, I, P],
     # x, mu, inv, w, c, out, M, K, F, Fq, stream
     "vit_ln_qkv_fwd": [P, P, P, P, P, P, I, I, I, I, P],
     # x, mu, sq, BT, CPT, H, W, p1, p2, stream
@@ -70,9 +74,14 @@ SIGNATURES = {
     # q8, k8, v, qe, qn, nk, nv, bound, out, q8/k8/v/out/qe strides
     # (b, h, n) ×5, B, H, Nq, Nkv, n_null, stream
     "vit_flash_static_int8_fwd": [P] * 9 + [L] * 15 + [I] * 5 + [P],
-    # x, mu, inv, gamma, beta, w1 (k16), s1, w2 (k16), s2, out, M, D, I2,
-    # stream
-    "vit_geglu_ff_int8_fwd": [P] * 10 + [I, I, I, P],
+    # x, mu, inv, gamma, beta, y8, sy, M, D, stream
+    "vit_geglu_int8_y": [P] * 7 + [I, I, P],
+    # y8, sy, w1t, s1, act, amax partials, M, D, I2, stream
+    "vit_geglu_int8_h": [P] * 6 + [I, I, I, P],
+    # act, amax partials, a8, sa, M, I2, stream
+    "vit_geglu_int8_q": [P] * 4 + [I, I, P],
+    # a8, sa, w2t, s2, out, M, D, I2, stream
+    "vit_geglu_int8_o": [P] * 5 + [I, I, I, P],
     # x, mu, inv, w (k16), sc, c, q, k, v, M, K, F, Fq, Fk, stream
     "vit_ln_qkv_int8_fwd": [P] * 9 + [I] * 5 + [P],
     # x, w (k16), sc, out, M, K, F, stream

@@ -7,16 +7,18 @@ in JAX; γ folds into W1 (W1' = γ⊙W1) and β contributes a constant row
 d1 = β@W1.
 
 Kernel K2 (``geglu_ff``) replaces vit_exp_tpu/ops/geglu_ff.py::_ff_kernel
-(``_ff_fwd_impl``).  CUDA C++, csrc/geglu_ff.cu.  Per token it does 2·768·4096
-+ 2·2048·768 multiply-adds, so at 55,296 tokens it is bound by tensor-core
-throughput, and by the bytes of the (tokens, 4096) intermediate if that ever
-reached device memory (453 MB at batch 4).  The design keeps it on chip: one
-block owns 32 tokens; it normalises them into shared memory once, then walks
-the inner dimension in chunks of 64 — h = x̂@W1' for the val and gate columns
-of the chunk (tensor-core mma, fp32 accumulate), + d1, rounded to bf16, GELU
-(erf) times val, rounded to bf16 — and accumulates act@W2 for the chunk into
-the block's 32 × 768 fp32 output tile, which stays in registers across the
-whole walk.  Rounding points follow the TPU kernel: x̂, h and act are bf16.
+(``_ff_fwd_impl``).  CUDA C++, csrc/geglu_ff.cu: per token 2·D·2I + 2·I·D
+multiply-adds (522 GFLOP at 55,296 tokens, D 768, 2I 4096), so it is bound
+by tensor-core throughput.  The TPU kernel keeps each block's (tokens, 2I)
+intermediate in VMEM; no Hopper SM holds a useful token tile of it, so K2
+is three stages on the GEMM mainloop of csrc/gemm_mma.cuh, each a kernel
+with its plain twin here (composed by ``geglu_ff``; ``geglu_ff_plain`` stays
+the one-pass oracle): ``geglu_ff_x`` (x̂ = bf16((x − μ)·inv)),
+``geglu_ff_h`` (h = x̂@W1' + d1 for a tile of tokens × inner columns, val
+and gate in one lane's registers, the GEGLU on them → act in bf16; h never
+reaches device memory) and ``geglu_ff_o`` (out = act@W2).  Rounding points
+follow the TPU kernel: x̂, h, gelu and act are bf16.  D and 2I multiples of
+64, any M.
 
 Kernel K8 (``geglu_ff_bwd``) replaces vit_exp_tpu/ops/geglu_ff.py::
 _ff_bwd_kernel (``_ff_bwd_impl``).  CUDA C++, csrc/geglu_ff_bwd.cu: a chain
@@ -44,13 +46,20 @@ to even, clip to ±127 and divide by the scale max(amax, 1e-8)/127.
 Kernel K11 (``geglu_ff_int8``) replaces vit_exp_tpu/ops/geglu_ff.py::
 _ff_int8_kernel (``fused_geglu_ff_int8``).  CUDA C++, csrc/geglu_ff_int8.cu.
 It does K2's 522 G multiply-adds as int8 products (int32 sums): bound by
-the int8 tensor cores, and by the L2 reads of the 4.7 MB of int8 weights
-that every token tile streams.  Its rounding points differ from K2's:
-y = x̂·γ + β stays fp32 and is quantized per token, h = acc·s_y·s_W1
-stays fp32, act = gelu_erf(gate)·val stays fp32 and is quantized per
-token over its whole 2048-wide row, so the second product starts only
-once a tile's act rows are complete; the output is rounded once.  Serving
-only: no backward, and it raises on inputs that require grad.
+the int8 tensor cores.  Its rounding points differ from K2's: y = x̂·γ + β
+stays fp32 and is quantized per token, h = acc·s_y·s_W1 stays fp32, act =
+gelu_erf(gate)·val stays fp32 and is quantized per token over its whole
+I-wide row, so the second product starts only once every column of a
+token's act is known; the output is rounded once.  Four stages on the int8
+GEMM mainloop (mma.sync m16n8k32), each a kernel with its plain twin here
+(composed by ``geglu_ff_int8``; ``geglu_ff_int8_plain`` stays the one-pass
+oracle): ``geglu_ff_int8_y`` (y → codes y8 and scale s_y),
+``geglu_ff_int8_h`` (act in fp32 through device memory, and each token's
+amax per AMAX_TILE columns), ``geglu_ff_int8_q`` (s_a from the partials,
+codes a8) and ``geglu_ff_int8_o`` (a8@W2 · s_a · s_W2).  The int8 operands
+are index-major: the weights go in transposed, W1ᵀ (2I, D) and W2ᵀ (D, I),
+made per call next to the per-call quantization.  Serving only: no
+backward, and it raises on inputs that require grad.
 """
 
 from __future__ import annotations
@@ -85,34 +94,149 @@ def geglu_ff_plain(x2, mu, inv, w1p, d1, w2):
     return (act.to(acc_t) @ w2.to(acc_t)).to(x2.dtype)
 
 
-def geglu_ff(x2, mu, inv, w1p, d1, w2):
-    """Kernel K2 on CUDA tensors, the plain version on CPU tensors."""
-    if x2.device.type == "cpu":
-        return geglu_ff_plain(x2, mu, inv, w1p, d1, w2)
-    _build.require_cuda("geglu_ff", x2, mu, inv, w1p, d1, w2)
-    M, D = x2.shape
-    I2 = w1p.shape[1]
-    if any(t.dtype != torch.bfloat16 for t in (x2, w1p, w2)):
-        raise ValueError("geglu_ff kernel takes bf16 x, W1 and W2")
-    if (D != 768 or I2 % 128 or w1p.shape[0] != D
-            or w2.shape != (I2 // 2, D) or d1.numel() != I2
-            or mu.numel() != M or inv.numel() != M):
-        raise ValueError(f"geglu_ff kernel takes D = 768, 2I a multiple of 128 "
-                         f"and matching shapes; got x {tuple(x2.shape)}, W1 "
+def _check_bf16(name, *tensors):
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError(f"{name} kernel takes bf16 operands, got "
+                         f"{[t.dtype for t in tensors]}")
+
+
+# K2's stages on the card (csrc/geglu_ff.cu): x̂, then act, then out.  Each
+# has its plain twin; composed, the twins give geglu_ff_plain's bits.
+FF_WIDTH_STEP = 64   # D and 2I of K2 and K11 are multiples of it
+
+
+def _check_ff_widths(name, D, I2):
+    if D < FF_WIDTH_STEP or D % FF_WIDTH_STEP or I2 < FF_WIDTH_STEP \
+            or I2 % FF_WIDTH_STEP:
+        raise ValueError(f"{name} kernel takes D and 2I multiples of "
+                         f"{FF_WIDTH_STEP}; got D {D}, 2I {I2}")
+
+
+def _check_ln_rows(name, x2, mu, inv):
+    if x2.dim() != 2 or x2.shape[0] < 1 or mu.numel() != x2.shape[0] \
+            or inv.numel() != x2.shape[0]:
+        raise ValueError(f"{name} kernel takes (M ≥ 1, D) rows and one μ and "
+                         f"inv per row; got x {tuple(x2.shape)}, mu/inv "
+                         f"{mu.numel()}/{inv.numel()}")
+
+
+def _check_k2(x2, mu, inv, w1p, d1, w2):
+    """Raise unless K2's three kernels take these operands."""
+    _check_bf16("geglu_ff", x2, w1p, w2)
+    _check_ln_rows("geglu_ff", x2, mu, inv)
+    D, I2 = x2.shape[1], w1p.shape[1]
+    _check_ff_widths("geglu_ff", D, I2)
+    if w1p.shape[0] != D or w2.shape != (I2 // 2, D) or d1.numel() != I2:
+        raise ValueError(f"geglu_ff kernel takes W1' (D, 2I), W2 (I, D) and "
+                         f"d1 (2I,); got x {tuple(x2.shape)}, W1 "
                          f"{tuple(w1p.shape)}, W2 {tuple(w2.shape)}, d1 "
-                         f"{tuple(d1.shape)}, mu/inv {mu.numel()}/{inv.numel()}")
-    x2, w1p, w2 = x2.contiguous(), w1p.contiguous(), w2.contiguous()
+                         f"{tuple(d1.shape)}")
+
+
+def geglu_ff_x_plain(x2, mu, inv):
+    """Plain version of K2's row pass: x̂ = (x − μ)·inv in fp32, rounded to
+    x2.dtype."""
+    acc_t = acc_dtype(x2.dtype)
+    return ((x2.to(acc_t) - mu) * inv).to(x2.dtype)
+
+
+def geglu_ff_x(x2, mu, inv):
+    """K2's row pass on CUDA tensors, its plain version on CPU tensors."""
+    if x2.device.type == "cpu":
+        return geglu_ff_x_plain(x2, mu, inv)
+    _build.require_cuda("geglu_ff_x", x2, mu, inv)
+    _check_bf16("geglu_ff_x", x2)
+    _check_ln_rows("geglu_ff_x", x2, mu, inv)
+    M, D = x2.shape
+    _check_ff_widths("geglu_ff_x", D, FF_WIDTH_STEP)
+    x2 = x2.contiguous()
     mu, inv = mu.float().contiguous(), inv.float().contiguous()
-    d1 = d1.float().contiguous()
-    out = torch.empty_like(x2)
-    _build.launch("vit_geglu_ff_fwd",
-                  *(t.data_ptr() for t in (x2, mu, inv, w1p, d1, w2, out)),
+    xn = torch.empty_like(x2)
+    _build.launch("vit_geglu_ff_x", *(t.data_ptr() for t in (x2, mu, inv, xn)),
+                  M, D)
+    geglu_ff_x.launches += 1
+    return xn
+
+
+geglu_ff_x.launches = 0
+
+
+def geglu_ff_h_plain(xn, w1p, d1):
+    """Plain version of K2's first product with the GEGLU: h = xn@W1' + d1
+    in fp32, rounded to xn.dtype; act = bf16(gelu_erf(gate))·val in
+    xn.dtype, (M, I).  w1p: (D, 2I) [val | gate]; d1: (2I,) fp32."""
+    inner = w1p.shape[1] // 2
+    acc_t = acc_dtype(xn.dtype)
+    h = (xn.to(acc_t) @ w1p.to(acc_t) + d1.to(acc_t)).to(xn.dtype)
+    val, gate = h[:, :inner], h[:, inner:].to(acc_t)
+    gelu = 0.5 * gate * (1.0 + torch.erf(gate * (2.0 ** -0.5)))
+    return gelu.to(val.dtype) * val
+
+
+def geglu_ff_h(xn, w1p, d1):
+    """K2's first product with the GEGLU in its epilogue on CUDA tensors,
+    its plain version on CPU tensors."""
+    if xn.device.type == "cpu":
+        return geglu_ff_h_plain(xn, w1p, d1)
+    _build.require_cuda("geglu_ff_h", xn, w1p, d1)
+    _check_bf16("geglu_ff_h", xn, w1p)
+    M, D = xn.shape
+    I2 = w1p.shape[1]
+    _check_ff_widths("geglu_ff_h", D, I2)
+    if M < 1 or w1p.shape[0] != D or d1.numel() != I2:
+        raise ValueError(f"geglu_ff_h kernel takes x̂ (M ≥ 1, D), W1' (D, 2I) "
+                         f"and d1 (2I,); got x̂ {tuple(xn.shape)}, W1 "
+                         f"{tuple(w1p.shape)}, d1 {tuple(d1.shape)}")
+    xn, w1p, d1 = xn.contiguous(), w1p.contiguous(), d1.float().contiguous()
+    act = torch.empty((M, I2 // 2), device=xn.device, dtype=xn.dtype)
+    _build.launch("vit_geglu_ff_h", *(t.data_ptr() for t in (xn, w1p, d1, act)),
                   M, D, I2)
-    geglu_ff.launches += 1
+    geglu_ff_h.launches += 1
+    return act
+
+
+geglu_ff_h.launches = 0
+
+
+def geglu_ff_o_plain(act, w2):
+    """Plain version of K2's second product: act@W2 in fp32, rounded to
+    act.dtype.  act: (M, I); w2: (I, D)."""
+    acc_t = acc_dtype(act.dtype)
+    return (act.to(acc_t) @ w2.to(acc_t)).to(act.dtype)
+
+
+def geglu_ff_o(act, w2):
+    """K2's second product on CUDA tensors, its plain version on CPU
+    tensors."""
+    if act.device.type == "cpu":
+        return geglu_ff_o_plain(act, w2)
+    _build.require_cuda("geglu_ff_o", act, w2)
+    _check_bf16("geglu_ff_o", act, w2)
+    M, inner = act.shape
+    D = w2.shape[1]
+    _check_ff_widths("geglu_ff_o", D, 2 * inner)
+    if M < 1 or w2.shape[0] != inner:
+        raise ValueError(f"geglu_ff_o kernel takes act (M ≥ 1, I) and W2 "
+                         f"(I, D); got act {tuple(act.shape)}, W2 "
+                         f"{tuple(w2.shape)}")
+    act, w2 = act.contiguous(), w2.contiguous()
+    out = torch.empty((M, D), device=act.device, dtype=act.dtype)
+    _build.launch("vit_geglu_ff_o", act.data_ptr(), w2.data_ptr(),
+                  out.data_ptr(), M, D, 2 * inner)
+    geglu_ff_o.launches += 1
     return out
 
 
-geglu_ff.launches = 0
+geglu_ff_o.launches = 0
+
+
+def geglu_ff(x2, mu, inv, w1p, d1, w2):
+    """Kernel K2 (three kernels: x̂, act, out) on CUDA tensors, the plain
+    stages on CPU tensors.  Arguments as ``geglu_ff_plain``'s; on the card
+    every operand is checked before the first launch."""
+    if x2.device.type != "cpu":
+        _check_k2(x2, mu, inv, w1p, d1, w2)
+    return geglu_ff_o(geglu_ff_h(geglu_ff_x(x2, mu, inv), w1p, d1), w2)
 
 
 # ---------------------------------------------------------------------------
@@ -145,9 +269,9 @@ def int8_matmul(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
 
 def k16_layout(w8: torch.Tensor) -> torch.Tensor:
     """(K, N) int8 → (K/16, N, 16): for each 16-deep slice of the rows, each
-    column's 16 codes contiguous.  The int8 kernels load their weight
-    fragments (16 columns × 16 rows = 256 contiguous bytes) from this
-    layout, which keeps every fragment 32-byte aligned."""
+    column's 16 codes contiguous.  The int8 projection kernels (K12-K14)
+    load their weight fragments (16 columns × 16 rows = 256 contiguous
+    bytes) from this layout, which keeps every fragment 32-byte aligned."""
     K, N = w8.shape
     return w8.reshape(K // 16, 16, N).transpose(1, 2).contiguous()
 
@@ -168,38 +292,194 @@ def geglu_ff_int8_plain(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2):
     return (int8_matmul(aq, w2q) * as_ * s2).to(x2.dtype)
 
 
-def geglu_ff_int8(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2):
-    """Kernel K11 on CUDA tensors, the plain version on CPU tensors."""
-    if x2.device.type == "cpu":
-        return geglu_ff_int8_plain(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2)
-    _build.require_cuda("geglu_ff_int8", x2, mu, inv, gamma, beta, w1q, s1,
-                        w2q, s2)
-    M, D = x2.shape
-    I2 = w1q.shape[1]
-    if (x2.dtype != torch.bfloat16 or w1q.dtype != torch.int8
-            or w2q.dtype != torch.int8):
-        raise ValueError("geglu_ff_int8 kernel takes bf16 x and int8 W1, W2")
-    if (D != 768 or I2 % 32 or I2 > 4096 or w1q.shape[0] != D
-            or w2q.shape != (I2 // 2, D) or s1.numel() != I2
-            or s2.numel() != D or gamma.numel() != D or beta.numel() != D
-            or mu.numel() != M or inv.numel() != M):
-        raise ValueError(f"geglu_ff_int8 kernel takes D = 768, 2I a multiple "
-                         f"of 32 up to 4096 and matching shapes; got x "
+# K11's stages on the card (csrc/geglu_ff_int8.cu): y8, then act with its
+# partial amaxes, then a8, then out.  Each has its plain twin; composed, the
+# twins give geglu_ff_int8_plain's bits.
+AMAX_TILE = 64   # inner columns of one partial amax (K11h's column tile)
+
+
+def _check_int8(name, *tensors):
+    if any(t.dtype != torch.int8 for t in tensors):
+        raise ValueError(f"{name} kernel takes int8 codes, got "
+                         f"{[t.dtype for t in tensors]}")
+
+
+def _check_k11(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2):
+    """Raise unless K11's four kernels take these operands."""
+    _check_bf16("geglu_ff_int8", x2)
+    _check_int8("geglu_ff_int8", w1q, w2q)
+    _check_ln_rows("geglu_ff_int8", x2, mu, inv)
+    D, I2 = x2.shape[1], w1q.shape[1]
+    _check_ff_widths("geglu_ff_int8", D, I2)
+    if (w1q.shape[0] != D or w2q.shape != (I2 // 2, D) or s1.numel() != I2
+            or s2.numel() != D or gamma.numel() != D or beta.numel() != D):
+        raise ValueError(f"geglu_ff_int8 kernel takes W1 (D, 2I), W2 (I, D), "
+                         f"their scales and D-wide γ, β; got x "
                          f"{tuple(x2.shape)}, W1 {tuple(w1q.shape)}, W2 "
                          f"{tuple(w2q.shape)}")
+
+
+def geglu_ff_int8_y_plain(x2, mu, inv, gamma, beta):
+    """Plain version of K11's row pass: y = x̂·γ + β in fp32, quantized per
+    token: (y8 (M, D) int8, s_y (M, 1) fp32)."""
+    xn = (x2.float() - mu) * inv
+    return quant_rows(xn * gamma.float() + beta.float())
+
+
+def geglu_ff_int8_y(x2, mu, inv, gamma, beta):
+    """K11's row pass on CUDA tensors, its plain version on CPU tensors."""
+    if x2.device.type == "cpu":
+        return geglu_ff_int8_y_plain(x2, mu, inv, gamma, beta)
+    _build.require_cuda("geglu_ff_int8_y", x2, mu, inv, gamma, beta)
+    _check_bf16("geglu_ff_int8_y", x2)
+    _check_ln_rows("geglu_ff_int8_y", x2, mu, inv)
+    M, D = x2.shape
+    _check_ff_widths("geglu_ff_int8_y", D, FF_WIDTH_STEP)
+    if gamma.numel() != D or beta.numel() != D:
+        raise ValueError(f"geglu_ff_int8_y kernel takes {D} γ and β")
     x2 = x2.contiguous()
-    mu, inv, gamma, beta, s1, s2 = (t.float().contiguous() for t in
-                                    (mu, inv, gamma, beta, s1, s2))
-    w1c, w2c = k16_layout(w1q), k16_layout(w2q)
-    out = torch.empty_like(x2)
-    _build.launch("vit_geglu_ff_int8_fwd",
-                  *(t.data_ptr() for t in (x2, mu, inv, gamma, beta, w1c, s1,
-                                           w2c, s2, out)), M, D, I2)
-    geglu_ff_int8.launches += 1
+    mu, inv, gamma, beta = (t.float().contiguous() for t in (mu, inv, gamma,
+                                                               beta))
+    y8 = torch.empty((M, D), device=x2.device, dtype=torch.int8)
+    sy = torch.empty((M, 1), device=x2.device, dtype=torch.float32)
+    _build.launch("vit_geglu_int8_y", *(t.data_ptr() for t in (
+        x2, mu, inv, gamma, beta, y8, sy)), M, D)
+    geglu_ff_int8_y.launches += 1
+    return y8, sy
+
+
+geglu_ff_int8_y.launches = 0
+
+
+def amax_partials(act):
+    """Each row's amax over each tile of AMAX_TILE columns: (M, ceil(I /
+    AMAX_TILE)) fp32, as K11h's epilogue writes it."""
+    pad = -act.shape[1] % AMAX_TILE
+    return torch.nn.functional.pad(act.abs(), (0, pad)).reshape(
+        act.shape[0], -1, AMAX_TILE).amax(dim=-1)
+
+
+def geglu_ff_int8_h_plain(y8, sy, w1t, s1):
+    """Plain version of K11's first product with the GEGLU.  y8: (M, D)
+    int8, sy: (M, 1); w1t: (2I, D) int8, W1ᵀ laid out [val | gate], with
+    scales s1 (2I,).  h = (y8@W1)·s_y·s_W1 and act = gelu_erf(gate)·val in
+    fp32: (act (M, I), its partial amaxes)."""
+    inner = w1t.shape[0] // 2
+    h = int8_matmul(y8, w1t.t()) * sy * s1
+    val, gate = h[:, :inner], h[:, inner:]
+    act = 0.5 * gate * (1.0 + torch.erf(gate * (2.0 ** -0.5))) * val
+    return act, amax_partials(act)
+
+
+def geglu_ff_int8_h(y8, sy, w1t, s1):
+    """K11's first product with the GEGLU in its epilogue on CUDA tensors,
+    its plain version on CPU tensors."""
+    if y8.device.type == "cpu":
+        return geglu_ff_int8_h_plain(y8, sy, w1t, s1)
+    _build.require_cuda("geglu_ff_int8_h", y8, sy, w1t, s1)
+    _check_int8("geglu_ff_int8_h", y8, w1t)
+    M, D = y8.shape
+    I2 = w1t.shape[0]
+    _check_ff_widths("geglu_ff_int8_h", D, I2)
+    if M < 1 or sy.numel() != M or w1t.shape[1] != D or s1.numel() != I2:
+        raise ValueError(f"geglu_ff_int8_h kernel takes y8 (M ≥ 1, D), one "
+                         f"s_y per row, W1ᵀ (2I, D) and 2I scales; got y8 "
+                         f"{tuple(y8.shape)}, W1ᵀ {tuple(w1t.shape)}")
+    y8, w1t = y8.contiguous(), w1t.contiguous()
+    sy, s1 = sy.float().contiguous(), s1.float().contiguous()
+    inner = I2 // 2
+    act = torch.empty((M, inner), device=y8.device, dtype=torch.float32)
+    part = torch.empty((M, -(-inner // AMAX_TILE)), device=y8.device,
+                       dtype=torch.float32)
+    _build.launch("vit_geglu_int8_h", *(t.data_ptr() for t in (
+        y8, sy, w1t, s1, act, part)), M, D, I2)
+    geglu_ff_int8_h.launches += 1
+    return act, part
+
+
+geglu_ff_int8_h.launches = 0
+
+
+def geglu_ff_int8_q_plain(act, amax_part):
+    """Plain version of K11's act quantizer: s_a from each row's partial
+    amaxes (max(amax, 1e-8) / 127), codes round half to even: (a8 (M, I)
+    int8, s_a (M, 1) fp32)."""
+    s = amax_part.amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(act / s), -127, 127).to(torch.int8), s
+
+
+def geglu_ff_int8_q(act, amax_part):
+    """K11's act quantizer on CUDA tensors, its plain version on CPU
+    tensors."""
+    if act.device.type == "cpu":
+        return geglu_ff_int8_q_plain(act, amax_part)
+    _build.require_cuda("geglu_ff_int8_q", act, amax_part)
+    M, inner = act.shape
+    _check_ff_widths("geglu_ff_int8_q", FF_WIDTH_STEP, 2 * inner)
+    if (act.dtype != torch.float32 or amax_part.dtype != torch.float32
+            or M < 1 or amax_part.shape != (M, -(-inner // AMAX_TILE))):
+        raise ValueError(f"geglu_ff_int8_q kernel takes fp32 act (M ≥ 1, I) "
+                         f"and its (M, I / {AMAX_TILE}) fp32 partial amaxes; "
+                         f"got {tuple(act.shape)} {act.dtype}, "
+                         f"{tuple(amax_part.shape)} {amax_part.dtype}")
+    act, amax_part = act.contiguous(), amax_part.contiguous()
+    a8 = torch.empty((M, inner), device=act.device, dtype=torch.int8)
+    sa = torch.empty((M, 1), device=act.device, dtype=torch.float32)
+    _build.launch("vit_geglu_int8_q", *(t.data_ptr() for t in (
+        act, amax_part, a8, sa)), M, 2 * inner)
+    geglu_ff_int8_q.launches += 1
+    return a8, sa
+
+
+geglu_ff_int8_q.launches = 0
+
+
+def geglu_ff_int8_o_plain(a8, sa, w2t, s2, dtype=torch.bfloat16):
+    """Plain version of K11's second product: (a8@W2)·s_a·s_W2 in fp32,
+    rounded once to dtype.  a8: (M, I) int8, sa: (M, 1); w2t: (D, I) int8,
+    W2ᵀ, with scales s2 (D,)."""
+    return (int8_matmul(a8, w2t.t()) * sa * s2).to(dtype)
+
+
+def geglu_ff_int8_o(a8, sa, w2t, s2, dtype=torch.bfloat16):
+    """K11's second product on CUDA tensors (bf16 out), its plain version
+    on CPU tensors."""
+    if a8.device.type == "cpu":
+        return geglu_ff_int8_o_plain(a8, sa, w2t, s2, dtype)
+    _build.require_cuda("geglu_ff_int8_o", a8, sa, w2t, s2)
+    _check_int8("geglu_ff_int8_o", a8, w2t)
+    M, inner = a8.shape
+    D = w2t.shape[0]
+    _check_ff_widths("geglu_ff_int8_o", D, 2 * inner)
+    if (dtype != torch.bfloat16 or M < 1 or sa.numel() != M
+            or w2t.shape[1] != inner or s2.numel() != D):
+        raise ValueError(f"geglu_ff_int8_o kernel takes a8 (M ≥ 1, I), one "
+                         f"s_a per row, W2ᵀ (D, I), D scales and writes bf16; "
+                         f"got a8 {tuple(a8.shape)}, W2ᵀ {tuple(w2t.shape)}, "
+                         f"{dtype}")
+    a8, w2t = a8.contiguous(), w2t.contiguous()
+    sa, s2 = sa.float().contiguous(), s2.float().contiguous()
+    out = torch.empty((M, D), device=a8.device, dtype=torch.bfloat16)
+    _build.launch("vit_geglu_int8_o", *(t.data_ptr() for t in (
+        a8, sa, w2t, s2, out)), M, D, 2 * inner)
+    geglu_ff_int8_o.launches += 1
     return out
 
 
-geglu_ff_int8.launches = 0
+geglu_ff_int8_o.launches = 0
+
+
+def geglu_ff_int8(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2):
+    """Kernel K11 (four kernels: y8, act, a8, out) on CUDA tensors, the
+    plain stages on CPU tensors.  Arguments as ``geglu_ff_int8_plain``'s;
+    W1 and W2 go to the kernels transposed.  On the card every operand is
+    checked before the first launch."""
+    if x2.device.type != "cpu":
+        _check_k11(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2)
+    y8, sy = geglu_ff_int8_y(x2, mu, inv, gamma, beta)
+    a8, sa = geglu_ff_int8_q(*geglu_ff_int8_h(y8, sy, w1q.t().contiguous(),
+                                              s1))
+    return geglu_ff_int8_o(a8, sa, w2q.t().contiguous(), s2, x2.dtype)
 
 
 def fused_geglu_ff_int8(x: torch.Tensor, gamma, beta, w1, w2, *,
@@ -232,12 +512,6 @@ WGRAD_TILE = 128     # output tile edge of the weight GEMM
 WGRAD_STEP = 32      # tokens per k step of the weight GEMM
 # blocks a weight GEMM aims for: 4 waves at 2 blocks per SM of 132
 WGRAD_BLOCKS = 1056
-
-
-def _check_bf16(name, *tensors):
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise ValueError(f"{name} kernel takes bf16 operands, got "
-                         f"{[t.dtype for t in tensors]}")
 
 
 def _check_width(name, x2, D=768):
