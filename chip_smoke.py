@@ -6,19 +6,21 @@
 1. Requires a CUDA device (exits non-zero without one) and prints the card's
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc`` and
-   prints ptxas's registers and spills for K8's kernels and the int8
-   attention (none may spill).
+   prints ptxas's registers and spills for the kernels on gemm_mma.cuh
+   (K2's, K3, K8's, K11's, K12/K13's) and the int8 attention (none may
+   spill).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
    tokens, width 768; one row per launch counter: K1, K2's three kernels
    (x̂, act, out), K3, K4, K1 with lse, the
    two attention backward kernels, K8's six kernels (y, dh/act, dy, dx,
    the weight GEMM, the ordered sums), the int8 attention (K9/K10), K11's
-   four kernels (y8, act, a8, out),
-   K12/K13, K14, and K15 with and without lse and the two attention
+   four kernels (y8, act, a8, out), K12/K13's two (x8, the product),
+   K14, and K15 with and without lse and the two attention
    backward kernels over the 13,826 keys of the nulls concatenated to
    k/v), relative L2 error ≤ REL_L2_TOL and max abs error ≤
-   MAX_ABS_TOL · max|plain|, and times both with CUDA events.  Each row also
+   MAX_ABS_TOL · max|plain| (K12/K13's stages: bit for bit), and times
+   both with CUDA events.  Each row also
    carries its bound (the least time an H100 could take: the largest of
    its bytes over the memory rate, its tensor-core and CUDA-core
    operations over the peak rates of their types, and, for the attention
@@ -28,12 +30,12 @@
    scaled_dot_product_attention on the same inputs (a yardstick, never on
    the path; its backward is timed once per input set and shared by the
    pair's two rows), for K8's weight GEMM torch.mm's, and for the products
-   of K2 and K11 torch.mm's and torch._int_mm's (the products only, not the
-   same function).  Checks that K1
+   of K2, K3, K11 and K12/K13 torch.mm's and torch._int_mm's (the products
+   only, not the same function).  Checks that K1
    (with lse, 13,824 keys), K15 (with lse, 13,826 keys), the backward pair
-   (13,826 keys), K2, K8 (both phases), the int8 attention and K11 each
-   give the same bits twice (no atomics), prints K2's and K11's times as
-   a whole, each forward's times against
+   (13,826 keys), K2, K8 (both phases), the int8 attention, K11 and
+   K12/K13 each give the same bits twice (no atomics), prints K2's, K11's
+   and K12/K13's times as a whole, each forward's times against
    SDPA's forward and the pair's summed time against the one SDPA
    backward.
 4. Runs the zero-shot serving path at full width (fused LN+qkv, as served):
@@ -196,6 +198,7 @@ class Case:
     ops: dict
     in_bytes: int
     library: Optional[Callable] = None
+    exact: bool = False   # the kernel must give its twin's bits
 
 
 def nbytes(*tensors) -> int:
@@ -332,6 +335,8 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
     c = torch.cat([wf[:, :h * dh].float().sum(0),
                    torch.zeros(2 * h * dh, device=device)])
 
+    same_bits_twice(lambda: (fused_proj.ln_qkv(x, mu, inv, wf, c, h * dh),),
+                    f"K3 over {m} tokens")
     # K2's stages take the kernel chain's inputs
     k2 = (x, mu, inv, w1p, d1, w2)
     whole_kernel(lambda: (geglu_ff.geglu_ff(*k2),),
@@ -371,12 +376,14 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
              {"bf16": 2 * m * inner * d}, nbytes(act, w2),
              product_timer("K2's out stage: torch.mm(act, W2)",
                            lambda: torch.mm(act, w2))),
-        Case("K3 fused LN + qkv projection", "cuda",
-             "vit_exp_tpu_torch/csrc/ln_qkv.cu",
+        Case("K3 fused LN + qkv projection (the LayerNorm correction in the "
+             "epilogue)", "cuda", "vit_exp_tpu_torch/csrc/ln_qkv.cu",
              "vit_exp_tpu/ops/fused_proj.py:43",
              lambda: fused_proj.ln_qkv(x, mu, inv, wf, c, h * dh),
              lambda: fused_proj.ln_qkv_plain(x, mu, inv, wf, c, h * dh), "K3",
-             {"bf16": 2 * m * d * wf.shape[1]}, nbytes(x, mu, inv, wf, c)),
+             {"bf16": 2 * m * d * wf.shape[1]}, nbytes(x, mu, inv, wf, c),
+             product_timer("K3's product: torch.mm(x, W')",
+                           lambda: torch.mm(x, wf))),
         Case("K4 patch statistics", "cuda",
              "vit_exp_tpu_torch/csrc/patch_stats.cu",
              "vit_exp_tpu/ops/patches.py:56",
@@ -581,10 +588,15 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
     gamma, beta = 1 + 0.1 * randn(d), 0.1 * randn(d)
 
-    # K12/K13: [γ⊙Wq | Wkv] quantized per channel
+    # K12/K13: [γ⊙Wq | Wkv] quantized per channel; its stages take the
+    # kernel chain's inputs, W transposed as ln_qkv_int8 hands it over
     w8, sc, c = fused_proj.int8_qkv_weights(
         gamma, randn(d, hd, std=d ** -0.5), randn(d, 2 * hd, std=d ** -0.5))
     qkv = (x, mu, inv, w8, sc, c, hd, hd)
+    whole_kernel(lambda: fused_proj.ln_qkv_int8(*qkv),
+                 f"K12/K13 over {m} tokens (x8, product)", device)
+    x8, sx = fused_proj.ln_qkv_int8_x(x, mu)
+    qkv_mm = (x8, sx, mu, inv, w8.t().contiguous(), sc, c, hd, hd)
 
     # K9/K10: the prologue's int8 q/k and scales, v in place
     def heads(t):
@@ -625,6 +637,7 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     wo8, so = geglu_ff.quantize_per_channel(randn(hd, d, std=hd ** -0.5))
 
     proj = "vit_exp_tpu_torch/csrc/ln_qkv_int8.cu"
+    k13 = "vit_exp_tpu/ops/fused_proj.py:260"
     return [
         Case("K9/K10 int8 static-max attention", "cuda",
              "vit_exp_tpu_torch/csrc/flash_static_int8.cu",
@@ -653,11 +666,18 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
              lambda: geglu_ff.geglu_ff_int8_o_plain(a8, sa, w2t, s2), "K11o",
              {"int8": 2 * m * inner * d}, nbytes(a8, sa, w2t, s2),
              int_mm_timer("K11's out stage", a8, w2t.t())),
-        Case("K12/K13 W8A8 LN + q/k/v projection", "cuda", proj,
-             "vit_exp_tpu/ops/fused_proj.py:260",
-             lambda: fused_proj.ln_qkv_int8(*qkv),
-             lambda: fused_proj.ln_qkv_int8_plain(*qkv), "K12/K13",
-             {"int8": 2 * m * d * 3 * hd}, nbytes(*qkv[:6])),
+        Case("K12/K13 W8A8 LN + q/k/v projection: x8, s_x (x − μ per "
+             "token)", "cuda", proj, k13,
+             lambda: fused_proj.ln_qkv_int8_x(x, mu),
+             lambda: fused_proj.ln_qkv_int8_x_plain(x, mu), "K13x", {},
+             nbytes(x, mu), exact=True),
+        Case("K12/K13 W8A8 LN + q/k/v projection: q, k, v = x8·W (the "
+             "dequantization in the epilogue)", "cuda", proj, k13,
+             lambda: fused_proj.ln_qkv_int8_mm(*qkv_mm),
+             lambda: fused_proj.ln_qkv_int8_mm_plain(*qkv_mm), "K13mm",
+             {"int8": 2 * m * d * 3 * hd}, nbytes(*qkv_mm[:7]),
+             int_mm_timer("K12/K13's product", x8, qkv_mm[4].t()),
+             exact=True),
         Case("K14 W8A8 out-projection", "cuda", proj,
              "vit_exp_tpu/ops/fused_proj.py:358",
              lambda: fused_proj.proj_int8(xo, wo8, so),
@@ -754,21 +774,24 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
 
 
 # the kernels whose ptxas registers and spills are printed (and must not
-# spill): K2's three, K8's six, the int8 attention and K11's four
+# spill): K2's three, K3, K8's six, the int8 attention, K11's four and
+# K12/K13's two
 REPORTED_KERNELS = ("geglu_ff_x_kernel", "geglu_ff_h_kernel",
-                    "geglu_ff_o_kernel",
+                    "geglu_ff_o_kernel", "ln_qkv_kernel",
                     "geglu_bwd_y_kernel", "geglu_bwd_dh_kernel",
                     "geglu_bwd_dy_kernel", "geglu_bwd_dx_kernel",
                     "wgrad_kernel", "sum_rows_kernel",
                     "flash_static_int8_kernel",
                     "geglu_int8_y_kernel", "geglu_int8_h_kernel",
-                    "geglu_int8_q_kernel", "geglu_int8_o_kernel")
+                    "geglu_int8_q_kernel", "geglu_int8_o_kernel",
+                    "ln_qkv_int8_x_kernel", "ln_qkv_int8_mm_kernel")
 
 
 def ptxas_report(log: str, names) -> dict:
     """name → (registers, spill store bytes, spill load bytes) for each
     entry function whose (mangled) name holds one of ``names``, read from
-    nvcc's -Xptxas -v output."""
+    nvcc's -Xptxas -v output; the largest of each over the instances of a
+    template."""
     out, entry, spills = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -784,7 +807,8 @@ def ptxas_report(log: str, names) -> dict:
         if m and entry:
             for name in names:
                 if name in entry:
-                    out[name] = (int(m.group(1)), *spills)
+                    new = (int(m.group(1)), *spills)
+                    out[name] = tuple(map(max, out.get(name, new), new))
             entry = None
     return out
 
@@ -803,7 +827,8 @@ def kernel_counters():
             "K9/K10": fa.attention_static_int8,
             "K11y": geglu_ff.geglu_ff_int8_y, "K11h": geglu_ff.geglu_ff_int8_h,
             "K11q": geglu_ff.geglu_ff_int8_q, "K11o": geglu_ff.geglu_ff_int8_o,
-            "K12/K13": fused_proj.ln_qkv_int8, "K14": fused_proj.proj_int8,
+            "K13x": fused_proj.ln_qkv_int8_x,
+            "K13mm": fused_proj.ln_qkv_int8_mm, "K14": fused_proj.proj_int8,
             "K15": fa.attention_online}
 
 
@@ -878,7 +903,8 @@ def compare_kernels(cases):
               f"{[f'{e[0]:.2e}' for e in errs]}); kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms{lib}; bound {bound_ms:.4f} ms "
               f"({bound_by}: {pipe}), share {bound_ms / ms:.3f}", flush=True)
-        check(ok_finite and rel <= REL_L2_TOL and abs_ok, (case.name, errs))
+        check(ok_finite and rel <= REL_L2_TOL and abs_ok
+              and (mx == 0 or not case.exact), (case.name, errs))
         rows.append(dict(name=case.name, route=case.route, source=case.source,
                          replaces=case.replaces, counter=case.counter,
                          max_abs_err=mx, rel_l2=rel, ms=ms, plain_ms=plain_ms,
@@ -1429,8 +1455,8 @@ def main() -> int:
         lambda: eng8.predict_batch(volumes))
     expected = expected_launches({"K4": 1, "K9/K10": blocks, "K11y": blocks,
                                   "K11h": blocks, "K11q": blocks,
-                                  "K11o": blocks, "K12/K13": blocks,
-                                  "K14": blocks})
+                                  "K11o": blocks, "K13x": blocks,
+                                  "K13mm": blocks, "K14": blocks})
     print(f"launches in one int8 predict_batch: {launches['int8']} "
           f"(expected {expected})", flush=True)
     check(launches["int8"] == expected, launches["int8"])

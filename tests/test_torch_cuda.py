@@ -1,8 +1,8 @@
 """Card tests of the port's CUDA kernels (K1, K2's three stages, K3, K4,
 K15, the attention backward pair, K8, and the int8 serving kernels: the int8
-attention (K9/K10), K11's four stages, K12/K13 and K14) against their plain
-PyTorch versions at small, ragged shapes (K2 and K11 also at 4,113 tokens
-and the widths D 384 and 768).
+attention (K9/K10), K11's four stages, K12/K13's two stages and K14)
+against their plain PyTorch versions at small, ragged shapes (K2, K3, K11
+and K12/K13 also at 4,113 tokens and the widths 384 and 768).
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -17,7 +17,8 @@ error ≤ two bf16 ulps of the largest element; 1e-5 on the fp32 statistics
 of K4 and on K1's and K15's lse (fp32 sums of the same p, up to order and
 ex2.approx's last bits).  The int8 kernels
 quantize with the plain twins' arithmetic and sum exact integers, so their
-bf16 outputs are held to the same 1e-2.
+bf16 outputs are held to the same 1e-2; K12/K13's stages do every fp32
+operation of their twins in the same order, so they are held bit for bit.
 """
 
 import math
@@ -132,19 +133,36 @@ def test_k2_stages_match_their_twins(dev, d, i2):
         _close(a, r)
 
 
-@pytest.mark.parametrize("m", [100, 128])
-def test_k3_matches_plain(dev, m):
-    g = torch.Generator(device=dev).manual_seed(2)
-    d, fq, fkv = 96, 64, 128
-    x = _randn(g, m, d)
+# K3 and K12/K13: token counts on and off the 128-token tiles; (K, F, fq)
+# at the mid arch's (K, F) (384, 768) and production's (768, 768) with fq
+# 64 (inside a 128-column tile) and 256 (the mid arch's q width), and one
+# narrow case each (K 96)
+QKV_M = [100, 128, 4113]
+QKV_KFQ = [(k, f, fq) for k, f in ((384, 768), (768, 768)) for fq in (64, 256)]
+
+
+def _k3_case(dev, m, k, f, fq, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, m, k) * 2 + 0.5
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
-    wf, c = fused_proj.qkv_weights(torch.rand(d, device=dev) + 0.5,
-                                   _randn(g, d, fq).float(),
-                                   _randn(g, d, fkv).float(), torch.bfloat16)
-    out = fused_proj.ln_qkv(x, mu, inv, wf, c, fq)
-    ref = fused_proj.ln_qkv_plain(x, mu, inv, wf, c, fq)
+    wf, c = fused_proj.qkv_weights(
+        torch.rand(k, device=dev) + 0.5, _randn(g, k, fq, std=k ** -0.5).float(),
+        _randn(g, k, f - fq, std=k ** -0.5).float(), torch.bfloat16)
+    return x, mu, inv, wf, c, fq
+
+
+@pytest.mark.parametrize("k,f,fq", QKV_KFQ + [(96, 192, 64)])
+@pytest.mark.parametrize("m", QKV_M)
+def test_k3_matches_plain(dev, m, k, f, fq):
+    args = _k3_case(dev, m, k, f, fq)
+    before = fused_proj.ln_qkv.launches
+    out = fused_proj.ln_qkv(*args)
+    again = fused_proj.ln_qkv(*args)
+    ref = fused_proj.ln_qkv_plain(*args)
     torch.cuda.synchronize()
-    assert _rel(out, ref) < 1e-2
+    assert fused_proj.ln_qkv.launches == before + 2
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    _close(out, ref)
 
 
 def test_k4_matches_plain(dev):
@@ -577,24 +595,65 @@ def test_k11_stages_match_their_twins(dev, d, i2):
                 _close(a, r)
 
 
-@pytest.mark.parametrize("m", [100, 128])
-def test_k12_k13_matches_plain(dev, m):
-    g = torch.Generator(device=dev).manual_seed(10)
-    d, f = 96, 128
-    x = _randn(g, m, d) * 2 + 0.5
+K13_STAGES = (fused_proj.ln_qkv_int8_x, fused_proj.ln_qkv_int8_mm)
+
+
+def _k13_case(dev, m, k, f, fq, seed=10):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, m, k) * 2 + 0.5
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
     w8, sc, c = fused_proj.int8_qkv_weights(
-        torch.rand(d, device=dev) + 0.5,
-        torch.randn(d, f, generator=g, device=dev),
-        torch.randn(d, 2 * f, generator=g, device=dev))
-    args = (x, mu, inv, w8, sc, c, f, f)
-    before = fused_proj.ln_qkv_int8.launches
-    out = fused_proj.ln_qkv_int8(*args)
-    ref = fused_proj.ln_qkv_int8_plain(*args)
+        torch.rand(k, device=dev) + 0.5,
+        torch.randn(k, fq, generator=g, device=dev),
+        torch.randn(k, f - fq, generator=g, device=dev))
+    return x, mu, inv, w8, sc, c, fq, (f - fq) // 2
+
+
+@pytest.mark.parametrize("k,f,fq", QKV_KFQ + [(96, 384, 128)])
+@pytest.mark.parametrize("m", QKV_M)
+def test_k12_k13_matches_plain(dev, m, k, f, fq):
+    """The two stages against their twins on the kernel chain's inputs, bit
+    for bit (the same fp32 operations on exact integer sums): x8 and s_x,
+    then q, k, v; two launches give the same bits."""
+    x, mu, inv, w8, sc, c, fq, fk = _k13_case(dev, m, k, f, fq)
+    w8t = w8.t().contiguous()
+    before = [fn.launches for fn in K13_STAGES]
+    out = fused_proj.ln_qkv_int8(x, mu, inv, w8, sc, c, fq, fk)
+    again = fused_proj.ln_qkv_int8(x, mu, inv, w8, sc, c, fq, fk)
+    x8, sx = fused_proj.ln_qkv_int8_x(x, mu)
+    x8_p, sx_p = fused_proj.ln_qkv_int8_x_plain(x, mu)
+    mm = fused_proj.ln_qkv_int8_mm(x8, sx, mu, inv, w8t, sc, c, fq, fk)
+    mm_p = fused_proj.ln_qkv_int8_mm_plain(x8, sx, mu, inv, w8t, sc, c, fq, fk)
+    ref = fused_proj.ln_qkv_int8_plain(x, mu, inv, w8, sc, c, fq, fk)
     torch.cuda.synchronize()
-    assert fused_proj.ln_qkv_int8.launches == before + 1
-    for a, r in zip(out, ref):
-        assert a.shape == r.shape == (m, f) and _rel(a, r) < 1e-2
+    assert [fn.launches - b for fn, b in zip(K13_STAGES, before)] == [3, 3]
+    assert x8.dtype == torch.int8 and torch.equal(x8, x8_p)
+    assert sx.shape == (m, 1) and torch.equal(sx, sx_p)
+    for width, a, b, p, r, o in zip((fq, fk, f - fq - fk), out, again, mm,
+                                    mm_p, ref):
+        assert a.shape == (m, width) and a.dtype == torch.bfloat16
+        assert torch.equal(a, b) and torch.equal(p, r) and torch.equal(a, o)
+
+
+def test_ln_qkv_wrappers_refuse_before_any_launch(dev):
+    """K3 and K12/K13 refuse what their kernels do not take before the first
+    launch, with the launch counters unchanged."""
+    counters = (fused_proj.ln_qkv,) + K13_STAGES
+    before = [fn.launches for fn in counters]
+    x, mu, inv, wf, c, fq = _k3_case(dev, 50, 384, 768, 64)
+    for bad in ((x[:, :48], mu, inv, wf[:48], c, fq),      # K % 32
+                (x, mu, inv, wf[:, :96], c[:96], fq),      # F % 64
+                (x, mu, inv, wf, c, 769)):                 # fq > F
+        with pytest.raises(ValueError):
+            fused_proj.ln_qkv(*bad)
+    x, mu, inv, w8, sc, c, fq, fk = _k13_case(dev, 50, 384, 768, 64)
+    for bad in ((x[:, :40], mu, inv, w8[:40], sc, c, fq, fk),   # K % 16
+                (x, mu, inv, w8[:, :704], sc[:704], c[:704], fq, fk),  # F
+                (x, mu, inv, w8, sc, c, fq, 768 - fq),      # no v column
+                (x, mu, inv, w8, sc, c, 0, fk)):            # no q column
+        with pytest.raises(ValueError):
+            fused_proj.ln_qkv_int8(*bad)
+    assert [fn.launches for fn in counters] == before
 
 
 @pytest.mark.parametrize("m", [100, 128])
@@ -609,6 +668,27 @@ def test_k14_matches_plain(dev, m):
     torch.cuda.synchronize()
     assert fused_proj.proj_int8.launches == before + 1
     assert out.shape == (m, 384) and _rel(out, ref) < 1e-2
+
+
+def test_int8_scales_are_one_ieee_division_on_the_card(dev):
+    """On CUDA tensors too, every scale of the plain twins and of the int8
+    glue is max(amax, 1e-8) / 127 rounded once (torch multiplies a CUDA
+    tensor by the reciprocal of a Python divisor, which the kernels and
+    JAX do not)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    y = torch.randn(512, 64, generator=g, device=dev) * 3
+    amax = y.abs().amax(dim=-1, keepdim=True)
+    ieee = (amax.double() / 127.0).float()
+    assert not torch.equal(amax * (1 / 127), ieee)   # the case is there
+    assert torch.equal(geglu_ff.quant_rows(y)[1], ieee)
+    assert torch.equal(geglu_ff.quantize_per_channel(y.t())[1],
+                       ieee.flatten())
+    assert torch.equal(
+        geglu_ff.geglu_ff_int8_q_plain(y, geglu_ff.amax_partials(y))[1], ieee)
+    k = y.reshape(1, 1, 512, 64)
+    ks = (y.abs().amax().double() / 127).float()
+    assert torch.equal(fa.quantize_qk(k, k, 1.0)[1], torch.clamp(
+        torch.round(y / ks), -127, 127).to(torch.int8).reshape(k.shape))
 
 
 def test_int8_path_refuses_a_tensor_that_requires_grad(dev):

@@ -100,6 +100,29 @@ def test_quantize_per_channel_bit_exact(seed):
     assert q_t[:len(TIES), 0].tolist() == [127, 2, -4, 0, 0, 2, -126, 126]
 
 
+@pytest.mark.parametrize("quantizer", ["quant_rows", "quantize_per_channel",
+                                       "geglu_ff_int8_q_plain"])
+def test_int8_scales_are_one_ieee_division(quantizer):
+    """Every scale is max(amax, 1e-8) / 127 rounded once, as the kernels'
+    quant_scale and JAX divide: fp32(fp64(amax) / 127) exactly, never
+    amax · fp32(1 / 127), which differs in the last bit for some amax."""
+    y = torch.from_numpy(_rng(7).standard_normal((512, 64)).astype(
+        np.float32) * 3)
+    if quantizer == "quant_rows":
+        _, s = tff.quant_rows(y)
+        amax = y.abs().amax(dim=-1, keepdim=True)
+    elif quantizer == "quantize_per_channel":
+        _, s = tff.quantize_per_channel(y.t())   # 512 channels
+        amax = y.abs().amax(dim=-1)
+    else:
+        part = tff.amax_partials(y)
+        _, s = tff.geglu_ff_int8_q_plain(y, part)
+        amax = part.amax(dim=-1, keepdim=True)
+    ieee = (amax.double() / 127.0).float()
+    assert not torch.equal(amax * np.float32(1 / 127), ieee)   # a case
+    assert torch.equal(s, ieee)
+
+
 def test_int8_matmul_is_exact():
     """The plain twins' int8 product equals the int32 one, even where an
     fp32 sum of the same codes would round (depth 2048, all codes 127)."""
@@ -398,7 +421,7 @@ def test_state_dict_is_the_same_in_every_mode(setups):
 def test_int8_wrappers_take_the_plain_path_on_cpu_without_counting():
     counters = (tfa.attention_static_int8, tff.geglu_ff_int8_y,
                 tff.geglu_ff_int8_h, tff.geglu_ff_int8_q, tff.geglu_ff_int8_o,
-                tproj.ln_qkv_int8, tproj.proj_int8)
+                tproj.ln_qkv_int8_x, tproj.ln_qkv_int8_mm, tproj.proj_int8)
     before = [fn.launches for fn in counters]
     r = _rng(34)
     q, k, v, nk, nv, qs, ks = _attn_inputs(35, 1, 16, 2, 32, 2)
@@ -411,5 +434,5 @@ def test_int8_wrappers_take_the_plain_path_on_cpu_without_counting():
                             torch.randn(64, 64))
     tff.fused_geglu_ff_int8(x, torch.ones(64), torch.zeros(64),
                             torch.randn(64, 64), torch.randn(32, 64))
-    assert [fn.launches for fn in counters] == before == [0] * 7
+    assert [fn.launches for fn in counters] == before == [0] * 8
     assert math.isfinite(float(out.sum()))

@@ -292,7 +292,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
         assert (by == "bytes") == (pipe == "bytes"), c.name
         assert ("exp" in c.ops) == (c.counter in ATTENTION_COUNTERS), c.name
         assert (c.library is not None) == (c.counter in (
-            "K1", "dKdV", "dQ", "K15", "K8w", "K2h", "K2o", "K11h", "K11o"))
+            "K1", "dKdV", "dQ", "K15", "K8w", "K2h", "K2o", "K3", "K11h",
+            "K11o", "K13mm"))
     for attn_impl in ("pallas_static", "pallas"):
         res, launches, kern, batch = cs.compare_train_steps(
             cpu, arch, BertConfig.tiny(), 2, TEXT_LEN, attn_impl=attn_impl)
@@ -357,6 +358,21 @@ def test_chip_smoke_ptxas_report():
                                       "other_kernel", "missing_kernel"))
     assert rep == {"geglu_bwd_dh_kernel": (168, 0, 0),
                    "wgrad_kernel": (128, 12, 16), "other_kernel": (20, 0, 0)}
+
+
+def test_chip_smoke_ptxas_report_takes_the_worst_template_instance():
+    """A kernel template compiled at several instances reports the largest
+    registers and spills over them, so a spill in any instance shows."""
+    import chip_smoke as cs
+
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function "
+        f"'_ZN12_GLOBAL__N_120ln_qkv_int8_x_kernelILi{n}EEEvPKii' for "
+        f"'sm_90a'\n    0 bytes stack frame, {st} bytes spill stores, "
+        f"{ld} bytes spill loads\nptxas info    : Used {regs} registers"
+        for n, regs, st, ld in ((1, 30, 0, 0), (8, 56, 8, 4), (3, 40, 0, 0)))
+    assert cs.ptxas_report(log, ("ln_qkv_int8_x_kernel",)) == {
+        "ln_qkv_int8_x_kernel": (56, 8, 4)}
 
 
 def test_chip_smoke_rank_statistics():

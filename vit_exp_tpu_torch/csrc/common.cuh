@@ -17,18 +17,13 @@ namespace vit {
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-// 16 x 16 x 16 tensor-core tiles, bf16 operands, fp32 accumulators
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
 // round to bf16 and back: the rounding points of the TPU kernels
 __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16(x));
 }
 
 // 16 x 16 x 16 int8 tensor-core tiles, int32 accumulators.  The int8
-// wmma kernels (K12-K14) keep their operands in the "k16" layout: an R x K
+// wmma kernel (K14) keeps its operands in the "k16" layout: an R x K
 // matrix is stored as K/16 slices of R rows of 16 contiguous codes, so a
 // fragment (16 rows x 16 codes) is 256 contiguous bytes, 32-byte aligned,
 // ldm 16.
@@ -51,6 +46,15 @@ __device__ __forceinline__ float quant_scale(float amax) {
 }
 __device__ __forceinline__ signed char quant8(float y, float s) {
     return (signed char)fminf(fmaxf(rintf(__fdiv_rn(y, s)), -127.f), 127.f);
+}
+
+// 8 codes of one scale, packed
+__device__ __forceinline__ uint2 quant8x8(const float (&v)[8], float s) {
+    uint2 out;
+    signed char* o = reinterpret_cast<signed char*>(&out);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = quant8(v[i], s);
+    return out;
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -83,15 +83,6 @@ __device__ __forceinline__ void y_chunk(float (&y)[8], const bf16* xr,
             b[i]);
 }
 
-// 8 codes of one scale, packed
-__device__ __forceinline__ uint2 quant8x8(const float (&v)[8], float s) {
-    uint2 out;
-    s8* o = reinterpret_cast<s8*>(&out);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = quant8(v[i], s);
-    return out;
-}
-
 // y8 and s_y; one warp per token, lane l takes columns 8(l + 32i) ..
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 geglu_int8_y_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,

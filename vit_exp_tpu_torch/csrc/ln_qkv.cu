@@ -3,92 +3,80 @@
 //
 // t = x @ W with W = [γ⊙Wq | Wkv] (K × F, row-major bf16); the first Fq
 // columns become inv·(t − μ·c) (the LayerNorm applied after the product),
-// the rest stay t (projections of the pre-LN x).  A tiled tensor-core GEMM:
-// 64 × 64 output tile per block, 4 warps of 32 × 32, k-slices of 32 staged
-// through shared memory with 16-byte loads, fp32 accumulators, and the
-// per-row correction in the epilogue, so the normalised x never reaches
-// device memory.  Needs K % 32 == 0 and F % 64 == 0; rows are masked.
-#include "common.cuh"
+// the rest stay t (projections of the pre-LN x).  One kernel on the
+// mma.sync mainloop of gemm_mma.cuh: A = x index-major, B = W k-major (read
+// by ldmatrix.trans), 128 tokens × 128 columns per block, 8 warps of 64 ×
+// 32, a 3-stage cp.async ring of 64-deep k steps, fp32 accumulators in
+// registers (K2's out-stage configuration).  The epilogue works on the
+// accumulators in place: μ and inv once per lane row, c once per column,
+// the correction on each q column (decided per column: Fq may fall inside
+// a column tile) and two adjacent columns stored as one bf16x2.  So the
+// normalised x never reaches device memory.
+//
+// What bounds it: 65.2 GFLOP at 55,296 tokens, K = F = 768 (0.066 ms at
+// the bf16 tensor-core peak).  Any M; K % 32 == 0 and F % 64 == 0 (the
+// mainloop itself needs rows of a multiple of 8 elements).  No atomics:
+// two launches on the same inputs give the same bits.
+#include "gemm_mma.cuh"
 
 using namespace vit;
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDA = BK + 8;   // bf16, padded against bank conflicts
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;   // fp32
+constexpr int TOKENS = 128, COLS = 128, BK = 64, STAGES = 3;
+constexpr int WM = 2, WN = 4, BLOCKS = 2;
+using Cfg = GemmCfg<TOKENS, COLS, BK, WM, WN, STAGES, false, true, 1>;
 
-__global__ void __launch_bounds__(128)
+// out = [inv·(t − μ·c) | t] in bf16; grid (F / 128, tokens / 128)
+__global__ void __launch_bounds__(Cfg::THREADS, BLOCKS)
 ln_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
               const float* __restrict__ inv, const bf16* __restrict__ w,
               const float* __restrict__ c, bf16* __restrict__ out, int M,
               int K, int F, int Fq) {
-    __shared__ __align__(128) bf16 As[BM * LDA];
-    __shared__ __align__(128) bf16 Bs[BK * LDB];
-    __shared__ __align__(128) float Cs[BM * LDC];
-
-    const int tid = threadIdx.x, warp = tid >> 5;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-    FragC acc[2][2];
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    const int n0 = blockIdx.x * COLS, m0 = blockIdx.y * TOKENS;
+    float acc[1][Cfg::MT][Cfg::NT][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int mt = 0; mt < Cfg::MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+        for (int nt = 0; nt < Cfg::NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0.f;
+    const Mat wm[1] = {{w, F, K, F}};
+    gemm_mainloop<Cfg>(acc, Mat{x, K, M, K}, wm, m0, n0, 0, K,
+                       reinterpret_cast<bf16*>(smem_raw));
 
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        for (int v = tid; v < BM * BK / 8; v += blockDim.x) {
-            int r = v / (BK / 8), cv = v % (BK / 8);
-            uint4 val = make_uint4(0, 0, 0, 0);
-            if (m0 + r < M)
-                val = *reinterpret_cast<const uint4*>(
-                    x + (size_t)(m0 + r) * K + k0 + cv * 8);
-            *reinterpret_cast<uint4*>(&As[r * LDA + cv * 8]) = val;
+    // c of this lane's columns (0 where no q column is)
+    float cc[Cfg::NT][2];
+#pragma unroll
+    for (int nt = 0; nt < Cfg::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int col = n0 + acc_col<Cfg>(nt, e);
+            cc[nt][e] = col < Fq ? c[col] : 0.f;
         }
-        for (int v = tid; v < BK * BN / 8; v += blockDim.x) {
-            int r = v / (BN / 8), cv = v % (BN / 8);
-            *reinterpret_cast<uint4*>(&Bs[r * LDB + cv * 8]) =
-                *reinterpret_cast<const uint4*>(
-                    w + (size_t)(k0 + r) * F + n0 + cv * 8);
+#pragma unroll
+    for (int mt = 0; mt < Cfg::MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int row = m0 + acc_row<Cfg>(mt, 2 * half);
+            if (row >= M) continue;
+            const float m = mu[row], iv = inv[row];
+#pragma unroll
+            for (int nt = 0; nt < Cfg::NT; ++nt) {
+                const int col = n0 + acc_col<Cfg>(nt, 0);
+                if (col >= F) continue;   // F % 8 == 0
+                float t[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    t[e] = acc[0][mt][nt][2 * half + e];
+                    if (col + e < Fq)   // no fused multiply-add, as the twin
+                        t[e] = __fmul_rn(
+                            iv, __fsub_rn(t[e], __fmul_rn(m, cc[nt][e])));
+                }
+                store_bf16x2(out + (size_t)row * F + col, t[0], t[1]);
+            }
         }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            FragA a[2];
-            FragB b[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(a[i], &As[(wm + i * 16) * LDA + kk], LDA);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(b[j], &Bs[kk * LDB + wn + j * 16], LDB);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(&Cs[(wm + i * 16) * LDC + wn + j * 16],
-                                    acc[i][j], LDC, wmma::mem_row_major);
-    __syncthreads();
-
-    for (int e = tid; e < BM * BN; e += blockDim.x) {
-        int r = e / BN, cc = e % BN;
-        int gr = m0 + r, gc = n0 + cc;
-        if (gr >= M) continue;
-        float t = Cs[r * LDC + cc];
-        if (gc < Fq) t = inv[gr] * (t - mu[gr] * c[gc]);
-        out[(size_t)gr * F + gc] = __float2bfloat16(t);
-    }
 }
 
 }  // namespace
@@ -96,9 +84,13 @@ ln_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
 VIT_API int vit_ln_qkv_fwd(const void* x, const void* mu, const void* inv,
                            const void* w, const void* c, void* out, int M,
                            int K, int F, int Fq, void* stream) {
-    if (K % BK || F % BN) return (int)cudaErrorInvalidValue;
-    dim3 grid(F / BN, (M + BM - 1) / BM);
-    ln_qkv_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+    if (M < 1 || K < 32 || K % 32 || F < 64 || F % 64 || Fq < 0 || Fq > F)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(ln_qkv_kernel, Cfg::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((F + COLS - 1) / COLS, (M + TOKENS - 1) / TOKENS);
+    ln_qkv_kernel<<<grid, Cfg::THREADS, Cfg::SMEM_BYTES,
+                    (cudaStream_t)stream>>>(
         (const bf16*)x, (const float*)mu, (const float*)inv, (const bf16*)w,
         (const float*)c, (bf16*)out, M, K, F, Fq);
     return (int)cudaGetLastError();

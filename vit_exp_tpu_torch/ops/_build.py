@@ -82,8 +82,10 @@ SIGNATURES = {
     "vit_geglu_int8_q": [P] * 4 + [I, I, P],
     # a8, sa, w2t, s2, out, M, D, I2, stream
     "vit_geglu_int8_o": [P] * 5 + [I, I, I, P],
-    # x, mu, inv, w (k16), sc, c, q, k, v, M, K, F, Fq, Fk, stream
-    "vit_ln_qkv_int8_fwd": [P] * 9 + [I] * 5 + [P],
+    # x, mu, x8, sx, M, K, stream
+    "vit_ln_qkv_int8_x": [P] * 4 + [I, I, P],
+    # x8, sx, mu, inv, wt, sc, c, q, k, v, M, K, F, Fq, Fk, stream
+    "vit_ln_qkv_int8_mm": [P] * 10 + [I] * 5 + [P],
     # x, w (k16), sc, out, M, K, F, stream
     "vit_proj_int8_fwd": [P] * 4 + [I, I, I, P],
 }

@@ -92,7 +92,7 @@ import torch
 
 from vit_exp_tpu_torch.core.precision import acc_dtype
 from vit_exp_tpu_torch.ops import _build
-from vit_exp_tpu_torch.ops.geglu_ff import quant_rows
+from vit_exp_tpu_torch.ops.geglu_ff import int8_scale, quant_rows
 
 HEAD_DIM = 32
 MAX_NULL = 8
@@ -456,7 +456,7 @@ def quantize_qk(q: torch.Tensor, k: torch.Tensor, scale: float):
     s_q·scale, each (b, h, n) fp32.  q8/k8 keep q/k's memory layout."""
     q8, qs = quant_rows(q)
     kf = k.float()
-    ks = kf.abs().amax().clamp_min(1e-8) / 127.0
+    ks = int8_scale(kf.abs().amax())
     k8 = torch.clamp(torch.round(kf / ks), -127, 127).to(torch.int8)
     qs = qs[..., 0]
     return q8, k8, qs * ks * scale, qs * scale

@@ -12,11 +12,11 @@ weights the product really multiplies.
 
 Kernel K3 (``ln_qkv``) replaces vit_exp_tpu/ops/fused_proj.py::_fwd_kernel
 (``_fwd_impl``).  CUDA C++, csrc/ln_qkv.cu.  A (M, 768) × (768, 768) product
-at M = 55,296: tensor-core bound (65 GFLOP) with 85 MB of x read once per
-column tile.  The design is a tiled tensor-core GEMM (64 × 64 output tiles,
-k-slices staged through shared memory, fp32 accumulate) whose epilogue
-applies the LayerNorm correction to the q columns only, so the normalised x
-never reaches device memory.
+at M = 55,296: tensor-core bound (65 GFLOP).  One kernel on the mma.sync
+mainloop of csrc/gemm_mma.cuh (128 × 128 output tiles, a cp.async ring, fp32
+accumulators in registers) whose epilogue applies the LayerNorm correction
+to the q columns only, on the accumulators, so the normalised x never
+reaches device memory.
 
 ``LNQKVFn`` makes it differentiable; its backward is plain torch, as the JAX
 package's is (``_core_bwd``).  Training keeps the unfused projections
@@ -27,20 +27,24 @@ grad) has two kernels here, CUDA C++ in csrc/ln_qkv_int8.cu:
 - ``ln_qkv_int8`` replaces vit_exp_tpu/ops/fused_proj.py::_fwd_int8_kernel
   (K12, ``fused_ln_qkv_int8``) and ::_fwd_int8_kernel_3out (K13,
   ``fused_ln_qkv3_int8``): the two differ only in how many outputs Mosaic
-  could write, so the port has one kernel with three output pointers (no
+  could write, so the port has one route with three output pointers (no
   kv split is ever copied).  It quantizes the CENTRED input x − μ per token
   (the int8 step then follows the centred std, not |x|), multiplies by
   [γ⊙Wq | Wkv] quantized per output channel (γ folded in before the
   quantization), and writes q = inv·deq and k/v = deq + μ·colsum(Wkv),
-  the colsums those of the dequantized weights.
+  the colsums those of the dequantized weights.  Two stages, each a kernel
+  with its plain twin: ``ln_qkv_int8_x`` (the row pass: x8 and s_x) and
+  ``ln_qkv_int8_mm`` (x8·W on the int8 form of gemm_mma.cuh, the
+  dequantization in the epilogue; W goes in transposed, as Wᵀ).  Composed,
+  the twins give ``ln_qkv_int8_plain``'s bits.
 - ``proj_int8`` replaces ::_proj_int8_kernel (K14, ``int8_proj``), the
   bias-free W8A8 out-projection: per-token activation scales times
-  per-channel weight scales.
+  per-channel weight scales.  One block owns 64 token rows: it quantizes
+  them into shared memory once, then walks the output columns in tiles of
+  128 (int8 wmma products on weights in the k16 layout, int32 sums) with
+  the dequantizing epilogue in fp32.
 At M = 55,296 both are bound by the bytes of x and of the outputs (171 MB
-and 113 MB), not by their 65 and 22 G int8 operations.  One block owns 64
-token rows: it quantizes them into shared memory once, then walks the
-output columns in tiles of 128 (int8 tensor-core products, int32 sums)
-with the dequantizing epilogue in fp32.
+and 113 MB), not by their 65 and 22 G int8 operations.
 """
 
 from __future__ import annotations
@@ -72,10 +76,11 @@ def ln_qkv(x2, mu, inv, wf, c, fq: int):
     F = wf.shape[1]
     if x2.dtype != torch.bfloat16 or wf.dtype != torch.bfloat16:
         raise ValueError("ln_qkv kernel takes bf16 x and W")
-    if (K % 32 or F % 64 or wf.shape[0] != K or c.numel() != F
-            or mu.numel() != M or inv.numel() != M or not 0 <= fq <= F):
-        raise ValueError(f"ln_qkv kernel takes K % 32 == 0, F % 64 == 0 and "
-                         f"matching shapes; got x {tuple(x2.shape)}, W "
+    if (M < 1 or K < 32 or K % 32 or F < 64 or F % 64 or wf.shape[0] != K
+            or c.numel() != F or mu.numel() != M or inv.numel() != M
+            or not 0 <= fq <= F):
+        raise ValueError(f"ln_qkv kernel takes M ≥ 1, K % 32 == 0, F % 64 == "
+                         f"0 and matching shapes; got x {tuple(x2.shape)}, W "
                          f"{tuple(wf.shape)}, c {tuple(c.shape)}, fq {fq}")
     x2, wf = x2.contiguous(), wf.contiguous()
     mu, inv, c = (t.float().contiguous() for t in (mu, inv, c))
@@ -190,28 +195,111 @@ def _check_w8a8(name, x2, w8, sc):
     return M, K, F
 
 
-def ln_qkv_int8(x2, mu, inv, w8, sc, c, fq: int, fk: int):
-    """Kernel K12/K13 on CUDA tensors, the plain version on CPU tensors."""
-    if x2.device.type == "cpu":
-        return ln_qkv_int8_plain(x2, mu, inv, w8, sc, c, fq, fk)
-    _build.require_cuda("ln_qkv_int8", x2, mu, inv, w8, sc, c)
+def _check_k13(x2, mu, inv, w8, sc, c, fq, fk):
+    """Raise unless K12/K13's two kernels take these operands."""
     M, K, F = _check_w8a8("ln_qkv_int8", x2, w8, sc)
-    if (c.numel() != F or mu.numel() != M or inv.numel() != M
+    if (M < 1 or K < 16 or F < 128 or c.numel() != F or mu.numel() != M
+            or inv.numel() != M or not (0 < fq and 0 < fk and fq + fk < F)):
+        raise ValueError(f"ln_qkv_int8 kernel: bad x {tuple(x2.shape)}, c "
+                         f"{tuple(c.shape)}, mu/inv {mu.numel()}/"
+                         f"{inv.numel()}, fq {fq}, fk {fk}")
+
+
+# K12/K13's stages on the card (csrc/ln_qkv_int8.cu): x8, then the product
+# with the dequantization in its epilogue.  Each has its plain twin;
+# composed, the twins give ln_qkv_int8_plain's bits.
+
+
+def ln_qkv_int8_x_plain(x2, mu):
+    """Plain version of K12/K13's row pass: x − μ in fp32, quantized per
+    token: (x8 (M, K) int8, s_x (M, 1) fp32)."""
+    return quant_rows(x2.float() - mu)
+
+
+def ln_qkv_int8_x(x2, mu):
+    """K12/K13's row pass on CUDA tensors, its plain version on CPU
+    tensors."""
+    if x2.device.type == "cpu":
+        return ln_qkv_int8_x_plain(x2, mu)
+    _build.require_cuda("ln_qkv_int8_x", x2, mu)
+    M, K = x2.shape
+    if (x2.dtype != torch.bfloat16 or M < 1 or K < 16 or K % 16 or K > 2048
+            or mu.numel() != M):
+        raise ValueError(f"ln_qkv_int8_x kernel takes bf16 x (M ≥ 1, K a "
+                         f"multiple of 16 up to 2048) and one μ per row; got "
+                         f"{tuple(x2.shape)} {x2.dtype}, mu {mu.numel()}")
+    x2, mu = x2.contiguous(), mu.float().contiguous()
+    x8 = torch.empty((M, K), device=x2.device, dtype=torch.int8)
+    sx = torch.empty((M, 1), device=x2.device, dtype=torch.float32)
+    _build.launch("vit_ln_qkv_int8_x",
+                  *(t.data_ptr() for t in (x2, mu, x8, sx)), M, K)
+    ln_qkv_int8_x.launches += 1
+    return x8, sx
+
+
+ln_qkv_int8_x.launches = 0
+
+
+def ln_qkv_int8_mm_plain(x8, sx, mu, inv, w8t, sc, c, fq: int, fk: int,
+                         dtype=torch.bfloat16):
+    """Plain version of K12/K13's product: deq = (x8@W)·s_x·s_W in fp32,
+    q = inv·deq on the first fq columns, k/v = deq + μ·c on the next fk and
+    the rest, each rounded once to dtype.  x8: (M, K) int8, sx/mu/inv:
+    (M, 1) fp32; w8t: (F, K) int8, Wᵀ, with scales sc (F,); c: (F,)."""
+    deq = int8_matmul(x8, w8t.t()) * sx * sc
+    q = inv * deq[:, :fq]
+    kv = deq[:, fq:] + mu * c[fq:]
+    return q.to(dtype), kv[:, :fk].to(dtype), kv[:, fk:].to(dtype)
+
+
+def ln_qkv_int8_mm(x8, sx, mu, inv, w8t, sc, c, fq: int, fk: int,
+                   dtype=torch.bfloat16):
+    """K12/K13's product on CUDA tensors (bf16 out), its plain version on
+    CPU tensors."""
+    if x8.device.type == "cpu":
+        return ln_qkv_int8_mm_plain(x8, sx, mu, inv, w8t, sc, c, fq, fk, dtype)
+    _build.require_cuda("ln_qkv_int8_mm", x8, sx, mu, inv, w8t, sc, c)
+    M, K = x8.shape
+    F = w8t.shape[0]
+    if (x8.dtype != torch.int8 or w8t.dtype != torch.int8
+            or dtype != torch.bfloat16 or M < 1 or K < 16 or K % 16
+            or K > 2048 or F < 128 or F % 128 or w8t.shape[1] != K
+            or any(t.numel() != M for t in (sx, mu, inv))
+            or sc.numel() != F or c.numel() != F
             or not (0 < fq and 0 < fk and fq + fk < F)):
-        raise ValueError(f"ln_qkv_int8 kernel: bad c {tuple(c.shape)}, "
-                         f"mu/inv {mu.numel()}/{inv.numel()}, fq {fq}, fk {fk}")
-    x2, wc = x2.contiguous(), k16_layout(w8)
-    mu, inv, sc, c = (t.float().contiguous() for t in (mu, inv, sc, c))
-    outs = [torch.empty((M, f), device=x2.device, dtype=x2.dtype)
+        raise ValueError(f"ln_qkv_int8_mm kernel takes int8 x8 (M ≥ 1, K a "
+                         f"multiple of 16 up to 2048), one s_x, μ and inv per "
+                         f"row, int8 Wᵀ (F a multiple of 128, K), F scales "
+                         f"and colsums, 0 < fq, 0 < fk, fq + fk < F, and "
+                         f"writes bf16; got x8 {tuple(x8.shape)} {x8.dtype}, "
+                         f"Wᵀ {tuple(w8t.shape)} {w8t.dtype}, fq {fq}, fk "
+                         f"{fk}, {dtype}")
+    x8, w8t = x8.contiguous(), w8t.contiguous()
+    sx, mu, inv, sc, c = (t.float().contiguous()
+                          for t in (sx, mu, inv, sc, c))
+    outs = [torch.empty((M, f), device=x8.device, dtype=torch.bfloat16)
             for f in (fq, fk, F - fq - fk)]
-    _build.launch("vit_ln_qkv_int8_fwd",
-                  *(t.data_ptr() for t in (x2, mu, inv, wc, sc, c, *outs)),
-                  M, K, F, fq, fk)
-    ln_qkv_int8.launches += 1
+    _build.launch("vit_ln_qkv_int8_mm",
+                  *(t.data_ptr() for t in (x8, sx, mu, inv, w8t, sc, c,
+                                           *outs)), M, K, F, fq, fk)
+    ln_qkv_int8_mm.launches += 1
     return tuple(outs)
 
 
-ln_qkv_int8.launches = 0
+ln_qkv_int8_mm.launches = 0
+
+
+def ln_qkv_int8(x2, mu, inv, w8, sc, c, fq: int, fk: int):
+    """Kernel K12/K13 (two kernels: x8, then the product) on CUDA tensors,
+    the plain stages on CPU tensors.  Arguments as ``ln_qkv_int8_plain``'s;
+    W goes to the product transposed.  On the card every operand is checked
+    before the first launch."""
+    if x2.device.type != "cpu":
+        _build.require_cuda("ln_qkv_int8", x2, mu, inv, w8, sc, c)
+        _check_k13(x2, mu, inv, w8, sc, c, fq, fk)
+    x8, sx = ln_qkv_int8_x(x2, mu)
+    return ln_qkv_int8_mm(x8, sx, mu, inv, w8.t().contiguous(), sc, c, fq,
+                          fk, x2.dtype)
 
 
 def fused_ln_qkv_int8(x: torch.Tensor, gamma, wq, wkv, *, eps: float = 1e-5,

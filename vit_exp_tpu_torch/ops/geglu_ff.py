@@ -244,11 +244,18 @@ def geglu_ff(x2, mu, inv, w1p, d1, w2):
 # ---------------------------------------------------------------------------
 
 
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-8) / 127 in fp32, one IEEE division on every device (a
+    CUDA tensor divided by a Python number is multiplied by its reciprocal
+    instead, which can differ in the last bit)."""
+    return amax.clamp_min(1e-8) / torch.full((), 127.0, device=amax.device)
+
+
 def quantize_per_channel(w: torch.Tensor):
     """Symmetric per-output-channel int8: w ≈ w8 · scale[None, :].  Returns
     (w8 int8, scale fp32 (F,))."""
     wf = w.float()
-    scale = wf.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+    scale = int8_scale(wf.abs().amax(dim=0))
     return torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8), scale
 
 
@@ -256,7 +263,7 @@ def quant_rows(y: torch.Tensor):
     """(..., d) → (int8 codes, per-row scale (..., 1) fp32): symmetric row
     quantization, amax/127 with a 1e-8 floor, round half to even."""
     y = y.float()
-    s = y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    s = int8_scale(y.abs().amax(dim=-1, keepdim=True))
     return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8), s
 
 
@@ -269,8 +276,8 @@ def int8_matmul(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
 
 def k16_layout(w8: torch.Tensor) -> torch.Tensor:
     """(K, N) int8 → (K/16, N, 16): for each 16-deep slice of the rows, each
-    column's 16 codes contiguous.  The int8 projection kernels (K12-K14)
-    load their weight fragments (16 columns × 16 rows = 256 contiguous
+    column's 16 codes contiguous.  The int8 out-projection kernel (K14)
+    loads its weight fragments (16 columns × 16 rows = 256 contiguous
     bytes) from this layout, which keeps every fragment 32-byte aligned."""
     K, N = w8.shape
     return w8.reshape(K // 16, 16, N).transpose(1, 2).contiguous()
@@ -404,7 +411,7 @@ def geglu_ff_int8_q_plain(act, amax_part):
     """Plain version of K11's act quantizer: s_a from each row's partial
     amaxes (max(amax, 1e-8) / 127), codes round half to even: (a8 (M, I)
     int8, s_a (M, 1) fp32)."""
-    s = amax_part.amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    s = int8_scale(amax_part.amax(dim=-1, keepdim=True))
     return torch.clamp(torch.round(act / s), -127, 127).to(torch.int8), s
 
 
