@@ -7,19 +7,21 @@
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc`` and
    prints ptxas's registers and spills for the kernels on gemm_mma.cuh
-   (K2's, K3, K8's, K11's, K12/K13's) and the int8 attention (none may
-   spill).
+   (K2's, K3, K8's, K11's, K12/K13's, K14), the patch embedding and the
+   int8 attention (none may spill).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
    tokens, width 768; one row per launch counter: K1, K2's three kernels
-   (x̂, act, out), K3, K4, K1 with lse, the
+   (x̂, act, out), K3, the fused patch embedding (K4 with the strided
+   product and the LayerNorm fix-up; its μ and Σx² also against
+   patch_stats_plain within PATCH_STATS_RTOL), K1 with lse, the
    two attention backward kernels, K8's six kernels (y, dh/act, dy, dx,
    the weight GEMM, the ordered sums), the int8 attention (K9/K10), K11's
    four kernels (y8, act, a8, out), K12/K13's two (x8, the product),
    K14, and K15 with and without lse and the two attention
    backward kernels over the 13,826 keys of the nulls concatenated to
    k/v), relative L2 error ≤ REL_L2_TOL and max abs error ≤
-   MAX_ABS_TOL · max|plain| (K12/K13's stages: bit for bit), and times
+   MAX_ABS_TOL · max|plain| (K12/K13's stages and K14: bit for bit), and times
    both with CUDA events.  Each row also
    carries its bound (the least time an H100 could take: the largest of
    its bytes over the memory rate, its tensor-core and CUDA-core
@@ -29,12 +31,15 @@
    K15 and the attention backward pair, the time of torch's
    scaled_dot_product_attention on the same inputs (a yardstick, never on
    the path; its backward is timed once per input set and shared by the
-   pair's two rows), for K8's weight GEMM torch.mm's, and for the products
-   of K2, K3, K11 and K12/K13 torch.mm's and torch._int_mm's (the products
-   only, not the same function).  Checks that K1
+   pair's two rows), for K8's weight GEMM torch.mm's, for the products
+   of K2, K3, K11, K12/K13 and K14 torch.mm's and torch._int_mm's, and for
+   the patch embedding F.conv2d on bf16 operands and torch.mm over a
+   pre-built patch matrix (the products only, not the same function).
+   Checks that K1
    (with lse, 13,824 keys), K15 (with lse, 13,826 keys), the backward pair
-   (13,826 keys), K2, K8 (both phases), the int8 attention, K11 and
-   K12/K13 each give the same bits twice (no atomics), prints K2's, K11's
+   (13,826 keys), K2, K8 (both phases), the int8 attention, K11,
+   K12/K13 and the patch embedding each give the same bits twice (no
+   atomics), prints K2's, K11's
    and K12/K13's times as a whole, each forward's times against
    SDPA's forward and the pair's summed time against the one SDPA
    backward.
@@ -58,7 +63,9 @@
    state on one batch: the image tower's gradients for a seeded random
    cotangent on its output tokens, from one forward on the kernels, through
    the backward kernels and through their plain twins, each tensor within
-   relative L2 TOWER_GRAD_RTOL; then one step on the plain versions and
+   relative L2 TOWER_GRAD_RTOL, and the patch embedding's γ, β, W and b
+   for a seeded cotangent through the kernel's forward and through its
+   plain twin, within the same bound; then one step on the plain versions and
    one on the kernels.  Checks finite losses
    within LOSS_RTOL, that every parameter the plain step gives a gradient
    also gets one from the kernel step, global gradient norms within
@@ -109,6 +116,9 @@ REL_L2_TOL = 1e-2   # bf16 outputs of the kernel vs fp32 plain arithmetic
 # max abs error ≤ MAX_ABS_TOL · max|plain|: two bf16 ulps of the largest
 # output (both sides round the same fp32 value up to summation order)
 MAX_ABS_TOL = 2.0 ** -6
+# the patch embedding's μ and Σx² vs patch_stats_plain, relative L2 (fp32
+# sums of the same values in another order)
+PATCH_STATS_RTOL = 1e-5
 PROB_TOL = 0.02     # kernel path vs all-plain path, probabilities
 # int8 engine vs bf16 engine on the same weights, max |Δprob| over
 # GATE_BATCHES batches (scripts/int8_accuracy_gate.py's first bound)
@@ -199,6 +209,8 @@ class Case:
     in_bytes: int
     library: Optional[Callable] = None
     exact: bool = False   # the kernel must give its twin's bits
+    # further yardsticks: row key → timer (printed and kept in the row)
+    extra: dict = dataclasses.field(default_factory=dict)
 
 
 def nbytes(*tensors) -> int:
@@ -296,9 +308,84 @@ def sdpa_backward_timer(q, k, v, nk, nv, dout, scale):
     return timer
 
 
+def patch_embed_inputs(device, g, arch=ARCH, batch=BATCH):
+    """The fused patch embedding's inputs at the model's shapes: the video
+    (b·t, c·pt, H, W) bf16, kc (D, n) bf16, csum and dvec (D,) fp32, p1,
+    p2 and eps, from seeded LayerNorm and Linear weights."""
+    c, pt, p = arch["channels"], arch["temporal_patch_size"], \
+        arch["patch_size"]
+    t, s, d = arch["temporal_size"] // pt, arch["image_size"], arch["dim"]
+    n = c * pt * p * p
+    video = torch.randn(batch * t, c * pt, s, s, generator=g,
+                        device=device).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(n, generator=g, device=device)
+    beta = 0.1 * torch.randn(n, generator=g, device=device)
+    w = torch.randn(n, d, generator=g, device=device) / math.sqrt(n)
+    bias = 0.1 * torch.randn(d, generator=g, device=device)
+    kf = w * gamma[:, None]
+    return (video, kf.t().to(torch.bfloat16), kf.sum(0), beta @ w + bias, p,
+            p, 1e-5)
+
+
+def check_patch_stats(pe) -> None:
+    """The patch embedding gives the same bits twice, and its μ and Σx²
+    equal patch_stats_plain's within PATCH_STATS_RTOL (relative L2)."""
+    from vit_exp_tpu_torch.ops import patches
+
+    same_bits_twice(lambda: patches.patch_embed(*pe),
+                    "patch embedding: tokens, μ and Σx²")
+    _, mu, sq = patches.patch_embed(*pe)
+    mu_p, sq_p = patches.patch_stats_plain(pe[0], pe[4], pe[5])
+    errs = [compare(a, b)[0] for a, b in ((mu, mu_p), (sq, sq_p))]
+    print(f"patch embedding statistics against patch_stats_plain: μ rel L2 "
+          f"{errs[0]:.3e}, Σx² rel L2 {errs[1]:.3e} (tolerance "
+          f"{PATCH_STATS_RTOL})", flush=True)
+    check(all(e <= PATCH_STATS_RTOL for e in errs), ("patch statistics", errs))
+
+
+def patch_embed_case(pe) -> "Case":
+    """The fused patch embedding's row: one kernel against its plain twin
+    (patch_stats_plain, F.conv2d in fp32 with TF32 off, the fp32 fix-ups),
+    bound by its bf16 products; yardsticks of the product alone: F.conv2d
+    on bf16 operands (library_ms) and torch.mm over a pre-built patch
+    matrix (printed, and kept as library_mm_ms)."""
+    import torch.nn.functional as F
+    from vit_exp_tpu_torch.ops import patches
+
+    video, kc, csum, dvec, p1, p2, eps = pe
+    bt, cpt, h, w = video.shape
+    m, (d, n) = bt * (h // p1) * (w // p2), kc.shape
+    kc4 = kc.reshape(d, cpt, p1, p2)
+
+    def mm_yardstick():
+        a = video.reshape(bt, cpt, h // p1, p1, w // p2, p2).permute(
+            0, 2, 4, 1, 3, 5).reshape(m, n)
+        b = kc.t()
+        ms = product_timer("the patch embedding: torch.mm over a pre-built "
+                           f"({m} × {n}) patch matrix and kcᵀ",
+                           lambda: torch.mm(a, b))()
+        print(f"patch embedding yardstick torch.mm (the product only): "
+              f"{ms:.3f} ms", flush=True)
+        return ms
+
+    return Case("K4 + patch-embed product: fused patch embedding "
+                "(statistics, the strided product on the tensor cores, the "
+                "LayerNorm fix-up in the epilogue)", "cuda",
+                "vit_exp_tpu_torch/csrc/patch_embed.cu",
+                "vit_exp_tpu/ops/patches.py:56",
+                lambda: patches.patch_embed(*pe),
+                lambda: patches.patch_embed_plain(*pe), "K4",
+                {"bf16": 2 * m * n * d}, nbytes(video, kc, csum, dvec),
+                product_timer("the patch embedding: F.conv2d on bf16 "
+                              "operands", lambda: F.conv2d(
+                                  video, kc4, stride=(p1, p2))),
+                extra={"library_mm_ms": mm_yardstick})
+
+
 def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
-    """K1-K4 at the serving path's shapes, as Cases; inputs are bf16."""
-    from vit_exp_tpu_torch.ops import fused_proj, geglu_ff, patches
+    """K1-K3 and the patch embedding (K4 fused with the strided product) at
+    the serving path's shapes, as Cases; inputs are bf16."""
+    from vit_exp_tpu_torch.ops import fused_proj, geglu_ff
     from vit_exp_tpu_torch.ops import flash_attention as fa
     from vit_exp_tpu_torch.ops.attention import l2norm
 
@@ -346,10 +433,11 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
     ff = "vit_exp_tpu_torch/csrc/geglu_ff.cu"
     k2_src = "vit_exp_tpu/ops/geglu_ff.py:63"
 
-    # K4: the video as (b·t, c·pt, H, W)
-    video = randn(batch * t, arch["channels"] * arch["temporal_patch_size"],
-                  arch["image_size"], arch["image_size"])
-    p = arch["patch_size"]
+    # the patch embedding (K4 fused with the strided product and the
+    # fix-up): the video as (b·t, c·pt, H, W), the weights as
+    # fused_patch_embed prepares them
+    pe = patch_embed_inputs(device, g, arch, batch)
+    check_patch_stats(pe)
 
     return [
         Case("K1 static-max attention", "cuda",
@@ -384,12 +472,7 @@ def kernel_cases(device, arch=ARCH, batch=BATCH, seed=0):
              {"bf16": 2 * m * d * wf.shape[1]}, nbytes(x, mu, inv, wf, c),
              product_timer("K3's product: torch.mm(x, W')",
                            lambda: torch.mm(x, wf))),
-        Case("K4 patch statistics", "cuda",
-             "vit_exp_tpu_torch/csrc/patch_stats.cu",
-             "vit_exp_tpu/ops/patches.py:56",
-             lambda: patches.patch_stats(video, p, p),
-             lambda: patches.patch_stats_plain(video, p, p), "K4",
-             {"fp32": 2 * video.numel()}, nbytes(video)),
+        patch_embed_case(pe),
     ]
 
 
@@ -635,6 +718,7 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     # K14: the attention output (b·n, h·d) against to_out
     xo = randn(m, hd, std=0.3).to(bf)
     wo8, so = geglu_ff.quantize_per_channel(randn(hd, d, std=hd ** -0.5))
+    xo8 = geglu_ff.quant_rows(xo)[0]
 
     proj = "vit_exp_tpu_torch/csrc/ln_qkv_int8.cu"
     k13 = "vit_exp_tpu/ops/fused_proj.py:260"
@@ -678,11 +762,15 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
              {"int8": 2 * m * d * 3 * hd}, nbytes(*qkv_mm[:7]),
              int_mm_timer("K12/K13's product", x8, qkv_mm[4].t()),
              exact=True),
-        Case("K14 W8A8 out-projection", "cuda", proj,
+        Case("K14 W8A8 out-projection (one kernel: the rows quantized "
+             "into shared memory, Wᵀ through a cp.async ring, int8 "
+             "mma.sync)", "cuda", proj,
              "vit_exp_tpu/ops/fused_proj.py:358",
              lambda: fused_proj.proj_int8(xo, wo8, so),
              lambda: fused_proj.proj_int8_plain(xo, wo8, so), "K14",
-             {"int8": 2 * m * hd * d}, nbytes(xo, wo8, so)),
+             {"int8": 2 * m * hd * d}, nbytes(xo, wo8, so),
+             int_mm_timer("K14's product", xo8,
+                          wo8.t().contiguous().t()), exact=True),
     ]
 
 
@@ -774,8 +862,8 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
 
 
 # the kernels whose ptxas registers and spills are printed (and must not
-# spill): K2's three, K3, K8's six, the int8 attention, K11's four and
-# K12/K13's two
+# spill): K2's three, K3, K8's six, the int8 attention, K11's four,
+# K12/K13's two, the patch embedding and K14
 REPORTED_KERNELS = ("geglu_ff_x_kernel", "geglu_ff_h_kernel",
                     "geglu_ff_o_kernel", "ln_qkv_kernel",
                     "geglu_bwd_y_kernel", "geglu_bwd_dh_kernel",
@@ -784,7 +872,8 @@ REPORTED_KERNELS = ("geglu_ff_x_kernel", "geglu_ff_h_kernel",
                     "flash_static_int8_kernel",
                     "geglu_int8_y_kernel", "geglu_int8_h_kernel",
                     "geglu_int8_q_kernel", "geglu_int8_o_kernel",
-                    "ln_qkv_int8_x_kernel", "ln_qkv_int8_mm_kernel")
+                    "ln_qkv_int8_x_kernel", "ln_qkv_int8_mm_kernel",
+                    "patch_embed_kernel", "proj_int8_kernel")
 
 
 def ptxas_report(log: str, names) -> dict:
@@ -819,7 +908,7 @@ def kernel_counters():
 
     return {"K1": fa.attention_static, "K2x": geglu_ff.geglu_ff_x,
             "K2h": geglu_ff.geglu_ff_h, "K2o": geglu_ff.geglu_ff_o,
-            "K3": fused_proj.ln_qkv, "K4": patches.patch_stats,
+            "K3": fused_proj.ln_qkv, "K4": patches.patch_embed,
             "dKdV": fa.attention_bwd_dkv, "dQ": fa.attention_bwd_dq,
             "K8y": geglu_ff.geglu_bwd_y, "K8dh": geglu_ff.geglu_bwd_dh,
             "K8dy": geglu_ff.geglu_bwd_dy, "K8dx": geglu_ff.geglu_bwd_dx,
@@ -909,7 +998,8 @@ def compare_kernels(cases):
                          replaces=case.replaces, counter=case.counter,
                          max_abs_err=mx, rel_l2=rel, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms))
+                         library_ms=library_ms,
+                         **{k: t() for k, t in case.extra.items()}))
         torch.cuda.empty_cache()
     return rows
 
@@ -1091,6 +1181,34 @@ def tower_grads(model, video, seed=3):
             {n: t.float() for n, t in zip(params, plain)})
 
 
+def patch_embed_grads(model, video, seed=4):
+    """The patch embedding's parameter gradients (LayerNorm γ, β, Linear W,
+    b) for a seeded N(0, 1) cotangent on its tokens, through the fused
+    kernel's Function and through its plain twin: name → (relative L2,
+    cosine) of the kernel's against the twin's."""
+    from vit_exp_tpu_torch.ops.patches import fused_patch_embed
+
+    vt = model.visual_transformer
+    ln_in, proj = vt.to_patch_emb["1"], vt.to_patch_emb["2"]
+    params = {"to_patch_emb.1.weight": ln_in.weight,
+              "to_patch_emb.1.bias": ln_in.bias,
+              "to_patch_emb.2.weight": proj.weight,
+              "to_patch_emb.2.bias": proj.bias}
+    cot, grads = None, []
+    for use_kernel in (True, False):
+        out = fused_patch_embed(
+            video, ln_in.weight, ln_in.bias, proj.weight.t(), proj.bias,
+            vt.temporal_patch_size, vt.patch_size, vt.patch_size,
+            compute_dtype=vt.policy.compute_dtype, use_kernel=use_kernel)
+        if cot is None:
+            g = torch.Generator(device=out.device).manual_seed(seed)
+            cot = torch.randn(out.shape, generator=g,
+                              device=out.device).to(out.dtype)
+        grads.append(torch.autograd.grad(out, list(params.values()), cot))
+    return {n: grad_errors(a.float(), b.float())
+            for n, a, b in zip(params, *grads)}
+
+
 def grad_errors(a: torch.Tensor, b: torch.Tensor):
     """(relative L2 error, cosine) of gradient a against reference b; the
     norms are clamped at 1e-30, not at cosine_similarity's 1e-8."""
@@ -1116,6 +1234,11 @@ def compare_train_steps(device, arch, bert_config, batch_size, text_len,
     gk, gp = tower_grads(kern[0], batch["image"])
     tower = {n: grad_errors(gk[n], gp[n]) for n in gp}
     del gk, gp
+    # the patch embedding's backward reads its forward's statistics:
+    # through the kernel against through the plain twin
+    tower.update({f"{n} (patch embedding, kernel vs plain forward)": e
+                  for n, e in patch_embed_grads(kern[0],
+                                                batch["image"]).items()})
     lp, np_, sp = step_grads(plain, batch)
     del plain
     (lk, nk, sk), launches = count_launches(lambda: step_grads(kern, batch))

@@ -1,8 +1,10 @@
-"""Card tests of the port's CUDA kernels (K1, K2's three stages, K3, K4,
-K15, the attention backward pair, K8, and the int8 serving kernels: the int8
-attention (K9/K10), K11's four stages, K12/K13's two stages and K14)
-against their plain PyTorch versions at small, ragged shapes (K2, K3, K11
-and K12/K13 also at 4,113 tokens and the widths 384 and 768).
+"""Card tests of the port's CUDA kernels (K1, K2's three stages, K3, the
+fused patch embedding that replaces K4, K15, the attention backward pair,
+K8, and the int8 serving kernels: the int8 attention (K9/K10), K11's four
+stages, K12/K13's two stages and K14) against their plain PyTorch versions
+at small, ragged shapes (K2, K3, K11 and K12/K13 also at 4,113 tokens and
+the widths 384 and 768; the patch embedding at p2 20 and W 480, and at
+small even p2, with D 128, 384 and 768; K14 up to 55,296 rows).
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -13,12 +15,13 @@ Tolerances: the kernels round to bf16 where the plain versions do, but sum
 in another order, so outputs differ by bf16 rounding of the last place:
 relative L2 error ≤ 1e-2 on bf16 outputs and on gradients (bf16 operands
 of fp32 sums on both sides), and on the forwards' outputs also max abs
-error ≤ two bf16 ulps of the largest element; 1e-5 on the fp32 statistics
-of K4 and on K1's and K15's lse (fp32 sums of the same p, up to order and
-ex2.approx's last bits).  The int8 kernels
-quantize with the plain twins' arithmetic and sum exact integers, so their
-bf16 outputs are held to the same 1e-2; K12/K13's stages do every fp32
-operation of their twins in the same order, so they are held bit for bit.
+error ≤ two bf16 ulps of the largest element; 1e-5 on the fp32 patch
+statistics (μ and Σx² of the patch embedding) and on K1's and K15's lse
+(fp32 sums of the same values, up to order and ex2.approx's last bits).
+The int8 kernels quantize with the plain twins' arithmetic and sum exact
+integers, so their bf16 outputs are held to the same 1e-2; K12/K13's
+stages and K14 do every fp32 operation of their twins in the same order,
+so they are held bit for bit.
 """
 
 import math
@@ -165,20 +168,91 @@ def test_k3_matches_plain(dev, m, k, f, fq):
     _close(out, ref)
 
 
-def test_k4_matches_plain(dev):
-    g = torch.Generator(device=dev).manual_seed(3)
-    x = _randn(g, 3, 4, 40, 60)
-    mu, sq = patches.patch_stats(x, 8, 6)
-    mu_p, sq_p = patches.patch_stats_plain(x, 8, 6)
+def _pe_case(dev, bt, cpt, h, w, p1, p2, d, seed=3):
+    """The patch embedding's kernel inputs: the video as (bt, cpt, H, W)
+    bf16, kc (D, n) bf16, csum and dvec fp32, as fused_patch_embed makes
+    them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = cpt * p1 * p2
+    x = _randn(g, bt, cpt, h, w)
+    kf = torch.randn(n, d, generator=g, device=dev) / math.sqrt(n)
+    kf = kf * (1 + 0.1 * torch.randn(n, 1, generator=g, device=dev))
+    dvec = 0.1 * torch.randn(d, generator=g, device=dev)
+    return x, kf.t().bfloat16(), kf.sum(0), dvec
+
+
+# (bt, cpt, H, W, p1, p2, D): p2 20 at W 480 (the production patch row,
+# 24 tokens) with token counts that do not fill the last 96-token tile, and
+# small even p2 (k steps 16, 48 and 80 deep)
+PE_SHAPES = [(1, 10, 40, 480, 20, 20, 768), (3, 10, 60, 480, 20, 20, 128),
+             (2, 4, 48, 48, 8, 6, 384), (3, 2, 24, 64, 4, 8, 128),
+             (2, 4, 40, 80, 10, 10, 256)]
+
+
+@pytest.mark.parametrize("shape", PE_SHAPES)
+def test_patch_embed_matches_plain(dev, shape):
+    bt, cpt, h, w, p1, p2, d = shape
+    args = (*_pe_case(dev, bt, cpt, h, w, p1, p2, d), p1, p2, 1e-5)
+    before = patches.patch_embed.launches
+    out, mu, sq = patches.patch_embed(*args)
+    again = patches.patch_embed(*args)
+    ref, mu_p, sq_p = patches.patch_embed_plain(*args)
     torch.cuda.synchronize()
-    assert mu.shape == (3, 5, 10)
+    assert patches.patch_embed.launches == before + 2
+    assert out.shape == (bt, h // p1, w // p2, d) and out.dtype == ref.dtype
+    assert all(torch.equal(a, b) for a, b in zip((out, mu, sq), again))
+    _close(out, ref)
     assert _rel(mu, mu_p) < 1e-5 and _rel(sq, sq_p) < 1e-5
 
 
+def test_patch_embed_grads_match_plain(dev):
+    """fused_patch_embed's parameter gradients through the kernel's
+    Function against those through the plain twin."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    c, pt, p, d = 1, 4, 8, 128
+    n = c * pt * p * p
+    video = _randn(g, 2, c, 2 * pt, 4 * p, 6 * p)
+    params = [1 + 0.1 * torch.randn(n, generator=g, device=dev),
+              0.1 * torch.randn(n, generator=g, device=dev),
+              torch.randn(n, d, generator=g, device=dev) / math.sqrt(n),
+              0.1 * torch.randn(d, generator=g, device=dev)]
+    cot = torch.randn(2, 2, 4, 6, d, generator=g, device=dev)
+    grads = []
+    for use_kernel in (True, False):
+        leaves = [t.clone().requires_grad_() for t in params]
+        out = patches.fused_patch_embed(video, *leaves, pt, p, p,
+                                        use_kernel=use_kernel)
+        out.float().backward(cot)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) < 1e-2
+
+
+def test_patch_embed_refuses_before_any_launch(dev):
+    """Each shape or type the kernel does not take raises before a
+    launch, never through the plain twin."""
+    good = (2, 4, 48, 48, 8, 6, 384)
+    bad = [dict(p2=5), dict(w=36, p2=6),     # odd p2; W·2 % 16 != 0
+           dict(cpt=1, p1=4, h=8),           # CPT·p1 not a multiple of R 8
+           dict(d=64), dict(h=44),           # D % 128; H % p1
+           dict(w=776, p2=8)]                # 97 tokens per patch row
+    names = ("bt", "cpt", "h", "w", "p1", "p2", "d")
+    before = patches.patch_embed.launches
+    for change in bad:
+        shape = dict(zip(names, good), **change)
+        x, kc, csum, dvec = _pe_case(dev, *(shape[k] for k in names))
+        with pytest.raises(ValueError):
+            patches.patch_embed(x, kc, csum, dvec, shape["p1"], shape["p2"],
+                                1e-5)
+    x, kc, csum, dvec = _pe_case(dev, *good)
+    with pytest.raises(ValueError):          # fp32 video
+        patches.patch_embed(x.float(), kc, csum, dvec, 8, 6, 1e-5)
+    with pytest.raises(ValueError):          # kc of another depth
+        patches.patch_embed(x, kc[:, :-16], csum, dvec, 8, 6, 1e-5)
+    assert patches.patch_embed.launches == before
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    x = torch.zeros(4, 4, 40, 60, device=dev)          # fp32, not bf16
-    with pytest.raises(ValueError):
-        patches.patch_stats(x, 8, 6)
     # K2 and K11 take D and 2I on the multiples of 64 only, and check every
     # operand before the first launch
     for d, i2 in ((96, 256), (128, 96)):
@@ -656,18 +730,30 @@ def test_ln_qkv_wrappers_refuse_before_any_launch(dev):
     assert [fn.launches for fn in counters] == before
 
 
-@pytest.mark.parametrize("m", [100, 128])
-def test_k14_matches_plain(dev, m):
+@pytest.mark.parametrize("k", [256, 768])
+@pytest.mark.parametrize("m", [100, 128, 4113, 55296])
+def test_k14_matches_plain(dev, m, k):
     g = torch.Generator(device=dev).manual_seed(11)
-    x = _randn(g, m, 256)
+    x = _randn(g, m, k)
     w8, sc = geglu_ff.quantize_per_channel(
-        torch.randn(256, 384, generator=g, device=dev))
+        torch.randn(k, 768, generator=g, device=dev))
     before = fused_proj.proj_int8.launches
     out = fused_proj.proj_int8(x, w8, sc)
     ref = fused_proj.proj_int8_plain(x, w8, sc)
     torch.cuda.synchronize()
     assert fused_proj.proj_int8.launches == before + 1
-    assert out.shape == (m, 384) and _rel(out, ref) < 1e-2
+    assert out.shape == (m, 768) and torch.equal(out, ref)
+
+
+def test_k14_refuses_before_any_launch(dev):
+    g = torch.Generator(device=dev).manual_seed(12)
+    before = fused_proj.proj_int8.launches
+    for k, f in ((1040, 256), (200, 256), (256, 320)):   # K > 1024; K, F
+        w8, sc = geglu_ff.quantize_per_channel(
+            torch.randn(k, f, generator=g, device=dev))
+        with pytest.raises(ValueError):
+            fused_proj.proj_int8(_randn(g, 64, k), w8, sc)
+    assert fused_proj.proj_int8.launches == before
 
 
 def test_int8_scales_are_one_ieee_division_on_the_card(dev):

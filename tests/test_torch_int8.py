@@ -131,9 +131,6 @@ def test_int8_matmul_is_exact():
     b[0, 0] = 1
     exact = a.long() @ b.long()
     assert torch.equal(tff.int8_matmul(a, b), exact.float())
-    assert tff.k16_layout(b[:32].contiguous()).shape == (2, 3, 16)
-    assert torch.equal(tff.k16_layout(b[:32].contiguous())[1, 2],
-                       b[16:32, 2])
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +149,40 @@ def test_proj_int8_k14_matches_pallas(m):
     ref = jproj.int8_proj(jnp.asarray(x), jnp.asarray(w), interpret=True)
     out = tproj.int8_proj(torch.from_numpy(x), torch.from_numpy(w))
     np.testing.assert_allclose(_np(out), np.asarray(ref), atol=1e-5)
+
+
+def test_proj_int8_k14_zero_row_and_clip_match_pallas():
+    """K14 at the production depth and width (K 256, F 768): a row of
+    zeros (its scale is the 1e-8 floor) and rows whose largest entries sit
+    exactly at ±amax (codes ±127, the clip's edge), among random rows.  The
+    special rows are held to JAX's kernel; every row to the IEEE envelope
+    computed in numpy (code = round_half_even(x / s), fp64 sums).  JAX's
+    kernel in interpret mode divides by a broadcast scale, which XLA's CPU
+    compiler turns into a product with its reciprocal, so on a near-tie
+    (here row 111, x / s = −63.499996) its code is one step off the IEEE
+    division that JAX's own quantizer (``_quant_rows``) and the port use."""
+    r = _rng(36)
+    x = r.standard_normal((300, 256)).astype(np.float32)
+    x[3] = 0.0
+    x[7, ::5] = 8.0
+    x[11] = np.where(np.arange(256) % 2 == 0, -0.75, 0.75) * 1e-3
+    x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    w = (r.standard_normal((256, 768)) / 16).astype(np.float32)
+    ref = np.asarray(jproj.int8_proj(jnp.asarray(x), jnp.asarray(w),
+                                     interpret=True))
+    out = _np(tproj.int8_proj(torch.from_numpy(x), torch.from_numpy(w)))
+    special = [3, 7, 11]
+    assert not ref[3].any() and not out[3].any()
+    np.testing.assert_allclose(out[special], ref[special], atol=1e-5)
+    # the envelope in numpy: per-row and per-column IEEE scales
+    sr = np.maximum(np.abs(x).max(1, keepdims=True), np.float32(1e-8)) \
+        / np.float32(127)
+    sw = np.maximum(np.abs(w).max(0), np.float32(1e-8)) / np.float32(127)
+    x8 = np.clip(np.round(x / sr), -127, 127)
+    w8 = np.clip(np.round(w / sw), -127, 127)
+    acc = (x8.astype(np.float64) @ w8.astype(np.float64)).astype(np.float32)
+    np.testing.assert_allclose(out, acc * sr * sw, atol=1e-5)
+    assert (x8[7, ::5] == 127).all() and (np.abs(x8[11]) == 127).all()
 
 
 @pytest.mark.parametrize("m", MS)

@@ -9,8 +9,10 @@ them.  Tolerances (fp32 unless stated):
 - 1e-4 absolute on op outputs of order one: both sides compute in fp32 but
   sum in different orders (blocked matmuls, Pallas block accumulation);
 - 0 (bit-exact) for the position table and the patch reshape, which are the
-  same numpy/reshape ops;
-- 1e-5 relative on the patch statistics, which are plain fp32 sums.
+  same numpy/reshape ops.
+
+The patch statistics and the fused patch embedding's kernel twin and
+backward are held to JAX in tests/test_torch_patch_embed.py.
 """
 
 import math
@@ -59,19 +61,6 @@ def test_patchify_3d_matches(c):
     np.testing.assert_array_equal(
         _np(tpatch.patchify_3d(torch.from_numpy(v), 4, 4, 8)),
         np.asarray(jpatch.patchify_3d(jnp.asarray(v), 4, 4, 8)))
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_patch_stats_k4_matches_pallas(dtype):
-    x = _rng(1).standard_normal((3, 4, 16, 24)).astype(np.float32) + 0.5
-    jx = jnp.asarray(x, dtype)
-    tx = torch.tensor(np.array(jx.astype(jnp.float32))).to(
-        getattr(torch, dtype))
-    mu_j, sq_j = jpatch._patch_stats_pallas(jx, 4, 8, 6, True)
-    mu_t, sq_t = tpatch.patch_stats(tx, 8, 6)
-    np.testing.assert_allclose(_np(mu_t), np.asarray(mu_j), rtol=1e-5,
-                               atol=1e-6)
-    np.testing.assert_allclose(_np(sq_t), np.asarray(sq_j), rtol=1e-5)
 
 
 def _patch_inputs(seed, c=1, pt=4, p=8, d=48):
@@ -243,7 +232,7 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
     """On CPU tensors each kernel wrapper runs its plain version and its
     launch counter does not move."""
     counters = (tfa.attention_static, tff.geglu_ff_x, tff.geglu_ff_h,
-                tff.geglu_ff_o, tproj.ln_qkv, tpatch.patch_stats)
+                tff.geglu_ff_o, tproj.ln_qkv, tpatch.patch_embed)
     before = [fn.launches for fn in counters]
     r = _rng(12)
     q = torch.from_numpy(r.standard_normal((1, 2, 8, 32)).astype(np.float32))
@@ -256,7 +245,8 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
     tff.geglu_ff(x, mu, inv, torch.randn(48, 64), torch.zeros(64),
                  torch.randn(32, 48))
     tproj.ln_qkv(x, mu, inv, torch.randn(48, 96), torch.zeros(96), 32)
-    tpatch.patch_stats(torch.randn(2, 4, 16, 16), 8, 8)
+    tpatch.patch_embed(torch.randn(2, 4, 16, 16), torch.randn(128, 256),
+                       torch.randn(128), torch.randn(128), 8, 8, 1e-5)
     assert [fn.launches for fn in counters] == before == [0] * 6
 
 
@@ -265,4 +255,6 @@ def test_wrappers_refuse_other_devices():
     never silently run through the plain version."""
     x = torch.empty(2, 4, 16, 16, device="meta")
     with pytest.raises(ValueError):
-        tpatch.patch_stats(x, 8, 8)
+        tpatch.patch_embed(x, torch.empty(128, 256, device="meta"),
+                           torch.empty(128, device="meta"),
+                           torch.empty(128, device="meta"), 8, 8, 1e-5)

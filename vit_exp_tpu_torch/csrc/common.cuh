@@ -7,7 +7,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #define VIT_API extern "C" __attribute__((visibility("default")))
@@ -15,27 +14,10 @@
 namespace vit {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 // round to bf16 and back: the rounding points of the TPU kernels
 __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16(x));
-}
-
-// 16 x 16 x 16 int8 tensor-core tiles, int32 accumulators.  The int8
-// wmma kernel (K14) keeps its operands in the "k16" layout: an R x K
-// matrix is stored as K/16 slices of R rows of 16 contiguous codes, so a
-// fragment (16 rows x 16 codes) is 256 contiguous bytes, 32-byte aligned,
-// ldm 16.
-using FragA8 = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                              wmma::row_major>;
-using FragB8 = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                              wmma::col_major>;
-using FragC32 = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-
-// index of element (r, k) of an R-row matrix in the k16 layout
-__device__ __forceinline__ int k16_index(int r, int k, int R) {
-    return (k >> 4) * (R * 16) + r * 16 + (k & 15);
 }
 
 // the int8 envelope of the JAX package (geglu_ff._quant_rows): scale =

@@ -1,5 +1,7 @@
 // GEMM mainloop of the port's matrix kernels on mma.sync (geglu_ff_bwd.cu,
-// geglu_ff.cu, geglu_ff_int8.cu, ln_qkv.cu, ln_qkv_int8.cu):
+// geglu_ff.cu, geglu_ff_int8.cu, ln_qkv.cu, ln_qkv_int8.cu; K14 in
+// ln_qkv_int8.cu and patch_embed.cu use its operand tiles and fragment
+// loads in loops of their own):
 // acc[j][m, n] += Σ_k A(m, k) · B_j(k, n)
 // with the accumulators held in registers, for two operand types T:
 // bf16 (fp32 accumulators, mma.sync m16n8k16) and int8 (int32

@@ -27,14 +27,25 @@
 // K 1,040, so the conversion to fp32 is exact there (above, it rounds once,
 // as the twin's does).  Any M; K % 16 == 0, K ≤ 2048, F % 128 == 0.
 //
-// K14's kernel (w8a8_rows_kernel): one block of 8 warps owns 64 rows.  Its
-// prologue quantizes them (x itself, two reads of each row) into shared
-// memory in the k16 layout; the block then walks the output columns in
-// tiles of 128: each warp sums a 32 x 32 sub-tile on the int8 tensor cores
-// (weight fragments read in the k16 layout from L2, where the weights
-// stay), stages it in shared memory and writes deq in bf16.  Bound at M =
-// 55,296: 113 MB of x and out, not its 22 G int8 operations.  Needs
-// K % 16 == 0, K <= 2048 and F % 128 == 0; rows past M are masked.
+// K14's kernel (proj_int8_kernel), one pass: a block owns 64 rows of x
+// (bf16, M × K).  It quantizes them per row (s_x = max|x| / 127) with
+// 16-byte loads, a warp's rows held in its registers eight at a time
+// (their loads in flight together), and writes the codes
+// once into shared memory as plain rows for ldmatrix (pitch K + 16 bytes,
+// K padded with zero codes to whole 128-deep k steps).  Meanwhile a
+// cp.async ring streams Wᵀ (F × K int8, the wrapper's transpose; it stays in
+// L2) in tiles of 128 columns × 128 of depth, gemm_mma.cuh's int8 operand
+// tiles; the products run on mma.sync m16n8k32 with int32 accumulators in
+// registers, and after the last k step of each column tile the epilogue
+// dequantizes them in the twin's order, (acc·s_x)·s_W without FMA, into a
+// staging tile per warp in shared memory (16 rows at a time), which the
+// warp writes out as 16-byte row pieces (bf16x2 stores straight from the accumulators ran
+// 1.5× slower as a whole).  The ring runs on across column tiles, so the
+// next tile's weights arrive during an epilogue.  Bound at M = 55,296,
+// K 256, F 768: 113 MB of x and out (0.034 ms), not its 22 G int8
+// operations.  |acc| ≤ K·127² < 2²⁴, so out equals the twin's bits.  Any
+// M; K % 16 == 0, K ≤ 1024 (the rows and the ring in 227 KB of shared
+// memory), F % 128 == 0.
 #include "gemm_mma.cuh"
 
 using namespace vit;
@@ -202,85 +213,198 @@ int launch_x(const void* x, const void* mu, void* x8, void* sx, int M, int K,
 // K14
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64;      // rows per block
-constexpr int BN = 128;     // output columns per tile
-constexpr int NW = 8;       // warps: 2 row halves x 4 column quarters
-constexpr int LDST = 36;    // int pitch of a warp's 32 x 32 staging tile
+// the tile line (scripts/patch_embed_tile_trial.py rewrites it)
+constexpr int PJ_ROWS = 64, PJ_COLS = 128, PJ_BK = 128, PJ_STAGES = 2;
+constexpr int PJ_WM = 2, PJ_WN = 4, PJ_BLOCKS = 3;
+constexpr int PJ_MAX_K = 1024;
+// pitch (bf16) of a warp's staging tile of out: rows of WTN + 8, so the
+// bf16x2 writes of a warp's eight rows fall on distinct banks
+constexpr int PJ_LDO = PJ_COLS / PJ_WN + 8;
+using PjCfg = GemmCfg<PJ_ROWS, PJ_COLS, PJ_BK, PJ_WM, PJ_WN, PJ_STAGES,
+                      false, false, 1, s8>;
 
-__global__ void __launch_bounds__(NW * 32)
-w8a8_rows_kernel(const bf16* __restrict__ x,
-                 const signed char* __restrict__ w,
-                 const float* __restrict__ sc, bf16* __restrict__ o0, int M,
+// the depth padded to whole k steps, and the shared memory of a launch
+__host__ __device__ inline int pj_depth(int K) {
+    return (K + PJ_BK - 1) / PJ_BK * PJ_BK;
+}
+int pj_smem(int K) {
+    return PJ_STAGES * PjCfg::TB::ELEMS + PJ_ROWS * (pj_depth(K) + 16) +
+           PJ_ROWS * (int)sizeof(float) +
+           PjCfg::THREADS / 32 * 16 * PJ_LDO * (int)sizeof(bf16);
+}
+
+// out = (x8·W)·s_x·s_W; one block per PJ_ROWS rows; lane l of a row's warp
+// quantizes columns 8(l + 32i) .. + 7 for i < CHUNKS
+template <int CHUNKS>
+__global__ void __launch_bounds__(PjCfg::THREADS, PJ_BLOCKS)
+proj_int8_kernel(const bf16* __restrict__ x, const s8* __restrict__ wt,
+                 const float* __restrict__ sc, bf16* __restrict__ out, int M,
                  int K, int F) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    signed char* A8 = reinterpret_cast<signed char*>(smem);
-    int* stage = reinterpret_cast<int*>(smem + BM * K);
-    float* srow = reinterpret_cast<float*>(stage + NW * 32 * LDST);
+    using C = PjCfg;
+    constexpr int NW = C::THREADS / 32;
+    // rows a warp loads at once: RB·CHUNKS 16-byte loads in flight a lane
+    constexpr int RB = CHUNKS == 1 ? 8 : CHUNKS == 2 ? 4 : 2;
+    static_assert(PJ_ROWS % (NW * RB) == 0, "whole batches of rows");
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    const int kp = pj_depth(K), lda = kp + 16;   // row pitch in bytes
+    s8* ring = reinterpret_cast<s8*>(smem_raw);
+    s8* sa = ring + C::STAGES * C::TB::ELEMS;
+    float* srow = reinterpret_cast<float*>(sa + PJ_ROWS * lda);
+    bf16* so = reinterpret_cast<bf16*>(srow + PJ_ROWS) +
+               (threadIdx.x >> 5) * 16 * PJ_LDO;   // the warp's out tile
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wm = (warp / C::WN) * C::WTM, wn = (warp % C::WN) * C::WTN;
+    const int m0 = blockIdx.x * PJ_ROWS;
+    const int ksteps = kp / PJ_BK, total = (F / PJ_COLS) * ksteps;
+    const Mat8 w{wt, K, F, K};
 
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int m0 = blockIdx.x * BM;
+    auto issue = [&](int s) {
+        if (s < total) {
+            const int nt = s / ksteps;
+            C::TB::template load<C::THREADS>(
+                ring + (s % C::STAGES) * C::TB::ELEMS, w, nt * PJ_COLS,
+                (s - nt * ksteps) * PJ_BK, K, tid);
+        }
+        cp_async_commit();   // an empty group past the end keeps the count
+    };
+#pragma unroll
+    for (int s = 0; s < C::STAGES - 1; ++s) issue(s);
 
-    // prologue: one warp per row, codes into A8 (zeros past M)
-    for (int r = warp; r < BM; r += NW) {
-        const int gr = m0 + r;
-        const bool live = gr < M;
-        const bf16* xr = x + (size_t)(live ? gr : 0) * K;
-        float amax = 0.f;
-        if (live)
-            for (int k = lane; k < K; k += 32)
-                amax = fmaxf(amax, fabsf(__bfloat162float(xr[k])));
-        const float s = quant_scale(warp_max(amax));
-        if (lane == 0) srow[r] = s;
-        for (int k = lane; k < K; k += 32)
-            A8[k16_index(r, k, BM)] =
-                live ? quant8(__bfloat162float(xr[k]), s) : (signed char)0;
-    }
-    __syncthreads();
-
-    const int wr = warp >> 2, wc = warp & 3;
-    int* st = stage + warp * 32 * LDST;
-    for (int n0 = 0; n0 < F; n0 += BN) {
-        const int col = n0 + wc * 32;
-        FragC32 acc[2][2];
+    // the block's rows, quantized once into sa while the first weight
+    // tiles arrive: a warp loads RB rows at a time (all their loads in
+    // flight together), then reduces and quantizes them; zero codes past K
+    // (to kp) and past M
+    for (int r0 = warp; r0 < PJ_ROWS; r0 += NW * RB) {
+        uint4 raw[RB][CHUNKS];
+        float amax[RB];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int b = 0; b < RB; ++b) {
+            const int gr = m0 + r0 + b * NW;
+            const bf16* xr = x + (size_t)min(gr, M - 1) * K;
+            amax[b] = 0.f;
 #pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-#pragma unroll 4
-        for (int kc = 0; kc < K / 16; ++kc) {
-            FragA8 a[2];
-            FragB8 b[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(
-                    a[i], A8 + kc * BM * 16 + (wr * 32 + i * 16) * 16, 16);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(
-                    b[j], w + ((size_t)kc * F + col + j * 16) * 16, 16);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+            for (int i = 0; i < CHUNKS; ++i) {
+                const int c = 8 * lane + ROW_CHUNK * i;
+                raw[b][i] = make_uint4(0, 0, 0, 0);
+                if (gr < M && c < K)   // K % 16 == 0
+                    raw[b][i] = *reinterpret_cast<const uint4*>(xr + c);
+            }
         }
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int b = 0; b < RB; ++b) {
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::store_matrix_sync(st + i * 16 * LDST + j * 16,
-                                        acc[i][j], LDST, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 32 * 32; e += 32) {
-            const int rr = e >> 5, cc = e & 31;
-            const int r = wr * 32 + rr, gr = m0 + r, gc = col + cc;
-            if (gr >= M) continue;
-            const float deq = __fmul_rn(
-                __fmul_rn((float)st[rr * LDST + cc], srow[r]), sc[gc]);
-            o0[(size_t)gr * F + gc] = __float2bfloat16(deq);
+            for (int i = 0; i < CHUNKS; ++i) {
+                const bf16* xs = reinterpret_cast<const bf16*>(&raw[b][i]);
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    amax[b] = fmaxf(amax[b], fabsf(__bfloat162float(xs[j])));
+            }
+            const int r = r0 + b * NW;
+            const float sr = quant_scale(warp_max(amax[b]));
+            if (lane == 0) srow[r] = sr;
+            s8* dst = sa + r * lda;
+#pragma unroll
+            for (int i = 0; i < CHUNKS; ++i) {
+                const int c = 8 * lane + ROW_CHUNK * i;
+                if (c >= K) continue;
+                const bf16* xs = reinterpret_cast<const bf16*>(&raw[b][i]);
+                float y[8];
+#pragma unroll
+                for (int j = 0; j < 8; ++j) y[j] = __bfloat162float(xs[j]);
+                *reinterpret_cast<uint2*>(dst + c) = quant8x8(y, sr);
+            }
+            for (int c = K + 8 * lane; c < kp; c += 256)
+                *reinterpret_cast<uint2*>(dst + c) = make_uint2(0, 0);
         }
-        __syncwarp();
     }
+
+    int acc[C::MT][C::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+    const bf16* sa16 = reinterpret_cast<const bf16*>(sa);
+    const int lda16 = lda / 2;
+    for (int s = 0; s < total; ++s) {
+        cp_async_wait<C::STAGES - 2>();   // this thread's copies of step s
+        __syncthreads();   // copies and codes visible; the oldest stage free
+        issue(s + C::STAGES - 1);
+        const int tile = s / ksteps, ks = s - tile * ksteps;
+        const bf16* sb = reinterpret_cast<const bf16*>(
+            ring + (s % C::STAGES) * C::TB::ELEMS);
+#pragma unroll
+        for (int kk = 0; kk < C::BK16; kk += 16) {
+            uint32_t af[C::MT][4];
+            const int ka = ks * (PJ_BK / 2) + kk;   // in b16 units
+#pragma unroll
+            for (int mt = 0; mt < C::MT; ++mt)
+                ldsm_x4(af[mt], sa16 + (wm + mt * 16 + (lane & 15)) * lda16 +
+                                    ka + ((lane >> 4) << 3));
+#pragma unroll
+            for (int np = 0; np < C::NT / 2; ++np) {
+                uint32_t bfr[4];
+                frag_b2<false, C::TB::LD16>(bfr, sb, wn + np * 16, kk, lane);
+#pragma unroll
+                for (int mt = 0; mt < C::MT; ++mt) {
+                    mma_s8(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
+                    mma_s8(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
+                }
+            }
+        }
+        if (ks != ksteps - 1) continue;
+        // the column tile is done: per m16 tile, dequantize in the twin's
+        // order into the warp's staging tile, then write its 16 rows as
+        // 16-byte pieces
+        constexpr int ROW_CHUNKS = C::WTN / 8;   // 16-byte chunks of a row
+#pragma unroll
+        for (int mt = 0; mt < C::MT; ++mt) {
+#pragma unroll
+            for (int nt = 0; nt < C::NT; ++nt) {
+                const int cl = nt * 8 + 2 * (lane & 3);   // in the warp's tile
+                const float2 s2 = *reinterpret_cast<const float2*>(
+                    sc + tile * PJ_COLS + wn + cl);
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int rl = half * 8 + (lane >> 2);
+                    int* a = acc[mt][nt] + 2 * half;
+                    const float sr = srow[wm + mt * 16 + rl];
+                    store_bf16x2(
+                        so + rl * PJ_LDO + cl,
+                        __fmul_rn(__fmul_rn((float)a[0], sr), s2.x),
+                        __fmul_rn(__fmul_rn((float)a[1], sr), s2.y));
+                    a[0] = a[1] = 0;
+                }
+            }
+            __syncwarp();
+#pragma unroll
+            for (int i = 0; i < 16 * ROW_CHUNKS / 32; ++i) {
+                const int c = lane + 32 * i, rl = c / ROW_CHUNKS;
+                const int cc = (c - rl * ROW_CHUNKS) * 8;
+                const int gr = m0 + wm + mt * 16 + rl;
+                if (gr < M)
+                    *reinterpret_cast<uint4*>(out + (size_t)gr * F +
+                                              tile * PJ_COLS + wn + cc) =
+                        *reinterpret_cast<const uint4*>(so + rl * PJ_LDO +
+                                                        cc);
+            }
+            __syncwarp();   // the staging tile is free again
+        }
+    }
+}
+
+template <int CHUNKS>
+int launch_proj(const void* x, const void* wt, const void* sc, void* out,
+                int M, int K, int F, void* stream) {
+    const int smem = pj_smem(K);
+    cudaError_t e = allow_smem(proj_int8_kernel<CHUNKS>, smem);
+    if (e != cudaSuccess) return (int)e;
+    proj_int8_kernel<CHUNKS>
+        <<<(unsigned)((M + PJ_ROWS - 1) / PJ_ROWS), PjCfg::THREADS, smem,
+           (cudaStream_t)stream>>>((const bf16*)x, (const s8*)wt,
+                                   (const float*)sc, (bf16*)out, M, K, F);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -317,16 +441,15 @@ VIT_API int vit_ln_qkv_int8_mm(const void* x8, const void* sx, const void* mu,
     return (int)cudaGetLastError();
 }
 
-VIT_API int vit_proj_int8_fwd(const void* x, const void* w, const void* sc,
+VIT_API int vit_proj_int8_fwd(const void* x, const void* wt, const void* sc,
                               void* out, int M, int K, int F, void* stream) {
-    if (K % 16 || K > 2048 || F % BN) return (int)cudaErrorInvalidValue;
-    const int smem = BM * K + NW * 32 * LDST * 4 + BM * 4;
-    cudaError_t e = cudaFuncSetAttribute(
-        w8a8_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    w8a8_rows_kernel<<<(M + BM - 1) / BM, NW * 32, smem,
-                       (cudaStream_t)stream>>>(
-        (const bf16*)x, (const signed char*)w, (const float*)sc, (bf16*)out,
-        M, K, F);
-    return (int)cudaGetLastError();
+    if (M < 1 || K < 16 || K % 16 || K > PJ_MAX_K || F < PJ_COLS ||
+        F % PJ_COLS)
+        return (int)cudaErrorInvalidValue;
+    switch ((K + ROW_CHUNK - 1) / ROW_CHUNK) {
+        case 1: return launch_proj<1>(x, wt, sc, out, M, K, F, stream);
+        case 2: return launch_proj<2>(x, wt, sc, out, M, K, F, stream);
+        case 3: return launch_proj<3>(x, wt, sc, out, M, K, F, stream);
+        default: return launch_proj<4>(x, wt, sc, out, M, K, F, stream);
+    }
 }

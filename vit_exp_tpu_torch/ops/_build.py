@@ -69,8 +69,10 @@ SIGNATURES = {
     "vit_geglu_ff_o": [P] * 3 + [I, I, I, P],
     # x, mu, inv, w, c, out, M, K, F, Fq, stream
     "vit_ln_qkv_fwd": [P, P, P, P, P, P, I, I, I, I, P],
-    # x, mu, sq, BT, CPT, H, W, p1, p2, stream
-    "vit_patch_stats_fwd": [P, P, P, I, I, I, I, I, I, P],
+    # x, kc, csum, dvec, out, mu, sq, BT, CPT, H, W, p1, p2, D, eps, stream
+    "vit_patch_embed_fwd": [P] * 7 + [I] * 7 + [F, P],
+    # BT, CPT, H, W, p1, p2, D (no launch: the shared memory, 0 if refused)
+    "vit_patch_embed_check": [I] * 7,
     # q8, k8, v, qe, qn, nk, nv, bound, out, q8/k8/v/out/qe strides
     # (b, h, n) ×5, B, H, Nq, Nkv, n_null, stream
     "vit_flash_static_int8_fwd": [P] * 9 + [L] * 15 + [I] * 5 + [P],
@@ -86,7 +88,7 @@ SIGNATURES = {
     "vit_ln_qkv_int8_x": [P] * 4 + [I, I, P],
     # x8, sx, mu, inv, wt, sc, c, q, k, v, M, K, F, Fq, Fk, stream
     "vit_ln_qkv_int8_mm": [P] * 10 + [I] * 5 + [P],
-    # x, w (k16), sc, out, M, K, F, stream
+    # x, wt (F × K), sc, out, M, K, F, stream
     "vit_proj_int8_fwd": [P] * 4 + [I, I, I, P],
 }
 

@@ -39,10 +39,11 @@ grad) has two kernels here, CUDA C++ in csrc/ln_qkv_int8.cu:
   the twins give ``ln_qkv_int8_plain``'s bits.
 - ``proj_int8`` replaces ::_proj_int8_kernel (K14, ``int8_proj``), the
   bias-free W8A8 out-projection: per-token activation scales times
-  per-channel weight scales.  One block owns 64 token rows: it quantizes
-  them into shared memory once, then walks the output columns in tiles of
-  128 (int8 wmma products on weights in the k16 layout, int32 sums) with
-  the dequantizing epilogue in fp32.
+  per-channel weight scales.  One kernel: a block owns 128 token rows,
+  quantizes them once into shared memory, and streams Wᵀ (transposed per
+  call, as for K12/K13) through a cp.async ring into int8 mma.sync
+  products (m16n8k32, int32 accumulators in registers) whose epilogue
+  dequantizes in the twin's order; its output equals the twin's bits.
 At M = 55,296 both are bound by the bytes of x and of the outputs (171 MB
 and 113 MB), not by their 65 and 22 G int8 operations.
 """
@@ -53,8 +54,8 @@ import torch
 
 from vit_exp_tpu_torch.ops import _build
 from vit_exp_tpu_torch.core.precision import acc_dtype
-from vit_exp_tpu_torch.ops.geglu_ff import (int8_matmul, k16_layout, ln_stats,
-                                            quant_rows, quantize_per_channel)
+from vit_exp_tpu_torch.ops.geglu_ff import (int8_matmul, ln_stats, quant_rows,
+                                            quantize_per_channel)
 
 
 def ln_qkv_plain(x2, mu, inv, wf, c, fq: int):
@@ -326,15 +327,21 @@ def proj_int8_plain(x2, w8, sc):
 
 
 def proj_int8(x2, w8, sc):
-    """Kernel K14 on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel K14 on CUDA tensors, the plain version on CPU tensors.  The
+    kernel takes W transposed (F × K: ldmatrix has no .trans for 8-bit
+    data) and K up to 1024 (its rows and ring share 227 KB)."""
     if x2.device.type == "cpu":
         return proj_int8_plain(x2, w8, sc)
     _build.require_cuda("proj_int8", x2, w8, sc)
     M, K, F = _check_w8a8("proj_int8", x2, w8, sc)
-    x2, wc, sc = x2.contiguous(), k16_layout(w8), sc.float().contiguous()
+    if M < 1 or K > 1024:
+        raise ValueError(f"proj_int8 kernel takes M ≥ 1 and K up to 1024; "
+                         f"got x {tuple(x2.shape)}")
+    x2, sc = x2.contiguous(), sc.float().contiguous()
+    wt = w8.t().contiguous()
     out = torch.empty((M, F), device=x2.device, dtype=x2.dtype)
     _build.launch("vit_proj_int8_fwd",
-                  *(t.data_ptr() for t in (x2, wc, sc, out)), M, K, F)
+                  *(t.data_ptr() for t in (x2, wt, sc, out)), M, K, F)
     proj_int8.launches += 1
     return out
 

@@ -274,15 +274,6 @@ def int8_matmul(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
     return (a8.double() @ b8.double()).float()
 
 
-def k16_layout(w8: torch.Tensor) -> torch.Tensor:
-    """(K, N) int8 → (K/16, N, 16): for each 16-deep slice of the rows, each
-    column's 16 codes contiguous.  The int8 out-projection kernel (K14)
-    loads its weight fragments (16 columns × 16 rows = 256 contiguous
-    bytes) from this layout, which keeps every fragment 32-byte aligned."""
-    K, N = w8.shape
-    return w8.reshape(K // 16, 16, N).transpose(1, 2).contiguous()
-
-
 def geglu_ff_int8_plain(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2):
     """Plain version of K11.  x2: (M, D); mu/inv: (M, 1) fp32; gamma/beta:
     (D,); w1q: (D, 2I) int8 [val | gate] with scales s1 (2I,); w2q: (I, D)

@@ -2,23 +2,30 @@
 vit_exp_tpu/ops/patches.py).
 
 - ``patchify_3d``: 'b c (t pt) (h p1) (w p2) -> b t h w (c pt p1 p2)'.
-- ``fused_patch_embed``: patchify → LayerNorm(γ, β) → Linear(W, b) as one
-  strided convolution plus per-patch fix-ups, never building the patch
-  tensor:  [(x−μ)·inv ⊙ γ + β] @ W + b = (x @ (γ⊙W) − μ·colsum(γ⊙W))·inv
-  + (β@W + b).  The strided product is ``F.conv2d`` in fp32 (the JAX
-  package's ``_conv_f32`` accumulates in fp32 too); the per-patch Σx / Σx²
-  statistics are kernel K4, ``patch_stats``.
+- ``fused_patch_embed``: patchify → LayerNorm(γ, β) → Linear(W, b) without
+  the patch tensor:  [(x−μ)·inv ⊙ γ + β] @ W + b = (x @ (γ⊙W) −
+  μ·colsum(γ⊙W))·inv + (β@W + b).  The weight preparation (kf = γ⊙W, its
+  colsum csum, dvec = β@W + b, kc = kf in the compute dtype) is plain
+  torch, as the JAX package keeps it outside its kernel; the rest is one
+  kernel, ``patch_embed``.
 
-Kernel K4 (``patch_stats``) replaces vit_exp_tpu/ops/patches.py::_stats_kernel
-(``_patch_stats_pallas``).  It is written in CUDA C++
-(csrc/patch_stats.cu) so the port builds one library with one toolchain.  It
-is one memory-bound pass over the bf16 video (442 MB at batch 4, no
-tensor-core work): each block reduces one row of patches, threads walk
-neighbouring columns so every load is coalesced, column sums are combined
-per patch in shared memory.  x² is rounded to the input dtype before it is
-summed, as the TPU kernel does.  ``PatchStatsFn`` makes it differentiable
-with the plain backward of the JAX custom VJP (patches.py:129-140); the
-training path never runs it, since the video carries no gradient.
+Kernel ``patch_embed`` replaces vit_exp_tpu/ops/patches.py::_stats_kernel
+(K4, ``_patch_stats_pallas``) together with the strided product
+``_conv_f32`` and the fix-ups of ``fused_patch_embed`` beside it.  CUDA
+C++, csrc/patch_embed.cu: an implicit GEMM (tokens × D × n) on the bf16
+tensor cores with fp32 accumulators, which stages raw video rows, takes
+the patch statistics from its A fragments as they pass (x² rounded to the
+input dtype before it is summed, as the TPU kernel does) and applies the
+LayerNorm fix-up in its epilogue.  At batch 4 it is bound by the 340
+GFLOP of the product.  Its plain twin ``patch_embed_plain`` is the
+statistics, ``F.conv2d`` with fp32 accumulation and the fp32 fix-ups,
+rounded once.
+
+``PatchEmbedFn`` makes it differentiable in kc, csum and dvec (the video
+carries no gradient) with an explicit backward that never re-runs the
+product: ddvec = Σ g, dcsum = −Σ μ·inv·g, and dkc the weight gradient of
+the strided product for the cotangent g·inv, cast to the compute dtype
+first, as JAX's ``_conv_f32_bwd`` does.
 """
 
 from __future__ import annotations
@@ -54,66 +61,118 @@ def patch_stats_plain(x: torch.Tensor, p1: int, p2: int):
     return psum(xf) / (cpt * p1 * p2), psum(x2)
 
 
-def patch_stats(x: torch.Tensor, p1: int, p2: int):
-    """Per-patch mean and Σx² of x: (bt, cpt, H, W).  Kernel K4 on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return patch_stats_plain(x, p1, p2)
-    _build.require_cuda("patch_stats", x)
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("patch_stats kernel takes a contiguous bf16 tensor")
-    bt, cpt, H, W = x.shape
-    if H % p1 or W % p2:
-        raise ValueError(f"({H}, {W}) is not a multiple of ({p1}, {p2})")
-    hs, ws = H // p1, W // p2
-    mu = torch.empty((bt, hs, ws), device=x.device, dtype=torch.float32)
-    sq = torch.empty_like(mu)
-    _build.launch("vit_patch_stats_fwd", x.data_ptr(), mu.data_ptr(),
-                  sq.data_ptr(), bt, cpt, H, W, p1, p2)
-    patch_stats.launches += 1
-    return mu, sq
-
-
-patch_stats.launches = 0
-
-
-class PatchStatsFn(torch.autograd.Function):
-    """Differentiable patch statistics: K4 (or its plain version) forward;
-    dx = up(dμ)/n + 2·x·up(dΣx²), up() broadcasting a patch value over its
-    (cpt, p1, p2) window."""
-
-    @staticmethod
-    def forward(ctx, x, p1, p2, use_kernel):
-        ctx.p = (p1, p2)
-        ctx.save_for_backward(x)
-        return (patch_stats if use_kernel else patch_stats_plain)(x, p1, p2)
-
-    @staticmethod
-    def backward(ctx, dmu, dsq):
-        (x,) = ctx.saved_tensors
-        p1, p2 = ctx.p
-        n = x.shape[1] * p1 * p2
-
-        def up(g):   # (bt, hs, ws) → (bt, 1, H, W)
-            return g.repeat_interleave(p1, dim=1).repeat_interleave(
-                p2, dim=2)[:, None]
-
-        acc_t = acc_dtype(x.dtype)
-        dx = torch.zeros(x.shape, device=x.device, dtype=acc_t)
-        if dmu is not None:
-            dx = dx + up(dmu.to(acc_t)) / n
-        if dsq is not None:
-            dx = dx + 2.0 * x.to(acc_t) * up(dsq.to(acc_t))
-        return dx.to(x.dtype), None, None, None
-
-
 def _conv_f32(x: torch.Tensor, kc: torch.Tensor, stride) -> torch.Tensor:
-    """Strided conv with fp32 accumulation: fp32 operands holding the
-    compute-dtype values, with TF32 off (cuDNN would otherwise round the
-    operands to 10 mantissa bits)."""
+    """Strided conv with fp32 (fp64 for fp64) accumulation: operands in the
+    accumulation dtype holding the compute-dtype values, with TF32 off
+    (cuDNN would otherwise round the operands to 10 mantissa bits)."""
+    acc_t = acc_dtype(x.dtype)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=False, allow_tf32=False):
-        return F.conv2d(x.float(), kc.float(), stride=stride)
+        return F.conv2d(x.to(acc_t), kc.to(acc_t), stride=stride)
+
+
+def patch_embed_plain(x: torch.Tensor, kc: torch.Tensor, csum: torch.Tensor,
+                      dvec: torch.Tensor, p1: int, p2: int, eps: float):
+    """Plain version of ``patch_embed``.  x: (bt, cpt, H, W); kc: (D,
+    cpt·p1·p2) in x.dtype, feature order (cpt, p1, p2); csum, dvec: (D,)
+    fp32.  Returns (tokens (bt, H/p1, W/p2, D) in x.dtype, μ, Σx²), the
+    statistics as ``patch_stats_plain``'s, the tokens
+    (y − μ·csum)·inv + dvec in fp32 with y the strided product."""
+    bt, cpt, H, W = x.shape
+    n = cpt * p1 * p2
+    mu, sq = patch_stats_plain(x, p1, p2)
+    y = _conv_f32(x, kc.reshape(-1, cpt, p1, p2), (p1, p2)).permute(0, 2, 3, 1)
+    inv = _inv(mu, sq, n, eps)
+    tokens = (y - mu[..., None] * csum) * inv[..., None] + dvec
+    return tokens.to(x.dtype), mu, sq
+
+
+def _inv(mu, sq, n: int, eps: float):
+    """rsqrt(max(Σx²/n − μ², 0) + eps): the patch LayerNorm's 1/σ."""
+    return torch.rsqrt(torch.clamp(sq / n - mu * mu, min=0.0) + eps)
+
+
+def patch_embed_check(x: torch.Tensor, kc: torch.Tensor, p1: int, p2: int):
+    """Raise unless the kernel takes these operands (before any launch)."""
+    bt, cpt, H, W = x.shape
+    D = kc.shape[0]
+    if x.dtype != torch.bfloat16 or kc.dtype != torch.bfloat16:
+        raise ValueError(f"patch_embed kernel takes bf16 x and kc; got "
+                         f"{x.dtype}, {kc.dtype}")
+    if kc.shape != (D, cpt * p1 * p2):
+        raise ValueError(f"patch_embed: kc {tuple(kc.shape)} is not (D, "
+                         f"{cpt * p1 * p2})")
+    if not _build.lib().vit_patch_embed_check(bt, cpt, H, W, p1, p2, D):
+        raise ValueError(
+            f"patch_embed kernel does not take x {tuple(x.shape)}, p1 {p1}, "
+            f"p2 {p2}, D {D}: it needs H % p1 == W % p2 == 0, an even p2 "
+            f"whose k step R·p2 (R = 16 / gcd(p2, 16)) is 16, 32, 48 or 80, "
+            f"CPT·p1 % R == 0, W % 8 == 0, W ≤ 640 (320 where p2 % 4 != 0), "
+            f"W / p2 ≤ 96, D % 128 == 0 and "
+            f"at most 227 KB of shared memory")
+
+
+def patch_embed(x: torch.Tensor, kc: torch.Tensor, csum: torch.Tensor,
+                dvec: torch.Tensor, p1: int, p2: int, eps: float):
+    """The fused patch embedding on CUDA tensors (one launch), its plain
+    version on CPU tensors.  Arguments and results as
+    ``patch_embed_plain``'s; on the card x and kc are bf16."""
+    if x.device.type == "cpu":
+        return patch_embed_plain(x, kc, csum, dvec, p1, p2, eps)
+    _build.require_cuda("patch_embed", x, kc, csum, dvec)
+    patch_embed_check(x, kc, p1, p2)
+    bt, cpt, H, W = x.shape
+    D = kc.shape[0]
+    x, kc = x.contiguous(), kc.contiguous()
+    csum, dvec = csum.float().contiguous(), dvec.float().contiguous()
+    out = torch.empty((bt, H // p1, W // p2, D), device=x.device,
+                      dtype=torch.bfloat16)
+    mu = torch.empty((bt, H // p1, W // p2), device=x.device,
+                     dtype=torch.float32)
+    sq = torch.empty_like(mu)
+    _build.launch("vit_patch_embed_fwd",
+                  *(t.data_ptr() for t in (x, kc, csum, dvec, out, mu, sq)),
+                  bt, cpt, H, W, p1, p2, D, float(eps))
+    patch_embed.launches += 1
+    return out, mu, sq
+
+
+patch_embed.launches = 0
+
+
+class PatchEmbedFn(torch.autograd.Function):
+    """Differentiable patch embedding: ``patch_embed`` (or its plain
+    version) forward on (x, kc, csum, dvec); backward with g = dtokens in
+    the accumulation dtype: ddvec = Σ g, dcsum = −Σ (g·inv)·μ, dkc = the
+    weight gradient of the strided product for g·inv cast to x.dtype (bf16
+    operands, fp32 sums, a result in x.dtype).  x gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kc, csum, dvec, p1, p2, eps, use_kernel):
+        fwd = patch_embed if use_kernel else patch_embed_plain
+        tokens, mu, sq = fwd(x, kc, csum, dvec, p1, p2, eps)
+        ctx.cfg = (p1, p2, eps, kc.shape)
+        ctx.save_for_backward(x, mu, sq)
+        return tokens
+
+    @staticmethod
+    def backward(ctx, dtokens):
+        x, mu, sq = ctx.saved_tensors
+        p1, p2, eps, kc_shape = ctx.cfg
+        cpt = x.shape[1]
+        acc_t = acc_dtype(x.dtype)
+        g = dtokens.to(acc_t)
+        inv = _inv(mu.to(acc_t), sq.to(acc_t), cpt * p1 * p2, eps)[..., None]
+        gi = g * inv                       # the cotangent of y − μ·csum
+        ddvec = g.sum(dim=(0, 1, 2))
+        dcsum = -(gi * mu.to(acc_t)[..., None]).sum(dim=(0, 1, 2))
+        gy = gi.permute(0, 3, 1, 2).to(x.dtype)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False, allow_tf32=False):
+            dkc = torch.nn.grad.conv2d_weight(
+                x, (kc_shape[0], cpt, p1, p2), gy, stride=(p1, p2))
+        return (None, dkc.reshape(kc_shape).to(x.dtype), dcsum, ddvec,
+                None, None, None, None)
 
 
 def fused_patch_embed(video: torch.Tensor, gamma: torch.Tensor,
@@ -128,28 +187,20 @@ def fused_patch_embed(video: torch.Tensor, gamma: torch.Tensor,
     video: (b, c, T, H, W); gamma/beta: (c*pt*p1*p2,) in feature order
     (c, pt, p1, p2); kernel: (c*pt*p1*p2, D) (in, out); bias: (D,).
     Returns (b, t, h, w, D) in compute_dtype.  ``use_kernel=False`` takes
-    K4's plain version on any device."""
+    the plain version on any device."""
     b, c, T, H, W = video.shape
     t = T // pt
     D = kernel.shape[1]
-    n = c * pt * p1 * p2
 
     kf = kernel.float() * gamma.float()[:, None]
     csum = kf.sum(dim=0)
     dvec = beta.float() @ kernel.float() + bias.float()
-    kc = kf.reshape(c * pt, p1, p2, D).permute(3, 0, 1, 2)   # (D, cpt, p1, p2)
+    kc = kf.t().to(compute_dtype)          # (D, c·pt·p1·p2)
 
     x = video.reshape(b, c, t, pt, H, W)
     if c != 1:
         x = x.transpose(1, 2)
     x = x.reshape(b * t, c * pt, H, W).to(compute_dtype).contiguous()
 
-    mu, sq = PatchStatsFn.apply(x, p1, p2, use_kernel)
-    mu, sq = mu[..., None], sq[..., None]                      # (bt, h, w, 1)
-    y = _conv_f32(x, kc.to(compute_dtype), (p1, p2)).permute(0, 2, 3, 1)
-
-    var = torch.clamp(sq / n - mu * mu, min=0.0)
-    inv = torch.rsqrt(var + eps)
-    tokens = (y - mu * csum) * inv + dvec
-    return tokens.reshape(b, t, tokens.shape[1], tokens.shape[2], D).to(
-        compute_dtype)
+    tokens = PatchEmbedFn.apply(x, kc, csum, dvec, p1, p2, eps, use_kernel)
+    return tokens.reshape(b, t, tokens.shape[1], tokens.shape[2], D)
