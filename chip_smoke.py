@@ -98,6 +98,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -483,7 +484,6 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
     twin take the kernel chain's inputs; the weight GEMM's row carries
     torch.mm as its yardstick).  Checks first that K8 as a whole gives the
     same bits twice."""
-    from vit_exp_tpu_torch.ops import geglu_ff
     from vit_exp_tpu_torch.ops import flash_attention as fa
     from vit_exp_tpu_torch.ops.attention import l2norm
 
@@ -517,28 +517,8 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
     bwd = (q, k, v, dout, lse, delta, scale)
     del out
 
-    x = randn(m, d).to(bf)
-    mu, inv = geglu_ff.ln_stats(x, 1e-5)
-    gamma, beta = 1 + 0.1 * randn(d), 0.1 * randn(d)
-    w1 = randn(d, 2 * inner, std=d ** -0.5).to(bf)
-    w2 = randn(inner, d, std=inner ** -0.5).to(bf)
-    dout_ff = randn(m, d, std=1e-3).to(bf)
-    ff = (x, mu, inv, gamma, beta, w1, w2, dout_ff)
-    same_bits_twice(lambda: geglu_ff.geglu_ff_bwd(*ff),
-                    f"K8, both phases, over {m} tokens: dx, dW1, dW2, dgamma, "
-                    f"dbeta")
-    # each stage's row takes the kernel chain's inputs
-    y = geglu_ff.geglu_bwd_y(x, mu, inv, gamma, beta)
-    dh_, act = geglu_ff.geglu_bwd_dh(y, dout_ff, w1, w2)
-    dy = geglu_ff.geglu_bwd_dy(dh_, w1)
-    _, dgp, dbp = geglu_ff.geglu_bwd_dx(x, mu, inv, gamma, dy)
-    gemms = [(a, b, *geglu_ff.wgrad_plan(m, a.shape[1], b.shape[1]))
-             for a, b in ((y, dh_), (act, dout_ff))]
-    sums = [geglu_ff.wgrad_partials(*gm) for gm in gemms] + [dgp, dbp]
     flash_bwd = "vit_exp_tpu_torch/csrc/flash_bwd.cu"
     k5 = "vit_exp_tpu/ops/flash_attention.py:868"
-    ff_bwd = "vit_exp_tpu_torch/csrc/geglu_ff_bwd.cu"
-    k8 = "vit_exp_tpu/ops/geglu_ff.py:134"
     sdpa_bwd = sdpa_backward_timer(q, k, v, nk, nv, dout, scale)
     # the kv side of the backward: S, dP, dV, dK; the q side: S, dP, dQ
     bwd_bytes = nbytes(q, k, v, dout, lse, delta)
@@ -559,6 +539,42 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
              lambda: fa.attention_bwd_dq(*bwd),
              lambda: fa.attention_bwd_plain(*bwd)[0], "dQ",
              attention_ops(q, n, products=3), bwd_bytes, sdpa_bwd),
+    ] + k8_cases(device, d, inner, m, g)
+
+
+def k8_cases(device, d, inner, m, g, tag=""):
+    """K8's six kernels at width d, 2I = 2·inner and m tokens, one row each
+    (each row's kernel and twin take the kernel chain's inputs; the weight
+    GEMM's row carries torch.mm as its yardstick; ``tag`` ends each row's
+    name).  Checks first that K8 as a whole gives the same bits twice."""
+    from vit_exp_tpu_torch.ops import geglu_ff
+
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=device) * std
+
+    x = randn(m, d).to(bf)
+    mu, inv = geglu_ff.ln_stats(x, 1e-5)
+    gamma, beta = 1 + 0.1 * randn(d), 0.1 * randn(d)
+    w1 = randn(d, 2 * inner, std=d ** -0.5).to(bf)
+    w2 = randn(inner, d, std=inner ** -0.5).to(bf)
+    dout_ff = randn(m, d, std=1e-3).to(bf)
+    ff = (x, mu, inv, gamma, beta, w1, w2, dout_ff)
+    same_bits_twice(lambda: geglu_ff.geglu_ff_bwd(*ff),
+                    f"K8, both phases, over {m} tokens at D {d}, 2I "
+                    f"{2 * inner}: dx, dW1, dW2, dgamma, dbeta")
+    # each stage's row takes the kernel chain's inputs
+    y = geglu_ff.geglu_bwd_y(x, mu, inv, gamma, beta)
+    dh_, act = geglu_ff.geglu_bwd_dh(y, dout_ff, w1, w2)
+    dy = geglu_ff.geglu_bwd_dy(dh_, w1)
+    _, dgp, dbp = geglu_ff.geglu_bwd_dx(x, mu, inv, gamma, dy)
+    gemms = [(a, b, *geglu_ff.wgrad_plan(m, a.shape[1], b.shape[1]))
+             for a, b in ((y, dh_), (act, dout_ff))]
+    sums = [geglu_ff.wgrad_partials(*gm) for gm in gemms] + [dgp, dbp]
+    ff_bwd = "vit_exp_tpu_torch/csrc/geglu_ff_bwd.cu"
+    k8 = "vit_exp_tpu/ops/geglu_ff.py:134"
+    cases = [
         Case("K8 GEGLU backward, token phase: y = bf16(x̂·γ + β)", "cuda",
              ff_bwd, k8, lambda: geglu_ff.geglu_bwd_y(x, mu, inv, gamma, beta),
              lambda: geglu_ff.geglu_bwd_y_plain(x, mu, inv, gamma, beta),
@@ -590,6 +606,22 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
              lambda: tuple(geglu_ff.sum_rows_plain(t) for t in sums),
              "K8sum", {}, nbytes(*sums)),
     ]
+    for case in cases:
+        case.name += tag
+    return cases
+
+
+def planted_kernel_cases(device, seed=8):
+    """K8's six kernels at the planted path's shape (PLANTED_ARCH at batch
+    PLANTED_BATCH: 55,296 tokens, D 384, 2I 2,048)."""
+    d = PLANTED_ARCH["dim"]
+    m = PLANTED_BATCH * (PLANTED_ARCH["temporal_size"]
+                         // PLANTED_ARCH["temporal_patch_size"]
+                         * (PLANTED_ARCH["image_size"]
+                            // PLANTED_ARCH["patch_size"]) ** 2)
+    g = torch.Generator(device=device).manual_seed(seed)
+    return k8_cases(device, d, int(4.0 * 2 / 3 * d), m, g,
+                    tag=f" (D {d}, the planted path)")
 
 
 def mm_timer(pairs):
@@ -1480,6 +1512,187 @@ def run_train_phase(device, folder: Path, overrides=None, synthetic=8,
                 launches=launches), tt
 
 
+# the planted learning path: scripts/train_convergence_torch.py's mid arch
+# (dim 384, 4 blocks, patch 10 over 120³ voxels: 1,728 tokens), its text
+# tower and batch, at its lr, wd and clip, with the classification hook
+PLANTED_ARCH = dict(arch_name="ctvit_3d", dim=384, image_size=120,
+                    patch_size=10, temporal_size=120, temporal_patch_size=10,
+                    transformer_blocks=4, dim_head=32, heads=8)
+PLANTED_TEXT = dict(num_hidden_layers=4, hidden_size=384,
+                    num_attention_heads=6, intermediate_size=1536)
+PLANTED_BATCH, PLANTED_STEPS, PLANTED_EVAL_EVERY = 32, 20, 10
+PLANTED_COUNT_STEP = 15   # a step whose launches are counted
+PLANTED_HOOK = "zero_shot_cls_planted"
+PLANTED_SCORE_N = 16      # volumes the recipe's scoring engine is held on
+
+
+def planted_config(folder: Path) -> str:
+    """A planted run_train config in ``folder``: PLANTED_STEPS steps of
+    single-epoch planted data (one batch more, which the loader has made
+    before the profiled step after the run), the hook every
+    PLANTED_EVAL_EVERY steps, one loader worker per core.  Returns the
+    written YAML's path."""
+    cfg = {"random_seed": 0, "results_folder": str(folder / "planted"),
+           "trainer": {"lr": 1e-4, "wd": 0.01, "max_grad_norm": 1.0,
+                       "num_train_steps": PLANTED_STEPS,
+                       "save_model_every": 0,
+                       "eval_model_every": PLANTED_EVAL_EVERY,
+                       "balance_loss_weight": [1.0]},
+           "arch": PLANTED_ARCH, "text_encoder": PLANTED_TEXT,
+           "train_data_list": [{"name": "planted", "type": "imagereport",
+                                "planted": True,
+                                "n": (PLANTED_STEPS + 1) * PLANTED_BATCH,
+                                "batch_size": PLANTED_BATCH,
+                                "num_workers": os.cpu_count() or 1}],
+           "valid_test_list": [PLANTED_HOOK]}
+    path = folder / "planted.yaml"
+    path.write_text(json.dumps(cfg))   # JSON is YAML
+    return str(path)
+
+
+@contextlib.contextmanager
+def watch_hooks():
+    """While open, each zero-shot hook that build_eval_hooks makes runs with
+    every launch count set to 0 just before it and read just after; yields
+    the list of (host seconds, counts, result) of its calls."""
+    from vit_exp_tpu_torch.eval import hooks
+
+    runs, make = [], hooks.make_zero_shot_cls_hook
+
+    def counted(*args, **kwargs):
+        hook = make(*args, **kwargs)
+
+        def run(model):
+            t0 = time.perf_counter()
+            res, counts = count_launches(lambda: hook(model))
+            runs.append((time.perf_counter() - t0, counts, res))
+            return res
+        return run
+
+    hooks.make_zero_shot_cls_hook = counted
+    try:
+        yield runs
+    finally:
+        hooks.make_zero_shot_cls_hook = make
+
+
+def planted_phase(device, folder: Path, skip=3):
+    """``run_train.main`` on planted data with the classification hook
+    (planted_config): checks the eval lines of metrics.jsonl; counts the
+    launches of step PLANTED_COUNT_STEP and of each hook call; then the
+    recipe's scoring engine (attn_impl="pallas_static", fuse_qkv=True: K1
+    and K3) on the trained weights over PLANTED_SCORE_N held-out volumes,
+    held against the all-plain engine, its launches counted in one
+    predict_batch of 4 volumes.  Returns the numbers (``planted_launches``
+    checks the counts)."""
+    from vit_exp_tpu_torch.cli import run_train
+    from vit_exp_tpu_torch.data.planted import (PLANTED_ATTRS,
+                                                PlantedInferenceDataset)
+    from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
+    from vit_exp_tpu_torch.eval.zero_shot import ZeroShotClassifier
+    from vit_exp_tpu_torch.models.factory import bert_config_for, build_ctclip
+
+    with watch_steps(PLANTED_COUNT_STEP) as (marks, launches), \
+            watch_hooks() as hook_runs:
+        tr = run_train.main(["--config", planted_config(folder), "--debug"],
+                            device=device)
+    check(tr.status == "completed" and tr.step == PLANTED_STEPS,
+          (tr.status, tr.step))
+    lines = read_metrics(folder / "planted")
+    prefix = f"eval/{PLANTED_HOOK}/"
+    eval_keys = ({f"{prefix}{a}_auc" for a in PLANTED_ATTRS}
+                 | {f"{prefix}mean_auc", f"{prefix}volumes_per_sec"})
+    order = [(d["step"], any(k.startswith(prefix) for k in d)) for d in lines]
+    want = [(i, False) for i in range(1, PLANTED_STEPS + 1)]
+    for i in range(PLANTED_EVAL_EVERY, PLANTED_STEPS + 1, PLANTED_EVAL_EVERY):
+        want.insert(want.index((i, False)) + 1, (i, True))
+    evals = [d for d in lines if any(k.startswith(prefix) for k in d)]
+    check(order == want, ("metrics.jsonl order", order))
+    check(all(set(d) - {"_time", "step"} == eval_keys
+              and all(math.isfinite(d[k]) for k in eval_keys) for d in evals),
+          evals)
+    for sec, counts, res in hook_runs:
+        print(f"hook {PLANTED_HOOK}: {sec:.3f} s, result {res}", flush=True)
+    check(len(hook_runs) == PLANTED_STEPS // PLANTED_EVAL_EVERY, hook_runs)
+    window = marks[skip:]
+    (_, t_a, w_a, b_a), (_, t_b, w_b, b_b) = window[0], window[-1]
+    out = dict(launches=launches, hook_launches=[r[1] for r in hook_runs],
+               evals=evals, hook_s=[r[0] for r in hook_runs],
+               window=(skip + 1, PLANTED_STEPS - 1),
+               sps=(len(window) - 1) / (t_b - t_a),
+               wait_s=(w_b - w_a) / (b_b - b_a),
+               losses=[d["ds0_cl_loss"] for d in lines
+                       if "ds0_cl_loss" in d])
+    check(all(math.isfinite(x) for x in out["losses"]), out["losses"])
+
+    if device.type == "cuda":   # the CPU rehearsal has no device trace
+        out["wall_ms"], out["busy_ms"] = profile_call(
+            lambda: [float(v) for v in tr.train_step().values()],
+            OUT_DIR / "profile_planted.txt", "one planted run_train step")
+
+    # the recipe's scoring engine on the trained weights, against plain
+    state, config = tr.model.state_dict(), tr.config
+    tokenizer = load_tokenizer()
+    bert = bert_config_for(config, tokenizer)
+    del tr
+    release(device)
+    engines = []
+    for use_kernels in (True, False):
+        model = build_ctclip(config, bert, device=device,
+                             use_kernels=use_kernels,
+                             attn_impl="pallas_static", fuse_qkv=True)
+        model.load_state_dict(state)
+        engines.append(ZeroShotClassifier(
+            model, tokenizer, pathologies=list(PLANTED_ATTRS),
+            max_text_len=64, batch_size=4))
+    ds = PlantedInferenceDataset(PLANTED_SCORE_N, arch=config.arch, seed=1)
+    vols = np.stack([ds[i]["image"] for i in range(PLANTED_SCORE_N)])
+    engines[0].prepare()
+    _, out["score_launches"] = count_launches(
+        lambda: engines[0].predict_batch(vols[:4]))
+    probs = [np.concatenate([e.predict_batch(vols[i:i + 4])
+                             for i in range(0, PLANTED_SCORE_N, 4)])
+             for e in engines]
+    dprob = float(np.abs(probs[0] - probs[1]).max())
+    res = engines[0].infer(ds, num_workers=os.cpu_count() or 1)
+    print(f"recipe's scoring engine (K1, K3 at D {PLANTED_ARCH['dim']}) on "
+          f"{PLANTED_SCORE_N} planted volumes after {PLANTED_STEPS} steps: "
+          f"max |prob(kernels) - prob(plain)| = {dprob:.3e} (tolerance "
+          f"{PROB_TOL}); infer {res} (printed, not bounded)", flush=True)
+    check(probs[0].shape == (PLANTED_SCORE_N, len(PLANTED_ATTRS))
+          and bool(np.isfinite(probs[0]).all()) and dprob <= PROB_TOL, dprob)
+    out.update(score_dprob=dprob, score=res)
+    del engines
+    release(device)
+    return out
+
+
+def planted_launches(pl: dict) -> None:
+    """Check planted_phase's counts: the train step runs K15 with lse, the
+    backward pair, K2, K8 at D 384 and the patch embedding once a block (K8's
+    weight GEMM twice and its sums four times); each hook call, 10 volumes
+    at batch 2 (JAX's limit and batch size), runs the forward kernels on the
+    trainer's model (K15, K2, the patch embedding), nothing plain; the
+    recipe's scoring engine runs K1, K3, K2 and the patch embedding."""
+    blocks = PLANTED_ARCH["transformer_blocks"]
+    ff = {"K2x": blocks, "K2h": blocks, "K2o": blocks}
+    expected = {
+        "step": expected_launches({
+            "K15": blocks, "dKdV": blocks, "dQ": blocks, **ff, "K4": 1,
+            "K8y": blocks, "K8dh": blocks, "K8dy": blocks, "K8dx": blocks,
+            "K8w": 2 * blocks, "K8sum": 4 * blocks}),
+        "hook": expected_launches({"K15": 5 * blocks, "K4": 5,
+                                   **{k: 5 * blocks for k in ff}}),
+        "score": expected_launches({"K1": blocks, "K3": blocks, **ff,
+                                    "K4": 1})}
+    for what, got in (("step", [pl["launches"]]),
+                      ("hook", pl["hook_launches"]),
+                      ("score", [pl["score_launches"]])):
+        print(f"planted path, launches of each {what}: {got} (expected "
+              f"{expected[what]})", flush=True)
+        check(got and all(c == expected[what] for c in got), (what, got))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1518,7 +1731,8 @@ def main() -> int:
     for phase, make in (("serve", kernel_cases),
                         ("train", training_kernel_cases),
                         ("int8", int8_kernel_cases),
-                        ("online", online_kernel_cases)):
+                        ("online", online_kernel_cases),
+                        ("planted", planted_kernel_cases)):
         cases = make(device)
         rows[phase] = compare_kernels(cases)
         del cases
@@ -1647,6 +1861,16 @@ def main() -> int:
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     rt_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # run_train on planted data with the classification hook, then the
+    # recipe's scoring engine; K8's D-384 rows take their launches from it
+    folder = Path(tempfile.mkdtemp(prefix="chip_smoke_planted_"))
+    try:
+        pl = planted_phase(device, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    planted_launches(pl)
+    launches["planted"] = pl["launches"]
     print(f"run_train: losses {rt['losses']}; ckpt_2 {rt['ckpt_gb']:.3f} GB; "
           f"resumed at step 2 bit for bit; throughput run step_time_s "
           f"{[round(t, 4) for t in rt['times']]} s; loader wait in steps "
@@ -1654,7 +1878,7 @@ def main() -> int:
           f"{[round(w, 4) for w in rt['waits']]} s", flush=True)
 
     kernels = []
-    for phase in ("serve", "train", "int8", "online"):
+    for phase in ("serve", "train", "int8", "online", "planted"):
         for row in rows[phase]:
             row["launches"] = launches[phase][row.pop("counter")]
             kernels.append(row)
@@ -1682,6 +1906,20 @@ def main() -> int:
           f"{1 - busy_ms / wall_ms:.3f}; one batch collated on one thread "
           f"{rt['collate_s']:.3f} s; peak device memory {rt_peak_gb:.3f} GB "
           f"on {card}")
+    last = pl["evals"][-1]
+    print(f"run_train on planted data (dim {PLANTED_ARCH['dim']}, batch "
+          f"{PLANTED_BATCH}, attn_impl=pallas, the hook every "
+          f"{PLANTED_EVAL_EVERY} steps): {pl['sps']:.3f} steps/s and loader "
+          f"wait {pl['wait_s']:.3f} s per batch over steps "
+          f"{pl['window'][0]}-{pl['window'][1]}; one profiled step: wall "
+          f"{pl['wall_ms']:.3f} ms, device busy {pl['busy_ms']:.3f} ms, idle "
+          f"share {1 - pl['busy_ms'] / pl['wall_ms']:.3f}; hook {PLANTED_HOOK} "
+          f"{[round(t, 3) for t in pl['hook_s']]} s a call, "
+          f"{last[f'eval/{PLANTED_HOOK}/volumes_per_sec']:.3f} volumes/s; "
+          f"mean AUROC at step {PLANTED_STEPS} "
+          f"{last[f'eval/{PLANTED_HOOK}/mean_auc']:.4f} (printed, not "
+          f"bounded); the recipe's scoring engine within "
+          f"{pl['score_dprob']:.3e} of plain on {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

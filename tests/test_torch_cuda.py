@@ -182,11 +182,14 @@ def _pe_case(dev, bt, cpt, h, w, p1, p2, d, seed=3):
 
 
 # (bt, cpt, H, W, p1, p2, D): p2 20 at W 480 (the production patch row,
-# 24 tokens) with token counts that do not fill the last 96-token tile, and
-# small even p2 (k steps 16, 48 and 80 deep)
+# 24 tokens) with token counts that do not fill the last 96-token tile,
+# small even p2 (k steps 16, 48 and 80 deep), and the planted arch's patch
+# 10 over 120 at D 384, whose CPT·p1 = 100 patch rows end in a part-filled
+# k step of R = 8 (as does 1 × 4 rows at p2 6)
 PE_SHAPES = [(1, 10, 40, 480, 20, 20, 768), (3, 10, 60, 480, 20, 20, 128),
              (2, 4, 48, 48, 8, 6, 384), (3, 2, 24, 64, 4, 8, 128),
-             (2, 4, 40, 80, 10, 10, 256)]
+             (2, 4, 40, 80, 10, 10, 256), (3, 10, 120, 120, 10, 10, 384),
+             (2, 1, 48, 48, 4, 6, 128)]
 
 
 @pytest.mark.parametrize("shape", PE_SHAPES)
@@ -233,7 +236,7 @@ def test_patch_embed_refuses_before_any_launch(dev):
     launch, never through the plain twin."""
     good = (2, 4, 48, 48, 8, 6, 384)
     bad = [dict(p2=5), dict(w=36, p2=6),     # odd p2; W·2 % 16 != 0
-           dict(cpt=1, p1=4, h=8),           # CPT·p1 not a multiple of R 8
+           dict(cpt=1, p1=3),                # n = CPT·p1·p2 = 18: not % 8
            dict(d=64), dict(h=44),           # D % 128; H % p1
            dict(w=776, p2=8)]                # 97 tokens per patch row
     names = ("bt", "cpt", "h", "w", "p1", "p2", "d")
@@ -464,12 +467,18 @@ K8_STAGES = (geglu_ff.geglu_bwd_y, geglu_ff.geglu_bwd_dh, geglu_ff.geglu_bwd_dy,
 
 # the edges of K8's blocking: dh/dy tiles of 128 tokens, dx blocks of 64
 # rows, weight-GEMM steps of 32 tokens (M 50, 96, 129, 300, 4113); 64
-# inner columns per dh tile and 128 × 128 weight tiles (inner 256 and 2048)
+# inner columns per dh tile and 128 × 128 weight tiles (inner 256 and 2048);
+# the widths D 384 (the mid arch's), 448 (a 64-column tail in dy's and the
+# weight GEMM's 128-column tiles, two dx chunks a lane, the second partly
+# past D) and 768 (production's)
+K8_WIDTHS = [384, 448, 768]
+
+
+@pytest.mark.parametrize("d", K8_WIDTHS)
 @pytest.mark.parametrize("inner", [256, 2048])
 @pytest.mark.parametrize("m", [50, 96, 129, 300, 4113])
-def test_k8_matches_plain(dev, m, inner):
+def test_k8_matches_plain(dev, m, inner, d):
     g = torch.Generator(device=dev).manual_seed(6)
-    d = 768
     x = _randn(g, m, d)
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
     gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
@@ -491,11 +500,12 @@ def test_k8_matches_plain(dev, m, inner):
         assert _rel(a, r) < 1e-2
 
 
+@pytest.mark.parametrize("d", K8_WIDTHS)
 @pytest.mark.parametrize("m", [129, 4113])
-def test_k8_stages_match_their_twins(dev, m):
+def test_k8_stages_match_their_twins(dev, m, d):
     """Each K8 stage against its plain twin on the kernel chain's inputs."""
     g = torch.Generator(device=dev).manual_seed(16)
-    d, inner = 768, 512
+    inner = 576
     x = _randn(g, m, d)
     mu, inv = geglu_ff.ln_stats(x, 1e-5)
     gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
@@ -522,6 +532,31 @@ def test_k8_stages_match_their_twins(dev, m):
         for a, r in zip(got, ref):
             assert a.shape == r.shape and a.dtype == r.dtype
             assert _rel(a, r) < 1e-2
+
+
+@pytest.mark.parametrize("d", [400, 32, 2112])
+def test_k8_refuses_a_width_before_any_launch(dev, d):
+    """K8 takes D a multiple of 64 up to K8_MAX_D: any other width is
+    refused by the whole kernel and by each stage before a launch."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    m, inner = 64, 256
+    x = _randn(g, m, d)
+    mu, inv = geglu_ff.ln_stats(x, 1e-5)
+    gamma, beta = torch.ones(d, device=dev), torch.zeros(d, device=dev)
+    w1 = _randn(g, d, 2 * inner, std=d ** -0.5)
+    w2 = _randn(g, inner, d, std=inner ** -0.5)
+    dh = _randn(g, m, 2 * inner)
+    dy = torch.zeros(m, d, device=dev)
+    before = [f.launches for f in K8_STAGES]
+    for call in (
+            lambda: geglu_ff.geglu_ff_bwd(x, mu, inv, gamma, beta, w1, w2, x),
+            lambda: geglu_ff.geglu_bwd_y(x, mu, inv, gamma, beta),
+            lambda: geglu_ff.geglu_bwd_dh(x, x, w1, w2),
+            lambda: geglu_ff.geglu_bwd_dy(dh, w1),
+            lambda: geglu_ff.geglu_bwd_dx(x, mu, inv, gamma, dy)):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            call()
+    assert [f.launches for f in K8_STAGES] == before
 
 
 def test_no_wrapper_returns_a_graphless_result(dev):
@@ -792,3 +827,80 @@ def test_int8_path_refuses_a_tensor_that_requires_grad(dev):
     args[2] = args[2].detach().requires_grad_()
     with pytest.raises(RuntimeError, match="requires grad"):
         fa.attention_static_int8(*args)
+
+
+def _train_loss_and_grad_norm(config, bert, batch, use_kernels):
+    """The image-report step's loss and global gradient norm at seeded
+    random weights (seed 0) on one batch, at attn_impl="pallas"."""
+    from vit_exp_tpu_torch.models.factory import build_ctclip
+    from vit_exp_tpu_torch.models.losses import infonce_loss
+
+    model = build_ctclip(config, bert, device="cuda", use_kernels=use_kernels,
+                         attn_impl="pallas", seed=0).train()
+    out = model(*batch)
+    b = out["text_latents"].shape[0]
+    loss = infonce_loss(out["text_latents"], out["image_latents"],
+                        out["temperature"], local_batch_size=b)
+    loss.backward()
+    norm = torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(p.grad.float()) for p in model.parameters()
+        if p.grad is not None]))
+    return float(loss.detach()), float(norm)
+
+
+def test_dim384_train_step_matches_plain(dev):
+    """F3: one contrastive train step at dim 384 and the token count of
+    configs/ct_clip_vit_v3_flat_dim384.yaml (its batch of 2 × 13,824
+    tokens), through the kernels (K8 at D 384 among them) against
+    use_kernels=False from the same state on the same batch: loss within
+    1e-2 and global gradient norm within 5% (chip_smoke.LOSS_RTOL,
+    GRAD_NORM_RTOL)."""
+    from pathlib import Path
+
+    from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.models.bert import BertConfig
+
+    config = load_config(str(Path(__file__).resolve().parents[1] / "configs"
+                             / "ct_clip_vit_v3_flat_dim384.yaml"))
+    a, b = config.arch, config.train_data_list[0]["batch_size"]
+    assert a.dim == 384 and a.num_tokens == 13824 and b == 2
+    bert = BertConfig(num_hidden_layers=2)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = (torch.rand((b, 1, a.temporal_size, a.image_size, a.image_size),
+                        generator=g, device=dev),
+             torch.randint(0, bert.vocab_size, (b, 64), generator=g,
+                           device=dev))
+    before = [f.launches for f in K8_STAGES]
+    loss_k, norm_k = _train_loss_and_grad_norm(config, bert, batch, True)
+    assert [f.launches - n for f, n in zip(K8_STAGES, before)] == [
+        a.transformer_blocks, a.transformer_blocks, a.transformer_blocks,
+        a.transformer_blocks, 2 * a.transformer_blocks,
+        4 * a.transformer_blocks]
+    loss_p, norm_p = _train_loss_and_grad_norm(config, bert, batch, False)
+    assert math.isfinite(loss_k) and math.isfinite(norm_k)
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    assert abs(norm_k - norm_p) <= 0.05 * norm_p
+
+
+@pytest.mark.parametrize("name", ["ct_clip_debug_synthetic.yaml",
+                                  "ct_clip_dcl_synthetic.yaml"])
+def test_build_ctclip_refuses_the_tiny_configs_before_any_weight(dev, name):
+    """The two tiny --synthetic configs (dim 48, head dim 8) lie outside the
+    attention kernels' head dim 32, the GEGLU kernels' multiples of 64 and
+    the patch embedding's D % 128: build_ctclip on the card names each
+    kernel family and its constraint before it allocates a weight."""
+    from pathlib import Path
+
+    from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.models.bert import BertConfig
+    from vit_exp_tpu_torch.models.factory import build_ctclip
+
+    config = load_config(str(Path(__file__).resolve().parents[1] / "configs"
+                             / name))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(ValueError) as err:
+        build_ctclip(config, BertConfig.tiny(), device="cuda")
+    for what in ("head dim 32", "multiples of 64", "patch-embed kernel"):
+        assert what in str(err.value), what
+    assert torch.cuda.memory_allocated() == before

@@ -494,7 +494,7 @@ def test_run_train_refuses_what_is_not_ported(tmp_path):
             run_train.main(argv, device="cpu")
     hooks = Path(cfg).with_name("hooks.yaml")
     hooks.write_text(json.dumps({**json.loads(Path(cfg).read_text()),
-                                 "valid_test_list": ["zero_shot"]}))
+                                 "valid_test_list": ["seg_test"]}))
     with pytest.raises(NotImplementedError):
         run_train.main(["--config", str(hooks), "--synthetic", "2"],
                        device="cpu")

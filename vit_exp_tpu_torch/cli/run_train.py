@@ -2,7 +2,8 @@
 
 Usage, on the card:
     python -m vit_exp_tpu_torch.cli.run_train --config cfg.yaml \\
-        --synthetic N [--steps K] [--resume STEP | --auto_resume] [--debug] \\
+        [--synthetic N] [--synthetic_eval N] [--steps K] \\
+        [--resume STEP | --auto_resume] [--debug] \\
         [--vocab path/to/vocab.txt] [--attn_impl {pallas,pallas_static}] \\
         [--ff_impl pallas] [--remat]
 
@@ -14,9 +15,17 @@ K1), then ``CTClipTrainer`` with the preemption handler.  ``--debug`` keeps
 the logger off wandb.  The JAX CLI's "xla" choices are its CPU path and
 have no counterpart here.
 
-Not ported yet, and refused with NotImplementedError: the in-training eval
-and sample hooks (``valid_test_list``/``sample_test_list``), every data set
-but ``--synthetic`` (packed, CT-RATE, planted, segmentation), and the
+Data: ``--synthetic N`` gives N synthetic image-report samples per
+``train_data_list`` entry; otherwise each entry must be ``planted: true`` of
+type imagereport (``PlantedCTDataset``, ``n`` samples, default 4096).  The
+in-training eval hooks of ``valid_test_list`` run every ``eval_model_every``
+steps (``eval/hooks.py``): on a planted run over ``PlantedInferenceDataset``
+(16 volumes) scored on the four planted attributes at 64 tokens, under
+``--synthetic`` or ``--synthetic_eval N`` over ``SyntheticInferenceDataset``.
+
+Not ported yet, and refused with NotImplementedError: packed shards,
+CT-RATE files (for training and as ``valid_data``), the planted and real
+segmentation sets, the segmentation and sample hooks, and the
 multi-device flags (``--mesh`` and the multi-host flags).
 """
 
@@ -42,6 +51,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--vocab", default=None, help="HF vocab.txt path")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="use N synthetic samples per dataset")
+    parser.add_argument("--synthetic_eval", type=int, default=0,
+                        help="use N synthetic samples for the eval hooks "
+                        "while the train data comes from the config")
     parser.add_argument("--attn_impl", default="pallas",
                         choices=["pallas", "pallas_static"])
     parser.add_argument("--ff_impl", default="pallas", choices=["pallas"],
@@ -62,43 +74,86 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_datasets(config, tokenizer, synthetic: int = 0):
-    """One synthetic image-report data set of ``synthetic`` samples per
-    ``train_data_list`` entry; anything else is not ported yet."""
-    from vit_exp_tpu_torch.data.synthetic import SyntheticCTDataset
+    """With ``synthetic``, one synthetic image-report data set of that many
+    samples per ``train_data_list`` entry; otherwise one planted data set
+    per ``planted: true`` entry of type imagereport.  Anything else is not
+    ported yet."""
+    if synthetic:
+        from vit_exp_tpu_torch.data.synthetic import SyntheticCTDataset
 
-    if not synthetic:
+        return [SyntheticCTDataset(spec.get("type", "imagereport"),
+                                   n=synthetic, arch=config.arch,
+                                   tokenizer=tokenizer)
+                for spec in (config.train_data_list or [{}])]
+    from vit_exp_tpu_torch.data import planted
+
+    datasets = []
+    for spec in config.train_data_list:
+        dtype = spec.get("type", "imagereport")
+        if not spec.get("planted"):
+            raise NotImplementedError(
+                f"data set {spec.get('name', dtype)!r}: only --synthetic and "
+                f"planted data are ported yet; packed shards and CT-RATE "
+                f"files come with the real-data slice (ROADMAP M3)")
+        if dtype != "imagereport":
+            raise NotImplementedError(
+                f"planted {dtype!r} data is not ported yet (ROADMAP M4)")
+        # n defaults large enough that short runs are single-epoch
+        datasets.append(planted.PlantedCTDataset(
+            int(spec.get("n", 4096)), arch=config.arch, tokenizer=tokenizer,
+            max_text_len=64))
+    return datasets
+
+
+def build_hooks(config, args: argparse.Namespace, tokenizer):
+    """The eval hooks of ``valid_test_list`` over the run's validation set:
+    planted held-out volumes on a planted run, synthetic ones under
+    --synthetic or --synthetic_eval."""
+    from vit_exp_tpu_torch.eval.hooks import build_eval_hooks
+
+    if not (config.valid_test_list or config.sample_test_list):
+        return {}
+    cls_ds, cls_pathologies, cls_max_text_len = None, None, 512
+    if any(spec.get("planted") for spec in config.train_data_list):
+        from vit_exp_tpu_torch.data import planted
+
+        cls_ds = planted.PlantedInferenceDataset(16, arch=config.arch)
+        cls_pathologies, cls_max_text_len = list(planted.PLANTED_ATTRS), 64
+    elif args.synthetic or args.synthetic_eval:
+        from vit_exp_tpu_torch.data.synthetic import SyntheticInferenceDataset
+
+        cls_ds = SyntheticInferenceDataset(
+            args.synthetic_eval or max(args.synthetic // 2, 2),
+            arch=config.arch)
+    elif config.extra.get("valid_data"):
         raise NotImplementedError(
-            "only --synthetic data is ported yet; packed shards, CT-RATE, "
-            "planted and segmentation data sets come with a later slice")
-    return [SyntheticCTDataset(spec.get("type", "imagereport"), n=synthetic,
-                               arch=config.arch, tokenizer=tokenizer)
-            for spec in (config.train_data_list or [{}])]
+            "valid_data on CT-RATE files is not ported yet (ROADMAP M3)")
+    return build_eval_hooks(config, tokenizer, cls_dataset=cls_ds,
+                            cls_pathologies=cls_pathologies,
+                            cls_max_text_len=cls_max_text_len)
 
 
 def make_trainer(args: argparse.Namespace, device="cuda"):
-    """Config → tokenizer → model on ``device`` → data sets → trainer,
-    restored from a checkpoint when asked."""
+    """Config → tokenizer → data sets and eval hooks → model on ``device``
+    → trainer, restored from a checkpoint when asked."""
     from vit_exp_tpu_torch.core.config import load_config
     from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
     from vit_exp_tpu_torch.models.factory import bert_config_for, build_ctclip
     from vit_exp_tpu_torch.train.trainer import CTClipTrainer
 
     config = load_config(args.config)
-    if config.valid_test_list or config.sample_test_list:
-        raise NotImplementedError(
-            "in-training eval and sample hooks (valid_test_list, "
-            "sample_test_list) are not ported yet; drop them from the config")
     np.random.seed(config.random_seed)
     torch.manual_seed(config.random_seed)
 
     tokenizer = load_tokenizer(args.vocab)
     datasets = build_datasets(config, tokenizer, synthetic=args.synthetic)
+    hooks = build_hooks(config, args, tokenizer)
     model = build_ctclip(config, bert_config_for(config, tokenizer),
                          device=device, attn_impl=args.attn_impl,
                          remat=args.remat, seed=config.random_seed)
     resume = -1 if args.auto_resume else args.resume
     return CTClipTrainer(model, config, datasets=datasets, resume_step=resume,
-                         use_wandb=not args.debug)
+                         use_wandb=not args.debug, eval_hooks=hooks)
 
 
 def main(argv=None, device="cuda"):

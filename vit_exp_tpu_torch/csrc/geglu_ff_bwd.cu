@@ -1,5 +1,7 @@
 // K8: fused GEGLU feed-forward backward.  Replaces
-// vit_exp_tpu/ops/geglu_ff.py::_ff_bwd_kernel.
+// vit_exp_tpu/ops/geglu_ff.py::_ff_bwd_kernel.  The model width D is a
+// runtime argument of every stage: a multiple of 64 up to DX_MAX_D (the
+// dx row pass holds a row in registers); 2I a multiple of 16.
 //
 // With x̂ = (x − μ)·inv, y = bf16(x̂·γ + β), h = y@W1 (fp32, [val | gate]):
 //   dact = dO@W2ᵀ;  dval = dact·gelu(gate);  dgate = dact·val·gelu'(gate)
@@ -8,14 +10,14 @@
 //   dW1 = yᵀ dh,  dW2 = actᵀ dO,  dγ = Σ dy·x̂,  dβ = Σ dy,
 //   dx = inv·(dx̂ − mean(dx̂) − x̂·mean(dx̂·x̂)) with dx̂ = dy·γ.
 //
-// The TPU kernel accumulates dW1 (768 × 4096) and dW2 (2048 × 768) in
-// 19 MB of fp32 VMEM over a grid that runs in order.  A Hopper block has
-// 227 KB of shared memory, blocks run in no order, and the fp32 sums of
-// dy (tokens × 768) and dW do not fit on chip, so the work is a chain of
+// The TPU kernel accumulates dW1 (D × 2I) and dW2 (I × D) in
+// fp32 VMEM (19 MB at D 768, 2I 4096) over a grid that runs in order.  A
+// Hopper block has 227 KB of shared memory, blocks run in no order, and
+// the fp32 sums of dy (tokens × D) and dW do not fit on chip, so the work is a chain of
 // tensor-core GEMMs with fused epilogues on the mainloop of gemm_mma.cuh
 // (mma.sync m16n8k16, a cp.async ring, accumulators in registers):
-// - token phase (per token: 3·768·2048 + 768·4096 multiply-adds, 870 GFLOP
-//   at 55,296 tokens, tensor-core bound):
+// - token phase (per token: 3·D·I + D·2I multiply-adds, 870 GFLOP at
+//   55,296 tokens, D 768, 2I 4096, tensor-core bound):
 //   geglu_bwd_y_kernel: y = bf16(x̂·γ + β) once (the weight phase needs it
 //     too).  Bytes bound.
 //   geglu_bwd_dh_kernel: per tile of 128 tokens × 64 inner columns c,
@@ -26,10 +28,13 @@
 //     staged weight tile serves the block's 128 tokens; the grid runs the
 //     column tiles of one token tile together, so y and dO come from
 //     device memory once and W1, W2 (9.4 MB) stay in L2.
-//   geglu_bwd_dy_kernel: dy = dh·W1ᵀ (K = 2I, N = 768) in 128 × 128 tiles,
-//     two blocks per SM, written in fp32.
-//   geglu_bwd_dx_kernel: a row pass, one warp per row: the LayerNorm row
-//     sums, dx, and per-block partial sums of dγ and dβ over 64 rows.
+//   geglu_bwd_dy_kernel: dy = dh·W1ᵀ (K = 2I, N = D) in 128 × 128 tiles
+//     (the last one masked where D % 128 == 64), two blocks per SM,
+//     written in fp32.
+//   geglu_bwd_dx_kernel<CH>: a row pass, one warp per row, CH 8-column
+//     chunks a lane (CH = ceil(D / 256), one instance each up to
+//     DX_MAX_D / 256): the LayerNorm row sums, dx, and per-block partial
+//     sums of dγ and dβ over 64 rows.
 // - weight phase (522 GFLOP): wgrad_kernel, dW = Aᵀ B over tokens (A and
 //   B token-major, read k-major by ldmatrix.trans) in 128 × 128 tiles,
 //   split into token segments (the plan is ops/geglu_ff.py::wgrad_plan);
@@ -42,17 +47,19 @@
 // blocks per SM; 192-token dh tiles spilled at the 168-register cap of 12
 // warps.
 // No atomics: two launches on the same inputs give the same bits.  The
-// intermediates (y, dh, act: 0.68 GB at 55,296 tokens, and dy in fp32,
-// 0.17 GB) pass through device memory: ≈ 0.5 ms of the 3.35 TB/s.
+// intermediates (y, dh, act: 0.68 GB at 55,296 tokens and D 768, and dy
+// in fp32, 0.17 GB) pass through device memory: ≈ 0.5 ms of the 3.35 TB/s.
 #include "gemm_mma.cuh"
 
 using namespace vit;
 
 namespace {
 
-constexpr int D = 768;          // model width
 constexpr int DX_ROWS = 64;     // rows of a dx block (one dγ/dβ partial)
 constexpr int SEG_STEP = 32;    // weight-GEMM segments are multiples of it
+constexpr int D_STEP = 64;      // D is a multiple of it
+constexpr int DX_MAX_CH = 8;    // 8-column chunks a lane holds in dx
+constexpr int DX_MAX_D = 256 * DX_MAX_CH;
 
 // dh: 128 tokens × 64 inner columns; dact = dO · W2ᵀ (W2 is (I, D):
 // index-major B), then h = y · W1 (k-major B, two B operands: the val and
@@ -86,10 +93,11 @@ geglu_bwd_y_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
                    const float* __restrict__ inv,
                    const float* __restrict__ gamma,
                    const float* __restrict__ beta, bf16* __restrict__ y,
-                   int M) {
+                   int M, int D) {
+    const int per_row = D / 8;
     const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
-    if (e >= (long long)M * (D / 8)) return;
-    const int r = (int)(e / (D / 8)), c = (int)(e % (D / 8)) * 8;
+    if (e >= (long long)M * per_row) return;
+    const int r = (int)(e / per_row), c = (int)(e % per_row) * 8;
     const uint4 xv = *reinterpret_cast<const uint4*>(x + (size_t)r * D + c);
     const bf16* xs = reinterpret_cast<const bf16*>(&xv);
     const float m = mu[r], iv = inv[r];
@@ -111,7 +119,7 @@ __global__ void __launch_bounds__(DactCfg::THREADS, DH_BLOCKS)
 geglu_bwd_dh_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
                     const bf16* __restrict__ w1, const bf16* __restrict__ w2,
                     bf16* __restrict__ dh, bf16* __restrict__ act, int M,
-                    int inner) {
+                    int D, int inner) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
     bf16* smem = reinterpret_cast<bf16*>(smem_raw);
     const int n0 = blockIdx.x * DH_COLS, m0 = blockIdx.y * DH_TOKENS;
@@ -162,10 +170,10 @@ geglu_bwd_dh_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
             }
 }
 
-// dy = dh · W1ᵀ in fp32; grid (768 / DY_COLS, tokens / DY_TOKENS)
+// dy = dh · W1ᵀ in fp32; grid (D / DY_COLS, tokens / DY_TOKENS), rounded up
 __global__ void __launch_bounds__(DyCfg::THREADS, DY_BLOCKS)
 geglu_bwd_dy_kernel(const bf16* __restrict__ dh, const bf16* __restrict__ w1,
-                    float* __restrict__ dy, int M, int I2) {
+                    float* __restrict__ dy, int M, int D, int I2) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
     const int n0 = blockIdx.x * DY_COLS, m0 = blockIdx.y * DY_TOKENS;
     float acc[1][DyCfg::MT][DyCfg::NT][4];
@@ -185,23 +193,25 @@ geglu_bwd_dy_kernel(const bf16* __restrict__ dh, const bf16* __restrict__ w1,
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 const int row = m0 + acc_row<DyCfg>(mt, 2 * half);
-                if (row >= M) continue;
-                *reinterpret_cast<float2*>(
-                    dy + (size_t)row * D + n0 + acc_col<DyCfg>(nt, 0)) =
+                const int col = n0 + acc_col<DyCfg>(nt, 0);
+                if (row >= M || col >= D) continue;   // D % 8 == 0
+                *reinterpret_cast<float2*>(dy + (size_t)row * D + col) =
                     make_float2(acc[0][mt][nt][2 * half],
                                 acc[0][mt][nt][2 * half + 1]);
             }
 }
 
 // dx and the dγ/dβ partials of 64 rows; one warp per row, lane l holds
-// columns 8(l + 32i) .. + 7, i < 3
+// columns 8(l + 32i) .. + 7 for i < CH where they lie below D (CH =
+// ceil(D / 256); a chunk past D holds zeros and adds nothing to the sums)
+template <int CH>
 __global__ void __launch_bounds__(256)
 geglu_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
                     const float* __restrict__ inv,
                     const float* __restrict__ gamma,
                     const float* __restrict__ dy, bf16* __restrict__ dx,
-                    float* __restrict__ dgp, float* __restrict__ dbp, int M) {
-    constexpr int CH = D / 256;   // 8-column chunks per lane
+                    float* __restrict__ dgp, float* __restrict__ dbp, int M,
+                    int D) {
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int r0 = blockIdx.x * DX_ROWS, r_end = min(M, r0 + DX_ROWS);
     for (int r = r0 + warp; r < r_end; r += 8) {
@@ -211,6 +221,11 @@ geglu_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
 #pragma unroll
         for (int i = 0; i < CH; ++i) {
             const int c = 8 * (lane + 32 * i);
+            if (c >= D) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j) xn[i][j] = dxn[i][j] = 0.f;
+                continue;
+            }
             const uint4 xv = *reinterpret_cast<const uint4*>(x + (size_t)r * D + c);
             const bf16* xs = reinterpret_cast<const bf16*>(&xv);
             const float4* dyr = reinterpret_cast<const float4*>(dy + (size_t)r * D + c);
@@ -235,6 +250,7 @@ geglu_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
         s2 /= D;
 #pragma unroll
         for (int i = 0; i < CH; ++i) {
+            if (8 * (lane + 32 * i) >= D) continue;
             uint4 out;
             uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
@@ -307,23 +323,39 @@ __global__ void sum_rows_kernel(const float* __restrict__ part,
 
 }  // namespace
 
+namespace {
+
+bool width_ok(int D) { return D >= D_STEP && D % D_STEP == 0; }
+
+template <int CH>
+void launch_dx(const void* x, const void* mu, const void* inv,
+               const void* gamma, const void* dy, void* dx, void* dgp,
+               void* dbp, int M, int D, cudaStream_t stream) {
+    geglu_bwd_dx_kernel<CH><<<(M + DX_ROWS - 1) / DX_ROWS, 256, 0, stream>>>(
+        (const bf16*)x, (const float*)mu, (const float*)inv,
+        (const float*)gamma, (const float*)dy, (bf16*)dx, (float*)dgp,
+        (float*)dbp, M, D);
+}
+
+}  // namespace
+
 VIT_API int vit_geglu_bwd_y(const void* x, const void* mu, const void* inv,
                             const void* gamma, const void* beta, void* y,
-                            int M, int Dm, void* stream) {
-    if (Dm != D || M < 1) return (int)cudaErrorInvalidValue;
+                            int M, int D, void* stream) {
+    if (!width_ok(D) || M < 1) return (int)cudaErrorInvalidValue;
     const long long chunks = (long long)M * (D / 8);
     geglu_bwd_y_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0,
                          (cudaStream_t)stream>>>(
         (const bf16*)x, (const float*)mu, (const float*)inv,
-        (const float*)gamma, (const float*)beta, (bf16*)y, M);
+        (const float*)gamma, (const float*)beta, (bf16*)y, M, D);
     return (int)cudaGetLastError();
 }
 
 VIT_API int vit_geglu_bwd_dh(const void* y, const void* dout, const void* w1,
                              const void* w2, void* dh, void* act, int M,
-                             int Dm, int I2, void* stream) {
+                             int D, int I2, void* stream) {
     const int inner = I2 / 2;
-    if (Dm != D || M < 1 || inner < 8 || inner % 8 || I2 % 2)
+    if (!width_ok(D) || M < 1 || inner < 8 || inner % 8 || I2 % 2)
         return (int)cudaErrorInvalidValue;
     cudaError_t e = allow_smem(geglu_bwd_dh_kernel, DH_SMEM);
     if (e != cudaSuccess) return (int)e;
@@ -331,32 +363,41 @@ VIT_API int vit_geglu_bwd_dh(const void* y, const void* dout, const void* w1,
     geglu_bwd_dh_kernel<<<grid, DactCfg::THREADS, DH_SMEM,
                           (cudaStream_t)stream>>>(
         (const bf16*)y, (const bf16*)dout, (const bf16*)w1, (const bf16*)w2,
-        (bf16*)dh, (bf16*)act, M, inner);
+        (bf16*)dh, (bf16*)act, M, D, inner);
     return (int)cudaGetLastError();
 }
 
 VIT_API int vit_geglu_bwd_dy(const void* dh, const void* w1, void* dy, int M,
-                             int Dm, int I2, void* stream) {
-    if (Dm != D || M < 1 || I2 < 8 || I2 % 8) return (int)cudaErrorInvalidValue;
+                             int D, int I2, void* stream) {
+    if (!width_ok(D) || M < 1 || I2 < 8 || I2 % 8)
+        return (int)cudaErrorInvalidValue;
     cudaError_t e = allow_smem(geglu_bwd_dy_kernel, DyCfg::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((D + DY_COLS - 1) / DY_COLS, (M + DY_TOKENS - 1) / DY_TOKENS);
     geglu_bwd_dy_kernel<<<grid, DyCfg::THREADS, DyCfg::SMEM_BYTES,
                           (cudaStream_t)stream>>>(
-        (const bf16*)dh, (const bf16*)w1, (float*)dy, M, I2);
+        (const bf16*)dh, (const bf16*)w1, (float*)dy, M, D, I2);
     return (int)cudaGetLastError();
 }
 
 VIT_API int vit_geglu_bwd_dx(const void* x, const void* mu, const void* inv,
                              const void* gamma, const void* dy, void* dx,
-                             void* dgp, void* dbp, int M, int Dm,
+                             void* dgp, void* dbp, int M, int D,
                              void* stream) {
-    if (Dm != D || M < 1) return (int)cudaErrorInvalidValue;
-    geglu_bwd_dx_kernel<<<(M + DX_ROWS - 1) / DX_ROWS, 256, 0,
-                          (cudaStream_t)stream>>>(
-        (const bf16*)x, (const float*)mu, (const float*)inv,
-        (const float*)gamma, (const float*)dy, (bf16*)dx, (float*)dgp,
-        (float*)dbp, M);
+    if (!width_ok(D) || D > DX_MAX_D || M < 1)
+        return (int)cudaErrorInvalidValue;
+    auto s = (cudaStream_t)stream;
+    switch ((D + 255) / 256) {   // 8-column chunks a lane
+        case 1: launch_dx<1>(x, mu, inv, gamma, dy, dx, dgp, dbp, M, D, s); break;
+        case 2: launch_dx<2>(x, mu, inv, gamma, dy, dx, dgp, dbp, M, D, s); break;
+        case 3: launch_dx<3>(x, mu, inv, gamma, dy, dx, dgp, dbp, M, D, s); break;
+        case 4: launch_dx<4>(x, mu, inv, gamma, dy, dx, dgp, dbp, M, D, s); break;
+        case 5: launch_dx<5>(x, mu, inv, gamma, dy, dx, dgp, dbp, M, D, s); break;
+        case 6: launch_dx<6>(x, mu, inv, gamma, dy, dx, dgp, dbp, M, D, s); break;
+        case 7: launch_dx<7>(x, mu, inv, gamma, dy, dx, dgp, dbp, M, D, s); break;
+        default: launch_dx<8>(x, mu, inv, gamma, dy, dx, dgp, dbp, M, D, s);
+    }
+    static_assert(DX_MAX_CH == 8, "one case per instance");
     return (int)cudaGetLastError();
 }
 

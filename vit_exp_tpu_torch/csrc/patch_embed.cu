@@ -26,7 +26,9 @@
 //   column tiles of one token tile are neighbours in the grid, so the video
 //   is read from device memory about once and re-read from L2.
 // - A k step is R whole patch rows (R·p2 a multiple of 16: R 4, 80 deep at
-//   p2 20).  A token's row segment of p2 bf16 is not 16-byte aligned for odd
+//   p2 20); where CPT·p1 is not a multiple of R (100 patch rows of 8 at the
+//   planted arch's p1 = p2 = 10 and CPT 10) the last step's rows past
+//   CPT·p1 are zero-filled, as are kc's columns past n.  A token's row segment of p2 bf16 is not 16-byte aligned for odd
 //   wi, so one 16-byte copy cannot place it: a warp copies a video row in
 //   8-byte pieces (4-byte where p2 % 4 != 0), coalesced, each to its
 //   token's row of the A tile, which is then an ordinary index-major
@@ -71,7 +73,7 @@ struct PeArgs {
     float* sq;
     int CPT, H, W, p1, p2, D, n;
     int hs, ws, groups;   // groups: BT·hs rows of patches
-    int tg, R, log2R, n_steps;
+    int tg, R, log2R, n_steps, patch_rows;   // patch_rows: CPT·p1
     float nf, eps;
 };
 
@@ -137,7 +139,7 @@ patch_embed_kernel(const PeArgs a) {
             for (int row = warp; row < a_rows; row += NW) {
                 const int gi = row >> a.log2R, rho = row & (a.R - 1);
                 const int grp = g0 + gi, pr = step * a.R + rho;
-                const bool ok = grp < a.groups;
+                const bool ok = grp < a.groups && pr < a.patch_rows;
                 const int bt = grp / a.hs, hi = grp - bt * a.hs;
                 const int ch = pr / a.p1, r = pr - ch * a.p1;
                 const bf16* src =
@@ -308,8 +310,9 @@ int gcd(int u, int v) { return v ? gcd(v, u % v) : u; }
 // the dynamic shared memory of a launch on these shapes, or 0 if the kernel
 // does not take them: bf16 video rows of W % 8 == 0, an even p2 whose k step
 // is 16, 32, 48 or 80 deep (R·p2 with R = 16 / gcd(p2, 16)), at most
-// PE_TOKENS tokens per patch row, CPT·p1 a multiple of R, D a multiple of
-// 128, and at most 227 KB of shared memory
+// PE_TOKENS tokens per patch row, n = CPT·p1·p2 a multiple of 8 (kc's rows
+// of 16-byte pieces), D a multiple of 128, and at most 227 KB of shared
+// memory
 VIT_API int vit_patch_embed_check(int BT, int CPT, int H, int W, int p1,
                                   int p2, int D) {
     if (BT < 1 || CPT < 1 || p1 < 1 || H < p1 || H % p1 || p2 < 2 ||
@@ -317,7 +320,7 @@ VIT_API int vit_patch_embed_check(int BT, int CPT, int H, int W, int p1,
         return 0;
     const int ws = W / p2, R = 16 / gcd(p2, 16), ks = R * p2 / 16;
     if (ws > PE_TOKENS || (ks != 1 && ks != 2 && ks != 3 && ks != 5) ||
-        (CPT * p1) % R)
+        (CPT * p1 * p2) % 8)
         return 0;
     if (W > 32 * PE_ROW_COPIES * (p2 % 4 ? 2 : 4)) return 0;
     // the ring, then (reused) the statistics and the warps' out tiles
@@ -359,7 +362,8 @@ VIT_API int vit_patch_embed_fwd(const void* x, const void* kc,
     a.tg = PE_TOKENS / a.ws;
     a.R = R;
     a.log2R = __builtin_ctz(R);
-    a.n_steps = CPT * p1 / R;
+    a.patch_rows = CPT * p1;
+    a.n_steps = (a.patch_rows + R - 1) / R;
     a.nf = (float)a.n;
     a.eps = eps;
     if (p2 % 4) switch (R * p2 / 16) {   // p2 2, 6, 10: k steps 16, 48, 80

@@ -1,9 +1,11 @@
 """Synthetic image-report data (counterpart of vit_exp_tpu/data/synthetic.py,
-``SyntheticCTDataset`` with data_type "imagereport"): random volumes at the
+``SyntheticCTDataset`` with data_type "imagereport", and
+``SyntheticInferenceDataset``, the zero-shot eval set): random volumes at the
 exact production shapes and the batch dict layout, made in memory so
 end-to-end runs need no CT-RATE data.  Item ``index`` draws from
-``numpy.random.default_rng((seed, index))`` exactly as the JAX package does,
-so both packages see the same bytes.  The draw goes in cache-sized chunks
+``numpy.random.default_rng((seed, index))`` (the eval set's from
+``default_rng((seed, index, 7))``) exactly as the JAX package does, so both
+packages see the same bytes.  The draw goes in cache-sized chunks
 straight into float32, and ``collate_batch`` draws a batch's volumes into
 one batch array: at full width a volume is 55 M values, and the float64
 temporary and the stacking copy were half of the loader's host time."""
@@ -27,6 +29,19 @@ _SYNTH_SENTENCES = [
     "consolidation in the right lower lobe",
     "interlobular septal thickening noted",
 ]
+
+
+def _draw_uniform(rng: np.random.Generator, image: np.ndarray) -> None:
+    """Fill ``image`` (float32) with the values of rng.uniform(0, 1,
+    image.shape).astype(float32), drawn in chunks (uniform(0, 1) is
+    random(): 0 + 1·x, value for value), leaving rng where that call
+    would."""
+    flat = image.reshape(-1)
+    buf = np.empty(min(_CHUNK, flat.size))
+    for i in range(0, flat.size, buf.size):
+        chunk = buf[:min(buf.size, flat.size - i)]
+        rng.random(out=chunk)
+        flat[i:i + chunk.size] = chunk
 
 
 class SyntheticCTDataset:
@@ -64,16 +79,9 @@ class SyntheticCTDataset:
         return batch
 
     def _item(self, index: int, image: np.ndarray) -> Dict:
-        """Item ``index`` with its volume drawn into ``image`` (float32):
-        the values of rng.uniform(0, 1, shape).astype(float32), drawn in
-        chunks (uniform(0, 1) is random(): 0 + 1·x, value for value)."""
+        """Item ``index`` with its volume drawn into ``image``."""
         rng = np.random.default_rng((self.seed, index))
-        flat = image.reshape(-1)
-        buf = np.empty(min(_CHUNK, flat.size))
-        for i in range(0, flat.size, buf.size):
-            chunk = buf[:min(buf.size, flat.size - i)]
-            rng.random(out=chunk)
-            flat[i:i + chunk.size] = chunk
+        _draw_uniform(rng, image)
         text = _SYNTH_SENTENCES[index % len(_SYNTH_SENTENCES)]
         item: Dict = {"image": image, "data_type": self.data_type,
                       "text": text}
@@ -82,3 +90,32 @@ class SyntheticCTDataset:
             item["input_ids"] = toks["input_ids"][0]
             item["attention_mask"] = toks["attention_mask"][0]
         return item
+
+
+class SyntheticInferenceDataset:
+    """Synthetic zero-shot eval set: random volumes and random one-hot
+    labels."""
+
+    def __init__(self, n: int = 10, arch: ArchConfig | None = None,
+                 n_labels: int = 18, seed: int = 0):
+        self.n = n
+        self.arch = arch or ArchConfig()
+        self.n_labels = n_labels
+        self.seed = seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, index: int) -> Dict:
+        rng = np.random.default_rng((self.seed, index, 7))
+        a = self.arch
+        image = np.empty((a.channels, a.temporal_size, a.image_size,
+                          a.image_size), np.float32)
+        _draw_uniform(rng, image)
+        return {
+            "image": image,
+            "text": "synthetic report",
+            "onehot": (rng.uniform(0, 1, self.n_labels) > 0.5).astype(
+                np.float32),
+            "accession": f"synthetic_{index}.nii.gz",
+        }

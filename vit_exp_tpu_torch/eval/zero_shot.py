@@ -6,15 +6,29 @@ present."); the 36 prompt latents are embedded once; each volume is encoded
 once and scored as softmax([present, absent]) over cosine × exp(temperature).
 The tokenizer is any callable ``(prompts, max_length=...) -> {"input_ids",
 "attention_mask"}``.
+
+``infer`` scores an inference data set (items with "image", "onehot" and
+"accession") in batches of ``batch_size``: the port's threaded ``Loader``
+makes batch i + 1 while batch i computes, and batch i's probabilities are
+read one batch late (``_one_deep_map``).  The JAX engine pads its tail batch
+for XLA's static shapes; the port runs the short batch as it is (each
+volume's probabilities depend on that volume alone).  It returns
+``evaluate_internal``'s per-label AUROCs and ``volumes_per_sec``.  The model
+is scored in eval mode under ``torch.inference_mode`` and left in the mode
+it was in; scoring draws from no random stream.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from vit_exp_tpu_torch.data.loader import Loader
+from vit_exp_tpu_torch.eval.metrics import (evaluate_internal,
+                                            save_inference_artifacts)
 from vit_exp_tpu_torch.models.ctclip import CTCLIP
 
 PATHOLOGIES: List[str] = [
@@ -38,17 +52,59 @@ def build_pathology_prompts(
     return prompts
 
 
+class _Subset:
+    """First-n view of a data set."""
+
+    def __init__(self, dataset, n: int):
+        self._dataset = dataset
+        self._n = n
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, i):
+        return self._dataset[i]
+
+
+def _one_deep_map(dataset, n: int, batch_size: int,
+                  dispatch: Callable[[Dict], object], *,
+                  num_workers: int = 4) -> Iterator:
+    """dispatch(batch) over the first n items in batches (the tail batch may
+    be short), loaded on background threads; each payload is yielded one
+    batch late, after the next batch's dispatch, so the consumer's host
+    reads overlap the device's work; the last is flushed at the end."""
+    pending = None
+    for batch in Loader(_Subset(dataset, n), batch_size, shuffle=False,
+                        num_workers=num_workers, prefetch=2):
+        payload = dispatch(batch)
+        if pending is not None:
+            yield pending
+        pending = payload
+    if pending is not None:
+        yield pending
+
+
 class ZeroShotClassifier:
     """Batched zero-shot engine over one CTCLIP on one device."""
 
     def __init__(self, model: CTCLIP, tokenizer, *,
                  pathologies: Sequence[str] = PATHOLOGIES,
-                 max_text_len: int = 512):
+                 max_text_len: int = 512, batch_size: int = 4):
         self.model = model
         self.tokenizer = tokenizer
         self.pathologies = list(pathologies)
         self.max_text_len = max_text_len
+        self.batch_size = batch_size
         self.device = next(model.parameters()).device
+        self._cached_text = None
+
+    def set_params(self, model: Optional[CTCLIP] = None) -> None:
+        """Score ``model`` from now on (or, given nothing, the model the
+        engine holds, whose weights have changed in place, as a trainer's
+        do) and drop the prompt cache, which the old text tower made."""
+        if model is not None:
+            self.model = model
+            self.device = next(model.parameters()).device
         self._cached_text = None
 
     @torch.inference_mode()
@@ -78,3 +134,34 @@ class ZeroShotClassifier:
     def predict_batch(self, volumes) -> np.ndarray:
         """(B, 1, D, H, W) → (B, n_pathologies) P(present) as numpy."""
         return self.probs(volumes).cpu().numpy()
+
+    def infer(self, dataset, *, results_folder: Optional[str] = None,
+              limit: Optional[int] = None,
+              num_workers: int = 4) -> Dict[str, float]:
+        """Score the first ``limit`` items of ``dataset`` (all without it):
+        per-label AUROC, 'mean_auc' and 'volumes_per_sec' (timed before the
+        AUROC pass); with ``results_folder`` also the inference artifacts."""
+        n = min(len(dataset), limit) if limit else len(dataset)
+        was_training = self.model.training
+        self.model.eval()
+        preds, labels, accessions = [], [], []
+        try:
+            t0 = time.perf_counter()
+            for dev, onehots, accs in _one_deep_map(
+                    dataset, n, self.batch_size,
+                    lambda b: (self.probs(b["image"]), b["onehot"],
+                               b["accession"]),
+                    num_workers=num_workers):
+                preds.extend(dev.cpu().numpy())
+                labels.extend(onehots)
+                accessions.extend(accs)
+            elapsed = time.perf_counter() - t0
+        finally:
+            self.model.train(was_training)
+        y_pred, y_true = np.asarray(preds), np.asarray(labels)
+        res = evaluate_internal(y_pred, y_true, self.pathologies)
+        res["volumes_per_sec"] = n / elapsed
+        if results_folder:
+            save_inference_artifacts(results_folder, y_pred, y_true,
+                                     accessions, res)
+        return res

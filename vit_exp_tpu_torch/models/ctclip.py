@@ -6,7 +6,7 @@ differentiates.
 Bias-free latent projections; the image latent is the token mean, then the
 projection, then l2norm (the projection is linear, so this equals the
 reference's per-token projection followed by the mean); the logit scale is
-exp(temperature).
+exp(temperature).  ``forward_infer`` scores paired latents.
 """
 
 from __future__ import annotations
@@ -69,6 +69,12 @@ class CTCLIP(nn.Module):
 
     def logit_scale(self) -> torch.Tensor:
         return self.temperature.exp()
+
+    def forward_infer(self, text_latents: torch.Tensor,
+                      image_latents: torch.Tensor) -> torch.Tensor:
+        """Paired cosine score × exp(temperature), one per pair."""
+        sim = (text_latents * image_latents).sum(dim=-1)
+        return sim * self.logit_scale()
 
     def forward(self, video: torch.Tensor, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None):

@@ -10,7 +10,7 @@ package.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -31,12 +31,65 @@ def bert_config_for(config, tokenizer) -> BertConfig:
     return BertConfig(**kwargs)
 
 
+def kernel_refusals(arch, *, fuse_qkv: bool = False,
+                    int8: bool = False) -> List[str]:
+    """What the card's kernels refuse in this arch's widths, one line per
+    kernel family, named with its constraint (empty when they take it):
+    the attention kernels' head dim, the GEGLU kernels' D and 2I, K8's
+    largest D and, with ``fuse_qkv`` in bf16, K3's widths.  The patch
+    embedding asks the kernel library (``patch_embed_refusal``)."""
+    from vit_exp_tpu_torch.ops import geglu_ff
+    from vit_exp_tpu_torch.ops.flash_attention import HEAD_DIM
+
+    out = []
+    if arch.dim_head != HEAD_DIM:
+        out.append(f"the attention kernels (K1, K15, the backward pair, the "
+                   f"int8 attention) take head dim {HEAD_DIM}; got "
+                   f"{arch.dim_head}")
+    d, step = arch.dim, geglu_ff.FF_WIDTH_STEP
+    i2 = 2 * int(4.0 * (2.0 / 3.0) * d)   # GEGLUFeedForward's 2·inner
+    if d % step or i2 % step:
+        out.append(f"the GEGLU kernels (K2, K8, K11) take D and 2I "
+                   f"multiples of {step}; got D {d}, 2I {i2}")
+    elif d > geglu_ff.K8_MAX_D:
+        out.append(f"K8 takes D up to {geglu_ff.K8_MAX_D}; got D {d}")
+    f = 3 * arch.heads * arch.dim_head
+    if fuse_qkv and not int8 and (d % 32 or f % 64):
+        out.append(f"K3 takes K % 32 == 0 and F % 64 == 0; got K {d}, F {f}")
+    return out
+
+
+def patch_embed_refusal(arch) -> List[str]:
+    """The patch-embed kernel's refusal of this arch's patching, asked of
+    the kernel library (built on first use)."""
+    from vit_exp_tpu_torch.ops import _build
+
+    c, pt, p, size = (getattr(arch, "channels", 1), arch.temporal_patch_size,
+                      arch.patch_size, arch.image_size)
+    if _build.lib().vit_patch_embed_check(1, c * pt, size, size, p, p,
+                                          arch.dim):
+        return []
+    return [f"the patch-embed kernel does not take patch {p} over {size} "
+            f"pixels at D {arch.dim} (ops/patches.py::patch_embed_check "
+            f"lists its constraints, D % 128 == 0 among them)"]
+
+
 def build_image_encoder(arch, *, device="cuda",
                         policy: Policy = DEFAULT_POLICY,
                         use_kernels: bool = True,
                         attn_impl: str = "pallas_static", remat: bool = False,
                         fuse_qkv: bool = False,
                         int8: bool = False) -> CTViT3D:
+    """CTViT3D on ``device``.  With the kernels on the card, an arch whose
+    widths they refuse raises ValueError here, before any weight exists
+    (``kernel_refusals``, ``patch_embed_refusal``); on the CPU, and with
+    ``use_kernels=False``, every width builds."""
+    if use_kernels and torch.device(device).type == "cuda":
+        refusals = (kernel_refusals(arch, fuse_qkv=fuse_qkv, int8=int8)
+                    + patch_embed_refusal(arch))
+        if refusals:
+            raise ValueError("the card's kernels do not take this arch: "
+                             + "; ".join(refusals))
     return CTViT3D(
         dim=arch.dim, image_size=arch.image_size, patch_size=arch.patch_size,
         temporal_size=arch.temporal_size,
@@ -80,7 +133,9 @@ def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
     too); forward only.  The state dict is the same in every mode.
     ``config.ct_clip_arch`` (the port's ``CTClipArchConfig`` defaults when
     the config has none) goes to ``CTCLIP``; the segmentation heads are not
-    ported yet, so ``use_seg`` and ``use_open_seg`` raise here."""
+    ported yet, so ``use_seg`` and ``use_open_seg`` raise here.  With the
+    kernels on the card, widths they do not take raise here too, before
+    any weight exists (``build_image_encoder``)."""
     arch = getattr(config, "arch", config)
     clip_arch = getattr(config, "ct_clip_arch", None) or CTClipArchConfig()
     for switch in ("use_seg", "use_open_seg"):

@@ -35,7 +35,8 @@ actᵀdO as split-K GEMMs over token segments, planned by ``wgrad_plan``)
 and ``sum_rows`` (the partials summed in a fixed order, as are the dγ/dβ
 partials).  Its rounding follows the TPU backward, not the forward: y =
 bf16(x̂·γ + β), h = y@W1 in fp32 with no bf16 round, gelu'(g) = Φ(g) +
-g·φ(g), dh and act bf16, dy fp32.
+g·φ(g), dh and act bf16, dy fp32.  D is read from the operands: a multiple
+of 64 up to K8_MAX_D; 2I a multiple of 16; any M.
 ``GEGLUFeedForwardFn`` is the ``torch.autograd.Function`` that ties K2 and
 K8 together; it saves what the JAX VJP saves: x, μ, inv, γ, β, W1, W2.
 
@@ -503,7 +504,10 @@ def fused_geglu_ff_int8(x: torch.Tensor, gamma, beta, w1, w2, *,
 # dh and act, then dy, then dx with the dγ/dβ partials; weight phase: the
 # split-K partials of dW1 and dW2 and their ordered sums, and those of dγ
 # and dβ.  Each stage has its plain twin; composed, the twins are
-# geglu_ff_bwd_plain.
+# geglu_ff_bwd_plain.  The width D comes from the operands: a multiple of
+# FF_WIDTH_STEP up to K8_MAX_D (dx holds a row in registers); 2I a multiple
+# of 16.
+K8_MAX_D = 2048
 DX_ROWS = 64         # rows of a dx block: one dγ/dβ partial row each
 PLAIN_CHUNK = 4096   # token rows per fp32 product in the plain twins
 WGRAD_TILE = 128     # output tile edge of the weight GEMM
@@ -512,10 +516,35 @@ WGRAD_STEP = 32      # tokens per k step of the weight GEMM
 WGRAD_BLOCKS = 1056
 
 
-def _check_width(name, x2, D=768):
+def _check_k8_width(name, D):
+    if D < FF_WIDTH_STEP or D % FF_WIDTH_STEP or D > K8_MAX_D:
+        raise ValueError(f"{name} kernel takes a width D that is a multiple "
+                         f"of {FF_WIDTH_STEP} up to {K8_MAX_D}; got D {D}")
+
+
+def _check_width(name, x2, D):
+    """Raise unless x2 is (M ≥ 1, D) rows with D a width K8 takes."""
+    _check_k8_width(name, D)
     if x2.dim() != 2 or x2.shape[1] != D or x2.shape[0] < 1:
         raise ValueError(f"{name} kernel takes (M ≥ 1, {D}) rows, got "
                          f"{tuple(x2.shape)}")
+
+
+def _check_k8(x2, mu, inv, gamma, beta, w1, w2, dout):
+    """Raise unless K8's six kernels take these operands (D from W1)."""
+    _check_bf16("geglu_ff_bwd", x2)
+    D, I2 = w1.shape[0], w1.shape[1]
+    _check_width("geglu_ff_bwd", x2, D)
+    _check_ln_rows("geglu_ff_bwd", x2, mu, inv)
+    if (dout.shape != x2.shape or I2 % 16 or I2 < 16
+            or w2.shape != (I2 // 2, D) or gamma.numel() != D
+            or beta.numel() != D):
+        raise ValueError(f"geglu_ff_bwd kernel takes x and dO (M, D), W1 "
+                         f"(D, 2I) with 2I a multiple of 16, W2 (I, D) and D "
+                         f"γ and β; got x {tuple(x2.shape)}, dO "
+                         f"{tuple(dout.shape)}, W1 {tuple(w1.shape)}, W2 "
+                         f"{tuple(w2.shape)}, γ/β {gamma.numel()}/"
+                         f"{beta.numel()}")
 
 
 def geglu_bwd_y_plain(x2, mu, inv, gamma, beta):
@@ -531,18 +560,18 @@ def geglu_bwd_y(x2, mu, inv, gamma, beta):
         return geglu_bwd_y_plain(x2, mu, inv, gamma, beta)
     _build.require_cuda("geglu_bwd_y", x2, mu, inv, gamma, beta)
     _check_bf16("geglu_bwd_y", x2)
-    _check_width("geglu_bwd_y", x2)
+    D = gamma.numel()
+    _check_width("geglu_bwd_y", x2, D)
     M = x2.shape[0]
     x2 = x2.contiguous()
     mu, inv, gamma, beta = (t.float().contiguous() for t in (mu, inv, gamma,
                                                                beta))
-    if mu.numel() != M or inv.numel() != M or gamma.numel() != 768 \
-            or beta.numel() != 768:
-        raise ValueError("geglu_bwd_y kernel takes one μ and inv per row and "
-                         "768 γ and β")
+    if mu.numel() != M or inv.numel() != M or beta.numel() != D:
+        raise ValueError(f"geglu_bwd_y kernel takes one μ and inv per row and "
+                         f"{D} γ and β")
     y = torch.empty_like(x2)
     _build.launch("vit_geglu_bwd_y", *(t.data_ptr() for t in (
-        x2, mu, inv, gamma, beta, y)), M, 768)
+        x2, mu, inv, gamma, beta, y)), M, D)
     geglu_bwd_y.launches += 1
     return y
 
@@ -580,10 +609,10 @@ def geglu_bwd_dh(y, dout, w1, w2):
         return geglu_bwd_dh_plain(y, dout, w1, w2)
     _build.require_cuda("geglu_bwd_dh", y, dout, w1, w2)
     _check_bf16("geglu_bwd_dh", y, dout, w1, w2)
-    _check_width("geglu_bwd_dh", y)
-    M, D = y.shape
-    I2 = w1.shape[1]
-    if (dout.shape != y.shape or w1.shape[0] != D or I2 % 16 or I2 < 16
+    D, I2 = w1.shape
+    _check_width("geglu_bwd_dh", y, D)
+    M = y.shape[0]
+    if (dout.shape != y.shape or I2 % 16 or I2 < 16
             or w2.shape != (I2 // 2, D)):
         raise ValueError(f"geglu_bwd_dh kernel takes 2I a multiple of 16 and "
                          f"matching shapes; got y {tuple(y.shape)}, dout "
@@ -618,15 +647,17 @@ def geglu_bwd_dy(dh, w1):
         return geglu_bwd_dy_plain(dh, w1)
     _build.require_cuda("geglu_bwd_dy", dh, w1)
     _check_bf16("geglu_bwd_dy", dh, w1)
-    M, I2 = dh.shape
-    if w1.shape != (768, I2) or I2 % 8 or I2 < 8 or M < 1:
-        raise ValueError(f"geglu_bwd_dy kernel takes dh (M, 2I) and W1 "
-                         f"(768, 2I), 2I a multiple of 8; got dh "
+    D, I2 = w1.shape
+    _check_k8_width("geglu_bwd_dy", D)
+    M = dh.shape[0]
+    if dh.dim() != 2 or dh.shape[1] != I2 or I2 % 8 or I2 < 8 or M < 1:
+        raise ValueError(f"geglu_bwd_dy kernel takes dh (M ≥ 1, 2I) and W1 "
+                         f"(D, 2I), 2I a multiple of 8; got dh "
                          f"{tuple(dh.shape)}, W1 {tuple(w1.shape)}")
     dh, w1 = dh.contiguous(), w1.contiguous()
-    dy = torch.empty((M, 768), device=dh.device, dtype=torch.float32)
+    dy = torch.empty((M, D), device=dh.device, dtype=torch.float32)
     _build.launch("vit_geglu_bwd_dy", dh.data_ptr(), w1.data_ptr(),
-                  dy.data_ptr(), M, 768, I2)
+                  dy.data_ptr(), M, D, I2)
     geglu_bwd_dy.launches += 1
     return dy
 
@@ -660,10 +691,11 @@ def geglu_bwd_dx(x2, mu, inv, gamma, dy):
         return geglu_bwd_dx_plain(x2, mu, inv, gamma, dy)
     _build.require_cuda("geglu_bwd_dx", x2, mu, inv, gamma, dy)
     _check_bf16("geglu_bwd_dx", x2)
-    _check_width("geglu_bwd_dx", x2)
-    M, D = x2.shape
+    D = gamma.numel()
+    _check_width("geglu_bwd_dx", x2, D)
+    M = x2.shape[0]
     if (dy.dtype != torch.float32 or dy.shape != x2.shape or mu.numel() != M
-            or inv.numel() != M or gamma.numel() != D):
+            or inv.numel() != M):
         raise ValueError(f"geglu_bwd_dx kernel takes fp32 dy shaped like x "
                          f"and one μ, inv per row; got x {tuple(x2.shape)}, "
                          f"dy {tuple(dy.shape)} {dy.dtype}")
@@ -786,7 +818,10 @@ def geglu_ff_bwd_plain(x2, mu, inv, gamma, beta, w1, w2, dout):
 
 def geglu_ff_bwd(x2, mu, inv, gamma, beta, w1, w2, dout):
     """Kernel K8 (both phases, six kernels) on CUDA tensors, the plain
-    stages on CPU tensors.  Returns dx, dW1, dW2, dγ, dβ."""
+    stages on CPU tensors.  Returns dx, dW1, dW2, dγ, dβ.  On the card
+    every operand is checked before the first launch."""
+    if x2.device.type != "cpu":
+        _check_k8(x2, mu, inv, gamma, beta, w1, w2, dout)
     return _ff_bwd((geglu_bwd_y, geglu_bwd_dh, geglu_bwd_dy, geglu_bwd_dx,
                     wgrad_partials, sum_rows),
                    x2, mu, inv, gamma, beta, w1, w2, dout)

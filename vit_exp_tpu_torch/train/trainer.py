@@ -21,10 +21,18 @@ vit_exp_tpu/train/trainer.py's ``CTClipTrainer``).
   finishes the step in flight, saves and returns "preempted".
 - ``profile_dir``: ``torch.profiler`` traces the run (CPU and CUDA) into
   that directory.
+- ``eval_hooks`` ({name: hook}, from ``eval/hooks.py::build_eval_hooks``):
+  every ``eval_model_every`` steps the pending train line is written first
+  (so metrics.jsonl stays in step order), then each hook scores the live
+  model, ``hook(model) -> {key: value}``, logged as ``eval/<name>/<key>``
+  at that step.  A hook leaves the model's weights, mode and random
+  streams as it found them, so a run with hooks trains the same bits as
+  one without.
 
 Not ported: the host-memory watchdog (a guard against a leak of the JAX
 package's TPU client) and the mesh and multi-host plumbing (the
-multi-device slice brings those), and the eval and sample hooks.
+multi-device slice brings those), and the sample hooks (the segmentation
+slice brings them; ``build_eval_hooks`` refuses them).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from __future__ import annotations
 import os
 import signal
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,7 +59,9 @@ _BATCH_KEYS = ("image", "input_ids", "attention_mask")
 class CTClipTrainer:
     def __init__(self, model: torch.nn.Module, config, *,
                  datasets: Optional[List[Any]] = None,
-                 resume_step: Optional[int] = None, use_wandb: bool = True):
+                 resume_step: Optional[int] = None, use_wandb: bool = True,
+                 eval_hooks: Optional[Dict[str, Callable]] = None):
+        self.eval_hooks = dict(eval_hooks or {})
         self.model = model.train()
         self.device = next(model.parameters()).device
         self.config = config
@@ -204,6 +214,13 @@ class CTClipTrainer:
             pending = (self.step, logs)
             if tcfg.save_model_every and self.step % tcfg.save_model_every == 0:
                 self.save()
+            if (self.eval_hooks and tcfg.eval_model_every
+                    and self.step % tcfg.eval_model_every == 0):
+                flush_pending()
+                for name, hook in self.eval_hooks.items():
+                    res = hook(self.model)
+                    self.logger.log({f"eval/{name}/{k}": v
+                                     for k, v in res.items()}, step=self.step)
         flush_pending()
         self.save(wait=True)
         print("Training complete", flush=True)
