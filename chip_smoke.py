@@ -85,7 +85,39 @@
    the trainer's steps/s, one profiled step's idle share
    (chiprun_out/profile_run_train.txt), the loader's wait per batch and
    the peak device memory.
-7. Prints one JSON line with every kernel's numbers, the card line, the
+7. The segmentation paths at full width, each with the kernel rows of its
+   own shapes (K15 with lse, the pair, K2, the patch embedding and K8 at
+   batch 1; the serving kernels at one volume): the seg train step
+   (configs/ct_clip_vit_seg.yaml: a seg head of mid 1024 and out 22, so
+   88,000 features a token), the open-seg step
+   (configs/ct_clip_vit_open_seg.yaml: clip_focal_loss, down factor 4, 4
+   prompts through BERT-base) and its fusion arm
+   (configs/ct_clip_vit_open_seg_fusion_single_cls.yaml, 6 prompts for its
+   choose_cls [5]), at batch 1 and attn_impl="pallas", on a batch made on
+   the device from a seeded generator (mask = rand > 0.8).  From one
+   seeded state: the forward's outputs (the seg logits, the open-seg
+   embeddings) within REL_L2_TOL of the plain path, the loss within
+   LOSS_RTOL, the global gradient norm within GRAD_NORM_RTOL, every
+   parameter plain gives a gradient gets one from the kernels, and the
+   launch counts of one step; prints the warm step time, the peak device
+   memory, one profiled step (chiprun_out/profile_{seg,open_seg,
+   open_seg_fusion}.txt) and the head's and the loss's device time.
+8. ``run_zero_shot_seg.main`` on --synthetic 2 with the seg config at
+   random weights, at its int8 default and with --no-int8: finite
+   per-class dice and the launch counts of one call; volume 0's logits
+   against the all-plain engine of the same mode within REL_L2_TOL; warm
+   dice calls of one volume timed (volumes/s) and profiled
+   (chiprun_out/profile_seg_serving_{int8,bf16}.txt); the int8 logits'
+   relative L2 against bf16's printed, not bounded.
+9. ``run_train.main`` on configs/planted_mixed.yaml as is (dim 384, three
+   loaders, the Combined sampler, both hooks) for 12 steps, the hooks
+   every 6 in a temporary copy: finite cl_loss, seg_loss and
+   open_seg_loss lines from all three loaders at every step, the seg
+   hook's finite mean_dice and the cls hook's mean_auc at steps 6 and 12,
+   and the launches of each step type in step 9; steps/s, loader wait and
+   one profiled step (chiprun_out/profile_planted_mixed.txt).
+10. Prints one JSON line with every kernel's numbers (the rows of 7-9 once
+   for each path, with that path's launches), the card line, the
    throughput lines, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no "ok".
@@ -1667,6 +1699,18 @@ def planted_phase(device, folder: Path, skip=3):
     return out
 
 
+def train_launches(blocks: int) -> dict:
+    """The launches of one train step at attn_impl="pallas" (K15): per block
+    K15 with lse, the backward pair, K2's three kernels, K8's y, dh, dy and
+    dx, its weight GEMM twice (dW1, dW2) and its ordered sum four times
+    (dW1, dW2, dgamma, dbeta); the patch embedding once."""
+    return expected_launches({
+        "K15": blocks, "dKdV": blocks, "dQ": blocks, "K2x": blocks,
+        "K2h": blocks, "K2o": blocks, "K4": 1, "K8y": blocks,
+        "K8dh": blocks, "K8dy": blocks, "K8dx": blocks, "K8w": 2 * blocks,
+        "K8sum": 4 * blocks})
+
+
 def planted_launches(pl: dict) -> None:
     """Check planted_phase's counts: the train step runs K15 with lse, the
     backward pair, K2, K8 at D 384 and the patch embedding once a block (K8's
@@ -1677,10 +1721,7 @@ def planted_launches(pl: dict) -> None:
     blocks = PLANTED_ARCH["transformer_blocks"]
     ff = {"K2x": blocks, "K2h": blocks, "K2o": blocks}
     expected = {
-        "step": expected_launches({
-            "K15": blocks, "dKdV": blocks, "dQ": blocks, **ff, "K4": 1,
-            "K8y": blocks, "K8dh": blocks, "K8dy": blocks, "K8dx": blocks,
-            "K8w": 2 * blocks, "K8sum": 4 * blocks}),
+        "step": train_launches(blocks),
         "hook": expected_launches({"K15": 5 * blocks, "K4": 5,
                                    **{k: 5 * blocks for k in ff}}),
         "score": expected_launches({"K1": blocks, "K3": blocks, **ff,
@@ -1691,6 +1732,461 @@ def planted_launches(pl: dict) -> None:
         print(f"planted path, launches of each {what}: {got} (expected "
               f"{expected[what]})", flush=True)
         check(got and all(c == expected[what] for c in got), (what, got))
+
+
+# --- the segmentation paths ---------------------------------------------------
+
+# full width (ARCH): the closed-set seg config (seg head of mid 1024 and out
+# 22, so 22 × 4,000 = 88,000 features a token), the open-seg config
+# (clip_focal_loss γ 2 α 0.25, down factor 4, heads of mid 128 and out 16)
+# and its fusion arm (fix_text_encoder, choose_cls [5], a fusion MLP
+# 32 → 16 → 1)
+SEG_CONFIG = ROOT / "configs" / "ct_clip_vit_seg.yaml"
+OPEN_SEG_CONFIG = ROOT / "configs" / "ct_clip_vit_open_seg.yaml"
+FUSION_CONFIG = (ROOT / "configs"
+                 / "ct_clip_vit_open_seg_fusion_single_cls.yaml")
+SEG_BATCH = 1
+# class prompts BERT-base encodes: 4 on the open-seg step, 6 on the fusion
+# arm, whose choose_cls [5] names the sixth class
+OPEN_SEG_PROMPTS, FUSION_PROMPTS, PROMPT_LEN = 4, 6, 32
+SEG_SERVE_VOLUMES = 2
+# the seg logits are a per-voxel readout of bf16 tokens, and at random
+# weights they carry the path's own rounding noise: a relative
+# SEG_NOISE_EPS perturbation of the volume (below the kernels' own
+# disagreement with their twins) moves the plain int8 path's logits by
+# 1.6% and the bf16 path's by 0.7% (the card tests' small arch, on the
+# CPU), since every changed int8 code moves its value by a whole
+# quantization step.  So the int8 logits are held to their plain path
+# within SEG_NOISE_FACTOR × that path's own response to such a
+# perturbation, measured in the same run (never tighter than REL_L2_TOL);
+# the bf16 logits within REL_L2_TOL.
+SEG_NOISE_EPS, SEG_NOISE_FACTOR = 1e-4, 1.5
+# configs/planted_mixed.yaml as is (mid arch, three loaders, the Combined
+# sampler, both hooks), MIXED_STEPS steps with the hooks every
+# MIXED_EVAL_EVERY; the micro-steps of step MIXED_COUNT_STEP are counted
+MIXED_CONFIG = ROOT / "configs" / "planted_mixed.yaml"
+MIXED_STEPS, MIXED_EVAL_EVERY, MIXED_COUNT_STEP = 12, 6, 9
+MIXED_TYPES = ("imagereport", "imageseg", "imageopenseg")
+SEG_HOOK = "seg_test_planted"
+
+
+def load_seg_config(path: Path):
+    from vit_exp_tpu_torch.core.config import load_config
+
+    return load_config(str(path))
+
+
+def arch_dict(config) -> dict:
+    return {k: getattr(config.arch, k) for k in ARCH}
+
+
+def seg_batch(device, config, n_classes: int, n_prompts: int = 0,
+              vocab_size: int = 0, seed: int = 11) -> dict:
+    """A seeded batch made on the device, not through the host (at 22
+    classes the synthetic fp32 mask is 4.87 GB a volume): SEG_BATCH volumes
+    uniform in [0, 1) in bf16, a uint8 mask of n_classes channels (rand >
+    0.8, made a class at a time) and n_prompts prompts of PROMPT_LEN random
+    ids."""
+    a = config.arch
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (SEG_BATCH, 1, a.temporal_size, a.image_size, a.image_size)
+    batch = {"image": torch.rand(shape, generator=g,
+                                 device=device).to(torch.bfloat16),
+             "seg_mask": torch.cat([
+                 (torch.rand(shape, generator=g, device=device) > 0.8)
+                 .to(torch.uint8) for _ in range(n_classes)], dim=1)}
+    if n_prompts:
+        ids = torch.randint(1, vocab_size, (n_prompts, PROMPT_LEN),
+                            generator=g, device=device)
+        batch.update(prompt_ids=ids, prompt_mask=torch.ones_like(ids))
+    return batch
+
+
+def build_seg_trainer(device, config, bert_config, data_type, *,
+                      use_kernels=True, state_dict=None):
+    """(model, optimizer, step of data_type) at run_train's default
+    attention (attn_impl="pallas", K15), the trainer settings of bench.py
+    --train."""
+    from vit_exp_tpu_torch.models.factory import build_ctclip
+    from vit_exp_tpu_torch.train.optimizer import build_optimizer
+    from vit_exp_tpu_torch.train.steps import make_train_steps
+
+    model = build_ctclip(config, bert_config, device=device,
+                         use_kernels=use_kernels, attn_impl="pallas", seed=0)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    model.train()
+    opt = build_optimizer(types.SimpleNamespace(**TRAINER), model.parameters())
+    return model, opt, make_train_steps(model, opt, config)[data_type]
+
+
+def seg_outputs(model, batch, data_type) -> list:
+    """One forward of the step's model path: the seg logits, or the voxel
+    and prompt embeddings."""
+    with torch.no_grad():
+        if data_type == "imageseg":
+            return [model.seg_forward(batch["image"])]
+        out = model.open_seg_forward(batch["image"], batch["prompt_ids"],
+                                     batch["prompt_mask"])
+        return [out["seg_preds"], out["prompt_logits"]]
+
+
+def seg_parts_ms(model, config, batch, data_type) -> dict:
+    """Device ms of the step's head (its products, LeakyReLU and the
+    unpatchify; forward and backward for a seeded cotangent) and of its
+    loss (forward and backward), on one forward's tokens: the parts the
+    kernels do not run."""
+    from vit_exp_tpu_torch.models.losses import open_seg_loss, seg_bce_loss
+
+    ca = config.ct_clip_arch
+    with torch.no_grad():
+        tokens = model.encode_image_tokens(batch["image"])
+    head_module = (model.seg_head if data_type == "imageseg"
+                   else model.open_seg_head)
+    g = torch.Generator(device=tokens.device).manual_seed(5)
+    with torch.no_grad():
+        out = model.head_voxels(head_module, tokens)
+    cot = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+
+    def head():
+        torch.autograd.backward(model.head_voxels(head_module, tokens), cot)
+
+    if data_type == "imageseg":
+        logits = out.detach().requires_grad_()
+
+        def loss():
+            seg_bce_loss(logits, batch["seg_mask"]).backward()
+    else:
+        emb = seg_outputs(model, batch, data_type)
+        preds, prompts = (t.detach().requires_grad_() for t in emb)
+        f = ca.open_seg_loss_down_factor
+        mask = batch["seg_mask"][:, :, ::f, ::f, ::f]
+        flat = mask.permute(0, 2, 3, 4, 1).reshape(mask.shape[0], -1,
+                                                   mask.shape[1])
+
+        def loss():
+            open_seg_loss(
+                preds, flat, prompts, loss_type=ca.open_seg_loss_type,
+                hyper=ca.open_seg_loss_hyper_config,
+                fusion_head_apply=(model.apply_fusion_head
+                                   if ca.fusion_head is not None
+                                   else None)).backward()
+    del out
+    res = {"head_ms": cuda_ms(head, 3), "loss_ms": cuda_ms(loss, 3)}
+    model.zero_grad(set_to_none=True)
+    return res
+
+
+def seg_train_phase(device, config, bert_config, data_type, expected: dict,
+                    tag: str, n_classes: int, n_prompts: int = 0,
+                    timed: int = 3):
+    """The seg or open-seg train step at full width (batch SEG_BATCH), from
+    one seeded state on one batch: the forward's outputs of the kernel path
+    against the plain path (relative L2), then one step on plain and one
+    on the kernels (its launches counted, its peak device memory read):
+    losses within LOSS_RTOL, global gradient norms within GRAD_NORM_RTOL,
+    every parameter plain gives a gradient gets one from the kernels.
+    Then ``timed`` warm steps, one profiled step and the head's and the
+    loss's device time.  Returns the numbers."""
+    kern = build_seg_trainer(device, config, bert_config, data_type)
+    plain = build_seg_trainer(device, config, bert_config, data_type,
+                              use_kernels=False,
+                              state_dict=kern[0].state_dict())
+    batch = seg_batch(device, config, n_classes, n_prompts,
+                      bert_config.vocab_size)
+    outs = [seg_outputs(m, batch, data_type) for m in (kern[0], plain[0])]
+    fwd_rel = max(compare(a, b)[0] for a, b in zip(*outs))
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in outs[0])
+    del outs
+    lp, np_, sp = step_grads(plain, batch)
+    del plain
+    release(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (lk, nk, sk), launches = count_launches(lambda: step_grads(kern, batch))
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device.type == "cuda" else float("nan"))
+    dloss = abs(lk - lp) / abs(lp)
+    dnorm = abs(nk - np_) / np_
+    missing = sorted(sp - sk)
+    print(f"{tag} step at full width, batch {SEG_BATCH}: forward outputs "
+          f"kernels vs plain rel L2 {fwd_rel:.3e} (tolerance {REL_L2_TOL}); "
+          f"loss kernels {lk:.6f}, plain {lp:.6f} (rel {dloss:.3e}, "
+          f"tolerance {LOSS_RTOL}); grad norm kernels {nk:.6f}, plain "
+          f"{np_:.6f} (rel {dnorm:.3e}, tolerance {GRAD_NORM_RTOL}); "
+          f"parameters without a kernel-path gradient: {missing}; peak "
+          f"device memory of the kernel step {peak_gb:.3f} GB", flush=True)
+    print(f"launches in one {tag} step: {launches} (expected {expected})",
+          flush=True)
+    check(finite and fwd_rel <= REL_L2_TOL, (tag, "forward", fwd_rel))
+    check(math.isfinite(lk) and math.isfinite(lp) and dloss <= LOSS_RTOL,
+          (tag, lk, lp))
+    check(dnorm <= GRAD_NORM_RTOL, (tag, dnorm))
+    check(sp and not missing, (tag, missing))
+    check(launches == expected, (tag, launches))
+
+    model, _, step = kern
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        float(step(batch, 1.0)["loss"])
+        times.append(time.perf_counter() - t0)
+    out = dict(launches=launches, loss=lk, fwd_rel=fwd_rel, dloss=dloss,
+               dnorm=dnorm, peak_gb=peak_gb, times=times)
+    if device.type == "cuda":
+        out["wall_ms"], out["busy_ms"] = profile_call(
+            lambda: float(step(batch, 1.0)["loss"]),
+            OUT_DIR / f"profile_{tag.replace('-', '_').replace(' ', '_')}"
+                      f".txt", f"one {tag} step")
+        out.update(seg_parts_ms(model, config, batch, data_type))
+        print(f"{tag} step: head (products, LeakyReLU, unpatchify; forward "
+              f"and backward) {out['head_ms']:.3f} ms, loss (forward and "
+              f"backward) {out['loss_ms']:.3f} ms, of a "
+              f"{statistics.median(times) * 1e3:.3f} ms warm step", flush=True)
+    del kern, model, step, batch
+    release(device)
+    return out
+
+
+def seg_serve_phase(device, config_path: Path, folder: Path, int8: bool,
+                    expected: dict, timed: int = 3):
+    """``run_zero_shot_seg.main`` on --synthetic SEG_SERVE_VOLUMES with the
+    config's arch at random weights (seed 0), at its int8 default or with
+    --no-int8: its launches counted over the call, finite per-class dice;
+    then volume 0's logits of the kernel path (the weights main built)
+    against the all-plain path, within REL_L2_TOL, and warm dice calls of
+    one volume on the card, timed.  Returns the numbers and volume 0's
+    logits."""
+    from vit_exp_tpu_torch.cli import run_zero_shot_seg
+    from vit_exp_tpu_torch.data.synthetic import SyntheticCTDataset
+    from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
+    from vit_exp_tpu_torch.eval.zero_shot import ZeroShotSegmenter
+    from vit_exp_tpu_torch.models.factory import bert_config_for, build_ctclip
+
+    tag = "int8" if int8 else "bf16"
+    argv = ["--config", str(config_path), "--synthetic",
+            str(SEG_SERVE_VOLUMES), "--results_folder", str(folder / tag)]
+    t0 = time.perf_counter()
+    res, launches = count_launches(lambda: run_zero_shot_seg.main(
+        argv + ([] if int8 else ["--no-int8"]), device=device))
+    call_s = time.perf_counter() - t0
+    print(f"run_zero_shot_seg ({tag}), {SEG_SERVE_VOLUMES} synthetic "
+          f"volumes: {res} in {call_s:.3f} s; launches {launches} "
+          f"(expected {expected})", flush=True)
+    check(res and all(math.isfinite(v) for v in res.values()), (tag, res))
+    check(launches == expected, (tag, launches))
+
+    config = load_seg_config(config_path)
+    bert = bert_config_for(config, load_tokenizer())
+    mode = (dict(int8=True) if int8 else dict(attn_impl="pallas_static"))
+    kern = build_ctclip(config, bert, device=device, fuse_qkv=True, **mode)
+    plain = build_ctclip(config, bert, device=device, fuse_qkv=True,
+                         use_kernels=False, **mode)
+    plain.load_state_dict(kern.state_dict())
+    # volume 0 of the served set: its volume is drawn before its mask, so
+    # a one-class set gives the same bytes
+    vol = torch.as_tensor(SyntheticCTDataset(
+        "imageseg", n=1, arch=config.arch, n_classes=1)[0]["image"][None],
+        device=device)
+    g = torch.Generator(device=device).manual_seed(7)
+    noise = torch.randn(vol.shape, generator=g, device=device)
+    with torch.inference_mode():
+        logits = kern.seg_forward(vol)
+        ref = plain.seg_forward(vol)
+        rel = compare(logits, ref)[0]
+        floor = compare(plain.seg_forward(vol * (1 + SEG_NOISE_EPS * noise)),
+                        ref)[0]
+    tol = max(REL_L2_TOL, SEG_NOISE_FACTOR * floor) if int8 else REL_L2_TOL
+    print(f"seg serving ({tag}) volume 0: logits kernels vs plain rel L2 "
+          f"{rel:.3e} (tolerance {tol:.3e}); the plain path's own response "
+          f"to a {SEG_NOISE_EPS} relative perturbation of the volume "
+          f"{floor:.3e}", flush=True)
+    check(bool(torch.isfinite(logits.float()).all()) and rel <= tol,
+          (tag, rel, tol))
+    del ref, noise
+    del plain
+    release(device)
+    mask = (torch.rand(logits.shape, device=device) > 0.8).to(torch.uint8)
+    eng = ZeroShotSegmenter(kern)
+    times = []
+    for _ in range(timed + 1):
+        t0 = time.perf_counter()
+        eng.dice_batch(vol, mask)
+        times.append(time.perf_counter() - t0)
+    times = times[1:]
+    out = dict(res=res, launches=launches, rel=rel, floor=floor, tol=tol,
+               call_s=call_s,
+               times=times, vps=1.0 / statistics.median(times))
+    if device.type == "cuda":
+        out["wall_ms"], out["busy_ms"] = profile_call(
+            lambda: eng.dice_batch(vol, mask),
+            OUT_DIR / f"profile_seg_serving_{tag}.txt",
+            f"one {tag} seg dice call (1 volume)")
+    del eng, kern, mask, vol
+    release(device)
+    return out, logits
+
+
+def mixed_batches():
+    """(the image-report loader's batch, the seg and open-seg loaders'
+    batch) of MIXED_CONFIG."""
+    import yaml
+
+    specs = yaml.safe_load(MIXED_CONFIG.read_text())["train_data_list"]
+    sizes = {s["type"]: int(s["batch_size"]) for s in specs}
+    check(sizes["imageseg"] == sizes["imageopenseg"], sizes)
+    return sizes["imagereport"], sizes["imageseg"]
+
+
+def mixed_config(folder: Path, overrides=None) -> str:
+    """MIXED_CONFIG as is, its results moved to ``folder``/mixed and its
+    hooks every MIXED_EVAL_EVERY steps (``overrides`` replaces top-level
+    keys: the CPU rehearsal's tiny arch).  Returns the written path."""
+    import yaml
+
+    cfg = yaml.safe_load(MIXED_CONFIG.read_text())
+    cfg["results_folder"] = str(folder / "mixed")
+    cfg["trainer"]["eval_model_every"] = MIXED_EVAL_EVERY
+    cfg.update(overrides or {})
+    path = folder / "mixed.yaml"
+    path.write_text(json.dumps(cfg))   # JSON is YAML
+    return str(path)
+
+
+@contextlib.contextmanager
+def watch_micro_steps(count_step: int):
+    """While open, every CTClipTrainer notes (the step it starts, the host
+    clock) as each step starts, and in step ``count_step`` each micro-step
+    runs with every launch count set to 0 just before it and read just
+    after, summed by data type.  Yields (the notes, {type: counts})."""
+    from vit_exp_tpu_torch.train.trainer import CTClipTrainer
+
+    marks, by_type = [], {}
+    inner = CTClipTrainer.train_step
+
+    def counted(name, fn):
+        def run(batch, weight):
+            out, counts = count_launches(lambda: fn(batch, weight))
+            acc = by_type.setdefault(name, dict.fromkeys(counts, 0))
+            for k, v in counts.items():
+                acc[k] += v
+            return out
+        return run
+
+    def train_step(self):
+        marks.append((self.step + 1, time.perf_counter()))
+        if self.step + 1 != count_step:
+            return inner(self)
+        saved = self.steps_by_type
+        self.steps_by_type = {n: counted(n, f) for n, f in saved.items()}
+        try:
+            return inner(self)
+        finally:
+            self.steps_by_type = saved
+
+    CTClipTrainer.train_step = train_step
+    try:
+        yield marks, by_type
+    finally:
+        CTClipTrainer.train_step = inner
+
+
+def mixed_phase(device, folder: Path, overrides=None, steps=MIXED_STEPS,
+                count_step=MIXED_COUNT_STEP, skip=3):
+    """``run_train.main`` on MIXED_CONFIG (mixed_config) for ``steps``
+    steps: checks finite cl_loss, seg_loss and open_seg_loss lines from the
+    three loaders at every step, the seg hook's lines with a finite
+    mean_dice (and the classification hook's with a finite mean_auc) at
+    every MIXED_EVAL_EVERY-th step; counts the launches of each step type
+    in step ``count_step``.  Returns the numbers."""
+    from vit_exp_tpu_torch.cli import run_train
+
+    with watch_micro_steps(count_step) as (marks, by_type):
+        tr = run_train.main(["--config", mixed_config(folder, overrides),
+                             "--debug", "--steps", str(steps)], device=device)
+    check(tr.status == "completed" and tr.step == steps
+          and tr.data_types == list(MIXED_TYPES), (tr.status, tr.data_types))
+    lines = read_metrics(folder / "mixed")
+    train = [d for d in lines if "ds0_cl_loss" in d]
+    keys = ("ds0_cl_loss", "ds1_seg_loss", "ds2_open_seg_loss")
+    check([d["step"] for d in train] == list(range(1, steps + 1))
+          and all(math.isfinite(d[k]) for d in train for k in keys), train)
+    seg = [d for d in lines if f"eval/{SEG_HOOK}/mean_dice" in d]
+    cls = [d for d in lines if "eval/zero_shot_cls_planted/mean_auc" in d]
+    hook_steps = list(range(MIXED_EVAL_EVERY, steps + 1, MIXED_EVAL_EVERY))
+    check([d["step"] for d in seg] == hook_steps
+          and all(math.isfinite(d[f"eval/{SEG_HOOK}/mean_dice"])
+                  for d in seg), seg)
+    check([d["step"] for d in cls] == hook_steps
+          and all(math.isfinite(d["eval/zero_shot_cls_planted/mean_auc"])
+                  for d in cls), cls)
+    check(set(by_type) == set(MIXED_TYPES), by_type)
+    window = marks[skip:]
+    out = dict(by_type=by_type, losses={k: [d[k] for d in train]
+                                        for k in keys},
+               seg_dice=[d[f"eval/{SEG_HOOK}/mean_dice"] for d in seg],
+               cls_auc=[d["eval/zero_shot_cls_planted/mean_auc"]
+                        for d in cls],
+               window=(skip + 1, steps - 1),
+               sps=(len(window) - 1) / (window[-1][1] - window[0][1]),
+               wait_s=tr.data_wait_s / max(tr.batches, 1))
+    if device.type == "cuda":
+        out["wall_ms"], out["busy_ms"] = profile_call(
+            lambda: [float(v) for v in tr.train_step().values()],
+            OUT_DIR / "profile_planted_mixed.txt",
+            "one planted_mixed run_train step (three micro-steps)")
+    del tr
+    release(device)
+    return out
+
+
+def seg_train_cases(device, arch=ARCH, batch=SEG_BATCH, tag="", seed=12):
+    """The kernel rows of a train step at attn_impl="pallas" at (arch,
+    batch): K15 with lse and the backward pair over the concatenated kv,
+    K2's three stages, the patch embedding and K8's six kernels."""
+    arch = dict(arch, channels=arch.get("channels", 1))
+    d = arch["dim"]
+    m = batch * (arch["temporal_size"] // arch["temporal_patch_size"]
+                 * (arch["image_size"] // arch["patch_size"]) ** 2)
+    cases = ([c for c in online_kernel_cases(device, arch, batch, seed)
+              if c.counter != "K15" or "lse" in c.name]
+             + [c for c in kernel_cases(device, arch, batch, seed + 1)
+                if c.counter in ("K2x", "K2h", "K2o", "K4")]
+             + k8_cases(device, d, int(4.0 * 2 / 3 * d), m,
+                        torch.Generator(device=device).manual_seed(seed + 2)))
+    for case in cases:
+        case.name += tag
+    return cases
+
+
+def seg_serve_cases(device, int8: bool, arch=ARCH, batch=SEG_BATCH,
+                    seed=14):
+    """The seg serving path's kernel rows at one volume: K1, K2, K3 and the
+    patch embedding (bf16), or the int8 kernels and the patch embedding."""
+    if int8:
+        cases = int8_kernel_cases(device, arch, batch, seed) + [
+            patch_embed_case(patch_embed_inputs(
+                device, torch.Generator(device=device).manual_seed(seed + 1),
+                arch, batch))]
+    else:
+        cases = kernel_cases(device, arch, batch, seed)
+    for case in cases:
+        case.name += f" (seg serving, {'int8' if int8 else 'bf16'}, batch " \
+                     f"{batch})"
+    return cases
+
+
+def path_rows(rows: list, path: str, counts: dict) -> list:
+    """Copies of a phase's measured rows for one path: its name in the row
+    name, its launch counts; a row whose kernel the path never launched
+    fails the run."""
+    out = []
+    for row in rows:
+        n = counts[row["counter"]]
+        check(n > 0, (path, row["name"], "never launched"))
+        out.append({**{k: v for k, v in row.items() if k != "counter"},
+                    "name": f"{row['name']} [{path}]", "launches": n})
+    return out
 
 
 def main() -> int:
@@ -1727,12 +2223,24 @@ def main() -> int:
           and all(st == ld == 0 for _, st, ld in ptxas.values()),
           ("ptxas registers and spills", ptxas))
 
+    b_cls, b_seg = mixed_batches()
     rows = {}
     for phase, make in (("serve", kernel_cases),
                         ("train", training_kernel_cases),
                         ("int8", int8_kernel_cases),
                         ("online", online_kernel_cases),
-                        ("planted", planted_kernel_cases)):
+                        ("planted", planted_kernel_cases),
+                        ("seg_train", lambda d: seg_train_cases(
+                            d, tag=f" (seg steps, batch {SEG_BATCH})")),
+                        ("seg_serve_int8", lambda d: seg_serve_cases(d, True)),
+                        ("seg_serve_bf16",
+                         lambda d: seg_serve_cases(d, False)),
+                        ("mixed_cls", lambda d: seg_train_cases(
+                            d, PLANTED_ARCH, b_cls,
+                            tag=f" (D 384, batch {b_cls})")),
+                        ("mixed_seg", lambda d: seg_train_cases(
+                            d, PLANTED_ARCH, b_seg,
+                            tag=f" (D 384, batch {b_seg})"))):
         cases = make(device)
         rows[phase] = compare_kernels(cases)
         del cases
@@ -1871,6 +2379,51 @@ def main() -> int:
         shutil.rmtree(folder, ignore_errors=True)
     planted_launches(pl)
     launches["planted"] = pl["launches"]
+
+    # the segmentation paths at full width: the seg, open-seg and fusion
+    # train steps (kernels against plain), seg serving through
+    # run_zero_shot_seg (int8, then bf16); then configs/planted_mixed.yaml
+    train_expected = train_launches(blocks)
+    seg = {}
+    for key, path, data_type, n_classes, n_prompts in (
+            ("seg", SEG_CONFIG, "imageseg", None, 0),
+            ("open-seg", OPEN_SEG_CONFIG, "imageopenseg", OPEN_SEG_PROMPTS,
+             OPEN_SEG_PROMPTS),
+            ("open-seg fusion", FUSION_CONFIG, "imageopenseg",
+             FUSION_PROMPTS, FUSION_PROMPTS)):
+        cfg = load_seg_config(path)
+        check(arch_dict(cfg) == ARCH, (str(path), arch_dict(cfg)))
+        seg[key] = seg_train_phase(
+            device, cfg, bert, data_type, train_expected, key,
+            n_classes or cfg.ct_clip_arch.seg_head.out_dim, n_prompts)
+    n = SEG_SERVE_VOLUMES
+    folder = Path(tempfile.mkdtemp(prefix="chip_smoke_seg_"))
+    try:
+        serve8, logits8 = seg_serve_phase(
+            device, SEG_CONFIG, folder, True, expected_launches({
+                "K4": n, **{k: n * blocks for k in (
+                    "K9/K10", "K11y", "K11h", "K11q", "K11o", "K13x",
+                    "K13mm", "K14")}}))
+        serve16, logits16 = seg_serve_phase(
+            device, SEG_CONFIG, folder, False, expected_launches({
+                "K4": n, **{k: n * blocks for k in (
+                    "K1", "K2x", "K2h", "K2o", "K3")}}))
+        rel_8_16 = compare(logits8, logits16)[0]
+        print(f"seg serving volume 0: int8 logits against bf16 logits rel "
+              f"L2 {rel_8_16:.4e} (printed, not bounded)", flush=True)
+        del logits8, logits16
+        release(device)
+        mixed = mixed_phase(device, folder)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    mixed_step = train_launches(PLANTED_ARCH["transformer_blocks"])
+    print(f"planted_mixed, launches of each step type in step "
+          f"{MIXED_COUNT_STEP}: {mixed['by_type']} (expected {mixed_step} "
+          f"each)", flush=True)
+    check(all(mixed["by_type"][t] == mixed_step for t in MIXED_TYPES),
+          mixed["by_type"])
+    mixed_seg = {k: mixed["by_type"]["imageseg"][k]
+                 + mixed["by_type"]["imageopenseg"][k] for k in mixed_step}
     print(f"run_train: losses {rt['losses']}; ckpt_2 {rt['ckpt_gb']:.3f} GB; "
           f"resumed at step 2 bit for bit; throughput run step_time_s "
           f"{[round(t, 4) for t in rt['times']]} s; loader wait in steps "
@@ -1882,6 +2435,20 @@ def main() -> int:
         for row in rows[phase]:
             row["launches"] = launches[phase][row.pop("counter")]
             kernels.append(row)
+    for phase, path, counts in (
+            ("seg_train", "seg step", seg["seg"]["launches"]),
+            ("seg_train", "open-seg step", seg["open-seg"]["launches"]),
+            ("seg_train", "open-seg fusion step",
+             seg["open-seg fusion"]["launches"]),
+            ("seg_serve_int8", f"run_zero_shot_seg int8, {n} volumes",
+             serve8["launches"]),
+            ("seg_serve_bf16", f"run_zero_shot_seg bf16, {n} volumes",
+             serve16["launches"]),
+            ("mixed_cls", "planted_mixed, the image-report micro-step",
+             mixed["by_type"]["imagereport"]),
+            ("mixed_seg", "planted_mixed, the seg and open-seg micro-steps",
+             mixed_seg)):
+        kernels += path_rows(rows[phase], path, counts)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(f"zero-shot serving, batch {BATCH}, bf16: {vps:.3f} volumes/s "
@@ -1920,6 +2487,37 @@ def main() -> int:
           f"{last[f'eval/{PLANTED_HOOK}/mean_auc']:.4f} (printed, not "
           f"bounded); the recipe's scoring engine within "
           f"{pl['score_dprob']:.3e} of plain on {card}")
+    for key, r in seg.items():
+        print(f"{key} train step at full width, batch {SEG_BATCH}, "
+              f"attn_impl=pallas: {1.0 / statistics.median(r['times']):.3f} "
+              f"steps/s (median of {len(r['times'])} warm steps, "
+              f"{[round(t, 4) for t in r['times']]} s); one profiled step: "
+              f"wall {r['wall_ms']:.3f} ms, device busy {r['busy_ms']:.3f} "
+              f"ms, idle share {1 - r['busy_ms'] / r['wall_ms']:.3f}; head "
+              f"{r['head_ms']:.3f} ms and loss {r['loss_ms']:.3f} ms of "
+              f"device time (forward and backward); peak device memory "
+              f"{r['peak_gb']:.3f} GB on {card}")
+    for tag, r in (("int8", serve8), ("bf16", serve16)):
+        print(f"seg serving ({tag}), 1 volume, 22 classes: {r['vps']:.3f} "
+              f"volumes/s (median of {len(r['times'])} warm dice calls, "
+              f"{[round(t, 4) for t in r['times']]} s); one profiled call: "
+              f"wall {r['wall_ms']:.3f} ms, device busy {r['busy_ms']:.3f} "
+              f"ms, idle share {1 - r['busy_ms'] / r['wall_ms']:.3f}; "
+              f"run_zero_shot_seg on {n} synthetic volumes {r['call_s']:.3f} "
+              f"s (host data included), mean dice {r['res']['mean_dice']:.4f}"
+              f" on {card}")
+    print(f"run_train on configs/planted_mixed.yaml (dim 384, three loaders, "
+          f"both hooks every {MIXED_EVAL_EVERY} steps): {mixed['sps']:.3f} "
+          f"steps/s over steps {mixed['window'][0]}-{mixed['window'][1]}, "
+          f"loader wait {mixed['wait_s']:.3f} s per batch; one profiled "
+          f"step: wall {mixed['wall_ms']:.3f} ms, device busy "
+          f"{mixed['busy_ms']:.3f} ms, idle share "
+          f"{1 - mixed['busy_ms'] / mixed['wall_ms']:.3f}; seg hook mean "
+          f"dice {[round(x, 4) for x in mixed['seg_dice']]}, cls hook mean "
+          f"AUROC {[round(x, 4) for x in mixed['cls_auc']]} (printed, not "
+          f"bounded); last losses "
+          f"{ {k: round(v[-1], 5) for k, v in mixed['losses'].items()} } on "
+          f"{card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

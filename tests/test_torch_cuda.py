@@ -4,7 +4,10 @@ K8, and the int8 serving kernels: the int8 attention (K9/K10), K11's four
 stages, K12/K13's two stages and K14) against their plain PyTorch versions
 at small, ragged shapes (K2, K3, K11 and K12/K13 also at 4,113 tokens and
 the widths 384 and 768; the patch embedding at p2 20 and W 480, and at
-small even p2, with D 128, 384 and 768; K14 up to 55,296 rows).
+small even p2, with D 128, 384 and 768; K14 up to 55,296 rows), and the
+segmentation paths at a small arch (a seg step and two open-seg steps
+against use_kernels=False, the int8 seg logits against the plain int8
+engine).
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -904,3 +907,107 @@ def test_build_ctclip_refuses_the_tiny_configs_before_any_weight(dev, name):
     for what in ("head dim 32", "multiples of 64", "patch-embed kernel"):
         assert what in str(err.value), what
     assert torch.cuda.memory_allocated() == before
+
+
+# a small arch the kernels take: head dim 32, D 384 (2I 2,048), patch 10 over
+# 40 × 40 × 20 voxels (32 tokens)
+SEG_ARCH = {"dim": 384, "image_size": 40, "patch_size": 10,
+            "temporal_size": 20, "temporal_patch_size": 10,
+            "transformer_blocks": 2, "dim_head": 32, "heads": 4}
+
+
+def _seg_config(**ct_clip_arch):
+    from vit_exp_tpu_torch.core.config import ExperimentConfig
+
+    return ExperimentConfig.from_dict({
+        "trainer": {"lr": 1e-4, "max_grad_norm": 1.0}, "arch": SEG_ARCH,
+        "ct_clip_arch": {"use_seg": True, "seg_head": {"mid_dim": 64,
+                                                       "out_dim": 3},
+                         "use_open_seg": True, **ct_clip_arch}})
+
+
+def _seg_step(config, data_type, batch, use_kernels):
+    """One seg or open-seg step from seeded weights (seed 0): its loss, the
+    pre-clip global gradient norm and the parameters given a gradient."""
+    from vit_exp_tpu_torch.models.bert import BertConfig
+    from vit_exp_tpu_torch.models.factory import build_ctclip
+    from vit_exp_tpu_torch.train.optimizer import build_optimizer
+    from vit_exp_tpu_torch.train.steps import make_train_steps
+
+    model = build_ctclip(config, BertConfig.tiny(), device="cuda",
+                         use_kernels=use_kernels, attn_impl="pallas",
+                         seed=0).train()
+    opt = build_optimizer(config.trainer, model.parameters())
+    loss = float(make_train_steps(model, opt, config)[data_type](
+        batch, 1.0)["loss"])
+    return loss, float(opt.grad_norm), {
+        n for n, p in model.named_parameters()
+        if p.grad is not None and bool(p.grad.abs().max() > 0)}
+
+
+@pytest.mark.parametrize("data_type,arch", [
+    ("imageseg", {}),
+    ("imageopenseg", {"open_seg_loss_type": "clip_focal_loss",
+                      "open_seg_loss_down_factor": 2}),
+    ("imageopenseg", {"open_seg_loss_type": "fusion_focal_loss",
+                      "open_seg_loss_hyper_config": {"alpha": 0.75},
+                      "fusion_head": {"type": "mlp", "mlp": {
+                          "n_layers": 2, "mid_dim": 16, "out_dim": 1}}}),
+], ids=["seg", "openseg_clip_focal", "openseg_fusion"])
+def test_seg_steps_match_plain(dev, data_type, arch):
+    """One seg or open-seg step through the kernels (K15 with lse, the
+    backward pair, K2, K8, the patch embedding) against use_kernels=False
+    from the same seeded state on one batch: loss within 1e-2, global
+    gradient norm within 5% (chip_smoke.LOSS_RTOL, GRAD_NORM_RTOL), and the
+    same parameters given a gradient."""
+    config = _seg_config(**arch)
+    g = torch.Generator(device=dev).manual_seed(2)
+    a = config.arch
+    batch = {"image": torch.rand((2, 1, a.temporal_size, a.image_size,
+                                  a.image_size), generator=g, device=dev),
+             "seg_mask": (torch.rand((2, 3, a.temporal_size, a.image_size,
+                                      a.image_size), generator=g, device=dev)
+                          > 0.8).to(torch.uint8),
+             "prompt_ids": torch.randint(1, 128, (3, 12), generator=g,
+                                         device=dev),
+             "prompt_mask": torch.ones((3, 12), dtype=torch.long,
+                                       device=dev)}
+    counters = (fa.attention_online, fa.attention_bwd_dq, geglu_ff.geglu_ff_h,
+                geglu_ff.geglu_bwd_dh, patches.patch_embed)
+    before = [c.launches for c in counters]
+    loss_k, norm_k, got_k = _seg_step(config, data_type, batch, True)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    loss_p, norm_p, got_p = _seg_step(config, data_type, batch, False)
+    assert math.isfinite(loss_k) and math.isfinite(norm_k)
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    assert abs(norm_k - norm_p) <= 0.05 * norm_p
+    assert got_p and got_p <= got_k
+
+
+def test_int8_seg_logits_match_the_plain_int8_engine(dev):
+    """The seg serving path at its int8 default (K9/K10, K11, K12/K13, K14,
+    the patch embedding; the seg head a bf16 product) against the all-plain
+    int8 engine on the same weights: relative L2 within 1e-2, or within 1.5
+    × the plain int8 path's own response to a 1e-4 relative perturbation
+    of the volume where that is larger (each changed int8 code moves a
+    value by a whole step: chip_smoke.SEG_NOISE_FACTOR)."""
+    from vit_exp_tpu_torch.models.bert import BertConfig
+    from vit_exp_tpu_torch.models.factory import build_ctclip
+
+    config = _seg_config()
+    models = [build_ctclip(config, BertConfig.tiny(), device="cuda",
+                           use_kernels=k, int8=True, fuse_qkv=True, seed=0)
+              for k in (True, False)]
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = config.arch
+    video = torch.rand((2, 1, a.temporal_size, a.image_size, a.image_size),
+                       generator=g, device=dev)
+    noise = torch.randn(video.shape, generator=g, device=dev)
+    before = fa.attention_static_int8.launches
+    with torch.inference_mode():
+        got, ref = (m.seg_forward(video) for m in models)
+        floor = _rel(models[1].seg_forward(video * (1 + 1e-4 * noise)), ref)
+    assert fa.attention_static_int8.launches == before + a.transformer_blocks
+    assert got.shape == (2, 3, a.temporal_size, a.image_size, a.image_size)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, ref) <= max(1e-2, 1.5 * floor)

@@ -233,13 +233,24 @@ def test_build_eval_hooks_resolves_the_cls_name_and_refuses_the_rest(engines):
         _hook_config(["ctclip_image_report_zero_shot_cls_test"]),
         _tokenizer(), cls_dataset=ds, cls_pathologies=PATHS,
         cls_max_text_len=TEXT_LEN)
-    assert list(hooks) == ["ctclip_image_report_zero_shot_cls_test"]
-    res = hooks["ctclip_image_report_zero_shot_cls_test"](eng.model)
+    assert list(hooks["eval_hooks"]) == [
+        "ctclip_image_report_zero_shot_cls_test"]
+    assert hooks["sample_hooks"] == {}
+    res = hooks["eval_hooks"]["ctclip_image_report_zero_shot_cls_test"](
+        eng.model)
     assert set(res) == {f"{p}_auc" for p in PATHS} | {"mean_auc",
                                                       "volumes_per_sec"}
+    # the seg and sample hooks resolve given their data sets
+    # (tests/test_torch_seg_eval.py runs them)
+    both = thooks.build_eval_hooks(
+        _hook_config(["seg_test_planted"], ["open_seg_vis"]), _tokenizer(),
+        seg_dataset=ds, open_seg_dataset=ds, results_folder="unused")
+    assert list(both["eval_hooks"]) == ["seg_test_planted"]
+    assert list(both["sample_hooks"]) == ["open_seg_vis"]
     for cfg, cls_ds, err in (
-            (_hook_config(["seg_test_planted"]), ds, NotImplementedError),
-            (_hook_config(sample=["open_seg_vis"]), ds, NotImplementedError),
+            (_hook_config(["seg_test_planted"]), ds, ValueError),   # no data
+            (_hook_config(sample=["open_seg_vis"]), ds, ValueError),
+            (_hook_config(sample=["seg_vis"]), ds, ValueError),     # no hook
             (_hook_config(["zero_shot"]), ds, ValueError),          # no hook
             (_hook_config(["zero_shot_cls"]), None, ValueError)):   # no data
         with pytest.raises(err):

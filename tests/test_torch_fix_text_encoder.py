@@ -17,8 +17,8 @@ steps a stopped gradient.  Tolerances (those of tests/test_torch_train.py):
 - every updated parameter within relative L2 1e-5, or max |Δ| ≤ lr where
   its gradient is noise (Adam turns noise into a step of up to lr).
 
-``use_seg`` and ``use_open_seg`` build heads the port does not have yet:
-``build_ctclip`` refuses them at build time.
+``use_seg`` and ``use_open_seg`` build their heads (ported with the
+segmentation slice).
 """
 
 import jax
@@ -187,8 +187,13 @@ def test_text_encoder_trains_without_the_switch():
 
 @pytest.mark.parametrize("switch", ["use_seg", "use_open_seg"])
 def test_build_refuses_unported_heads(switch):
+    """The seg and open-seg heads are ported now: each switch builds its
+    heads and nothing else (tests/test_torch_seg.py holds them to JAX)."""
     config = tconfig.ExperimentConfig.from_dict(_config_dict(**{switch: True}))
     assert getattr(config.ct_clip_arch, switch)
-    with pytest.raises(NotImplementedError, match=switch):
-        build_ctclip(config, BertConfig.tiny(), device="cpu",
-                     dim_latent=DIM_LATENT)
+    model = build_ctclip(config, BertConfig.tiny(), device="cpu",
+                         dim_latent=DIM_LATENT)
+    heads = {n.split(".")[0] for n, _ in model.named_parameters()
+             if "_head" in n.split(".")[0]}
+    assert heads == ({"seg_head"} if switch == "use_seg"
+                     else {"open_seg_head", "open_text_head"})

@@ -10,8 +10,8 @@
   ``valid_test_list: [zero_shot_cls_planted]``: eval lines at the steps
   ``eval_model_every`` names, each after its step's train line, under JAX's
   key names; the final parameters bit-equal to those of the same run
-  without the hook; a ``seg_test`` hook and planted segmentation data are
-  refused before training.
+  without the hook; RadGenome segmentation folders and a segmentation
+  ``valid_data`` set are refused before training.
 - ``build_ctclip`` still builds the two tiny --synthetic configs on the CPU;
   ``kernel_refusals`` names what the card's kernels refuse in them, and
   nothing in the shipped dim-384 and dim-768 configs.
@@ -142,9 +142,18 @@ def test_run_train_planted_with_the_eval_hook(tmp_path):
 
 
 def test_run_train_refuses_segmentation_before_training(tmp_path):
-    for cfg in (_planted_yaml(tmp_path, "seg", ["seg_test_planted"]),
-                _planted_yaml(tmp_path, "segdata", train_data_list=[
-                    {"type": "imageseg", "planted": True, "batch_size": 2}])):
+    """Planted segmentation data and the seg hook run now
+    (tests/test_torch_seg_eval.py); RadGenome folders and a segmentation
+    valid_data set wait for the real-data slice and are refused before
+    training."""
+    for cfg in (_planted_yaml(tmp_path, "seg", train_data_list=[
+                    {"type": "imageseg", "batch_size": 2,
+                     "data_folder": "images", "mask_folder": "masks"}]),
+                _planted_yaml(tmp_path, "segvalid", ["seg_test"],
+                              train_data_list=[
+                                  {"type": "imagereport", "batch_size": 2}],
+                              valid_data={"seg": {"data_folder": "images",
+                                                  "mask_folder": "masks"}})):
         with pytest.raises(NotImplementedError):
             run_train.make_trainer(run_train.parse_args(
                 ["--config", cfg, "--debug"]), device="cpu")

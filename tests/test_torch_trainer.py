@@ -155,8 +155,10 @@ def test_synthetic_dataset_matches_jax():
     assert len(tds) == len(jds) == 7
     for i in (0, 4, 6):
         _assert_same_item(tds[i], jds[i])
-    with pytest.raises(NotImplementedError):
-        tsynthetic.SyntheticCTDataset("imageseg")
+    # the segmentation types are ported (tests/test_torch_seg.py holds
+    # their items to JAX's); an unknown type is refused
+    with pytest.raises(ValueError):
+        tsynthetic.SyntheticCTDataset("imagevideo")
 
 
 def test_synthetic_batch_drawn_in_place_matches_jax():
@@ -492,10 +494,12 @@ def test_run_train_refuses_what_is_not_ported(tmp_path):
                                      "--mesh", "1,1,1"]):
         with pytest.raises(NotImplementedError):
             run_train.main(argv, device="cpu")
+    # the seg hook is ported, but --synthetic brings no segmentation
+    # validation set (the JAX CLI skips the name silently)
     hooks = Path(cfg).with_name("hooks.yaml")
     hooks.write_text(json.dumps({**json.loads(Path(cfg).read_text()),
                                  "valid_test_list": ["seg_test"]}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seg_test"):
         run_train.main(["--config", str(hooks), "--synthetic", "2"],
                        device="cpu")
     with pytest.raises(SystemExit):

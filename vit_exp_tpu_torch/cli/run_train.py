@@ -15,17 +15,23 @@ K1), then ``CTClipTrainer`` with the preemption handler.  ``--debug`` keeps
 the logger off wandb.  The JAX CLI's "xla" choices are its CPU path and
 have no counterpart here.
 
-Data: ``--synthetic N`` gives N synthetic image-report samples per
-``train_data_list`` entry; otherwise each entry must be ``planted: true`` of
-type imagereport (``PlantedCTDataset``, ``n`` samples, default 4096).  The
-in-training eval hooks of ``valid_test_list`` run every ``eval_model_every``
-steps (``eval/hooks.py``): on a planted run over ``PlantedInferenceDataset``
-(16 volumes) scored on the four planted attributes at 64 tokens, under
-``--synthetic`` or ``--synthetic_eval N`` over ``SyntheticInferenceDataset``.
+Data: ``--synthetic N`` gives N synthetic samples of each
+``train_data_list`` entry's type (imagereport, imageseg or imageopenseg;
+the masks have 4 classes whatever the seg head's width, as in the JAX
+package); otherwise each entry must be ``planted: true``
+(``PlantedCTDataset``, ``PlantedSegDataset`` or ``PlantedOpenSegDataset``
+by type, ``n`` samples, default 4096).  The in-training eval hooks of
+``valid_test_list`` run every ``eval_model_every`` steps and the sample
+hooks of ``sample_test_list`` every ``sample_val_every``
+(``eval/hooks.py``): on a planted run over ``PlantedInferenceDataset`` (16
+volumes, scored on the four planted attributes at 64 tokens),
+``PlantedSegInferenceDataset`` (8) and, with ``use_open_seg``,
+``PlantedOpenSegDataset`` (2); under ``--synthetic`` or
+``--synthetic_eval N`` over ``SyntheticInferenceDataset`` and, with
+``use_open_seg``, 2 synthetic open-vocabulary items.
 
 Not ported yet, and refused with NotImplementedError: packed shards,
-CT-RATE files (for training and as ``valid_data``), the planted and real
-segmentation sets, the segmentation and sample hooks, and the
+CT-RATE and RadGenome files (for training and as ``valid_data``), and the
 multi-device flags (``--mesh`` and the multi-host flags).
 """
 
@@ -74,10 +80,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_datasets(config, tokenizer, synthetic: int = 0):
-    """With ``synthetic``, one synthetic image-report data set of that many
-    samples per ``train_data_list`` entry; otherwise one planted data set
-    per ``planted: true`` entry of type imagereport.  Anything else is not
-    ported yet."""
+    """With ``synthetic``, one synthetic data set of that many samples per
+    ``train_data_list`` entry, of the entry's type; otherwise one planted
+    data set per ``planted: true`` entry.  Anything else is not ported
+    yet."""
     if synthetic:
         from vit_exp_tpu_torch.data.synthetic import SyntheticCTDataset
 
@@ -93,42 +99,62 @@ def build_datasets(config, tokenizer, synthetic: int = 0):
         if not spec.get("planted"):
             raise NotImplementedError(
                 f"data set {spec.get('name', dtype)!r}: only --synthetic and "
-                f"planted data are ported yet; packed shards and CT-RATE "
-                f"files come with the real-data slice (ROADMAP M3)")
-        if dtype != "imagereport":
-            raise NotImplementedError(
-                f"planted {dtype!r} data is not ported yet (ROADMAP M4)")
+                f"planted data are ported yet; packed shards, CT-RATE and "
+                f"RadGenome files come with the real-data slice (ROADMAP M3)")
         # n defaults large enough that short runs are single-epoch
-        datasets.append(planted.PlantedCTDataset(
-            int(spec.get("n", 4096)), arch=config.arch, tokenizer=tokenizer,
-            max_text_len=64))
+        n = int(spec.get("n", 4096))
+        if dtype == "imagereport":
+            datasets.append(planted.PlantedCTDataset(
+                n, arch=config.arch, tokenizer=tokenizer, max_text_len=64))
+        elif dtype == "imageseg":
+            datasets.append(planted.PlantedSegDataset(n, arch=config.arch))
+        elif dtype == "imageopenseg":
+            datasets.append(planted.PlantedOpenSegDataset(
+                n, arch=config.arch, tokenizer=tokenizer, max_text_len=64))
+        else:
+            raise ValueError(f"unknown planted dataset type {dtype!r}")
     return datasets
 
 
 def build_hooks(config, args: argparse.Namespace, tokenizer):
-    """The eval hooks of ``valid_test_list`` over the run's validation set:
-    planted held-out volumes on a planted run, synthetic ones under
-    --synthetic or --synthetic_eval."""
+    """The eval and sample hooks of ``valid_test_list`` and
+    ``sample_test_list`` over the run's validation sets: planted held-out
+    volumes on a planted run, synthetic ones under --synthetic or
+    --synthetic_eval.  Returns build_eval_hooks' {"eval_hooks",
+    "sample_hooks"}."""
     from vit_exp_tpu_torch.eval.hooks import build_eval_hooks
 
     if not (config.valid_test_list or config.sample_test_list):
-        return {}
-    cls_ds, cls_pathologies, cls_max_text_len = None, None, 512
+        return {"eval_hooks": {}, "sample_hooks": {}}
+    cls_ds = seg_ds = open_ds = None
+    cls_pathologies, cls_max_text_len = None, 512
+    use_open_seg = config.ct_clip_arch.use_open_seg
     if any(spec.get("planted") for spec in config.train_data_list):
         from vit_exp_tpu_torch.data import planted
 
         cls_ds = planted.PlantedInferenceDataset(16, arch=config.arch)
+        seg_ds = planted.PlantedSegInferenceDataset(8, arch=config.arch)
+        if use_open_seg:
+            open_ds = planted.PlantedOpenSegDataset(
+                2, arch=config.arch, tokenizer=tokenizer, max_text_len=64)
         cls_pathologies, cls_max_text_len = list(planted.PLANTED_ATTRS), 64
     elif args.synthetic or args.synthetic_eval:
-        from vit_exp_tpu_torch.data.synthetic import SyntheticInferenceDataset
+        from vit_exp_tpu_torch.data.synthetic import (SyntheticCTDataset,
+                                                      SyntheticInferenceDataset)
 
         cls_ds = SyntheticInferenceDataset(
             args.synthetic_eval or max(args.synthetic // 2, 2),
             arch=config.arch)
+        if use_open_seg:
+            open_ds = SyntheticCTDataset("imageopenseg", n=2,
+                                         arch=config.arch,
+                                         tokenizer=tokenizer, n_classes=4)
     elif config.extra.get("valid_data"):
         raise NotImplementedError(
-            "valid_data on CT-RATE files is not ported yet (ROADMAP M3)")
+            "valid_data on CT-RATE and RadGenome files is not ported yet "
+            "(ROADMAP M3)")
     return build_eval_hooks(config, tokenizer, cls_dataset=cls_ds,
+                            seg_dataset=seg_ds, open_seg_dataset=open_ds,
                             cls_pathologies=cls_pathologies,
                             cls_max_text_len=cls_max_text_len)
 
@@ -153,7 +179,9 @@ def make_trainer(args: argparse.Namespace, device="cuda"):
                          remat=args.remat, seed=config.random_seed)
     resume = -1 if args.auto_resume else args.resume
     return CTClipTrainer(model, config, datasets=datasets, resume_step=resume,
-                         use_wandb=not args.debug, eval_hooks=hooks)
+                         use_wandb=not args.debug,
+                         eval_hooks=hooks["eval_hooks"],
+                         sample_hooks=hooks["sample_hooks"])
 
 
 def main(argv=None, device="cuda"):

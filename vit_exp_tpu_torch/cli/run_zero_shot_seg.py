@@ -1,0 +1,119 @@
+"""Zero-shot segmentation CLI, the seg serving entry point (counterpart of
+vit_exp_tpu/cli/run_zero_shot_seg.py).
+
+Usage, on the card:
+    python -m vit_exp_tpu_torch.cli.run_zero_shot_seg --config cfg.yaml \\
+        --results_folder out/ --synthetic N [--no-int8] \\
+        [--model_path CKPT [--torch_ckpt]] [--batch_size B] [--vocab V]
+
+The config must switch on ``use_seg``.  ``--int8`` (the default, as in the
+JAX package) builds the W8A8 serving path (``int8=True, fuse_qkv=True``);
+``--no-int8`` the bf16 one (attn_impl="pallas_static", ``fuse_qkv=True``);
+the seg head is a plain bf16 product either way.  Weights: seeded random
+(seed 0) without ``--model_path``; with it, the port's own
+checkpoint (a ``ckpt_{step}/`` directory, or a ``checkpoints/`` directory
+whose latest step is taken), or with ``--torch_ckpt`` a reference
+``CTClip.*.pt`` state dict.  ``--synthetic N`` scores N synthetic volumes
+with masks of the seg head's ``out_dim`` classes.  Prints the dice result
+(``dice_class_{i}``, ``mean_dice``) as one JSON line and writes
+dice_scores.npy and dice_scores.txt into the results folder.
+
+Not ported yet, and refused with NotImplementedError: RadGenome folders
+(``--data_folder``/``--mask_folder``, ROADMAP M3) and ``--mesh`` with the
+multi-host flags (ROADMAP M7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+_NOT_PORTED = {"--data_folder": "M3", "--mask_folder": "M3", "--mesh": "M7",
+               "--coordinator_address": "M7", "--num_processes": "M7",
+               "--process_id": "M7"}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(prog="run_zero_shot_seg")
+    parser.add_argument("--int8", action=argparse.BooleanOptionalAction,
+                        default=True,
+                        help="W8A8 serving path (default); --no-int8 for "
+                        "bf16")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--model_path", default=None)
+    parser.add_argument("--results_folder", required=True)
+    parser.add_argument("--synthetic", type=int, default=0)
+    parser.add_argument("--torch_ckpt", action="store_true",
+                        help="--model_path is a reference CTClip.*.pt")
+    parser.add_argument("--vocab", default=None)
+    parser.add_argument("--batch_size", type=int, default=1,
+                        help="volumes per dice call")
+    for flag in _NOT_PORTED:
+        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    given = [f for f in _NOT_PORTED if getattr(args, f[2:]) is not None]
+    if given:
+        raise NotImplementedError(
+            f"{given} not ported yet (ROADMAP "
+            f"{', '.join(sorted({_NOT_PORTED[f] for f in given}))})")
+    if not args.synthetic:
+        raise NotImplementedError(
+            "only --synthetic data is ported yet; RadGenome folders come "
+            "with the real-data slice (ROADMAP M3)")
+    return args
+
+
+def load_weights(model, path: str, torch_ckpt: bool = False) -> None:
+    """The port's checkpoint (``ckpt_{step}/`` or the latest step of a
+    ``checkpoints/`` directory), or a reference ``CTClip.*.pt``."""
+    from vit_exp_tpu_torch.models.convert import load_reference_state_dict
+    from vit_exp_tpu_torch.train.checkpoint import CheckpointManager
+
+    if torch_ckpt:
+        load_reference_state_dict(
+            model, torch.load(path, map_location="cpu", weights_only=True))
+        return
+    if not os.path.exists(os.path.join(path, "model.pt")):
+        step = CheckpointManager(path).latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        path = os.path.join(path, f"ckpt_{step}")
+    model.load_state_dict(torch.load(os.path.join(path, "model.pt"),
+                                     map_location="cpu", weights_only=True),
+                          strict=True)
+
+
+def main(argv=None, device="cuda"):
+    """Score as the flags say; prints the JSON result and returns it.
+    ``device`` is the card unless a caller (a test) asks for another one:
+    there is no flag for it."""
+    args = parse_args(argv)
+    from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.data.synthetic import SyntheticCTDataset
+    from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
+    from vit_exp_tpu_torch.eval.zero_shot import ZeroShotSegmenter
+    from vit_exp_tpu_torch.models.factory import bert_config_for, build_ctclip
+
+    config = load_config(args.config)
+    if not config.ct_clip_arch.use_seg:
+        raise ValueError("run_zero_shot_seg needs a config with use_seg")
+    bert = bert_config_for(config, load_tokenizer(args.vocab))
+    mode = (dict(int8=True) if args.int8
+            else dict(attn_impl="pallas_static"))
+    model = build_ctclip(config, bert, device=device, fuse_qkv=True, **mode)
+    if args.model_path:
+        load_weights(model, args.model_path, args.torch_ckpt)
+    dataset = SyntheticCTDataset(
+        "imageseg", n=args.synthetic, arch=config.arch,
+        n_classes=config.ct_clip_arch.seg_head.out_dim)
+    engine = ZeroShotSegmenter(model, batch_size=args.batch_size)
+    res = engine.infer(dataset, results_folder=args.results_folder)
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,14 +1,18 @@
-"""Synthetic image-report data (counterpart of vit_exp_tpu/data/synthetic.py,
-``SyntheticCTDataset`` with data_type "imagereport", and
-``SyntheticInferenceDataset``, the zero-shot eval set): random volumes at the
-exact production shapes and the batch dict layout, made in memory so
-end-to-end runs need no CT-RATE data.  Item ``index`` draws from
-``numpy.random.default_rng((seed, index))`` (the eval set's from
+"""Synthetic data (counterpart of vit_exp_tpu/data/synthetic.py:
+``SyntheticCTDataset`` of data type "imagereport", "imageseg" or
+"imageopenseg", and ``SyntheticInferenceDataset``, the zero-shot eval set):
+random volumes at the exact production shapes and the batch dict layout,
+made in memory so end-to-end runs need no CT-RATE data.  Item ``index``
+draws from ``numpy.random.default_rng((seed, index))`` (the eval set's from
 ``default_rng((seed, index, 7))``) exactly as the JAX package does, so both
-packages see the same bytes.  The draw goes in cache-sized chunks
-straight into float32, and ``collate_batch`` draws a batch's volumes into
-one batch array: at full width a volume is 55 M values, and the float64
-temporary and the stacking copy were half of the loader's host time."""
+packages see the same bytes: the volume, then for the segmentation types a
+float32 0/1 mask of ``n_classes`` channels (uniform > 0.8); the
+open-vocabulary items also carry the class prompts "This is region of
+organ {i}." through the tokenizer.  The draws go in cache-sized chunks
+straight into float32, and ``collate_batch`` draws a batch's volumes and
+masks into batch arrays: at full width a volume is 55 M values (a
+22-class mask 1.2 G), and the float64 temporary and the stacking copy
+were half of the loader's host time."""
 
 from __future__ import annotations
 
@@ -31,9 +35,11 @@ _SYNTH_SENTENCES = [
 ]
 
 
-def _draw_uniform(rng: np.random.Generator, image: np.ndarray) -> None:
+def _draw_uniform(rng: np.random.Generator, image: np.ndarray,
+                  above: float | None = None) -> None:
     """Fill ``image`` (float32) with the values of rng.uniform(0, 1,
-    image.shape).astype(float32), drawn in chunks (uniform(0, 1) is
+    image.shape).astype(float32) or, with ``above``, of (rng.uniform(0, 1,
+    image.shape) > above).astype(float32), drawn in chunks (uniform(0, 1) is
     random(): 0 + 1·x, value for value), leaving rng where that call
     would."""
     flat = image.reshape(-1)
@@ -41,23 +47,32 @@ def _draw_uniform(rng: np.random.Generator, image: np.ndarray) -> None:
     for i in range(0, flat.size, buf.size):
         chunk = buf[:min(buf.size, flat.size - i)]
         rng.random(out=chunk)
-        flat[i:i + chunk.size] = chunk
+        flat[i:i + chunk.size] = chunk if above is None else chunk > above
 
 
 class SyntheticCTDataset:
     def __init__(self, data_type: str = "imagereport", *, n: int = 30,
                  arch: ArchConfig | None = None, tokenizer=None,
-                 max_text_len: int = 128, seed: int = 0):
-        if data_type != "imagereport":
-            raise NotImplementedError(
-                f"synthetic {data_type!r} data is not ported yet (the "
-                f"segmentation slices bring it)")
+                 n_classes: int = 4, max_text_len: int = 128, seed: int = 0):
+        if data_type not in ("imagereport", "imageseg", "imageopenseg"):
+            raise ValueError(f"unknown synthetic data type {data_type!r}")
         self.data_type = data_type
         self.n = n
         self.arch = arch or ArchConfig()
         self.tokenizer = tokenizer
+        self.n_classes = n_classes
         self.max_text_len = max_text_len
         self.seed = seed
+        if data_type == "imageopenseg":
+            if tokenizer is None:
+                raise ValueError(
+                    "imageopenseg synthetic data needs a tokenizer for the "
+                    "class prompts")
+            toks = tokenizer([f"This is region of organ {i}."
+                              for i in range(n_classes)],
+                             max_length=max_text_len)
+            self.prompt_ids = toks["input_ids"]
+            self.prompt_mask = toks["attention_mask"]
 
     def __len__(self):
         return self.n
@@ -66,29 +81,56 @@ class SyntheticCTDataset:
         a = self.arch
         return (a.channels, a.temporal_size, a.image_size, a.image_size)
 
+    def _mask_shape(self):
+        a = self.arch
+        return (self.n_classes, a.temporal_size, a.image_size, a.image_size)
+
+    @property
+    def _seg(self) -> bool:
+        return self.data_type != "imagereport"
+
     def __getitem__(self, index: int) -> Dict:
-        return self._item(index, np.empty(self._image_shape(), np.float32))
+        mask = np.empty(self._mask_shape(), np.float32) if self._seg else None
+        return self._item(index, np.empty(self._image_shape(), np.float32),
+                          mask)
 
     def collate_batch(self, indices) -> Dict:
-        """``collate([self[i] for i in indices])``, the images drawn in
-        place into the batch array."""
-        images = np.empty((len(indices), *self._image_shape()), np.float32)
-        items = [self._item(i, images[j]) for j, i in enumerate(indices)]
-        batch = collate([dict(item, image=None) for item in items])
+        """``collate([self[i] for i in indices])``, the images (and masks)
+        drawn in place into the batch arrays."""
+        n = len(indices)
+        images = np.empty((n, *self._image_shape()), np.float32)
+        masks = (np.empty((n, *self._mask_shape()), np.float32) if self._seg
+                 else [None] * n)
+        items = [self._item(i, images[j], masks[j])
+                 for j, i in enumerate(indices)]
+        batch = collate([{k: v for k, v in item.items()
+                          if k not in ("image", "seg_mask")}
+                         for item in items])
         batch["image"] = images
+        if self._seg:
+            batch["seg_mask"] = masks
         return batch
 
-    def _item(self, index: int, image: np.ndarray) -> Dict:
-        """Item ``index`` with its volume drawn into ``image``."""
+    def _item(self, index: int, image: np.ndarray,
+              mask: np.ndarray | None) -> Dict:
+        """Item ``index`` with its volume drawn into ``image`` (and, for the
+        segmentation types, its mask into ``mask``)."""
         rng = np.random.default_rng((self.seed, index))
         _draw_uniform(rng, image)
-        text = _SYNTH_SENTENCES[index % len(_SYNTH_SENTENCES)]
-        item: Dict = {"image": image, "data_type": self.data_type,
-                      "text": text}
-        if self.tokenizer is not None:
-            toks = self.tokenizer([text], max_length=self.max_text_len)
-            item["input_ids"] = toks["input_ids"][0]
-            item["attention_mask"] = toks["attention_mask"][0]
+        item: Dict = {"image": image, "data_type": self.data_type}
+        if self.data_type == "imagereport":
+            text = _SYNTH_SENTENCES[index % len(_SYNTH_SENTENCES)]
+            item["text"] = text
+            if self.tokenizer is not None:
+                toks = self.tokenizer([text], max_length=self.max_text_len)
+                item["input_ids"] = toks["input_ids"][0]
+                item["attention_mask"] = toks["attention_mask"][0]
+            return item
+        _draw_uniform(rng, mask, above=0.8)
+        item["seg_mask"] = mask
+        if self.data_type == "imageopenseg":
+            item["prompt_ids"] = self.prompt_ids
+            item["prompt_mask"] = self.prompt_mask
         return item
 
 

@@ -1,5 +1,5 @@
-"""Zero-shot classification engine (counterpart of
-vit_exp_tpu/eval/zero_shot.py::ZeroShotClassifier).
+"""Zero-shot classification and segmentation engines (counterpart of
+vit_exp_tpu/eval/zero_shot.py::ZeroShotClassifier and ZeroShotSegmenter).
 
 18 CT-RATE pathologies, two prompts each ("{p} is present." / "{p} is not
 present."); the 36 prompt latents are embedded once; each volume is encoded
@@ -16,10 +16,18 @@ volume's probabilities depend on that volume alone).  It returns
 ``evaluate_internal``'s per-label AUROCs and ``volumes_per_sec``.  The model
 is scored in eval mode under ``torch.inference_mode`` and left in the mode
 it was in; scoring draws from no random stream.
+
+``ZeroShotSegmenter`` scores a segmentation set (items with "image" and
+"seg_mask") by the per-sample, per-class dice of ``seg_forward``'s logits,
+one batch at a time on the device (the tail batch padded by repeating its
+last item, whose rows are dropped), read one batch late.  It returns the
+per-class dice averaged over the samples with nanmean, ``dice_class_{i}``,
+and their nanmean, ``mean_dice``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
@@ -30,6 +38,7 @@ from vit_exp_tpu_torch.data.loader import Loader
 from vit_exp_tpu_torch.eval.metrics import (evaluate_internal,
                                             save_inference_artifacts)
 from vit_exp_tpu_torch.models.ctclip import CTCLIP
+from vit_exp_tpu_torch.models.losses import dice_scores_per_sample
 
 PATHOLOGIES: List[str] = [
     "Medical material", "Arterial wall calcification", "Cardiomegaly",
@@ -164,4 +173,71 @@ class ZeroShotClassifier:
         if results_folder:
             save_inference_artifacts(results_folder, y_pred, y_true,
                                      accessions, res)
+        return res
+
+
+class ZeroShotSegmenter:
+    """Closed-set dice engine over one CTCLIP with a seg head on one
+    device."""
+
+    def __init__(self, model: CTCLIP, *, batch_size: int = 1):
+        self.model = model
+        self.batch_size = batch_size
+        self.device = next(model.parameters()).device
+
+    def set_params(self, model: Optional[CTCLIP] = None) -> None:
+        """Score ``model`` from now on (given nothing, the engine's own
+        model, whose weights have changed in place)."""
+        if model is not None:
+            self.model = model
+            self.device = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def dice(self, volumes, masks) -> torch.Tensor:
+        """(B, 1, D, H, W), (B, C, D, H, W) → (B, C) per-sample dice, on the
+        device."""
+        video = torch.as_tensor(volumes, device=self.device)
+        mask = torch.as_tensor(masks, device=self.device)
+        return dice_scores_per_sample(self.model.seg_forward(video), mask)
+
+    def dice_batch(self, volumes, masks) -> np.ndarray:
+        return self.dice(volumes, masks).cpu().numpy()
+
+    def _dispatch(self, batch: Dict):
+        volumes, masks = (torch.as_tensor(np.asarray(batch[k]))
+                          for k in ("image", "seg_mask"))
+        k = volumes.shape[0]
+        if k < self.batch_size:   # pad the tail: repeat the last item
+            idx = torch.arange(self.batch_size).clamp_max(k - 1)
+            volumes, masks = volumes[idx], masks[idx]
+        return self.dice(volumes, masks), k
+
+    def infer(self, dataset, *, results_folder: Optional[str] = None,
+              limit: Optional[int] = None,
+              num_workers: int = 4) -> Dict[str, float]:
+        """Dice over the first ``limit`` items of ``dataset`` (all without
+        it): ``dice_class_{i}`` and ``mean_dice``; with ``results_folder``
+        also dice_scores.npy (samples × classes) and dice_scores.txt."""
+        n = min(len(dataset), limit) if limit else len(dataset)
+        was_training = self.model.training
+        self.model.eval()
+        all_dice: List[np.ndarray] = []
+        try:
+            for dev, k in _one_deep_map(dataset, n, self.batch_size,
+                                        self._dispatch,
+                                        num_workers=num_workers):
+                all_dice.extend(dev.cpu().numpy()[:k])
+        finally:
+            self.model.train(was_training)
+        dice = np.nanmean(np.stack(all_dice), axis=0)
+        res = {f"dice_class_{i}": float(v) for i, v in enumerate(dice)}
+        res["mean_dice"] = float(np.nanmean(dice))
+        if results_folder:
+            os.makedirs(results_folder, exist_ok=True)
+            np.save(os.path.join(results_folder, "dice_scores.npy"),
+                    np.stack(all_dice))
+            with open(os.path.join(results_folder, "dice_scores.txt"),
+                      "w") as f:
+                for key, v in res.items():
+                    f.write(f"{key}: {v}\n")
         return res

@@ -5,7 +5,8 @@ The port's modules are named in the reference ``CTClip.*.pt`` key layout
 so one ``load_state_dict`` serves both sources:
 
 - ``from_jax_params(params)``: pure numpy; maps the JAX package's flax
-  parameter tree (numpy arrays) onto exactly the keys the port registers.
+  parameter tree (numpy arrays) onto exactly the keys the port registers,
+  the segmentation heads' included.
   It only transposes and reshapes, so it is linear: it maps a JAX gradient
   tree (``jax.grad`` of a loss in the params) onto the port's parameter
   names as well, which is how the train-step tests compare gradients.
@@ -95,6 +96,13 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     sd["to_text_latent.weight"] = _t(params["to_text_latent"]["kernel"])
     sd["to_visual_latent.weight"] = _t(params["to_visual_latent"]["kernel"])
     sd["temperature"] = _f(params["temperature"])
+    # the MLP heads: fc{k} → the Sequential's Linear at index 2k
+    for head in ("seg_head", "open_seg_head", "open_text_head",
+                 "fusion_head"):
+        for name, tree in params.get(head, {}).items():
+            k = f"{head}.{2 * int(name[2:])}."
+            sd[k + "weight"] = _t(tree["kernel"])
+            sd[k + "bias"] = _f(tree["bias"])
     return sd
 
 

@@ -1,12 +1,25 @@
-"""CTCLIP dual encoder, contrastive/zero-shot surface (counterpart of
-vit_exp_tpu/models/ctclip.py; the segmentation and SSL heads wait for a
-later slice).  ``forward`` is the contrastive path the train step
-differentiates.
+"""CTCLIP dual encoder with the segmentation heads (counterpart of
+vit_exp_tpu/models/ctclip.py; the SSL heads wait for a later slice).
+``forward`` is the contrastive path the train step differentiates.
 
 Bias-free latent projections; the image latent is the token mean, then the
 projection, then l2norm (the projection is linear, so this equals the
 reference's per-token projection followed by the mean); the logit scale is
 exp(temperature).  ``forward_infer`` scores paired latents.
+
+Segmentation (``clip_arch.use_seg``): ``seg_head``, an MLP per token of
+out_dim × patch_voxel_nums features, unpatchified to (B, C, D, W, H) voxel
+logits (``seg_forward``).  Open vocabulary (``use_open_seg``):
+``open_seg_head`` per token to h-dim voxel embeddings, ``open_text_head``
+on each class prompt's CLS state, and optionally ``fusion_head``, an MLP
+over [voxel embedding, prompt embedding] (``open_seg_forward``,
+``apply_fusion_head``).  The losses run in the train step.  The heads
+are plain products in the compute dtype on every path (int8 serving
+included), as the JAX package computes them outside any kernel.
+
+Reference quirk kept: the open-vocabulary downsample draws a random start
+but slices ``[::factor]`` regardless, so it is a deterministic stride
+(``downsample_stride``).
 """
 
 from __future__ import annotations
@@ -20,8 +33,17 @@ from vit_exp_tpu_torch.core.config import CTClipArchConfig
 from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from vit_exp_tpu_torch.models.bert import BertConfig, BertModel
 from vit_exp_tpu_torch.models.ctvit3d import CTViT3D
-from vit_exp_tpu_torch.models.layers import Linear
+from vit_exp_tpu_torch.models.layers import Linear, MLPHead
 from vit_exp_tpu_torch.ops.attention import l2norm
+from vit_exp_tpu_torch.ops.patches import unpatchify_heads
+
+
+def downsample_stride(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(B, C, D, W, H) strided spatial downsample, ``[::factor]`` on each
+    spatial axis."""
+    if factor == 1:
+        return x
+    return x[:, :, ::factor, ::factor, ::factor]
 
 
 class CTCLIP(nn.Module):
@@ -39,6 +61,27 @@ class CTCLIP(nn.Module):
         self.to_visual_latent = Linear(visual.dim, dim_latent, bias=False, **kw)
         self.temperature = nn.Parameter(
             torch.empty((), device=device, dtype=torch.float32))
+        ca = self.clip_arch
+        pv = (visual.patch_size * visual.patch_size
+              * visual.temporal_patch_size)   # voxels a token covers
+        if ca.use_seg:
+            hc = ca.seg_head
+            self.seg_head = MLPHead(visual.dim, hc.n_layers, hc.mid_dim,
+                                    hc.out_dim * pv, **kw)
+        if ca.use_open_seg:
+            hc, tc = ca.open_seg_head, ca.open_text_head
+            self.open_seg_head = MLPHead(visual.dim, hc.n_layers, hc.mid_dim,
+                                         hc.out_dim * pv, **kw)
+            self.open_seg_hidden = hc.out_dim
+            self.open_text_head = MLPHead(bert_config.hidden_size,
+                                          tc.n_layers, tc.mid_dim,
+                                          tc.out_dim, **kw)
+            self.fusion_head = None
+            if ca.fusion_head is not None:
+                fc = ca.fusion_head
+                self.fusion_head = MLPHead(hc.out_dim + tc.out_dim,
+                                           fc.n_layers, fc.mid_dim,
+                                           fc.out_dim, **kw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.temperature)
@@ -84,3 +127,38 @@ class CTCLIP(nn.Module):
         return {"text_latents": self.text_latents_from_hidden(hidden),
                 "image_latents": self.image_latents_from_tokens(tokens),
                 "temperature": self.temperature}
+
+    def head_voxels(self, head: nn.Module,
+                    tokens: torch.Tensor) -> torch.Tensor:
+        """A per-token head's output unpatchified to (B, C, D, W, H)."""
+        vt = self.visual_transformer
+        return unpatchify_heads(head(tokens), vt.temporal_patch_size,
+                                vt.patch_size, vt.patch_size)
+
+    def seg_forward(self, video: torch.Tensor) -> torch.Tensor:
+        """Closed-set path: (b, c, T, H, W) → (b, C, T, H, W) voxel logits
+        in the compute dtype."""
+        tokens = self.encode_image_tokens(video)
+        return self.head_voxels(self.seg_head, tokens)
+
+    def open_seg_forward(self, video: torch.Tensor, prompt_ids: torch.Tensor,
+                         prompt_mask: Optional[torch.Tensor] = None,
+                         down_factor: Optional[int] = None):
+        """Open-vocabulary path.  prompt_ids: (C, L_text), one tokenized
+        prompt per class.  Returns the voxel embeddings after the strided
+        downsample, "seg_preds" (B, L, h), and the class prompts'
+        embeddings, "prompt_logits" (B, C, h)."""
+        factor = down_factor or self.clip_arch.open_seg_loss_down_factor
+        b = video.shape[0]
+        hidden = self.encode_text_hidden(prompt_ids, prompt_mask)
+        prompt_logits = self.open_text_head(hidden[:, 0, :])   # (C, h)
+        prompt_logits = prompt_logits[None].expand(b, *prompt_logits.shape)
+        tokens = self.encode_image_tokens(video)
+        voxel = downsample_stride(
+            self.head_voxels(self.open_seg_head, tokens), factor)
+        seg_preds = voxel.permute(0, 2, 3, 4, 1).reshape(
+            b, -1, self.open_seg_hidden)
+        return {"seg_preds": seg_preds, "prompt_logits": prompt_logits}
+
+    def apply_fusion_head(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fusion_head(x)

@@ -132,17 +132,12 @@ def build_ctclip(config, bert_config: Optional[BertConfig] = None, *,
     bf16/int8 hybrid runs (with ``fuse_qkv`` the qkv and out-projections
     too); forward only.  The state dict is the same in every mode.
     ``config.ct_clip_arch`` (the port's ``CTClipArchConfig`` defaults when
-    the config has none) goes to ``CTCLIP``; the segmentation heads are not
-    ported yet, so ``use_seg`` and ``use_open_seg`` raise here.  With the
-    kernels on the card, widths they do not take raise here too, before
-    any weight exists (``build_image_encoder``)."""
+    the config has none) goes to ``CTCLIP``, with the segmentation heads
+    it switches on (plain products in the compute dtype in every mode).
+    With the kernels on the card, widths they do not take raise here,
+    before any weight exists (``build_image_encoder``)."""
     arch = getattr(config, "arch", config)
     clip_arch = getattr(config, "ct_clip_arch", None) or CTClipArchConfig()
-    for switch in ("use_seg", "use_open_seg"):
-        if getattr(clip_arch, switch, False):
-            raise NotImplementedError(
-                f"ct_clip_arch.{switch}: the segmentation and open-vocabulary "
-                f"heads are not ported yet (ROADMAP M4)")
     if dim_latent is None:
         dim_latent = (getattr(config, "extra", None) or {}).get("dim_latent",
                                                                 768)

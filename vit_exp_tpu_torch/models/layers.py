@@ -121,3 +121,22 @@ class GEGLUFeedForward(nn.Module):
         fn = fused_geglu_ff_int8 if self.int8 else fused_geglu_ff
         return fn(x.to(self.policy.compute_dtype), norm.weight, norm.bias,
                   wi.weight.t(), wo.weight.t(), use_kernel=self.use_kernel)
+
+
+class MLPHead(nn.Sequential):
+    """The reference's create_head MLP: ``n_layers`` Linear layers with
+    LeakyReLU(0.2) between them, as one Sequential, so the Linear layers
+    sit at the even indices of the reference key layout
+    (``seg_head.{2k}.weight``).  Products in the compute dtype."""
+
+    def __init__(self, d_in: int, n_layers: int, mid_dim: int, out_dim: int,
+                 *, policy: Policy = DEFAULT_POLICY, device=None):
+        layers = []
+        for i in range(n_layers):
+            d_out = out_dim if i == n_layers - 1 else mid_dim
+            layers.append(Linear(d_in, d_out, policy=policy, device=device))
+            if i < n_layers - 1:
+                layers.append(nn.LeakyReLU(0.2))
+            d_in = d_out
+        super().__init__(*layers)
+        self.out_dim = out_dim

@@ -2,6 +2,8 @@
 vit_exp_tpu/ops/patches.py).
 
 - ``patchify_3d``: 'b c (t pt) (h p1) (w p2) -> b t h w (c pt p1 p2)'.
+- ``unpatchify_heads``: a segmentation head's per-token output back to
+  voxels, (b, d, w, h, p_d·p_w·p_h·C) → (b, C, D, W, H).
 - ``fused_patch_embed``: patchify → LayerNorm(γ, β) → Linear(W, b) without
   the patch tensor:  [(x−μ)·inv ⊙ γ + β] @ W + b = (x @ (γ⊙W) −
   μ·colsum(γ⊙W))·inv + (β@W + b).  The weight preparation (kf = γ⊙W, its
@@ -44,6 +46,19 @@ def patchify_3d(video: torch.Tensor, pt: int, p1: int, p2: int) -> torch.Tensor:
     x = video.reshape(b, c, t, pt, h, p1, w, p2)
     x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
     return x.reshape(b, t, h, w, c * pt * p1 * p2)
+
+
+def unpatchify_heads(tokens: torch.Tensor, p_d: int, p_w: int,
+                     p_h: int) -> torch.Tensor:
+    """(b, d, w, h, p_d*p_w*p_h*C) head output → (b, C, D, W, H) voxel
+    logits: the inverse of the reference's ``view(b, d, w, h, p_d, p_w, p_h,
+    -1).permute(0, 7, 1, 4, 2, 5, 3, 6)``.  The head's feature axis is laid
+    out as (p_d, p_w, p_h, C)."""
+    b, d, w, h, f = tokens.shape
+    c = f // (p_d * p_w * p_h)
+    x = tokens.reshape(b, d, w, h, p_d, p_w, p_h, c)
+    x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
+    return x.reshape(b, c, d * p_d, w * p_w, h * p_h)
 
 
 def patch_stats_plain(x: torch.Tensor, p1: int, p2: int):

@@ -25,14 +25,19 @@ vit_exp_tpu/train/trainer.py's ``CTClipTrainer``).
   every ``eval_model_every`` steps the pending train line is written first
   (so metrics.jsonl stays in step order), then each hook scores the live
   model, ``hook(model) -> {key: value}``, logged as ``eval/<name>/<key>``
-  at that step.  A hook leaves the model's weights, mode and random
-  streams as it found them, so a run with hooks trains the same bits as
-  one without.
+  at that step.  ``sample_hooks`` likewise every ``sample_val_every``
+  steps, ``hook(model, step) -> {key: file path}``, logged as
+  ``sample/<name>/<key>``.  A hook leaves the model's weights, mode and
+  random streams as it found them, so a run with hooks trains the same
+  bits as one without.
+- Batches go to the device as they come from the loader: token ids as
+  int64, volumes and masks in their own dtype (the planted masks are
+  uint8, and the losses cast them on the device: a full-width fp32 mask
+  of 22 classes would be 4.87 GB a volume on the host).
 
 Not ported: the host-memory watchdog (a guard against a leak of the JAX
 package's TPU client) and the mesh and multi-host plumbing (the
-multi-device slice brings those), and the sample hooks (the segmentation
-slice brings them; ``build_eval_hooks`` refuses them).
+multi-device slice brings those).
 """
 
 from __future__ import annotations
@@ -53,15 +58,19 @@ from vit_exp_tpu_torch.train.steps import make_train_steps
 from vit_exp_tpu_torch.utils.logging import MetricLogger
 from vit_exp_tpu_torch.utils.profiling import StepTimer
 
-_BATCH_KEYS = ("image", "input_ids", "attention_mask")
+_BATCH_KEYS = ("image", "input_ids", "attention_mask", "seg_mask",
+               "prompt_ids", "prompt_mask")
+_ID_KEYS = {"input_ids", "attention_mask", "prompt_ids", "prompt_mask"}
 
 
 class CTClipTrainer:
     def __init__(self, model: torch.nn.Module, config, *,
                  datasets: Optional[List[Any]] = None,
                  resume_step: Optional[int] = None, use_wandb: bool = True,
-                 eval_hooks: Optional[Dict[str, Callable]] = None):
+                 eval_hooks: Optional[Dict[str, Callable]] = None,
+                 sample_hooks: Optional[Dict[str, Callable]] = None):
         self.eval_hooks = dict(eval_hooks or {})
+        self.sample_hooks = dict(sample_hooks or {})
         self.model = model.train()
         self.device = next(model.parameters()).device
         self.config = config
@@ -129,7 +138,7 @@ class CTClipTrainer:
         for k in _BATCH_KEYS:
             if k in batch:
                 v = torch.from_numpy(np.asarray(batch[k]))
-                if not v.is_floating_point():
+                if k in _ID_KEYS:
                     v = v.long()
                 out[k] = v.to(self.device, non_blocking=True)
         return out
@@ -221,6 +230,14 @@ class CTClipTrainer:
                     res = hook(self.model)
                     self.logger.log({f"eval/{name}/{k}": v
                                      for k, v in res.items()}, step=self.step)
+            if (self.sample_hooks and tcfg.sample_val_every
+                    and self.step % tcfg.sample_val_every == 0):
+                flush_pending()
+                for name, hook in self.sample_hooks.items():
+                    paths = hook(self.model, self.step)
+                    self.logger.log({f"sample/{name}/{k}": str(v)
+                                     for k, v in paths.items()},
+                                    step=self.step)
         flush_pending()
         self.save(wait=True)
         print("Training complete", flush=True)
