@@ -84,7 +84,26 @@
    metrics.jsonl and ckpt_2 and ckpt_3.  Then 6 steps over 64 samples:
    the trainer's steps/s, one profiled step's idle share
    (chiprun_out/profile_run_train.txt), the loader's wait per batch and
-   the peak device memory.
+   the peak device memory.  Then the real-format data paths, on the first
+   run's ckpt_2 and ckpt_3: the offline preprocessing of a 512 × 512 × 300
+   int16 volume on the card against the CPU (relative L2 ≤ PREP_RTOL, both
+   timed) and ``preprocess_ctrate.main`` on two written NIfTI files with
+   and without --device (the npz within PREP_RTOL); 8 npz volumes in
+   CT-RATE's tree (each crops or pads on some axis), a reports CSV and an
+   18-column labels CSV with an empty cell each, packed to float16 by
+   ``pack_dataset.main``; the native reader built, its get_batch
+   byte-equal to the memmap slices, its rate; ``run_zero_shot_cls.main``
+   over the tree (int8) and the store (int8, --no-int8), and as a sweep of
+   the two checkpoints, each run's launches the serving path's per batch
+   times its batches, npz against store within PROB_TOL, the sweep's
+   second checkpoint bit for bit the fresh run's; then ``serve``'s server
+   in-process on port 0 (int8, ckpt_3, warmed at batch 1 and 4): /health,
+   8 concurrent clients × 2 /classify_path requests under --data_root
+   (the largest batch 4, every probability bit for bit predict_batch's
+   on the batch it was dispatched in and within PROB_TOL of it on its
+   volume alone, each dispatch the int8 path's launches), a lone request's latency, one base64 /classify and one
+   /embed (l2-normalised, dim_latent entries), and a batch's copy, tower
+   and read-back times.
 7. The segmentation paths at full width, each with the kernel rows of its
    own shapes (K15 with lse, the pair, K2, the patch embedding and K8 at
    batch 1; the serving kernels at one volume): the seg train step
@@ -1488,7 +1507,9 @@ def run_train_phase(device, folder: Path, overrides=None, synthetic=8,
     are counted.  Its steps/s and loader wait per batch are taken over the
     same steps, from the start of step ``skip`` + 1 (past the first loader
     fill and the warm-up) to the start of the last step.  Returns (the
-    numbers, the throughput run's trainer)."""
+    numbers, with the first run's config and the weights of its ckpt_2 and
+    ckpt_3 kept under ``folder``/ckpts, and the throughput run's
+    trainer)."""
     from vit_exp_tpu_torch.cli import run_train
 
     cfg = run_train_config(folder, "run", overrides)
@@ -1516,8 +1537,16 @@ def run_train_phase(device, folder: Path, overrides=None, synthetic=8,
           and t2.ckpt.all_steps() == [2, 3], (t2.status, t2.ckpt.all_steps()))
     check([d["step"] for d in lines] == [1, 2, 3]
           and all(math.isfinite(x) for x in losses), lines)
+    ckpt_dir = Path(t2.ckpt.directory)
     del t2
     release(device)
+    # the two checkpoints' weights stay for the real-format phases
+    ckpts = []
+    for step in (2, 3):
+        keep = folder / "ckpts" / f"ckpt_{step}"
+        keep.mkdir(parents=True)
+        os.replace(ckpt_dir / f"ckpt_{step}" / "model.pt", keep / "model.pt")
+        ckpts.append(str(keep))
     shutil.rmtree(folder / "run")
 
     cfg = run_train_config(folder, "throughput", overrides)
@@ -1541,7 +1570,8 @@ def run_train_phase(device, folder: Path, overrides=None, synthetic=8,
                 window=(skip + 1, throughput_steps - 1),
                 sps=(len(window) - 1) / (t_b - t_a), waits=waits,
                 wait_s=(w_b - w_a) / (b_b - b_a), collate_s=collate_s,
-                launches=launches), tt
+                launches=launches, ckpts=ckpts,
+                config=str(folder / "run.yaml")), tt
 
 
 # the planted learning path: scripts/train_convergence_torch.py's mid arch
@@ -2189,6 +2219,565 @@ def path_rows(rows: list, path: str, counts: dict) -> list:
     return out
 
 
+# the real-format data path: the NIfTI reader and the offline preprocessing
+# (host and card), a CT-RATE npz tree and its CSVs, the packed store and its
+# native reader, run_zero_shot_cls over both and as a checkpoint sweep, and
+# the HTTP server under concurrent clients
+CT_RAW_HWD = (512, 512, 300)              # a raw CT volume, int16
+CT_RAW_SPACING = (1.0, 0.7, 0.7)          # (z, x, y) mm
+NIFTI_HWD = ((512, 512, 120), (400, 400, 96))
+NIFTI_SPACING = ((2.0, 0.7), (1.25, 0.9))   # (z, xy) of each file
+PREP_RTOL = 1e-5    # card against CPU, relative L2 (fp32 lerps, FMAs)
+# (D, H, W) of the npz volumes: larger and smaller than the runtime target
+# (240, 480, 480) on each axis among them, so the crop and the pad both run
+CTRATE_DHW = ((250, 500, 470), (200, 460, 500), (260, 512, 512),
+              (180, 420, 430), (240, 480, 480), (230, 490, 470),
+              (300, 400, 520), (210, 500, 450))
+CLS_BATCH = 4
+# served probabilities are held bit for bit to predict_batch's on the batch
+# each was dispatched in, and within PROB_TOL (printed) to predict_batch's
+# on the volume alone: the int8 attention quantizes k at one scale over the
+# whole batch (as JAX's K10 does), so a volume's int8 probabilities move
+# with its batch companions
+SERVE_CLIENTS, SERVE_ROUNDS = 8, 2
+
+
+def write_nifti(path: Path, data: np.ndarray, pixdim) -> None:
+    """A NIfTI-1 int16 file (gzip level 1 for .nii.gz), the header the
+    reader needs: dim, datatype 4, pixdim, vox_offset 352, no scaling."""
+    import gzip
+    import struct
+
+    hdr = bytearray(352)
+    struct.pack_into("<i", hdr, 0, 348)
+    struct.pack_into("<8h", hdr, 40, 3, *data.shape, 1, 1, 1, 1)
+    struct.pack_into("<h", hdr, 70, 4)
+    struct.pack_into("<8f", hdr, 76, 1.0, *pixdim, 1.0, 1.0, 1.0, 1.0)
+    struct.pack_into("<f", hdr, 108, 352.0)
+    struct.pack_into("<ff", hdr, 112, 1.0, 0.0)
+    payload = bytes(hdr) + data.astype("<i2").tobytes(order="F")
+    if path.name.endswith(".gz"):
+        with gzip.open(path, "wb", compresslevel=1) as f:
+            f.write(payload)
+    else:
+        path.write_bytes(payload)
+
+
+def filesystem_of(path: Path) -> str:
+    """The mount point and type of the file system holding ``path`` (the
+    longest mount point of /proc/mounts above it)."""
+    real = os.path.realpath(path)
+    best, kind = "", "?"
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, fstype = line.split()[:3]
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best):
+                best, kind = mnt, fstype
+    return f"{best} ({kind})"
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def timed(fn, device):
+    """(fn(), host seconds with the device synchronised after)."""
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def prep_phase(device, folder: Path, raw_hwd=CT_RAW_HWD,
+               nifti_hwd=NIFTI_HWD) -> dict:
+    """The offline stage on a raw CT-sized volume, on ``device`` and on the
+    CPU (relative L2 ≤ PREP_RTOL, both timed, from the numpy volume to the
+    result on the device); then ``preprocess_ctrate.main`` on two written
+    NIfTI files (one .nii.gz, one .nii) by the host path and, on a card,
+    with --device: the npz trees within PREP_RTOL."""
+    from vit_exp_tpu_torch.cli import preprocess_ctrate
+    from vit_exp_tpu_torch.ops import preprocess as pp
+
+    r = np.random.default_rng(20)
+    img = r.integers(-1024, 2500, raw_hwd, dtype=np.int16)
+    shape = pp.spacing_resample_shape((raw_hwd[2], raw_hwd[0], raw_hwd[1]),
+                                      CT_RAW_SPACING)
+    kw = dict(slope=1.0, intercept=-1024.0, new_shape=shape)
+    pp.preprocess_offline_volume(img, device=device, **kw)   # warm
+    got, dev_s = timed(lambda: pp.preprocess_offline_volume(
+        img, device=device, **kw), device)
+    ref, cpu_s = timed(lambda: pp.preprocess_offline_volume(
+        img, device="cpu", **kw), torch.device("cpu"))
+    rel = rel_l2(got.cpu(), ref)
+    check(tuple(got.shape) == shape and rel <= PREP_RTOL, ("offline", rel))
+    del got, ref, img
+    src = folder / "nifti"
+    src.mkdir()
+    rows = ["VolumeName,RescaleSlope,RescaleIntercept,XYSpacing,ZSpacing"]
+    for i, (hwd, (z, xy)) in enumerate(zip(nifti_hwd, NIFTI_SPACING)):
+        name = f"train_{i}_a_1.nii" + (".gz" if i == 0 else "")
+        write_nifti(src / name, r.integers(-1024, 2500, hwd, dtype=np.int16),
+                    (xy, xy, z))
+        rows.append(f'{name},1,-1024,"[{xy}, {xy}]",{z}')
+    (folder / "metadata.csv").write_text("\n".join(rows) + "\n")
+    trees, cli_s = {}, {}
+    for tag, flag in (("host", []), ("card", ["--device"])):
+        if flag and device.type != "cuda":
+            continue
+        t0 = time.perf_counter()
+        preprocess_ctrate.main(["--src", str(src), "--metadata",
+                                str(folder / "metadata.csv"), "--out",
+                                str(folder / tag), "--workers", "2"] + flag)
+        cli_s[tag] = time.perf_counter() - t0
+        trees[tag] = sorted((folder / tag).rglob("*.npz"))
+        check(len(trees[tag]) == len(nifti_hwd), (tag, trees[tag]))
+    cli_rel = max((rel_l2(np.load(a)["arr_0"], np.load(b)["arr_0"])
+                   for a, b in zip(trees.get("card", []), trees["host"])),
+                  default=0.0)
+    check(cli_rel <= PREP_RTOL, ("preprocess_ctrate", cli_rel))
+    return dict(shape=shape, rel=rel, dev_s=dev_s, cpu_s=cpu_s,
+                cli_rel=cli_rel, cli_s=cli_s)
+
+
+def ctrate_files(folder: Path, dhw=CTRATE_DHW, seed=21):
+    """An npz tree in CT-RATE's layout (``valid_{i}/valid_{i}a/
+    valid_{i}_a_1.npz``, ``arr_0`` (D, H, W) fp32 in [−1.2, 1.2]), a
+    reports CSV with one empty Findings_EN cell and an 18-column labels CSV
+    with one empty cell.  Returns (tree, reports, labels, accessions)."""
+    from vit_exp_tpu_torch.eval.zero_shot import PATHOLOGIES
+
+    r = np.random.default_rng(seed)
+    names = []
+    for i, shape in enumerate(dhw):
+        sub = folder / "tree" / f"valid_{i}" / f"valid_{i}a"
+        sub.mkdir(parents=True)
+        vol = r.standard_normal(shape, dtype=np.float32)
+        np.clip(vol * np.float32(0.4), -1.2, 1.2, out=vol)
+        np.savez(sub / f"valid_{i}_a_1.npz", vol)
+        names.append(f"valid_{i}_a_1.nii.gz")
+    reports = folder / "reports.csv"
+    reports.write_text("VolumeName,Findings_EN,Impressions_EN\n" + "".join(
+        f"{n},{'' if i == 1 else f'finding {i}'},impression {i}\n"
+        for i, n in enumerate(names)))
+    y = (r.random((len(names), 18)) > 0.5).astype(int).astype(str)
+    y[0], y[1] = "1", "0"
+    y[2, 5] = ""
+    labels = folder / "labels.csv"
+    labels.write_text("VolumeName," + ",".join(PATHOLOGIES) + "\n" + "".join(
+        n + "," + ",".join(row) + "\n" for n, row in zip(names, y)))
+    return folder / "tree", str(reports), str(labels), names
+
+
+def native_phase(store) -> dict:
+    """The native reader: built and loaded; get_batch of CLS_BATCH records
+    byte-equal to the memmap slices cast to fp32; its read rate (the
+    records' stored bytes over the median of 3 reads) beside the same
+    records' through memmap slices cast by numpy on one thread."""
+    from vit_exp_tpu_torch import native
+
+    check(native.available(), ("native reader", native.build_error()))
+    keys = store.keys()[:CLS_BATCH]
+    got = store.get_batch(keys)
+    want = np.stack([store.get(k) for k in keys]).astype(np.float32)
+    check(got.dtype == np.float32 and np.array_equal(got, want),
+          "get_batch against the memmap slices")
+    del want
+    times, numpy_times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        store.get_batch(keys, out=got)
+        times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()   # the same bytes through memmap and numpy
+        for i, k in enumerate(keys):
+            np.copyto(got[i], store.get(k), casting="same_kind")
+        numpy_times.append(time.perf_counter() - t0)
+    stored = sum(int(np.prod(store.by_key[k]["shape"]))
+                 * np.dtype(store.by_key[k]["dtype"]).itemsize for k in keys)
+    return dict(gbps=stored / statistics.median(times) / 1e9,
+                out_gbps=got.nbytes / statistics.median(times) / 1e9,
+                numpy_gbps=stored / statistics.median(numpy_times) / 1e9,
+                times=times, threads=native.default_threads())
+
+
+@contextlib.contextmanager
+def watch_loader():
+    """While open, the seconds every Loader's consumer spends waiting for
+    its next batch are summed into the yielded list's one entry, and the
+    batches counted in its second."""
+    from vit_exp_tpu_torch.data.loader import Loader
+
+    acc = [0.0, 0]
+    inner = Loader.__iter__
+
+    def iterate(self):
+        it = inner(self)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                acc[0] += time.perf_counter() - t0
+            acc[1] += 1
+            yield batch
+
+    Loader.__iter__ = iterate
+    try:
+        yield acc
+    finally:
+        Loader.__iter__ = inner
+
+
+def cls_phase(device, folder: Path, config: str, ckpts, tree, reports,
+              labels, store_root, expected_int8: dict,
+              expected_bf16: dict) -> dict:
+    """``run_zero_shot_cls.main`` at full width: over the npz tree (int8),
+    over the float16 store (int8 and --no-int8), and as a sweep of the two
+    checkpoints over the store.  Each run's launches, counted over the
+    call, are the serving path's per batch times its batches; the npz
+    against the store's probabilities within PROB_TOL (the store holds
+    float16); the sweep's second checkpoint bit for bit the fresh run on
+    it.  Volumes/s and the loader's wait per batch of each run."""
+    from vit_exp_tpu_torch.cli import run_zero_shot_cls
+
+    base = ["--config", config, "--labels_csv", labels, "--reports_csv",
+            reports, "--batch_size", str(CLS_BATCH)]
+    npz = ["--data_folder", str(tree)]
+    packed = ["--packed_root", str(store_root)]
+    runs = {"npz, int8": (npz, [ckpts[1]], expected_int8),
+            "packed, int8": (packed, [ckpts[1]], expected_int8),
+            "packed, bf16": (packed + ["--no-int8"], [ckpts[1]],
+                             expected_bf16),
+            "packed, int8, sweep": (packed, list(ckpts), expected_int8)}
+    out = {}
+    for i, (tag, (data, paths, per_batch)) in enumerate(runs.items()):
+        argv = base + data + ["--results_folder", str(folder / f"cls{i}")]
+        for p in paths:
+            argv += ["--model_path", p]
+        with watch_loader() as wait:
+            t0 = time.perf_counter()
+            res, launches = count_launches(
+                lambda: run_zero_shot_cls.main(argv, device=device))
+            call_s = time.perf_counter() - t0
+        n_batches = wait[1]
+        want = {k: v * n_batches for k, v in per_batch.items()}
+        last = list(res)[-1]
+        pred = {name: np.load(folder / f"cls{i}" / name /
+                              "predicted_weights.npz")["data"]
+                for name in res}
+        print(f"run_zero_shot_cls ({tag}): {len(pred[last])} volumes x "
+              f"{len(res)} checkpoint(s) in {call_s:.3f} s, "
+              f"{n_batches} batches; {res[last]['volumes_per_sec']:.3f} "
+              f"volumes/s; mean AUROC {res[last]['mean_auc']:.4f} (random "
+              f"data, printed only); loader wait {wait[0]:.3f} s in all; "
+              f"launches {launches} (expected {want})", flush=True)
+        check(launches == want, (tag, launches, want))
+        check(all(np.isfinite(p).all() and p.shape[1] == 18
+                  for p in pred.values()), tag)
+        out[tag] = dict(res=res, pred=pred, launches=launches,
+                        batches=n_batches, wait_s=wait[0], call_s=call_s)
+    name = Path(ckpts[1]).name
+    d_store = float(np.abs(out["npz, int8"]["pred"][name]
+                           - out["packed, int8"]["pred"][name]).max())
+    check(d_store <= PROB_TOL, ("npz against packed", d_store))
+    sweep_same = np.array_equal(out["packed, int8, sweep"]["pred"][name],
+                                out["packed, int8"]["pred"][name])
+    check(sweep_same, "the sweep's second checkpoint against a fresh run")
+    d_bf16 = float(np.abs(out["packed, bf16"]["pred"][name]
+                          - out["packed, int8"]["pred"][name]).max())
+    print(f"run_zero_shot_cls: npz against packed (float16) max |Δprob| "
+          f"{d_store:.3e} (tolerance {PROB_TOL}); the sweep's "
+          f"{name} bit for bit the fresh run's; int8 against bf16 max "
+          f"|Δprob| {d_bf16:.3e} (printed only)", flush=True)
+    return dict(runs=out, d_store=d_store, d_bf16=d_bf16)
+
+
+def post(url: str, path: str, payload) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_phase(device, folder: Path, config: str, ckpt: str, store,
+                expected_int8: dict, blocks: int, window_ms=None) -> dict:
+    """``serve``'s server in-process on port 0 at its int8 default, loaded
+    with ``ckpt`` and warmed at batch 1 and CLS_BATCH; the store's volumes
+    written as .npy under --data_root.  Traffic: /health, SERVE_CLIENTS
+    concurrent /classify_path clients of SERVE_ROUNDS requests each, then a
+    lone request three times (batch-1 latency), one base64 /classify and
+    one /embed.  Checks: the largest batch dispatched is CLS_BATCH; every
+    served answer bit for bit a row predict_batch gives again on a batch
+    the server dispatched (each batch's volumes are noted as it runs), and
+    within PROB_TOL of predict_batch on its volume alone (the int8
+    attention's one k scale over the batch moves a volume's probabilities
+    with its companions: printed); each dispatch
+    launched the int8 path's kernels once; the latent l2-normalised, of
+    dim_latent entries.  Then where a batch's time goes:
+    the host → device copy, the tower, the read-back, on the engine.
+    ``window_ms`` overrides the server's --batch_window_ms default (the CPU
+    rehearsal's tiny engine answers before companions arrive)."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    from vit_exp_tpu_torch.cli import serve
+
+    root = folder / "served"
+    root.mkdir()
+    keys = store.keys()[:SERVE_CLIENTS]
+    paths = []
+    for i, k in enumerate(keys):
+        paths.append(root / f"vol{i}.npy")
+        np.save(paths[-1], store.get_f32(k))
+    args = serve.parse_args(["--config", config, "--model_path", ckpt,
+                             "--data_root", str(root)])
+    engine, latent_fn, shape, channels = serve.build_service(args, device)
+    warm_s = serve.warmup(engine, latent_fn, shape, channels, args.max_batch)
+    # each dispatched batch: its volumes (by a fingerprint) and its output
+    def mark(v):   # the central row of a (1, D, H, W) volume
+        return v[0, v.shape[1] // 2, v.shape[2] // 2].tobytes()
+
+    marks = {mark(np.load(q, mmap_mode="r")): i for i, q in enumerate(paths)}
+    check(len(marks) == len(paths), "two volumes share a fingerprint")
+    batches = []
+    inner_predict = engine.predict_batch
+
+    def predict(vols):
+        out = inner_predict(vols)
+        batches.append(([marks.get(mark(v)) for v in vols], out.copy()))
+        return out
+
+    engine.predict_batch = predict
+    decode_ms = []
+    inner_decode = serve._decode_volume
+
+    def decode(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner_decode(*a, **kw)
+        finally:
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+
+    serve._decode_volume = decode
+    srv = serve.build_server(engine, latent_fn, shape, 0,
+                             data_root=str(root), max_batch=args.max_batch,
+                             window_ms=(args.batch_window_ms
+                                        if window_ms is None else window_ms))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["status"] == "ok" and len(health["pathologies"]) == 18,
+              health)
+        answers = [[None] * SERVE_ROUNDS for _ in range(SERVE_CLIENTS)]
+
+        def client(i):
+            for j in range(SERVE_ROUNDS):
+                answers[i][j] = post(url, "/classify_path",
+                                     {"path": str(paths[i])})
+
+        decode_ms.clear()
+        stats0 = dict(srv.batcher.stats)
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+
+        def burst():
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+
+        t0 = time.perf_counter()
+        _, launches = count_launches(burst)
+        burst_s = time.perf_counter() - t0
+        check(not any(c.is_alive() for c in clients), "a client hung")
+        burst_decode = list(decode_ms)
+        stats = {k: srv.batcher.stats[k] - stats0.get(k, 0)
+                 for k in ("dispatches", "volumes")}
+        n = SERVE_CLIENTS * SERVE_ROUNDS
+        check(stats["volumes"] == n and all(
+            code == 200 for row in answers for code, _ in row),
+            (stats, [code for row in answers for code, _ in row]))
+        check(srv.batcher.stats["max_batch_seen"] == CLS_BATCH,
+              ("max_batch_seen", srv.batcher.stats))
+        want = {k: v * stats["dispatches"] for k, v in expected_int8.items()}
+        check(launches == want, ("serve launches", launches, want))
+        lone = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            code, _ = post(url, "/classify_path", {"path": str(paths[0])})
+            lone.append((time.perf_counter() - t1) * 1e3)
+            check(code == 200, code)
+        vol = np.load(paths[0])
+        buf = io.BytesIO()
+        np.save(buf, vol)
+        b64 = base64.b64encode(buf.getvalue()).decode()
+        code, cls_body = post(url, "/classify", {"volume": b64})
+        check(code == 200, (code, cls_body))
+        code, emb = post(url, "/embed", {"volume": b64})
+        latent = np.asarray(emb.get("latent", []))
+        dim = engine.model.to_visual_latent.weight.shape[0]
+        check(code == 200 and latent.shape == (dim,)
+              and abs(float(np.linalg.norm(latent)) - 1.0) < 1e-3,
+              ("embed", code, latent.shape))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        serve._decode_volume = inner_decode
+        del engine.predict_batch
+    served = np.stack([[np.asarray([a[1]["probs"][p]
+                                    for p in engine.pathologies])
+                        for a in row] for row in answers])
+    # replay every dispatched batch: the same bits again, and each served
+    # answer one of its volume's rows
+    rows = {i: [] for i in range(len(paths))}
+    replayed = True
+    for idx, out in batches:
+        check(None not in idx, ("an unknown volume was dispatched", idx))
+        again = engine.predict_batch(np.stack([np.load(paths[i])
+                                               for i in idx]))
+        replayed &= bool(np.array_equal(again, out))
+        for i, row in zip(idx, out):
+            rows[i].append(row.astype(np.float64))
+    own_row = all(any(np.array_equal(a, r) for r in rows[i])
+                  for i in range(len(paths)) for a in served[i])
+    check(replayed and own_row, ("served against the dispatched batches",
+                                 replayed, own_row))
+    sizes = [len(idx) for idx, _ in batches]
+    direct = np.stack([engine.predict_batch(np.load(p)[None])[0]
+                       for p in paths])
+    diff = float(np.abs(served - direct[:, None]).max())
+    b64_diff = float(np.abs(np.asarray([cls_body["probs"][p] for p in
+                                        engine.pathologies])
+                            - direct[0]).max())
+    check(diff <= PROB_TOL and b64_diff <= PROB_TOL, (diff, b64_diff))
+    # where a batch's time goes, on the same engine
+    vols = np.stack([np.load(p) for p in paths[:CLS_BATCH]])
+    parts = {"copy": [], "tower": [], "read": []}
+    for _ in range(3):
+        dev, s = timed(lambda: torch.as_tensor(vols, device=device), device)
+        parts["copy"].append(s)
+        probs, s = timed(lambda: engine.probs(dev), device)
+        parts["tower"].append(s)
+        _, s = timed(lambda: probs.cpu().numpy(), device)
+        parts["read"].append(s)
+    del vols, dev
+    release(device)
+    return dict(vps=n / burst_s, burst_s=burst_s, stats=stats,
+                max_batch_seen=srv.batcher.stats["max_batch_seen"],
+                launches=launches, warm_s=warm_s, lone_ms=lone,
+                decode_ms=burst_decode, diff=diff, b64_diff=b64_diff,
+                sizes=sizes,
+                bitwise=diff == 0.0 and b64_diff == 0.0,
+                parts={k: statistics.median(v) * 1e3
+                       for k, v in parts.items()},
+                embed_dim=dim, blocks=blocks)
+
+
+def real_data_phase(device, folder: Path, config: str, ckpts,
+                    expected_int8: dict, expected_bf16: dict, blocks: int,
+                    raw_hwd=CT_RAW_HWD, nifti_hwd=NIFTI_HWD,
+                    dhw=CTRATE_DHW, window_ms=None) -> dict:
+    """The five real-format phases in order: preprocessing, the CT-RATE
+    files and the float16 store (pack_dataset), the native reader,
+    run_zero_shot_cls, serve.  ``config`` and ``ckpts`` are the run_train
+    phase's config and its two checkpoints."""
+    from vit_exp_tpu_torch.cli import pack_dataset
+    from vit_exp_tpu_torch.data.packed import PackedVolumeStore
+
+    out = {"prep": prep_phase(device, folder, raw_hwd, nifti_hwd)}
+    p = out["prep"]
+    print(f"offline preprocessing of a {raw_hwd} int16 volume to "
+          f"{p['shape']}: card {p['dev_s'] * 1e3:.3f} ms, CPU "
+          f"{p['cpu_s'] * 1e3:.3f} ms, rel L2 {p['rel']:.3e} (tolerance "
+          f"{PREP_RTOL}); preprocess_ctrate on {len(nifti_hwd)} NIfTI files "
+          f"{ {k: round(v, 3) for k, v in p['cli_s'].items()} } s, card "
+          f"against host rel L2 {p['cli_rel']:.3e}", flush=True)
+    tree, reports, labels, names = ctrate_files(folder, dhw)
+    t0 = time.perf_counter()
+    pack_dataset.main(["--data_folder", str(tree), "--csv_file", reports,
+                       "--out", str(folder / "store")])
+    pack_s = time.perf_counter() - t0
+    store = PackedVolumeStore(str(folder / "store"))
+    check(sorted(store.keys()) == sorted(names), store.keys())
+    out["pack_s"] = pack_s
+    out["native"] = nat = native_phase(store)
+    out["fs"] = filesystem_of(folder)
+    print(f"files under {folder} on {out['fs']}; "
+          f"packed {len(names)} volumes to float16 in {pack_s:.3f} s; "
+          f"native get_batch of {CLS_BATCH}: {nat['gbps']:.3f} GB/s stored, "
+          f"{nat['out_gbps']:.3f} GB/s fp32 out ({nat['threads']} threads, "
+          f"{[round(t, 4) for t in nat['times']]} s); memmap and numpy "
+          f"{nat['numpy_gbps']:.3f} GB/s stored", flush=True)
+    out["cls"] = cls_phase(device, folder, config, ckpts, tree, reports,
+                           labels, folder / "store", expected_int8,
+                           expected_bf16)
+    shutil.rmtree(tree)
+    out["serve"] = s = serve_phase(device, folder, config, ckpts[1], store,
+                                   expected_int8, blocks, window_ms)
+    store.close()
+    print(f"serve (int8, {SERVE_CLIENTS} clients x {SERVE_ROUNDS} "
+          f"/classify_path): {s['vps']:.3f} volumes/s over {s['burst_s']:.3f}"
+          f" s, {s['stats']['dispatches']} dispatches, max batch "
+          f"{s['max_batch_seen']}; launches per dispatch "
+          f"{ {k: v // s['stats']['dispatches'] for k, v in s['launches'].items() if v} }; "
+          f"lone request {[round(t, 3) for t in s['lone_ms']]} ms; "
+          f"server-side decode median {statistics.median(s['decode_ms']):.3f}"
+          f" ms; dispatched batch sizes {s['sizes']}, every answer bit for "
+          f"bit predict_batch's on its batch; against predict_batch on the "
+          f"volume alone max |Δprob| {s['diff']:.3e}, base64 "
+          f"{s['b64_diff']:.3e} (tolerance {PROB_TOL}"
+          f"{'; bit for bit' if s['bitwise'] else ''}); a batch of "
+          f"{CLS_BATCH}: copy {s['parts']['copy']:.3f} ms, tower "
+          f"{s['parts']['tower']:.3f} ms, read-back {s['parts']['read']:.3f}"
+          f" ms; warm-up {s['warm_s']:.3f} s", flush=True)
+    return out
+
+
+def real_data_lines(real: dict, card: str) -> list:
+    """The real-format phases' result lines, each on the card."""
+    p, nat, s = real["prep"], real["native"], real["serve"]
+    lines = [f"offline preprocessing, {CT_RAW_HWD} int16 to {p['shape']}: "
+             f"card {p['dev_s'] * 1e3:.3f} ms, CPU {p['cpu_s'] * 1e3:.3f} ms "
+             f"(rel L2 {p['rel']:.3e}) on {card}",
+             f"native packed reader, {CLS_BATCH} float16 records on "
+             f"{real['fs']}: "
+             f"{nat['gbps']:.3f} GB/s read ({nat['out_gbps']:.3f} GB/s fp32 "
+             f"out, {nat['threads']} threads; memmap and numpy "
+             f"{nat['numpy_gbps']:.3f}) on {card}"]
+    for tag, r in real["cls"]["runs"].items():
+        last = list(r["res"])[-1]
+        lines.append(
+            f"run_zero_shot_cls ({tag}), batch {CLS_BATCH}: "
+            f"{r['res'][last]['volumes_per_sec']:.3f} volumes/s, loader "
+            f"wait {r['wait_s'] / r['batches']:.3f} s per batch, "
+            f"{r['call_s']:.3f} s for the call on {card}")
+    dec = s["decode_ms"]
+    lines.append(
+        f"serve, int8, {SERVE_CLIENTS} concurrent clients x {SERVE_ROUNDS} "
+        f"/classify_path: {s['vps']:.3f} volumes/s; lone request "
+        f"{statistics.median(s['lone_ms']):.3f} ms (median of 3); "
+        f"server-side decode {statistics.median(dec):.3f} ms (median, "
+        f"max {max(dec):.3f}); a batch of {CLS_BATCH}: host->device copy "
+        f"{s['parts']['copy']:.3f} ms, tower {s['parts']['tower']:.3f} ms, "
+        f"read-back {s['parts']['read']:.3f} ms on {card}")
+    return lines
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2269,6 +2858,7 @@ def main() -> int:
     print(f"launches in one bf16 predict_batch: {launches['serve']} "
           f"(expected {expected})", flush=True)
     check(launches["serve"] == expected, launches["serve"])
+    bf16_per_batch = expected
     check(probs.shape == (BATCH, 18) and bool(np.isfinite(probs).all())
           and bool(((probs >= 0) & (probs <= 1)).all()), probs)
 
@@ -2302,6 +2892,7 @@ def main() -> int:
                                   "K11h": blocks, "K11q": blocks,
                                   "K11o": blocks, "K13x": blocks,
                                   "K13mm": blocks, "K14": blocks})
+    int8_per_batch = expected
     print(f"launches in one int8 predict_batch: {launches['int8']} "
           f"(expected {expected})", flush=True)
     check(launches["int8"] == expected, launches["int8"])
@@ -2365,6 +2956,11 @@ def main() -> int:
             lambda: [float(v) for v in tt.train_step().values()],
             OUT_DIR / "profile_run_train.txt", "one run_train step")
         del tt
+        release(device)
+        # real-format data on run_train's two checkpoints: preprocessing,
+        # the packed store and its native reader, run_zero_shot_cls, serve
+        real = real_data_phase(device, folder, rt["config"], rt["ckpts"],
+                               int8_per_batch, bf16_per_batch, blocks)
         release(device)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
@@ -2430,6 +3026,17 @@ def main() -> int:
           f"{rt['window'][0]}-{rt['window'][1]} "
           f"{[round(w, 4) for w in rt['waits']]} s", flush=True)
 
+    # the real-format paths run the serving kernels at batch 4: the int8
+    # rows with the patch embedding's, or the bf16 serving rows (copied
+    # before the loop below takes the rows' counters)
+    int8_rows = rows["int8"] + [r for r in rows["serve"]
+                                if r["counter"] == "K4"]
+    real_rows = []
+    for tag, r in real["cls"]["runs"].items():
+        real_rows += path_rows(rows["serve"] if "bf16" in tag else int8_rows,
+                               f"run_zero_shot_cls {tag}", r["launches"])
+    real_rows += path_rows(int8_rows, "serve, int8, concurrent clients",
+                           real["serve"]["launches"])
     kernels = []
     for phase in ("serve", "train", "int8", "online", "planted"):
         for row in rows[phase]:
@@ -2449,6 +3056,7 @@ def main() -> int:
             ("mixed_seg", "planted_mixed, the seg and open-seg micro-steps",
              mixed_seg)):
         kernels += path_rows(rows[phase], path, counts)
+    kernels += real_rows
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(f"zero-shot serving, batch {BATCH}, bf16: {vps:.3f} volumes/s "
@@ -2518,6 +3126,8 @@ def main() -> int:
           f"bounded); last losses "
           f"{ {k: round(v[-1], 5) for k, v in mixed['losses'].items()} } on "
           f"{card}")
+    for line in real_data_lines(real, card):
+        print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1011,3 +1011,143 @@ def test_int8_seg_logits_match_the_plain_int8_engine(dev):
     assert got.shape == (2, 3, a.temporal_size, a.image_size, a.image_size)
     assert torch.isfinite(got.float()).all()
     assert _rel(got, ref) <= max(1e-2, 1.5 * floor)
+
+
+# --- real-format ingest, run_zero_shot_cls and serve on the card ---------------
+
+FULL_WIDTH_2_BLOCKS = {"dim": 768, "image_size": 480, "patch_size": 20,
+                       "temporal_size": 240, "temporal_patch_size": 10,
+                       "transformer_blocks": 2, "dim_head": 32, "heads": 8}
+
+
+def test_offline_preprocessing_on_the_card_matches_the_cpu(dev):
+    """A CT-sized raw volume (int16, 384 × 384 × 200 at 0.7/0.7/1.0)
+    resampled to the target spacing on the card and on the CPU: relative L2
+    within 1e-5 (fp32 lerps, the card may contract them into FMAs); the
+    runtime stage on the card equals its numpy twin."""
+    import numpy as np
+
+    from vit_exp_tpu_torch.ops import preprocess as pp
+
+    r = np.random.default_rng(0)
+    img = r.integers(-1024, 2000, (384, 384, 200)).astype(np.int16)
+    shape = pp.spacing_resample_shape((200, 384, 384), (1.0, 0.7, 0.7))
+    got = pp.preprocess_offline_volume(img, slope=1.0, intercept=-1024.0,
+                                       new_shape=shape, device=dev)
+    ref = pp.preprocess_offline_volume(img, slope=1.0, intercept=-1024.0,
+                                       new_shape=shape, device="cpu")
+    assert got.device.type == "cuda" and got.shape == ref.shape == shape
+    assert _rel(got.cpu(), ref) <= 1e-5
+    v = r.uniform(-1.2, 1.2, (200, 500, 470)).astype(np.float32)
+    np.testing.assert_array_equal(
+        pp.preprocess_runtime_volume(v, device=dev).cpu().numpy(),
+        pp.preprocess_runtime_numpy(v))
+
+
+def _full_width_config(tmp_path):
+    import json
+
+    path = tmp_path / "full2.yaml"
+    path.write_text(json.dumps({"arch": FULL_WIDTH_2_BLOCKS}))
+    return str(path)
+
+
+def _ctrate_store(tmp_path, n=5):
+    """n small npz volumes in CT-RATE's tree, their reports and 18-column
+    labels CSVs, packed to float16 by the port's packer."""
+    import numpy as np
+
+    from vit_exp_tpu_torch.cli import pack_dataset
+    from vit_exp_tpu_torch.eval.zero_shot import PATHOLOGIES
+
+    r = np.random.default_rng(1)
+    names = []
+    for i in range(n):
+        folder = tmp_path / "tree" / f"valid_{i}" / f"valid_{i}a"
+        folder.mkdir(parents=True)
+        np.savez(folder / f"valid_{i}_a_1.npz",
+                 r.uniform(-1, 1, (60 + 10 * i, 120, 100)).astype(np.float32))
+        names.append(f"valid_{i}_a_1.nii.gz")
+    (tmp_path / "reports.csv").write_text(
+        "VolumeName,Findings_EN,Impressions_EN\n"
+        + "".join(f"{n},finding,impression\n" for n in names))
+    y = (r.random((n, 18)) > 0.5).astype(int)
+    (tmp_path / "labels.csv").write_text(
+        "VolumeName," + ",".join(PATHOLOGIES) + "\n" + "".join(
+            nm + "," + ",".join(map(str, row)) + "\n"
+            for nm, row in zip(names, y)))
+    pack_dataset.main(["--data_folder", str(tmp_path / "tree"), "--csv_file",
+                       str(tmp_path / "reports.csv"), "--out",
+                       str(tmp_path / "store")])
+    return str(tmp_path / "store"), str(tmp_path / "labels.csv")
+
+
+def test_run_zero_shot_cls_over_a_packed_store_on_the_card(dev, tmp_path):
+    """run_zero_shot_cls at its int8 default on a 2-block full-width arch
+    over a float16 store of 5 volumes (batches of 4 and 1): the int8
+    attention runs once a block a batch, and the saved probabilities equal
+    predict_batch's on the same weights within 1e-4."""
+    import numpy as np
+
+    from vit_exp_tpu_torch.cli import run_zero_shot_cls
+    from vit_exp_tpu_torch.data.packed import PackedVolumeStore
+    from vit_exp_tpu_torch.eval.zero_shot import ZeroShotClassifier
+    from vit_exp_tpu_torch.models.factory import bert_config_for, build_ctclip
+    from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
+
+    store, labels = _ctrate_store(tmp_path)
+    cfg = _full_width_config(tmp_path)
+    before = fa.attention_static_int8.launches
+    res = run_zero_shot_cls.main(
+        ["--config", cfg, "--packed_root", store, "--labels_csv", labels,
+         "--results_folder", str(tmp_path / "out")], device="cuda")
+    assert fa.attention_static_int8.launches == before + 2 * 2
+    assert np.isfinite(res["random_init"]["mean_auc"])
+    pred = np.load(tmp_path / "out" / "random_init" /
+                   "predicted_weights.npz")["data"]
+    config, tok = load_config(cfg), load_tokenizer()
+    model = build_ctclip(config, bert_config_for(config, tok), device="cuda",
+                         fuse_qkv=True, int8=True)
+    st = PackedVolumeStore(store)
+    vols = st.get_batch(st.keys())
+    direct = ZeroShotClassifier(model, tok).predict_batch(vols)
+    assert pred.shape == direct.shape == (5, 18)
+    np.testing.assert_allclose(pred, direct, atol=1e-4, rtol=0)
+
+
+def test_one_served_request_matches_predict_batch(dev, tmp_path):
+    """The server at its int8 default on the 2-block arch: one
+    /classify_path request under --data_root answers predict_batch's
+    probabilities on that volume within 1e-4."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from vit_exp_tpu_torch.cli import serve
+
+    cfg = _full_width_config(tmp_path)
+    args = serve.parse_args(["--config", cfg, "--data_root", str(tmp_path)])
+    engine, latent_fn, shape, channels = serve.build_service(args, "cuda")
+    vol = np.random.default_rng(2).uniform(0, 1, (1,) + shape).astype(
+        np.float32)
+    np.save(tmp_path / "vol.npy", vol)
+    srv = serve.build_server(engine, latent_fn, shape, 0,
+                             data_root=str(tmp_path))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/classify_path",
+            data=json.dumps({"path": str(tmp_path / "vol.npy")}).encode())
+        with urllib.request.urlopen(req) as r:
+            body = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+    got = [body["probs"][p] for p in engine.pathologies]
+    np.testing.assert_allclose(got, engine.predict_batch(vol[None])[0],
+                               atol=1e-4, rtol=0)

@@ -146,6 +146,107 @@ def test_port_runs_without_jax_flax_or_the_jax_package():
                    "run_train": ["completed", 3, [2, 3]], "bad": []}
 
 
+_INGEST_GUARD = """
+import base64, gzip, io, json, os, struct, sys, tempfile, threading
+import urllib.request
+import numpy as np
+from vit_exp_tpu_torch import native
+from vit_exp_tpu_torch.cli import (pack_dataset, preprocess_ctrate,
+                                   run_zero_shot_cls, run_zero_shot_seg, serve)
+from vit_exp_tpu_torch.data import datasets, nifti, packed, preprocess_host
+from vit_exp_tpu_torch.eval import metrics, sweep
+from vit_exp_tpu_torch.ops import preprocess
+from vit_exp_tpu_torch.train.checkpoint import load_model_weights
+tmp = tempfile.mkdtemp()
+cfg = os.path.join(tmp, "tiny.yaml")
+with open(cfg, "w") as f:
+    json.dump({"arch": {"dim": 48, "image_size": 32, "patch_size": 8,
+                        "temporal_size": 16, "temporal_patch_size": 4,
+                        "transformer_blocks": 2, "dim_head": 8, "heads": 4},
+               "dim_latent": 16,
+               "text_encoder": {"hidden_size": 36, "num_hidden_layers": 1,
+                                "num_attention_heads": 3,
+                                "intermediate_size": 32,
+                                "max_position_embeddings": 512}}, f)
+# a NIfTI file through the preprocessing CLI's host path
+src = os.path.join(tmp, "nii")
+os.makedirs(src)
+hdr = bytearray(352)
+struct.pack_into("<i", hdr, 0, 348)
+struct.pack_into("<8h", hdr, 40, 3, 10, 12, 6, 1, 1, 1, 1)
+struct.pack_into("<h", hdr, 70, 4)
+struct.pack_into("<8f", hdr, 76, 1, 0.75, 0.75, 1.5, 1, 1, 1, 1)
+struct.pack_into("<f", hdr, 108, 352.0)
+vol = np.arange(720, dtype=np.int16).reshape(10, 12, 6)
+with gzip.open(os.path.join(src, "valid_1_a_1.nii.gz"), "wb") as f:
+    f.write(bytes(hdr) + vol.tobytes(order="F"))
+with open(os.path.join(tmp, "meta.csv"), "w") as f:
+    f.write('VolumeName,RescaleSlope,RescaleIntercept,XYSpacing,ZSpacing\\n'
+            'valid_1_a_1.nii.gz,1,-300,"[0.6, 0.6]",1.0\\n')
+preprocess_ctrate.main(["--src", src, "--metadata",
+                        os.path.join(tmp, "meta.csv"), "--out",
+                        os.path.join(tmp, "tree"), "--workers", "1",
+                        "--split", "valid"])
+npz = np.load(os.path.join(tmp, "tree", "valid_1", "valid_1a",
+                           "valid_1_a_1.npz"))["arr_0"]
+# a packed store and its labels, scored by the CLI at int8 and bf16
+names = [f"v{i}.nii.gz" for i in range(3)]
+r = np.random.default_rng(0)
+with packed.PackedShardWriter(os.path.join(tmp, "store")) as w:
+    for n in names:
+        w.append(n, r.uniform(0, 1, (1, 16, 32, 32)).astype(np.float16),
+                 meta={"text": "report"})
+labels = os.path.join(tmp, "labels.csv")
+with open(labels, "w") as f:
+    f.write("VolumeName," + ",".join(f"p{c}" for c in range(18)) + "\\n"
+            + "".join(n + "," + ",".join(str((i + c) % 2) for c in range(18))
+                      + "\\n" for i, n in enumerate(names)))
+base = ["--config", cfg, "--packed_root", os.path.join(tmp, "store"),
+        "--labels_csv", labels, "--batch_size", "2"]
+res = [run_zero_shot_cls.main(base + ["--results_folder",
+                                      os.path.join(tmp, m), m],
+                              device="cpu")["random_init"]
+       for m in ("--int8", "--no-int8")]
+# the server, int8, one classify and one embed
+args = serve.parse_args(["--config", cfg])
+engine, latent_fn, shape, channels = serve.build_service(args, "cpu")
+srv = serve.build_server(engine, latent_fn, shape, 0)
+t = threading.Thread(target=srv.serve_forever, daemon=True)
+t.start()
+buf = io.BytesIO()
+np.save(buf, r.uniform(0, 1, shape).astype(np.float32))
+body = json.dumps({"volume": base64.b64encode(buf.getvalue()).decode()})
+codes = []
+for path in ("/classify", "/embed"):
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}"
+                                 + path, data=body.encode())
+    with urllib.request.urlopen(req) as resp:
+        codes.append(resp.status)
+srv.shutdown()
+srv.server_close()
+srv.batcher.close()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "vit_exp_tpu", "triton", "pandas",
+              "sklearn"))
+print(json.dumps({"npz": list(npz.shape), "native": native.available(),
+                  "finite": [bool(np.isfinite(x["mean_auc"])) for x in res],
+                  "codes": codes, "bad": bad}))
+"""
+
+
+def test_ingest_and_serving_run_without_jax_pandas_or_sklearn():
+    """Every module of the ingest and serving slice imports, a NIfTI file is
+    preprocessed, run_zero_shot_cls scores a packed store (int8 and bf16)
+    and the server answers a classify and an embed, on the CPU, with no
+    jax, flax, pandas, sklearn or JAX package module loaded."""
+    res = subprocess.run([sys.executable, "-c", _INGEST_GUARD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"npz": [4, 8, 9], "native": True, "finite": [True, True],
+                   "codes": [200, 200], "bad": []}
+
+
 def _no_ok_line(stdout: str) -> bool:
     return '"ok": true' not in stdout and '"ok":true' not in stdout
 

@@ -12,11 +12,15 @@ module paths so each counterpart is easy to find:
               ``ops/_build.py``)
 - ``models``  CTViT3D image tower, BERT text tower, CTCLIP, factory,
               losses, parameter mapping from the JAX package
-- ``data``    tokenizers, synthetic volumes, the threaded batch loader
+- ``data``    tokenizers, synthetic and planted volumes, the threaded batch
+              loader, the NIfTI reader, the CT-RATE npz data sets and the
+              packed store
+- ``native``  the packed store's C++ reader (g++, ctypes)
 - ``train``   optimizer, train steps, dataset sampler, checkpoints, trainer
 - ``utils``   metric logger, step timer
-- ``cli``     ``run_train``
-- ``eval``    zero-shot classification engine
+- ``cli``     ``run_train``, ``run_zero_shot_cls``, ``run_zero_shot_seg``,
+              ``serve``, ``pack_dataset``, ``preprocess_ctrate``
+- ``eval``    zero-shot engines, metrics, the checkpoint sweep, hooks
 
 Importing the package imports neither CUDA kernels nor the JAX package:
 kernels build on first launch, and only on a CUDA tensor.

@@ -27,9 +27,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 
-import torch
+from vit_exp_tpu_torch.train.checkpoint import load_model_weights
+
+# the loader all three serving CLIs share, under its former name here
+load_weights = load_model_weights
 
 _NOT_PORTED = {"--data_folder": "M3", "--mask_folder": "M3", "--mesh": "M7",
                "--coordinator_address": "M7", "--num_processes": "M7",
@@ -66,26 +68,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def load_weights(model, path: str, torch_ckpt: bool = False) -> None:
-    """The port's checkpoint (``ckpt_{step}/`` or the latest step of a
-    ``checkpoints/`` directory), or a reference ``CTClip.*.pt``."""
-    from vit_exp_tpu_torch.models.convert import load_reference_state_dict
-    from vit_exp_tpu_torch.train.checkpoint import CheckpointManager
-
-    if torch_ckpt:
-        load_reference_state_dict(
-            model, torch.load(path, map_location="cpu", weights_only=True))
-        return
-    if not os.path.exists(os.path.join(path, "model.pt")):
-        step = CheckpointManager(path).latest_step()
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {path}")
-        path = os.path.join(path, f"ckpt_{step}")
-    model.load_state_dict(torch.load(os.path.join(path, "model.pt"),
-                                     map_location="cpu", weights_only=True),
-                          strict=True)
-
-
 def main(argv=None, device="cuda"):
     """Score as the flags say; prints the JSON result and returns it.
     ``device`` is the card unless a caller (a test) asks for another one:
@@ -105,7 +87,7 @@ def main(argv=None, device="cuda"):
             else dict(attn_impl="pallas_static"))
     model = build_ctclip(config, bert, device=device, fuse_qkv=True, **mode)
     if args.model_path:
-        load_weights(model, args.model_path, args.torch_ckpt)
+        load_model_weights(model, args.model_path, args.torch_ckpt)
     dataset = SyntheticCTDataset(
         "imageseg", n=args.synthetic, arch=config.arch,
         n_classes=config.ct_clip_arch.seg_head.out_dim)

@@ -112,3 +112,26 @@ class CheckpointManager:
         return {name: torch.load(os.path.join(path, f"{name}.pt"),
                                  map_location="cpu", weights_only=True)
                 for name in ("model", "train_state")}
+
+
+def load_model_weights(model: torch.nn.Module, path: str,
+                       torch_ckpt: bool = False) -> None:
+    """Load weights into ``model`` in place: the port's checkpoint (a
+    ``ckpt_{step}/`` directory, or a ``checkpoints/`` directory whose latest
+    step is taken) strictly, or with ``torch_ckpt`` a reference
+    ``CTClip.*.pt`` state dict (``load_reference_state_dict``).  The CLIs
+    that score or serve a checkpoint all load through here."""
+    from vit_exp_tpu_torch.models.convert import load_reference_state_dict
+
+    if torch_ckpt:
+        load_reference_state_dict(
+            model, torch.load(path, map_location="cpu", weights_only=True))
+        return
+    if not os.path.exists(os.path.join(path, "model.pt")):
+        step = CheckpointManager(path).latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        path = os.path.join(path, f"ckpt_{step}")
+    model.load_state_dict(torch.load(os.path.join(path, "model.pt"),
+                                     map_location="cpu", weights_only=True),
+                          strict=True)
