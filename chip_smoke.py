@@ -103,7 +103,28 @@
    on the batch it was dispatched in and within PROB_TOL of it on its
    volume alone, each dispatch the int8 path's launches), a lone request's latency, one base64 /classify and one
    /embed (l2-normalised, dim_latent entries), and a batch's copy, tower
-   and read-back times.
+   and read-back times.  Then real-format training (the host's MemTotal
+   printed): a CT-RATE tree again, a RadGenome tree (RADGENOME_N cases of
+   (240, 480, 480) float32 images and 22-class uint8 masks, compressed,
+   with a label table) and a float16 store from
+   scripts/make_synth_shards_torch.py; ``run_train.main`` for
+   REAL_TRAIN_STEPS optimizer steps on copies of
+   configs/ct_clip_vit_open_seg.yaml, ct_clip_vit_seg.yaml (their
+   acc_steps_list [4, 1] of micro-steps a step, num_workers as the
+   configs say) and prod_sustained_synth.yaml whose data paths point at
+   those files: finite losses at every step, the launches of each step
+   type in the last step, the first REAL_TRAIN_CHECKED device batches of
+   each loader (copied on the side stream while the card ran the step
+   before) byte for byte the data set's batch of the same indices,
+   steps/s and loader wait, one profiled step
+   (chiprun_out/profile_real_*.txt), a batch of each type copied through
+   a page-locked buffer and the side-stream copier against a pageable
+   ``.to()`` of the same bytes, and the final checkpoint reloaded bit for
+   bit; ``run_zero_shot_seg.main`` (int8) on the RadGenome folders with
+   the seg run's checkpoint, its dice bit for bit its engine's on the
+   same arrays in memory; ``run_latents.main`` (int8) on the CT-RATE tree
+   with the packed run's checkpoint, its image latents bit for bit the
+   engine's own encoders on the same batches, recall@k printed.
 7. The segmentation paths at full width, each with the kernel rows of its
    own shapes (K15 with lse, the pair, K2, the patch embedding and K8 at
    batch 1; the serving kernels at one volume): the seg train step
@@ -2086,7 +2107,8 @@ def mixed_config(folder: Path, overrides=None) -> str:
 @contextlib.contextmanager
 def watch_micro_steps(count_step: int):
     """While open, every CTClipTrainer notes (the step it starts, the host
-    clock) as each step starts, and in step ``count_step`` each micro-step
+    clock, its loader wait and batches so far) as each step starts, and in
+    step ``count_step`` each micro-step
     runs with every launch count set to 0 just before it and read just
     after, summed by data type.  Yields (the notes, {type: counts})."""
     from vit_exp_tpu_torch.train.trainer import CTClipTrainer
@@ -2104,7 +2126,8 @@ def watch_micro_steps(count_step: int):
         return run
 
     def train_step(self):
-        marks.append((self.step + 1, time.perf_counter()))
+        marks.append((self.step + 1, time.perf_counter(), self.data_wait_s,
+                      self.batches))
         if self.step + 1 != count_step:
             return inner(self)
         saved = self.steps_by_type
@@ -2523,8 +2546,10 @@ def serve_phase(device, folder: Path, config: str, ckpt: str, store,
     attention's one k scale over the batch moves a volume's probabilities
     with its companions: printed); each dispatch
     launched the int8 path's kernels once; the latent l2-normalised, of
-    dim_latent entries.  Then where a batch's time goes:
-    the host → device copy, the tower, the read-back, on the engine.
+    dim_latent entries.  Then where a batch's time goes: the host →
+    device copy (from a page-locked stage, as the server's dispatcher
+    stacks a batch, through the engine's side-stream copier), the tower,
+    the read-back, on the engine.
     ``window_ms`` overrides the server's --batch_window_ms default (the CPU
     rehearsal's tiny engine answers before companions arrive)."""
     import base64
@@ -2667,16 +2692,25 @@ def serve_phase(device, folder: Path, config: str, ckpt: str, store,
                             - direct[0]).max())
     check(diff <= PROB_TOL and b64_diff <= PROB_TOL, (diff, b64_diff))
     # where a batch's time goes, on the same engine
-    vols = np.stack([np.load(p) for p in paths[:CLS_BATCH]])
+    from vit_exp_tpu_torch.data.pinned import PinnedPool
+
+    stage = PinnedPool(1, ("image",), register=device.type == "cuda")
+    first = np.load(paths[0])
+    vols = stage.acquire(0).array("image", (CLS_BATCH,) + first.shape,
+                                  first.dtype)
+    for i, p in enumerate(paths[:CLS_BATCH]):
+        vols[i] = np.load(p)
     parts = {"copy": [], "tower": [], "read": []}
     for _ in range(3):
-        dev, s = timed(lambda: torch.as_tensor(vols, device=device), device)
+        dev, s = timed(lambda: engine.feed.tensor(vols, "image"), device)
         parts["copy"].append(s)
         probs, s = timed(lambda: engine.probs(dev), device)
         parts["tower"].append(s)
         _, s = timed(lambda: probs.cpu().numpy(), device)
         parts["read"].append(s)
     del vols, dev
+    stage.release(0)
+    stage.close()
     release(device)
     return dict(vps=n / burst_s, burst_s=burst_s, stats=stats,
                 max_batch_seen=srv.batcher.stats["max_batch_seen"],
@@ -2777,6 +2811,515 @@ def real_data_lines(real: dict, card: str) -> list:
         f"{s['parts']['copy']:.3f} ms, tower {s['parts']['tower']:.3f} ms, "
         f"read-back {s['parts']['read']:.3f} ms on {card}")
     return lines
+
+
+# real-format training at full width: copies of three production configs
+# whose data paths point at generated files (a CT-RATE npz tree, a RadGenome
+# image and mask tree with its label table, a float16 packed store), each
+# trained REAL_TRAIN_STEPS optimizer steps by run_train.main; the first
+# REAL_TRAIN_CHECKED batches of each loader are kept on the device and held
+# byte for byte to the data set's batch of the same indices; then
+# run_zero_shot_seg on the RadGenome folders and run_latents on the CT-RATE
+# tree, each against the engine's own in-memory result
+REAL_TRAIN_CONFIGS = {"ct_clip_vit_open_seg.yaml": OPEN_SEG_CONFIG,
+                      "ct_clip_vit_seg.yaml": SEG_CONFIG,
+                      "prod_sustained_synth.yaml": RUN_TRAIN_CONFIG}
+REAL_TRAIN_STEPS, REAL_TRAIN_CHECKED = 3, 3
+# the seg and open-seg loaders' workers in the copies: each item holds a
+# 4.87 GB fp32 mask (22 × 240 × 480 × 480); at the configs' 4 workers (4 +
+# 2 prefetched items, ≈ 30 GB, beside 3 page-locked slots of 5.1 GB and the
+# image-report loader's 8 workers) the card's host (≈ 100 GiB) ran the
+# steps several times slower (PERF.md §6, PR 14)
+REAL_SEG_WORKERS = 2
+RADGENOME_N, RADGENOME_DHW = 2, (240, 480, 480)
+STORE_N, STORE_SHAPE = 8, (240, 480, 480)
+COPY_REPEATS = 3
+
+
+def mem_total_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def radgenome_files(folder: Path, n_classes: int, n=RADGENOME_N,
+                    dhw=RADGENOME_DHW, seed=23):
+    """RadGenome's layout: ``images/case_{i}.npz`` (D, H, W) float32,
+    pre-cropped, and ``masks/case_{i}.npz`` (n_classes, D, H, W) uint8,
+    compressed (mostly zeros: one box a class), with ``label_names.csv``
+    naming the classes.  Returns (images, masks, table)."""
+    r = np.random.default_rng(seed)
+    images, masks = folder / "radgenome" / "images", folder / "radgenome" / \
+        "masks"
+    images.mkdir(parents=True)
+    masks.mkdir(parents=True)
+    for i in range(n):
+        vol = r.standard_normal(dhw, dtype=np.float32)
+        np.clip(vol * np.float32(0.4), -1.2, 1.2, out=vol)
+        np.savez(images / f"case_{i}.npz", vol)
+        del vol
+        mask = np.zeros((n_classes,) + tuple(dhw), np.uint8)
+        for c in range(n_classes):
+            lo = [int(r.integers(0, s // 2)) for s in dhw]
+            hi = [a + int(r.integers(s // 8, s // 2)) for a, s in
+                  zip(lo, dhw)]
+            mask[c, lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = 1
+        np.savez_compressed(masks / f"case_{i}.npz", mask)
+        del mask
+    table = folder / "radgenome" / "label_names.csv"
+    table.write_text("ID,NAME\n" + "".join(
+        f"{c + 1},organ {c + 1}\n" for c in range(n_classes)))
+    return str(images), str(masks), str(table)
+
+
+def synth_store(folder: Path, n=STORE_N, shape=STORE_SHAPE) -> str:
+    """The float16 store of scripts/make_synth_shards_torch.py."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_shards_torch",
+        ROOT / "scripts" / "make_synth_shards_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script.main(["--out", str(folder / "synth_packed"), "--n", str(n),
+                        "--shape", ",".join(map(str, shape))])
+
+
+def real_train_config(folder: Path, name: str, paths: dict, n_classes: int,
+                      overrides=None) -> str:
+    """A copy of configs/``name`` whose data paths are ``paths``' (the
+    imagereport entries the CT-RATE tree or, packed, the store; the seg and
+    open-seg entries the RadGenome folders and label table, with
+    REAL_SEG_WORKERS loader workers; ``valid_data``
+    cls the CT-RATE tree, for a config whose hooks name it) and whose
+    results go to ``folder``/stem.  ``overrides`` replaces top-level keys
+    (the CPU rehearsal's tiny arch), and a seg head takes ``n_classes``
+    (the config's own 22 on the card).  Returns the written path."""
+    import yaml
+
+    cfg = yaml.safe_load(REAL_TRAIN_CONFIGS[name].read_text())
+    stem = name.removesuffix(".yaml")
+    cfg["results_folder"] = str(folder / stem)
+    for spec in cfg["train_data_list"]:
+        kind = spec.get("type", "imagereport")
+        if kind == "imagereport" and spec.get("packed"):
+            spec["data_folder"] = paths["store"]
+        elif kind == "imagereport":
+            spec.update(data_folder=paths["tree"],
+                        reports_csv=paths["reports"])
+        else:
+            spec.update(data_folder=paths["images"],
+                        mask_folder=paths["masks"],
+                        num_workers=REAL_SEG_WORKERS)
+            if kind == "imageopenseg":
+                spec["seg_mask_name_table"] = paths["table"]
+    if cfg.get("valid_test_list"):
+        cfg["valid_data"] = {"cls": {"data_folder": paths["tree"],
+                                     "reports_csv": paths["reports"],
+                                     "labels_csv": paths["labels"]}}
+    cfg.update(overrides or {})
+    head = (cfg.get("ct_clip_arch") or {}).get("seg_head")
+    if head:
+        head["out_dim"] = n_classes
+    path = folder / f"{stem}.yaml"
+    path.write_text(json.dumps(cfg))   # JSON is YAML
+    return str(path)
+
+
+@contextlib.contextmanager
+def keep_device_batches(per_loader: int):
+    """While open, every CTClipTrainer keeps the device batches of the
+    first ``per_loader`` micro-steps of each data set (their tensors, as
+    the step function got them).  Yields {data set: [batch, ...]}."""
+    from vit_exp_tpu_torch.train.trainer import CTClipTrainer
+
+    kept = {}
+    inner = CTClipTrainer._device_batch
+
+    def device_batch(self, ds_idx):
+        out = inner(self, ds_idx)
+        if len(kept.setdefault(ds_idx, [])) < per_loader:
+            kept[ds_idx].append(out)
+        return out
+
+    CTClipTrainer._device_batch = device_batch
+    try:
+        yield kept
+    finally:
+        CTClipTrainer._device_batch = inner
+
+
+@contextlib.contextmanager
+def profile_step(step: int, path: Path, what: str):
+    """While open, every CTClipTrainer's step ``step`` runs under
+    ``profile_call`` on a card (its logs returned as they are).  Yields a
+    dict that gets "wall_ms" and "busy_ms" (on a card) and "end", the
+    host clock when that step's work has finished."""
+    from vit_exp_tpu_torch.train.trainer import CTClipTrainer
+
+    out = {}
+    inner = CTClipTrainer.train_step
+
+    def train_step(self):
+        if self.step + 1 != step:
+            return inner(self)
+        box = {}
+
+        def run():
+            box["logs"] = inner(self)
+
+        if self.device.type == "cuda":
+            out["wall_ms"], out["busy_ms"] = profile_call(run, path, what)
+        else:
+            run()
+        out["end"] = time.perf_counter()
+        return box["logs"]
+
+    CTClipTrainer.train_step = train_step
+    try:
+        yield out
+    finally:
+        CTClipTrainer.train_step = inner
+
+
+def loader_batch(trainer, ds_idx: int, j: int) -> dict:
+    """The data set's ``j``-th batch as the trainer's loader draws it
+    (epoch j // its length), made anew in plain memory."""
+    from vit_exp_tpu_torch.data.loader import Loader
+
+    live = trainer.loaders[ds_idx].loader
+    fresh = Loader(live.dataset, live.batch_size, shuffle=live.shuffle,
+                   seed=live.seed, drop_last=live.drop_last)
+    fresh.epoch = j // len(fresh)
+    return fresh.load_batch(fresh._batch_indices()[j % len(fresh)])
+
+
+def copy_times(device, host: dict, keys) -> dict:
+    """One batch's host → device copy: through a page-locked buffer and
+    the side-stream copier (the trainer's way), and by a pageable
+    ``.to()`` of the same bytes; median ms of COPY_REPEATS each, and the
+    bytes."""
+    from vit_exp_tpu_torch.data.pinned import (BatchCopier, HostBatch,
+                                               PinnedPool)
+
+    keys = [k for k in keys if isinstance(host.get(k), np.ndarray)]
+    pool = PinnedPool(1, keys, register=device.type == "cuda")
+    copier = BatchCopier(device)
+    pinned_ms, pageable_ms = [], []
+    try:
+        for i in range(COPY_REPEATS):
+            slot = pool.acquire(i)
+            batch = HostBatch({k: slot.array(k, host[k].shape, host[k].dtype)
+                               for k in keys})
+            for k in keys:
+                np.copyto(batch[k], host[k])
+            batch.release = lambda event=None, i=i: pool.release(i, event)
+            _, t = timed(lambda: copier.to_device(batch, keys), device)
+            pinned_ms.append(t * 1e3)
+            _, t = timed(lambda: {k: torch.from_numpy(host[k]).to(device)
+                                  for k in keys}, device)
+            pageable_ms.append(t * 1e3)
+    finally:
+        pool.close()
+    return dict(pinned_ms=statistics.median(pinned_ms),
+                pageable_ms=statistics.median(pageable_ms),
+                bytes=sum(host[k].nbytes for k in keys))
+
+
+def hold_batches(device, trainer, kept: dict) -> dict:
+    """Each kept device batch against the data set's batch of the same
+    indices, byte for byte (ids as int64); then the first batch of each
+    data set's copy times.  Returns ({type: batches held}, {type: copy
+    times})."""
+    from vit_exp_tpu_torch.train.trainer import _BATCH_KEYS, _ID_KEYS
+
+    held, copies = {}, {}
+    for ds_idx, batches in kept.items():
+        kind = trainer.data_types[ds_idx]
+        for j, dev in enumerate(batches):
+            host = loader_batch(trainer, ds_idx, j)
+            for k, v in dev.items():
+                want = torch.from_numpy(np.ascontiguousarray(host[k]))
+                want = want.long() if k in _ID_KEYS else want
+                check(v.dtype == want.dtype and v.shape == want.shape
+                      and torch.equal(v, want.to(device)),
+                      (kind, "micro-step batch", j, k, "differs from the "
+                       "loader's batch of the same indices"))
+            held[kind] = held.get(kind, 0) + 1
+            if j == 0:
+                copies[kind] = copy_times(device, host, _BATCH_KEYS)
+            del host
+    return held, copies
+
+
+def real_train_run(device, folder: Path, name: str, paths: dict,
+                   per_micro: dict, n_classes: int, overrides=None,
+                   steps=REAL_TRAIN_STEPS, checked=REAL_TRAIN_CHECKED):
+    """``run_train.main`` on the copy of configs/``name`` for ``steps``
+    optimizer steps with the first ``checked`` device batches of each
+    loader kept and held byte for byte (``hold_batches``); finite losses
+    at every step; the launches of each step type in the last step
+    (``per_micro`` per micro-step), which is also profiled; steps/s and
+    loader wait per batch from the start of step 2 to the end of the
+    last; the final checkpoint reloaded bit for bit.  Returns the
+    numbers; the trainer's checkpoint directory stays."""
+    from vit_exp_tpu_torch.cli import run_train
+
+    cfg = real_train_config(folder, name, paths, n_classes, overrides)
+    argv = ["--config", cfg, "--debug"]
+    stem = name.removesuffix(".yaml")
+    with watch_micro_steps(steps) as (marks, by_type), \
+            keep_device_batches(checked) as kept, \
+            profile_step(steps, OUT_DIR / f"profile_real_{stem}.txt",
+                         f"run_train step {steps} of the {name} copy") as prof:
+        t0 = time.perf_counter()
+        tr = run_train.main(argv + ["--steps", str(steps)], device=device)
+        call_s = time.perf_counter() - t0
+    lines = read_metrics(folder / stem)
+    print(f"run_train {name}: {call_s:.3f} s for the call; step_time_s "
+          f"{[round(d.get('step_time_s', math.nan), 3) for d in lines]}; "
+          f"(step, s, loader wait s, batches) at each step's start "
+          f"{[(m[0], round(m[1] - t0, 3), round(m[2], 3), m[3]) for m in marks]}",
+          flush=True)
+    losses = {k: [d[k] for d in lines if k in d] for k in lines[-1]
+              if k.startswith("ds") and k.endswith("_loss")}
+    check(tr.status == "completed" and tr.step == steps
+          and [d["step"] for d in lines] == list(range(1, steps + 1))
+          and all(len(v) == steps and all(map(math.isfinite, v))
+                  for v in losses.values()), (name, lines))
+    acc = tr.sampler.sample(steps - 1)
+    want = {}
+    for ds_idx, n in enumerate(acc):
+        kind = tr.data_types[ds_idx]
+        want[kind] = {k: v * int(n) for k, v in per_micro.items()}
+    print(f"run_train {name}: launches by step type in step {steps} "
+          f"{by_type} (expected {want})", flush=True)
+    check(by_type == want, (name, by_type, want))
+    _, t_a, w_a, b_a = marks[1]
+    out = dict(config=cfg, types=list(tr.data_types), call_s=call_s,
+               steps=tr.step, losses=losses, by_type=by_type,
+               sps=(steps - 1) / (prof["end"] - t_a),
+               wait_s=(tr.data_wait_s - w_a) / max(tr.batches - b_a, 1),
+               step_times=[d["step_time_s"] for d in lines],
+               workers={t: s.get("num_workers", 4) for t, s in zip(
+                   tr.data_types, tr.config.train_data_list)})
+    out.update({k: prof[k] for k in ("wall_ms", "busy_ms") if k in prof})
+    ended = trainer_state(tr)   # the state the final checkpoint holds
+    out["checked"], out["copy_ms"] = hold_batches(device, tr, kept)
+    kept.clear()
+    out["ckpt_dir"] = tr.ckpt.directory
+    tr.close()
+    del tr
+    release(device)
+    restored = run_train.make_trainer(
+        run_train.parse_args(argv + ["--auto_resume"]), device)
+    same = restored.step == steps and state_equal(trainer_state(restored),
+                                                  ended)
+    del restored, ended
+    release(device)
+    check(same, (name, "the reloaded checkpoint differs from the state "
+                       "the run saved"))
+    return out
+
+
+def seg_folders_phase(device, folder: Path, config: str, ckpt: str,
+                      paths: dict, per_volume: dict) -> dict:
+    """``run_zero_shot_seg.main`` at its int8 default on the RadGenome
+    folders with ``ckpt``: its launches (``per_volume`` a volume), finite
+    dice; then its engine's ``infer`` on the same arrays read into memory:
+    the same result, bit for bit."""
+    from vit_exp_tpu_torch.cli import run_zero_shot_seg
+    from vit_exp_tpu_torch.data.datasets import CTSegDataset
+    from vit_exp_tpu_torch.eval.zero_shot import ZeroShotSegmenter
+
+    engines = []
+    inner = ZeroShotSegmenter.infer
+
+    def infer(self, *a, **kw):
+        engines.append(self)
+        return inner(self, *a, **kw)
+
+    ZeroShotSegmenter.infer = infer
+    try:
+        t0 = time.perf_counter()
+        res, launches = count_launches(lambda: run_zero_shot_seg.main(
+            ["--config", config, "--model_path", ckpt, "--data_folder",
+             paths["images"], "--mask_folder", paths["masks"],
+             "--results_folder", str(folder / "seg_folders")],
+            device=device))
+        call_s = time.perf_counter() - t0
+    finally:
+        ZeroShotSegmenter.infer = inner
+    ds = CTSegDataset(paths["images"], paths["masks"])
+    want = {k: v * len(ds) for k, v in per_volume.items()}
+    check(launches == want, ("run_zero_shot_seg on folders", launches, want))
+    check(all(math.isfinite(v) for v in res.values()), res)
+    memory = [ds[i] for i in range(len(ds))]
+    again = engines[0].infer(memory)
+    del memory, engines
+    release(device)
+    check(again == res, ("run_zero_shot_seg on folders against the engine "
+                         "on the same arrays in memory", res, again))
+    return dict(res=res, memory=again, launches=launches, call_s=call_s,
+                volumes=len(ds))
+
+
+def latents_phase(device, folder: Path, config: str, ckpt: str,
+                  paths: dict, per_batch: dict) -> dict:
+    """``run_latents.main`` at its int8 default on the CT-RATE tree with
+    ``ckpt``: its launches (``per_batch`` a batch), the summary line; its
+    image latents bit for bit the engine's own
+    image_latents_from_tokens(encode_image_tokens(·)) on the same batches
+    of the data set's volumes."""
+    from vit_exp_tpu_torch.cli import run_latents
+    from vit_exp_tpu_torch.data.datasets import CTReportInferenceDataset
+    from vit_exp_tpu_torch.eval import latents
+
+    engines = []
+    inner = latents.dump_latents
+
+    def dump(engine, *a, **kw):
+        engines.append(engine)
+        return inner(engine, *a, **kw)
+
+    latents.dump_latents = dump
+    out_dir = folder / "latents"
+    try:
+        t0 = time.perf_counter()
+        summary, launches = count_launches(lambda: run_latents.main(
+            ["--config", config, "--model_path", ckpt, "--data_folder",
+             paths["tree"], "--reports_csv", paths["reports"],
+             "--labels_csv", paths["labels"], "--results_folder",
+             str(out_dir)], device=device))
+        call_s = time.perf_counter() - t0
+    finally:
+        latents.dump_latents = inner
+    engine = engines.pop()
+    ds = CTReportInferenceDataset(paths["tree"], paths["reports"],
+                                  paths["labels"])
+    bs = engine.batch_size
+    n_batches = -(-len(ds) // bs)
+    want = {k: v * n_batches for k, v in per_batch.items()}
+    check(launches == want, ("run_latents", launches, want))
+    dumped = np.load(out_dir / "latents.npz")["image_latents"]
+    model = engine.model
+    model.eval()
+    mine = []
+    with torch.inference_mode():
+        for i in range(0, len(ds), bs):
+            video = torch.as_tensor(np.stack(
+                [ds[j]["image"] for j in range(i, min(i + bs, len(ds)))]),
+                device=device)
+            mine.append(model.image_latents_from_tokens(
+                model.encode_image_tokens(video)).float().cpu().numpy())
+    mine = np.concatenate(mine)
+    bitwise = mine.shape == dumped.shape and np.array_equal(mine, dumped)
+    check(bitwise and np.isfinite(dumped).all(),
+          ("run_latents against the engine's encoders", mine.shape,
+           dumped.shape))
+    del engine, model
+    release(device)
+    return dict(summary=summary, launches=launches, call_s=call_s,
+                bitwise=bitwise, batches=n_batches)
+
+
+def real_training_phase(device, folder: Path, train_per_micro: dict,
+                        seg_int8_per_volume: dict, int8_per_batch: dict,
+                        overrides=None, ctrate_dhw=CTRATE_DHW,
+                        radgenome_dhw=RADGENOME_DHW, store_shape=STORE_SHAPE,
+                        n_classes=None) -> dict:
+    """The files (a CT-RATE tree, the RadGenome tree, the synthetic store),
+    then ``real_train_run`` on each of REAL_TRAIN_CONFIGS, then
+    ``seg_folders_phase`` on the seg run's checkpoint and
+    ``latents_phase`` on the packed run's.  ``n_classes`` defaults to the
+    seg config's 22."""
+    if n_classes is None:
+        n_classes = load_seg_config(SEG_CONFIG).ct_clip_arch.seg_head.out_dim
+    t0 = time.perf_counter()
+    tree, reports, labels, _ = ctrate_files(folder, ctrate_dhw)
+    images, masks, table = radgenome_files(folder, n_classes,
+                                           dhw=radgenome_dhw)
+    store = synth_store(folder, shape=store_shape)
+    paths = dict(tree=str(tree), reports=reports, labels=labels,
+                 images=images, masks=masks, table=table, store=store)
+    out = dict(write_s=time.perf_counter() - t0, mem_gb=mem_total_gb(),
+               runs={})
+    print(f"real-format training files written in {out['write_s']:.3f} s "
+          f"(CT-RATE tree, RadGenome {RADGENOME_N} cases x {n_classes} "
+          f"classes, store of {STORE_N}); host MemTotal "
+          f"{out['mem_gb']:.1f} GiB", flush=True)
+    for name in REAL_TRAIN_CONFIGS:
+        r = out["runs"][name] = real_train_run(
+            device, folder, name, paths, train_per_micro, n_classes,
+            overrides)
+        copies = "; ".join(
+            f"{t}: pinned {c['pinned_ms']:.3f} ms "
+            f"({c['bytes'] / c['pinned_ms'] / 1e6:.3f} GB/s), pageable "
+            f"{c['pageable_ms']:.3f} ms" for t, c in r["copy_ms"].items())
+        print(f"run_train {name} ({REAL_TRAIN_STEPS} steps, num_workers "
+              f"{r['workers']}): {r['sps']:.3f} steps/s, loader wait "
+              f"{r['wait_s']:.3f} s per batch; losses "
+              f"{ {k: [round(x, 5) for x in v] for k, v in r['losses'].items()} }; "
+              f"batches held byte for byte {r['checked']}; a batch's copy "
+              f"{copies}; checkpoint reloaded bit for bit", flush=True)
+    stems = {n: n.removesuffix(".yaml") for n in REAL_TRAIN_CONFIGS}
+    seg = out["runs"]["ct_clip_vit_seg.yaml"]
+    out["seg"] = s = seg_folders_phase(device, folder, seg["config"],
+                                       seg["ckpt_dir"], paths,
+                                       seg_int8_per_volume)
+    print(f"run_zero_shot_seg (int8) on the RadGenome folders, "
+          f"{s['volumes']} volumes: {s['res']} in {s['call_s']:.3f} s, "
+          f"launches {s['launches']}; the engine on the same arrays in "
+          f"memory bit for bit", flush=True)
+    packed = out["runs"]["prod_sustained_synth.yaml"]
+    out["latents"] = lt = latents_phase(device, folder, packed["config"],
+                                        packed["ckpt_dir"], paths,
+                                        int8_per_batch)
+    print(f"run_latents (int8) on the CT-RATE tree: {lt['summary']} in "
+          f"{lt['call_s']:.3f} s, {lt['batches']} batches, launches "
+          f"{lt['launches']}; image latents bit for bit the engine's own "
+          f"encoders", flush=True)
+    for stem in stems.values():
+        shutil.rmtree(folder / stem, ignore_errors=True)
+    return out
+
+
+def real_training_lines(out: dict, card: str) -> list:
+    """The real-format training phases' result lines, each on the card."""
+    lines = []
+    for name, r in out["runs"].items():
+        busy = ""
+        if "wall_ms" in r:
+            busy = (f"; step {REAL_TRAIN_STEPS} profiled: wall "
+                    f"{r['wall_ms']:.3f} ms, "
+                    f"device busy {r['busy_ms']:.3f} ms, idle share "
+                    f"{1 - r['busy_ms'] / r['wall_ms']:.3f}")
+        copies = "; ".join(
+            f"{t} batch {c['bytes'] / 1e6:.1f} MB: pinned side-stream copy "
+            f"{c['pinned_ms']:.3f} ms ({c['bytes'] / c['pinned_ms'] / 1e6:.3f}"
+            f" GB/s), pageable .to() {c['pageable_ms']:.3f} ms "
+            f"({c['bytes'] / c['pageable_ms'] / 1e6:.3f} GB/s)"
+            for t, c in r["copy_ms"].items())
+        lines.append(
+            f"run_train on a copy of {name} over generated files "
+            f"({REAL_TRAIN_STEPS} steps, num_workers {r['workers']}): "
+            f"{r['sps']:.3f} steps/s and loader wait {r['wait_s']:.3f} s "
+            f"per batch from the start of step 2 to the end of step "
+            f"{REAL_TRAIN_STEPS}{busy}; {copies}; host MemTotal "
+            f"{out['mem_gb']:.1f} GiB on {card}")
+    s, lt = out["seg"], out["latents"]
+    lines.append(f"run_zero_shot_seg (int8) on the RadGenome folders: "
+                 f"{s['volumes']} volumes in {s['call_s']:.3f} s, mean dice "
+                 f"{s['res']['mean_dice']:.4f} on {card}")
+    lines.append(f"run_latents (int8) on the CT-RATE tree: "
+                 f"{lt['summary']['n']} volumes in {lt['call_s']:.3f} s, "
+                 f"report-to-volume recall@5 "
+                 f"{lt['summary']['report_to_volume_recall_at_k']:.4f} "
+                 f"(random data, printed only) on {card}")
+    return lines
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2962,6 +3505,16 @@ def main() -> int:
         real = real_data_phase(device, folder, rt["config"], rt["ckpts"],
                                int8_per_batch, bf16_per_batch, blocks)
         release(device)
+        # real-format training: three production configs' copies over
+        # generated files, then run_zero_shot_seg on folders, run_latents
+        seg_int8_per_volume = expected_launches({"K4": 1, **{
+            k: blocks for k in ("K9/K10", "K11y", "K11h", "K11q", "K11o",
+                                "K13x", "K13mm", "K14")}})
+        (folder / "realtrain").mkdir()
+        rtrain = real_training_phase(device, folder / "realtrain",
+                                     train_launches(blocks),
+                                     seg_int8_per_volume, int8_per_batch)
+        release(device)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     rt_peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3037,6 +3590,23 @@ def main() -> int:
                                f"run_zero_shot_cls {tag}", r["launches"])
     real_rows += path_rows(int8_rows, "serve, int8, concurrent clients",
                            real["serve"]["launches"])
+    # a batch-4 training micro-step's rows: K15 and the pair over the
+    # concatenated kv, K8's six (training rows), K2's three and the patch
+    # embedding (serving rows, the same shapes)
+    train_rows = rows["online"] + [
+        r for r in rows["train"] + rows["serve"] if r["counter"] in (
+            "K2x", "K2h", "K2o", "K4", "K8y", "K8dh", "K8dy", "K8dx", "K8w",
+            "K8sum")]
+    for name, r in rtrain["runs"].items():
+        for kind, counts in r["by_type"].items():
+            real_rows += path_rows(
+                train_rows if kind == "imagereport" else rows["seg_train"],
+                f"run_train {name} copy, the {kind} micro-steps", counts)
+    real_rows += path_rows(rows["seg_serve_int8"],
+                           "run_zero_shot_seg int8 on RadGenome folders",
+                           rtrain["seg"]["launches"])
+    real_rows += path_rows(int8_rows, "run_latents int8, batch 4",
+                           rtrain["latents"]["launches"])
     kernels = []
     for phase in ("serve", "train", "int8", "online", "planted"):
         for row in rows[phase]:
@@ -3127,6 +3697,8 @@ def main() -> int:
           f"{ {k: round(v[-1], 5) for k, v in mixed['losses'].items()} } on "
           f"{card}")
     for line in real_data_lines(real, card):
+        print(line)
+    for line in real_training_lines(rtrain, card):
         print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

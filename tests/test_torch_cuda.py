@@ -1151,3 +1151,50 @@ def test_one_served_request_matches_predict_batch(dev, tmp_path):
     got = [body["probs"][p] for p in engine.pathologies]
     np.testing.assert_allclose(got, engine.predict_batch(vol[None])[0],
                                atol=1e-4, rtol=0)
+
+
+# --- the page-locked pool and the side-stream batch copy ------------------------
+
+
+def test_pooled_loader_and_side_stream_copy_on_the_card(dev):
+    """A loader collating into 2 registered slots with 3 workers, each
+    batch copied on the side stream while a long product runs on the
+    current stream: every device batch equals the plain loader's batch of
+    the same indices, byte for byte, the buffers are page-locked, and the
+    next batch's slot waits for the copy before it is rewritten."""
+    import numpy as np
+
+    from vit_exp_tpu_torch.data.loader import Loader
+    from vit_exp_tpu_torch.data.pinned import (BatchCopier, HostBatch,
+                                               PinnedPool)
+
+    class Items:
+        def __len__(self):
+            return 10
+
+        def __getitem__(self, i):
+            r = np.random.default_rng(i)
+            return {"image": r.standard_normal((1, 16, 256, 256),
+                                               dtype=np.float32),
+                    "input_ids": np.arange(8, dtype=np.int32) + i}
+
+    kw = dict(shuffle=True, seed=4, num_workers=3, prefetch=2)
+    want = list(Loader(Items(), 2, **kw))
+    pool = PinnedPool(2, ("image", "input_ids"), register=True)
+    loader = Loader(Items(), 2, pool=pool, **kw)
+    copier = BatchCopier(dev)
+    a = torch.randn(4096, 4096, device=dev)
+    got = []
+    for batch in loader:
+        assert isinstance(batch, HostBatch)
+        assert torch.from_numpy(batch["image"]).is_pinned()
+        busy = a @ a @ a @ a      # the current stream is busy meanwhile
+        got.append(copier.start(batch, ("image", "input_ids")))
+        del busy
+    out = [g.get() for g in got]
+    torch.cuda.synchronize()
+    assert len(out) == len(want) == 5
+    for o, w in zip(out, want):
+        for k in ("image", "input_ids"):
+            assert torch.equal(o[k].cpu(), torch.from_numpy(w[k])), k
+    loader.close()

@@ -20,6 +20,7 @@
 import dataclasses
 import json
 import math
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -142,21 +143,38 @@ def test_run_train_planted_with_the_eval_hook(tmp_path):
 
 
 def test_run_train_refuses_segmentation_before_training(tmp_path):
-    """Planted segmentation data and the seg hook run now
-    (tests/test_torch_seg_eval.py); RadGenome folders and a segmentation
-    valid_data set wait for the real-data slice and are refused before
-    training."""
+    """Planted segmentation data and the seg hook run
+    (tests/test_torch_seg_eval.py), and so do RadGenome folders
+    (tests/test_torch_realdata.py); a RadGenome set whose image and mask
+    counts differ, as a train entry or as a segmentation valid_data set,
+    raises JAX's AssertionError before training."""
+    images, masks = tmp_path / "images", tmp_path / "masks"
+    images.mkdir()
+    masks.mkdir()
+    for i in range(2):
+        np.savez(images / f"case_{i}.npz", np.zeros((4, 4, 4), np.float32))
+    np.savez(masks / "case_0.npz", np.zeros((2, 4, 4, 4), np.uint8))
+    folders = {"data_folder": str(images), "mask_folder": str(masks)}
+    tree = tmp_path / "tree" / "t_0" / "t_0a"
+    tree.mkdir(parents=True)
+    np.savez(tree / "t_0_a_1.npz", np.zeros((4, 4, 4), np.float32))
+    (tmp_path / "reports.csv").write_text(
+        "VolumeName,Findings_EN,Impressions_EN\nt_0_a_1.nii.gz,a,b\n")
     for cfg in (_planted_yaml(tmp_path, "seg", train_data_list=[
-                    {"type": "imageseg", "batch_size": 2,
-                     "data_folder": "images", "mask_folder": "masks"}]),
+                    {"type": "imageseg", "batch_size": 2, **folders}]),
                 _planted_yaml(tmp_path, "segvalid", ["seg_test"],
-                              train_data_list=[
-                                  {"type": "imagereport", "batch_size": 2}],
-                              valid_data={"seg": {"data_folder": "images",
-                                                  "mask_folder": "masks"}})):
-        with pytest.raises(NotImplementedError):
+                              train_data_list=[{
+                                  "type": "imagereport", "batch_size": 1,
+                                  "data_folder": str(tmp_path / "tree"),
+                                  "reports_csv": str(tmp_path /
+                                                     "reports.csv")}],
+                              valid_data={"seg": folders})):
+        with pytest.raises(AssertionError, match="2 images vs 1 masks"):
             run_train.make_trainer(run_train.parse_args(
                 ["--config", cfg, "--debug"]), device="cpu")
+        for sub in (images / "tmp_cache_data_list",
+                    masks / "tmp_cache_mask_list"):
+            shutil.rmtree(sub)
     assert not (tmp_path / "seg" / "metrics.jsonl").exists()
 
 

@@ -18,26 +18,44 @@ have no counterpart here.
 Data: ``--synthetic N`` gives N synthetic samples of each
 ``train_data_list`` entry's type (imagereport, imageseg or imageopenseg;
 the masks have 4 classes whatever the seg head's width, as in the JAX
-package); otherwise each entry must be ``planted: true``
-(``PlantedCTDataset``, ``PlantedSegDataset`` or ``PlantedOpenSegDataset``
-by type, ``n`` samples, default 4096).  The in-training eval hooks of
-``valid_test_list`` run every ``eval_model_every`` steps and the sample
-hooks of ``sample_test_list`` every ``sample_val_every``
-(``eval/hooks.py``): on a planted run over ``PlantedInferenceDataset`` (16
-volumes, scored on the four planted attributes at 64 tokens),
-``PlantedSegInferenceDataset`` (8) and, with ``use_open_seg``,
-``PlantedOpenSegDataset`` (2); under ``--synthetic`` or
-``--synthetic_eval N`` over ``SyntheticInferenceDataset`` and, with
-``use_open_seg``, 2 synthetic open-vocabulary items.
+package).  Otherwise each entry names its data, by type and with the
+reference YAML's key names as aliases (a missing key raises KeyError):
 
-Not ported yet, and refused with NotImplementedError: packed shards,
-CT-RATE and RadGenome files (for training and as ``valid_data``), and the
-multi-device flags (``--mesh`` and the multi-host flags).
+- ``planted: true``: ``PlantedCTDataset``, ``PlantedSegDataset`` or
+  ``PlantedOpenSegDataset`` by type, ``n`` samples (default 4096);
+- imagereport: ``CTReportDataset`` over a CT-RATE npz tree
+  (``data_folder``/``data_train``, ``reports_csv``/``reports_file_train``)
+  or, with ``packed: true``, ``CTReportPackedDataset`` over a store
+  (``data_folder``/``data_train``, the CSV optional);
+- imageseg: ``CTSegDataset`` (``data_folder``/``seg_data_train``,
+  ``mask_folder``/``seg_mask_train``);
+- imageopenseg: ``CTOpenSegDataset`` (those two and
+  ``seg_mask_name_table``, ``seg_mask_prompt_type`` default
+  "this_region").
+
+The in-training eval hooks of ``valid_test_list`` run every
+``eval_model_every`` steps and the sample hooks of ``sample_test_list``
+every ``sample_val_every`` (``eval/hooks.py``): on a planted run over
+``PlantedInferenceDataset`` (16 volumes, scored on the four planted
+attributes at 64 tokens), ``PlantedSegInferenceDataset`` (8) and, with
+``use_open_seg``, ``PlantedOpenSegDataset`` (2); under ``--synthetic`` or
+``--synthetic_eval N`` over ``SyntheticInferenceDataset`` and, with
+``use_open_seg``, 2 synthetic open-vocabulary items; otherwise over the
+config's ``valid_data`` sets: ``cls`` (``CTReportInferenceDataset``:
+``data_folder``, ``reports_csv``, ``labels_csv``), ``seg``
+(``CTSegDataset``) and ``open_seg`` (``CTOpenSegDataset``).  The git
+state (``git log -1``, ``git status --short`` of the working directory)
+goes to ``<results_folder>/git_state.txt`` first.
+
+Not ported yet, and refused with NotImplementedError: the multi-device
+flags (``--mesh`` and the multi-host flags).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import subprocess
 
 import numpy as np
 import torch
@@ -79,11 +97,36 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _get(spec, *names):
+    """The first of ``names`` the data set spec holds (the port's names and
+    the reference YAML's)."""
+    for n in names:
+        if spec.get(n) is not None:
+            return spec[n]
+    raise KeyError(f"dataset spec needs one of {names}: {spec}")
+
+
+def _planted_dataset(spec, config, tokenizer):
+    from vit_exp_tpu_torch.data import planted
+
+    dtype = spec.get("type", "imagereport")
+    # n defaults large enough that short runs are single-epoch
+    n = int(spec.get("n", 4096))
+    if dtype == "imagereport":
+        return planted.PlantedCTDataset(n, arch=config.arch,
+                                        tokenizer=tokenizer, max_text_len=64)
+    if dtype == "imageseg":
+        return planted.PlantedSegDataset(n, arch=config.arch)
+    if dtype == "imageopenseg":
+        return planted.PlantedOpenSegDataset(
+            n, arch=config.arch, tokenizer=tokenizer, max_text_len=64)
+    raise ValueError(f"unknown planted dataset type {dtype!r}")
+
+
 def build_datasets(config, tokenizer, synthetic: int = 0):
     """With ``synthetic``, one synthetic data set of that many samples per
-    ``train_data_list`` entry, of the entry's type; otherwise one planted
-    data set per ``planted: true`` entry.  Anything else is not ported
-    yet."""
+    ``train_data_list`` entry, of the entry's type; otherwise each entry's
+    planted data set or data set over files (the module docstring)."""
     if synthetic:
         from vit_exp_tpu_torch.data.synthetic import SyntheticCTDataset
 
@@ -91,37 +134,72 @@ def build_datasets(config, tokenizer, synthetic: int = 0):
                                    n=synthetic, arch=config.arch,
                                    tokenizer=tokenizer)
                 for spec in (config.train_data_list or [{}])]
-    from vit_exp_tpu_torch.data import planted
+    from vit_exp_tpu_torch.data.datasets import (CTOpenSegDataset,
+                                                 CTReportDataset,
+                                                 CTSegDataset)
+    from vit_exp_tpu_torch.data.packed import CTReportPackedDataset
 
     datasets = []
     for spec in config.train_data_list:
         dtype = spec.get("type", "imagereport")
-        if not spec.get("planted"):
-            raise NotImplementedError(
-                f"data set {spec.get('name', dtype)!r}: only --synthetic and "
-                f"planted data are ported yet; packed shards, CT-RATE and "
-                f"RadGenome files come with the real-data slice (ROADMAP M3)")
-        # n defaults large enough that short runs are single-epoch
-        n = int(spec.get("n", 4096))
-        if dtype == "imagereport":
-            datasets.append(planted.PlantedCTDataset(
-                n, arch=config.arch, tokenizer=tokenizer, max_text_len=64))
+        if spec.get("planted"):
+            datasets.append(_planted_dataset(spec, config, tokenizer))
+        elif dtype == "imagereport" and spec.get("packed"):
+            datasets.append(CTReportPackedDataset(
+                _get(spec, "data_folder", "data_train"),
+                spec.get("reports_csv") or spec.get("reports_file_train"),
+                tokenizer=tokenizer))
+        elif dtype == "imagereport":
+            datasets.append(CTReportDataset(
+                _get(spec, "data_folder", "data_train"),
+                _get(spec, "reports_csv", "reports_file_train"),
+                tokenizer=tokenizer))
         elif dtype == "imageseg":
-            datasets.append(planted.PlantedSegDataset(n, arch=config.arch))
+            datasets.append(CTSegDataset(
+                _get(spec, "data_folder", "seg_data_train"),
+                _get(spec, "mask_folder", "seg_mask_train")))
         elif dtype == "imageopenseg":
-            datasets.append(planted.PlantedOpenSegDataset(
-                n, arch=config.arch, tokenizer=tokenizer, max_text_len=64))
+            datasets.append(CTOpenSegDataset(
+                _get(spec, "data_folder", "seg_data_train"),
+                _get(spec, "mask_folder", "seg_mask_train"),
+                _get(spec, "seg_mask_name_table"), tokenizer=tokenizer,
+                seg_mask_prompt_type=spec.get("seg_mask_prompt_type",
+                                              "this_region")))
         else:
-            raise ValueError(f"unknown planted dataset type {dtype!r}")
+            raise ValueError(f"unknown dataset type {dtype!r}")
     return datasets
+
+
+def valid_datasets(valid: dict, tokenizer):
+    """The (cls, seg, open_seg) validation sets of a config's
+    ``valid_data``; None where it names none."""
+    from vit_exp_tpu_torch.data.datasets import (CTOpenSegDataset,
+                                                 CTReportInferenceDataset,
+                                                 CTSegDataset)
+
+    cls_ds = seg_ds = open_ds = None
+    if "cls" in valid:
+        v = valid["cls"]
+        cls_ds = CTReportInferenceDataset(
+            v["data_folder"], v["reports_csv"], v["labels_csv"],
+            tokenizer=tokenizer)
+    if "seg" in valid:
+        seg_ds = CTSegDataset(valid["seg"]["data_folder"],
+                              valid["seg"]["mask_folder"])
+    if "open_seg" in valid:
+        v = valid["open_seg"]
+        open_ds = CTOpenSegDataset(v["data_folder"], v["mask_folder"],
+                                   v["seg_mask_name_table"],
+                                   tokenizer=tokenizer)
+    return cls_ds, seg_ds, open_ds
 
 
 def build_hooks(config, args: argparse.Namespace, tokenizer):
     """The eval and sample hooks of ``valid_test_list`` and
     ``sample_test_list`` over the run's validation sets: planted held-out
     volumes on a planted run, synthetic ones under --synthetic or
-    --synthetic_eval.  Returns build_eval_hooks' {"eval_hooks",
-    "sample_hooks"}."""
+    --synthetic_eval, else the config's ``valid_data``.  Returns
+    build_eval_hooks' {"eval_hooks", "sample_hooks"}."""
     from vit_exp_tpu_torch.eval.hooks import build_eval_hooks
 
     if not (config.valid_test_list or config.sample_test_list):
@@ -150,13 +228,27 @@ def build_hooks(config, args: argparse.Namespace, tokenizer):
                                          arch=config.arch,
                                          tokenizer=tokenizer, n_classes=4)
     elif config.extra.get("valid_data"):
-        raise NotImplementedError(
-            "valid_data on CT-RATE and RadGenome files is not ported yet "
-            "(ROADMAP M3)")
+        cls_ds, seg_ds, open_ds = valid_datasets(config.extra["valid_data"],
+                                                 tokenizer)
     return build_eval_hooks(config, tokenizer, cls_dataset=cls_ds,
                             seg_dataset=seg_ds, open_seg_dataset=open_ds,
                             cls_pathologies=cls_pathologies,
                             cls_max_text_len=cls_max_text_len)
+
+
+def write_git_state(results_folder: str) -> None:
+    """``git log -1`` and ``git status --short`` of the working directory
+    into ``results_folder``/git_state.txt (empty where git has nothing to
+    say; no file where git cannot run)."""
+    os.makedirs(results_folder, exist_ok=True)
+    try:
+        out = [subprocess.run(cmd, capture_output=True, text=True).stdout
+               for cmd in (["git", "log", "-1"], ["git", "status",
+                                                  "--short"])]
+    except OSError:
+        return
+    with open(os.path.join(results_folder, "git_state.txt"), "w") as f:
+        f.writelines(o + "\n" for o in out)
 
 
 def make_trainer(args: argparse.Namespace, device="cuda"):
@@ -168,6 +260,7 @@ def make_trainer(args: argparse.Namespace, device="cuda"):
     from vit_exp_tpu_torch.train.trainer import CTClipTrainer
 
     config = load_config(args.config)
+    write_git_state(config.results_folder)
     np.random.seed(config.random_seed)
     torch.manual_seed(config.random_seed)
 

@@ -3,8 +3,9 @@ vit_exp_tpu/cli/run_zero_shot_seg.py).
 
 Usage, on the card:
     python -m vit_exp_tpu_torch.cli.run_zero_shot_seg --config cfg.yaml \\
-        --results_folder out/ --synthetic N [--no-int8] \\
-        [--model_path CKPT [--torch_ckpt]] [--batch_size B] [--vocab V]
+        --results_folder out/ (--data_folder imgs/ --mask_folder masks/ |
+        --synthetic N) [--no-int8] [--model_path CKPT [--torch_ckpt]] \\
+        [--batch_size B] [--vocab V]
 
 The config must switch on ``use_seg``.  ``--int8`` (the default, as in the
 JAX package) builds the W8A8 serving path (``int8=True, fuse_qkv=True``);
@@ -14,12 +15,14 @@ the seg head is a plain bf16 product either way.  Weights: seeded random
 checkpoint (a ``ckpt_{step}/`` directory, or a ``checkpoints/`` directory
 whose latest step is taken), or with ``--torch_ckpt`` a reference
 ``CTClip.*.pt`` state dict.  ``--synthetic N`` scores N synthetic volumes
-with masks of the seg head's ``out_dim`` classes.  Prints the dice result
-(``dice_class_{i}``, ``mean_dice``) as one JSON line and writes
-dice_scores.npy and dice_scores.txt into the results folder.
+with masks of the seg head's ``out_dim`` classes; without it the
+``CTSegDataset`` of ``--data_folder`` and ``--mask_folder`` (pre-cropped
+image and mask npz, as the JAX CLI reads them; with neither given it
+raises JAX's TypeError).  Prints the dice result (``dice_class_{i}``,
+``mean_dice``) as one JSON line and writes dice_scores.npy and
+dice_scores.txt into the results folder.
 
-Not ported yet, and refused with NotImplementedError: RadGenome folders
-(``--data_folder``/``--mask_folder``, ROADMAP M3) and ``--mesh`` with the
+Not ported yet, and refused with NotImplementedError: ``--mesh`` with the
 multi-host flags (ROADMAP M7).
 """
 
@@ -33,9 +36,8 @@ from vit_exp_tpu_torch.train.checkpoint import load_model_weights
 # the loader all three serving CLIs share, under its former name here
 load_weights = load_model_weights
 
-_NOT_PORTED = {"--data_folder": "M3", "--mask_folder": "M3", "--mesh": "M7",
-               "--coordinator_address": "M7", "--num_processes": "M7",
-               "--process_id": "M7"}
+_NOT_PORTED = ("--mesh", "--coordinator_address", "--num_processes",
+               "--process_id")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -47,6 +49,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--config", required=True)
     parser.add_argument("--model_path", default=None)
     parser.add_argument("--results_folder", required=True)
+    parser.add_argument("--data_folder", default=None)
+    parser.add_argument("--mask_folder", default=None)
     parser.add_argument("--synthetic", type=int, default=0)
     parser.add_argument("--torch_ckpt", action="store_true",
                         help="--model_path is a reference CTClip.*.pt")
@@ -59,12 +63,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     given = [f for f in _NOT_PORTED if getattr(args, f[2:]) is not None]
     if given:
         raise NotImplementedError(
-            f"{given} not ported yet (ROADMAP "
-            f"{', '.join(sorted({_NOT_PORTED[f] for f in given}))})")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "only --synthetic data is ported yet; RadGenome folders come "
-            "with the real-data slice (ROADMAP M3)")
+            f"{given}: multi-device scoring is not ported yet (ROADMAP M7)")
     return args
 
 
@@ -74,6 +73,7 @@ def main(argv=None, device="cuda"):
     there is no flag for it."""
     args = parse_args(argv)
     from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.data.datasets import CTSegDataset
     from vit_exp_tpu_torch.data.synthetic import SyntheticCTDataset
     from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
     from vit_exp_tpu_torch.eval.zero_shot import ZeroShotSegmenter
@@ -88,9 +88,12 @@ def main(argv=None, device="cuda"):
     model = build_ctclip(config, bert, device=device, fuse_qkv=True, **mode)
     if args.model_path:
         load_model_weights(model, args.model_path, args.torch_ckpt)
-    dataset = SyntheticCTDataset(
-        "imageseg", n=args.synthetic, arch=config.arch,
-        n_classes=config.ct_clip_arch.seg_head.out_dim)
+    if args.synthetic:
+        dataset = SyntheticCTDataset(
+            "imageseg", n=args.synthetic, arch=config.arch,
+            n_classes=config.ct_clip_arch.seg_head.out_dim)
+    else:
+        dataset = CTSegDataset(args.data_folder, args.mask_folder)
     engine = ZeroShotSegmenter(model, batch_size=args.batch_size)
     res = engine.infer(dataset, results_folder=args.results_folder)
     print(json.dumps(res))

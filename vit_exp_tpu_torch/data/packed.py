@@ -227,8 +227,9 @@ class CTReportPackedDataset:
     def __getitem__(self, index: int) -> Dict:
         key, text = self.samples[index]
         volume = self.store.get_f32(key)
-        if volume.ndim == 3:
-            volume = volume[None]
+        return self._item(volume[None] if volume.ndim == 3 else volume, text)
+
+    def _item(self, volume: Optional[np.ndarray], text: str) -> Dict:
         text = text.translate(self._strip)
         item = {"image": volume, "text": text, "data_type": "imagereport"}
         if self.tokenizer is not None:
@@ -236,6 +237,29 @@ class CTReportPackedDataset:
             item["input_ids"] = toks["input_ids"][0]
             item["attention_mask"] = toks["attention_mask"][0]
         return item
+
+    def collate_batch(self, indices, alloc=None) -> Dict:
+        """``collate([self[i] for i in indices])`` with the volumes read by
+        one native ``get_batch`` straight into the batch array
+        (``alloc(key, shape, dtype)``'s when given, the loader's
+        page-locked buffers)."""
+        from vit_exp_tpu_torch.data.loader import collate
+
+        keys = [self.samples[i][0] for i in indices]
+        recs = [self.store.by_key[k] for k in keys]
+        shape = tuple(recs[0]["shape"])
+        if any(tuple(r["shape"]) != shape or r["dtype"] != recs[0]["dtype"]
+               for r in recs):   # records of several shapes: item by item
+            return collate([self[i] for i in indices], alloc)
+        full = (len(keys),) + ((1,) + shape if len(shape) == 3 else shape)
+        images = (alloc("image", full, np.float32) if alloc
+                  else np.empty(full, np.float32))
+        self.store.get_batch(keys, out=images.reshape((len(keys),) + shape))
+        batch = collate([{k: v for k, v in self._item(None,
+                                                      self.samples[i][1])
+                          .items() if k != "image"} for i in indices], alloc)
+        batch["image"] = images
+        return batch
 
 
 class CTReportPackedInferenceDataset:

@@ -94,18 +94,20 @@ class SyntheticCTDataset:
         return self._item(index, np.empty(self._image_shape(), np.float32),
                           mask)
 
-    def collate_batch(self, indices) -> Dict:
+    def collate_batch(self, indices, alloc=None) -> Dict:
         """``collate([self[i] for i in indices])``, the images (and masks)
-        drawn in place into the batch arrays."""
+        drawn in place into the batch arrays (``alloc(key, shape, dtype)``'s
+        when given, the loader's page-locked buffers)."""
+        alloc = alloc or (lambda key, shape, dtype: np.empty(shape, dtype))
         n = len(indices)
-        images = np.empty((n, *self._image_shape()), np.float32)
-        masks = (np.empty((n, *self._mask_shape()), np.float32) if self._seg
-                 else [None] * n)
+        images = alloc("image", (n, *self._image_shape()), np.float32)
+        masks = (alloc("seg_mask", (n, *self._mask_shape()), np.float32)
+                 if self._seg else [None] * n)
         items = [self._item(i, images[j], masks[j])
                  for j, i in enumerate(indices)]
         batch = collate([{k: v for k, v in item.items()
                           if k not in ("image", "seg_mask")}
-                         for item in items])
+                         for item in items], alloc)
         batch["image"] = images
         if self._seg:
             batch["seg_mask"] = masks

@@ -66,8 +66,9 @@ def make_seg_dice_hook(dataset, *, limit: int = 10) -> Callable:
 
 def _needs(name: str, dataset, what: str) -> None:
     if dataset is None:
-        raise ValueError(f"hook {name!r} needs {what}: planted training data "
-                         f"or --synthetic/--synthetic_eval")
+        raise ValueError(f"hook {name!r} needs {what}: planted training "
+                         f"data, --synthetic/--synthetic_eval or the "
+                         f"config's valid_data")
 
 
 def build_eval_hooks(config, tokenizer, *, cls_dataset=None, seg_dataset=None,

@@ -10,7 +10,12 @@ The tokenizer is any callable ``(prompts, max_length=...) -> {"input_ids",
 ``infer`` scores an inference data set (items with "image", "onehot" and
 "accession") in batches of ``batch_size``: the port's threaded ``Loader``
 makes batch i + 1 while batch i computes, and batch i's probabilities are
-read one batch late (``_one_deep_map``).  The JAX engine pads its tail batch
+read one batch late (``_one_deep_map``).  On a CUDA device each engine's
+loaders collate the volumes (and masks) into the engine's own pool of
+ENGINE_PIN_SLOTS page-locked buffer sets, allocated once for all its
+calls, and every batch, served ones included, goes to the card through
+its ``BatchCopier`` (``data/pinned.py``): a side-stream copy that batch
+i + 1 starts while batch i computes.  The JAX engine pads its tail batch
 for XLA's static shapes; the port runs the short batch as it is (each
 volume's probabilities depend on that volume alone).  It returns
 ``evaluate_internal``'s per-label AUROCs and ``volumes_per_sec``.  The model
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from vit_exp_tpu_torch.data.loader import Loader
+from vit_exp_tpu_torch.data.pinned import BatchCopier, PinnedPool
 from vit_exp_tpu_torch.eval.metrics import (evaluate_internal,
                                             save_inference_artifacts)
 from vit_exp_tpu_torch.models.ctclip import CTCLIP
@@ -75,20 +81,51 @@ class _Subset:
         return self._dataset[i]
 
 
+# page-locked buffer sets of an engine: the batch being copied and the next
+ENGINE_PIN_SLOTS = 2
+
+
+class _Feed:
+    """An engine's way to the device: its copier and, on a CUDA device, its
+    pool of page-locked buffers for ``keys``."""
+
+    def __init__(self, device, keys):
+        self.device = torch.device(device)
+        self.keys = tuple(keys)
+        self.copier = BatchCopier(self.device)
+        self.pool = (PinnedPool(ENGINE_PIN_SLOTS, self.keys, register=True)
+                     if self.device.type == "cuda" else None)
+
+    def to_device(self, batch) -> Dict[str, torch.Tensor]:
+        return self.copier.to_device(batch, self.keys)
+
+    def tensor(self, x, key: str) -> torch.Tensor:
+        """An array (or tensor) of batch key ``key`` on the device."""
+        if isinstance(x, torch.Tensor) and x.device == self.device:
+            return x
+        return self.copier.to_device({key: x}, (key,))[key]
+
+
 def _one_deep_map(dataset, n: int, batch_size: int,
                   dispatch: Callable[[Dict], object], *,
-                  num_workers: int = 4) -> Iterator:
+                  num_workers: int = 4,
+                  pool: Optional[PinnedPool] = None) -> Iterator:
     """dispatch(batch) over the first n items in batches (the tail batch may
-    be short), loaded on background threads; each payload is yielded one
-    batch late, after the next batch's dispatch, so the consumer's host
-    reads overlap the device's work; the last is flushed at the end."""
+    be short), loaded on background threads (into ``pool``'s buffers when
+    given); each payload is yielded one batch late, after the next batch's
+    dispatch, so the consumer's host reads overlap the device's work; the
+    last is flushed at the end."""
     pending = None
-    for batch in Loader(_Subset(dataset, n), batch_size, shuffle=False,
-                        num_workers=num_workers, prefetch=2):
-        payload = dispatch(batch)
-        if pending is not None:
-            yield pending
-        pending = payload
+    loader = Loader(_Subset(dataset, n), batch_size, shuffle=False,
+                    num_workers=num_workers, prefetch=2, pool=pool)
+    try:
+        for batch in loader:
+            payload = dispatch(batch)
+            if pending is not None:
+                yield pending
+            pending = payload
+    finally:
+        loader.stop()   # the pool outlives this loader
     if pending is not None:
         yield pending
 
@@ -105,6 +142,7 @@ class ZeroShotClassifier:
         self.max_text_len = max_text_len
         self.batch_size = batch_size
         self.device = next(model.parameters()).device
+        self.feed = _Feed(self.device, ("image",))
         self._cached_text = None
 
     def set_params(self, model: Optional[CTCLIP] = None) -> None:
@@ -113,7 +151,9 @@ class ZeroShotClassifier:
         do) and drop the prompt cache, which the old text tower made."""
         if model is not None:
             self.model = model
-            self.device = next(model.parameters()).device
+            if next(model.parameters()).device != self.device:
+                self.device = next(model.parameters()).device
+                self.feed = _Feed(self.device, self.feed.keys)
         self._cached_text = None
 
     @torch.inference_mode()
@@ -130,10 +170,11 @@ class ZeroShotClassifier:
 
     @torch.inference_mode()
     def probs(self, volumes) -> torch.Tensor:
-        """(B, 1, D, H, W) → (B, n_pathologies) P(present), on the device."""
+        """(B, 1, D, H, W) → (B, n_pathologies) P(present), on the device;
+        host volumes go through the engine's copier."""
         if self._cached_text is None:
             self.prepare()
-        video = torch.as_tensor(volumes, device=self.device)
+        video = self.feed.tensor(volumes, "image")
         tokens = self.model.encode_image_tokens(video)
         img = self.model.image_latents_from_tokens(tokens)
         scores = (img @ self._cached_text.T) * self.model.logit_scale()
@@ -158,9 +199,9 @@ class ZeroShotClassifier:
             t0 = time.perf_counter()
             for dev, onehots, accs in _one_deep_map(
                     dataset, n, self.batch_size,
-                    lambda b: (self.probs(b["image"]), b["onehot"],
-                               b["accession"]),
-                    num_workers=num_workers):
+                    lambda b: (self.probs(self.feed.to_device(b)["image"]),
+                               b["onehot"], b["accession"]),
+                    num_workers=num_workers, pool=self.feed.pool):
                 preds.extend(dev.cpu().numpy())
                 labels.extend(onehots)
                 accessions.extend(accs)
@@ -184,31 +225,35 @@ class ZeroShotSegmenter:
         self.model = model
         self.batch_size = batch_size
         self.device = next(model.parameters()).device
+        self.feed = _Feed(self.device, ("image", "seg_mask"))
 
     def set_params(self, model: Optional[CTCLIP] = None) -> None:
         """Score ``model`` from now on (given nothing, the engine's own
         model, whose weights have changed in place)."""
         if model is not None:
             self.model = model
-            self.device = next(model.parameters()).device
+            if next(model.parameters()).device != self.device:
+                self.device = next(model.parameters()).device
+                self.feed = _Feed(self.device, self.feed.keys)
 
     @torch.inference_mode()
     def dice(self, volumes, masks) -> torch.Tensor:
         """(B, 1, D, H, W), (B, C, D, H, W) → (B, C) per-sample dice, on the
-        device."""
-        video = torch.as_tensor(volumes, device=self.device)
-        mask = torch.as_tensor(masks, device=self.device)
+        device; host arrays go through the engine's copier."""
+        video = self.feed.tensor(volumes, "image")
+        mask = self.feed.tensor(masks, "seg_mask")
         return dice_scores_per_sample(self.model.seg_forward(video), mask)
 
     def dice_batch(self, volumes, masks) -> np.ndarray:
         return self.dice(volumes, masks).cpu().numpy()
 
     def _dispatch(self, batch: Dict):
-        volumes, masks = (torch.as_tensor(np.asarray(batch[k]))
-                          for k in ("image", "seg_mask"))
+        dev = self.feed.to_device(batch)
+        volumes, masks = dev["image"], dev["seg_mask"]
         k = volumes.shape[0]
         if k < self.batch_size:   # pad the tail: repeat the last item
-            idx = torch.arange(self.batch_size).clamp_max(k - 1)
+            idx = torch.arange(self.batch_size,
+                               device=volumes.device).clamp_max(k - 1)
             volumes, masks = volumes[idx], masks[idx]
         return self.dice(volumes, masks), k
 
@@ -225,7 +270,8 @@ class ZeroShotSegmenter:
         try:
             for dev, k in _one_deep_map(dataset, n, self.batch_size,
                                         self._dispatch,
-                                        num_workers=num_workers):
+                                        num_workers=num_workers,
+                                        pool=self.feed.pool):
                 all_dice.extend(dev.cpu().numpy()[:k])
         finally:
             self.model.train(was_training)

@@ -124,14 +124,20 @@ def preprocess_runtime_volume(img_dhw, target_hwd: Tuple[int, int, int] =
 def preprocess_runtime_numpy(
     img_dhw: np.ndarray, target_hwd: Tuple[int, int, int] = RUNTIME_TARGET_HWD,
 ) -> np.ndarray:
-    """The numpy twin of ``preprocess_runtime_volume`` for host loaders."""
-    x = np.transpose(img_dhw.astype(np.float32), (1, 2, 0))
-    x = np.clip(x, -1.0, 1.0)
-    x = (x + 1.0) / 2.0
-    out = np.full(target_hwd, -1.0, dtype=np.float32)
-    src, dst = _crop_pad_slices(x.shape, target_hwd)
-    out[dst] = x[src]
-    return np.transpose(out, (2, 0, 1))[None]
+    """The numpy twin of ``preprocess_runtime_volume`` for host loaders.
+    The crop/pad of (H, W, D) is done on (D, H, W) with the slices
+    permuted, and the clip and map only on the kept voxels: the same fp32
+    operations on each voxel, without the two transposed copies."""
+    d, h, w = img_dhw.shape
+    src, dst = _crop_pad_slices((h, w, d), target_hwd)
+    out = np.full((target_hwd[2], target_hwd[0], target_hwd[1]), -1.0,
+                  dtype=np.float32)
+    x = img_dhw[src[2], src[0], src[1]].astype(np.float32)
+    np.clip(x, -1.0, 1.0, out=x)
+    x += 1.0
+    x /= 2.0
+    out[dst[2], dst[0], dst[1]] = x
+    return out[None]
 
 
 def preprocess_mask_numpy(
@@ -143,6 +149,7 @@ def preprocess_mask_numpy(
     c = mask_cdhw.shape[0]
     out = np.zeros((c,) + tuple(target_dhw), dtype=np.float32)
     src, dst = _crop_pad_slices(mask_cdhw.shape[1:], target_dhw)
-    out[(slice(None),) + dst] = mask_cdhw[(slice(None),) + src].astype(
-        np.float32)
+    # cast while copying: no fp32 temporary (4.87 GB for 22 classes)
+    np.copyto(out[(slice(None),) + dst], mask_cdhw[(slice(None),) + src],
+              casting="unsafe")
     return out

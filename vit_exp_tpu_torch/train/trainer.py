@@ -34,6 +34,17 @@ vit_exp_tpu/train/trainer.py's ``CTClipTrainer``).
   int64, volumes and masks in their own dtype (the planted masks are
   uint8, and the losses cast them on the device: a full-width fp32 mask
   of 22 classes would be 4.87 GB a volume on the host).
+- The batch copy (the JAX package's asynchronous ``device_put``): on a
+  CUDA device each loader collates into a bounded pool of page-locked
+  buffers (``data/pinned.py``, PIN_SLOTS sets per loader), and the trainer
+  copies the NEXT micro-step's batch on a side stream while the current
+  micro-step runs.  ``sampler.sample(step)`` is a function of the seed and
+  the step alone, so the micro-step after the last of a step is read from
+  the next step's schedule: no draw changes, and each loader yields its
+  batches in the order it would without the read-ahead.  The read-ahead
+  batch outlives the eval and sample hooks and a save between steps; it
+  is not taken past the run's last step, and a restore or a preemption
+  drops it.  On the CPU the batches are used where they lie, with no copy.
 
 Not ported: the host-memory watchdog (a guard against a leak of the JAX
 package's TPU client) and the mesh and multi-host plumbing (the
@@ -47,10 +58,10 @@ import signal
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from vit_exp_tpu_torch.data.loader import InfiniteLoader, Loader
+from vit_exp_tpu_torch.data.pinned import BatchCopier, DeviceBatch, PinnedPool
 from vit_exp_tpu_torch.train.checkpoint import CheckpointManager
 from vit_exp_tpu_torch.train.optimizer import build_optimizer
 from vit_exp_tpu_torch.train.sampler import build_dataset_sampler
@@ -61,6 +72,9 @@ from vit_exp_tpu_torch.utils.profiling import StepTimer
 _BATCH_KEYS = ("image", "input_ids", "attention_mask", "seg_mask",
                "prompt_ids", "prompt_mask")
 _ID_KEYS = {"input_ids", "attention_mask", "prompt_ids", "prompt_mask"}
+# page-locked buffer sets per loader: the batch being copied, the one the
+# loader's queue holds next, and one being collated
+PIN_SLOTS = 3
 
 
 class CTClipTrainer:
@@ -79,12 +93,19 @@ class CTClipTrainer:
         os.makedirs(self.results_folder, exist_ok=True)
 
         self.datasets = datasets or []
+        cuda = self.device.type == "cuda"
         self.loaders = [
             InfiniteLoader(Loader(
                 ds, batch_size=int(spec.get("batch_size", 1)), shuffle=True,
                 seed=config.random_seed, drop_last=True,
-                num_workers=int(spec.get("num_workers", 4))))
+                num_workers=int(spec.get("num_workers", 4)),
+                pool=(PinnedPool(PIN_SLOTS, _BATCH_KEYS, register=True)
+                      if cuda else None)))
             for spec, ds in zip(config.train_data_list, self.datasets)]
+        self.copier = BatchCopier(self.device)
+        # the next micro-step's batch, read ahead: (data set, device batch)
+        self._ahead: Optional[tuple] = None
+        self._stop_at: Optional[int] = None   # no read-ahead from this step
         self.data_types = [spec.get("type", "imagereport")
                            for spec in config.train_data_list]
         self.balance = (list(self.trainer_cfg.balance_loss_weight)
@@ -122,6 +143,7 @@ class CTClipTrainer:
                         "step": self.step}, wait=wait)
 
     def restore(self, step: int) -> None:
+        self._ahead = None
         saved = self.ckpt.restore(step)
         self.model.load_state_dict(saved["model"], strict=True)
         self.optimizer.load_state_dict(saved["train_state"]["optimizer"])
@@ -129,36 +151,63 @@ class CTClipTrainer:
 
     # -- batch plumbing --------------------------------------------------------
 
-    def _next_batch(self, ds_idx: int) -> Dict[str, torch.Tensor]:
+    def _schedule(self, step: int) -> List[int]:
+        """The data set of each micro-step of ``step``, in order."""
+        return [ds_idx for ds_idx, n in enumerate(self.sampler.sample(step))
+                for _ in range(int(n))]
+
+    def _start_batch(self, ds_idx: int) -> DeviceBatch:
+        """Take the data set's next host batch (the wait counts as loader
+        wait) and start its copy to the device."""
         t0 = time.perf_counter()
         batch = next(self.loaders[ds_idx])
         self.data_wait_s += time.perf_counter() - t0
         self.batches += 1
-        out = {}
-        for k in _BATCH_KEYS:
-            if k in batch:
-                v = torch.from_numpy(np.asarray(batch[k]))
-                if k in _ID_KEYS:
-                    v = v.long()
-                out[k] = v.to(self.device, non_blocking=True)
-        return out
+        return self.copier.start(batch, _BATCH_KEYS)
+
+    def _device_batch(self, ds_idx: int) -> Dict[str, torch.Tensor]:
+        """The micro-step's batch on the device: the read-ahead one, or
+        the data set's next if none was read ahead."""
+        ahead, self._ahead = self._ahead, None
+        if ahead is None:
+            ahead = (ds_idx, self._start_batch(ds_idx))
+        elif ahead[0] != ds_idx:   # the schedule is a function of the step
+            raise RuntimeError(f"read ahead a batch of data set {ahead[0]} "
+                               f"for a micro-step of data set {ds_idx}")
+        return {k: (v.long() if k in _ID_KEYS else v)
+                for k, v in ahead[1].get().items()}
 
     # -- the loop --------------------------------------------------------------
 
     def train_step(self) -> Dict:
         """One optimizer step of sampler-scheduled micro-steps over the
         data sets.  Returns the step's metrics as device tensors (no host
-        read)."""
+        read).  Each micro-step's work is queued before the next
+        micro-step's batch is taken and its copy started."""
         logs: Dict = {}
-        for ds_idx, n_micro in enumerate(self.sampler.sample(self.step)):
+        schedule = self._schedule(self.step)
+        for i, ds_idx in enumerate(schedule):
             step_fn = self.steps_by_type[self.data_types[ds_idx]]
-            weight = float(self.balance[ds_idx])
-            for _ in range(int(n_micro)):
-                metrics = step_fn(self._next_batch(ds_idx), weight)
-                for k, v in metrics.items():
-                    logs[f"ds{ds_idx}_{k}"] = v
+            metrics = step_fn(self._device_batch(ds_idx),
+                              float(self.balance[ds_idx]))
+            for k, v in metrics.items():
+                logs[f"ds{ds_idx}_{k}"] = v
+            if i + 1 < len(schedule):
+                nxt = schedule[i + 1]
+            elif self._stop_at is None or self.step + 1 < self._stop_at:
+                nxt = self._schedule(self.step + 1)[0]
+            else:
+                continue
+            self._ahead = (nxt, self._start_batch(nxt))
         self.step += 1
         return logs
+
+    def close(self) -> None:
+        """Drop the read-ahead batch, stop the loaders' workers and free
+        their page-locked buffers."""
+        self._ahead = None
+        for loader in self.loaders:
+            loader.close()
 
     def install_preemption_handler(self) -> None:
         """SIGTERM and SIGINT set a flag: the loop finishes the step in
@@ -183,9 +232,10 @@ class CTClipTrainer:
                 activities.append(ProfilerActivity.CUDA)
             prof = profile(activities=activities)
             prof.start()
+        total = num_steps or self.trainer_cfg.num_train_steps
+        self._stop_at = total
         try:
-            self.status = self._loop(num_steps
-                                     or self.trainer_cfg.num_train_steps)
+            self.status = self._loop(total)
             return self.status
         finally:
             if prof is not None:
@@ -211,6 +261,7 @@ class CTClipTrainer:
 
         while self.step < total:
             if self._preempted:
+                self._ahead = None
                 flush_pending()
                 self.save(wait=True)
                 print(f"preempted at step {self.step}: state saved, exiting",
