@@ -156,7 +156,36 @@
    hook's finite mean_dice and the cls hook's mean_auc at steps 6 and 12,
    and the launches of each step type in step 9; steps/s, loader wait and
    one profiled step (chiprun_out/profile_planted_mixed.txt).
-10. Prints one JSON line with every kernel's numbers (the rows of 7-9 once
+10. The auxiliary training branches (the SSL heads, the fine-tuners and
+   the report classifier), each checked on the card: the image-report step
+   with the MLM and visual-SSL terms (simsiam, then simclr; batch 4,
+   BERT-base at 512 tokens, attn_impl="pallas", the terms' default
+   weights), from one seeded state on one batch with step 0's draws fixed,
+   one step on plain and one on the kernels: the loss and each term
+   within LOSS_RTOL of plain (relative above 1, absolute below: the
+   SimSiam term is a cosine near 0), the global gradient norm within
+   GRAD_NORM_RTOL, every parameter plain gives a gradient gets one (the
+   SSL heads and mlm_head among them), and the launches of three towers'
+   train steps; warm steps/s, the peak device memory and one profiled
+   simsiam step (chiprun_out/profile_ssl.txt).  ``run_train.main`` on an
+   SSL copy of prod_sustained_synth: 2 steps, a restore held bit for bit
+   (the optimizer's micro-step count, from which the draws come,
+   included), --auto_resume to 3 with step 3's launches counted.
+   ``run_finetune.main`` lipro on --synthetic 8 (batch 2): train, save
+   the head, the launches of one fit_batch, a fresh probe's loss on one
+   batch without dropout falling over 20 steps, its latents bit for bit
+   the zero-shot engine's encoder on the same batch, --infer with its
+   artifacts and launches (the rows of K15 without lse, K2 and the patch
+   embedding at batch 2); volumes/s.  One VocabFine step (one volume, 36
+   prompts of 512 tokens) on the kernels against plain from one state,
+   as for the SSL step; steps/s and peak memory; ``run_finetune.main``
+   vocabfine on --synthetic 2 with --save_path, and
+   ``run_zero_shot_cls.main --torch_ckpt`` on the export over 4 synthetic
+   volumes: finite probabilities, the int8 serving launches of one batch.
+   ``run_text_classifier.main`` train (one epoch, batch 32, 512 tokens)
+   and infer on 256 generated reports: finite losses, the checkpoint, the
+   CSV; reports/s.
+11. Prints one JSON line with every kernel's numbers (the rows of 7-10 once
    for each path, with that path's launches), the card line, the
    throughput lines, and last ``{"ok": true, "device": {...}}``.
 
@@ -3321,6 +3350,486 @@ def real_training_lines(out: dict, card: str) -> list:
     return lines
 
 
+
+# the auxiliary training branches: the image-report step with the MLM and
+# visual-SSL terms (simsiam, then simclr) at full width, batch 4,
+# attn_impl="pallas"; run_train on an SSL copy of prod_sustained_synth;
+# run_finetune lipro (batch 2, the CLI's default) and vocabfine (batch 1,
+# 36 prompts of 512 tokens) with the export scored by run_zero_shot_cls;
+# run_text_classifier (BERT-base, 512 tokens, batch 32) on generated CSVs
+SSL_TYPES = ("simsiam", "simclr")
+LIPRO_BATCH, LIPRO_VOLUMES, LIPRO_FIT_STEPS = 2, 8, 20
+VOCABFINE_VOLUMES = 2
+TEXT_REPORTS, TEXT_BATCH, TEXT_LEN_CLS = 256, 32, 512
+TEXT_WORDS = ("no", "pleural", "effusion", "mild", "cardiomegaly", "nodule",
+              "in", "the", "right", "left", "upper", "lobe", "atelectasis",
+              "is", "seen", "consolidation", "emphysema", "normal", "heart",
+              "size", "opacity", "bronchiectasis", "with", "and")
+
+
+def ssl_config(ssl_type: str, arch=ARCH, seed: int = 0):
+    """A config for the image-report step with both self-supervision terms
+    at their default weights (0.05 each)."""
+    from vit_exp_tpu_torch.core.config import CTClipArchConfig
+
+    return types.SimpleNamespace(
+        arch=types.SimpleNamespace(**arch), random_seed=seed,
+        ct_clip_arch=CTClipArchConfig(use_mlm=True, use_visual_ssl=True,
+                                      visual_ssl_type=ssl_type))
+
+
+def ssl_step_grads(trainer, batch, draws):
+    """One step with the given draws: (metrics, pre-clip global grad norm,
+    the names of the parameters given a nonzero gradient)."""
+    model, opt, step = trainer
+    metrics = {k: float(v) for k, v in step(batch, 1.0, draws=draws).items()}
+    return metrics, float(opt.grad_norm), {
+        n for n, p in model.named_parameters()
+        if p.grad is not None and bool(p.grad.abs().max() > 0)}
+
+
+def rel_to(a: float, b: float) -> float:
+    """|a − b| over max(|b|, 1): relative for terms of order one and above,
+    absolute below (the SimSiam term is a cosine, near 0 at random
+    weights)."""
+    return abs(a - b) / max(abs(b), 1.0)
+
+
+def ssl_phase(device, bert_config, ssl_type: str, expected, arch=ARCH,
+              batch_size=BATCH, text_len=TEXT_LEN, timed=3, profile=True):
+    """The image-report step with both terms, from one seeded state on one
+    batch with the draws of step 0 fixed: one step on plain and one on the
+    kernels (its launches counted, its peak device memory read); the
+    loss and each term within LOSS_RTOL (rel_to), the global gradient norm
+    within GRAD_NORM_RTOL, every parameter plain gives a gradient gets one
+    from the kernels, the SSL heads and mlm_head among them.  Then
+    ``timed`` warm steps (their own draws) and, with ``profile``, one
+    profiled step.  Returns the numbers."""
+    from vit_exp_tpu_torch.train.steps import step_draws
+
+    config = ssl_config(ssl_type, arch)
+    kern = build_seg_trainer(device, config, bert_config, "imagereport")
+    plain = build_seg_trainer(device, config, bert_config, "imagereport",
+                              use_kernels=False,
+                              state_dict=kern[0].state_dict())
+    batch = train_batch(device, arch, bert_config.vocab_size, batch_size,
+                        text_len)
+    draws = step_draws(0, 0, batch["input_ids"].shape,
+                       bert_config.vocab_size, mlm=True, ssl=True)
+    mp, np_, sp = ssl_step_grads(plain, batch, draws)
+    del plain
+    release(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (mk, nk, sk), launches = count_launches(
+        lambda: ssl_step_grads(kern, batch, draws))
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device.type == "cuda" else float("nan"))
+    dterms = {k: rel_to(mk[k], mp[k]) for k in mp}
+    dnorm = abs(nk - np_) / np_
+    missing = sorted(sp - sk)
+    heads = {"mlm_head.weight", "ssl_projector.fc0.weight",
+             "ssl_projector.out.weight"}
+    if ssl_type == "simsiam":
+        heads |= {"ssl_predictor.fc0.weight", "ssl_predictor.fc1.weight"}
+    tag = f"SSL step ({ssl_type})"
+    print(f"{tag} at full width, batch {batch_size}, attn_impl=pallas: "
+          f"kernels {mk}, plain {mp} (|Δ| / max(|plain|, 1): "
+          f"{ {k: f'{v:.3e}' for k, v in dterms.items()} }, tolerance "
+          f"{LOSS_RTOL}); grad norm kernels {nk:.6f}, plain {np_:.6f} (rel "
+          f"{dnorm:.3e}, tolerance {GRAD_NORM_RTOL}); parameters without a "
+          f"kernel-path gradient: {missing}; peak device memory of the "
+          f"kernel step {peak_gb:.3f} GB", flush=True)
+    print(f"launches in one {tag}: {launches} (expected {expected})",
+          flush=True)
+    check(set(mk) == {"cl_loss", "text_ssl_loss", "image_ssl_loss", "loss"}
+          and all(math.isfinite(v) for v in (*mk.values(), *mp.values()))
+          and max(dterms.values()) <= LOSS_RTOL, (tag, mk, mp))
+    check(dnorm <= GRAD_NORM_RTOL, (tag, dnorm))
+    check(sp and not missing and heads <= sk, (tag, missing, heads - sk))
+    check(expected is None or launches == expected, (tag, launches))
+    model, _, step = kern
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        float(step(batch, 1.0)["loss"])
+        times.append(time.perf_counter() - t0)
+    out = dict(launches=launches, metrics=mk, dterms=dterms, dnorm=dnorm,
+               peak_gb=peak_gb, times=times)
+    if profile and device.type == "cuda":
+        out["wall_ms"], out["busy_ms"] = profile_call(
+            lambda: float(step(batch, 1.0)["loss"]),
+            OUT_DIR / "profile_ssl.txt", f"one {tag}")
+    del kern, model, step, batch
+    release(device)
+    return out
+
+
+def ssl_run_train_phase(device, folder: Path, expected, overrides=None,
+                        synthetic=8):
+    """``run_train.main`` on an SSL copy of prod_sustained_synth (simsiam,
+    both terms): 2 steps; a trainer restored with --auto_resume held bit
+    for bit to the state the run ended with (the optimizer's micro-step
+    count, from which the draws come, included); --auto_resume to 3, whose
+    step 3 launches are counted.  Checks finite cl_loss, text_ssl_loss and
+    image_ssl_loss at every step."""
+    from vit_exp_tpu_torch.cli import run_train
+
+    ca = {"use_mlm": True, "use_visual_ssl": True,
+          "visual_ssl_type": "simsiam"}
+    cfg = run_train_config(folder, "ssl_run",
+                           {"ct_clip_arch": ca, **(overrides or {})})
+    base = ["--config", cfg, "--synthetic", str(synthetic), "--debug"]
+    t0 = time.perf_counter()
+    t1 = run_train.main(base + ["--steps", "2"], device=device)
+    first_s = time.perf_counter() - t0
+    check(t1.status == "completed" and t1.step == 2
+          and t1.optimizer.count == 2, (t1.status, t1.step))
+    ended = trainer_state(t1)
+    del t1
+    release(device)
+    restored = run_train.make_trainer(
+        run_train.parse_args(base + ["--auto_resume"]), device)
+    same = (restored.step == 2 and restored.optimizer.count == 2
+            and state_equal(trainer_state(restored), ended))
+    restored.close()
+    del restored, ended
+    release(device)
+    check(same, "an SSL trainer restored from ckpt_2 differs from the state "
+                "the first run saved")
+    with watch_steps(3) as (_, launches):
+        t2 = run_train.main(base + ["--auto_resume", "--steps", "3"],
+                            device=device)
+    check(t2.status == "completed" and t2.step == 3, (t2.status, t2.step))
+    t2.close()
+    del t2
+    release(device)
+    lines = read_metrics(folder / "ssl_run")
+    keys = ("ds0_cl_loss", "ds0_text_ssl_loss", "ds0_image_ssl_loss")
+    check([d["step"] for d in lines] == [1, 2, 3]
+          and all(math.isfinite(d[k]) for d in lines for k in keys), lines)
+    print(f"run_train SSL copy: losses "
+          f"{[{k[4:]: round(d[k], 5) for k in keys} for d in lines]}; "
+          f"restored at step 2 bit for bit; launches of step 3 "
+          f"{dict(launches)} (expected {expected})", flush=True)
+    check(expected is None or launches == expected, launches)
+    shutil.rmtree(folder / "ssl_run")
+    return dict(lines=lines, launches=dict(launches), first_s=first_s)
+
+
+def lipro_cases(device, arch=ARCH, batch=LIPRO_BATCH, seed=30):
+    """The probe's frozen-tower rows at its batch: K15 without lse, K2's
+    three stages and the patch embedding (forward only)."""
+    cases = ([c for c in online_kernel_cases(device, arch, batch, seed)
+              if c.counter == "K15" and "lse" not in c.name]
+             + [c for c in kernel_cases(device, arch, batch, seed + 1)
+                if c.counter in ("K2x", "K2h", "K2o", "K4")])
+    for case in cases:
+        case.name += f" (lipro, batch {batch})"
+    return cases
+
+
+def lipro_phase(device, folder: Path, per_batch, overrides=None,
+                n=LIPRO_VOLUMES, fit_steps=LIPRO_FIT_STEPS):
+    """``run_finetune.main`` lipro on --synthetic n: train one epoch and
+    save the head; the probe's launches of one fit_batch; a fresh probe's
+    loss on one fixed batch (without dropout) before and after
+    ``fit_steps`` steps on it (must fall); its
+    latents bit for bit the zero-shot engine's encoder (the token mean,
+    the projection, l2norm under inference mode) on the same batch; then
+    --infer --load_head with artifacts, its launches per batch."""
+    from vit_exp_tpu_torch.cli import run_finetune
+    from vit_exp_tpu_torch.data.synthetic import SyntheticInferenceDataset
+    from vit_exp_tpu_torch.finetune.lipro import (LiProTrainer,
+                                                  weighted_bce_with_logits)
+
+    cfg = run_train_config(folder, "lipro", overrides)
+    head = folder / "lipro_head.pt"
+    t0 = time.perf_counter()
+    tr = run_finetune.main(["lipro", "--config", cfg, "--synthetic", str(n),
+                            "--save_path", str(head)], device=device)
+    train_s = time.perf_counter() - t0
+    check(head.exists() and tr.step == n // LIPRO_BATCH, tr.step)
+    model = tr.clip_model
+    from vit_exp_tpu_torch.core.config import load_config
+
+    ds = SyntheticInferenceDataset(n, arch=load_config(cfg).arch)
+    video = torch.as_tensor(np.stack([ds[i]["image"] for i in
+                                      range(LIPRO_BATCH)])).to(device)
+    labels = np.stack([ds[i]["onehot"] for i in range(LIPRO_BATCH)])
+    _, fit_launches = count_launches(lambda: tr.fit_batch(video, labels))
+    with torch.inference_mode():
+        ref = model.image_latents_from_tokens(model.encode_image_tokens(video))
+    lat = tr.image_latents(video)
+    same_latents = torch.equal(lat, ref)
+    probe = LiProTrainer(model, total_steps=fit_steps, seed=1)
+    target = torch.as_tensor(labels, dtype=torch.float32, device=device)
+
+    def eval_loss():   # the probe's loss on the batch without dropout
+        with torch.no_grad():
+            return float(weighted_bce_with_logits(probe.head(lat), target,
+                                                  probe.pos_weight))
+
+    losses = [eval_loss()]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(fit_steps):
+        probe.fit_batch(video, labels)
+    fit_s = time.perf_counter() - t0
+    losses.append(eval_loss())
+    del tr, probe, model, video
+    release(device)
+    out_dir = folder / "lipro_infer"
+    res, infer_launches = count_launches(lambda: run_finetune.main(
+        ["lipro", "--config", cfg, "--synthetic", str(n), "--infer",
+         "--load_head", str(head), "--results_folder", str(out_dir)],
+        device=device))
+    pred = np.load(out_dir / "predicted.npz")["arr_0"]
+    batches = -(-n // LIPRO_BATCH)
+    want = {k: v * batches for k, v in per_batch.items()} if per_batch else None
+    print(f"lipro: {n} synthetic volumes trained in {train_s:.3f} s (one "
+          f"epoch, batch {LIPRO_BATCH}, host data included); a fresh probe's "
+          f"loss on one batch before and after {fit_steps} steps "
+          f"{losses[0]:.5f} → "
+          f"{losses[-1]:.5f} ({fit_steps * LIPRO_BATCH / fit_s:.3f} volumes/s "
+          f"through the frozen tower and the probe); latents bit for bit the "
+          f"engine's encoder: {same_latents}; launches of one fit_batch "
+          f"{fit_launches} (expected {per_batch}); --infer "
+          f"{res['volumes_per_sec']:.3f} volumes/s, mean AUROC "
+          f"{res['mean_auc']:.4f} (printed, not bounded), launches "
+          f"{infer_launches} (expected {want})", flush=True)
+    check(same_latents, "the probe's latents differ from the engine's")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          losses)
+    check(pred.shape == (n, 18) and np.isfinite(pred).all()
+          and (out_dir / "aurocs.json").exists(), pred.shape)
+    check(per_batch is None or (fit_launches == per_batch
+                                and infer_launches == want),
+          (fit_launches, infer_launches))
+    release(device)
+    return dict(train_s=train_s, losses=losses, fit_vps=fit_steps
+                * LIPRO_BATCH / fit_s, infer_vps=res["volumes_per_sec"],
+                fit_launches=fit_launches, infer_launches=infer_launches)
+
+
+def vocabfine_phase(device, bert_config, folder: Path, expected,
+                    int8_per_batch, overrides=None, arch=ARCH, timed=3,
+                    n=VOCABFINE_VOLUMES, score_n=BATCH):
+    """One VocabFine step (36 prompts of 512 tokens, one volume) on the
+    kernels against plain from one state: loss within LOSS_RTOL (rel_to),
+    the global gradient norm within GRAD_NORM_RTOL, every parameter plain
+    gives a gradient gets one, the launches of the kernel step; ``timed``
+    warm steps and the peak device memory.  Then ``run_finetune.main``
+    vocabfine on --synthetic n with --save_path, and
+    ``run_zero_shot_cls.main --torch_ckpt`` on the export over score_n
+    synthetic volumes (int8, one batch): finite probabilities and the
+    int8 serving path's launches."""
+    from vit_exp_tpu_torch.cli import run_finetune, run_zero_shot_cls
+    from vit_exp_tpu_torch.finetune.vocabfine import VocabFineTrainer
+    from vit_exp_tpu_torch.models.factory import build_ctclip
+    from vit_exp_tpu_torch.train.optimizer import global_norm
+
+    ns = types.SimpleNamespace(**arch)
+    kern_model = build_ctclip(ns, bert_config, device=device,
+                              attn_impl="pallas", seed=0)
+    plain_model = build_ctclip(ns, bert_config, device=device,
+                               attn_impl="pallas", use_kernels=False, seed=0)
+    plain_model.load_state_dict(kern_model.state_dict())
+    g = torch.Generator(device=device).manual_seed(31)
+    video = torch.rand((1, 1, arch["temporal_size"], arch["image_size"],
+                        arch["image_size"]), generator=g, device=device)
+    labels = (torch.rand((18,), generator=g, device=device) > 0.5).float()
+
+    def one_step(model):
+        vf = VocabFineTrainer(model, random_tokenizer(bert_config.vocab_size,
+                                                      32), total_steps=10)
+        loss = vf.fit_batch(video, labels)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        norm = float(global_norm(list(grads.values())))
+        return vf, loss, norm, {n for n, t in grads.items()
+                                if bool(t.abs().max() > 0)}
+
+    _, lp, np_, sp = one_step(plain_model)
+    del plain_model
+    release(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (vf, lk, nk, sk), launches = count_launches(lambda: one_step(kern_model))
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        vf.fit_batch(video, labels)
+        times.append(time.perf_counter() - t0)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device.type == "cuda" else float("nan"))
+    dloss, dnorm = rel_to(lk, lp), abs(nk - np_) / np_
+    missing = sorted(sp - sk)
+    print(f"vocabfine step at full width (1 volume, 36 prompts of 512 "
+          f"tokens, attn_impl=pallas): loss kernels {lk:.6f}, plain {lp:.6f} "
+          f"(|Δ| / max(|plain|, 1) {dloss:.3e}, tolerance {LOSS_RTOL}); grad "
+          f"norm kernels {nk:.6f}, plain {np_:.6f} (rel {dnorm:.3e}, "
+          f"tolerance {GRAD_NORM_RTOL}); parameters without a kernel-path "
+          f"gradient: {missing}; launches {launches} (expected {expected}); "
+          f"peak device memory {peak_gb:.3f} GB", flush=True)
+    check(math.isfinite(lk) and math.isfinite(lp) and dloss <= LOSS_RTOL,
+          (lk, lp))
+    check(dnorm <= GRAD_NORM_RTOL, dnorm)
+    check(sp and not missing, missing)
+    check(expected is None or launches == expected, launches)
+    del vf, kern_model, video
+    release(device)
+    cfg = run_train_config(folder, "vocabfine", overrides)
+    pt = folder / "CTClip.vocabfine.pt"
+    t0 = time.perf_counter()
+    run_finetune.main(["vocabfine", "--config", cfg, "--synthetic", str(n),
+                       "--save_path", str(pt)], device=device)
+    cli_s = time.perf_counter() - t0
+    release(device)
+    out_dir = folder / "vocabfine_scored"
+    res, score_launches = count_launches(lambda: run_zero_shot_cls.main(
+        ["--config", cfg, "--torch_ckpt", "--model_path", str(pt),
+         "--synthetic", str(score_n), "--batch_size", str(score_n),
+         "--results_folder", str(out_dir)], device=device))
+    probs = np.load(out_dir / pt.name / "predicted.npz")["arr_0"]
+    print(f"vocabfine: run_finetune on {n} synthetic volumes with the export "
+          f"{cli_s:.3f} s ({pt.stat().st_size / 1e9:.3f} GB .pt); "
+          f"run_zero_shot_cls --torch_ckpt on it: probabilities "
+          f"{probs.shape}, launches {score_launches} (expected "
+          f"{int8_per_batch})", flush=True)
+    check(probs.shape == (score_n, 18) and np.isfinite(probs).all()
+          and ((probs >= 0) & (probs <= 1)).all(), probs)
+    check(int8_per_batch is None or score_launches == int8_per_batch,
+          score_launches)
+    release(device)
+    return dict(launches=launches, score_launches=score_launches,
+                loss=lk, dloss=dloss, dnorm=dnorm, times=times,
+                peak_gb=peak_gb, cli_s=cli_s)
+
+
+def text_csvs(folder: Path, n=TEXT_REPORTS, seed=33):
+    """n generated reports (VolumeName, Findings_EN) and 18 binary label
+    columns."""
+    import csv
+
+    r = np.random.default_rng(seed)
+    reports, labels = folder / "tc_reports.csv", folder / "tc_labels.csv"
+    with open(reports, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["VolumeName", "Findings_EN"])
+        for i in range(n):
+            sents = [" ".join(r.choice(TEXT_WORDS, r.integers(5, 14)))
+                     for _ in range(r.integers(4, 12))]
+            w.writerow([f"train_{i}_a_1.nii.gz", ". ".join(sents) + "."])
+    with open(labels, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["VolumeName"] + [f"L{j}" for j in range(18)])
+        for i in range(n):
+            w.writerow([f"train_{i}_a_1.nii.gz",
+                        *(str(int(x)) for x in r.integers(0, 2, 18))])
+    return str(reports), str(labels)
+
+
+def text_classifier_phase(device, folder: Path, n=TEXT_REPORTS,
+                          max_len=TEXT_LEN_CLS):
+    """``run_text_classifier.main`` train (one epoch, batch TEXT_BATCH,
+    sentence shuffle on) and infer on n generated reports: finite losses,
+    the best checkpoint written, the predictions CSV of n rows; reports/s
+    of each (host tokenization included)."""
+    from vit_exp_tpu_torch.cli import run_text_classifier
+
+    reports, labels = text_csvs(folder, n)
+    results = folder / "tc"
+    base = ["--reports", reports, "--labels", labels, "--batch_size",
+            str(TEXT_BATCH), "--max_len", str(max_len), "--results_folder",
+            str(results)]
+    t0 = time.perf_counter()
+    tr = run_text_classifier.main(["train", "--epochs", "1", "--augment",
+                                   "1", *base], device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    n_train = n - max(TEXT_BATCH, int(n * 0.1))
+    check(math.isfinite(tr.best_loss) and (results / "best_model.pt").exists()
+          and tr.step == -(-n_train // TEXT_BATCH), (tr.best_loss, tr.step))
+    del tr
+    release(device)
+    out = folder / "tc_predictions.csv"
+    t0 = time.perf_counter()
+    probs = run_text_classifier.main(["infer", "--out", str(out), *base],
+                                     device=device)
+    infer_s = time.perf_counter() - t0
+    rows = out.read_text().splitlines()
+    check(probs.shape == (n, 18) and np.isfinite(probs).all()
+          and len(rows) == n + 1, (probs.shape, len(rows)))
+    print(f"run_text_classifier: train one epoch over {n_train} reports "
+          f"(+{n - n_train} held out) in {train_s:.3f} s "
+          f"({n_train / train_s:.3f} reports/s), infer {n} reports in "
+          f"{infer_s:.3f} s ({n / infer_s:.3f} reports/s), model build and "
+          f"host tokenization included", flush=True)
+    release(device)
+    return dict(train_rps=n_train / train_s, infer_rps=n / infer_s,
+                train_s=train_s, infer_s=infer_s, n_train=n_train)
+
+
+def aux_phase(device, bert_config, folder: Path, train_step, int8_per_batch,
+              overrides=None, arch=ARCH, text_n=TEXT_REPORTS,
+              text_len=TEXT_LEN_CLS):
+    """Phase 11: the SSL steps, run_train on the SSL copy, lipro,
+    vocabfine and the text classifier, in that order.  ``train_step`` is
+    one train step's launches (None skips the launch checks, as on the
+    CPU)."""
+    ssl3 = (None if train_step is None
+            else {k: 3 * v for k, v in train_step.items()})
+    fwd = (None if train_step is None else expected_launches(
+        {k: train_step[k] for k in ("K15", "K2x", "K2h", "K2o", "K4")}))
+    out = {"ssl": {t: ssl_phase(device, bert_config, t, ssl3, arch=arch,
+                                profile=(t == "simsiam"))
+                   for t in SSL_TYPES}}
+    out["ssl_run"] = ssl_run_train_phase(device, folder, ssl3, overrides)
+    out["lipro"] = lipro_phase(device, folder, fwd, overrides)
+    out["vocabfine"] = vocabfine_phase(device, bert_config, folder,
+                                       train_step, int8_per_batch, overrides,
+                                       arch=arch)
+    out["text"] = text_classifier_phase(device, folder, text_n, text_len)
+    return out
+
+
+def aux_lines(aux: dict, card: str) -> list:
+    lines = []
+    for t, r in aux["ssl"].items():
+        busy = (f"; one profiled step: wall {r['wall_ms']:.3f} ms, device "
+                f"busy {r['busy_ms']:.3f} ms, idle share "
+                f"{1 - r['busy_ms'] / r['wall_ms']:.3f}" if "wall_ms" in r
+                else "")
+        lines.append(
+            f"SSL image-report step ({t}, MLM + visual SSL), batch {BATCH}, "
+            f"attn_impl=pallas: {1.0 / statistics.median(r['times']):.3f} "
+            f"steps/s (median of {len(r['times'])} warm steps, "
+            f"{[round(x, 4) for x in r['times']]} s){busy}; peak device "
+            f"memory {r['peak_gb']:.3f} GB on {card}")
+    v = aux["vocabfine"]
+    lines.append(
+        f"vocabfine step (1 volume, 36 prompts of 512 tokens, "
+        f"attn_impl=pallas): {1.0 / statistics.median(v['times']):.3f} "
+        f"steps/s (median of {len(v['times'])} warm steps, "
+        f"{[round(x, 4) for x in v['times']]} s); peak device memory "
+        f"{v['peak_gb']:.3f} GB on {card}")
+    lp = aux["lipro"]
+    lines.append(
+        f"lipro (batch {LIPRO_BATCH}): {lp['fit_vps']:.3f} volumes/s "
+        f"through the frozen tower and the probe on a resident batch, "
+        f"--infer {lp['infer_vps']:.3f} volumes/s with synthetic host data "
+        f"on {card}")
+    tc = aux["text"]
+    lines.append(
+        f"report classifier (BERT-base fp32, 512 tokens, batch "
+        f"{TEXT_BATCH}): train {tc['train_rps']:.3f} reports/s, infer "
+        f"{tc['infer_rps']:.3f} reports/s (host tokenization and model "
+        f"build included) on {card}")
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3372,7 +3881,8 @@ def main() -> int:
                             tag=f" (D 384, batch {b_cls})")),
                         ("mixed_seg", lambda d: seg_train_cases(
                             d, PLANTED_ARCH, b_seg,
-                            tag=f" (D 384, batch {b_seg})"))):
+                            tag=f" (D 384, batch {b_seg})")),
+                        ("lipro", lipro_cases)):
         cases = make(device)
         rows[phase] = compare_kernels(cases)
         del cases
@@ -3565,6 +4075,14 @@ def main() -> int:
         mixed = mixed_phase(device, folder)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
+    # the auxiliary training branches: the SSL steps, run_train on an SSL
+    # config, lipro, vocabfine (its export scored at int8), the text
+    # classifier
+    folder = Path(tempfile.mkdtemp(prefix="chip_smoke_aux_"))
+    try:
+        aux = aux_phase(device, bert, folder, train_expected, int8_per_batch)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
     mixed_step = train_launches(PLANTED_ARCH["transformer_blocks"])
     print(f"planted_mixed, launches of each step type in step "
           f"{MIXED_COUNT_STEP}: {mixed['by_type']} (expected {mixed_step} "
@@ -3607,6 +4125,23 @@ def main() -> int:
                            rtrain["seg"]["launches"])
     real_rows += path_rows(int8_rows, "run_latents int8, batch 4",
                            rtrain["latents"]["launches"])
+    # the auxiliary branches: the SSL steps and run_train's SSL step at the
+    # batch-4 training rows, a VocabFine step at the batch-1 seg-step rows,
+    # the export's scoring at the int8 rows, the probe at its batch-2 rows
+    for t, r in aux["ssl"].items():
+        real_rows += path_rows(train_rows, f"SSL step ({t}), batch {BATCH}",
+                               r["launches"])
+    real_rows += path_rows(train_rows, "run_train SSL copy, step 3",
+                           aux["ssl_run"]["launches"])
+    real_rows += path_rows(rows["seg_train"], "vocabfine step",
+                           aux["vocabfine"]["launches"])
+    real_rows += path_rows(int8_rows,
+                           "run_zero_shot_cls int8 on the vocabfine export",
+                           aux["vocabfine"]["score_launches"])
+    real_rows += path_rows(rows["lipro"], "lipro fit_batch",
+                           aux["lipro"]["fit_launches"])
+    real_rows += path_rows(rows["lipro"], "run_finetune lipro --infer",
+                           aux["lipro"]["infer_launches"])
     kernels = []
     for phase in ("serve", "train", "int8", "online", "planted"):
         for row in rows[phase]:
@@ -3699,6 +4234,8 @@ def main() -> int:
     for line in real_data_lines(real, card):
         print(line)
     for line in real_training_lines(rtrain, card):
+        print(line)
+    for line in aux_lines(aux, card):
         print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

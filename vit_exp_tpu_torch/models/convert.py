@@ -14,11 +14,22 @@ so one ``load_state_dict`` serves both sources:
   dict with ``strict=False`` and checks that nothing is missing and that the
   unexpected keys are exactly those the reference carries for modules the
   encode path never runs (``synthesized_keys``).
+- ``to_reference_state_dict(model, like=None)``: the inverse, the port's
+  counterpart of the JAX package's ``export_ctclip_state_dict``: the
+  port's weights plus the keys a reference CTCLIP registers and the port
+  does not (``synthesized_keys``), filled as the JAX export fills them;
+  ``save_reference_checkpoint`` writes it as a ``CTClip.*.pt``.
+- ``from_jax_text_classifier_params(params)``: the JAX package's
+  ``RadBertClassifier`` tree onto the port's (text_classifier/).
+
+The JAX package's msgpack files (its probe and text-classifier heads) are
+not read here: there is no flax on the card's host.  Weights cross between
+the packages as numpy trees through these converters.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -103,6 +114,37 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
             k = f"{head}.{2 * int(name[2:])}."
             sd[k + "weight"] = _t(tree["kernel"])
             sd[k + "bias"] = _f(tree["bias"])
+    if "mlm_head" in params:
+        sd["mlm_head.weight"] = _t(params["mlm_head"]["kernel"])
+        sd["mlm_head.bias"] = _f(params["mlm_head"]["bias"])
+    for head in ("ssl_projector", "ssl_predictor"):
+        if head in params:
+            sd.update({f"{head}.{k}": val
+                       for k, val in ssl_head_state(params[head]).items()})
+    return sd
+
+
+def ssl_head_state(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax ProjectionMLP/PredictionMLP tree → the port's module state:
+    the module names are kept; flax's LayerNorm has ``scale``."""
+    sd = {}
+    for name, sub in tree.items():
+        sd[name + ".weight"] = (_f(sub["scale"]) if "scale" in sub
+                                else _t(sub["kernel"]))
+        sd[name + ".bias"] = _f(sub["bias"])
+    return sd
+
+
+def from_jax_text_classifier_params(params: Dict[str, Any]
+                                    ) -> Dict[str, np.ndarray]:
+    """JAX RadBertClassifier params ({"encoder", "pooler", "classifier"},
+    numpy leaves) → the port's RadBertClassifier state dict."""
+    enc = params["encoder"]
+    n_layers = sum(1 for k in enc if k.startswith("layer"))
+    sd = {"encoder." + k: v for k, v in _bert(enc, n_layers).items()}
+    for name in ("pooler", "classifier"):
+        sd[name + ".weight"] = _t(params[name]["kernel"])
+        sd[name + ".bias"] = _f(params[name]["bias"])
     return sd
 
 
@@ -131,6 +173,80 @@ def synthesized_keys(model) -> set:
         keys |= {a + "norm.beta", a + "context_norm.gamma",
                  a + "context_norm.beta"}
     return keys | OPTIONAL_KEYS
+
+
+# heads the reference checkpoint layout has no place for: the JAX export
+# leaves them out, and so does the port's
+_NOT_EXPORTED = ("mlm_head.", "ssl_projector.", "ssl_predictor.")
+
+
+def _np(v) -> np.ndarray:
+    return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+
+
+def to_reference_state_dict(model, *, like: Optional[Dict[str, Any]] = None
+                            ) -> Dict[str, np.ndarray]:
+    """The model's weights in the reference ``CTClip.*.pt`` layout (numpy
+    fp32), key for key and bit for bit what the JAX package's
+    ``export_ctclip_state_dict`` writes for the same parameters: the port's
+    state dict (but the SSL heads) plus the synthesized keys, namely the
+    sincos ``pos_embed`` (ops/posemb.py), zero βs of the γ-only LayerNorms
+    and of the unused context norms (γ ones), zero-filled
+    ``spatial_rel_pos_bias`` and ``to_pixels``, the ``*_latent_extra``
+    mirrors of the latent projections, and a zero BERT pooler.  ``like``
+    (an original reference state dict, "module." prefixed or not) gives
+    the values of every synthesized key and of any key the port cannot
+    derive, and pins the key set to its own."""
+    from vit_exp_tpu_torch.ops.posemb import sincos_pos_embed_3d
+
+    vt = model.visual_transformer
+    dim = vt.dim
+    v = "visual_transformer."
+    sd = {k: _f(_np(t)) for k, t in model.state_dict().items()
+          if not k.startswith(_NOT_EXPORTED)}
+    synth = synthesized_keys(model)
+    sd[v + "pos_embed"] = sincos_pos_embed_3d(dim, vt.grid)[None]
+    sd[v + "enc_3D.norm_out.beta"] = np.zeros((dim,), np.float32)
+    for i in range(len(vt.enc_3D.layers)):
+        a = f"{v}enc_3D.layers.{i}.1."
+        sd[a + "norm.beta"] = np.zeros((dim,), np.float32)
+        sd[a + "context_norm.gamma"] = np.ones((dim,), np.float32)
+        sd[a + "context_norm.beta"] = np.zeros((dim,), np.float32)
+    heads = vt.enc_3D.layers[0]._modules["1"].heads
+    patch_dim = sd[v + "to_patch_emb.2.weight"].shape[1]
+    rel = v + "spatial_rel_pos_bias.net."
+    for key, shape in (
+            (rel + "0.0.weight", (dim, 2)), (rel + "0.0.bias", (dim,)),
+            (rel + "1.0.weight", (dim, dim)), (rel + "1.0.bias", (dim,)),
+            (rel + "2.weight", (heads, dim)), (rel + "2.bias", (heads,)),
+            (v + "to_pixels.0.weight", (patch_dim, dim)),
+            (v + "to_pixels.0.bias", (patch_dim,))):
+        sd[key] = np.zeros(shape, np.float32)
+    h = model.text_transformer.config.hidden_size
+    sd["text_transformer.pooler.dense.weight"] = np.zeros((h, h), np.float32)
+    sd["text_transformer.pooler.dense.bias"] = np.zeros((h,), np.float32)
+    for name in ("to_text_latent", "to_visual_latent"):
+        sd[f"{name}_extra.weight"] = sd[f"{name}.weight"].copy()
+    if like is not None:
+        if any(k.startswith("module.") for k in like):
+            like = {k[len("module."):]: val for k, val in like.items()}
+        for k, val in like.items():
+            if k not in sd or k in synth:
+                arr = _np(val)
+                sd[k] = (arr.astype(np.float32)
+                         if np.issubdtype(arr.dtype, np.floating) else arr)
+        sd = {k: sd[k] for k in like}
+    return sd
+
+
+def save_reference_checkpoint(path: str, model, *,
+                              like: Optional[Dict[str, Any]] = None) -> None:
+    """``to_reference_state_dict`` saved as a ``CTClip.*.pt`` with every key
+    "module." prefixed (the reference's load strips 7 characters from each
+    key unconditionally)."""
+    sd = {"module." + k: torch.from_numpy(np.array(val, copy=True, order="C"))
+          for k, val in to_reference_state_dict(model, like=like).items()}
+    torch.save(sd, path)
 
 
 def load_reference_state_dict(model, state_dict: Dict[str, Any]):

@@ -1,6 +1,6 @@
-"""CTCLIP dual encoder with the segmentation heads (counterpart of
-vit_exp_tpu/models/ctclip.py; the SSL heads wait for a later slice).
-``forward`` is the contrastive path the train step differentiates.
+"""CTCLIP dual encoder with the segmentation and self-supervision heads
+(counterpart of vit_exp_tpu/models/ctclip.py).  ``forward`` is the
+contrastive path the train step differentiates.
 
 Bias-free latent projections; the image latent is the token mean, then the
 projection, then l2norm (the projection is linear, so this equals the
@@ -16,6 +16,16 @@ over [voxel embedding, prompt embedding] (``open_seg_forward``,
 ``apply_fusion_head``).  The losses run in the train step.  The heads
 are plain products in the compute dtype on every path (int8 serving
 included), as the JAX package computes them outside any kernel.
+
+Self-supervision (off in every reference config): ``use_mlm`` adds
+``mlm_head``, a Linear from BERT's width to the vocabulary with bias, run
+on the text tower's states of corrupted ids (``mlm_logits``; the text
+tower is not detached there, even under ``fix_text_encoder``, as in JAX);
+``use_visual_ssl`` adds ``ssl_projector`` on the token mean (taken in
+fp32, rounded to the compute dtype, then cast to fp32, as JAX's bf16 mean
+is) of an augmented view (``ssl_project``), and for "simsiam"
+``ssl_predictor`` (``ssl_predict``).  The terms themselves run in the
+train step (train/steps.py, models/mlm.py, models/visual_ssl.py).
 
 Reference quirk kept: the open-vocabulary downsample draws a random start
 but slices ``[::factor]`` regardless, so it is a deterministic stride
@@ -34,6 +44,7 @@ from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from vit_exp_tpu_torch.models.bert import BertConfig, BertModel
 from vit_exp_tpu_torch.models.ctvit3d import CTViT3D
 from vit_exp_tpu_torch.models.layers import Linear, MLPHead
+from vit_exp_tpu_torch.models.visual_ssl import PredictionMLP, ProjectionMLP
 from vit_exp_tpu_torch.ops.attention import l2norm
 from vit_exp_tpu_torch.ops.patches import unpatchify_heads
 
@@ -82,6 +93,13 @@ class CTCLIP(nn.Module):
                 self.fusion_head = MLPHead(hc.out_dim + tc.out_dim,
                                            fc.n_layers, fc.mid_dim,
                                            fc.out_dim, **kw)
+        if getattr(ca, "use_mlm", False):
+            self.mlm_head = Linear(bert_config.hidden_size,
+                                   bert_config.vocab_size, **kw)
+        if getattr(ca, "use_visual_ssl", False):
+            self.ssl_projector = ProjectionMLP(visual.dim, device=device)
+            if ca.visual_ssl_type == "simsiam":
+                self.ssl_predictor = PredictionMLP(device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.temperature)
@@ -162,3 +180,19 @@ class CTCLIP(nn.Module):
 
     def apply_fusion_head(self, x: torch.Tensor) -> torch.Tensor:
         return self.fusion_head(x)
+
+    def mlm_logits(self, input_ids: torch.Tensor,
+                   attention_mask: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """Corrupted ids → per-position vocabulary logits (compute dtype)."""
+        return self.mlm_head(self.text_transformer(input_ids, attention_mask))
+
+    def ssl_project(self, video: torch.Tensor) -> torch.Tensor:
+        """An augmented view → the projector's embedding z (fp32)."""
+        tokens = self.encode_image_tokens(video)
+        flat = tokens.reshape(tokens.shape[0], -1, tokens.shape[-1])
+        pooled = flat.float().mean(dim=1).to(flat.dtype)
+        return self.ssl_projector(pooled.float())
+
+    def ssl_predict(self, z: torch.Tensor) -> torch.Tensor:
+        return self.ssl_predictor(z)

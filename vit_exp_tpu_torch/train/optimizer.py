@@ -19,11 +19,26 @@ builds it with optax):
 ``trainer_cfg`` is duck-typed: anything with lr, wd, max_grad_norm,
 warmup_steps and gradient_accumulation_steps (the JAX package's
 ``TrainerConfig``).
+
+``Optimizer.count`` counts micro-steps, kept in its state dict: it is the
+JAX package's ``TrainState.step``, from which the train step derives its
+random draws (train/steps.py), so a resumed run draws what an unbroken one
+does.
+
+``AdamWOptax`` is the fine-tuning optimizer (finetune/, text_classifier/),
+``optax.adamw(schedule, weight_decay=wd)`` as the JAX package builds it
+there, which is NOT the training optimizer above: b2 0.999, weight decay
+on every parameter (biases and norms too), no clipping, the learning rate
+read from ``schedule`` at the count of updates already taken.
+``finetune_schedule`` is optax's ``warmup_cosine_decay_schedule`` from 0
+to 0 as the fine-tuners build it (read at count 0 it gives lr 0, so the
+first update of a warmup moves nothing but Adam's moments).
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import math
+from typing import Callable, Iterable
 
 import torch
 
@@ -60,6 +75,7 @@ class Optimizer:
         self.params = [p for p in params if p.requires_grad]
         self.max_grad_norm = max_grad_norm
         self.grad_norm = None
+        self.count = 0   # micro-steps taken
         self.accumulation_steps = max(1, int(accumulation_steps))
         self.mini_step = 0
         self.acc = ([torch.zeros_like(p) for p in self.params]
@@ -87,6 +103,7 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self.count += 1
         if self.acc is not None:
             n = self.mini_step
             for a, p in zip(self.acc, self.params):
@@ -109,12 +126,15 @@ class Optimizer:
         """Adam's moments and count, the schedule, and the accumulator."""
         return {"opt": self.opt.state_dict(),
                 "schedule": self.schedule.state_dict(),
-                "mini_step": self.mini_step, "acc": self.acc}
+                "mini_step": self.mini_step, "acc": self.acc,
+                "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["opt"])
         self.schedule.load_state_dict(state["schedule"])
         self.mini_step = int(state["mini_step"])
+        # a checkpoint from before the count was kept: its runs drew nothing
+        self.count = int(state.get("count", 0))
         if self.acc is not None:
             for a, saved in zip(self.acc, state["acc"]):
                 a.copy_(saved)
@@ -126,3 +146,51 @@ def build_optimizer(trainer_cfg, params) -> Optimizer:
                      warmup_steps=getattr(trainer_cfg, "warmup_steps", 0),
                      accumulation_steps=getattr(
                          trainer_cfg, "gradient_accumulation_steps", 1))
+
+
+def finetune_schedule(lr: float, warmup_steps: int,
+                      total_steps: int) -> Callable[[int], float]:
+    """The fine-tuners' schedule, optax.warmup_cosine_decay_schedule(0, lr,
+    warmup, horizon) (end value 0): linear from 0 over the warmup, then a
+    half cosine to 0 at the horizon, held there; the warmup capped at
+    max(total_steps // 10, 1), the horizon at least one step past it
+    (optax needs decay_steps > warmup_steps)."""
+    warmup = min(warmup_steps, max(total_steps // 10, 1))
+    horizon = max(total_steps, warmup + 1)
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return lr * count / warmup
+        c = min(count - warmup, horizon - warmup)
+        return lr * 0.5 * (1.0 + math.cos(math.pi * c / (horizon - warmup)))
+
+    return schedule
+
+
+class AdamWOptax:
+    """optax.adamw(schedule, weight_decay) over ``params``: b1 0.9, b2
+    0.999, eps 1e-8, decay on every parameter, no clipping; ``step()`` sets
+    the learning rate to schedule(updates taken) first.  A parameter
+    without a gradient steps on a zero one (moments, decay), as optax
+    steps every leaf of its tree."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 schedule: Callable[[int], float], weight_decay: float):
+        self.params = [p for p in params if p.requires_grad]
+        self.schedule = schedule
+        self.count = 0
+        self.opt = torch.optim.AdamW(self.params, lr=schedule(0),
+                                     betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=weight_decay)
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for group in self.opt.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.opt.step()
+        self.count += 1

@@ -6,7 +6,15 @@ of the optimizer (clip + Adam, on every k-th micro-step under gradient
 accumulation, as optax.MultiSteps does in the JAX package):
 
 - imagereport: the contrastive forward (``CTCLIP.forward``) and the InfoNCE
-  loss over the batch;
+  loss over the batch; with ``use_mlm`` and/or ``use_visual_ssl`` the
+  self-supervision terms join it as ``cl_w · cl + text_w · mlm + image_w ·
+  ssl``, cl_w = 1 − (text_w + image_w) (the reference's combine):
+  the MLM term is the cross-entropy of ``mlm_logits`` on the corrupted ids
+  at the selected positions (models/mlm.py); the visual term runs two
+  augmented views of the volumes (models/visual_ssl.py), each through the
+  whole image tower (the kernels, forward and backward) and the
+  projector, into SimSiam's or SimCLR's loss as ``visual_ssl_type`` says
+  (ValueError on another type, when the steps are made);
 - imageseg: ``seg_forward``'s voxel logits against "seg_mask" (B, C, D, W,
   H), ``seg_bce_loss``;
 - imageopenseg: ``open_seg_forward`` on "image", "prompt_ids" and
@@ -14,57 +22,138 @@ accumulation, as optax.MultiSteps does in the JAX package):
   and flattened to (B, L, C); ``open_seg_loss`` of the config's type, the
   fusion head applied where the config has one.
 
-The MLM and visual-SSL terms of the image-report step wait for a later
-slice.  ``config`` is duck-typed: anything with a ``ct_clip_arch`` holding
-the fields these read (the JAX package's ``ExperimentConfig``); missing
-fields take the JAX defaults.
+The self-supervision draws of a micro-step are a function of the config's
+``random_seed`` and the micro-step's index alone (``step_draws``, from a
+host generator seeded with both), as JAX folds the step into its key: the
+index is the optimizer's ``count`` (its micro-steps so far, saved with it),
+so a resumed run draws the masks and views an unbroken one does.  A caller
+may pass the draws themselves (``draws=``: the CPU tests hand in JAX's,
+chip_smoke.py fixes step 0's for the kernel and plain paths).  ``config``
+is duck-typed: anything with a ``ct_clip_arch`` holding the fields these
+read (the JAX package's ``ExperimentConfig``); missing fields take the JAX
+defaults.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from vit_exp_tpu_torch.models.ctclip import downsample_stride
 from vit_exp_tpu_torch.models.losses import (infonce_loss, open_seg_loss,
                                              seg_bce_loss)
+from vit_exp_tpu_torch.models.mlm import draw_mlm, mlm_corrupt, mlm_loss
+from vit_exp_tpu_torch.models.visual_ssl import (draw_augment, nt_xent_loss,
+                                                 random_augment_3d,
+                                                 simsiam_loss)
+
+SSL_TYPES = ("simsiam", "simclr")
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """A host generator seeded with (seed, step) alone."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
+    return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+
+
+def step_draws(seed: int, step: int, ids_shape, vocab_size: int, *,
+               mlm: bool, ssl: bool) -> Dict:
+    """The micro-step's draws: "mlm" (MLMDraws for ids of ids_shape),
+    "views" (two AugmentDraws of ids_shape[0] volumes), as enabled."""
+    g = step_generator(seed, step)
+    out = {}
+    if mlm:
+        out["mlm"] = draw_mlm(tuple(ids_shape), vocab_size, g)
+    if ssl:
+        out["views"] = tuple(draw_augment(ids_shape[0], g) for _ in range(2))
+    return out
 
 
 def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
-    """Returns {data_type: step}.  step(batch, loss_weight) takes a dict of
-    device tensors ("image" (B, 1, T, H, W) and, by type, "input_ids" (B, L)
-    and "attention_mask", or "seg_mask", or "seg_mask", "prompt_ids" (C, L)
-    and "prompt_mask"), updates the model's parameters in place and returns
-    its metrics ({"cl_loss"}, {"seg_loss"} or {"open_seg_loss"}, and
-    "loss", the weighted one) as 0-dim tensors (no host read)."""
+    """Returns {data_type: step}.  step(batch, loss_weight, *, draws=None)
+    takes a dict of device tensors ("image" (B, 1, T, H, W)
+    and, by type, "input_ids" (B, L) and "attention_mask", or "seg_mask",
+    or "seg_mask", "prompt_ids" (C, L) and "prompt_mask"), updates the
+    model's parameters in place and returns its metrics ({"cl_loss"} and,
+    where on, "text_ssl_loss" and "image_ssl_loss"; {"seg_loss"} or
+    {"open_seg_loss"}; and "loss", the weighted total) as 0-dim tensors
+    (no host read)."""
     ca = getattr(config, "ct_clip_arch", None)
     decoupled = bool(getattr(ca, "decoupled_contrastive_learning", False))
-    if getattr(ca, "use_mlm", False) or getattr(ca, "use_visual_ssl", False):
-        raise NotImplementedError(
-            "the MLM and visual-SSL terms of the image-report step are not "
-            "ported yet")
+    use_mlm = bool(getattr(ca, "use_mlm", False))
+    use_ssl = bool(getattr(ca, "use_visual_ssl", False))
+    ssl_type = getattr(ca, "visual_ssl_type", "simsiam")
+    if use_ssl and ssl_type not in SSL_TYPES:
+        raise ValueError(f"unknown visual_ssl_type {ssl_type!r}")
+    text_w = (float(getattr(ca, "text_ssl_loss_weight", 0.05))
+              if use_mlm else 0.0)
+    image_w = (float(getattr(ca, "image_ssl_loss_weight", 0.05))
+               if use_ssl else 0.0)
+    cl_w = 1.0 - (text_w + image_w)
+    seed = int(getattr(config, "random_seed", 0))
 
-    def update(name, value, loss_weight):
-        loss = value * loss_weight
+    def update(metrics, total, loss_weight):
+        loss = total * loss_weight
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        return {name: value.detach(), "loss": loss.detach()}
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["loss"] = loss.detach()
+        return out
 
-    def imagereport(batch, loss_weight: float = 1.0):
+    def ssl_terms(batch, draws):
+        """{name: (weight, loss)} of the enabled self-supervision terms."""
+        ids = batch["input_ids"]
+        if draws is None:
+            draws = step_draws(seed, getattr(optimizer, "count", 0),
+                               ids.shape,
+                               model.text_transformer.config.vocab_size,
+                               mlm=use_mlm, ssl=use_ssl)
+        terms = {}
+        if use_mlm:
+            d = draws["mlm"]
+            d = type(d)(*(t.to(ids.device) for t in d))
+            corrupted, loss_mask = mlm_corrupt(
+                ids, d, mask_token_id=int(getattr(ca, "mlm_mask_token_id",
+                                                  103)),
+                mask_prob=float(getattr(ca, "mlm_mask_prob", 0.15)))
+            logits = model.mlm_logits(corrupted, batch.get("attention_mask"))
+            terms["text_ssl_loss"] = (text_w,
+                                      mlm_loss(logits, ids, loss_mask))
+        if use_ssl:
+            z1, z2 = (model.ssl_project(random_augment_3d(batch["image"], d))
+                      for d in draws["views"])
+            if ssl_type == "simsiam":
+                loss = simsiam_loss(model.ssl_predict(z1), z1,
+                                    model.ssl_predict(z2), z2)
+            else:
+                loss = nt_xent_loss(z1, z2)
+            terms["image_ssl_loss"] = (image_w, loss)
+        return terms
+
+    def imagereport(batch, loss_weight: float = 1.0, *,
+                    draws: Optional[Dict] = None):
         out = model(batch["image"], batch["input_ids"],
                     batch.get("attention_mask"))
         b = out["text_latents"].shape[0]
         cl_loss = infonce_loss(out["text_latents"], out["image_latents"],
                                out["temperature"], local_batch_size=b,
                                decoupled=decoupled)
-        return update("cl_loss", cl_loss, loss_weight)
+        metrics = {"cl_loss": cl_loss}
+        if text_w == 0.0 and image_w == 0.0:
+            return update(metrics, cl_loss, loss_weight)
+        total = cl_w * cl_loss
+        for name, (w, loss) in ssl_terms(batch, draws).items():
+            metrics[name] = loss
+            total = total + w * loss
+        return update(metrics, total, loss_weight)
 
     def imageseg(batch, loss_weight: float = 1.0):
         logits = model.seg_forward(batch["image"])
-        return update("seg_loss", seg_bce_loss(logits, batch["seg_mask"]),
-                      loss_weight)
+        loss = seg_bce_loss(logits, batch["seg_mask"])
+        return update({"seg_loss": loss}, loss, loss_weight)
 
     def imageopenseg(batch, loss_weight: float = 1.0):
         out = model.open_seg_forward(batch["image"], batch["prompt_ids"],
@@ -78,7 +167,7 @@ def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
             hyper=ca.open_seg_loss_hyper_config,
             fusion_head_apply=(model.apply_fusion_head
                                if ca.fusion_head is not None else None))
-        return update("open_seg_loss", loss, loss_weight)
+        return update({"open_seg_loss": loss}, loss, loss_weight)
 
     return {"imagereport": imagereport, "imageseg": imageseg,
             "imageopenseg": imageopenseg}

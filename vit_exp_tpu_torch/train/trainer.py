@@ -10,6 +10,12 @@ vit_exp_tpu/train/trainer.py's ``CTClipTrainer``).
   sampler and runs that many micro-steps of the data set's step function,
   its loss times ``balance_loss_weight``; under gradient accumulation the
   optimizer applies its update on every k-th micro-step.
+- The self-supervision draws of a micro-step (train/steps.py) come from
+  the config's seed and the optimizer's micro-step count, which the
+  checkpoint saves with the optimizer (JAX's ``TrainState.step``), so a
+  resumed run draws the masks and views an unbroken one does; the step
+  functions read it themselves.  Their metrics ("text_ssl_loss",
+  "image_ssl_loss" where on) are logged as every other.
 - The step's metrics stay device tensors and are read one step late, so
   the host never waits on the step in flight: after dispatching step i it
   reads step i−1's metrics.  The step timer therefore spans one full step
