@@ -185,7 +185,20 @@
    ``run_text_classifier.main`` train (one epoch, batch 32, 512 tokens)
    and infer on 256 generated reports: finite losses, the checkpoint, the
    CSV; reports/s.
-11. Prints one JSON line with every kernel's numbers (the rows of 7-10 once
+11. Sequence and data parallelism (phases "ring" and "nccl", each printing
+   its seconds): ring attention at full width in one process, q/k/v (4, 8,
+   13,824, 32) bf16 and the 2 null kv in 4 shards of 3,456 tokens, each
+   rank's arithmetic in turn (``ring_by_rank``: K15 with lse per chunk,
+   the lse merge, the null merge), forward and backward, its launches (16
+   K15, 16 backward pairs) and its output and five gradients within
+   REL_L2_TOL of full-sequence K15 over the concatenated nulls and of the
+   plain ring, both timed, and the chunk kernels' rows (K15 with lse, the
+   pair with a nonzero lse cotangent) at 3,456 × 3,456; then
+   ``run_train.main`` at full width for NCCL_STEPS steps without and with
+   the multi-host flags (an NCCL group of one rank on this card), the
+   losses within NCCL_LOSS_RTOL, both step rates (from step
+   NCCL_RATE_FROM), the last step's launches.
+12. Prints one JSON line with every kernel's numbers (the rows of 7-11 once
    for each path, with that path's launches), the card line, the
    throughput lines, and last ``{"ok": true, "device": {...}}``.
 
@@ -3830,6 +3843,254 @@ def aux_lines(aux: dict, card: str) -> list:
     return lines
 
 
+# sequence parallelism: ring attention's per-rank arithmetic at full width
+RING_SHARDS = 4
+RING_QK_NORM = 4.0   # q and k rows of norm 4 (learned q/k scales of ~4), so
+                     # the softmax is not flat and the running max moves
+NCCL_STEPS = 6       # run_train steps with and without the multi-host flags
+NCCL_RATE_FROM = 3   # their step rates: median step_time_s from this step
+NCCL_LOSS_RTOL = 1e-6
+
+
+def ring_by_rank(q, k, v, nk, nv, ring: int, scale: float,
+                 use_kernel: bool) -> torch.Tensor:
+    """The ring's arithmetic for each of ``ring`` ranks in one process, as
+    ``cosine_attention(ring_group=...)`` runs it on rank r
+    (ops/ring_attention.py): rank r's q shard against the kv shards r,
+    r − 1, …, r − ring + 1, one K15-with-lse chunk each, merged in that
+    order by merge_lse, the result in q's dtype, then the nulls merged once
+    (merge_nulls); the ranks' outputs joined along the tokens."""
+    from vit_exp_tpu_torch.ops.ring_attention import merge_nulls, ring_chunks
+
+    n = q.shape[2] // ring
+
+    def shard(t, j):
+        return t[:, :, j * n:(j + 1) * n]
+
+    outs = []
+    for r in range(ring):
+        kv = [(shard(k, (r - i) % ring), shard(v, (r - i) % ring))
+              for i in range(ring)]
+        out, lse = ring_chunks(shard(q, r), kv, scale=scale,
+                               use_kernel=use_kernel)
+        out, _ = merge_nulls(out.to(q.dtype), lse, shard(q, r), nk, nv,
+                             scale)
+        outs.append(out.to(v.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def ring_phase(device, card: str, arch=ARCH, batch=BATCH, ring=RING_SHARDS,
+               seed=31):
+    """Ring attention at full width in one process: q/k/v (batch, heads,
+    13,824, 32) bf16 and the 2 null kv, split into ``ring`` shards of 3,456
+    tokens.  Forward and backward (a seeded cotangent) through autograd of
+    ``ring_by_rank`` on the kernels (K15 with lse per chunk, the backward
+    pair with the lse cotangent δ − glse) and on their plain twins, and of
+    full-sequence K15 over the nulls concatenated to k/v
+    (``flash_attention_online(null_k=...)``) on the kernels and plain.
+    Checks the launches of the ring's kernel run (ring² K15 chunks, ring²
+    backward pairs) and holds its output and its five gradients (dq, dk,
+    dv, dnull_k, dnull_v) within relative L2 REL_L2_TOL of the full K15
+    run and of the plain ring; times both runs; then the chunk kernels'
+    rows at the chunk's shapes (K15 with lse, the pair with a nonzero lse
+    cotangent) against their plain twins, with SDPA on the chunk as the
+    yardstick."""
+    from vit_exp_tpu_torch.ops import flash_attention as fa
+    from vit_exp_tpu_torch.ops.attention import l2norm
+
+    t_start = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+    h, dh = arch["heads"], arch["dim_head"]
+    n = (arch["temporal_size"] // arch["temporal_patch_size"]
+         * (arch["image_size"] // arch["patch_size"]) ** 2)
+    chunk = n // ring
+    check(n % ring == 0, (n, ring))
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    q = (l2norm(randn(batch, h, n, dh)) * RING_QK_NORM).to(bf)
+    k = (l2norm(randn(batch, h, n, dh)) * RING_QK_NORM).to(bf)
+    v = randn(batch, h, n, dh).to(bf)
+    nk = (l2norm(randn(h, 2, dh)) * RING_QK_NORM).to(bf)
+    nv = randn(h, 2, dh).to(bf)
+    dout = randn(batch, h, n, dh).to(bf)
+    scale = 1.0 / math.sqrt(dh)
+
+    def ring_fn(use_kernel):
+        return lambda *t: ring_by_rank(*t, ring, scale, use_kernel)
+
+    def full_fn(use_kernel):
+        return lambda q, k, v, nk, nv: fa.flash_attention_online(
+            q, k, v, scale=scale, null_k=nk, null_v=nv,
+            use_kernel=use_kernel)
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v, nk, nv)]
+        out = fn(*leaves)
+        out.backward(dout)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    ring_k, counts = count_launches(lambda: fwd_bwd(ring_fn(True)))
+    torch.cuda.synchronize()
+    expected = expected_launches({"K15": ring * ring, "dKdV": ring * ring,
+                                  "dQ": ring * ring})
+    print(f"ring attention, {ring} shards of {chunk} tokens: launches of "
+          f"one forward and backward {counts} (expected {expected})",
+          flush=True)
+    check(counts == expected, counts)
+    refs = {"full K15": fwd_bwd(full_fn(True)),
+            "plain ring": fwd_bwd(ring_fn(False)),
+            "plain full": fwd_bwd(full_fn(False))}
+    names = ("out", "dq", "dk", "dv", "dnull_k", "dnull_v")
+    errors = {}
+    for ref_name, ref in refs.items():
+        errs = [compare(a, b) for a, b in zip(ring_k, ref)]
+        errors[ref_name] = [e[0] for e in errs]
+        print(f"ring on the kernels against {ref_name}: relative L2 "
+              f"{dict(zip(names, (f'{e[0]:.3e}' for e in errs)))}, max abs "
+              f"{dict(zip(names, (f'{e[1]:.3e}' for e in errs)))} (bound "
+              f"{REL_L2_TOL} each)", flush=True)
+        check(all(torch.isfinite(a.float()).all().item() for a in ring_k)
+              and all(e[0] <= REL_L2_TOL for e in errs), (ref_name, errs))
+    full_errs = [compare(a, b)[0] for a, b in zip(refs["full K15"],
+                                                    refs["plain full"])]
+    print(f"full-sequence K15 against plain, for scale: relative L2 "
+          f"{dict(zip(names, (f'{e:.3e}' for e in full_errs)))}", flush=True)
+    del refs, ring_k
+    torch.cuda.empty_cache()
+    ring_ms = cuda_ms(lambda: fwd_bwd(ring_fn(True)), 3)
+    full_ms = cuda_ms(lambda: fwd_bwd(full_fn(True)), 3)
+    print(f"ring attention forward and backward, {ring} shards of {chunk} "
+          f"tokens in one process: {ring_ms:.3f} ms against full-sequence "
+          f"K15 and its pair {full_ms:.3f} ms on {card}", flush=True)
+
+    # the chunk kernels at the ring's shapes, rank 0's first chunk
+    qc, kc, vc, dc = (t[:, :, :chunk] for t in (q, k, v, dout))
+    out_c, lse_c = fa.attention_online_plain(qc, kc, vc, scale, save_lse=True)
+    glse = randn(batch, h, chunk) * 1e-2
+    delta = (dc.float() * out_c.float()).sum(-1) - glse
+    bwd = (qc, kc, vc, dc, lse_c, delta, scale)
+    del out_c
+    src = "vit_exp_tpu_torch/csrc/flash_fwd.cu"
+    flash_bwd = "vit_exp_tpu_torch/csrc/flash_bwd.cu"
+    tag = f"ring chunk, {chunk} queries × {chunk} keys"
+    sdpa_bwd = sdpa_backward_timer(qc, kc, vc, None, None, dc, scale)
+    bwd_bytes = nbytes(qc, kc, vc, dc, lse_c, delta)
+    cases = [
+        Case(f"K15 online-softmax attention + lse ({tag})", "cuda", src,
+             "vit_exp_tpu/ops/flash_attention.py:148",
+             lambda: fa.attention_online(qc, kc, vc, scale, save_lse=True),
+             lambda: fa.attention_online_plain(qc, kc, vc, scale,
+                                               save_lse=True), "K15",
+             attention_ops(qc, chunk), nbytes(qc, kc, vc),
+             sdpa_forward_timer(qc, kc, vc, None, None, scale)),
+        Case(f"K7 attention backward, dK/dV kernel, lse cotangent ({tag})",
+             "cuda", flash_bwd, "vit_exp_tpu/ops/flash_attention.py:758",
+             lambda: fa.attention_bwd_dkv(*bwd),
+             lambda: fa.attention_bwd_plain(*bwd)[1:], "dKdV",
+             attention_ops(qc, chunk, products=4), bwd_bytes, sdpa_bwd),
+        Case(f"K6 attention backward, dQ kernel, lse cotangent ({tag})",
+             "cuda", flash_bwd, "vit_exp_tpu/ops/flash_attention.py:725",
+             lambda: fa.attention_bwd_dq(*bwd),
+             lambda: fa.attention_bwd_plain(*bwd)[0], "dQ",
+             attention_ops(qc, chunk, products=3), bwd_bytes, sdpa_bwd),
+    ]
+    rows = compare_kernels(cases)
+    seconds = time.perf_counter() - t_start
+    print(f"phase ring: {seconds:.1f} s", flush=True)
+    return dict(rows=path_rows(rows, f"ring attention, {ring} shards of "
+                                     f"{chunk} tokens", counts),
+                ring_ms=ring_ms, full_ms=full_ms, errors=errors,
+                seconds=seconds)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_phase(device, folder: Path, expected: dict, card: str,
+               steps=NCCL_STEPS):
+    """``run_train.main`` at full width (batch 4, attn_impl="pallas", 8
+    synthetic samples) for ``steps`` steps, first as before, then through
+    the multi-host flags (--coordinator_address localhost:<free port>
+    --num_processes 1 --process_id 0): an NCCL group of one rank, in which
+    the trainer's gathers, gradient all-reduce, metric all-reduce and
+    preemption all-reduce are copies.  Checks the group's backend and
+    device, that it is left at the end, the launches of the last step of
+    each run, and every logged loss of the two runs within NCCL_LOSS_RTOL
+    relative; returns the step rates (the median step_time_s from step
+    NCCL_RATE_FROM on, past the warm-up and the loader's first fill) and
+    the flagged run's launches."""
+    import torch.distributed as dist
+
+    from vit_exp_tpu_torch.cli import run_train
+
+    t_start = time.perf_counter()
+    seen = []
+    inner = run_train.make_trainer
+
+    def make_trainer(args, dev):
+        seen.append((dist.get_backend() if dist.is_initialized() else None,
+                     str(dev)))
+        return inner(args, dev)
+
+    runs = {}
+    run_train.make_trainer = make_trainer
+    try:
+        for name, flags in (("flagless", []), ("nccl", [
+                "--coordinator_address", f"localhost:{free_port()}",
+                "--num_processes", "1", "--process_id", "0"])):
+            cfg = run_train_config(folder, name)
+            with watch_steps(steps) as (_, launches):
+                tr = run_train.main(["--config", cfg, "--synthetic", "8",
+                                     "--debug", "--steps", str(steps),
+                                     *flags], device=device)
+            lines = read_metrics(folder / name)
+            check(tr.status == "completed" and tr.step == steps
+                  and [d["step"] for d in lines] == list(range(1, steps + 1)),
+                  (name, tr.status, lines))
+            check(launches == expected, (name, launches))
+            runs[name] = dict(
+                losses=[[d[k] for k in ("ds0_cl_loss", "ds0_loss")]
+                        for d in lines],
+                times=[d["step_time_s"] for d in lines], launches=launches)
+            tr.close()
+            del tr
+            release(device)
+    finally:
+        run_train.make_trainer = inner
+    check(seen == [(None, "cuda"), ("nccl", "cuda:0")]
+          and not dist.is_initialized(), seen)
+    a, b = (np.asarray(runs[k]["losses"], np.float64)
+            for k in ("nccl", "flagless"))
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    print(f"run_train through the multi-host flags (NCCL, one rank) against "
+          f"the run without them: losses {runs['nccl']['losses']} against "
+          f"{runs['flagless']['losses']}, largest relative difference "
+          f"{rel:.3e} (bound {NCCL_LOSS_RTOL})", flush=True)
+    check(all(math.isfinite(x) for x in a.ravel()) and rel <= NCCL_LOSS_RTOL,
+          rel)
+    sps = {k: 1.0 / statistics.median(r["times"][NCCL_RATE_FROM - 1:])
+           for k, r in runs.items()}
+    seconds = time.perf_counter() - t_start
+    print(f"run_train, batch {BATCH}, {steps} steps on 8 synthetic samples: "
+          f"{sps['flagless']:.3f} steps/s without the flags, "
+          f"{sps['nccl']:.3f} steps/s through them (NCCL group of one "
+          f"rank; median step_time_s of steps {NCCL_RATE_FROM}-{steps}: "
+          f"{[round(t, 4) for t in runs['flagless']['times']]} s and "
+          f"{[round(t, 4) for t in runs['nccl']['times']]} s) on {card}; "
+          f"phase nccl: {seconds:.1f} s", flush=True)
+    return dict(sps=sps, rel=rel, launches=runs["nccl"]["launches"],
+                seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4083,6 +4344,16 @@ def main() -> int:
         aux = aux_phase(device, bert, folder, train_expected, int8_per_batch)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
+    release(device)
+    # sequence and data parallelism: the ring's arithmetic at full width,
+    # then run_train through the multi-host flags (an NCCL group of one)
+    ring = ring_phase(device, card)
+    release(device)
+    folder = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    try:
+        nccl = nccl_phase(device, folder, train_expected, card)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
     mixed_step = train_launches(PLANTED_ARCH["transformer_blocks"])
     print(f"planted_mixed, launches of each step type in step "
           f"{MIXED_COUNT_STEP}: {mixed['by_type']} (expected {mixed_step} "
@@ -4142,6 +4413,10 @@ def main() -> int:
                            aux["lipro"]["fit_launches"])
     real_rows += path_rows(rows["lipro"], "run_finetune lipro --infer",
                            aux["lipro"]["infer_launches"])
+    real_rows += ring["rows"]
+    real_rows += path_rows(train_rows, "run_train through the multi-host "
+                           "flags, NCCL group of one rank, step "
+                           f"{NCCL_STEPS}", nccl["launches"])
     kernels = []
     for phase in ("serve", "train", "int8", "online", "planted"):
         for row in rows[phase]:

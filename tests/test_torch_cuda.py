@@ -1198,3 +1198,38 @@ def test_pooled_loader_and_side_stream_copy_on_the_card(dev):
         for k in ("image", "input_ids"):
             assert torch.equal(o[k].cpu(), torch.from_numpy(w[k])), k
     loader.close()
+
+
+def test_four_shard_ring_matches_full_k15_with_nulls(dev):
+    """The 4-shard ring at 1,024 tokens (16 K15-with-lse chunks, 16
+    backward pairs with the lse cotangent) against full-sequence K15 over
+    the concatenated nulls and against the plain ring: the output and the
+    gradients of q, k, v and the nulls within relative L2 1e-2 (each
+    rank's arithmetic in turn, chip_smoke.ring_by_rank)."""
+    from chip_smoke import ring_by_rank
+
+    q, k, v, nk, nv, scale = _attn_case(dev, 1024, 1024, 2, seed=14)
+    q, k, nk = q * 3, k * 3, nk * 3
+    dout = _randn(torch.Generator(device=dev).manual_seed(15), 2, 3, 1024, 32)
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v, nk, nv)]
+        out = fn(*leaves)
+        out.backward(dout)
+        return [out] + [t.grad for t in leaves]
+
+    before = [c.launches for c in (fa.attention_online, fa.attention_bwd_dkv,
+                                   fa.attention_bwd_dq)]
+    ring = run(lambda *t: ring_by_rank(*t, 4, scale, True))
+    torch.cuda.synchronize()
+    after = [c.launches for c in (fa.attention_online, fa.attention_bwd_dkv,
+                                  fa.attention_bwd_dq)]
+    assert [a - b for a, b in zip(after, before)] == [16, 16, 16]
+    full = run(lambda q, k, v, nk, nv: fa.flash_attention_online(
+        q, k, v, scale=scale, null_k=nk, null_v=nv))
+    plain = run(lambda *t: ring_by_rank(*t, 4, scale, False))
+    for ref in (full, plain):
+        for a, b in zip(ring, ref):
+            assert torch.isfinite(a.float()).all()
+            assert _rel(a, b) < 1e-2

@@ -314,9 +314,9 @@ def test_run_zero_shot_seg_loads_a_reference_checkpoint(tmp_path):
 def test_run_zero_shot_seg_refuses_what_is_not_ported(tmp_path):
     cfg = _seg_yaml(tmp_path)
     base = ["--config", cfg, "--results_folder", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="M7b"):
         run_zero_shot_seg.main(base + ["--synthetic", "2", "--mesh",
-                                       "1,1,1"], device="cpu")
+                                       "1,2,1"], device="cpu")
     # without --synthetic and without folders: JAX's TypeError (the
     # folders themselves: tests/test_torch_realdata.py)
     with pytest.raises(TypeError):

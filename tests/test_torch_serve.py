@@ -364,10 +364,13 @@ def test_run_zero_shot_cls_sweep_reloads_in_place(cls_setup, tmp_path,
 
 def test_run_zero_shot_cls_refuses_what_is_not_ported(cls_setup, tmp_path):
     base = ["--config", cls_setup["cfg"], "--results_folder", str(tmp_path)]
-    for flag in ("--mesh", "--num_processes"):
-        with pytest.raises(NotImplementedError, match="M7"):
-            run_zero_shot_cls.main(base + ["--synthetic", "2", flag, "1"],
-                                   device="cpu")
+    for mesh in ("1,2,1", "1,1,2"):   # fsdp and model are queued (M7b)
+        with pytest.raises(NotImplementedError, match="M7b"):
+            run_zero_shot_cls.main(base + ["--synthetic", "2", "--mesh",
+                                           mesh], device="cpu")
+    with pytest.raises(ValueError, match="coordinator"):
+        run_zero_shot_cls.main(base + ["--synthetic", "2",
+                                       "--num_processes", "2"], device="cpu")
     for extra in ([], ["--data_folder", "x"], ["--packed_root", "x"]):
         with pytest.raises(SystemExit):
             run_zero_shot_cls.parse_args(base + extra)
@@ -744,7 +747,7 @@ def test_serve_entry_on_int8_embeds_from_a_handler_thread(cls_setup, tmp_path):
         srv.shutdown()
         srv.server_close()
         srv.batcher.close()
-    with pytest.raises(NotImplementedError, match="M7"):
+    with pytest.raises(NotImplementedError, match="M7b"):
         serve.parse_args(["--config", cfg, "--mesh", "4,1,1"])
 
 

@@ -494,9 +494,9 @@ def test_run_train_refuses_what_is_not_ported(tmp_path):
     # folders themselves: tests/test_torch_realdata.py)
     with pytest.raises(KeyError, match="dataset spec needs one of"):
         run_train.main(["--config", cfg], device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="M7b"):
         run_train.main(["--config", cfg, "--synthetic", "2", "--mesh",
-                        "1,1,1"], device="cpu")
+                        "1,1,2"], device="cpu")
     # the seg hook is ported, but --synthetic brings no segmentation
     # validation set (the JAX CLI skips the name silently)
     hooks = Path(cfg).with_name("hooks.yaml")

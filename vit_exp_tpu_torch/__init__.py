@@ -4,10 +4,13 @@ NVIDIA H100 (Hopper, sm_90a).
 The JAX package ``vit_exp_tpu`` is the reference; this package mirrors its
 module paths so each counterpart is easy to find:
 
-- ``core``    precision policy, experiment config (the YAML schema)
+- ``core``    precision policy, experiment config (the YAML schema), the
+              process group and the CLIs' multi-host flags, the process
+              grid
+- ``parallel`` the collectives of data and sequence parallelism
 - ``ops``     position embedding, patch embedding, fused LN+qkv projection,
               fused GEGLU feed-forward, static-max and online-softmax
-              cosine attention; every Pallas kernel of the JAX package is a
+              cosine attention, ring attention; every Pallas kernel of the JAX package is a
               hand-written CUDA kernel here (sources in ``csrc/``, built by
               ``ops/_build.py``)
 - ``models``  CTViT3D image tower, BERT text tower, CTCLIP, factory,

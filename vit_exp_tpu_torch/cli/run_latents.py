@@ -6,7 +6,8 @@ Usage, on the card:
         --results_folder out/ (--data_folder tree/ --reports_csv R.csv \\
         --labels_csv L.csv | --synthetic N) [--no-int8] \\
         [--model_path CKPT [--torch_ckpt]] [--retrieval {none,volume,report,both}] \\
-        [--topk 5] [--batch_size 4] [--vocab V]
+        [--topk 5] [--batch_size 4] [--vocab V] [--mesh DATA,1,1] \\
+        [--coordinator_address HOST:PORT --num_processes N --process_id I]
 
 ``--int8`` (the default, as in the JAX package) encodes on the W8A8
 serving path (``int8=True, fuse_qkv=True``), so the dumped latents are
@@ -20,8 +21,11 @@ volume_to_volume.npz and report_to_volume.npz as ``--retrieval`` asks, and
 prints one JSON line: "n", "v2v_mean_top1_sim",
 "report_to_volume_recall_at_k".
 
-Not ported yet, and refused with NotImplementedError: ``--mesh`` with the
-multi-host flags (ROADMAP M7).
+Several cards: the same command once per card with the multi-host flags
+(core/multihost.py); each rank encodes ``--batch_size`` volumes of each
+global batch and gathers the latents (eval/latents.py); rank 0 alone
+prints and writes.  ``--mesh`` must multiply to the process count, its
+fsdp and model at 1 (ROADMAP M7b).
 """
 
 from __future__ import annotations
@@ -32,8 +36,7 @@ import os
 
 import numpy as np
 
-_NOT_PORTED = ("--mesh", "--coordinator_address", "--num_processes",
-               "--process_id")
+from vit_exp_tpu_torch.core import multihost
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -56,15 +59,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         choices=["none", "volume", "report", "both"])
     parser.add_argument("--topk", type=int, default=5)
     parser.add_argument("--batch_size", type=int, default=4,
-                        help="volumes per encode call")
-    for flag in _NOT_PORTED:
-        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    given = [f for f in _NOT_PORTED if getattr(args, f[2:]) is not None]
-    if given:
-        raise NotImplementedError(
-            f"{given}: multi-device encoding is not ported yet (ROADMAP M7)")
-    return args
+                        help="volumes per encode call on each card")
+    multihost.add_cli_args(parser)
+    return parser.parse_args(argv)
 
 
 def main(argv=None, device="cuda"):
@@ -72,7 +69,13 @@ def main(argv=None, device="cuda"):
     it.  ``device`` is the card unless a caller (a test) asks for another
     one: there is no flag for it."""
     args = parse_args(argv)
+    with multihost.process_group(args, device) as device:
+        return _dump(args, device)
+
+
+def _dump(args, device):
     from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.core.mesh import data_group, mesh_config_from
     from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
     from vit_exp_tpu_torch.eval.latents import (dump_latents,
                                                 report_to_volume,
@@ -82,6 +85,7 @@ def main(argv=None, device="cuda"):
     from vit_exp_tpu_torch.train.checkpoint import load_model_weights
 
     config = load_config(args.config)
+    group = data_group(mesh_config_from(config, args.mesh))
     tokenizer = load_tokenizer(args.vocab)
     mode = (dict(int8=True) if args.int8
             else dict(attn_impl="pallas_static"))
@@ -99,21 +103,28 @@ def main(argv=None, device="cuda"):
         dataset = CTReportInferenceDataset(
             args.data_folder, args.reports_csv, args.labels_csv,
             tokenizer=tokenizer)
-    engine = ZeroShotClassifier(model, tokenizer, batch_size=args.batch_size)
+    engine = ZeroShotClassifier(model, tokenizer, batch_size=args.batch_size,
+                                group=group)
     out = dump_latents(engine, dataset, args.results_folder)
+    main = multihost.is_main_process()
     summary = {"n": int(out["image_latents"].shape[0])}
     if args.retrieval in ("volume", "both"):
         v2v = volume_to_volume(out["image_latents"], k=args.topk)
-        np.savez(os.path.join(args.results_folder, "volume_to_volume.npz"),
-                 **v2v)
+        if main:
+            np.savez(os.path.join(args.results_folder,
+                                  "volume_to_volume.npz"), **v2v)
         summary["v2v_mean_top1_sim"] = float(v2v["similarities"][:, 0].mean())
     if args.retrieval in ("report", "both"):
         r2v = report_to_volume(out["text_latents"], out["image_latents"],
                                k=args.topk)
-        np.savez(os.path.join(args.results_folder, "report_to_volume.npz"),
-                 indices=r2v["indices"], similarities=r2v["similarities"])
+        if main:
+            np.savez(os.path.join(args.results_folder,
+                                  "report_to_volume.npz"),
+                     indices=r2v["indices"],
+                     similarities=r2v["similarities"])
         summary["report_to_volume_recall_at_k"] = r2v["recall_at_k"]
-    print(json.dumps(summary))
+    if main:
+        print(json.dumps(summary))
     return summary
 
 

@@ -5,7 +5,8 @@ Usage, on the card:
         [--synthetic N] [--synthetic_eval N] [--steps K] \\
         [--resume STEP | --auto_resume] [--debug] \\
         [--vocab path/to/vocab.txt] [--attn_impl {pallas,pallas_static}] \\
-        [--ff_impl pallas] [--remat]
+        [--ff_impl pallas] [--remat] [--mesh DATA,FSDP,MODEL] \\
+        [--coordinator_address HOST:PORT --num_processes N --process_id I]
 
 YAML config (the JAX package's schema), seeding, the tokenizer, BERT-base
 at its vocab size (``text_encoder:`` overrides), CTCLIP with the image
@@ -47,8 +48,16 @@ config's ``valid_data`` sets: ``cls`` (``CTReportInferenceDataset``:
 state (``git log -1``, ``git status --short`` of the working directory)
 goes to ``<results_folder>/git_state.txt`` first.
 
-Not ported yet, and refused with NotImplementedError: the multi-device
-flags (``--mesh`` and the multi-host flags).
+Several cards (data parallelism): run the same command once per card,
+with ``--coordinator_address`` (rank 0's host and a free port),
+``--num_processes`` and ``--process_id`` (or torchrun's variables;
+core/multihost.py), which join the NCCL group before any CUDA work; each
+process trains on ``cuda:<local rank>``.  ``--mesh DATA,FSDP,MODEL`` (or
+the config's ``mesh:`` section) must multiply to the process count;
+fsdp > 1 and model > 1 raise NotImplementedError (ROADMAP M7b).  The
+trainer shards the data and takes the global-batch terms over the group
+(train/trainer.py); rank 0 writes git_state.txt, the metrics and the
+checkpoints.  ``main`` leaves the group it joined before it returns.
 """
 
 from __future__ import annotations
@@ -60,8 +69,7 @@ import subprocess
 import numpy as np
 import torch
 
-_NOT_PORTED = ("--mesh", "--coordinator_address", "--num_processes",
-               "--process_id")
+from vit_exp_tpu_torch.core import multihost
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -86,15 +94,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--remat", action="store_true",
                         help="recompute each image-tower block's forward in "
                         "the backward (less activation memory)")
-    for flag in _NOT_PORTED:
-        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    given = [f for f in _NOT_PORTED if getattr(args, f[2:]) is not None]
-    if given:
-        raise NotImplementedError(
-            f"{given}: multi-device training is not ported yet (the "
-            f"multi-GPU and ring-attention slice brings it)")
-    return args
+    multihost.add_cli_args(parser)
+    return parser.parse_args(argv)
 
 
 def _get(spec, *names):
@@ -255,12 +256,16 @@ def make_trainer(args: argparse.Namespace, device="cuda"):
     """Config → tokenizer → data sets and eval hooks → model on ``device``
     → trainer, restored from a checkpoint when asked."""
     from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.core.mesh import data_group, mesh_config_from
     from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
     from vit_exp_tpu_torch.models.factory import bert_config_for, build_ctclip
     from vit_exp_tpu_torch.train.trainer import CTClipTrainer
 
     config = load_config(args.config)
-    write_git_state(config.results_folder)
+    mesh_config = mesh_config_from(config, args.mesh)
+    data_group(mesh_config)   # a grid that does not fit raises before work
+    if multihost.is_main_process():
+        write_git_state(config.results_folder)
     np.random.seed(config.random_seed)
     torch.manual_seed(config.random_seed)
 
@@ -274,18 +279,22 @@ def make_trainer(args: argparse.Namespace, device="cuda"):
     return CTClipTrainer(model, config, datasets=datasets, resume_step=resume,
                          use_wandb=not args.debug,
                          eval_hooks=hooks["eval_hooks"],
-                         sample_hooks=hooks["sample_hooks"])
+                         sample_hooks=hooks["sample_hooks"],
+                         mesh_config=mesh_config)
 
 
 def main(argv=None, device="cuda"):
     """Train as the flags say; returns the trainer (its ``status`` is
     "completed" or "preempted").  ``device`` is the card unless a caller
-    (a test) asks for another one: there is no flag for it."""
+    (a test) asks for another one: there is no flag for it.  With the
+    multi-host flags the process group (NCCL on the card, gloo on the CPU)
+    is joined first and left at the end."""
     args = parse_args(argv)
-    trainer = make_trainer(args, device)
-    trainer.install_preemption_handler()
-    trainer.train(num_steps=args.steps)
-    return trainer
+    with multihost.process_group(args, device) as device:
+        trainer = make_trainer(args, device)
+        trainer.install_preemption_handler()
+        trainer.train(num_steps=args.steps)
+        return trainer
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ Usage, on the card:
         (--data_folder TREE | --packed_root STORE) --reports_csv R.csv \\
         --labels_csv L.csv [--no-int8] [--batch_size 4] [--vocab V]
     ... --synthetic N | --planted N
+    ... [--mesh DATA,1,1] [--coordinator_address HOST:PORT \\
+         --num_processes N --process_id I]
 
 ``--int8`` (the default, as in the JAX package) builds the W8A8 serving
 path (``int8=True, fuse_qkv=True``); ``--no-int8`` the bf16 one
@@ -32,8 +34,14 @@ inference artifacts written to ``results_folder/<model>/``.
 
 A JAX (Orbax) checkpoint cannot be read without jax: export it on a host
 with jax through ``vit_exp_tpu.models.convert.export_ctclip_state_dict``
-and pass the ``.pt`` with ``--torch_ckpt``.  Not ported yet, and refused
-with NotImplementedError: ``--mesh`` and the multi-host flags (ROADMAP M7).
+and pass the ``.pt`` with ``--torch_ckpt``.
+
+Several cards: the same command once per card with the multi-host flags
+(core/multihost.py); each rank encodes ``--batch_size`` volumes of each
+global batch and gathers the probabilities (eval/zero_shot.py), so every
+rank computes the same AUROCs; rank 0 alone prints and writes the output
+files.  ``--mesh`` must multiply to the process count, its fsdp and
+model at 1 (ROADMAP M7b).
 """
 
 from __future__ import annotations
@@ -43,8 +51,7 @@ import json
 import os
 from typing import Dict
 
-_NOT_PORTED = {"--mesh": "M7", "--coordinator_address": "M7",
-               "--num_processes": "M7", "--process_id": "M7"}
+from vit_exp_tpu_torch.core import multihost
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -71,13 +78,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "the four planted attributes")
     parser.add_argument("--torch_ckpt", action="store_true",
                         help="--model_path is a reference CTClip.*.pt")
-    parser.add_argument("--batch_size", type=int, default=4)
-    for flag in _NOT_PORTED:
-        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--batch_size", type=int, default=4,
+                        help="volumes per encode call on each card")
+    multihost.add_cli_args(parser)
     args = parser.parse_args(argv)
-    given = [f for f in _NOT_PORTED if getattr(args, f[2:]) is not None]
-    if given:
-        raise NotImplementedError(f"{given} not ported yet (ROADMAP M7)")
     if not (args.planted or args.synthetic or args.packed_root
             or args.data_folder):
         parser.error("give --data_folder, --packed_root, --synthetic or "
@@ -118,13 +122,20 @@ def main(argv=None, device="cuda") -> Dict[str, Dict[str, float]]:
     returns {model: result}.  ``device`` is the card unless a caller (a
     test) asks for another one: there is no flag for it."""
     args = parse_args(argv)
+    with multihost.process_group(args, device) as device:
+        return _score(args, device)
+
+
+def _score(args, device) -> Dict[str, Dict[str, float]]:
     from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.core.mesh import data_group, mesh_config_from
     from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
     from vit_exp_tpu_torch.eval.zero_shot import ZeroShotClassifier
     from vit_exp_tpu_torch.models.factory import bert_config_for, build_ctclip
     from vit_exp_tpu_torch.train.checkpoint import load_model_weights
 
     config = load_config(args.config)
+    group = data_group(mesh_config_from(config, args.mesh))
     tokenizer = load_tokenizer(args.vocab)
     mode = (dict(int8=True) if args.int8
             else dict(attn_impl="pallas_static"))
@@ -132,7 +143,7 @@ def main(argv=None, device="cuda") -> Dict[str, Dict[str, float]]:
                          device=device, fuse_qkv=True, **mode)
     dataset, engine_kw = build_dataset(args, config, tokenizer)
     engine = ZeroShotClassifier(model, tokenizer, batch_size=args.batch_size,
-                                **engine_kw)
+                                group=group, **engine_kw)
     out = {}
     for path in args.model_path or [None]:
         tag = "random_init"
@@ -142,7 +153,8 @@ def main(argv=None, device="cuda") -> Dict[str, Dict[str, float]]:
             tag = os.path.basename(os.path.normpath(path))
         res = engine.infer(dataset, results_folder=os.path.join(
             args.results_folder, tag))
-        print(json.dumps({"model": tag, **res}), flush=True)
+        if multihost.is_main_process():
+            print(json.dumps({"model": tag, **res}), flush=True)
         out[tag] = res
     return out
 

@@ -5,7 +5,8 @@ Usage, on the card:
     python -m vit_exp_tpu_torch.cli.run_zero_shot_seg --config cfg.yaml \\
         --results_folder out/ (--data_folder imgs/ --mask_folder masks/ |
         --synthetic N) [--no-int8] [--model_path CKPT [--torch_ckpt]] \\
-        [--batch_size B] [--vocab V]
+        [--batch_size B] [--vocab V] [--mesh DATA,1,1] \\
+        [--coordinator_address HOST:PORT --num_processes N --process_id I]
 
 The config must switch on ``use_seg``.  ``--int8`` (the default, as in the
 JAX package) builds the W8A8 serving path (``int8=True, fuse_qkv=True``);
@@ -22,8 +23,11 @@ raises JAX's TypeError).  Prints the dice result (``dice_class_{i}``,
 ``mean_dice``) as one JSON line and writes dice_scores.npy and
 dice_scores.txt into the results folder.
 
-Not ported yet, and refused with NotImplementedError: ``--mesh`` with the
-multi-host flags (ROADMAP M7).
+Several cards: the same command once per card with the multi-host flags
+(core/multihost.py); each rank scores ``--batch_size`` volumes of each
+global batch and gathers the dice rows (eval/zero_shot.py); rank 0 alone
+prints and writes.  ``--mesh`` must multiply to the process count, its
+fsdp and model at 1 (ROADMAP M7b).
 """
 
 from __future__ import annotations
@@ -31,13 +35,11 @@ from __future__ import annotations
 import argparse
 import json
 
+from vit_exp_tpu_torch.core import multihost
 from vit_exp_tpu_torch.train.checkpoint import load_model_weights
 
 # the loader all three serving CLIs share, under its former name here
 load_weights = load_model_weights
-
-_NOT_PORTED = ("--mesh", "--coordinator_address", "--num_processes",
-               "--process_id")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -56,15 +58,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="--model_path is a reference CTClip.*.pt")
     parser.add_argument("--vocab", default=None)
     parser.add_argument("--batch_size", type=int, default=1,
-                        help="volumes per dice call")
-    for flag in _NOT_PORTED:
-        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    given = [f for f in _NOT_PORTED if getattr(args, f[2:]) is not None]
-    if given:
-        raise NotImplementedError(
-            f"{given}: multi-device scoring is not ported yet (ROADMAP M7)")
-    return args
+                        help="volumes per dice call on each card")
+    multihost.add_cli_args(parser)
+    return parser.parse_args(argv)
 
 
 def main(argv=None, device="cuda"):
@@ -72,7 +68,13 @@ def main(argv=None, device="cuda"):
     ``device`` is the card unless a caller (a test) asks for another one:
     there is no flag for it."""
     args = parse_args(argv)
+    with multihost.process_group(args, device) as device:
+        return _score(args, device)
+
+
+def _score(args, device):
     from vit_exp_tpu_torch.core.config import load_config
+    from vit_exp_tpu_torch.core.mesh import data_group, mesh_config_from
     from vit_exp_tpu_torch.data.datasets import CTSegDataset
     from vit_exp_tpu_torch.data.synthetic import SyntheticCTDataset
     from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
@@ -82,6 +84,7 @@ def main(argv=None, device="cuda"):
     config = load_config(args.config)
     if not config.ct_clip_arch.use_seg:
         raise ValueError("run_zero_shot_seg needs a config with use_seg")
+    group = data_group(mesh_config_from(config, args.mesh))
     bert = bert_config_for(config, load_tokenizer(args.vocab))
     mode = (dict(int8=True) if args.int8
             else dict(attn_impl="pallas_static"))
@@ -94,9 +97,10 @@ def main(argv=None, device="cuda"):
             n_classes=config.ct_clip_arch.seg_head.out_dim)
     else:
         dataset = CTSegDataset(args.data_folder, args.mask_folder)
-    engine = ZeroShotSegmenter(model, batch_size=args.batch_size)
+    engine = ZeroShotSegmenter(model, batch_size=args.batch_size, group=group)
     res = engine.infer(dataset, results_folder=args.results_folder)
-    print(json.dumps(res))
+    if multihost.is_main_process():
+        print(json.dumps(res))
     return res
 
 

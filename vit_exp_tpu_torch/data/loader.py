@@ -16,7 +16,14 @@ collation waits on the pool.  Each batch is then a ``HostBatch`` whose
 ``release(event)`` (called by ``BatchCopier.start``) gives the slot back;
 a batch not released by the time the consumer asks for the next one is
 released then, so its buffers are valid until that moment.  The pool
-leaves which indices a batch holds, and its bytes, as they are."""
+leaves which indices a batch holds, and its bytes, as they are.
+
+``shard_id``/``num_shards`` (the JAX loader's process sharding): every
+process permutes the whole index with the same (seed, epoch) and takes
+the stride ``idx[shard_id::num_shards]``, so the strides are disjoint and
+together cover the data set; a stride shorter than ceil(len /
+num_shards) is padded by repeating its own first indices, so every
+process yields the same number of batches."""
 
 from __future__ import annotations
 
@@ -68,7 +75,8 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False, num_workers: int = 4,
-                 prefetch: int = 2, pool: Optional[PinnedPool] = None):
+                 prefetch: int = 2, pool: Optional[PinnedPool] = None,
+                 shard_id: int = 0, num_shards: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -77,13 +85,15 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.pool = pool
+        self.shard_id = shard_id
+        self.num_shards = max(1, num_shards)
         self.epoch = 0
         self._seq = 0   # pooled batches are numbered across iterations
         self._producer: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
     def __len__(self):
-        n = len(self.dataset)
+        n = -(-len(self.dataset) // self.num_shards)
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
@@ -93,6 +103,13 @@ class Loader:
         if self.shuffle:
             rng = np.random.default_rng((self.seed, self.epoch))
             rng.shuffle(idx)
+        if self.num_shards > 1:
+            full, target = idx, -(-len(idx) // self.num_shards)
+            idx = idx[self.shard_id::self.num_shards]
+            if len(idx) == 0:   # more shards than samples
+                idx = full[np.arange(target) % len(full)]
+            elif len(idx) < target:
+                idx = np.concatenate([idx, idx[:target - len(idx)]])
         batches = [idx[i:i + self.batch_size].tolist()
                    for i in range(0, len(idx), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:

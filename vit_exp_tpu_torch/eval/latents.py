@@ -18,7 +18,9 @@ loader and side-stream copy bring batch i + 1 while batch i computes, and
 batch i is read one batch late.  The tail batch runs as it is (the JAX
 package pads it by repeating its last item; with int8 a volume's latents
 depend on its batch companions, so the port's tail latents are those of
-the short batch).
+the short batch).  An engine with a process group encodes each rank's
+rows of the global batch and gathers them (eval/zero_shot.py); every
+rank gets every latent, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -30,28 +32,32 @@ import numpy as np
 import torch
 
 from vit_exp_tpu_torch.eval.zero_shot import _one_deep_map
+from vit_exp_tpu_torch.parallel.collectives import rank, world
 
 
 def _encode_batches(engine, dataset, limit, num_workers, encode):
     """``encode(batch, first)`` on the engine's model, in eval mode under
     inference mode, over the first ``limit`` items in batches; yields each
-    payload one batch late.  ``first`` is the index of the batch's first
-    item."""
+    payload (device tensors, then the accessions) one batch late, the
+    global batch's under the engine's group.  ``first`` is the index of the
+    batch's first item."""
     n = min(len(dataset), limit) if limit else len(dataset)
     model = engine.model
+    group = getattr(engine, "group", None)
     was_training = model.training
     model.eval()
-    seen = [0]
+    step = engine.batch_size * world(group)
+    seen = [rank(group) * engine.batch_size]
 
     @torch.inference_mode()
     def dispatch(batch):
-        first, seen[0] = seen[0], seen[0] + len(batch["image"])
+        first, seen[0] = seen[0], seen[0] + step
         return encode(batch, first)
 
     try:
         yield from _one_deep_map(dataset, n, engine.batch_size, dispatch,
                                  num_workers=num_workers,
-                                 pool=engine.feed.pool)
+                                 pool=engine.feed.pool, group=group)
     finally:
         model.train(was_training)
 
@@ -69,7 +75,9 @@ def dump_latents(engine, dataset, out_folder: str, *,
     ``engine``: a ``ZeroShotClassifier`` (its model, tokenizer,
     max_text_len, batch size and copier).  Returns the latents and
     "accessions"."""
-    os.makedirs(out_folder, exist_ok=True)
+    main = rank(getattr(engine, "group", None)) == 0
+    if main:
+        os.makedirs(out_folder, exist_ok=True)
     model, device = engine.model, engine.device
 
     def encode(batch, first):
@@ -94,9 +102,10 @@ def dump_latents(engine, dataset, out_folder: str, *,
         accessions.extend(accs)
     out = {"image_latents": np.stack(image_latents),
            "text_latents": np.stack(text_latents)}
-    np.savez(os.path.join(out_folder, "latents.npz"), **out)
-    with open(os.path.join(out_folder, "accessions.txt"), "w") as f:
-        f.writelines(a + "\n" for a in accessions)
+    if main:
+        np.savez(os.path.join(out_folder, "latents.npz"), **out)
+        with open(os.path.join(out_folder, "accessions.txt"), "w") as f:
+            f.writelines(a + "\n" for a in accessions)
     out["accessions"] = accessions
     return out
 
@@ -106,7 +115,9 @@ def dump_encodings(engine, dataset, out_folder: str, *, limit=None,
     """The image tower's output tokens of every sample as float32, one
     ``{accession}.encodings.npz`` each ('/' in an accession becomes '_');
     returns the paths in sample order."""
-    os.makedirs(out_folder, exist_ok=True)
+    main = rank(getattr(engine, "group", None)) == 0
+    if main:
+        os.makedirs(out_folder, exist_ok=True)
     model = engine.model
 
     def encode(batch, first):
@@ -120,7 +131,8 @@ def dump_encodings(engine, dataset, out_folder: str, *, limit=None,
         for row, acc in zip(tokens.float().cpu().numpy(), accs):
             path = os.path.join(out_folder,
                                 f"{acc.replace('/', '_')}.encodings.npz")
-            np.savez(path, row)
+            if main:
+                np.savez(path, row)
             paths.append(path)
     return paths
 

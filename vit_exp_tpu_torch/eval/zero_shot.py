@@ -28,6 +28,14 @@ one batch at a time on the device (the tail batch padded by repeating its
 last item, whose rows are dropped), read one batch late.  It returns the
 per-class dice averaged over the samples with nanmean, ``dice_class_{i}``,
 and their nanmean, ``mean_dice``.
+
+With a process ``group`` (several cards; the JAX engines' mesh) an
+engine's batch is ``batch_size`` volumes a rank, ``batch_size × ranks``
+in all: each rank loads and encodes its own rows of each global batch
+(the last one padded by repeating the last item), and a gather (not
+differentiable) returns the whole batch's results to every rank in the
+single-process order, cut to the items that exist.  Every rank thus
+computes the same metrics; only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ from vit_exp_tpu_torch.eval.metrics import (evaluate_internal,
                                             save_inference_artifacts)
 from vit_exp_tpu_torch.models.ctclip import CTCLIP
 from vit_exp_tpu_torch.models.losses import dice_scores_per_sample
+from vit_exp_tpu_torch.parallel.collectives import (gather_objects,
+                                                    gather_rows, rank, world)
 
 PATHOLOGIES: List[str] = [
     "Medical material", "Arterial wall calcification", "Cardiomegaly",
@@ -81,6 +91,46 @@ class _Subset:
         return self._dataset[i]
 
 
+class _RankRows:
+    """Rank r's rows of each global batch of the first n items (R ranks,
+    b rows each: items i·R·b + r·b … of global batch i), the last global
+    batch padded with item n − 1, so every rank holds the same number of
+    batches."""
+
+    def __init__(self, dataset, n: int, batch_size: int, group):
+        self._dataset, self._n, self._b = dataset, n, batch_size
+        self._first = rank(group) * batch_size
+        self.global_batch = batch_size * world(group)
+        self.batches = -(-n // self.global_batch)
+
+    def __len__(self):
+        return self.batches * self._b
+
+    def __getitem__(self, j):
+        i, row = divmod(j, self._b)
+        return self._dataset[min(i * self.global_batch + self._first + row,
+                                 self._n - 1)]
+
+    def valid(self, i: int) -> int:
+        """The items global batch i holds."""
+        return min(self.global_batch, self._n - i * self.global_batch)
+
+
+def gather_batch(payload, group, k: int):
+    """A rank's payload of device tensors and host lists (a tuple) as the
+    global batch's: the tensors gathered along dim 0, the lists joined, in
+    rank order, each cut to its first k rows."""
+    host = [i for i, x in enumerate(payload) if not isinstance(x, torch.Tensor)]
+    lists = gather_objects([list(payload[i]) for i in host], group)
+    out = list(payload)
+    for j, i in enumerate(host):
+        out[i] = [row for parts in lists for row in parts[j]][:k]
+    for i, x in enumerate(payload):
+        if isinstance(x, torch.Tensor):
+            out[i] = gather_rows(x, group)[:k]
+    return tuple(out)
+
+
 # page-locked buffer sets of an engine: the batch being copied and the next
 ENGINE_PIN_SLOTS = 2
 
@@ -109,25 +159,35 @@ class _Feed:
 def _one_deep_map(dataset, n: int, batch_size: int,
                   dispatch: Callable[[Dict], object], *,
                   num_workers: int = 4,
-                  pool: Optional[PinnedPool] = None) -> Iterator:
+                  pool: Optional[PinnedPool] = None, group=None) -> Iterator:
     """dispatch(batch) over the first n items in batches (the tail batch may
     be short), loaded on background threads (into ``pool``'s buffers when
     given); each payload is yielded one batch late, after the next batch's
     dispatch, so the consumer's host reads overlap the device's work; the
-    last is flushed at the end."""
-    pending = None
-    loader = Loader(_Subset(dataset, n), batch_size, shuffle=False,
+    last is flushed at the end.  With a ``group`` the batches are this
+    rank's rows (``_RankRows``) and each payload (a tuple of device tensors
+    and host lists) comes back as the global batch's (``gather_batch``)."""
+    view = (_Subset(dataset, n) if group is None
+            else _RankRows(dataset, n, batch_size, group))
+    loader = Loader(view, batch_size, shuffle=False,
                     num_workers=num_workers, prefetch=2, pool=pool)
-    try:
-        for batch in loader:
-            payload = dispatch(batch)
-            if pending is not None:
-                yield pending
-            pending = payload
-    finally:
-        loader.stop()   # the pool outlives this loader
-    if pending is not None:
-        yield pending
+
+    def payloads():
+        pending = None
+        try:
+            for batch in loader:
+                payload = dispatch(batch)
+                if pending is not None:
+                    yield pending
+                pending = payload
+        finally:
+            loader.stop()   # the pool outlives this loader
+        if pending is not None:
+            yield pending
+
+    for i, payload in enumerate(payloads()):
+        yield (payload if group is None
+               else gather_batch(payload, group, view.valid(i)))
 
 
 class ZeroShotClassifier:
@@ -135,8 +195,9 @@ class ZeroShotClassifier:
 
     def __init__(self, model: CTCLIP, tokenizer, *,
                  pathologies: Sequence[str] = PATHOLOGIES,
-                 max_text_len: int = 512, batch_size: int = 4):
+                 max_text_len: int = 512, batch_size: int = 4, group=None):
         self.model = model
+        self.group = group
         self.tokenizer = tokenizer
         self.pathologies = list(pathologies)
         self.max_text_len = max_text_len
@@ -201,7 +262,8 @@ class ZeroShotClassifier:
                     dataset, n, self.batch_size,
                     lambda b: (self.probs(self.feed.to_device(b)["image"]),
                                b["onehot"], b["accession"]),
-                    num_workers=num_workers, pool=self.feed.pool):
+                    num_workers=num_workers, pool=self.feed.pool,
+                    group=self.group):
                 preds.extend(dev.cpu().numpy())
                 labels.extend(onehots)
                 accessions.extend(accs)
@@ -211,7 +273,7 @@ class ZeroShotClassifier:
         y_pred, y_true = np.asarray(preds), np.asarray(labels)
         res = evaluate_internal(y_pred, y_true, self.pathologies)
         res["volumes_per_sec"] = n / elapsed
-        if results_folder:
+        if results_folder and rank(self.group) == 0:
             save_inference_artifacts(results_folder, y_pred, y_true,
                                      accessions, res)
         return res
@@ -221,8 +283,9 @@ class ZeroShotSegmenter:
     """Closed-set dice engine over one CTCLIP with a seg head on one
     device."""
 
-    def __init__(self, model: CTCLIP, *, batch_size: int = 1):
+    def __init__(self, model: CTCLIP, *, batch_size: int = 1, group=None):
         self.model = model
+        self.group = group
         self.batch_size = batch_size
         self.device = next(model.parameters()).device
         self.feed = _Feed(self.device, ("image", "seg_mask"))
@@ -255,7 +318,7 @@ class ZeroShotSegmenter:
             idx = torch.arange(self.batch_size,
                                device=volumes.device).clamp_max(k - 1)
             volumes, masks = volumes[idx], masks[idx]
-        return self.dice(volumes, masks), k
+        return (self.dice(volumes, masks)[:k],)
 
     def infer(self, dataset, *, results_folder: Optional[str] = None,
               limit: Optional[int] = None,
@@ -268,17 +331,18 @@ class ZeroShotSegmenter:
         self.model.eval()
         all_dice: List[np.ndarray] = []
         try:
-            for dev, k in _one_deep_map(dataset, n, self.batch_size,
+            for (dev,) in _one_deep_map(dataset, n, self.batch_size,
                                         self._dispatch,
                                         num_workers=num_workers,
-                                        pool=self.feed.pool):
-                all_dice.extend(dev.cpu().numpy()[:k])
+                                        pool=self.feed.pool,
+                                        group=self.group):
+                all_dice.extend(dev.cpu().numpy())
         finally:
             self.model.train(was_training)
         dice = np.nanmean(np.stack(all_dice), axis=0)
         res = {f"dice_class_{i}": float(v) for i, v in enumerate(dice)}
         res["mean_dice"] = float(np.nanmean(dice))
-        if results_folder:
+        if results_folder and rank(self.group) == 0:
             os.makedirs(results_folder, exist_ok=True)
             np.save(os.path.join(results_folder, "dice_scores.npy"),
                     np.stack(all_dice))

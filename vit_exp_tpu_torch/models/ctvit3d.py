@@ -13,6 +13,17 @@ with ff_impl="pallas_int8"): int8 attention and the int8 feed-forward, and
 with ``fuse_qkv`` the int8 LN+qkv projection and out-projection too.  The
 state dict is the same in every mode.
 
+``seq_group`` shards the tokens over a process group (sequence
+parallelism, the JAX ``seq_axis``): every rank runs the patch embedding
+and the position embedding on the whole volume, takes its chunk of the
+tokens (rank r of R the r-th of R equal chunks; a token count R does not
+divide raises), runs the blocks on it with ring attention (the nulls
+merged outside the ring; the norms, projections and feed-forward are
+per-token, so local), and the full grid is gathered back at the end by the
+differentiable all-gather of parallel/collectives.py.  The parameter names
+do not change.  As in the JAX package, only a caller that builds the tower
+itself sets it; no config or CLI key does.
+
 Module and parameter names follow the reference ``visual_transformer``:
 ``to_patch_emb.{1,2,3}`` (LN in, Linear, LN out), ``enc_3D.layers.{i}.1``
 (attention) and ``.3`` (feed-forward), ``enc_3D.norm_out``.
@@ -34,6 +45,7 @@ from vit_exp_tpu_torch.ops.fused_proj import (fused_ln_qkv, fused_ln_qkv_int8,
                                               int8_proj)
 from vit_exp_tpu_torch.ops.patches import fused_patch_embed
 from vit_exp_tpu_torch.ops.posemb import sincos_pos_embed_3d
+from vit_exp_tpu_torch.parallel.collectives import all_gather, rank, world
 
 ATTN_IMPLS = ("pallas_static", "pallas")
 
@@ -87,7 +99,8 @@ class CosineSelfAttention(nn.Module):
         nn.init.ones_(self.q_scale)
         nn.init.ones_(self.k_scale)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ring_group=None) -> torch.Tensor:
+        """x: (b, n, dim), the rank's token shard under ``ring_group``."""
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
         cd = self.policy.compute_dtype
@@ -114,7 +127,7 @@ class CosineSelfAttention(nn.Module):
             null_k=nkv[:, :, 0], null_v=nkv[:, :, 1],
             q_scale=self.q_scale, k_scale=self.k_scale, scale=self.scale,
             use_kernel=self.use_kernels, static_max=self.static_max,
-            quantized=self.int8)
+            quantized=self.int8, ring_group=ring_group)
         out = out.transpose(1, 2).reshape(b, n, h * dh)
         if self.int8 and self.fuse_qkv:
             return int8_proj(out.to(cd), self.to_out.weight.t(),
@@ -140,8 +153,8 @@ class TransformerBlock(nn.Module):
             dim, ff_mult, policy=policy, use_kernel=use_kernels, int8=int8,
             device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self._modules["1"](x)
+    def forward(self, x: torch.Tensor, ring_group=None) -> torch.Tensor:
+        x = x + self._modules["1"](x, ring_group)
         return x + self._modules["3"](x)
 
 
@@ -160,10 +173,12 @@ class CTViT3D(nn.Module):
                  attn_scale: Optional[float] = None, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
                  attn_impl: str = "pallas_static", remat: bool = False,
-                 fuse_qkv: bool = False, int8: bool = False, device=None):
+                 fuse_qkv: bool = False, int8: bool = False, device=None,
+                 seq_group=None):
         super().__init__()
         self.dim = dim
         self.remat = remat
+        self.seq_group = seq_group
         self.patch_size, self.temporal_patch_size = patch_size, temporal_patch_size
         self.grid = (temporal_size // temporal_patch_size,
                      image_size // patch_size, image_size // patch_size)
@@ -200,11 +215,19 @@ class CTViT3D(nn.Module):
             use_kernel=self.use_kernels)
         x = ln_out(x).reshape(b, n_t * n_h * n_w, self.dim)
         x = x + self.pos_embed.to(self.policy.compute_dtype)[None]
+        group = self.seq_group
+        if group is not None:
+            ring, n_tok = world(group), x.shape[1]
+            if n_tok % ring:
+                raise ValueError(f"{n_tok} tokens not divisible by {ring} "
+                                 f"seq shards")
+            chunk = n_tok // ring
+            x = x[:, rank(group) * chunk:(rank(group) + 1) * chunk]
         for block in self.enc_3D.layers:
             if self.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(block, x,
+                x = torch.utils.checkpoint.checkpoint(block, x, group,
                                                       use_reentrant=False)
             else:
-                x = block(x)
-        x = self.enc_3D.norm_out(x)
+                x = block(x, group)
+        x = all_gather(self.enc_3D.norm_out(x), group, dim=1)
         return x.reshape(b, n_t, n_h, n_w, self.dim)

@@ -13,6 +13,12 @@ vit_exp_tpu/models/losses.py), all in fp32 as the JAX package casts.
 
 torch semantics as the reference has them: cosine similarity clamps each
 norm at 1e-8, BCE on probabilities clamps its log terms at -100.
+
+``group`` (a data-parallel process group, parallel/collectives.py): the
+terms that sum over the batch before they divide take their sums over the
+global batch (Tversky's tp, fp and fn, differentiably; the weighted BCE's
+class counts, which carry no gradient); the means over samples stay
+local, and the gradient average over the group makes them global.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from vit_exp_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def infonce_loss(text_latents: torch.Tensor, image_latents: torch.Tensor,
@@ -126,13 +134,14 @@ def _focal(p, t, gamma, alpha):
 
 
 def tversky_loss(p: torch.Tensor, t: torch.Tensor, alpha: float, beta: float,
-                 smooth: float, gamma: float) -> torch.Tensor:
+                 smooth: float, gamma: float, group=None) -> torch.Tensor:
     """Binary Tversky over all elements (SMP's TverskyLoss on
-    probabilities), focal form (1 − TI)^gamma."""
+    probabilities), focal form (1 − TI)^gamma; tp, fp and fn summed over
+    the group's global batch."""
     p32, t32 = p.float(), t.float()
-    tp = (p32 * t32).sum()
-    fp = (p32 * (1.0 - t32)).sum()
-    fn = ((1.0 - p32) * t32).sum()
+    tp, fp, fn = all_reduce_sum(torch.stack([
+        (p32 * t32).sum(), (p32 * (1.0 - t32)).sum(),
+        ((1.0 - p32) * t32).sum()]), group)
     ti = (tp + smooth) / (tp + alpha * fp + beta * fn + smooth)
     return (1.0 - ti) ** gamma
 
@@ -156,10 +165,11 @@ def open_seg_loss(seg_preds: torch.Tensor, seg_mask_flatten: torch.Tensor,
                   hyper: Optional[Dict[str, Any]] = None,
                   fusion_head_apply: Optional[
                       Callable[[torch.Tensor], torch.Tensor]] = None,
-                  return_class_loss: bool = False):
+                  return_class_loss: bool = False, group=None):
     """seg_preds (B, L, h), seg_mask_flatten (B, L, C), prompt_logits
     (B, C, h) → the scalar loss, or (loss, per-class loss or None) with
-    ``return_class_loss``."""
+    ``return_class_loss``.  ``group``: the global-batch sums of the
+    weighted BCE and Tversky arms (the module docstring)."""
     hyper = hyper or {}
     if hyper.get("choose_cls") is not None:
         seg_mask_flatten, prompt_logits = choose_cls(
@@ -185,8 +195,9 @@ def open_seg_loss(seg_preds: torch.Tensor, seg_mask_flatten: torch.Tensor,
         sim = _sim01(seg_preds, prompt_logits).reshape(-1, C)
         tf = t.reshape(-1, C)
         pos, neg = (tf == 1).float(), (tf == 0).float()
-        n_pos = pos.sum(dim=0) + 1e-6
-        n_neg = neg.sum(dim=0) + 1e-6
+        counts = all_reduce_sum(torch.stack([pos.sum(dim=0),
+                                             neg.sum(dim=0)]), group)
+        n_pos, n_neg = counts[0] + 1e-6, counts[1] + 1e-6
         n_total = n_pos + n_neg
         weights = (n_total / (2 * n_pos)) * pos + (n_total / (2 * n_neg)) * neg
         per_elem = bce_probs(sim, tf) * weights
@@ -206,11 +217,11 @@ def open_seg_loss(seg_preds: torch.Tensor, seg_mask_flatten: torch.Tensor,
         tt = t.transpose(1, 2)
         if return_class_loss:
             class_loss = torch.stack([
-                tversky_loss(p[:, c], tt[:, c], alpha, beta, smooth, gamma)
-                for c in range(C)])
+                tversky_loss(p[:, c], tt[:, c], alpha, beta, smooth, gamma,
+                             group) for c in range(C)])
             loss = class_loss.sum() / C
         else:
-            loss = tversky_loss(p, tt, alpha, beta, smooth, gamma)
+            loss = tversky_loss(p, tt, alpha, beta, smooth, gamma, group)
     elif loss_type == "fusion_focal_loss":
         if fusion_head_apply is None:
             raise ValueError("fusion_focal_loss needs the fusion head")

@@ -23,6 +23,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from vit_exp_tpu_torch.parallel.collectives import all_reduce_sum
+
 
 class MLMDraws(NamedTuple):
     scores: torch.Tensor       # (b, n) U[0, 1): selection order
@@ -80,9 +82,12 @@ def mlm_corrupt(input_ids: torch.Tensor, draws: MLMDraws, *,
 
 
 def mlm_loss(logits: torch.Tensor, targets: torch.Tensor,
-             loss_mask: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy over the masked positions (fp32)."""
+             loss_mask: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean cross-entropy over the masked positions (fp32); under a
+    data-parallel ``group`` over the global batch's masked positions (both
+    sums taken over the group, parallel/collectives.py)."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
     m = loss_mask.float()
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+    num, den = all_reduce_sum(torch.stack([(nll * m).sum(), m.sum()]), group)
+    return num / den.clamp_min(1.0)

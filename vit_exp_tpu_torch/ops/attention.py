@@ -12,6 +12,11 @@ default, its first route) is the static-max kernel K1: the logits are
 bounded by the cosine structure and the nulls seed its accumulator.  False
 (the JAX package's training default, attn_impl="pallas") prepends the nulls
 to k/v and runs the online-softmax kernel K15.
+``ring_group`` is the JAX ``impl="ring"`` (sequence parallelism): q, k
+and v are this rank's token shard, the attention runs round the group
+(ops/ring_attention.py, K15 with lse per chunk, whatever ``static_max``
+says), and the nulls stay out of the ring: each shard merges them once by
+the log-sum-exp identity, in fp32.
 ``quantized=True`` is the int8 serving path (the JAX ``quantized=True`` of
 ``cosine_attention`` and ``cosine_attention_packed``): int8 QKᵀ through
 ``attention_static_int8``, forward only.  It refuses a scale with
@@ -32,6 +37,7 @@ from vit_exp_tpu_torch.ops.flash_attention import (attention_static_int8,
                                                    flash_attention,
                                                    flash_attention_online,
                                                    quantize_qk)
+from vit_exp_tpu_torch.ops.ring_attention import merge_nulls, ring_attention
 
 
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -55,12 +61,18 @@ def logit_bound(q_scale: Optional[torch.Tensor],
 def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
                      k_scale=None, scale: Optional[float] = None,
                      use_kernel: bool = True, static_max: bool = True,
-                     quantized: bool = False) -> torch.Tensor:
+                     quantized: bool = False, ring_group=None,
+                     mask=None, attn_bias=None) -> torch.Tensor:
     """q, k, v: (b, h, n, d); null_k/null_v: (h, n_null, d); q_scale/k_scale:
-    (d,).  Returns (b, h, n, d)."""
+    (d,).  Returns (b, h, n, d).  No route takes a mask or a bias (the JAX
+    "pallas" and "ring" impls refuse them too): either raises."""
+    if mask is not None or attn_bias is not None:
+        raise NotImplementedError("cosine_attention takes no mask or bias")
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if ring_group is not None and quantized:
+        raise ValueError("the int8 attention does not run over a ring")
     if quantized:
         if not static_max:
             raise ValueError("quantized=True is only implemented with "
@@ -79,6 +91,12 @@ def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
         q = q * q_scale.to(q.dtype)
     if k_scale is not None:
         k = k * k_scale.to(k.dtype)
+    if ring_group is not None:
+        out, lse = ring_attention(q, k, v, group=ring_group, scale=scale,
+                                  use_kernel=use_kernel, return_lse=True)
+        if nk is not None:
+            out, _ = merge_nulls(out, lse, q, nk, nv, scale)
+        return out.to(v.dtype)
     if not static_max:
         return flash_attention_online(q, k, v, scale=scale, null_k=nk,
                                       null_v=nv, use_kernel=use_kernel)

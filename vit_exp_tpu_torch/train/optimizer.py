@@ -25,6 +25,12 @@ JAX package's ``TrainState.step``, from which the train step derives its
 random draws (train/steps.py), so a resumed run draws what an unbroken one
 does.
 
+``group`` (data parallelism): each micro-step's gradients are averaged
+over the group's ranks after the zero fill and before they join the
+accumulation (parallel/collectives.py::average_gradients, one all-reduce
+of a flat buffer); the mean is linear, so accumulating averaged gradients
+is averaging accumulated ones.
+
 ``AdamWOptax`` is the fine-tuning optimizer (finetune/, text_classifier/),
 ``optax.adamw(schedule, weight_decay=wd)`` as the JAX package builds it
 there, which is NOT the training optimizer above: b2 0.999, weight decay
@@ -41,6 +47,8 @@ import math
 from typing import Callable, Iterable
 
 import torch
+
+from vit_exp_tpu_torch.parallel.collectives import average_gradients
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -71,8 +79,9 @@ class Optimizer:
 
     def __init__(self, params: Iterable[torch.nn.Parameter], *, lr: float,
                  wd: float, max_grad_norm: float, warmup_steps: int,
-                 accumulation_steps: int = 1):
+                 accumulation_steps: int = 1, group=None):
         self.params = [p for p in params if p.requires_grad]
+        self.group = group
         self.max_grad_norm = max_grad_norm
         self.grad_norm = None
         self.count = 0   # micro-steps taken
@@ -103,6 +112,7 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        average_gradients(self.params, self.group)
         self.count += 1
         if self.acc is not None:
             n = self.mini_step
@@ -140,12 +150,13 @@ class Optimizer:
                 a.copy_(saved)
 
 
-def build_optimizer(trainer_cfg, params) -> Optimizer:
+def build_optimizer(trainer_cfg, params, group=None) -> Optimizer:
     return Optimizer(params, lr=trainer_cfg.lr, wd=trainer_cfg.wd,
                      max_grad_norm=trainer_cfg.max_grad_norm,
                      warmup_steps=getattr(trainer_cfg, "warmup_steps", 0),
                      accumulation_steps=getattr(
-                         trainer_cfg, "gradient_accumulation_steps", 1))
+                         trainer_cfg, "gradient_accumulation_steps", 1),
+                     group=group)
 
 
 def finetune_schedule(lr: float, warmup_steps: int,

@@ -32,6 +32,20 @@ chip_smoke.py fixes step 0's for the kernel and plain paths).  ``config``
 is duck-typed: anything with a ``ct_clip_arch`` holding the fields these
 read (the JAX package's ``ExperimentConfig``); missing fields take the JAX
 defaults.
+
+``group`` (data parallelism, the JAX ``n_data_shards``): each rank steps
+on its own rows of the global batch and every term is taken over the
+global batch as JAX takes it, by the gradient rule of
+parallel/collectives.py.  InfoNCE runs over the text and image latents
+gathered from every rank, divided by the local batch (JAX's "local batch
+size"); SimCLR's NT-Xent over the gathered z1 and z2; the MLM mean and
+the Tversky arm over sums taken over the group; the per-sample means (the
+BCE, SimSiam, the other open-seg arms) locally.  The draws are those of
+the global batch (the global shape, from (seed, step)), of which each rank
+takes its rows, so the ranks of a step draw what one process draws at the
+global batch; ``draws=`` are likewise the global batch's.  The optimizer
+averages the gradients over the group, and the metrics come back
+averaged over it, the global values that every rank then holds.
 """
 
 from __future__ import annotations
@@ -48,6 +62,9 @@ from vit_exp_tpu_torch.models.mlm import draw_mlm, mlm_corrupt, mlm_loss
 from vit_exp_tpu_torch.models.visual_ssl import (draw_augment, nt_xent_loss,
                                                  random_augment_3d,
                                                  simsiam_loss)
+from vit_exp_tpu_torch.parallel.collectives import (all_gather,
+                                                    mean_over_ranks, rank,
+                                                    world)
 
 SSL_TYPES = ("simsiam", "simclr")
 
@@ -71,7 +88,19 @@ def step_draws(seed: int, step: int, ids_shape, vocab_size: int, *,
     return out
 
 
-def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
+def local_rows(draws: Dict, rows: slice) -> Dict:
+    """The draws of a batch's ``rows`` (a slice of the global batch)."""
+    out = dict(draws)
+    if "mlm" in out:
+        out["mlm"] = type(out["mlm"])(*(t[rows] for t in out["mlm"]))
+    if "views" in out:
+        out["views"] = tuple(type(v)(*(t[rows] for t in v))
+                             for v in out["views"])
+    return out
+
+
+def make_train_steps(model, optimizer, config,
+                     group=None) -> Dict[str, Callable]:
     """Returns {data_type: step}.  step(batch, loss_weight, *, draws=None)
     takes a dict of device tensors ("image" (B, 1, T, H, W)
     and, by type, "input_ids" (B, L) and "attention_mask", or "seg_mask",
@@ -79,7 +108,8 @@ def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
     model's parameters in place and returns its metrics ({"cl_loss"} and,
     where on, "text_ssl_loss" and "image_ssl_loss"; {"seg_loss"} or
     {"open_seg_loss"}; and "loss", the weighted total) as 0-dim tensors
-    (no host read)."""
+    (no host read).  ``group``: the data-parallel group (the module
+    docstring); the optimizer must average over the same one."""
     ca = getattr(config, "ct_clip_arch", None)
     decoupled = bool(getattr(ca, "decoupled_contrastive_learning", False))
     use_mlm = bool(getattr(ca, "use_mlm", False))
@@ -101,16 +131,20 @@ def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
         optimizer.step()
         out = {k: v.detach() for k, v in metrics.items()}
         out["loss"] = loss.detach()
-        return out
+        return mean_over_ranks(out, group)
 
     def ssl_terms(batch, draws):
         """{name: (weight, loss)} of the enabled self-supervision terms."""
         ids = batch["input_ids"]
+        b = ids.shape[0]
         if draws is None:
             draws = step_draws(seed, getattr(optimizer, "count", 0),
-                               ids.shape,
+                               (b * world(group), *ids.shape[1:]),
                                model.text_transformer.config.vocab_size,
                                mlm=use_mlm, ssl=use_ssl)
+        if group is not None:
+            draws = local_rows(draws, slice(rank(group) * b,
+                                            (rank(group) + 1) * b))
         terms = {}
         if use_mlm:
             d = draws["mlm"]
@@ -120,8 +154,8 @@ def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
                                                   103)),
                 mask_prob=float(getattr(ca, "mlm_mask_prob", 0.15)))
             logits = model.mlm_logits(corrupted, batch.get("attention_mask"))
-            terms["text_ssl_loss"] = (text_w,
-                                      mlm_loss(logits, ids, loss_mask))
+            terms["text_ssl_loss"] = (text_w, mlm_loss(logits, ids,
+                                                       loss_mask, group))
         if use_ssl:
             z1, z2 = (model.ssl_project(random_augment_3d(batch["image"], d))
                       for d in draws["views"])
@@ -129,7 +163,8 @@ def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
                 loss = simsiam_loss(model.ssl_predict(z1), z1,
                                     model.ssl_predict(z2), z2)
             else:
-                loss = nt_xent_loss(z1, z2)
+                loss = nt_xent_loss(all_gather(z1, group),
+                                    all_gather(z2, group))
             terms["image_ssl_loss"] = (image_w, loss)
         return terms
 
@@ -138,7 +173,8 @@ def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
         out = model(batch["image"], batch["input_ids"],
                     batch.get("attention_mask"))
         b = out["text_latents"].shape[0]
-        cl_loss = infonce_loss(out["text_latents"], out["image_latents"],
+        cl_loss = infonce_loss(all_gather(out["text_latents"], group),
+                               all_gather(out["image_latents"], group),
                                out["temperature"], local_batch_size=b,
                                decoupled=decoupled)
         metrics = {"cl_loss": cl_loss}
@@ -166,7 +202,8 @@ def make_train_steps(model, optimizer, config) -> Dict[str, Callable]:
             out["prompt_logits"], loss_type=ca.open_seg_loss_type,
             hyper=ca.open_seg_loss_hyper_config,
             fusion_head_apply=(model.apply_fusion_head
-                               if ca.fusion_head is not None else None))
+                               if ca.fusion_head is not None else None),
+            group=group)
         return update({"open_seg_loss": loss}, loss, loss_weight)
 
     return {"imagereport": imagereport, "imageseg": imageseg,

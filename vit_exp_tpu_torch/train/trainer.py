@@ -52,9 +52,25 @@ vit_exp_tpu/train/trainer.py's ``CTClipTrainer``).
   is not taken past the run's last step, and a restore or a preemption
   drops it.  On the CPU the batches are used where they lie, with no copy.
 
+- Several processes (``mesh_config``, core/mesh.py; one process per
+  card, the process group joined before the trainer is built): the data
+  group is the default group, and each process loads its own share of the
+  global batch of batch_size × data shards (``batch_size × data /
+  process_count`` a loader batch, ValueError where that does not divide),
+  from the loader's stride of one shared permutation (shard_id = rank).
+  The steps take the global-batch terms over the group and the optimizer
+  averages the gradients (train/steps.py).  Rank 0 alone writes the
+  metrics and the checkpoints; a save that waits ends at a barrier, so
+  every rank then sees the file, and a resume loads the same step on every
+  rank.  The preemption flag is all-reduced (MAX) at each step boundary
+  and read at the next, so every rank stops and saves at the same step
+  and none is left waiting in a collective.  The eval and sample hooks run
+  on every rank on the same module (their engines start no collective);
+  only rank 0 logs them.  The sampler is a function of (seed, step), so
+  every rank runs the same sequence of data types.
+
 Not ported: the host-memory watchdog (a guard against a leak of the JAX
-package's TPU client) and the mesh and multi-host plumbing (the
-multi-device slice brings those).
+package's TPU client).
 """
 
 from __future__ import annotations
@@ -66,8 +82,11 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from vit_exp_tpu_torch.core import multihost
+from vit_exp_tpu_torch.core.mesh import MeshConfig, data_group
 from vit_exp_tpu_torch.data.loader import InfiniteLoader, Loader
 from vit_exp_tpu_torch.data.pinned import BatchCopier, DeviceBatch, PinnedPool
+from vit_exp_tpu_torch.parallel.collectives import all_reduce_max, world
 from vit_exp_tpu_torch.train.checkpoint import CheckpointManager
 from vit_exp_tpu_torch.train.optimizer import build_optimizer
 from vit_exp_tpu_torch.train.sampler import build_dataset_sampler
@@ -88,7 +107,8 @@ class CTClipTrainer:
                  datasets: Optional[List[Any]] = None,
                  resume_step: Optional[int] = None, use_wandb: bool = True,
                  eval_hooks: Optional[Dict[str, Callable]] = None,
-                 sample_hooks: Optional[Dict[str, Callable]] = None):
+                 sample_hooks: Optional[Dict[str, Callable]] = None,
+                 mesh_config: Optional[MeshConfig] = None):
         self.eval_hooks = dict(eval_hooks or {})
         self.sample_hooks = dict(sample_hooks or {})
         self.model = model.train()
@@ -98,16 +118,28 @@ class CTClipTrainer:
         self.results_folder = config.results_folder
         os.makedirs(self.results_folder, exist_ok=True)
 
+        self.group = data_group(mesh_config)
+        self.n_data_shards = world(self.group)
+        self.process_count = multihost.process_count()
+        self.is_main = multihost.is_main_process()
         self.datasets = datasets or []
         cuda = self.device.type == "cuda"
-        self.loaders = [
-            InfiniteLoader(Loader(
-                ds, batch_size=int(spec.get("batch_size", 1)), shuffle=True,
-                seed=config.random_seed, drop_last=True,
+        self.loaders = []
+        for spec, ds in zip(config.train_data_list, self.datasets):
+            global_batch = int(spec.get("batch_size", 1)) * self.n_data_shards
+            if global_batch % self.process_count:
+                raise ValueError(
+                    f"global batch {global_batch} (batch_size × data shards) "
+                    f"must divide evenly across {self.process_count} "
+                    f"processes")
+            self.loaders.append(InfiniteLoader(Loader(
+                ds, batch_size=global_batch // self.process_count,
+                shuffle=True, seed=config.random_seed, drop_last=True,
                 num_workers=int(spec.get("num_workers", 4)),
                 pool=(PinnedPool(PIN_SLOTS, _BATCH_KEYS, register=True)
-                      if cuda else None)))
-            for spec, ds in zip(config.train_data_list, self.datasets)]
+                      if cuda else None),
+                shard_id=multihost.process_index(),
+                num_shards=self.process_count)))
         self.copier = BatchCopier(self.device)
         # the next micro-step's batch, read ahead: (data set, device batch)
         self._ahead: Optional[tuple] = None
@@ -119,8 +151,10 @@ class CTClipTrainer:
         self.sampler = build_dataset_sampler(config.dataset_sampler,
                                              seed=config.random_seed)
 
-        self.optimizer = build_optimizer(self.trainer_cfg, model.parameters())
-        self.steps_by_type = make_train_steps(model, self.optimizer, config)
+        self.optimizer = build_optimizer(self.trainer_cfg, model.parameters(),
+                                         group=self.group)
+        self.steps_by_type = make_train_steps(model, self.optimizer, config,
+                                              group=self.group)
         self.step = 0
         # host seconds spent waiting for the loaders, and batches taken
         self.data_wait_s = 0.0
@@ -136,17 +170,23 @@ class CTClipTrainer:
         self.logger = MetricLogger(self.results_folder,
                                    project=config.project_name,
                                    exp_name=config.exp_name,
-                                   use_wandb=use_wandb)
+                                   use_wandb=use_wandb, enabled=self.is_main)
         self.status: Optional[str] = None
         self._preempted = False
+        self._flag: Optional[torch.Tensor] = None   # all-reduced, read late
         self._prev_handlers: Dict[int, Any] = {}
 
     # -- state ---------------------------------------------------------------
 
     def save(self, *, wait: bool = False) -> None:
-        self.ckpt.save(self.step, self.model.state_dict(),
-                       {"optimizer": self.optimizer.state_dict(),
-                        "step": self.step}, wait=wait)
+        """Rank 0 writes; with ``wait`` every rank leaves once the write is
+        on disk."""
+        if self.is_main:
+            self.ckpt.save(self.step, self.model.state_dict(),
+                           {"optimizer": self.optimizer.state_dict(),
+                            "step": self.step}, wait=wait)
+        if wait:
+            multihost.sync_hosts()
 
     def restore(self, step: int) -> None:
         self._ahead = None
@@ -224,6 +264,17 @@ class CTClipTrainer:
             self._prev_handlers[sig] = signal.signal(
                 sig, lambda *_: setattr(self, "_preempted", True))
 
+    def _stop_agreed(self) -> bool:
+        """Whether to stop for preemption at this step boundary: the local
+        flag for one process; under a group the flag all-reduced (MAX) at
+        the previous boundary, read now that its step is done, while this
+        boundary's all-reduce starts for the next."""
+        if self.group is None:
+            return self._preempted
+        prev, self._flag = self._flag, all_reduce_max(torch.tensor(
+            [float(self._preempted)], device=self.device), self.group)
+        return prev is not None and bool(prev.item())
+
     def train(self, num_steps: Optional[int] = None,
               profile_dir: Optional[str] = None) -> str:
         """Run to ``num_steps`` (default: the config's num_train_steps);
@@ -266,7 +317,7 @@ class CTClipTrainer:
                 pending = None
 
         while self.step < total:
-            if self._preempted:
+            if self._stop_agreed():
                 self._ahead = None
                 flush_pending()
                 self.save(wait=True)

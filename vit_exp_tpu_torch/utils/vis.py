@@ -10,6 +10,7 @@ the card's host needs neither matplotlib nor PIL.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from typing import Dict, List, Sequence
@@ -54,7 +55,9 @@ def vis_3d_img_list(volumes: Sequence[np.ndarray],
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """A 2D array in [0, 1] → an 8-bit grayscale PNG (round(255·v))."""
+    """A 2D array in [0, 1] → an 8-bit grayscale PNG (round(255·v)),
+    written to a file of this process and renamed into place, so processes
+    that write the same image to one path leave a whole file."""
     pixels = np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
     h, w = pixels.shape
     # each scanline is prefixed with filter type 0 (none)
@@ -65,7 +68,9 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     header = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)   # 8-bit gray
-    with open(path, "wb") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
                 + chunk(b"IDAT", zlib.compress(raw.tobytes()))
                 + chunk(b"IEND", b""))
+    os.replace(tmp, path)
