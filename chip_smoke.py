@@ -198,7 +198,18 @@
    the multi-host flags (an NCCL group of one rank on this card), the
    losses within NCCL_LOSS_RTOL, both step rates (from step
    NCCL_RATE_FROM), the last step's launches.
-12. Prints one JSON line with every kernel's numbers (the rows of 7-11 once
+12. Tensor parallelism and one server over the grid (phases "tp_by_rank"
+   and "serve_mesh"): one full-width tower block (attn_impl="pallas",
+   13,824 tokens) forward and backward for a seeded cotangent, whole and
+   as the model-2 and model-4 ranks' slices in one process
+   (``tp_by_rank``: each rank's heads and GEGLU units, the partial
+   outputs summed in fp32), on the kernels: output, dx and every
+   parameter gradient within TP_REL_TOL of the whole block, each rank's
+   K15, pair, K2 and K8 launched once, both timed, and the slices' kernel
+   rows (K15 with lse, the pair, K2's three, K8's six at 4 and 2 heads,
+   2I 2,048 and 1,024); then ``serve --mesh 1,1,1`` against the flagless
+   server on the same requests, bit for bit.
+13. Prints one JSON line with every kernel's numbers (the rows of 7-12 once
    for each path, with that path's launches), the card line, the
    throughput lines, and last ``{"ok": true, "device": {...}}``.
 
@@ -4007,6 +4018,259 @@ def ring_phase(device, card: str, arch=ARCH, batch=BATCH, ring=RING_SHARDS,
                 seconds=seconds)
 
 
+# tensor parallelism: one full-width block as the model group's ranks run
+# it, in one process
+TP_SPLITS = (2, 4)
+TP_REL_TOL = 2e-2   # the sliced block against the whole one, relative L2
+TP_SEED = 35
+
+
+def tp_slices(block, parts: int):
+    """``parts`` copies of a TransformerBlock, copy m cut to rank m's heads
+    and units as parallel/sharding.py cuts them for tensor parallelism,
+    with no group (``tp_by_rank`` takes the sums over ranks); returns (the
+    copies, the cuts by parameter name)."""
+    import copy
+
+    from vit_exp_tpu_torch.parallel.sharding import cut_to_rank
+
+    slices = [copy.deepcopy(block) for _ in range(parts)]
+    specs = [cut_to_rank(s, m, parts) for m, s in enumerate(slices)]
+    return slices, specs[0]
+
+
+def tp_by_rank(slices, specs, x, dout):
+    """A tensor-parallel block's arithmetic for each rank in one process, as
+    ``TransformerBlock`` runs it under ``tp_group`` (models/ctvit3d.py,
+    models/layers.py): each rank's attention over its heads to the
+    out-projection's fp32 partial sum, the ranks' sum in fp32 rounded once,
+    the residual; each rank's K2 over its units (bf16 partials), their sum
+    in fp32 rounded once, the residual; backward for the cotangent
+    ``dout`` (the input's cotangent sums the ranks', as copy_to_group's
+    backward does).  Returns the output, dx and every parameter's gradient
+    of the whole block (cut ones joined, whole ones summed over ranks)."""
+    from vit_exp_tpu_torch.parallel.sharding import tp_join
+
+    def same(t):
+        return t
+
+    x = x.detach().clone().requires_grad_()
+    a = torch.stack([s._modules["1"].partial(x, same) for s in slices])
+    x1 = x + a.sum(0).to(x.dtype)
+    f = torch.stack([s._modules["3"].partial(x1, same).float()
+                     for s in slices])
+    out = x1 + f.sum(0).to(x.dtype)
+    out.backward(dout)
+    grads = {}
+    for name, _ in slices[0].named_parameters():
+        parts = [dict(s.named_parameters())[name].grad for s in slices]
+        grads[name] = (tp_join(parts, specs[name]) if name in specs
+                       else torch.stack([p.float() for p in parts]).sum(0))
+    return out.detach(), x.grad, grads
+
+
+def tp_kernel_cases(device, parts: int, seed=TP_SEED):
+    """The kernels of one rank's block slice at full width, 13,824 tokens:
+    K15 with lse and the backward pair over 8/parts heads and the 13,826
+    concatenated keys, K2's three stages and K8's six at 2I = 4,096/parts;
+    each against its plain twin."""
+    from vit_exp_tpu_torch.ops import geglu_ff
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+    tag = f" (tensor-parallel slice, model {parts})"
+    d = ARCH["dim"]
+    inner = int(4.0 * 2 / 3 * d) // parts
+    m = (ARCH["temporal_size"] // ARCH["temporal_patch_size"]
+         * (ARCH["image_size"] // ARCH["patch_size"]) ** 2)
+    cases = [c for c in online_kernel_cases(
+        device, {**ARCH, "heads": ARCH["heads"] // parts}, batch=1,
+        seed=seed) if c.name != "K15 online-softmax attention"]
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=device) * std).to(bf)
+
+    x = randn(m, d)
+    mu, inv = geglu_ff.ln_stats(x, 1e-5)
+    w1p = randn(d, 2 * inner, std=d ** -0.5)
+    w2 = randn(inner, d, std=inner ** -0.5)
+    d1 = randn(2 * inner, std=0.1).float()
+    xn = geglu_ff.geglu_ff_x(x, mu, inv)
+    act = geglu_ff.geglu_ff_h(xn, w1p, d1)
+    ff, k2_src = "vit_exp_tpu_torch/csrc/geglu_ff.cu", \
+        "vit_exp_tpu/ops/geglu_ff.py:63"
+    cases += [
+        Case("K2 GEGLU feed-forward: x̂ = bf16((x − μ)·inv)", "cuda", ff,
+             k2_src, lambda: geglu_ff.geglu_ff_x(x, mu, inv),
+             lambda: geglu_ff.geglu_ff_x_plain(x, mu, inv), "K2x", {},
+             nbytes(x, mu, inv)),
+        Case("K2 GEGLU feed-forward: act (x̂·W1' + d1, the GEGLU in the "
+             "epilogue)", "cuda", ff, k2_src,
+             lambda: geglu_ff.geglu_ff_h(xn, w1p, d1),
+             lambda: geglu_ff.geglu_ff_h_plain(xn, w1p, d1), "K2h",
+             {"bf16": 2 * m * d * 2 * inner}, nbytes(xn, w1p, d1),
+             product_timer("K2's act stage: torch.mm(x̂, W1')",
+                           lambda: torch.mm(xn, w1p))),
+        Case("K2 GEGLU feed-forward: out = act·W2", "cuda", ff, k2_src,
+             lambda: geglu_ff.geglu_ff_o(act, w2),
+             lambda: geglu_ff.geglu_ff_o_plain(act, w2), "K2o",
+             {"bf16": 2 * m * inner * d}, nbytes(act, w2),
+             product_timer("K2's out stage: torch.mm(act, W2)",
+                           lambda: torch.mm(act, w2))),
+    ] + k8_cases(device, d, inner, m, g)
+    for case in cases:
+        case.name += tag
+    return cases
+
+
+def tp_phase(device, card: str, splits=TP_SPLITS, seed=TP_SEED):
+    """Tensor parallelism at full width in one process: one tower block
+    (dim 768, 8 heads × 32, I 2,048, attn_impl="pallas", bf16) on one
+    volume's 13,824 tokens, forward and backward for a seeded cotangent,
+    whole and as ``parts`` ranks' slices (``tp_by_rank``) for each of
+    ``splits``: the slices on the kernels held to the whole block on the
+    kernels (output, dx and every parameter's gradient within TP_REL_TOL
+    relative L2), their launches counted (each of K15, the pair, K2 and K8
+    once a rank), both timed; then the slices' kernel rows against their
+    plain twins."""
+    from vit_exp_tpu_torch.models.ctvit3d import TransformerBlock
+    from vit_exp_tpu_torch.models.factory import init_parameters_
+
+    t_start = time.perf_counter()
+    n = (ARCH["temporal_size"] // ARCH["temporal_patch_size"]
+         * (ARCH["image_size"] // ARCH["patch_size"]) ** 2)
+    block = TransformerBlock(ARCH["dim"], ARCH["heads"], ARCH["dim_head"],
+                             None, attn_impl="pallas", device=device)
+    init_parameters_(block, seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():   # norms and scales away from their init
+        for name, p in block.named_parameters():
+            if p.ndim == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=g,
+                                         device=device))
+    bf = torch.bfloat16
+    x = torch.randn(1, n, ARCH["dim"], generator=g, device=device).to(bf)
+    dout = torch.randn(1, n, ARCH["dim"], generator=g, device=device,
+                       ).to(bf) * 1e-2
+
+    def whole():
+        xx = x.detach().clone().requires_grad_()
+        block.zero_grad(set_to_none=True)
+        out = block(xx)
+        out.backward(dout)
+        return out.detach(), xx.grad, {k: p.grad for k, p in
+                                       block.named_parameters()}
+
+    ref = whole()
+    whole_ms = cuda_ms(whole, 3)
+    out = dict(rows=[], errors={}, ms={}, whole_ms=whole_ms)
+    for parts in splits:
+        slices, specs = tp_slices(block, parts)
+
+        def run():
+            for s in slices:
+                s.zero_grad(set_to_none=True)
+            return tp_by_rank(slices, specs, x, dout)
+
+        got, counts = count_launches(run)
+        torch.cuda.synchronize()
+        k8 = {"K8y": parts, "K8dh": parts, "K8dy": parts, "K8dx": parts,
+              "K8w": 2 * parts, "K8sum": 4 * parts}
+        expected = expected_launches({"K15": parts, "dKdV": parts,
+                                      "dQ": parts, "K2x": parts,
+                                      "K2h": parts, "K2o": parts, **k8})
+        print(f"tensor-parallel block, model {parts}: launches of one "
+              f"forward and backward {counts} (expected {expected})",
+              flush=True)
+        check(counts == expected, (parts, counts))
+        errs = {"out": compare(got[0], ref[0])[0],
+                "dx": compare(got[1], ref[1])[0],
+                **{f"d[{k}]": compare(got[2][k], v)[0]
+                   for k, v in ref[2].items()}}
+        worst = max(errs, key=errs.get)
+        print(f"tensor-parallel block, model {parts}, against the whole "
+              f"block on the kernels: relative L2 out {errs['out']:.3e}, dx "
+              f"{errs['dx']:.3e}, parameter gradients "
+              f"{ {k: f'{v:.2e}' for k, v in errs.items() if k[0] == 'd' and k != 'dx'} }"
+              f"; worst {worst} {errs[worst]:.3e} (bound {TP_REL_TOL})",
+              flush=True)
+        check(all(math.isfinite(e) and e <= TP_REL_TOL
+                  for e in errs.values()), (parts, errs))
+        out["errors"][parts] = errs
+        out["ms"][parts] = cuda_ms(run, 3)
+        print(f"tensor-parallel block, model {parts}, forward and backward "
+              f"of its {parts} slices in one process {out['ms'][parts]:.3f} "
+              f"ms against the whole block {whole_ms:.3f} ms on {card}",
+              flush=True)
+        del got, slices
+        torch.cuda.empty_cache()
+        rows = compare_kernels(tp_kernel_cases(device, parts))
+        out["rows"] += path_rows(rows, f"tensor-parallel block, model "
+                                       f"{parts}, one rank's slice", {
+            k: v // parts for k, v in counts.items()})
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase tp_by_rank: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def serve_mesh_phase(device, card: str, n=4, lone=2):
+    """``serve --mesh 1,1,1`` on the card against the flagless server, both
+    at their int8 default on the same seeded random weights
+    (RUN_TRAIN_CONFIG's full-width arch): predict_batch of ``n`` volumes,
+    then ``lone`` of them as lone /classify requests to each server, every
+    answer bit for bit."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    from vit_exp_tpu_torch.cli import serve
+
+    t_start = time.perf_counter()
+    services = {}
+    for name, extra in (("flagless", []), ("mesh", ["--mesh", "1,1,1"])):
+        args = serve.parse_args(["--config", str(RUN_TRAIN_CONFIG), *extra])
+        services[name] = serve.build_service(args, device)
+    engine, _, shape, ch = services["flagless"]
+    g = torch.Generator().manual_seed(37)
+    vols = torch.rand((n, ch, *shape), generator=g).numpy()
+    probs = {k: s[0].predict_batch(vols) for k, s in services.items()}
+    check(np.array_equal(probs["mesh"], probs["flagless"]),
+          "serve --mesh 1,1,1 predict_batch")
+    answers = {}
+    for name, (eng, latent_fn, shp, chn) in services.items():
+        srv = serve.build_server(eng, latent_fn, shp, 0, max_batch=1,
+                                 channels=chn)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{srv.server_address[1]}/classify"
+            got = []
+            for v in vols[:lone]:
+                buf = io.BytesIO()
+                np.save(buf, v)
+                body = json.dumps({"volume": base64.b64encode(
+                    buf.getvalue()).decode()}).encode()
+                req = urllib.request.Request(url, body, {
+                    "Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    got.append(json.loads(resp.read())["probs"])
+            answers[name] = got
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv.batcher.close()
+    check(answers["mesh"] == answers["flagless"],
+          "serve --mesh 1,1,1 answers")
+    seconds = time.perf_counter() - t_start
+    print(f"serve --mesh 1,1,1 on the card: predict_batch of {n} volumes "
+          f"and {lone} lone /classify requests bit for bit the flagless "
+          f"server's (int8); phase serve_mesh: {seconds:.1f} s on {card}",
+          flush=True)
+    del services, engine
+    return dict(seconds=seconds)
+
+
 def free_port() -> int:
     import socket
 
@@ -4354,6 +4618,12 @@ def main() -> int:
         nccl = nccl_phase(device, folder, train_expected, card)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
+    release(device)
+    # tensor parallelism's arithmetic at full width, then serve --mesh
+    tp = tp_phase(device, card)
+    release(device)
+    serve_mesh_phase(device, card)
+    release(device)
     mixed_step = train_launches(PLANTED_ARCH["transformer_blocks"])
     print(f"planted_mixed, launches of each step type in step "
           f"{MIXED_COUNT_STEP}: {mixed['by_type']} (expected {mixed_step} "
@@ -4414,6 +4684,7 @@ def main() -> int:
     real_rows += path_rows(rows["lipro"], "run_finetune lipro --infer",
                            aux["lipro"]["infer_launches"])
     real_rows += ring["rows"]
+    real_rows += tp["rows"]
     real_rows += path_rows(train_rows, "run_train through the multi-host "
                            "flags, NCCL group of one rank, step "
                            f"{NCCL_STEPS}", nccl["launches"])

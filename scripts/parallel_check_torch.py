@@ -1,7 +1,9 @@
-"""Data and sequence parallelism of the PyTorch port across several cards,
-one process per card (the paths that one card cannot show: ring attention
-with its permutes between cards, the data-parallel step's gathers and
-gradient average over NCCL, the engines' gathers).
+"""Data, sequence, parameter and tensor parallelism of the PyTorch port
+across several cards, one process per card (the paths that one card
+cannot show: ring attention with its permutes between cards, the
+data-parallel step's gathers and gradient average over NCCL, the engines'
+gathers and their one int8 k scale, the sharded parameters, the
+tensor-parallel sums), and one server over every card.
 
     python scripts/parallel_check_torch.py [--procs N] [--cpu]
 
@@ -31,7 +33,32 @@ the same on the CPU: gloo processes, the tiny arch, the plain twins.
    batch; the clip to max_grad_norm then makes the updates alike.
 3. engine: ``ZeroShotClassifier`` with the group (bf16, 1 volume a rank)
    over 8 synthetic volumes: the probabilities bit for bit the
-   one-process engine's at 1 volume a batch.
+   one-process engine's at 1 volume a batch; then (F6) the int8 engine at
+   1 volume a rank bit for bit one process's int8 engine at N volumes a
+   batch (the k scale over the global batch).
+4. grids (core/mesh.py, parallel/sharding.py), each GRID_STEPS steps of
+   the contrastive step at the global batch of 4 from one seed:
+   ``4,1,1`` (data parallel) and ``1,4,1`` (parameters, gradients and
+   moments sharded over the 4 cards): step 1's loss equal, its grad norm
+   within FSDP_NORM_RTOL, the gathered parameters after it within
+   FSDP_PARAM_RTOL (relative L2 a tensor, or 2·lr of each element for a
+   tensor moved by rounding noise) of the data-parallel ones; the later
+   steps' losses within FSDP_LOSS_RTOL and their grad norms printed (NCCL
+   sums a reduce-scatter in another order than an all-reduce, and Adam
+   turns a last-bit difference in a gradient that is rounding noise into
+   a step of up to lr, so the runs part after step 1: at this random
+   init the loss sits at chance and its gradient is mostly such noise);
+   the parameters after the last step the same on every card; each
+   card's bytes of parameters, gradients and moments between steps and
+   its peak memory; ``1,1,4`` and ``2,1,2`` (tensor parallel) against the
+   one-process step 1 at batch 4 (loss within LOSS_RTOL, grad norm within
+   GRAD_NORM_RTOL, of D·F × one process's: InfoNCE divides by the local
+   batch); every grid's warm step times.
+5. serve: ``serve --mesh N,1,1 --max_batch 4N`` in the parent (one
+   process, every card): 4N concurrent requests through its
+   micro-batcher, each dispatched batch's int8 answers bit for bit
+   ``predict_batch`` of that batch on one card; volumes/s of one batch of
+   4N through the split engine and through one card.
 
 Prints the card line and one JSON line of the numbers; any failed check
 exits non-zero.  The rank and reference outputs go to ``parallel/`` in
@@ -41,6 +68,7 @@ exits non-zero.  The rank and reference outputs go to ``parallel/`` in
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -69,7 +97,11 @@ CARD_ARCH = dict(dim=768, image_size=480, patch_size=20, temporal_size=240,
                  heads=8, channels=1, use_flash_attention=True)
 CPU_ARCH = dict(dim=24, image_size=8, patch_size=4, temporal_size=8,
                 temporal_patch_size=4, transformer_blocks=2, dim_head=4,
-                heads=2, channels=1, use_flash_attention=True)
+                heads=4, channels=1, use_flash_attention=True)
+GRID_STEPS = 3
+FSDP_LOSS_RTOL = 1e-3
+FSDP_NORM_RTOL = 1e-3
+FSDP_PARAM_RTOL = 1e-5
 TRAINER = dict(lr=1e-5, wd=0.0, max_grad_norm=0.5, warmup_steps=0,
                gradient_accumulation_steps=1)
 
@@ -89,8 +121,13 @@ def setting(cpu: bool):
     """(arch, BERT config, text length, ring shape) of the run."""
     from vit_exp_tpu_torch.models.bert import BertConfig
 
-    if cpu:
-        return (CPU_ARCH, BertConfig.tiny(), 12, (1, 2, 64, 8))
+    if cpu:   # 4 heads in each tower, so a model axis of 4 cuts them
+        return (CPU_ARCH, BertConfig(vocab_size=128, hidden_size=36,
+                                     num_hidden_layers=2,
+                                     num_attention_heads=4,
+                                     intermediate_size=64,
+                                     max_position_embeddings=64), 12,
+                (1, 2, 64, 8))
     n = (CARD_ARCH["temporal_size"] // CARD_ARCH["temporal_patch_size"]
          * (CARD_ARCH["image_size"] // CARD_ARCH["patch_size"]) ** 2)
     return (CARD_ARCH, BertConfig(), TEXT_LEN,
@@ -249,7 +286,8 @@ def step_run(device, arch, bert, text_len, group, rows) -> dict:
 # --- 3. the engine -----------------------------------------------------------
 
 
-def engine_probs(device, arch, bert, text_len, group, folder: Path):
+def engine_probs(device, arch, bert, text_len, group, folder: Path,
+                 int8=False, batch_size=1):
     """The engine's gathered probabilities (predicted.npz from rank 0)."""
     from vit_exp_tpu_torch.data.synthetic import SyntheticInferenceDataset
     from vit_exp_tpu_torch.eval.zero_shot import ZeroShotClassifier
@@ -261,14 +299,180 @@ def engine_probs(device, arch, bert, text_len, group, folder: Path):
         return {"input_ids": ids, "attention_mask": np.ones_like(ids)}
 
     a = types.SimpleNamespace(**arch)
-    model = build_ctclip(a, bert, device=device, attn_impl="pallas_static",
-                         fuse_qkv=True, seed=0)
+    mode = dict(int8=True) if int8 else dict(attn_impl="pallas_static")
+    model = build_ctclip(a, bert, device=device, fuse_qkv=True, seed=0,
+                         **mode)
     engine = ZeroShotClassifier(model, tokenizer, max_text_len=text_len,
-                                batch_size=1, group=group)
+                                batch_size=batch_size, group=group)
     t0 = time.perf_counter()
     engine.infer(SyntheticInferenceDataset(N_VOLUMES, arch=a),
                  results_folder=str(folder), num_workers=1)
     return time.perf_counter() - t0
+
+
+# --- 4. the grids --------------------------------------------------------------
+
+
+def grids(n: int) -> list:
+    """The grids over n ranks: data parallel, fsdp, tensor parallel and,
+    for an even n of 4 or more, data × model."""
+    out = [(n, 1, 1), (1, n, 1), (1, 1, n)]
+    if n >= 4 and n % 2 == 0:
+        out.append((2, 1, n // 2))
+    return out
+
+
+def local_bytes(model, opt) -> dict:
+    """This card's bytes of parameters, gradients and Adam moments."""
+    moments = [v for st in opt.opt.state.values() for k, v in st.items()
+               if torch.is_tensor(v) and k != "step"]
+    return {"params": sum(p.numel() * p.element_size()
+                          for p in model.parameters()),
+            "grads": sum(p.grad.numel() * p.grad.element_size()
+                         for p in model.parameters() if p.grad is not None),
+            "moments": sum(m.numel() * m.element_size() for m in moments)}
+
+
+def grid_run(device, arch, bert, text_len, sizes, keep=False) -> dict:
+    """GRID_STEPS contrastive steps on the grid ``sizes`` at the global
+    batch, this rank on its batch shard: each step's loss, grad norm,
+    time and this card's bytes after it; the peak memory from the
+    placement on; whether every card gathers the same parameters at the
+    end (and, with ``keep``, rank 0's gathered copy after step 1 on the
+    host)."""
+    from vit_exp_tpu_torch.core.mesh import MeshConfig, grid
+    from vit_exp_tpu_torch.models.factory import build_ctclip
+    from vit_exp_tpu_torch.parallel.collectives import gather_objects
+    from vit_exp_tpu_torch.parallel.sharding import Sharded
+    from vit_exp_tpu_torch.train.optimizer import build_optimizer
+    from vit_exp_tpu_torch.train.steps import make_train_steps
+
+    g = grid(MeshConfig(*sizes))
+    model = build_ctclip(types.SimpleNamespace(**arch), bert, device=device,
+                         attn_impl="pallas", seed=0).train()
+    sharding = Sharded(model, g)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    opt = build_optimizer(types.SimpleNamespace(**TRAINER),
+                          model.parameters(), sharding=sharding)
+    config = types.SimpleNamespace(ct_clip_arch=types.SimpleNamespace(
+        decoupled_contrastive_learning=False))
+    step = make_train_steps(model, opt, config, group=g.batch,
+                            sharding=sharding)["imagereport"]
+    per = BATCH // g.batch_shards
+    batch = {k: v[g.batch_index * per:(g.batch_index + 1) * per]
+             for k, v in global_batch(arch, bert.vocab_size, text_len,
+                                      device).items()}
+    out = {"losses": [], "norms": [], "step_s": [], "bytes": []}
+    for i in range(GRID_STEPS):
+        sync(device)
+        t0 = time.perf_counter()
+        out["losses"].append(float(step(batch, 1.0)["loss"]))
+        sync(device)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["norms"].append(float(opt.grad_norm))
+        out["bytes"].append(local_bytes(model, opt))
+        if i == 0:
+            if device.type == "cuda":
+                peak = torch.cuda.max_memory_allocated(device)
+            full = sharding.full_state_dict()   # every rank gathers
+            if keep:
+                out["full"] = {k: v.to("cpu", torch.float32, copy=True)
+                               for k, v in full.items()}
+            del full
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+    out["peak_gb"] = (max(peak, torch.cuda.max_memory_allocated(device))
+                      / 1e9 if device.type == "cuda" else None)
+    full = sharding.full_state_dict()
+    digest = [float(v.double().sum()) for v in full.values()]
+    digests = gather_objects(digest, torch.distributed.group.WORLD)
+    out["same_params"] = all(d == digests[0] for d in digests)
+    del model, opt, step, full, sharding
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def param_errors(a: dict, b: dict) -> dict:
+    """name → (relative L2 of a against b, max |a − b|)."""
+    return {k: (rel_l2(a[k], b[k]), float((a[k] - b[k]).abs().max()))
+            for k in b}
+
+
+# --- 5. serve over every card ---------------------------------------------------
+
+
+def serve_check(cpu: bool, n_cards: int, out: Path) -> dict:
+    """``serve --mesh N,1,1 --max_batch 4N`` (the parent: one process)
+    under 4N concurrent requests through its micro-batcher; every
+    dispatched batch's answers against ``predict_batch`` of that batch on
+    the first card; a batch of 4N timed through the split engine and
+    through one card."""
+    import threading
+
+    from vit_exp_tpu_torch.cli import serve
+
+    arch, bert, _, _ = setting(cpu)
+    cfg = out / "serve.json"
+    # the tokenizer's vocabulary, at 512 positions; the default eps
+    text = {k: v for k, v in dataclasses.asdict(bert).items()
+            if k not in ("vocab_size", "layer_norm_eps")}
+    text["max_position_embeddings"] = 512
+    cfg.write_text(json.dumps({"arch": arch, "random_seed": 0,
+                               "text_encoder": text}))
+    n = 4 * n_cards
+    args = serve.parse_args(["--config", str(cfg), "--mesh",
+                             f"{n_cards},1,1", "--max_batch", str(n)])
+    split, _, shape, ch = serve.build_service(args, "cpu" if cpu else "cuda")
+    one = split.engines[0]
+    check(len(split.engines) == n_cards, len(split.engines))
+    g = torch.Generator().manual_seed(43)
+    vols = torch.rand((n, ch, *shape), generator=g)
+    if not cpu:   # a page-locked source, as the server's stage is
+        vols = vols.pin_memory()
+    vols = vols.numpy()
+    dispatched = []
+    predict = split.predict_batch
+
+    def recording(volumes):
+        answers = predict(volumes)
+        dispatched.append((np.array(volumes), answers))
+        return answers
+
+    split.predict_batch = recording
+    batcher = serve.MicroBatcher(split, max_batch=n, window_ms=200.0)
+    answers = [None] * n
+
+    def client(i):
+        answers[i] = batcher.classify(vols[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    batcher.close()
+    diff = max(float(np.abs(a - one.predict_batch(v)).max())
+               for v, a in dispatched)
+    check(diff == 0.0 and sum(len(v) for v, _ in dispatched) == n,
+          ("served answers against one card", diff,
+           [len(v) for v, _ in dispatched]))
+
+    def vps(fn, reps=3):
+        fn(vols)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(vols)
+            times.append(time.perf_counter() - t0)
+        return n / statistics.median(times)
+
+    res = {"dispatches": [len(v) for v, _ in dispatched], "max_diff": diff,
+           "split_vps": vps(predict), "one_vps": vps(one.predict_batch)}
+    del split, one
+    return res
 
 
 # --- the processes -----------------------------------------------------------
@@ -281,6 +485,9 @@ def reference(args) -> None:
                             slice(0, BATCH))}
     out["engine_s"] = engine_probs(device, arch, bert, text_len, None,
                                    Path(args.out) / "engine_ref")
+    out["engine8_s"] = engine_probs(device, arch, bert, text_len, None,
+                                    Path(args.out) / "engine8_ref", int8=True,
+                                    batch_size=args.procs)
     (Path(args.out) / "ref.json").write_text(json.dumps(out))
 
 
@@ -304,6 +511,27 @@ def rank_main(args) -> None:
     out["step"]["same_params"] = all(d == digests[0] for d in digests)
     out["engine_s"] = engine_probs(device, arch, bert, text_len, group,
                                    Path(args.out) / "engine_group")
+    out["engine8_s"] = engine_probs(device, arch, bert, text_len, group,
+                                    Path(args.out) / "engine8_group",
+                                    int8=True)
+    out["grids"], dp_full = {}, None
+    for sizes in grids(w):
+        res = grid_run(device, arch, bert, text_len, sizes,
+                       keep=r == 0 and sizes in ((w, 1, 1), (1, w, 1)))
+        full = res.pop("full", None)
+        if sizes == (w, 1, 1):
+            dp_full = full
+        elif full is not None:
+            errs = param_errors(full, dp_full)
+            worst = max(errs, key=lambda k: errs[k][0])
+            res["param_rel_worst"] = [worst, *errs[worst]]
+            res["param_ok"] = all(
+                e[0] <= FSDP_PARAM_RTOL or e[1] <= 2 * TRAINER["lr"]
+                for e in errs.values())
+            res["param_noise"] = sorted(k for k, e in errs.items()
+                                        if e[0] > FSDP_PARAM_RTOL)
+        out["grids"][",".join(map(str, sizes))] = res
+    del dp_full
     multihost.sync_hosts()
     multihost.shutdown()
     (Path(args.out) / f"rank{r}.json").write_text(json.dumps(out))
@@ -344,7 +572,8 @@ def parent(args) -> int:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     if args.cpu:
         env["OMP_NUM_THREADS"] = "1"
-    rc, log = run(me + ["--role", "ref"] + flags, env, 900)
+    rc, log = run(me + ["--role", "ref", "--procs", str(procs)] + flags,
+                  env, 900)
     (out / "ref.log").write_text(log)
     check(rc == 0, ("reference", log[-3000:]))
     port = free_port()
@@ -387,6 +616,39 @@ def parent(args) -> int:
             for d in ("engine_group", "engine_ref"))
     check(a.shape == b.shape == (N_VOLUMES, 18) and np.array_equal(a, b),
           ("engine probabilities", float(np.abs(a - b).max())))
+    a8, b8 = (np.load(out / d / "predicted.npz")["arr_0"]
+              for d in ("engine8_group", "engine8_ref"))
+    check(a8.shape == (N_VOLUMES, 18) and np.array_equal(a8, b8),
+          ("int8 engine probabilities (F6)", float(np.abs(a8 - b8).max())))
+    g0 = ranks[0]["grids"]
+    dp, fsdp = g0[f"{procs},1,1"], g0[f"1,{procs},1"]
+    loss_rels = [abs(a - b) / abs(b) for a, b in zip(fsdp["losses"],
+                                                       dp["losses"])]
+    norm_rels = [abs(a - b) / abs(b) for a, b in zip(fsdp["norms"],
+                                                       dp["norms"])]
+    check(fsdp["losses"][0] == dp["losses"][0]
+          and max(loss_rels) <= FSDP_LOSS_RTOL
+          and norm_rels[0] <= FSDP_NORM_RTOL and fsdp["param_ok"]
+          and all(x["grids"][k]["same_params"] for x in ranks for k in g0),
+          ("fsdp against data parallel", loss_rels, norm_rels,
+           fsdp["param_rel_worst"]))
+    tp = {}
+    for key, res in g0.items():
+        d, f, m = map(int, key.split(","))
+        if m == 1:
+            continue
+        lr = abs(res["losses"][0] - d * f * sref["loss"]) / abs(
+            d * f * sref["loss"])
+        nr = abs(res["norms"][0] - d * f * sref["grad_norm"]) / (
+            d * f * sref["grad_norm"])
+        tp[key] = {"loss": res["losses"][0], "loss_rel": lr,
+                   "grad_norm": res["norms"][0], "norm_rel": nr,
+                   "step_s": res["step_s"], "peak_gb": res["peak_gb"],
+                   "bytes": res["bytes"][-1]}
+        check(lr <= LOSS_RTOL and nr <= GRAD_NORM_RTOL
+              and all(math.isfinite(x) for x in res["losses"]),
+              ("tensor parallel against one card", key, lr, nr))
+    served = serve_check(args.cpu, procs, out)
     ring = ranks[0]["ring"]
     summary = {
         "ranks": procs, "backend": backend,
@@ -399,7 +661,25 @@ def parent(args) -> int:
                  "step_s": s0["step_s"], "ref_step_s": sref["step_s"]},
         "engine": {"max_abs_diff": float(np.abs(a - b).max()),
                    "group_s": ranks[0]["engine_s"],
-                   "ref_s": ref["engine_s"]}}
+                   "ref_s": ref["engine_s"]},
+        "engine_int8": {"max_abs_diff": float(np.abs(a8 - b8).max()),
+                        "group_s": ranks[0]["engine8_s"],
+                        "ref_s": ref["engine8_s"]},
+        "fsdp": {"losses": fsdp["losses"], "dp_losses": dp["losses"],
+                 "loss_rels": loss_rels, "norms": fsdp["norms"],
+                 "dp_norms": dp["norms"], "norm_rels": norm_rels,
+                 "param_rel_worst": fsdp["param_rel_worst"],
+                 "param_noise": fsdp["param_noise"],
+                 "bytes": [x["grids"][f"1,{procs},1"]["bytes"][-1]
+                           for x in ranks],
+                 "dp_bytes": [x["grids"][f"{procs},1,1"]["bytes"][-1]
+                              for x in ranks],
+                 "peak_gb": [x["grids"][f"1,{procs},1"]["peak_gb"]
+                             for x in ranks],
+                 "dp_peak_gb": [x["grids"][f"{procs},1,1"]["peak_gb"]
+                                for x in ranks],
+                 "step_s": fsdp["step_s"], "dp_step_s": dp["step_s"]},
+        "tensor_parallel": tp, "serve": served}
     print(f"ring attention over {procs} ranks ({backend}): errors against "
           f"full K15 {ring['errors']}; {ring['ring_ms']:.3f} ms against "
           f"{ring['full_ms']:.3f} ms on one card", flush=True)
@@ -409,6 +689,30 @@ def parent(args) -> int:
           f"{procs} × {sref['grad_norm']:.5f} (rel {norm_rel:.2e}); warm "
           f"steps {s0['step_s']} s against {sref['step_s']} s on one "
           f"process", flush=True)
+    print(f"int8 engine, 1 volume a rank over {procs} ranks, against one "
+          f"process at {procs} a batch: max |Δprob| "
+          f"{summary['engine_int8']['max_abs_diff']}",
+          flush=True)
+    fb = summary["fsdp"]
+    print(f"fsdp 1,{procs},1 against {procs},1,1 over {GRID_STEPS} steps: "
+          f"losses {fb['losses']} against {fb['dp_losses']}, grad norms "
+          f"{fb['norms']} against {fb['dp_norms']} (rel {norm_rels}); "
+          f"after step 1 the worst parameter {fb['param_rel_worst']}; "
+          f"card 0's bytes between steps {fb['bytes'][0]} against "
+          f"{fb['dp_bytes'][0]}; peak {fb['peak_gb'][0]} GB against "
+          f"{fb['dp_peak_gb'][0]} GB; steps {fb['step_s']} s against "
+          f"{fb['dp_step_s']} s", flush=True)
+    for key, t in tp.items():
+        print(f"tensor parallel {key} against one card at batch {BATCH}: "
+              f"loss {t['loss']:.6f} (rel {t['loss_rel']:.2e}), grad norm "
+              f"{t['grad_norm']:.5f} (rel {t['norm_rel']:.2e}); steps "
+              f"{t['step_s']} s against {sref['step_s']} s on one card; "
+              f"peak {t['peak_gb']} GB", flush=True)
+    print(f"serve --mesh {procs},1,1 --max_batch {4 * procs}: dispatches "
+          f"{served['dispatches']}, answers against predict_batch on one "
+          f"card: max |Δprob| {served['max_diff']}; "
+          f"{served['split_vps']:.3f} volumes/s against "
+          f"{served['one_vps']:.3f} on one card", flush=True)
     print(card)
     print(json.dumps(summary))
     return 0

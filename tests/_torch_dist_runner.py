@@ -11,10 +11,16 @@ hand it over as pickled numpy.
   WORKDIR/store;
 - ``dp``: one data-parallel train step of each case of WORKDIR/inputs.pkl
   on this rank's rows of the global batch, in such a group;
-- ``train`` and ``cls``: ``run_train.main(ARGS)`` and
-  ``run_zero_shot_cls.main(ARGS)`` on the CPU; ARGS carry the multi-host
-  flags (or none, for the one-process reference); ``sigterm_rank1``:
-  ``train`` with a SIGTERM to rank 1 after its first step.
+- ``mesh``: one train step of each case of WORKDIR/inputs.pkl on a grid
+  (``inputs["mesh"]``, DATA,FSDP,MODEL), on this rank's batch shard, the
+  parameters placed by parallel/sharding.py, in such a group; the
+  gathered parameters, the grid's layout and the per-rank bytes come back;
+- ``train``, ``cls`` and ``seg``: ``run_train.main(ARGS)``,
+  ``run_zero_shot_cls.main(ARGS)`` and ``run_zero_shot_seg.main(ARGS)``
+  on the CPU; ARGS carry the multi-host flags (or none, for the
+  one-process reference); ``cls`` also records each int8 block's local k
+  amax; ``sigterm_rank1``: ``train`` with a SIGTERM to rank 1 after its
+  first step.
 
 Each writes what it saw to WORKDIR/out{RANK}.pkl.  ``start`` and
 ``spawn`` (for the tests) run the ranks and return their outputs.
@@ -95,16 +101,16 @@ def _load(workdir):
         return pickle.load(f)
 
 
-def _model(config_dict, state, group=None):
+def _model(config_dict, state, group=None, bert=None):
     from vit_exp_tpu_torch.core import config as tconfig
     from vit_exp_tpu_torch.core.precision import FP32_POLICY
     from vit_exp_tpu_torch.models.bert import BertConfig
     from vit_exp_tpu_torch.models.factory import build_ctclip
 
     cfg = tconfig.ExperimentConfig.from_dict(config_dict)
-    model = build_ctclip(cfg, BertConfig.tiny(), device="cpu",
-                         policy=FP32_POLICY, dim_latent=16,
-                         attn_impl="pallas")
+    bert = BertConfig(**bert) if bert else BertConfig.tiny()
+    model = build_ctclip(cfg, bert, device="cpu", policy=FP32_POLICY,
+                         dim_latent=16, attn_impl="pallas")
     res = model.load_state_dict({k: torch.from_numpy(v)
                                  for k, v in state.items()})
     assert not res.missing_keys and not res.unexpected_keys
@@ -196,6 +202,50 @@ def dp_job(inp, group):
     return out
 
 
+def mesh_job(inp):
+    from vit_exp_tpu_torch.core.mesh import MeshConfig, grid
+    from vit_exp_tpu_torch.parallel.sharding import Sharded
+    from vit_exp_tpu_torch.train.optimizer import build_optimizer
+    from vit_exp_tpu_torch.train.steps import make_train_steps
+
+    g = grid(MeshConfig(*inp["mesh"]))
+    out = {"coords": g.coords, "batch_index": g.batch_index,
+           "groups": {k: (None if getattr(g, k) is None else
+                          dist.get_process_group_ranks(getattr(g, k)))
+                      for k in ("batch", "fsdp", "model", "replica")}}
+    for name, case in inp["cases"].items():
+        cfg, model = _model(case["config"], case["state"],
+                            bert=case.get("bert"))
+        sharding = Sharded(model, g)
+        opt = build_optimizer(cfg.trainer, model.parameters(),
+                              sharding=sharding)
+        step = make_train_steps(model, opt, cfg, group=g.batch,
+                                sharding=sharding)[case["type"]]
+        lb, r = case["local_batch"], g.batch_index
+        batch = {}
+        for key, x in case["batch"].items():
+            if key not in ("prompt_ids", "prompt_mask"):
+                x = x[r * lb:(r + 1) * lb]
+            x = torch.from_numpy(np.array(x))
+            batch[key] = x.long() if key in LONG_KEYS else x
+        kw = {"draws": case["draws"]} if case.get("draws") else {}
+        metrics = step(batch, 0.5, **kw)
+        moments = [v for s in opt.opt.state.values() for v in s.values()
+                   if torch.is_tensor(v) and v.dim()]
+        out[name] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grad_norm": float(opt.grad_norm),
+            "params": {n: v.numpy().copy() for n, v in
+                       sharding.full_state_dict().items()},
+            "bytes": {"params": sum(p.numel() * p.element_size()
+                                    for p in model.parameters()),
+                      "grads": sum(p.grad.numel() * p.grad.element_size()
+                                   for p in model.parameters()),
+                      "moments": sum(m.numel() * m.element_size()
+                                     for m in moments)}}
+    return out
+
+
 def train_job(argv, sigterm_after=None):
     """run_train.main(argv); with ``sigterm_after`` a SIGTERM to this
     process once that step is done."""
@@ -228,8 +278,22 @@ def train_job(argv, sigterm_after=None):
         written.append(step)
         return write(self, step, *args)
 
+    layout = {}
+    make = run_train.make_trainer
+
+    def make_trainer(args, device):
+        """The trainer, with its grid's groups read while they exist."""
+        trainer = make(args, device)
+        g = trainer.grid
+        layout.update(coords=g.coords, groups={
+            k: (None if getattr(g, k) is None
+                else dist.get_process_group_ranks(getattr(g, k)))
+            for k in ("batch", "fsdp", "model", "replica")})
+        return trainer
+
     tlogging.MetricLogger.log = record_log
     checkpoint.CheckpointManager._write = record_write
+    run_train.make_trainer = make_trainer
     trainer = run_train.main(argv, device="cpu")
     loader = trainer.loaders[0].loader
     epoch, loader.epoch = loader.epoch, 0
@@ -237,6 +301,7 @@ def train_job(argv, sigterm_after=None):
     loader.epoch = epoch
     trainer.close()
     return {"status": trainer.status, "step": trainer.step,
+            "grid": layout,
             "logged": logged, "written": written,
             "latest": trainer.ckpt.latest_step(),
             "logger_enabled": trainer.logger.enabled,
@@ -246,24 +311,42 @@ def train_job(argv, sigterm_after=None):
 
 def cls_job(argv):
     from vit_exp_tpu_torch.cli import run_zero_shot_cls
+    from vit_exp_tpu_torch.ops import attention
 
-    return {"result": run_zero_shot_cls.main(argv, device="cpu")}
+    amaxes, quantize = [], attention.quantize_qk
+
+    def record(q, k, scale, amax_reduce=None):
+        amaxes.append(float(k.float().abs().amax()))
+        return quantize(q, k, scale, amax_reduce)
+
+    attention.quantize_qk = record
+    return {"result": run_zero_shot_cls.main(argv, device="cpu"),
+            "local_k_amax": amaxes}
+
+
+def seg_job(argv):
+    from vit_exp_tpu_torch.cli import run_zero_shot_seg
+
+    return {"result": run_zero_shot_seg.main(argv, device="cpu")}
 
 
 def main():
     job, rank, world, workdir = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4]
-    if job in ("ring", "dp"):
+    if job in ("ring", "dp", "mesh"):
         dist.init_process_group(
             "gloo", init_method=f"file://{os.path.join(workdir, 'store')}",
             rank=rank, world_size=world)
         inp = _load(workdir)
-        out = (ring_job if job == "ring" else dp_job)(inp, dist.group.WORLD)
+        out = (mesh_job(inp) if job == "mesh" else
+               (ring_job if job == "ring" else dp_job)(inp, dist.group.WORLD))
         dist.destroy_process_group()
     elif job == "train":
         out = train_job(sys.argv[5:])
     elif job == "sigterm_rank1":
         out = train_job(sys.argv[5:], sigterm_after=1 if rank == 1 else None)
+    elif job == "seg":
+        out = seg_job(sys.argv[5:])
     else:
         out = cls_job(sys.argv[5:])
     with open(os.path.join(workdir, f"out{rank}.pkl"), "wb") as f:

@@ -1233,3 +1233,80 @@ def test_four_shard_ring_matches_full_k15_with_nulls(dev):
         for a, b in zip(ring, ref):
             assert torch.isfinite(a.float()).all()
             assert _rel(a, b) < 1e-2
+
+
+# the tensor-parallel slices' widths at full width (D 768, 8 heads, I
+# 2,048): 2I 2,048 and 4 heads a rank at model 2, 2I 1,024 and 2 heads at
+# model 4
+@pytest.mark.parametrize("i2", [2048, 1024])
+def test_k2_and_k8_at_tensor_parallel_widths(dev, i2):
+    args = _k2_case(dev, 4113, 768, i2, seed=16)
+    _close(geglu_ff.geglu_ff(*args), geglu_ff.geglu_ff_plain(*args))
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = args[0]
+    mu, inv = args[1], args[2]
+    gamma = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
+    beta = 0.1 * torch.randn(768, generator=g, device=dev)
+    w1 = torch.randn(768, i2, generator=g, device=dev) * 768 ** -0.5
+    w2 = torch.randn(i2 // 2, 768, generator=g, device=dev) * (i2 // 2) ** -0.5
+    dout = _randn(g, 4113, 768)
+    ff = (x, mu, inv, gamma, beta, w1, w2, dout)
+    for a, r in zip(geglu_ff.geglu_ff_bwd(*ff), geglu_ff.geglu_ff_bwd_plain(*ff)):
+        assert a.shape == r.shape and torch.isfinite(a).all()
+        assert _rel(a, r) < 1e-2
+
+
+@pytest.mark.parametrize("heads", [4, 2])
+def test_k15_and_the_pair_at_tensor_parallel_heads(dev, heads):
+    """K15 with lse and the backward pair over 2 nulls concatenated to 300
+    keys, at a rank's head count."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    n = 300
+
+    def unit(*shape):
+        t = torch.randn(*shape, generator=g, device=dev)
+        return (t / t.norm(dim=-1, keepdim=True) * 3).to(torch.bfloat16)
+
+    q = unit(2, heads, n, 32)
+    k = unit(2, heads, n + 2, 32)
+    v = _randn(g, 2, heads, n + 2, 32)
+    dout = _randn(g, 2, heads, n, 32, std=1e-2)
+    scale = 32 ** -0.5
+    out, lse = fa.attention_online(q, k, v, scale, save_lse=True)
+    ref, lse_p = fa.attention_online_plain(q, k, v, scale, save_lse=True)
+    _close(out, ref)
+    assert _rel(lse, lse_p) < 1e-5
+    delta = (dout.float() * ref.float()).sum(-1)
+    bwd = (q, k, v, dout, lse_p, delta, scale)
+    got = (fa.attention_bwd_dq(*bwd), *fa.attention_bwd_dkv(*bwd))
+    for a, r in zip(got, fa.attention_bwd_plain(*bwd)):
+        assert torch.isfinite(a.float()).all() and _rel(a, r) < 1e-2
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_tensor_parallel_block_matches_the_whole_block(dev, parts):
+    """One tower block (D 768, 8 heads × 32) on 512 tokens as ``parts``
+    ranks' slices on the kernels (chip_smoke.tp_by_rank: each rank's K15,
+    pair, K2 and K8 once) against the whole block on the kernels: output,
+    dx and every parameter gradient within chip_smoke.TP_REL_TOL."""
+    from chip_smoke import TP_REL_TOL, tp_by_rank, tp_slices
+    from vit_exp_tpu_torch.models.ctvit3d import TransformerBlock
+    from vit_exp_tpu_torch.models.factory import init_parameters_
+
+    block = TransformerBlock(768, 8, 32, None, attn_impl="pallas",
+                             device=dev)
+    init_parameters_(block, 19)
+    g = torch.Generator(device=dev).manual_seed(20)
+    x = _randn(g, 1, 512, 768)
+    dout = _randn(g, 1, 512, 768, std=1e-2)
+    xx = x.clone().requires_grad_()
+    out = block(xx)
+    out.backward(dout)
+    slices, specs = tp_slices(block, parts)
+    before = fa.attention_online.launches
+    got = tp_by_rank(slices, specs, x, dout)
+    assert fa.attention_online.launches - before == parts
+    assert _rel(got[0], out) < TP_REL_TOL and _rel(got[1], xx.grad) < TP_REL_TOL
+    for name, p in block.named_parameters():
+        assert got[2][name].shape == p.grad.shape, name
+        assert _rel(got[2][name], p.grad) < TP_REL_TOL, name

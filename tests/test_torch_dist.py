@@ -16,7 +16,9 @@ against the JAX package, in gloo process groups of 2 ranks
   one-process step at the global batch; Adam turns noise into a step of
   up to lr), within max |Δ| ≤ 2·lr.
   (The CLIs as processes: tests/test_torch_dist_cli.py.)
-- The refusals: fsdp > 1, model > 1 and ``serve --mesh`` (M7b), a process
+- The grid (M7b): the ranks' places on an fsdp or model axis of 2, and
+  ``serve --mesh`` refusing a card count or a --max_batch that does not
+  fit (tests/test_torch_mesh*.py run the grids); the refusals: a process
   count or id without a coordinator, a grid that does not match the
   process count, and a CUDA group on a host without a card (no gloo
   fallback).
@@ -192,16 +194,32 @@ def test_data_parallel_step_matches_jax_global_batch(dp_runs, name):
 
 @pytest.mark.parametrize("fsdp, model", [(2, 1), (1, 2)])
 def test_fsdp_and_model_axes_raise_naming_m7b(fsdp, model):
+    """The grid of one fsdp or model axis of 2 (M7b, ported): the ranks'
+    places, model fastest, and the groups they share; on one process the
+    grid must still match the process count."""
     cfg = mesh.MeshConfig(data=1, fsdp=fsdp, model=model)
-    with pytest.raises(NotImplementedError, match="M7b"):
-        cfg.data_shards(fsdp * model)
-    with pytest.raises(NotImplementedError, match="M7b"):
+    assert cfg.data_shards(2) == fsdp
+    assert [mesh.coords_of(r, (1, fsdp, model)) for r in range(2)] == (
+        [(0, 0, 0), (0, 1, 0)] if fsdp == 2 else [(0, 0, 0), (0, 0, 1)])
+    with pytest.raises(mesh.MeshError, match=f"1x{fsdp}x{model} != 1"):
         mesh.data_group(cfg)
+    one = mesh.grid(mesh.MeshConfig(data=1))
+    assert (one.batch, one.fsdp, one.model, one.replica) == (None,) * 4
+    assert (one.batch_index, one.batch_shards) == (0, 1)
 
 
 def test_serve_mesh_raises_naming_m7b():
-    with pytest.raises(NotImplementedError, match="M7b"):
-        serve.parse_args(["--config", "c.yaml", "--mesh", "2,1,1"])
+    """``serve --mesh`` (M7b, ported) refuses a card count other than
+    DATA·FSDP·MODEL and a --max_batch that DATA·FSDP does not divide."""
+    if torch.cuda.device_count() != 4:
+        with pytest.raises(mesh.MeshError, match="drives 4 cards"):
+            serve.mesh_devices("2,1,2", "cuda")
+    with pytest.raises(mesh.MeshError, match="max_batch 4"):
+        serve.parse_args(["--config", "c.yaml", "--mesh", "3,1,1"])
+    args = serve.parse_args(["--config", "c.yaml", "--mesh", "2,1,2"])
+    assert args.mesh == "2,1,2"
+    assert serve.mesh_devices("2,1,2", "cpu") == [torch.device("cpu")] * 2
+    assert serve.mesh_devices(None, "cpu") == [torch.device("cpu")]
 
 
 def test_grid_must_match_the_process_count():

@@ -8,8 +8,10 @@ groups (tests/_torch_dist_runner.py; no jax in them):
   continuing on both, and loader shards that are disjoint and cover the
   data set; a SIGTERM to one rank stopping both at the same step;
 - ``run_zero_shot_cls`` as 2 processes (1 volume a rank) writes the same
-  files, byte for byte, as one process at 1 volume a batch (the same
-  computation per volume); the second rank writes none;
+  files, byte for byte, as one process at the same global batch: bf16 at
+  1 volume a batch (the same computation per volume), and int8 at 2 (F6:
+  the k scale is taken over the global batch, as JAX's mesh takes it,
+  although the ranks' own k amaxes differ); the second rank writes none;
 - the loader's process shards, and that the new modules import no jax.
 """
 
@@ -106,17 +108,24 @@ def test_a_sigterm_to_one_rank_stops_both_at_the_same_step(tmp_path):
         assert out["written"] == ([2] if r == 0 else [])
 
 
-def test_two_process_run_zero_shot_cls_writes_what_one_process_does(tmp_path):
+@pytest.mark.parametrize("int8", [False, True])
+def test_two_process_run_zero_shot_cls_writes_what_one_process_does(
+        tmp_path, int8):
     cfg = _yaml(tmp_path, "cls")
-    base = ["--config", cfg, "--synthetic", "5", "--no-int8", "--batch_size",
-            "1"]
+    base = ["--config", cfg, "--synthetic", "5",
+            "--int8" if int8 else "--no-int8"]
     one = spawn("cls", 1, str(tmp_path / "w1"),
-                args=lambda r: base + ["--results_folder",
+                args=lambda r: base + ["--batch_size", "2" if int8 else "1",
+                                       "--results_folder",
                                        str(tmp_path / "one")])
     port = free_port()
     two = spawn("cls", RANKS, str(tmp_path / "w2"),
-                args=lambda r: base + _flags(r, port) + [
+                args=lambda r: base + ["--batch_size", "1"]
+                + _flags(r, port) + [
                     "--results_folder", str(tmp_path / f"two{r}")])
+    if int8:   # a scale per rank would fail: the ranks' own amaxes differ
+        assert two[0]["local_k_amax"] != two[1]["local_k_amax"]
+        assert len(two[0]["local_k_amax"]) == len(two[1]["local_k_amax"])
     assert not (tmp_path / "two1").exists()   # rank 1 writes nothing
     a, b = tmp_path / "one" / "random_init", tmp_path / "two0" / "random_init"
     for name in ("predicted.npz", "labels.npz", "predicted_weights.npz",

@@ -46,6 +46,7 @@ from vit_exp_tpu.models.ctclip import CTCLIP as JaxCTCLIP
 from vit_exp_tpu.models.ctclip import downsample_stride as jdownsample
 from vit_exp_tpu.utils import vis as jvis
 from vit_exp_tpu_torch.cli import run_train, run_zero_shot_seg
+from vit_exp_tpu_torch.core.mesh import MeshError
 from vit_exp_tpu_torch.core import config as tconfig
 from vit_exp_tpu_torch.data import planted as tplanted
 from vit_exp_tpu_torch.data import synthetic as tsynthetic
@@ -314,7 +315,8 @@ def test_run_zero_shot_seg_loads_a_reference_checkpoint(tmp_path):
 def test_run_zero_shot_seg_refuses_what_is_not_ported(tmp_path):
     cfg = _seg_yaml(tmp_path)
     base = ["--config", cfg, "--results_folder", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="M7b"):
+    # a grid of 2 processes on 1 (fsdp and model are ported, M7b)
+    with pytest.raises(MeshError, match="1x2x1 != 1"):
         run_zero_shot_seg.main(base + ["--synthetic", "2", "--mesh",
                                        "1,2,1"], device="cpu")
     # without --synthetic and without folders: JAX's TypeError (the

@@ -52,6 +52,7 @@ from vit_exp_tpu.models.convert import export_ctclip_state_dict
 from vit_exp_tpu.models.ctclip import CTCLIP as JaxCTCLIP
 from vit_exp_tpu_torch.cli import pack_dataset, run_zero_shot_cls, serve
 from vit_exp_tpu_torch.core.config import load_config
+from vit_exp_tpu_torch.core.mesh import MeshError
 from vit_exp_tpu_torch.core.precision import FP32_POLICY
 from vit_exp_tpu_torch.data import datasets as tdatasets
 from vit_exp_tpu_torch.data import preprocess_host as thost
@@ -364,8 +365,9 @@ def test_run_zero_shot_cls_sweep_reloads_in_place(cls_setup, tmp_path,
 
 def test_run_zero_shot_cls_refuses_what_is_not_ported(cls_setup, tmp_path):
     base = ["--config", cls_setup["cfg"], "--results_folder", str(tmp_path)]
-    for mesh in ("1,2,1", "1,1,2"):   # fsdp and model are queued (M7b)
-        with pytest.raises(NotImplementedError, match="M7b"):
+    for mesh in ("1,2,1", "1,1,2"):   # fsdp and model: a grid of 2 (M7b)
+        with pytest.raises(MeshError, match=f"{mesh.replace(',', 'x')} "
+                                            f"!= 1"):
             run_zero_shot_cls.main(base + ["--synthetic", "2", "--mesh",
                                            mesh], device="cpu")
     with pytest.raises(ValueError, match="coordinator"):
@@ -747,8 +749,10 @@ def test_serve_entry_on_int8_embeds_from_a_handler_thread(cls_setup, tmp_path):
         srv.shutdown()
         srv.server_close()
         srv.batcher.close()
-    with pytest.raises(NotImplementedError, match="M7b"):
-        serve.parse_args(["--config", cfg, "--mesh", "4,1,1"])
+    # --mesh (M7b): 4 cards, which this host does not have
+    with pytest.raises(MeshError, match="drives 4 cards"):
+        serve.build_service(serve.parse_args(["--config", cfg, "--mesh",
+                                              "4,1,1"]), "cuda")
 
 
 def test_chip_smoke_real_data_phases_rehearse_on_cpu(cls_setup, tmp_path,

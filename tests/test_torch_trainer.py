@@ -56,6 +56,7 @@ from vit_exp_tpu.train.steps import make_train_steps as jax_make_train_steps
 from tests.test_torch_models import DIM_LATENT, jax_params
 from vit_exp_tpu_torch.cli import run_train
 from vit_exp_tpu_torch.core import config as tconfig
+from vit_exp_tpu_torch.core.mesh import MeshError
 from vit_exp_tpu_torch.core.precision import FP32_POLICY
 from vit_exp_tpu_torch.data import loader as tloader
 from vit_exp_tpu_torch.data import synthetic as tsynthetic
@@ -494,7 +495,8 @@ def test_run_train_refuses_what_is_not_ported(tmp_path):
     # folders themselves: tests/test_torch_realdata.py)
     with pytest.raises(KeyError, match="dataset spec needs one of"):
         run_train.main(["--config", cfg], device="cpu")
-    with pytest.raises(NotImplementedError, match="M7b"):
+    # a grid of 2 processes on 1 (model > 1 is ported, M7b)
+    with pytest.raises(MeshError, match="1x1x2 != 1"):
         run_train.main(["--config", cfg, "--synthetic", "2", "--mesh",
                         "1,1,2"], device="cpu")
     # the seg hook is ported, but --synthetic brings no segmentation

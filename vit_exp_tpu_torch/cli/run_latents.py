@@ -24,8 +24,10 @@ prints one JSON line: "n", "v2v_mean_top1_sim",
 Several cards: the same command once per card with the multi-host flags
 (core/multihost.py); each rank encodes ``--batch_size`` volumes of each
 global batch and gathers the latents (eval/latents.py); rank 0 alone
-prints and writes.  ``--mesh`` must multiply to the process count, its
-fsdp and model at 1 (ROADMAP M7b).
+prints and writes.  ``--mesh`` must multiply to the process count: the
+volumes shard over data × fsdp and every rank holds the whole model, so
+the M ranks of a model position repeat its rows; the int8 path takes each
+block's k scale over the whole global batch.
 """
 
 from __future__ import annotations

@@ -53,11 +53,13 @@ with ``--coordinator_address`` (rank 0's host and a free port),
 ``--num_processes`` and ``--process_id`` (or torchrun's variables;
 core/multihost.py), which join the NCCL group before any CUDA work; each
 process trains on ``cuda:<local rank>``.  ``--mesh DATA,FSDP,MODEL`` (or
-the config's ``mesh:`` section) must multiply to the process count;
-fsdp > 1 and model > 1 raise NotImplementedError (ROADMAP M7b).  The
-trainer shards the data and takes the global-batch terms over the group
+the config's ``mesh:`` section) must multiply to the process count; the
+batch shards over data × fsdp, fsdp > 1 shards the parameters over the
+fsdp ranks and model > 1 cuts the heads and MLP units over the model
+ranks (core/mesh.py, parallel/sharding.py).  The trainer shards the data
+and takes the global-batch terms over the batch group
 (train/trainer.py); rank 0 writes git_state.txt, the metrics and the
-checkpoints.  ``main`` leaves the group it joined before it returns.
+checkpoints, whole, so any grid resumes them.  ``main`` leaves the group it joined before it returns.
 """
 
 from __future__ import annotations
@@ -256,14 +258,15 @@ def make_trainer(args: argparse.Namespace, device="cuda"):
     """Config → tokenizer → data sets and eval hooks → model on ``device``
     → trainer, restored from a checkpoint when asked."""
     from vit_exp_tpu_torch.core.config import load_config
-    from vit_exp_tpu_torch.core.mesh import data_group, mesh_config_from
+    from vit_exp_tpu_torch.core.mesh import MeshConfig, mesh_config_from
     from vit_exp_tpu_torch.data.tokenizer import load_tokenizer
     from vit_exp_tpu_torch.models.factory import bert_config_for, build_ctclip
     from vit_exp_tpu_torch.train.trainer import CTClipTrainer
 
     config = load_config(args.config)
     mesh_config = mesh_config_from(config, args.mesh)
-    data_group(mesh_config)   # a grid that does not fit raises before work
+    # a grid that does not fit raises before any work
+    (mesh_config or MeshConfig()).axis_sizes(multihost.process_count())
     if multihost.is_main_process():
         write_git_state(config.results_folder)
     np.random.seed(config.random_seed)

@@ -40,8 +40,11 @@ Several cards: the same command once per card with the multi-host flags
 (core/multihost.py); each rank encodes ``--batch_size`` volumes of each
 global batch and gathers the probabilities (eval/zero_shot.py), so every
 rank computes the same AUROCs; rank 0 alone prints and writes the output
-files.  ``--mesh`` must multiply to the process count, its fsdp and
-model at 1 (ROADMAP M7b).
+files.  ``--mesh`` must multiply to the process count: the volumes
+shard over data × fsdp and every rank holds the whole model, as JAX's
+engines do, so the M ranks of a model position repeat its rows; the int8
+path takes each block's k scale over the whole global batch, as JAX's
+mesh does.
 """
 
 from __future__ import annotations

@@ -26,8 +26,10 @@ dice_scores.txt into the results folder.
 Several cards: the same command once per card with the multi-host flags
 (core/multihost.py); each rank scores ``--batch_size`` volumes of each
 global batch and gathers the dice rows (eval/zero_shot.py); rank 0 alone
-prints and writes.  ``--mesh`` must multiply to the process count, its
-fsdp and model at 1 (ROADMAP M7b).
+prints and writes.  ``--mesh`` must multiply to the process count: the
+volumes shard over data × fsdp and every rank holds the whole model, as
+JAX's engines do, so the M ranks of a model position repeat its rows;
+the int8 path takes each block's k scale over the whole global batch.
 """
 
 from __future__ import annotations

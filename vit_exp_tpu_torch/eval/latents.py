@@ -20,7 +20,8 @@ package pads it by repeating its last item; with int8 a volume's latents
 depend on its batch companions, so the port's tail latents are those of
 the short batch).  An engine with a process group encodes each rank's
 rows of the global batch and gathers them (eval/zero_shot.py); every
-rank gets every latent, and rank 0 alone writes.
+rank gets every latent, and rank 0 alone writes.  The int8 k scale is the
+whole global batch's, as in the engines (eval/zero_shot.py).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from vit_exp_tpu_torch.eval.zero_shot import _one_deep_map
+from vit_exp_tpu_torch.core import multihost
+from vit_exp_tpu_torch.eval.zero_shot import _one_deep_map, shared_k_scale
 from vit_exp_tpu_torch.parallel.collectives import rank, world
 
 
@@ -52,7 +54,8 @@ def _encode_batches(engine, dataset, limit, num_workers, encode):
     @torch.inference_mode()
     def dispatch(batch):
         first, seen[0] = seen[0], seen[0] + step
-        return encode(batch, first)
+        with shared_k_scale(model, getattr(engine, "k_amax_reduce", None)):
+            return encode(batch, first)
 
     try:
         yield from _one_deep_map(dataset, n, engine.batch_size, dispatch,
@@ -75,7 +78,7 @@ def dump_latents(engine, dataset, out_folder: str, *,
     ``engine``: a ``ZeroShotClassifier`` (its model, tokenizer,
     max_text_len, batch size and copier).  Returns the latents and
     "accessions"."""
-    main = rank(getattr(engine, "group", None)) == 0
+    main = multihost.is_main_process()
     if main:
         os.makedirs(out_folder, exist_ok=True)
     model, device = engine.model, engine.device
@@ -115,7 +118,7 @@ def dump_encodings(engine, dataset, out_folder: str, *, limit=None,
     """The image tower's output tokens of every sample as float32, one
     ``{accession}.encodings.npz`` each ('/' in an accession becomes '_');
     returns the paths in sample order."""
-    main = rank(getattr(engine, "group", None)) == 0
+    main = multihost.is_main_process()
     if main:
         os.makedirs(out_folder, exist_ok=True)
     model = engine.model

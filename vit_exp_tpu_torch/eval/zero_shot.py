@@ -17,7 +17,10 @@ calls, and every batch, served ones included, goes to the card through
 its ``BatchCopier`` (``data/pinned.py``): a side-stream copy that batch
 i + 1 starts while batch i computes.  The JAX engine pads its tail batch
 for XLA's static shapes; the port runs the short batch as it is (each
-volume's probabilities depend on that volume alone).  It returns
+volume's probabilities depend on that volume alone, bit for bit on the
+card: the tower's kernels take each volume alike at any batch, and the
+latent and the scores are taken one volume at a time; on the int8 path
+up to the batch's one k scale).  It returns
 ``evaluate_internal``'s per-label AUROCs and ``volumes_per_sec``.  The model
 is scored in eval mode under ``torch.inference_mode`` and left in the mode
 it was in; scoring draws from no random stream.
@@ -35,12 +38,30 @@ in all: each rank loads and encodes its own rows of each global batch
 (the last one padded by repeating the last item), and a gather (not
 differentiable) returns the whole batch's results to every rank in the
 single-process order, cut to the items that exist.  Every rank thus
-computes the same metrics; only rank 0 writes files.
+computes the same metrics; only global rank 0 writes files.  On a grid
+the group is the batch group (core/mesh.py): every rank holds the whole
+model, as JAX's engines do, and the ranks of a model group repeat their
+position's rows.
+
+The int8 path quantizes each block's k at one scale, the amax of the whole
+batch (ops/flash_attention.py::quantize_qk).  Under a mesh JAX takes it
+over the global batch, so with a group each block's amax is reduced (MAX)
+over the ranks (``shared_k_scale``): the ranks' int8 results are those of
+one process scoring the global batch.  The padded tail repeats its last
+item, which leaves the amax as it is.
+
+``SplitClassifier`` is one process driving several devices (``serve
+--mesh``): a copy of the model on each, every batch split into contiguous
+parts run at once, one thread per device, whose blocks exchange their k
+amaxes at a barrier, so its answers are the one-device engine's on the
+whole batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
@@ -53,8 +74,11 @@ from vit_exp_tpu_torch.eval.metrics import (evaluate_internal,
                                             save_inference_artifacts)
 from vit_exp_tpu_torch.models.ctclip import CTCLIP
 from vit_exp_tpu_torch.models.losses import dice_scores_per_sample
-from vit_exp_tpu_torch.parallel.collectives import (gather_objects,
-                                                    gather_rows, rank, world)
+from vit_exp_tpu_torch.core import multihost
+from vit_exp_tpu_torch.parallel.collectives import (all_reduce_max,
+                                                    gather_objects,
+                                                    gather_rows, rank,
+                                                    world)
 
 PATHOLOGIES: List[str] = [
     "Medical material", "Arterial wall calcification", "Cardiomegaly",
@@ -131,6 +155,26 @@ def gather_batch(payload, group, k: int):
     return tuple(out)
 
 
+def amax_over(group):
+    """The k-amax reducer of an engine with ``group``: the MAX over its
+    ranks (None without a group)."""
+    if group is None:
+        return None
+    return lambda amax: all_reduce_max(amax.reshape(1), group)[0]
+
+
+@contextlib.contextmanager
+def shared_k_scale(model: CTCLIP, reduce):
+    """``model``'s image tower takes its int8 k amaxes through ``reduce``
+    for the length of the context."""
+    tower = model.visual_transformer
+    prev, tower.k_amax_reduce = tower.k_amax_reduce, reduce
+    try:
+        yield
+    finally:
+        tower.k_amax_reduce = prev
+
+
 # page-locked buffer sets of an engine: the batch being copied and the next
 ENGINE_PIN_SLOTS = 2
 
@@ -205,6 +249,7 @@ class ZeroShotClassifier:
         self.device = next(model.parameters()).device
         self.feed = _Feed(self.device, ("image",))
         self._cached_text = None
+        self.k_amax_reduce = amax_over(group)
 
     def set_params(self, model: Optional[CTCLIP] = None) -> None:
         """Score ``model`` from now on (or, given nothing, the model the
@@ -236,9 +281,16 @@ class ZeroShotClassifier:
         if self._cached_text is None:
             self.prepare()
         video = self.feed.tensor(volumes, "image")
-        tokens = self.model.encode_image_tokens(video)
-        img = self.model.image_latents_from_tokens(tokens)
-        scores = (img @ self._cached_text.T) * self.model.logit_scale()
+        with shared_k_scale(self.model, self.k_amax_reduce):
+            tokens = self.model.encode_image_tokens(video)
+        # one volume's latent and scores at a time: a reduction's or a
+        # product's algorithm follows its shape, so a batched one's last
+        # bit would depend on the batch a volume rides in
+        img = torch.cat([self.model.image_latents_from_tokens(t)
+                         for t in tokens.split(1)])
+        scores = torch.cat([row @ self._cached_text.T
+                            for row in img.split(1)])
+        scores = scores * self.model.logit_scale()
         pairs = scores.reshape(img.shape[0], len(self.pathologies), 2)
         return torch.softmax(pairs, dim=-1)[..., 0]
 
@@ -273,7 +325,7 @@ class ZeroShotClassifier:
         y_pred, y_true = np.asarray(preds), np.asarray(labels)
         res = evaluate_internal(y_pred, y_true, self.pathologies)
         res["volumes_per_sec"] = n / elapsed
-        if results_folder and rank(self.group) == 0:
+        if results_folder and multihost.is_main_process():
             save_inference_artifacts(results_folder, y_pred, y_true,
                                      accessions, res)
         return res
@@ -289,6 +341,7 @@ class ZeroShotSegmenter:
         self.batch_size = batch_size
         self.device = next(model.parameters()).device
         self.feed = _Feed(self.device, ("image", "seg_mask"))
+        self.k_amax_reduce = amax_over(group)
 
     def set_params(self, model: Optional[CTCLIP] = None) -> None:
         """Score ``model`` from now on (given nothing, the engine's own
@@ -305,7 +358,9 @@ class ZeroShotSegmenter:
         device; host arrays go through the engine's copier."""
         video = self.feed.tensor(volumes, "image")
         mask = self.feed.tensor(masks, "seg_mask")
-        return dice_scores_per_sample(self.model.seg_forward(video), mask)
+        with shared_k_scale(self.model, self.k_amax_reduce):
+            logits = self.model.seg_forward(video)
+        return dice_scores_per_sample(logits, mask)
 
     def dice_batch(self, volumes, masks) -> np.ndarray:
         return self.dice(volumes, masks).cpu().numpy()
@@ -342,7 +397,7 @@ class ZeroShotSegmenter:
         dice = np.nanmean(np.stack(all_dice), axis=0)
         res = {f"dice_class_{i}": float(v) for i, v in enumerate(dice)}
         res["mean_dice"] = float(np.nanmean(dice))
-        if results_folder and rank(self.group) == 0:
+        if results_folder and multihost.is_main_process():
             os.makedirs(results_folder, exist_ok=True)
             np.save(os.path.join(results_folder, "dice_scores.npy"),
                     np.stack(all_dice))
@@ -351,3 +406,81 @@ class ZeroShotSegmenter:
                 for key, v in res.items():
                     f.write(f"{key}: {v}\n")
         return res
+
+
+class _AmaxExchange:
+    """The k amaxes of the parts of one batch, one thread per device: each
+    block's reducer waits for every part's amax and returns their max on
+    its own device.  A part that fails breaks the barrier, so the others
+    raise rather than wait."""
+
+    def __init__(self, n: int):
+        self.barrier = threading.Barrier(n)
+        self.slots: List[Optional[torch.Tensor]] = [None] * n
+
+    def reducer(self, i: int):
+        def reduce(amax: torch.Tensor) -> torch.Tensor:
+            self.slots[i] = amax
+            self.barrier.wait()
+            out = torch.stack([a.to(amax.device) for a in self.slots]).amax()
+            self.barrier.wait()   # every part has read the slots
+            return out
+
+        return reduce
+
+
+class SplitClassifier:
+    """One model on several devices (``serve --mesh``): ``engines`` are
+    ``ZeroShotClassifier``s over copies of the same weights, one per
+    device, each with its own copier and pool.  ``predict_batch`` splits
+    the batch into contiguous parts, as even as they go (a part per device
+    while there are volumes for it), runs them at once, one thread per
+    device, with one int8 k scale over the whole batch (``_AmaxExchange``),
+    and joins the answers in order: those of one engine on the whole
+    batch.  The prompt latents are made once, on the first device."""
+
+    def __init__(self, engines: Sequence[ZeroShotClassifier]):
+        self.engines = list(engines)
+        first = self.engines[0]
+        self.model, self.device = first.model, first.device
+        self.pathologies = first.pathologies
+
+    def prepare(self) -> torch.Tensor:
+        text = self.engines[0].prepare()
+        for e in self.engines[1:]:
+            e._cached_text = text.to(e.device)
+        return text
+
+    def predict_batch(self, volumes) -> np.ndarray:
+        parts = [p for p in np.array_split(np.arange(len(volumes)),
+                                           len(self.engines)) if len(p)]
+        if len(parts) == 1:
+            return self.engines[0].predict_batch(volumes)
+        exchange = _AmaxExchange(len(parts))
+        outs: List[Optional[np.ndarray]] = [None] * len(parts)
+        errors: List[BaseException] = []
+
+        def run(i: int, engine: ZeroShotClassifier, rows) -> None:
+            try:
+                with contextlib.ExitStack() as stack:
+                    if engine.device.type == "cuda":
+                        stack.enter_context(torch.cuda.device(engine.device))
+                    engine.k_amax_reduce = exchange.reducer(i)
+                    try:
+                        outs[i] = engine.predict_batch(
+                            volumes[rows[0]:rows[-1] + 1])
+                    finally:
+                        engine.k_amax_reduce = None
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                errors.append(e)
+                exchange.barrier.abort()
+
+        threads = [threading.Thread(target=run, args=(i, e, p))
+                   for i, (e, p) in enumerate(zip(self.engines, parts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return np.concatenate(outs)

@@ -5,6 +5,15 @@ additive attention mask, token types zero.  Attention is a plain matmul +
 fp32 softmax, as in the JAX package.  Module names follow HF ``BertModel``
 (``embeddings.*``, ``encoder.layer.{i}.attention.self.query`` ...), so an HF
 state dict loads by name.
+
+A layer's ``tp_group`` (tensor parallelism, set by
+parallel/sharding.py::apply_tensor_parallel with the layer's weights cut
+to this rank's heads and intermediate units): query/key/value and the
+intermediate product keep this rank's output columns (weights and bias),
+the attention output and output products this rank's input rows; their
+partial sums are summed over the group in fp32 (bf16 operands, fp32
+products) and their biases added once after the sum.  The embeddings, the
+LayerNorms and every bias of a row-sharded product stay whole.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ import torch.nn.functional as F
 
 from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from vit_exp_tpu_torch.models.layers import BiasLayerNorm, Linear, empty_param
+from vit_exp_tpu_torch.parallel.collectives import (copy_to_group,
+                                                    reduce_from_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +68,8 @@ class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, *, policy: Policy, device=None):
         super().__init__()
         self.cfg, self.policy = cfg, policy
+        self.heads = cfg.num_attention_heads
+        self.tp_group = None
         d, kw = cfg.hidden_size, dict(policy=policy, device=device)
 
         def ln():
@@ -73,23 +86,36 @@ class BertLayer(nn.Module):
     def forward(self, x: torch.Tensor,
                 additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, n, d = x.shape
-        h = self.cfg.num_attention_heads
-        dh = d // h
+        h = self.heads
+        dh = d // self.cfg.num_attention_heads
         sa = self.attention["self"]
+        g = self.tp_group
+        xin = x if g is None else copy_to_group(x, g)
 
         def heads(lin):
-            return lin(x).reshape(b, n, h, dh).transpose(1, 2)
+            return lin(xin).reshape(b, n, h, dh).transpose(1, 2)
 
         q, k, v = heads(sa.query), heads(sa.key), heads(sa.value)
         logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(dh)
         if additive_mask is not None:
             logits = logits + additive_mask
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        attn = (probs @ v).transpose(1, 2).reshape(b, n, d)
-        attn = self.attention.output.dense(attn)
+        attn = (probs @ v).transpose(1, 2).reshape(b, n, h * dh)
+        attn = self._rows(self.attention.output.dense, attn)
         x = self.attention.output.LayerNorm(x + attn)
-        inter = F.gelu(self.intermediate.dense(x))
-        return self.output.LayerNorm(x + self.output.dense(inter))
+        xin = x if g is None else copy_to_group(x, g)
+        inter = F.gelu(self.intermediate.dense(xin))
+        return self.output.LayerNorm(x + self._rows(self.output.dense, inter))
+
+    def _rows(self, lin: Linear, x: torch.Tensor) -> torch.Tensor:
+        """``lin`` on x; under tensor parallelism on this rank's input rows,
+        the partial sums summed over the group, then the bias."""
+        if self.tp_group is None:
+            return lin(x)
+        cd = self.policy.compute_dtype
+        y = F.linear(x.to(cd).float(), lin.weight.to(cd).float())
+        y = reduce_from_group(y, self.tp_group).to(cd)
+        return y + lin.bias.to(y.dtype)
 
 
 class BertModel(nn.Module):

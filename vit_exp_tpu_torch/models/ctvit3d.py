@@ -24,6 +24,19 @@ differentiable all-gather of parallel/collectives.py.  The parameter names
 do not change.  As in the JAX package, only a caller that builds the tower
 itself sets it; no config or CLI key does.
 
+``k_amax_reduce`` (None by default) is the int8 path's one k scale over a
+batch that several ranks or cards encode in parts: each block's k amax goes
+through it (ops/flash_attention.py::quantize_qk).  The engines set it for
+the length of a call (eval/zero_shot.py::shared_k_scale).
+
+``tp_group`` on an attention or feed-forward module (set by
+parallel/sharding.py::apply_tensor_parallel, with the module's parameters
+cut to this rank's heads or units) runs tensor parallelism over the model
+group: the input through ``copy_to_group``, this rank's slice of the
+products, and the partial outputs summed over the group in fp32
+(``reduce_from_group``).  ``partial`` is one rank's share before that sum,
+with ``copy`` in the place of ``copy_to_group``.
+
 Module and parameter names follow the reference ``visual_transformer``:
 ``to_patch_emb.{1,2,3}`` (LN in, Linear, LN out), ``enc_3D.layers.{i}.1``
 (attention) and ``.3`` (feed-forward), ``enc_3D.norm_out``.
@@ -35,6 +48,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
@@ -45,7 +59,9 @@ from vit_exp_tpu_torch.ops.fused_proj import (fused_ln_qkv, fused_ln_qkv_int8,
                                               int8_proj)
 from vit_exp_tpu_torch.ops.patches import fused_patch_embed
 from vit_exp_tpu_torch.ops.posemb import sincos_pos_embed_3d
-from vit_exp_tpu_torch.parallel.collectives import all_gather, rank, world
+from vit_exp_tpu_torch.parallel.collectives import (all_gather,
+                                                    copy_to_group, rank,
+                                                    reduce_from_group, world)
 
 ATTN_IMPLS = ("pallas_static", "pallas")
 
@@ -85,6 +101,7 @@ class CosineSelfAttention(nn.Module):
         self.static_max = attn_impl == "pallas_static"
         self.fuse_qkv = fuse_qkv
         self.int8 = int8
+        self.tp_group = None
         kw = dict(policy=policy, device=device)
         self.norm = ScaleLayerNorm(dim, **kw)
         self.null_kv = empty_param(heads, 2 * num_null_kv, dim_head, **kw)
@@ -99,11 +116,27 @@ class CosineSelfAttention(nn.Module):
         nn.init.ones_(self.q_scale)
         nn.init.ones_(self.k_scale)
 
-    def forward(self, x: torch.Tensor, ring_group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ring_group=None,
+                k_amax_reduce=None) -> torch.Tensor:
         """x: (b, n, dim), the rank's token shard under ``ring_group``."""
+        g = self.tp_group
+        if g is None:
+            return self.partial(x, ring_group=ring_group,
+                                k_amax_reduce=k_amax_reduce)
+        out = self.partial(x, lambda t: copy_to_group(t, g), ring_group)
+        return reduce_from_group(out, g).to(self.policy.compute_dtype)
+
+    def partial(self, x: torch.Tensor, copy=None, ring_group=None,
+                k_amax_reduce=None) -> torch.Tensor:
+        """The attention over this module's heads.  Without ``copy`` it is
+        the module's whole output in the compute dtype; with it (tensor
+        parallelism) the out-projection's partial sum over these heads in
+        fp32 (bf16 operands, fp32 products), and ``copy`` applied to the
+        inputs of the sharded products and to the shared q/k scales."""
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
         cd = self.policy.compute_dtype
+        same = copy or (lambda t: t)
         if self.fuse_qkv and self.int8:
             q, k, v = fused_ln_qkv_int8(
                 x.to(cd), self.norm.gamma, self.to_q.weight.t(),
@@ -115,7 +148,7 @@ class CosineSelfAttention(nn.Module):
                                      self.to_kv.weight.t(),
                                      use_kernel=self.use_kernels)
             else:
-                q, kv = self.to_q(self.norm(x)), self.to_kv(x)
+                q, kv = self.to_q(same(self.norm(x))), self.to_kv(same(x))
             k, v = kv.split(h * dh, dim=-1)
 
         def heads_first(t):   # a strided view, no copy
@@ -125,10 +158,14 @@ class CosineSelfAttention(nn.Module):
         out = cosine_attention(
             heads_first(q), heads_first(k), heads_first(v),
             null_k=nkv[:, :, 0], null_v=nkv[:, :, 1],
-            q_scale=self.q_scale, k_scale=self.k_scale, scale=self.scale,
-            use_kernel=self.use_kernels, static_max=self.static_max,
-            quantized=self.int8, ring_group=ring_group)
+            q_scale=same(self.q_scale), k_scale=same(self.k_scale),
+            scale=self.scale, use_kernel=self.use_kernels,
+            static_max=self.static_max, quantized=self.int8,
+            ring_group=ring_group, k_amax_reduce=k_amax_reduce)
         out = out.transpose(1, 2).reshape(b, n, h * dh)
+        if copy is not None:
+            return F.linear(out.to(cd).float(),
+                            self.to_out.weight.to(cd).float())
         if self.int8 and self.fuse_qkv:
             return int8_proj(out.to(cd), self.to_out.weight.t(),
                              use_kernel=self.use_kernels)
@@ -153,8 +190,9 @@ class TransformerBlock(nn.Module):
             dim, ff_mult, policy=policy, use_kernel=use_kernels, int8=int8,
             device=device))
 
-    def forward(self, x: torch.Tensor, ring_group=None) -> torch.Tensor:
-        x = x + self._modules["1"](x, ring_group)
+    def forward(self, x: torch.Tensor, ring_group=None,
+                k_amax_reduce=None) -> torch.Tensor:
+        x = x + self._modules["1"](x, ring_group, k_amax_reduce)
         return x + self._modules["3"](x)
 
 
@@ -179,6 +217,7 @@ class CTViT3D(nn.Module):
         self.dim = dim
         self.remat = remat
         self.seq_group = seq_group
+        self.k_amax_reduce = None
         self.patch_size, self.temporal_patch_size = patch_size, temporal_patch_size
         self.grid = (temporal_size // temporal_patch_size,
                      image_size // patch_size, image_size // patch_size)
@@ -223,11 +262,12 @@ class CTViT3D(nn.Module):
                                  f"seq shards")
             chunk = n_tok // ring
             x = x[:, rank(group) * chunk:(rank(group) + 1) * chunk]
+        reduce = self.k_amax_reduce
         for block in self.enc_3D.layers:
             if self.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(block, x, group,
+                x = torch.utils.checkpoint.checkpoint(block, x, group, reduce,
                                                       use_reentrant=False)
             else:
-                x = block(x, group)
+                x = block(x, group, reduce)
         x = all_gather(self.enc_3D.norm_out(x), group, dim=1)
         return x.reshape(b, n_t, n_h, n_w, self.dim)

@@ -17,6 +17,8 @@ import torch.nn.functional as F
 
 from vit_exp_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 from vit_exp_tpu_torch.ops.geglu_ff import fused_geglu_ff, fused_geglu_ff_int8
+from vit_exp_tpu_torch.parallel.collectives import (copy_to_group,
+                                                    reduce_from_group)
 
 
 def empty_param(*shape, policy: Policy, device) -> nn.Parameter:
@@ -100,7 +102,12 @@ class GEGLUFeedForward(nn.Module):
     [val | gate].  Runs as the fused kernel K2, or with ``int8`` as the
     serving-only W8A8 kernel K11 on the same parameters.  Children are
     named as the reference Sequential's indices: 0 (norm), 1 (wi), 4
-    (wo)."""
+    (wo).  With ``tp_group`` (tensor parallelism, set with the module's
+    weights cut to this rank's units by parallel/sharding.py) K2 runs on
+    this rank's columns of both halves of W1 and rows of W2, x, γ and β go
+    through ``copy_to_group`` (K8's dx, dγ and dβ hold this rank's units
+    only) and the partial outputs, which K2 rounds to bf16, are summed over
+    the group in fp32 (``reduce_from_group``)."""
 
     def __init__(self, dim: int, mult: float = 4.0, *,
                  policy: Policy = DEFAULT_POLICY, use_kernel: bool = True,
@@ -110,6 +117,7 @@ class GEGLUFeedForward(nn.Module):
         self.policy = policy
         self.use_kernel = use_kernel
         self.int8 = int8
+        self.tp_group = None
         self.add_module("0", BiasLayerNorm(dim, policy=policy, device=device))
         self.add_module("1", Linear(dim, 2 * inner, bias=False, policy=policy,
                                     device=device))
@@ -117,10 +125,21 @@ class GEGLUFeedForward(nn.Module):
                                     device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.tp_group
+        if g is None:
+            return self.partial(x)
+        return reduce_from_group(self.partial(
+            x, lambda t: copy_to_group(t, g)), g)
+
+    def partial(self, x: torch.Tensor, copy=None) -> torch.Tensor:
+        """The feed-forward over this module's units, ``copy`` (tensor
+        parallelism) applied to x, γ and β."""
         norm, wi, wo = self._modules["0"], self._modules["1"], self._modules["4"]
+        same = copy or (lambda t: t)
         fn = fused_geglu_ff_int8 if self.int8 else fused_geglu_ff
-        return fn(x.to(self.policy.compute_dtype), norm.weight, norm.bias,
-                  wi.weight.t(), wo.weight.t(), use_kernel=self.use_kernel)
+        return fn(same(x.to(self.policy.compute_dtype)), same(norm.weight),
+                  same(norm.bias), wi.weight.t(), wo.weight.t(),
+                  use_kernel=self.use_kernel)
 
 
 class MLPHead(nn.Sequential):

@@ -19,7 +19,9 @@ says), and the nulls stay out of the ring: each shard merges them once by
 the log-sum-exp identity, in fp32.
 ``quantized=True`` is the int8 serving path (the JAX ``quantized=True`` of
 ``cosine_attention`` and ``cosine_attention_packed``): int8 QKᵀ through
-``attention_static_int8``, forward only.  It refuses a scale with
+``attention_static_int8``, forward only; k is quantized at one scale over
+the batch, and ``k_amax_reduce`` (ops/flash_attention.py::quantize_qk)
+widens that batch to the ranks' or cards' whole batch.  It refuses a scale with
 scale·1.5² > 4.8, as the JAX package does: q and k land on the int8 grid
 before the multiplication by the scale, and exp amplifies the error.
 """
@@ -62,7 +64,8 @@ def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
                      k_scale=None, scale: Optional[float] = None,
                      use_kernel: bool = True, static_max: bool = True,
                      quantized: bool = False, ring_group=None,
-                     mask=None, attn_bias=None) -> torch.Tensor:
+                     k_amax_reduce=None, mask=None,
+                     attn_bias=None) -> torch.Tensor:
     """q, k, v: (b, h, n, d); null_k/null_v: (h, n_null, d); q_scale/k_scale:
     (d,).  Returns (b, h, n, d).  No route takes a mask or a bias (the JAX
     "pallas" and "ring" impls refuse them too): either raises."""
@@ -78,7 +81,7 @@ def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
             raise ValueError("quantized=True is only implemented with "
                              "static_max=True")
         return _int8_attention(q, k, v, null_k, null_v, q_scale, k_scale,
-                               scale, use_kernel)
+                               scale, use_kernel, k_amax_reduce)
     nk = nv = None
     if null_k is not None:
         nk = l2norm(null_k.to(k.dtype))
@@ -106,7 +109,7 @@ def cosine_attention(q, k, v, *, null_k=None, null_v=None, q_scale=None,
 
 
 def _int8_attention(q, k, v, null_k, null_v, q_scale, k_scale, scale: float,
-                    use_kernel: bool) -> torch.Tensor:
+                    use_kernel: bool, k_amax_reduce=None) -> torch.Tensor:
     """The prologue of the JAX ``cosine_attention_packed`` (null k
     normalised in fp32), then the int8 attention kernel or its plain twin;
     the output in q.dtype."""
@@ -130,6 +133,6 @@ def _int8_attention(q, k, v, null_k, null_v, q_scale, k_scale, scale: float,
     if k_scale is not None:
         k = k * k_scale.to(k.dtype)
     bound = logit_bound(q_scale, k_scale, scale).to(q.device)
-    q8, k8, qe, qn = quantize_qk(q, k, scale)
+    q8, k8, qe, qn = quantize_qk(q, k, scale, k_amax_reduce)
     fn = attention_static_int8 if use_kernel else attention_static_int8_plain
     return fn(q8, k8, v, qe, qn, nk, nv, bound).to(q.dtype)

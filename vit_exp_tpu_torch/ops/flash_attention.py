@@ -450,13 +450,21 @@ def flash_attention_online(q, k, v, *, scale: Optional[float] = None,
     return OnlineAttention.apply(q, k, v, float(scale), use_kernel, return_lse)
 
 
-def quantize_qk(q: torch.Tensor, k: torch.Tensor, scale: float):
+def quantize_qk(q: torch.Tensor, k: torch.Tensor, scale: float,
+                amax_reduce=None):
     """The int8 prologue of K10 on (b, h, n, d) q and k: q8 per row, k8 at
     one global scale (a 0-dim device tensor), qe = s_q·s_k·scale and qn =
-    s_q·scale, each (b, h, n) fp32.  q8/k8 keep q/k's memory layout."""
+    s_q·scale, each (b, h, n) fp32.  q8/k8 keep q/k's memory layout.
+    ``amax_reduce`` maps k's amax (a 0-dim fp32 device tensor) to the amax
+    of the whole batch where this call sees only part of it (a process
+    group's ranks, or the cards of one server): JAX takes the scale over
+    the global batch under a mesh."""
     q8, qs = quant_rows(q)
     kf = k.float()
-    ks = int8_scale(kf.abs().amax())
+    amax = kf.abs().amax()
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    ks = int8_scale(amax)
     k8 = torch.clamp(torch.round(kf / ks), -127, 127).to(torch.int8)
     qs = qs[..., 0]
     return q8, k8, qs * ks * scale, qs * scale

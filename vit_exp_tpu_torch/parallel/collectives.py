@@ -1,6 +1,6 @@
-"""The collectives of data and sequence parallelism, written out (the JAX
-package leaves them to GSPMD; the reference has a differentiable NCCL
-all-gather, CT_CLIP/ct_clip/distributed.py).
+"""The collectives of data, sequence, parameter and tensor parallelism,
+written out (the JAX package leaves them to GSPMD; the reference has a
+differentiable NCCL all-gather, CT_CLIP/ct_clip/distributed.py).
 
 The gradient rule.  JAX differentiates one global scalar and GSPMD inserts
 the transposes of its collectives.  The port gets the same gradient so:
@@ -25,6 +25,14 @@ which suits a loss that each rank computes on its own rows and averages;
 under rule 3 it would give the gathered path 1/W of its gradient and the
 rest not, so the port does not use it.
 
+Tensor parallelism (the model group, core/mesh.py) has two conjugate
+functions: ``copy_to_group`` (identity forward, a sum of the cotangents
+over the group backward) before a sharded product's input, and
+``reduce_from_group`` (a sum of the ranks' partial outputs forward,
+identity backward) after it.  Both sum in fp32 and round once.  Parameter
+sharding (the fsdp group) gathers a flat shard into the full parameter
+with ``gather_shard``, whose backward reduce-scatters the gradient.
+
 With no group (None) every function here is the identity, or a no-op.
 The NCCL group takes the fused all-gather and reduce-scatter; gloo, the
 CPU backend, has no reduce-scatter, so there a gather's backward is an
@@ -33,7 +41,8 @@ all-reduce of the whole cotangent and a slice.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Sequence
+import math
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -162,16 +171,23 @@ def ring_permute(tensors: Sequence[torch.Tensor], group):
     return _RingPermute.apply(group, *tensors)
 
 
-def average_gradients(params: Iterable[torch.nn.Parameter], group) -> None:
+def average_gradients(params: Iterable[torch.nn.Parameter], group,
+                      n: Optional[int] = None) -> None:
     """Average every parameter's ``.grad`` over the group (rule 3): one
-    all-reduce of a flat buffer per dtype.  Every parameter must have a
-    gradient (the optimizer fills the missing ones with zeros first)."""
+    all-reduce of a flat buffer per dtype, divided by ``n`` (the group's
+    size by default; parallel/sharding.py passes the batch group's, whose
+    fsdp ranks' sums the reduce-scatter already took).  Every parameter
+    must have a gradient (the optimizer fills the missing ones with zeros
+    first)."""
+    n = world(group) if n is None else n
     if group is None:
+        if n != 1:
+            for p in params:
+                p.grad /= n
         return
     by_dtype: Dict[torch.dtype, list] = {}
     for p in params:
         by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    n = world(group)
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=group)
@@ -210,3 +226,84 @@ def gather_objects(obj, group) -> list:
     out = [None] * world(group)
     dist.all_gather_object(out, obj, group=group)
     return out
+
+
+def _sum32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ranks of x, taken in fp32 and rounded once to x's
+    dtype (a new tensor)."""
+    y = x.to(torch.float32, copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum32(g, ctx.group), None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; backward, the cotangents summed over the group
+    (the input of a product sharded over the model group: each rank's
+    cotangent holds its slice's part)."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partial outputs summed over the group in fp32, rounded
+    once to x's dtype; backward, the identity (every rank holds the whole
+    cotangent)."""
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, group, dim: int, sizes: Sequence[int]
+               ) -> torch.Tensor:
+    """The ranks' x joined along ``dim`` in rank order, rank r's holding
+    ``sizes[r]`` entries there (not differentiable; uneven sizes are padded
+    for the gather and cut after it)."""
+    if group is None:
+        return x
+    x = x.movedim(dim, 0)
+    top = max(sizes)
+    if x.shape[0] < top:
+        x = torch.cat([x, x.new_zeros((top - x.shape[0], *x.shape[1:]))])
+    parts = gather_rows(x, group).split(top)
+    return torch.cat([p[:s] for p, s in zip(parts, sizes)]).movedim(0, dim)
+
+
+class _GatherShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, group, shape):
+        ctx.group = group
+        numel = math.prod(shape)
+        ctx.numel = numel
+        return gather_rows(shard, group)[:numel].view(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat = g.new_zeros(world(ctx.group) * (-(-ctx.numel
+                                                   // world(ctx.group))))
+        flat[:ctx.numel] = g.reshape(-1)
+        return _sum_scatter(flat, ctx.group), None, None
+
+
+def gather_shard(shard: torch.Tensor, group, shape) -> torch.Tensor:
+    """The full parameter of ``shape`` from the ranks' flat shards (each
+    ceil(numel / W) long, the last padded); backward, the gradient summed
+    over the ranks and cut to this rank's shard (a reduce-scatter)."""
+    return _GatherShard.apply(shard, group, tuple(shape))

@@ -29,7 +29,13 @@ does.
 over the group's ranks after the zero fill and before they join the
 accumulation (parallel/collectives.py::average_gradients, one all-reduce
 of a flat buffer); the mean is linear, so accumulating averaged gradients
-is averaging accumulated ones.
+is averaging accumulated ones.  ``sharding`` (a parallel/sharding.py
+``Sharded`` on a grid): the group is the grid's replica group, the sum is
+divided by the batch's D·F shards (the fsdp ranks' part of the sum came
+from the gather's reduce-scatter), weight decay is decided from each
+parameter's full shape, never a flat shard's, and the global norm is
+``Sharded.global_norm``, each element counted once.  The moments, the
+accumulator and the zero fill work on the shards as they are.
 
 ``AdamWOptax`` is the fine-tuning optimizer (finetune/, text_classifier/),
 ``optax.adamw(schedule, weight_decay=wd)`` as the JAX package builds it
@@ -44,11 +50,12 @@ first update of a warmup moves nothing but Adam's moments).
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 
 from vit_exp_tpu_torch.parallel.collectives import average_gradients
+from vit_exp_tpu_torch.parallel.sharding import full_shape
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -57,10 +64,12 @@ def global_norm(grads) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
-    """Scale ``grads`` in place by max_norm / norm when norm ≥ max_norm;
+def clip_by_global_norm_(grads, max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scale ``grads`` in place by max_norm / norm when norm ≥ max_norm
+    (``norm``: their global norm where the caller has it, as on a grid);
     returns the norm before clipping."""
-    norm = global_norm(grads)
+    norm = global_norm(grads) if norm is None else norm
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     for g in grads:
@@ -79,9 +88,16 @@ class Optimizer:
 
     def __init__(self, params: Iterable[torch.nn.Parameter], *, lr: float,
                  wd: float, max_grad_norm: float, warmup_steps: int,
-                 accumulation_steps: int = 1, group=None):
+                 accumulation_steps: int = 1, group=None, sharding=None):
         self.params = [p for p in params if p.requires_grad]
         self.group = group
+        self.mean_over = None
+        self.sharding = None
+        grid = getattr(sharding, "grid", None)
+        if grid is not None:
+            self.group, self.mean_over = grid.replica, grid.batch_shards
+            if sharding.tp is not None or sharding.fsdp is not None:
+                self.sharding = sharding
         self.max_grad_norm = max_grad_norm
         self.grad_norm = None
         self.count = 0   # micro-steps taken
@@ -93,8 +109,8 @@ class Optimizer:
         if wd == 0:
             self.opt = torch.optim.Adam(self.params, **kw)
         else:
-            decay = [p for p in self.params if p.ndim >= 2]
-            rest = [p for p in self.params if p.ndim < 2]
+            decay = [p for p in self.params if len(full_shape(p)) >= 2]
+            rest = [p for p in self.params if len(full_shape(p)) < 2]
             self.opt = torch.optim.AdamW(
                 [{"params": decay, "weight_decay": wd},
                  {"params": rest, "weight_decay": 0.0}], **kw)
@@ -112,7 +128,7 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        average_gradients(self.params, self.group)
+        average_gradients(self.params, self.group, self.mean_over)
         self.count += 1
         if self.acc is not None:
             n = self.mini_step
@@ -125,10 +141,13 @@ class Optimizer:
                 p.grad.copy_(a)
                 a.zero_()
         grads = [p.grad for p in self.params]
+        norm = (None if self.sharding is None
+                else self.sharding.global_norm(self.params))
         if self.max_grad_norm and self.max_grad_norm > 0:
-            self.grad_norm = clip_by_global_norm_(grads, self.max_grad_norm)
+            self.grad_norm = clip_by_global_norm_(grads, self.max_grad_norm,
+                                                  norm)
         else:
-            self.grad_norm = global_norm(grads)
+            self.grad_norm = global_norm(grads) if norm is None else norm
         self.opt.step()
         self.schedule.step()
 
@@ -150,13 +169,14 @@ class Optimizer:
                 a.copy_(saved)
 
 
-def build_optimizer(trainer_cfg, params, group=None) -> Optimizer:
+def build_optimizer(trainer_cfg, params, group=None,
+                    sharding=None) -> Optimizer:
     return Optimizer(params, lr=trainer_cfg.lr, wd=trainer_cfg.wd,
                      max_grad_norm=trainer_cfg.max_grad_norm,
                      warmup_steps=getattr(trainer_cfg, "warmup_steps", 0),
                      accumulation_steps=getattr(
                          trainer_cfg, "gradient_accumulation_steps", 1),
-                     group=group)
+                     group=group, sharding=sharding)
 
 
 def finetune_schedule(lr: float, warmup_steps: int,

@@ -46,6 +46,12 @@ takes its rows, so the ranks of a step draw what one process draws at the
 global batch; ``draws=`` are likewise the global batch's.  The optimizer
 averages the gradients over the group, and the metrics come back
 averaged over it, the global values that every rank then holds.
+
+``sharding`` (a parallel/sharding.py ``Sharded``, on a grid with fsdp or
+model > 1): ``group`` is then the grid's batch group, and each step runs
+inside ``sharding.gathered()``, which gathers the parameters outside the
+sharded units for its length; the model's tensor-parallel modules and
+units do the rest themselves.
 """
 
 from __future__ import annotations
@@ -99,8 +105,8 @@ def local_rows(draws: Dict, rows: slice) -> Dict:
     return out
 
 
-def make_train_steps(model, optimizer, config,
-                     group=None) -> Dict[str, Callable]:
+def make_train_steps(model, optimizer, config, group=None,
+                     sharding=None) -> Dict[str, Callable]:
     """Returns {data_type: step}.  step(batch, loss_weight, *, draws=None)
     takes a dict of device tensors ("image" (B, 1, T, H, W)
     and, by type, "input_ids" (B, L) and "attention_mask", or "seg_mask",
@@ -206,5 +212,15 @@ def make_train_steps(model, optimizer, config,
             group=group)
         return update({"open_seg_loss": loss}, loss, loss_weight)
 
-    return {"imagereport": imagereport, "imageseg": imageseg,
-            "imageopenseg": imageopenseg}
+    steps = {"imagereport": imagereport, "imageseg": imageseg,
+             "imageopenseg": imageopenseg}
+    if sharding is None:
+        return steps
+
+    def gathered(step):
+        def run(*args, **kwargs):
+            with sharding.gathered():
+                return step(*args, **kwargs)
+        return run
+
+    return {k: gathered(v) for k, v in steps.items()}

@@ -53,21 +53,28 @@ vit_exp_tpu/train/trainer.py's ``CTClipTrainer``).
   drops it.  On the CPU the batches are used where they lie, with no copy.
 
 - Several processes (``mesh_config``, core/mesh.py; one process per
-  card, the process group joined before the trainer is built): the data
-  group is the default group, and each process loads its own share of the
-  global batch of batch_size × data shards (``batch_size × data /
-  process_count`` a loader batch, ValueError where that does not divide),
-  from the loader's stride of one shared permutation (shard_id = rank).
-  The steps take the global-batch terms over the group and the optimizer
-  averages the gradients (train/steps.py).  Rank 0 alone writes the
-  metrics and the checkpoints; a save that waits ends at a barrier, so
-  every rank then sees the file, and a resume loads the same step on every
-  rank.  The preemption flag is all-reduced (MAX) at each step boundary
-  and read at the next, so every rank stops and saves at the same step
-  and none is left waiting in a collective.  The eval and sample hooks run
-  on every rank on the same module (their engines start no collective);
-  only rank 0 logs them.  The sampler is a function of (seed, step), so
-  every rank runs the same sequence of data types.
+  card, the process group joined before the trainer is built): the batch
+  shards over the grid's data × fsdp ranks, and each process loads its
+  shard of the global batch of batch_size × data × fsdp (``batch_size`` a
+  loader batch) from the loader's stride of one shared permutation
+  (shard_id = d·F + f of D·F shards); the M ranks of a model group load
+  the same rows.  The model is placed on the grid first
+  (parallel/sharding.py: the tensor-parallel cut over the model group,
+  the parameters sharded over the fsdp group).  The steps take the
+  global-batch terms over the batch group and the optimizer averages the
+  gradients over it (train/steps.py, train/optimizer.py).  Rank 0 alone
+  writes the metrics and the checkpoints, in the reference layout with
+  every parameter and moment gathered whole (every rank takes part in the
+  gather); a save that waits ends at a barrier, so every rank then sees
+  the file, and a resume loads the same step on every rank, each cutting
+  it to its share, so a checkpoint of one grid resumes on any other.  The
+  preemption flag is all-reduced (MAX) over every process at each step
+  boundary and read at the next, so every rank stops and saves at the same
+  step and none is left waiting in a collective.  The eval and sample
+  hooks run on every rank on the same module (with the sharded parameters
+  gathered; their engines start no collective of their own); only rank 0
+  logs them.  The sampler is a function of (seed, step), so every rank
+  runs the same sequence of data types.
 
 Not ported: the host-memory watchdog (a guard against a leak of the JAX
 package's TPU client).
@@ -83,10 +90,11 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from vit_exp_tpu_torch.core import multihost
-from vit_exp_tpu_torch.core.mesh import MeshConfig, data_group
+from vit_exp_tpu_torch.core.mesh import MeshConfig, grid
 from vit_exp_tpu_torch.data.loader import InfiniteLoader, Loader
 from vit_exp_tpu_torch.data.pinned import BatchCopier, DeviceBatch, PinnedPool
-from vit_exp_tpu_torch.parallel.collectives import all_reduce_max, world
+from vit_exp_tpu_torch.parallel.collectives import all_reduce_max
+from vit_exp_tpu_torch.parallel.sharding import Sharded
 from vit_exp_tpu_torch.train.checkpoint import CheckpointManager
 from vit_exp_tpu_torch.train.optimizer import build_optimizer
 from vit_exp_tpu_torch.train.sampler import build_dataset_sampler
@@ -118,28 +126,27 @@ class CTClipTrainer:
         self.results_folder = config.results_folder
         os.makedirs(self.results_folder, exist_ok=True)
 
-        self.group = data_group(mesh_config)
-        self.n_data_shards = world(self.group)
+        self.grid = grid(mesh_config)
+        self.group = self.grid.batch
+        self.n_data_shards = self.grid.batch_shards
         self.process_count = multihost.process_count()
+        # the preemption flag's group: every process
+        self.world_group = (torch.distributed.group.WORLD
+                            if self.process_count > 1 else None)
         self.is_main = multihost.is_main_process()
+        self.sharding = Sharded(model, self.grid)
         self.datasets = datasets or []
         cuda = self.device.type == "cuda"
         self.loaders = []
         for spec, ds in zip(config.train_data_list, self.datasets):
-            global_batch = int(spec.get("batch_size", 1)) * self.n_data_shards
-            if global_batch % self.process_count:
-                raise ValueError(
-                    f"global batch {global_batch} (batch_size × data shards) "
-                    f"must divide evenly across {self.process_count} "
-                    f"processes")
             self.loaders.append(InfiniteLoader(Loader(
-                ds, batch_size=global_batch // self.process_count,
+                ds, batch_size=int(spec.get("batch_size", 1)),
                 shuffle=True, seed=config.random_seed, drop_last=True,
                 num_workers=int(spec.get("num_workers", 4)),
                 pool=(PinnedPool(PIN_SLOTS, _BATCH_KEYS, register=True)
                       if cuda else None),
-                shard_id=multihost.process_index(),
-                num_shards=self.process_count)))
+                shard_id=self.grid.batch_index,
+                num_shards=self.n_data_shards)))
         self.copier = BatchCopier(self.device)
         # the next micro-step's batch, read ahead: (data set, device batch)
         self._ahead: Optional[tuple] = None
@@ -152,9 +159,10 @@ class CTClipTrainer:
                                              seed=config.random_seed)
 
         self.optimizer = build_optimizer(self.trainer_cfg, model.parameters(),
-                                         group=self.group)
-        self.steps_by_type = make_train_steps(model, self.optimizer, config,
-                                              group=self.group)
+                                         sharding=self.sharding)
+        self.steps_by_type = make_train_steps(
+            model, self.optimizer, config, group=self.group,
+            sharding=self.sharding)
         self.step = 0
         # host seconds spent waiting for the loaders, and batches taken
         self.data_wait_s = 0.0
@@ -179,20 +187,23 @@ class CTClipTrainer:
     # -- state ---------------------------------------------------------------
 
     def save(self, *, wait: bool = False) -> None:
-        """Rank 0 writes; with ``wait`` every rank leaves once the write is
-        on disk."""
+        """Every rank gathers the full state, rank 0 writes it; with
+        ``wait`` every rank leaves once the write is on disk."""
+        model = self.sharding.full_state_dict()
+        optimizer = self.sharding.full_optimizer_state(self.optimizer)
         if self.is_main:
-            self.ckpt.save(self.step, self.model.state_dict(),
-                           {"optimizer": self.optimizer.state_dict(),
-                            "step": self.step}, wait=wait)
+            self.ckpt.save(self.step, model,
+                           {"optimizer": optimizer, "step": self.step},
+                           wait=wait)
         if wait:
             multihost.sync_hosts()
 
     def restore(self, step: int) -> None:
         self._ahead = None
         saved = self.ckpt.restore(step)
-        self.model.load_state_dict(saved["model"], strict=True)
-        self.optimizer.load_state_dict(saved["train_state"]["optimizer"])
+        self.sharding.load_full_state_dict(saved["model"])
+        self.sharding.load_full_optimizer_state(
+            self.optimizer, saved["train_state"]["optimizer"])
         self.step = int(saved["train_state"]["step"])
 
     # -- batch plumbing --------------------------------------------------------
@@ -269,10 +280,10 @@ class CTClipTrainer:
         flag for one process; under a group the flag all-reduced (MAX) at
         the previous boundary, read now that its step is done, while this
         boundary's all-reduce starts for the next."""
-        if self.group is None:
+        if self.world_group is None:
             return self._preempted
         prev, self._flag = self._flag, all_reduce_max(torch.tensor(
-            [float(self._preempted)], device=self.device), self.group)
+            [float(self._preempted)], device=self.device), self.world_group)
         return prev is not None and bool(prev.item())
 
     def train(self, num_steps: Optional[int] = None,
@@ -335,14 +346,16 @@ class CTClipTrainer:
                     and self.step % tcfg.eval_model_every == 0):
                 flush_pending()
                 for name, hook in self.eval_hooks.items():
-                    res = hook(self.model)
+                    with self.sharding.gathered():
+                        res = hook(self.model)
                     self.logger.log({f"eval/{name}/{k}": v
                                      for k, v in res.items()}, step=self.step)
             if (self.sample_hooks and tcfg.sample_val_every
                     and self.step % tcfg.sample_val_every == 0):
                 flush_pending()
                 for name, hook in self.sample_hooks.items():
-                    paths = hook(self.model, self.step)
+                    with self.sharding.gathered():
+                        paths = hook(self.model, self.step)
                     self.logger.log({f"sample/{name}/{k}": str(v)
                                      for k, v in paths.items()},
                                     step=self.step)
