@@ -209,7 +209,19 @@
    rows (K15 with lse, the pair, K2's three, K8's six at 4 and 2 heads,
    2I 2,048 and 1,024); then ``serve --mesh 1,1,1`` against the flagless
    server on the same requests, bit for bit.
-13. Prints one JSON line with every kernel's numbers (the rows of 7-12 once
+13. The legacy generative stack at GenerateCT's published shapes (phase
+   "generative", plain torch as the JAX package runs it: no kernel, so no
+   kernel row): CTViTTrainer for GEN_STEPS steps on a (1, 1, 201, 128,
+   128) volume (the VGG perceptual term, λ, the discriminator at steps 2,
+   5 and 8 with the gradient penalty at 8), each loss term printed and
+   finite, steps/s and peak memory; the fp32 encode → quantize → decode of
+   17 frames on the card against the CPU (encoded tokens and the decode of
+   the CPU's indices within GEN_CPU_RTOL, the agreeing indices printed);
+   one MaskGITTrainer.fit_batch and one MaskGITTransformer.sample (18
+   steps, cond_scale 5) on BERT-base's states of a padded prompt: ids in
+   range, the decoded volume finite at (1, 1, 201, 128, 128), the sampling
+   time; ``run_ctvit_recon.main`` on one synthetic volume.
+14. Prints one JSON line with every kernel's numbers (the rows of 7-12 once
    for each path, with that path's launches), the card line, the
    throughput lines, and last ``{"ok": true, "device": {...}}``.
 
@@ -4271,6 +4283,197 @@ def serve_mesh_phase(device, card: str, n=4, lone=2):
     return dict(seconds=seconds)
 
 
+# the legacy generative stack at GenerateCT's published shapes (phase
+# "generative"): the CTViT of dim 512, codebook 8,192, 128², patch 16,
+# temporal patch 2, depth 4 + 4, 8 heads × 32 on a (1, 1, 201, 128, 128)
+# volume (101 × 8 × 8 = 6,464 tokens), MaskGit of dim 512, depth 6, 8 heads
+# × 64 over those tokens, cross-attending to BERT-base's 768-wide states
+GEN_CTVIT = dict(dim=512, codebook_size=8192, image_size=128, patch_size=16,
+                 temporal_patch_size=2, spatial_depth=4, temporal_depth=4,
+                 dim_head=32, heads=8)
+GEN_MASKGIT = dict(dim=512, depth=6, heads=8, dim_head=64)
+GEN_FRAMES = 201
+GEN_STEPS = 9           # discriminator steps at 2, 5, 8; the penalty at 8
+GEN_CHECK_FRAMES = 17   # the fp32 card-against-CPU encode and decode
+GEN_CPU_RTOL = 1e-4     # relative L2 there, fp32 on both sides, TF32 off
+GEN_TEXT_LEN = 32       # prompt tokens, the last 8 padding
+GEN_SAMPLE_STEPS = 18
+GEN_COND_SCALE = 5.0
+
+
+def _peak_gb(device) -> float:
+    return (torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda"
+            else float("nan"))
+
+
+def _reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def generative_phase(device, card: str, bert_config, ctvit_kw=GEN_CTVIT,
+                     maskgit_kw=GEN_MASKGIT, frames=GEN_FRAMES,
+                     steps=GEN_STEPS, check_frames=GEN_CHECK_FRAMES,
+                     sample_steps=GEN_SAMPLE_STEPS, text_len=GEN_TEXT_LEN,
+                     recon_argv=()):
+    """The legacy generative stack (plain torch: no kernel): CTViTTrainer
+    for ``steps`` steps on one seeded volume, each loss term and λ finite
+    and the discriminator steps where the schedule puts them; the fp32
+    encode → quantize → decode of the first ``check_frames`` frames on the
+    device against the CPU (the encoded tokens, and the decode of the CPU's
+    indices, within GEN_CPU_RTOL; the indices that agree printed); one
+    MaskGITTrainer.fit_batch and one MaskGITTransformer.sample on BERT's
+    states for a padded prompt (ids in range, no mask id, the decoded volume
+    finite at the input's shape); run_ctvit_recon.main on one synthetic
+    volume."""
+    from vit_exp_tpu_torch.cli import run_ctvit_recon
+    from vit_exp_tpu_torch.core.precision import FP32_POLICY
+    from vit_exp_tpu_torch.data.nifti import read_nifti
+    from vit_exp_tpu_torch.models.bert import BertModel
+    from vit_exp_tpu_torch.models.ctvit import CTViT
+    from vit_exp_tpu_torch.models.factory import init_parameters_
+    from vit_exp_tpu_torch.models.maskgit import MaskGit
+    from vit_exp_tpu_torch.models.maskgit_pipeline import MaskGITTransformer
+    from vit_exp_tpu_torch.train.ctvit_trainer import (CTViTTrainer,
+                                                       MaskGITTrainer)
+
+    t_start = time.perf_counter()
+    out = {}
+    folder = Path(tempfile.mkdtemp(prefix="chip_smoke_gen_"))
+    try:
+        model = CTViT(**ctvit_kw, device=device)
+        init_parameters_(model, 0)
+        trainer = CTViTTrainer(model, results_folder=str(folder / "vqgan"),
+                               sample_every=0, seed=0)
+        size = ctvit_kw["image_size"]
+        g = torch.Generator(device=device).manual_seed(41)
+        video = torch.rand((1, 1, frames, size, size), generator=g,
+                           device=device) * 2 - 1
+        _reset_peak(device)
+        logs, times = [], []
+        for _ in range(steps):
+            lg, seconds = timed(lambda: trainer.train_step(video), device)
+            logs.append(lg)
+            times.append(seconds)
+        check(all(math.isfinite(v) for lg in logs for v in lg.values()),
+              ("CTViTTrainer losses", logs))
+        check([i for i, lg in enumerate(logs) if "discr_loss" in lg]
+              == [i for i in range(steps) if (i + 1) % 3 == 0], logs)
+        out.update(logs=logs, times=times, peak_gb=_peak_gb(device),
+                   sps=1.0 / statistics.median(times[1:] or times))
+
+        # fp32 on both sides from the trained weights (TF32 is off)
+        sd = trainer.ema_model().state_dict()
+        card32, cpu32 = (CTViT(**ctvit_kw, policy=FP32_POLICY, device=dev)
+                         for dev in (device, torch.device("cpu")))
+        card32.load_state_dict(sd)
+        cpu32.load_state_dict(sd)
+        clip = video[:, :, :check_frames]
+        with torch.no_grad():
+            enc_card, enc_cpu = card32(clip), cpu32(clip.cpu())
+            idx_card = card32.quantize(enc_card)[1].cpu()
+            idx_cpu = cpu32.quantize(enc_cpu)[1]
+            dec_card = card32.decode_from_indices(idx_cpu.to(device))
+            dec_cpu = cpu32.decode_from_indices(idx_cpu)
+        out.update(enc_rel=rel_l2(enc_card.cpu(), enc_cpu),
+                   dec_rel=rel_l2(dec_card.cpu(), dec_cpu),
+                   agree=int((idx_card == idx_cpu).sum()),
+                   n_idx=idx_cpu.numel())
+        check(out["enc_rel"] <= GEN_CPU_RTOL and out["dec_rel"] <= GEN_CPU_RTOL,
+              ("card against CPU", out["enc_rel"], out["dec_rel"]))
+        del card32, cpu32, enc_card, dec_card
+        release(device)
+
+        # MaskGIT over the trained CTViT, conditioned on BERT's states
+        bert = BertModel(bert_config, device=device).eval()
+        init_parameters_(bert, 0)
+        tok = random_tokenizer(bert_config.vocab_size, 43)([""], text_len)
+        ids = torch.as_tensor(tok["input_ids"], device=device)
+        mask = torch.ones_like(ids)
+        mask[:, -8:] = 0
+
+        def text_encode(i, m):
+            return bert(i, m)
+
+        grid = (1 + (frames - 1) // ctvit_kw["temporal_patch_size"],
+                size // ctvit_kw["patch_size"], size // ctvit_kw["patch_size"])
+        seq = grid[0] * grid[1] * grid[2]
+        mg = MaskGit(ctvit_kw["codebook_size"], seq, **maskgit_kw,
+                     dim_context=bert_config.hidden_size, device=device)
+        init_parameters_(mg, 1)
+        ctvit = trainer.ema_model()
+        pipe = MaskGITTransformer(ctvit, mg, text_encode)
+        _reset_peak(device)
+        out["mg_loss"], out["fit_s"] = timed(
+            lambda: MaskGITTrainer(pipe).fit_batch(video, ids, mask), device)
+        out["mg_peak_gb"] = _peak_gb(device)
+        check(math.isfinite(out["mg_loss"]), ("MaskGIT loss", out["mg_loss"]))
+        mg.eval()
+        seen = {}
+        decode = ctvit.decode_from_indices
+
+        def record(i):
+            seen["ids"] = i
+            return decode(i)
+
+        ctvit.decode_from_indices = record
+        try:
+            vol, out["sample_s"] = timed(lambda: pipe.sample(
+                ids, mask, token_grid=grid, steps=sample_steps,
+                cond_scale=GEN_COND_SCALE,
+                generator=torch.Generator(device=device).manual_seed(44)),
+                device)
+        finally:
+            del ctvit.decode_from_indices
+        sampled = seen["ids"]
+        check(sampled.shape == (1, *grid) and int(sampled.min()) >= 0
+              and int(sampled.max()) < mg.mask_id, ("sampled ids", sampled))
+        check(vol.shape == video.shape and bool(torch.isfinite(vol).all()),
+              ("sampled volume", tuple(vol.shape)))
+        out["distinct_ids"] = int(sampled.unique().numel())
+        del bert, mg, pipe, vol, trainer, model
+        release(device)
+
+        written = run_ctvit_recon.main(
+            ["--synthetic", "1", "--results_folder", str(folder / "recon"),
+             *recon_argv], device=str(device))
+        recon = read_nifti(written[0])
+        check(len(written) == 1 and np.isfinite(recon).all(),
+              ("run_ctvit_recon", written))
+        out["recon_shape"] = recon.shape
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    release(device)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def generative_lines(r: dict, card: str) -> list:
+    lines = []
+    for i, lg in enumerate(r["logs"]):
+        lines.append(f"CTViTTrainer step {i}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in lg.items()))
+    lines.append(
+        f"CTViTTrainer at GenerateCT's width on (1, 1, {GEN_FRAMES}, 128, "
+        f"128): {r['sps']:.3f} steps/s (median of steps 1-{len(r['times']) - 1}"
+        f", {[round(t, 4) for t in r['times']]} s), peak device memory "
+        f"{r['peak_gb']:.3f} GB on {card}")
+    lines.append(
+        f"CTViT fp32 at {GEN_CHECK_FRAMES} frames, card against CPU: encoded "
+        f"tokens relative L2 {r['enc_rel']:.3e}, decode of the CPU's indices "
+        f"{r['dec_rel']:.3e} (tolerance {GEN_CPU_RTOL}); VQ indices agreeing "
+        f"{r['agree']}/{r['n_idx']}")
+    lines.append(
+        f"MaskGIT (dim 512, depth 6, 8 heads × 64, 6,464 tokens, BERT-base "
+        f"states): fit_batch loss {r['mg_loss']:.5f} in {r['fit_s']:.3f} s "
+        f"(peak device memory {r['mg_peak_gb']:.3f} GB); sample of "
+        f"{GEN_SAMPLE_STEPS} steps at cond_scale {GEN_COND_SCALE} and the "
+        f"decode {r['sample_s']:.3f} s, {r['distinct_ids']} distinct ids; "
+        f"run_ctvit_recon --synthetic 1 wrote {r['recon_shape']}; phase "
+        f"generative: {r['seconds']:.1f} s on {card}")
+    return lines
+
+
 def free_port() -> int:
     import socket
 
@@ -4624,6 +4827,10 @@ def main() -> int:
     release(device)
     serve_mesh_phase(device, card)
     release(device)
+    # the legacy generative stack at GenerateCT's shapes (no kernel)
+    gen = generative_phase(device, card, bert)
+    for line in generative_lines(gen, card):
+        print(line, flush=True)
     mixed_step = train_launches(PLANTED_ARCH["transformer_blocks"])
     print(f"planted_mixed, launches of each step type in step "
           f"{MIXED_COUNT_STEP}: {mixed['by_type']} (expected {mixed_step} "

@@ -7,7 +7,8 @@ the widths 384 and 768; the patch embedding at p2 20 and W 480, and at
 small even p2, with D 128, 384 and 768; K14 up to 55,296 rows), and the
 segmentation paths at a small arch (a seg step and two open-seg steps
 against use_kernels=False, the int8 seg logits against the plain int8
-engine).
+engine), and the legacy CTViT at GenerateCT's width, which takes no
+kernel and trains a step.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -1310,3 +1311,41 @@ def test_tensor_parallel_block_matches_the_whole_block(dev, parts):
     for name, p in block.named_parameters():
         assert got[2][name].shape == p.grad.shape, name
         assert _rel(got[2][name], p.grad) < TP_REL_TOL, name
+
+
+def test_full_width_ctvit_takes_no_kernel_and_trains_a_step(dev, tmp_path):
+    """The legacy CTViT at GenerateCT's width (dim 512, codebook 8,192,
+    image 128, patch 16, temporal patch 2, depth 4 + 4, 8 heads × 32):
+    every attention and feed-forward on the plain route, so no kernel
+    refuses its widths (the GEGLU's 2I is 2,730), and one CTViTTrainer
+    step (the VGG perceptual term and the discriminator on, 17 frames)
+    launches no kernel and gives finite losses."""
+    from vit_exp_tpu_torch.models.ctvit import CTViT
+    from vit_exp_tpu_torch.models.ctvit3d import CosineSelfAttention
+    from vit_exp_tpu_torch.models.factory import init_parameters_
+    from vit_exp_tpu_torch.models.layers import GEGLUFeedForward
+    from vit_exp_tpu_torch.train.ctvit_trainer import CTViTTrainer
+
+    model = CTViT(dim=512, codebook_size=8192, image_size=128, patch_size=16,
+                  temporal_patch_size=2, device=dev)
+    init_parameters_(model, 0)
+    attn = [m for m in model.modules() if isinstance(m, CosineSelfAttention)]
+    ff = [m for m in model.modules() if isinstance(m, GEGLUFeedForward)]
+    assert len(attn) == len(ff) == 16
+    assert all(m.xla and not m.use_kernels for m in attn)
+    assert not any(m.use_kernel for m in ff)
+    counters = [fa.attention_static, fa.attention_online,
+                fa.attention_static_int8, fa.attention_bwd_dq,
+                fa.attention_bwd_dkv, geglu_ff.geglu_ff_h,
+                geglu_ff.geglu_bwd_dh, fused_proj.ln_qkv, patches.patch_embed]
+    for c in counters:
+        c.launches = 0
+    trainer = CTViTTrainer(model, results_folder=str(tmp_path),
+                           sample_every=0, gen_steps_per_discr=1)
+    g = torch.Generator(device=dev).manual_seed(0)
+    video = torch.rand(1, 1, 17, 128, 128, generator=g, device=dev) * 2 - 1
+    logs = trainer.train_step(video)
+    assert set(logs) >= {"recon_loss", "perceptual_loss", "adaptive_weight",
+                         "gen_loss", "discr_loss"}
+    assert all(math.isfinite(v) for v in logs.values())
+    assert all(c.launches == 0 for c in counters)

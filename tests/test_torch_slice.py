@@ -247,6 +247,53 @@ def test_ingest_and_serving_run_without_jax_pandas_or_sklearn():
                    "codes": [200, 200], "bad": []}
 
 
+_GENERATIVE_GUARD = """
+import json, sys, tempfile
+import numpy as np
+import torch
+from vit_exp_tpu_torch.cli import run_ctvit_recon, run_maskgit_sample
+from vit_exp_tpu_torch.data import bpe, video
+from vit_exp_tpu_torch.models import (ctvit, fallback, gan, maskgit,
+                                      maskgit_pipeline, t5_adapter, vgg, vq)
+from vit_exp_tpu_torch.models.factory import init_parameters_
+from vit_exp_tpu_torch.train.ctvit_trainer import CTViTTrainer
+model = ctvit.CTViT(dim=16, codebook_size=32, image_size=8, patch_size=4,
+                    temporal_patch_size=2, spatial_depth=1, temporal_depth=1,
+                    dim_head=4, heads=2, device="cpu")
+init_parameters_(model, 0)
+trainer = CTViTTrainer(model, results_folder=tempfile.mkdtemp(),
+                       sample_every=0)
+logs = trainer.train_step(torch.rand(1, 1, 5, 8, 8))
+mg = maskgit.MaskGit(32, 12, 16, depth=1, heads=2, dim_head=4,
+                     dim_context=16, device="cpu")
+init_parameters_(mg, 1)
+with torch.no_grad():
+    ids = maskgit.maskgit_sample(mg, batch=1, seq_len=12, steps=2,
+                                 context=torch.randn(1, 3, 16),
+                                 context_mask=torch.ones(1, 3),
+                                 generator=torch.Generator().manual_seed(0))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "vit_exp_tpu", "triton", "pandas"))
+print(json.dumps({"finite": bool(np.isfinite(list(logs.values())).all()),
+                  "perceptual": logs["perceptual_loss"] > 0,
+                  "ids": [int(ids.min()) >= 0, int(ids.max()) < 32],
+                  "bad": bad}))
+"""
+
+
+def test_generative_stack_runs_without_jax_or_pandas():
+    """Every module of the legacy generative stack imports, one tiny
+    CTViTTrainer step (the random VGG perceptual term on) and one
+    maskgit_sample run, with no jax, flax, pandas or JAX package module
+    loaded."""
+    res = subprocess.run([sys.executable, "-c", _GENERATIVE_GUARD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"finite": True, "perceptual": True, "ids": [True, True],
+                   "bad": []}
+
+
 def _no_ok_line(stdout: str) -> bool:
     return '"ok": true' not in stdout and '"ok":true' not in stdout
 
@@ -434,6 +481,31 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
     assert acc["volumes"] == 4 and acc["finite"]
     assert 0 < acc["dmax"] < cs.INT8_PROB_TOL
     assert 0 <= acc["auroc_min"] <= 1 and -1 <= acc["tau_min"] <= 1
+
+
+def test_chip_smoke_generative_phase_rehearses_on_cpu():
+    """chip_smoke's generative phase at a tiny size on the CPU: the trainer's
+    steps and their discriminator schedule, the fp32 comparison (CPU
+    against CPU here), MaskGIT's step and sample on a tiny BERT's states,
+    and run_ctvit_recon on one synthetic volume."""
+    import torch
+
+    import chip_smoke as cs
+    from vit_exp_tpu_torch.models.bert import BertConfig
+
+    ctvit = dict(dim=16, codebook_size=32, image_size=8, patch_size=4,
+                 temporal_patch_size=2, spatial_depth=1, temporal_depth=1,
+                 dim_head=4, heads=2)
+    r = cs.generative_phase(
+        torch.device("cpu"), "cpu", BertConfig.tiny(), ctvit_kw=ctvit,
+        maskgit_kw=dict(dim=16, depth=1, heads=2, dim_head=4), frames=7,
+        steps=3, check_frames=5, sample_steps=3, text_len=12,
+        recon_argv=["--dim", "16", "--image_size", "8", "--patch_size", "4",
+                    "--num_frames", "5"])
+    assert [("discr_loss" in lg) for lg in r["logs"]] == [False, False, True]
+    assert r["enc_rel"] == r["dec_rel"] == 0.0 and r["agree"] == r["n_idx"]
+    assert np.isfinite(r["mg_loss"]) and r["recon_shape"] == (8, 8, 5)
+    assert len(cs.generative_lines(r, "cpu")) == 3 + 3
 
 
 PTXAS_LOG = """\

@@ -21,6 +21,13 @@ so one ``load_state_dict`` serves both sources:
   ``save_reference_checkpoint`` writes it as a ``CTClip.*.pt``.
 - ``from_jax_text_classifier_params(params)``: the JAX package's
   ``RadBertClassifier`` tree onto the port's (text_classifier/).
+- the legacy generative stack: ``from_jax_ctvit_variables`` (the exact
+  inverse of the JAX package's ``convert_ctvit_state_dict``, so its output
+  is the reference CTViT layout), ``from_jax_maskgit_params`` (MaskGit, and
+  SelfCritic with ``critic=True``), ``from_jax_discr_params``,
+  ``from_jax_vgg_params`` (the inverse of ``convert_torchvision_vgg16``:
+  torchvision's keys) and ``from_jax_fallback_params`` (the fallback
+  towers, whose modules keep the JAX names).
 
 The JAX package's msgpack files (its probe and text-classifier heads) are
 not read here: there is no flax on the card's host.  Weights cross between
@@ -268,3 +275,162 @@ def load_reference_state_dict(model, state_dict: Dict[str, Any]):
             f"unexpected beyond the synthesized set {sorted(unexpected - synth)}, "
             f"synthesized keys absent {sorted(synth - unexpected - OPTIONAL_KEYS)}")
     return res
+
+
+# -- the legacy generative stack ----------------------------------------------
+
+def _conv_weight(kernel) -> np.ndarray:
+    """flax conv kernel (*spatial, in, out) → torch (out, in, *spatial)."""
+    k = _f(kernel)
+    n = k.ndim - 2
+    return np.ascontiguousarray(k.transpose(n + 1, n, *range(n)))
+
+
+def _cosine_attention_state(a: Dict[str, Any], prefix: str
+                            ) -> Dict[str, np.ndarray]:
+    sd = {prefix + "norm.gamma": _f(a["norm"]["gamma"]),
+          prefix + "null_kv": _f(a["null_kv"]),
+          prefix + "to_q.weight": _t(a["to_q"]["kernel"]),
+          prefix + "to_kv.weight": _t(a["to_kv"]["kernel"]),
+          prefix + "to_out.weight": _t(a["to_out"]["kernel"]),
+          prefix + "q_scale": _f(a["q_scale"]),
+          prefix + "k_scale": _f(a["k_scale"])}
+    if "context_norm" in a:
+        sd[prefix + "context_norm.gamma"] = _f(a["context_norm"]["gamma"])
+    return sd
+
+
+def _geglu_state(f: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {prefix + "0.weight": _f(f["norm"]["gamma"]),
+            prefix + "0.bias": _f(f["norm"]["beta"]),
+            prefix + "1.weight": _t(f["wi"]["kernel"]),
+            prefix + "4.weight": _t(f["wo"]["kernel"])}
+
+
+def _linear_state(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    sd = {prefix + "weight": _t(tree["kernel"])}
+    if "bias" in tree:
+        sd[prefix + "bias"] = _f(tree["bias"])
+    return sd
+
+
+def _ln_state(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {prefix + "weight": _f(tree["gamma"]),
+            prefix + "bias": _f(tree["beta"])}
+
+
+def _ctvit_stack_state(p: Dict[str, Any], prefix: str
+                       ) -> Dict[str, np.ndarray]:
+    sd = {prefix + "norm_out.gamma": _f(p["norm_out"]["gamma"])}
+    depth = sum(1 for k in p if k.startswith("attn"))
+    for i in range(depth):
+        layer = f"{prefix}layers.{i}."
+        if f"peg{i}" in p:
+            conv = p[f"peg{i}"]["dsconv"]
+            sd[layer + "0.dsconv.weight"] = _conv_weight(conv["kernel"])
+            sd[layer + "0.dsconv.bias"] = _f(conv["bias"])
+        sd.update(_cosine_attention_state(p[f"attn{i}"], layer + "1."))
+        sd.update(_geglu_state(p[f"ff{i}"], layer + "3."))
+    return sd
+
+
+def from_jax_ctvit_variables(variables: Dict[str, Any]
+                             ) -> Dict[str, np.ndarray]:
+    """JAX CTViT variables {"params", "codebook"} (numpy leaves) → the
+    port's CTViT state dict, which is the reference layout
+    ``convert_ctvit_state_dict`` reads (the codebook buffers with their
+    leading groups axis)."""
+    p, vq = variables["params"], variables["codebook"]["vq"]
+    sd: Dict[str, np.ndarray] = {}
+    for prefix, (n_in, proj, n_out) in (
+            ("to_patch_emb_first_frame.", ("first_frame_norm_in",
+                                           "first_frame_proj",
+                                           "first_frame_norm_out")),
+            ("to_patch_emb.", ("rest_norm_in", "rest_proj",
+                               "rest_norm_out"))):
+        sd.update(_ln_state(p[n_in], prefix + "1."))
+        sd.update(_linear_state(p[proj], prefix + "2."))
+        sd.update(_ln_state(p[n_out], prefix + "3."))
+    for ours, theirs in (("enc_spatial", "enc_spatial_transformer"),
+                         ("enc_temporal", "enc_temporal_transformer"),
+                         ("dec_spatial", "dec_spatial_transformer"),
+                         ("dec_temporal", "dec_temporal_transformer")):
+        sd.update(_ctvit_stack_state(p[ours], theirs + "."))
+    cpb = p["spatial_rel_pos_bias"]
+    sd.update(_linear_state(cpb["net0"], "spatial_rel_pos_bias.net.0.0."))
+    sd.update(_linear_state(cpb["net1"], "spatial_rel_pos_bias.net.1.0."))
+    sd.update(_linear_state(cpb["to_bias"], "spatial_rel_pos_bias.net.2."))
+    sd.update(_linear_state(p["to_pixels_first_frame"],
+                            "to_pixels_first_frame.0."))
+    sd.update(_linear_state(p["to_pixels"], "to_pixels.0."))
+    sd["vq._codebook.embed"] = _f(vq["codes"])[None]
+    sd["vq._codebook.cluster_size"] = _f(vq["counts"])[None]
+    sd["vq._codebook.embed_avg"] = _f(vq["embed_sum"])[None]
+    return sd
+
+
+def from_jax_maskgit_params(params: Dict[str, Any], critic: bool = False
+                            ) -> Dict[str, np.ndarray]:
+    """JAX MaskGit params → the port's MaskGit state dict; with ``critic``
+    a SelfCritic's params ({"net", "to_pred"}) → the port's SelfCritic."""
+    if critic:
+        sd = {"net." + k: v for k, v in
+              from_jax_maskgit_params(params["net"]).items()}
+        sd.update(_linear_state(params["to_pred"], "to_pred."))
+        return sd
+    sd = {"token_emb": _f(params["token_emb"]),
+          "pos_emb": _f(params["pos_emb"]),
+          "norm_out.gamma": _f(params["norm_out"]["gamma"]),
+          "to_logits.weight": _t(params["to_logits"]["kernel"])}
+    if "context_proj" in params:
+        sd.update(_linear_state(params["context_proj"], "context_proj."))
+    depth = sum(1 for k in params if k.startswith("block"))
+    for i in range(depth):
+        blk, q = params[f"block{i}"], f"blocks.{i}."
+        sd.update(_cosine_attention_state(blk["self_attn"], q + "self_attn."))
+        if "cross_attn" in blk:
+            sd.update(_cosine_attention_state(blk["cross_attn"],
+                                              q + "cross_attn."))
+        sd.update(_geglu_state(blk["ff"], q + "ff."))
+    return sd
+
+
+def from_jax_discr_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX SliceDiscriminator params → the port's."""
+    return {f"{name}.{k}": (_conv_weight(v["kernel"]) if k == "weight"
+                            else _f(v["bias"]))
+            for name, v in params.items() for k in ("weight", "bias")}
+
+
+def from_jax_vgg_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX VGG16Features params → torchvision vgg16 keys (the inverse of
+    the JAX package's ``convert_torchvision_vgg16``)."""
+    from vit_exp_tpu_torch.models.vgg import CONV_IDX
+
+    sd = {}
+    for i, idx in enumerate(CONV_IDX):
+        conv = params[f"conv{i}"]
+        sd[f"features.{idx}.weight"] = _conv_weight(conv["kernel"])
+        sd[f"features.{idx}.bias"] = _f(conv["bias"])
+    for name, idx in (("fc6", 0), ("fc7", 3)):
+        if name in params:
+            sd.update(_linear_state(params[name], f"classifier.{idx}."))
+    return sd
+
+
+def from_jax_fallback_params(params: Dict[str, Any], prefix: str = ""
+                             ) -> Dict[str, np.ndarray]:
+    """A JAX fallback tower's params (TextTransformer, VisionTransformer)
+    → the port's, whose modules keep the JAX names: a Dense kernel becomes
+    a transposed ``weight``, an Embed table ``weight``."""
+    sd = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            sd.update(from_jax_fallback_params(v, f"{prefix}{k}."))
+        elif k == "kernel":
+            sd[prefix + "weight"] = _t(v)
+        elif k == "embedding":
+            sd[prefix + "weight"] = _f(v)
+        else:
+            sd[prefix + k] = _f(v)
+    return sd

@@ -79,26 +79,36 @@ class CosineSelfAttention(nn.Module):
     route is the W8A8 LN+qkv kernel, int8 attention and the W8A8
     out-projection (K12/K13 → K9/K10 → K14 in the JAX package); without
     it, the unfused projections, int8 attention and the bf16 to_out.
+    "xla" is the plain route of ops/attention.py (``xla=True``), the only
+    one that takes ``mask``, ``attn_bias`` or ``context``; the legacy
+    generative stack builds it with ``use_kernels=False``.  ``dim_context``
+    adds the cross-attention's ``context_norm`` (γ-only, over the context
+    width) and makes to_kv project the normed context instead of x.
     """
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32,
                  num_null_kv: int = 2, scale: Optional[float] = None, *,
                  policy: Policy = DEFAULT_POLICY, use_kernels: bool = True,
                  attn_impl: str = "pallas_static", fuse_qkv: bool = False,
-                 int8: bool = False, device=None):
+                 int8: bool = False, dim_context: Optional[int] = None,
+                 device=None):
         super().__init__()
-        if attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
-                             f"{attn_impl!r}")
+        if attn_impl not in ATTN_IMPLS + ("xla",):
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS} or "
+                             f"'xla', got {attn_impl!r}")
         if int8 and attn_impl != "pallas_static":
             raise ValueError("int8 attention is static-max only: pass "
                              "attn_impl='pallas_static'")
+        if attn_impl == "xla" and (fuse_qkv or use_kernels):
+            raise ValueError("attn_impl='xla' is the plain route: pass "
+                             "use_kernels=False and no fuse_qkv")
         inner = heads * dim_head
         self.heads, self.dim_head, self.num_null_kv = heads, dim_head, num_null_kv
         self.scale = scale
         self.policy = policy
         self.use_kernels = use_kernels
         self.static_max = attn_impl == "pallas_static"
+        self.xla = attn_impl == "xla"
         self.fuse_qkv = fuse_qkv
         self.int8 = int8
         self.tp_group = None
@@ -106,7 +116,9 @@ class CosineSelfAttention(nn.Module):
         self.norm = ScaleLayerNorm(dim, **kw)
         self.null_kv = empty_param(heads, 2 * num_null_kv, dim_head, **kw)
         self.to_q = Linear(dim, inner, bias=False, **kw)
-        self.to_kv = Linear(dim, 2 * inner, bias=False, **kw)
+        if dim_context is not None:
+            self.context_norm = ScaleLayerNorm(dim_context, **kw)
+        self.to_kv = Linear(dim_context or dim, 2 * inner, bias=False, **kw)
         self.q_scale = empty_param(dim_head, **kw)
         self.k_scale = empty_param(dim_head, **kw)
         self.to_out = Linear(inner, dim, bias=False, **kw)
@@ -117,14 +129,42 @@ class CosineSelfAttention(nn.Module):
         nn.init.ones_(self.k_scale)
 
     def forward(self, x: torch.Tensor, ring_group=None,
-                k_amax_reduce=None) -> torch.Tensor:
-        """x: (b, n, dim), the rank's token shard under ``ring_group``."""
+                k_amax_reduce=None, *, context=None, mask=None,
+                attn_bias=None) -> torch.Tensor:
+        """x: (b, n, dim), the rank's token shard under ``ring_group``;
+        ``context`` (b, m, dim_context), ``mask`` and ``attn_bias``: the
+        "xla" route only."""
+        if self.xla:
+            return self._xla(x, context, mask, attn_bias)
+        if context is not None or mask is not None or attn_bias is not None:
+            raise ValueError("context, mask and attn_bias need "
+                             "attn_impl='xla'")
         g = self.tp_group
         if g is None:
             return self.partial(x, ring_group=ring_group,
                                 k_amax_reduce=k_amax_reduce)
         out = self.partial(x, lambda t: copy_to_group(t, g), ring_group)
         return reduce_from_group(out, g).to(self.policy.compute_dtype)
+
+    def _xla(self, x, context, mask, attn_bias) -> torch.Tensor:
+        """The JAX module at attn_impl="xla": self-attention k/v from the
+        pre-LN x, cross-attention k/v from context_norm(context)."""
+        b, n, _ = x.shape
+        h, dh = self.heads, self.dim_head
+        kv_input = x if context is None else self.context_norm(context)
+        q, kv = self.to_q(self.norm(x)), self.to_kv(kv_input)
+        k, v = kv.split(h * dh, dim=-1)
+
+        def heads_first(t):
+            return t.reshape(b, t.shape[1], h, dh).transpose(1, 2)
+
+        nkv = self.null_kv.reshape(h, self.num_null_kv, 2, dh)
+        out = cosine_attention(
+            heads_first(q), heads_first(k), heads_first(v),
+            null_k=nkv[:, :, 0], null_v=nkv[:, :, 1], q_scale=self.q_scale,
+            k_scale=self.k_scale, scale=self.scale, mask=mask,
+            attn_bias=attn_bias, xla=True)
+        return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
 
     def partial(self, x: torch.Tensor, copy=None, ring_group=None,
                 k_amax_reduce=None) -> torch.Tensor:

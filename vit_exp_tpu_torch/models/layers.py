@@ -52,6 +52,37 @@ class Linear(nn.Module):
         return y
 
 
+class ConvParams(nn.Module):
+    """A convolution's ``weight`` (out, in/groups, *kernel) and ``bias``, as
+    torch.nn.Conv names them, initialised as the JAX package's flax Conv
+    (lecun normal over the fan-in, zero bias); the owner convolves."""
+
+    def __init__(self, c_out: int, c_in: int, *kernel: int,
+                 policy: Policy = DEFAULT_POLICY, device=None):
+        super().__init__()
+        self.weight = empty_param(c_out, c_in, *kernel, policy=policy,
+                                  device=device)
+        self.bias = empty_param(c_out, policy=policy, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in = self.weight[0].numel()
+        nn.init.normal_(self.weight, 0.0, 1.0 / math.sqrt(fan_in),
+                        generator=generator)
+        nn.init.zeros_(self.bias)
+
+
+class LeakyReLU(nn.Module):
+    """where(x ≥ 0, x, slope·x): at 0 the gradient is 1, as flax's
+    leaky_relu gives it (torch's LeakyReLU gives the slope)."""
+
+    def __init__(self, slope: float):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.slope * x)
+
+
 class ScaleLayerNorm(nn.Module):
     """γ-only LayerNorm (β pinned to 0), eps 1e-5, fp32 statistics."""
 
