@@ -8,7 +8,12 @@ small even p2, with D 128, 384 and 768; K14 up to 55,296 rows), and the
 segmentation paths at a small arch (a seg step and two open-seg steps
 against use_kernels=False, the int8 seg logits against the plain int8
 engine), and the legacy CTViT at GenerateCT's width, which takes no
-kernel and trains a step.
+kernel and trains a step.  The kernels at the widths JAX's kernels take:
+the attention kernels at head dims 8, 16, 24 and 64 (forward, backward and
+int8, at the blocking's edges, twice bitwise equal), the GEMM families and
+the patch embedding at the tiny configs' widths (D 48, 2I 256, F 96; K11
+also at 2I 272), the two tiny configs through build_ctclip and a step on
+the kernels, and the refusals past the limits (head dim 72, D 40).
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -241,7 +246,7 @@ def test_patch_embed_refuses_before_any_launch(dev):
     good = (2, 4, 48, 48, 8, 6, 384)
     bad = [dict(p2=5), dict(w=36, p2=6),     # odd p2; W·2 % 16 != 0
            dict(cpt=1, p1=3),                # n = CPT·p1·p2 = 18: not % 8
-           dict(d=64), dict(h=44),           # D % 128; H % p1
+           dict(d=40), dict(h=44),           # D % 16; H % p1
            dict(w=776, p2=8)]                # 97 tokens per patch row
     names = ("bt", "cpt", "h", "w", "p1", "p2", "d")
     before = patches.patch_embed.launches
@@ -260,9 +265,9 @@ def test_patch_embed_refuses_before_any_launch(dev):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    # K2 and K11 take D and 2I on the multiples of 64 only, and check every
+    # K2 and K11 take D and 2I on the multiples of 16 only, and check every
     # operand before the first launch
-    for d, i2 in ((96, 256), (128, 96)):
+    for d, i2 in ((40, 256), (128, 72)):
         k2 = _k2_case(dev, 50, d, i2)
         k11 = _k11_case(dev, 50, d, i2)
         before = [f.launches for f in K2_STAGES + K11_STAGES]
@@ -271,11 +276,29 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             geglu_ff.geglu_ff_int8(*k11)
         assert [f.launches for f in K2_STAGES + K11_STAGES] == before
+    # the attention kernels take head dims up to 64: 72 is refused by each
+    # before a launch
+    counters = (fa.attention_static, fa.attention_online,
+                fa.attention_bwd_dkv, fa.attention_bwd_dq,
+                fa.attention_static_int8)
+    before = [f.launches for f in counters]
+    q, k, v, nk, nv, scale = _attn_case(dev, 70, 70, 2, d=72)
+    bound = torch.tensor(scale, device=dev)
+    lse = torch.zeros(2, 3, 70, device=dev)
+    for call in (
+            lambda: fa.attention_static(q, k, v, nk, nv, bound, scale),
+            lambda: fa.attention_online(q, k, v, scale),
+            lambda: fa.attention_bwd(q, k, v, q, lse, lse, scale),
+            lambda: fa.attention_static_int8(*_int8_attn_case(
+                dev, 70, 70, 2, d=72))):
+        with pytest.raises(ValueError, match="up to 64"):
+            call()
+    assert [f.launches for f in counters] == before
 
 
-def _attn_case(dev, nq, nkv, n_null, seed=4):
+def _attn_case(dev, nq, nkv, n_null, seed=4, d=32):
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, h, d = 2, 3, 32
+    b, h = 2, 3
     q = l2norm(_randn(g, b, nq, h, d)).transpose(1, 2)      # strided view
     k = l2norm(_randn(g, b, nkv, h, d)).transpose(1, 2)
     v = _randn(g, b, nkv, h, d).transpose(1, 2)
@@ -538,9 +561,9 @@ def test_k8_stages_match_their_twins(dev, m, d):
             assert _rel(a, r) < 1e-2
 
 
-@pytest.mark.parametrize("d", [400, 32, 2112])
+@pytest.mark.parametrize("d", [40, 8, 2112])
 def test_k8_refuses_a_width_before_any_launch(dev, d):
-    """K8 takes D a multiple of 64 up to K8_MAX_D: any other width is
+    """K8 takes D a multiple of 16 up to K8_MAX_D: any other width is
     refused by the whole kernel and by each stage before a launch."""
     g = torch.Generator(device=dev).manual_seed(17)
     m, inner = 64, 256
@@ -558,7 +581,7 @@ def test_k8_refuses_a_width_before_any_launch(dev, d):
             lambda: geglu_ff.geglu_bwd_dh(x, x, w1, w2),
             lambda: geglu_ff.geglu_bwd_dy(dh, w1),
             lambda: geglu_ff.geglu_bwd_dx(x, mu, inv, gamma, dy)):
-        with pytest.raises(ValueError, match="multiple of 64"):
+        with pytest.raises(ValueError, match="multiple of 16"):
             call()
     assert [f.launches for f in K8_STAGES] == before
 
@@ -592,12 +615,12 @@ def test_no_wrapper_returns_a_graphless_result(dev):
     assert q.grad is not None and torch.isfinite(q.grad.float()).all()
 
 
-def _int8_attn_case(dev, nq, nkv, n_null, seed=8):
+def _int8_attn_case(dev, nq, nkv, n_null, seed=8, d=32):
     """The int8 attention's inputs as the model makes them: l2-normalised,
     scaled q/k (strided views of packed projections) through the int8
     prologue, v in place, fp32 null k and bf16 null v."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, h, d = 2, 3, 32
+    b, h = 2, 3
     qsc = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
     ksc = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
     q = l2norm(_randn(g, b, nq, h, d)).transpose(1, 2) * qsc.bfloat16()
@@ -754,14 +777,14 @@ def test_ln_qkv_wrappers_refuse_before_any_launch(dev):
     counters = (fused_proj.ln_qkv,) + K13_STAGES
     before = [fn.launches for fn in counters]
     x, mu, inv, wf, c, fq = _k3_case(dev, 50, 384, 768, 64)
-    for bad in ((x[:, :48], mu, inv, wf[:48], c, fq),      # K % 32
-                (x, mu, inv, wf[:, :96], c[:96], fq),      # F % 64
+    for bad in ((x[:, :40], mu, inv, wf[:40], c, fq),      # K % 16
+                (x, mu, inv, wf[:, :88], c[:88], fq),      # F % 16
                 (x, mu, inv, wf, c, 769)):                 # fq > F
         with pytest.raises(ValueError):
             fused_proj.ln_qkv(*bad)
     x, mu, inv, w8, sc, c, fq, fk = _k13_case(dev, 50, 384, 768, 64)
     for bad in ((x[:, :40], mu, inv, w8[:40], sc, c, fq, fk),   # K % 16
-                (x, mu, inv, w8[:, :704], sc[:704], c[:704], fq, fk),  # F
+                (x, mu, inv, w8[:, :696], sc[:696], c[:696], fq, fk),  # F
                 (x, mu, inv, w8, sc, c, fq, 768 - fq),      # no v column
                 (x, mu, inv, w8, sc, c, 0, fk)):            # no q column
         with pytest.raises(ValueError):
@@ -787,7 +810,7 @@ def test_k14_matches_plain(dev, m, k):
 def test_k14_refuses_before_any_launch(dev):
     g = torch.Generator(device=dev).manual_seed(12)
     before = fused_proj.proj_int8.launches
-    for k, f in ((1040, 256), (200, 256), (256, 320)):   # K > 1024; K, F
+    for k, f in ((1040, 256), (200, 256), (256, 328)):   # K > 1024; K, F % 16
         w8, sc = geglu_ff.quantize_per_channel(
             torch.randn(k, f, generator=g, device=dev))
         with pytest.raises(ValueError):
@@ -886,28 +909,152 @@ def test_dim384_train_step_matches_plain(dev):
     assert abs(norm_k - norm_p) <= 0.05 * norm_p
 
 
-@pytest.mark.parametrize("name", ["ct_clip_debug_synthetic.yaml",
-                                  "ct_clip_dcl_synthetic.yaml"])
-def test_build_ctclip_refuses_the_tiny_configs_before_any_weight(dev, name):
-    """The two tiny --synthetic configs (dim 48, head dim 8) lie outside the
-    attention kernels' head dim 32, the GEGLU kernels' multiples of 64 and
-    the patch embedding's D % 128: build_ctclip on the card names each
-    kernel family and its constraint before it allocates a weight."""
+TINY_CONFIGS = ["ct_clip_debug_synthetic.yaml", "ct_clip_dcl_synthetic.yaml"]
+
+
+@pytest.mark.parametrize("name", TINY_CONFIGS)
+def test_build_ctclip_takes_the_tiny_configs_through_the_kernels(dev, name):
+    """The two tiny --synthetic configs (dim 48, head dim 8, 2I 256, 64
+    tokens) meet no refusal, build on the card and take a contrastive step
+    through the kernels (K15 at head dim 8 padded to 16, the pair, K2, K8
+    at D 48, the patch embedding at D 48): loss within 1e-2 and global
+    gradient norm within 5% of use_kernels=False from the same state."""
     from pathlib import Path
 
     from vit_exp_tpu_torch.core.config import load_config
     from vit_exp_tpu_torch.models.bert import BertConfig
-    from vit_exp_tpu_torch.models.factory import build_ctclip
+    from vit_exp_tpu_torch.models.factory import (kernel_refusals,
+                                                  patch_embed_refusal)
 
     config = load_config(str(Path(__file__).resolve().parents[1] / "configs"
                              / name))
+    a = config.arch
+    assert (a.dim, a.dim_head) == (48, 8)
+    for fuse_qkv, int8 in ((False, False), (True, False), (True, True)):
+        assert kernel_refusals(a, fuse_qkv=fuse_qkv, int8=int8) == []
+    assert patch_embed_refusal(a) == []
+    bert = BertConfig.tiny()
+    g = torch.Generator(device=dev).manual_seed(2)
+    b = 2
+    batch = (torch.rand((b, 1, a.temporal_size, a.image_size, a.image_size),
+                        generator=g, device=dev),
+             torch.randint(0, bert.vocab_size, (b, 32), generator=g,
+                           device=dev))
+    counters = (fa.attention_online, fa.attention_bwd_dkv,
+                fa.attention_bwd_dq, patches.patch_embed) + K2_STAGES \
+        + K8_STAGES
+    before = [f.launches for f in counters]
+    loss_k, norm_k = _train_loss_and_grad_norm(config, bert, batch, True)
+    assert all(f.launches > n for f, n in zip(counters, before))
+    loss_p, norm_p = _train_loss_and_grad_norm(config, bert, batch, False)
+    assert math.isfinite(loss_k) and math.isfinite(norm_k)
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    assert abs(norm_k - norm_p) <= 0.05 * norm_p
+
+
+# the attention kernels at head dims off and on their instances (8 and 24
+# run zero-padded to 16 and 32; 16 and 64 are instances), at the blocking's
+# edges: query counts off the blocks (128 rows at D 16 and 32, 64 at D 64),
+# kv tails of 1, 2 and 6 keys past the 64-key tiles (32 at D 64), 0, 2 and
+# 8 nulls
+ATTN_HEAD_DIMS = [8, 16, 24, 64]
+ATTN_WIDTH_EDGES = [(100, 70, 2), (13, 200, 8), (129, 65, 0), (200, 130, 8)]
+
+
+@pytest.mark.parametrize("nq,nkv,n_null", ATTN_WIDTH_EDGES)
+@pytest.mark.parametrize("d", ATTN_HEAD_DIMS)
+def test_attention_kernels_at_head_dims(dev, d, nq, nkv, n_null):
+    """K1 with lse, K15 with lse over the concatenated nulls and the
+    backward pair over each, against their plain twins; each kernel twice
+    on the same inputs gives the same bits."""
+    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null, seed=21, d=d)
+    bound = torch.tensor(scale, device=dev)
+    g = torch.Generator(device=dev).manual_seed(22)
+    dout = _randn(g, 2, nq, 3, d).transpose(1, 2)
+    runs = []
+    for _ in range(2):
+        runs.append(fa.attention_static(q, k, v, nk, nv, bound, scale,
+                                        save_lse=True))
+    ref, lse_p = fa.attention_static_plain(q, k, v, nk, nv, bound, scale,
+                                           save_lse=True)
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    with pytest.raises(ValueError) as err:
-        build_ctclip(config, BertConfig.tiny(), device="cuda")
-    for what in ("head dim 32", "multiples of 64", "patch-embed kernel"):
-        assert what in str(err.value), what
-    assert torch.cuda.memory_allocated() == before
+    (out, lse), again = runs
+    assert out.shape == (2, 3, nq, d)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+    _close(out, ref)
+    assert _rel(lse, lse_p) < 1e-5
+    if n_null:
+        k = torch.cat([nk[None].expand(2, -1, -1, -1), k], dim=2)
+        v = torch.cat([nv[None].expand(2, -1, -1, -1), v], dim=2)
+    runs = [fa.attention_online(q, k, v, scale, save_lse=True)
+            for _ in range(2)]
+    ref_o, lse_o = fa.attention_online_plain(q, k, v, scale, save_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    _close(runs[0][0], ref_o)
+    assert _rel(runs[0][1], lse_o) < 1e-5
+    # the pair over the concatenated kv, from the twin's forward
+    delta = (dout.float() * ref_o.float()).sum(-1)
+    bwd = (q, k, v, dout, lse_o, delta, scale)
+    got = [fa.attention_bwd(*bwd) for _ in range(2)]
+    ref_b = fa.attention_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(*got, ref_b):
+        assert a.shape == r.shape and torch.isfinite(a.float()).all()
+        assert torch.equal(a, a2)
+        assert _rel(a, r) < 1e-2
+
+
+@pytest.mark.parametrize("nq,nkv,n_null", ATTN_WIDTH_EDGES)
+@pytest.mark.parametrize("d", ATTN_HEAD_DIMS)
+def test_int8_attention_at_head_dims(dev, d, nq, nkv, n_null):
+    """The int8 attention at head dims 8, 16 and 24 (zero-padded to its
+    D 32 instance: an int8 k step is 32 codes) and 64, against its twin;
+    twice on the same inputs gives the same bits."""
+    args = _int8_attn_case(dev, nq, nkv, n_null, seed=23, d=d)
+    out = fa.attention_static_int8(*args)
+    again = fa.attention_static_int8(*args)
+    ref = fa.attention_static_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 3, nq, d) and torch.equal(out, again)
+    assert _rel(out, ref) < 1e-2
+
+
+# the tiny configs' widths: D 48, 2I 256; K3 and K12/K13 at K 48, F 96 with
+# fq = fk = 32; K14 at K 32, F 48; the patch embedding at D 48, patch 8 over
+# 32 px, CPT 4.  K11 also at 2I 272 (I 136, zero-padded to 144 for its
+# int8 rows).
+@pytest.mark.parametrize("m", [50, 4113])
+def test_k2_k8_k11_at_the_tiny_widths(dev, m):
+    test_k2_matches_plain(dev, m, 48, 256)
+    test_k8_matches_plain(dev, m, 128, 48)
+    for i2 in (256, 272):
+        test_k11_matches_plain(dev, m, 48, i2)
+
+
+def test_gemm_stages_at_the_tiny_widths(dev):
+    test_k2_stages_match_their_twins(dev, 48, 256)
+    test_k8_stages_match_their_twins(dev, 4113, 48)
+    test_k11_stages_match_their_twins(dev, 48, 256)
+
+
+@pytest.mark.parametrize("m", QKV_M)
+def test_projections_at_the_tiny_widths(dev, m):
+    test_k3_matches_plain(dev, m, 48, 96, 32)
+    test_k12_k13_matches_plain(dev, m, 48, 96, 32)
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = _randn(g, m, 32)
+    w8, sc = geglu_ff.quantize_per_channel(
+        torch.randn(32, 48, generator=g, device=dev))
+    out = fused_proj.proj_int8(x, w8, sc)
+    ref = fused_proj.proj_int8_plain(x, w8, sc)
+    torch.cuda.synchronize()
+    assert out.shape == (m, 48) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("bt", [3, 864])
+def test_patch_embed_at_the_tiny_width(dev, bt):
+    test_patch_embed_matches_plain(dev, (bt, 4, 32, 32, 8, 8, 48))
 
 
 # a small arch the kernels take: head dim 32, D 384 (2I 2,048), patch 10 over

@@ -153,13 +153,16 @@ def test_k11_staged_chain_matches_jax(m, d, inner):
 
 def test_k2_k11_operand_checks_take_the_64_grid_only():
     """The card's operand checks (run before any launch) take D and 2I on
-    the multiples of 64, D 384 and 768 among them, and refuse the rest."""
+    the multiples of 16 (FF_WIDTH_STEP), D 48, 384 and 768 among them, and
+    refuse the rest."""
     bf = torch.bfloat16
-    for d, inner in ((384, 1024), (768, 2048), (64, 32)):
+    assert tff.FF_WIDTH_STEP == 16
+    for d, inner in ((384, 1024), (768, 2048), (64, 32), (48, 128),
+                     (96, 64), (16, 8)):
         x2, mu, inv, w1p, d1, w2 = _k2_args(_inputs(1, 16, d, inner), bf)
         tff._check_k2(x2, mu, inv, w1p, d1, w2)
         tff._check_k11(*_k11_args(_inputs(1, 16, d, inner), bf))
-    for d, inner in ((96, 64), (64, 48), (48, 128)):
+    for d, inner in ((40, 64), (64, 36), (24, 128), (8, 8)):
         with pytest.raises(ValueError):
             tff._check_k2(*_k2_args(_inputs(1, 16, d, inner), bf))
         with pytest.raises(ValueError):

@@ -12,9 +12,10 @@
   key names; the final parameters bit-equal to those of the same run
   without the hook; RadGenome segmentation folders and a segmentation
   ``valid_data`` set are refused before training.
-- ``build_ctclip`` still builds the two tiny --synthetic configs on the CPU;
-  ``kernel_refusals`` names what the card's kernels refuse in them, and
-  nothing in the shipped dim-384 and dim-768 configs.
+- ``build_ctclip`` builds the two tiny --synthetic configs on the CPU, and
+  ``kernel_refusals`` names nothing the card's kernels refuse in them (head
+  dim 8, D 48, 2I 256; plain, fused and fused int8) or in the shipped
+  dim-384 and dim-768 configs.
 """
 
 import dataclasses
@@ -181,12 +182,14 @@ def test_run_train_refuses_segmentation_before_training(tmp_path):
 @pytest.mark.parametrize("name", ["ct_clip_debug_synthetic.yaml",
                                   "ct_clip_dcl_synthetic.yaml"])
 def test_tiny_configs_build_on_the_cpu_and_name_their_refusals(name):
+    """The tiny configs build, and the card's kernels refuse none of their
+    widths: kernel_refusals names nothing, unfused, fused and fused int8."""
     config = tconfig.load_config(str(ROOT / "configs" / name))
     model = build_ctclip(config, BertConfig.tiny(), device="cpu")
     assert model.visual_transformer.dim == 48
-    refusals = kernel_refusals(config.arch)
-    assert any("head dim 32" in r for r in refusals)
-    assert any("multiples of 64" in r for r in refusals)
+    for fuse_qkv, int8 in ((False, False), (True, False), (True, True)):
+        assert kernel_refusals(config.arch, fuse_qkv=fuse_qkv,
+                               int8=int8) == []
 
 
 @pytest.mark.parametrize("name", ["ct_clip_vit_v3_flat_dim384.yaml",

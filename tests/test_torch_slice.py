@@ -558,3 +558,41 @@ def test_chip_smoke_rank_statistics():
     assert cs.rank_auroc(np.array([0.1, 0.3, 0.3, 0.4]), labels) == 0.875
     a = np.array([1.0, 2.0, 3.0, 4.0])
     assert cs.kendall_tau(a, a) == 1.0 and cs.kendall_tau(a, -a) == -1.0
+
+
+def test_chip_smoke_widths_rows_take_each_path_launches():
+    """Phase "widths"' JSON rows: the tiny widths' rows take the launches
+    of the tiny configs' run_train step and run_zero_shot_cls calls, the
+    head-dim 16 rows those of the same paths together, the head-dim 64
+    rows none; a row whose kernel its path never launched fails."""
+    import chip_smoke as cs
+
+    def rows(*counters):
+        return [{"name": f"row {c}", "counter": c, "ms": 1.0} for c in counters]
+
+    attention = ("K1", "K15", "dKdV", "dQ", "K9/K10")
+    table = {"tiny_train": rows("K15", "dKdV", "dQ", "K2x", "K4", "K8w"),
+             "tiny_serve_bf16": rows("K1", "K2x", "K3", "K4"),
+             "tiny_serve_int8": rows("K9/K10", "K11y", "K13x", "K14", "K4"),
+             "head16": rows(*attention), "head64": rows(*attention)}
+    blocks = 2
+    bf16 = cs.expected_launches({"K4": 1, **{k: blocks for k in (
+        "K1", "K2x", "K2h", "K2o", "K3")}})
+    int8 = cs.expected_launches({"K4": 1, **{k: blocks for k in (
+        "K9/K10", "K11y", "K11h", "K11q", "K11o", "K13x", "K13mm", "K14")}})
+    widths = {"tiny": {"rt_launches": cs.train_launches(blocks),
+                       "serve": {"int8": {"launches": int8},
+                                 "bf16": {"launches": bf16}}}}
+    out = cs.widths_kernel_rows(table, widths)
+    assert len(out) == sum(len(r) for r in table.values())
+    assert all("counter" not in r for r in out)
+    head64 = [r for r in out if "head dim 64" in r["name"]]
+    assert len(head64) == 5 and all(r["launches"] == 0 for r in head64)
+    others = [r for r in out if r not in head64]
+    assert all(r["launches"] > 0 and "widths tiny" in r["name"]
+               for r in others)
+    assert {r["launches"] for r in others if r["name"].startswith(
+        "row K8w")} == {2 * blocks}
+    widths["tiny"]["rt_launches"] = cs.expected_launches({})
+    with pytest.raises(RuntimeError, match="never launched"):
+        cs.widths_kernel_rows(table, widths)

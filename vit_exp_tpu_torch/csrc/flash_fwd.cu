@@ -13,7 +13,10 @@
 // out = O / l in bf16; lse (natural-log units, fp32, (batch·head, Nq)) only
 // when the pointer is not null: the statistic the backward pair
 // (flash_bwd.cu) recomputes p from.  q, k, v and out are addressed through
-// (batch, head, row) strides with a contiguous head dim of 32.
+// (batch, head, row) strides with a contiguous head dim D of 16, 32 or 64,
+// one template instance each (the wrapper zero-pads any other d ≤ 64 to the
+// next instance: zero columns change neither S nor P·V, and the padded
+// output columns are dropped).
 //
 // What bounds it.  Per logit: two products of 2·32 operations on the
 // tensor cores (0.79 ms at the production shape, 6.12 G logits per layer,
@@ -46,74 +49,86 @@
 //   work, against a per-lane fp32 loop over the nulls.
 // - No atomics: two launches on the same inputs give the same bits.
 // - Registers: __launch_bounds__ asks for three blocks (12 warps) per SM,
-//   a cap of 168.  O is 32 fp32 per lane, Q's fragments 16, a 64-key S 64.
-//   K1 takes a 64-key tile in one pass (156 registers on an H100 build);
-//   K15 also keeps its rescale live beside S and spilled at 64 keys, so it
-//   takes two 32-key passes per tile (168, no spill).  Two blocks per SM
-//   with one 64-key pass ran slower in a trial; four blocks (a cap of 128)
-//   spill.  The ptxas counts are in build/torch_kernels/*.log.
+//   a cap of 168.  At D 32, O is 32 fp32 per lane, Q's fragments 16, a
+//   64-key S 64.  K1 takes a 64-key tile in one pass (156 registers on an
+//   H100 build); K15 also keeps its rescale live beside S and spilled at 64
+//   keys, so it takes two 32-key passes per tile (168, no spill).  Two
+//   blocks per SM with one 64-key pass ran slower in a trial; four blocks
+//   (a cap of 128) spill.  D 16 keeps D 32's tiling with half of O and Q.
+//   D 64 would double O and Q at 32 rows a warp, so a warp owns 16 query
+//   rows (one m16 tile: O 32 fp32, Q 16 registers, as at D 32) and K/V
+//   stream in 32-key tiles, which keeps the ring in 48 KB of static shared
+//   memory.  The ptxas counts are in build/torch_kernels/*.log.
 #include "attn_mma.cuh"
 
 using namespace vit;
 
 namespace {
 
-constexpr int D = ATT_D;
-constexpr int LDT = ATT_LDT;
-constexpr int BKV = 64;          // keys of a streamed tile
 constexpr int NULL_ROWS = 16;    // K1's nulls: one k16 tile
 constexpr int MAX_NULL = 8;
-constexpr int WR = 32;           // query rows a warp owns: two m16 tiles
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int BQ = WARPS * WR;   // query rows a block owns: 128
 constexpr int STAGES = 3;        // depth of the cp.async ring
 constexpr int MIN_BLOCKS = 3;    // per SM, for __launch_bounds__
-// keys a warp takes through S → p → P·V at once: a 64-key tile in one pass
-// (K1) or two (K15)
-constexpr int SUB_STATIC = 64, SUB_ONLINE = 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// the tiling of head dim D: MT m16 tiles of query rows a warp (32 rows at
+// D 16 and 32, 16 at D 64), BKV keys a streamed tile, and the keys a warp
+// takes through S → p → P·V at once: a whole tile (K1) or 32 (K15)
+template <int D>
+struct FwdCfg {
+    static constexpr int LDT = att_ldt<D>();
+    static constexpr int MT = D == 64 ? 1 : 2;
+    static constexpr int WR = 16 * MT;          // query rows a warp owns
+    static constexpr int BQ = WARPS * WR;       // query rows a block owns
+    static constexpr int BKV = D == 64 ? 32 : 64;
+    static constexpr int SUB_STATIC = BKV, SUB_ONLINE = 32;
+};
 
 struct Strides {
     long long b, h, n;
 };
 
+template <int D>
 struct Smem {
-    bf16 q[BQ * LDT];
-    bf16 nk[NULL_ROWS * LDT];
-    bf16 nv[NULL_ROWS * LDT];
-    bf16 k[STAGES][BKV * LDT];
-    bf16 v[STAGES][BKV * LDT];
+    bf16 q[FwdCfg<D>::BQ * FwdCfg<D>::LDT];
+    bf16 nk[NULL_ROWS * FwdCfg<D>::LDT];
+    bf16 nv[NULL_ROWS * FwdCfg<D>::LDT];
+    bf16 k[STAGES][FwdCfg<D>::BKV * FwdCfg<D>::LDT];
+    bf16 v[STAGES][FwdCfg<D>::BKV * FwdCfg<D>::LDT];
 };
 
 __device__ __forceinline__ float neg_inf() {
     return __int_as_float(0xff800000);
 }
 
-// One tile of KEYS keys staged at pitch LDT (ks, vs) against the warp's 32
-// queries (qa).  MASK: keys at or past kv_left are not keys (the last kv
-// tile, K1's nulls).  ONLINE (K15): m is the running row max in log2
+// One tile of KEYS keys staged at pitch LDT (ks, vs) against the warp's
+// MT·16 queries (qa).  MASK: keys at or past kv_left are not keys (the last
+// kv tile, K1's nulls).  ONLINE (K15): m is the running row max in log2
 // units, O and l are rescaled by ex2(m_old − m_new); else (K1) m holds
 // B·log2e and never moves, and l sums the bf16-rounded p.  Lane (g, t)
 // holds rows g and g + 8 of each m16 tile (index half), keys 2t, 2t + 1 of
 // each n8 tile.
-template <int KEYS, bool MASK, bool ONLINE>
-__device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
-                                            float (&m)[2][2], float (&l)[2][2],
-                                            const uint32_t (&qa)[2][2][4],
+template <int KEYS, bool MASK, bool ONLINE, int D, int MT>
+__device__ __forceinline__ void attend_tile(float (&o)[MT][D / 8][4],
+                                            float (&m)[MT][2],
+                                            float (&l)[MT][2],
+                                            const uint32_t (&qa)[MT][D / 16][4],
                                             const bf16* ks, const bf16* vs,
                                             int kv_left, float c2, int lane) {
     constexpr int NT = KEYS / 8;
     const int t = lane & 3;
-    float s[NT][2][4];
+    float s[NT][MT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) rows_times_rows(s[j], qa, ks, j * 8, lane);
+    for (int j = 0; j < NT; ++j)
+        rows_times_rows<MT, D>(s[j], qa, ks, j * 8, lane);
     if (MASK) {
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
                     if (j * 8 + 2 * t + (e & 1) >= kv_left)
@@ -121,7 +136,7 @@ __device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
     }
     if (ONLINE) {
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 float mx = neg_inf();
@@ -137,7 +152,7 @@ __device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
                 m[mt][half] = m_new;
                 l[mt][half] *= corr;
 #pragma unroll
-                for (int nt = 0; nt < 4; ++nt) {
+                for (int nt = 0; nt < D / 8; ++nt) {
                     o[mt][nt][2 * half] *= corr;
                     o[mt][nt][2 * half + 1] *= corr;
                 }
@@ -145,12 +160,12 @@ __device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
     }
 #pragma unroll
     for (int kk = 0; kk < KEYS / 16; ++kk) {
-        uint32_t pa[2][4];
+        uint32_t pa[MT][4];
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
             const int j = 2 * kk + jj;
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < MT; ++mt) {
                 float p[4];
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
@@ -170,13 +185,13 @@ __device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
                 }
             }
         }
-        acc_times_tile(o, pa, vs, kk * 16, lane);   // O += P·V
+        acc_times_tile<MT, D>(o, pa, vs, kk * 16, lane);   // O += P·V
     }
 }
 
-// one block per (128 queries, batch·head); warp w owns queries 32w..32w+31;
+// one block per (BQ queries, batch·head); warp w owns queries WR·w ..;
 // each staged tile goes through attend_tile in passes of SUB keys
-template <bool ONLINE, int SUB>
+template <bool ONLINE, int D>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ nk,
@@ -184,7 +199,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const float* __restrict__ bound_ptr, bf16* __restrict__ out,
                  float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
                  Strides os, int H, int Nq, int Nkv, int n_null, float scale) {
-    __shared__ __align__(128) Smem sm;
+    using C = FwdCfg<D>;
+    constexpr int MT = C::MT, WR = C::WR, BQ = C::BQ, BKV = C::BKV;
+    constexpr int LDT = C::LDT;
+    constexpr int SUB = ONLINE ? C::SUB_ONLINE : C::SUB_STATIC;
+    __shared__ __align__(128) Smem<D> sm;
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -195,11 +214,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float c2 = scale * LOG2E;
 
     // the first group: the block's queries and K1's nulls
-    copy_rows<BQ, THREADS>(sm.q, q + b * qs.b + h * qs.h, qs.n, q0, Nq, tid);
+    copy_rows<BQ, THREADS, D>(sm.q, q + b * qs.b + h * qs.h, qs.n, q0, Nq,
+                              tid);
     if (!ONLINE && n_null > 0) {
         const size_t n0 = (size_t)h * n_null * D;
-        copy_rows<NULL_ROWS, THREADS>(sm.nk, nk + n0, D, 0, n_null, tid);
-        copy_rows<NULL_ROWS, THREADS>(sm.nv, nv + n0, D, 0, n_null, tid);
+        copy_rows<NULL_ROWS, THREADS, D>(sm.nk, nk + n0, D, 0, n_null, tid);
+        copy_rows<NULL_ROWS, THREADS, D>(sm.nv, nv + n0, D, 0, n_null, tid);
     }
     cp_async_commit();
 
@@ -207,8 +227,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     auto issue = [&](int tile) {
         if (tile < n_tiles) {
             const int st = tile % STAGES;
-            copy_rows<BKV, THREADS>(sm.k[st], kb, ks.n, tile * BKV, Nkv, tid);
-            copy_rows<BKV, THREADS>(sm.v[st], vb, vs.n, tile * BKV, Nkv, tid);
+            copy_rows<BKV, THREADS, D>(sm.k[st], kb, ks.n, tile * BKV, Nkv,
+                                       tid);
+            copy_rows<BKV, THREADS, D>(sm.v[st], vb, vs.n, tile * BKV, Nkv,
+                                       tid);
         }
         cp_async_commit();   // an empty group past the end keeps the count
     };
@@ -217,26 +239,26 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     cp_async_wait<STAGES - 1>();   // this thread's queries and nulls
     __syncthreads();
-    uint32_t qa[2][2][4];
-    load_a(qa, sm.q + warp * WR * LDT, lane);
+    uint32_t qa[MT][D / 16][4];
+    load_a<MT, D>(qa, sm.q + warp * WR * LDT, lane);
 
-    float o[2][4][4], m[2][2], l[2][2];
+    float o[MT][D / 8][4], m[MT][2], l[MT][2];
     const float m0 = ONLINE ? neg_inf() : *bound_ptr * LOG2E;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             m[mt][half] = m0;
             l[mt][half] = 0.f;
         }
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) o[mt][nt][e] = 0.f;
     }
     if (!ONLINE && n_null > 0)
-        attend_tile<NULL_ROWS, true, false>(o, m, l, qa, sm.nk, sm.nv, n_null,
-                                            c2, lane);
+        attend_tile<NULL_ROWS, true, false, D, MT>(o, m, l, qa, sm.nk, sm.nv,
+                                                   n_null, c2, lane);
 
     for (int tile = 0; tile < n_tiles; ++tile) {
         cp_async_wait<STAGES - 2>();   // this thread's copies of the tile
@@ -248,14 +270,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (kv_left >= BKV) {
 #pragma unroll
             for (int c = 0; c < BKV / SUB; ++c)
-                attend_tile<SUB, false, ONLINE>(o, m, l, qa, kt + c * SUB * LDT,
-                                                vt + c * SUB * LDT, SUB, c2,
-                                                lane);
+                attend_tile<SUB, false, ONLINE, D, MT>(
+                    o, m, l, qa, kt + c * SUB * LDT, vt + c * SUB * LDT, SUB,
+                    c2, lane);
         } else {   // the last tile: passes holding a key, masked
             for (int c = 0; c * SUB < kv_left; ++c)
-                attend_tile<SUB, true, ONLINE>(o, m, l, qa, kt + c * SUB * LDT,
-                                               vt + c * SUB * LDT,
-                                               kv_left - c * SUB, c2, lane);
+                attend_tile<SUB, true, ONLINE, D, MT>(
+                    o, m, l, qa, kt + c * SUB * LDT, vt + c * SUB * LDT,
+                    kv_left - c * SUB, c2, lane);
         }
     }
     cp_async_wait<0>();
@@ -263,7 +285,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // out = O / l; lse = m + log l (K1: B + log l)
     bf16* ob = out + b * os.b + h * os.h;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             float lt = l[mt][half];
@@ -272,7 +294,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const int row = q0 + warp * WR + mt * 16 + half * 8 + g;
             if (row >= Nq) continue;
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
+            for (int nt = 0; nt < D / 8; ++nt)
                 *reinterpret_cast<uint32_t*>(ob + row * os.n + nt * 8 + 2 * t) =
                     pack_bf16(o[mt][nt][2 * half] / lt,
                               o[mt][nt][2 * half + 1] / lt);
@@ -282,25 +304,56 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
 }
 
-static_assert(sizeof(Smem) <= 48 * 1024, "static shared memory");
-static_assert(sizeof(bf16) * BKV * LDT % 16 == 0,
-              "stages must keep 16-byte alignment");
+template <int D>
+constexpr bool smem_fits() {
+    using C = FwdCfg<D>;
+    return sizeof(Smem<D>) <= 48 * 1024 &&
+           sizeof(bf16) * C::BKV * C::LDT % 16 == 0 &&
+           sizeof(bf16) * C::BQ * C::LDT % 16 == 0 &&
+           sizeof(bf16) * NULL_ROWS * C::LDT % 16 == 0 &&
+           C::BKV % C::SUB_STATIC == 0 && C::BKV % C::SUB_ONLINE == 0;
+}
+static_assert(smem_fits<16>() && smem_fits<32>() && smem_fits<64>(),
+              "static shared memory, 16-byte aligned stages, whole passes");
 
-template <bool ONLINE>
-int launch(const void* q, const void* k, const void* v, const void* nk,
-           const void* nv, const void* bound, void* out, void* lse,
-           Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
-           int Nq, int Nkv, int n_null, float scale, void* stream) {
-    // K15 needs a key in every row; K1 may run on its nulls alone
-    if (Nkv < (ONLINE ? 1 : 0) || n_null < 0 || n_null > MAX_NULL)
-        return (int)cudaErrorInvalidValue;
-    dim3 grid((Nq + BQ - 1) / BQ, B * H);
-    flash_fwd_kernel<ONLINE, ONLINE ? SUB_ONLINE : SUB_STATIC>
-        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+template <bool ONLINE, int D>
+int launch_d(const void* q, const void* k, const void* v, const void* nk,
+             const void* nv, const void* bound, void* out, void* lse,
+             Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
+             int Nq, int Nkv, int n_null, float scale, void* stream) {
+    dim3 grid((Nq + FwdCfg<D>::BQ - 1) / FwdCfg<D>::BQ, B * H);
+    flash_fwd_kernel<ONLINE, D><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)nk,
         (const bf16*)nv, (const float*)bound, (bf16*)out, (float*)lse, qs, ks,
         vs, os, H, Nq, Nkv, n_null, scale);
     return (int)cudaGetLastError();
+}
+
+// K1 (ONLINE false) or K15 at head dim D (16, 32 or 64)
+template <bool ONLINE>
+int launch(const void* q, const void* k, const void* v, const void* nk,
+           const void* nv, const void* bound, void* out, void* lse,
+           Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
+           int Nq, int Nkv, int n_null, int D, float scale, void* stream) {
+    // K15 needs a key in every row; K1 may run on its nulls alone
+    if (Nkv < (ONLINE ? 1 : 0) || n_null < 0 || n_null > MAX_NULL)
+        return (int)cudaErrorInvalidValue;
+    switch (D) {
+        case 16:
+            return launch_d<ONLINE, 16>(q, k, v, nk, nv, bound, out, lse, qs,
+                                        ks, vs, os, B, H, Nq, Nkv, n_null,
+                                        scale, stream);
+        case 32:
+            return launch_d<ONLINE, 32>(q, k, v, nk, nv, bound, out, lse, qs,
+                                        ks, vs, os, B, H, Nq, Nkv, n_null,
+                                        scale, stream);
+        case 64:
+            return launch_d<ONLINE, 64>(q, k, v, nk, nv, bound, out, lse, qs,
+                                        ks, vs, os, B, H, Nq, Nkv, n_null,
+                                        scale, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -310,22 +363,22 @@ VIT_API int vit_flash_static_fwd(
     const void* nv, const void* bound, void* out, void* lse, long long qsb,
     long long qsh, long long qsn, long long ksb, long long ksh, long long ksn,
     long long vsb, long long vsh, long long vsn, long long osb, long long osh,
-    long long osn, int B, int H, int Nq, int Nkv, int n_null, float scale,
-    void* stream) {
+    long long osn, int B, int H, int Nq, int Nkv, int n_null, int D,
+    float scale, void* stream) {
     return launch<false>(q, k, v, nk, nv, bound, out, lse,
                          Strides{qsb, qsh, qsn}, Strides{ksb, ksh, ksn},
                          Strides{vsb, vsh, vsn}, Strides{osb, osh, osn}, B, H,
-                         Nq, Nkv, n_null, scale, stream);
+                         Nq, Nkv, n_null, D, scale, stream);
 }
 
 VIT_API int vit_flash_online_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     long long qsb, long long qsh, long long qsn, long long ksb, long long ksh,
     long long ksn, long long vsb, long long vsh, long long vsn, long long osb,
-    long long osh, long long osn, int B, int H, int Nq, int Nkv, float scale,
-    void* stream) {
+    long long osh, long long osn, int B, int H, int Nq, int Nkv, int D,
+    float scale, void* stream) {
     return launch<true>(q, k, v, nullptr, nullptr, nullptr, out, lse,
                         Strides{qsb, qsh, qsn}, Strides{ksb, ksh, ksn},
                         Strides{vsb, vsh, vsn}, Strides{osb, osh, osn}, B, H,
-                        Nq, Nkv, 0, scale, stream);
+                        Nq, Nkv, 0, D, scale, stream);
 }

@@ -9,7 +9,12 @@
 // bf16 p and v (fp32 sums), as K10 rounds them.  The nulls seed O and l
 // from fp32 logits q8·nk·qn[row] (qn = s_q[row]·scale, nk fp32): O gets
 // bf16(p0)·nv, l gets p0 unrounded (K10 sums its null probabilities in
-// fp32).  out = O / l in bf16.
+// fp32).  out = O / l in bf16.  Head dim D of 32 or 64, one template
+// instance each: an int8 k step is 32 codes, so the wrapper zero-pads any
+// other d ≤ 64 to the next instance (zero codes and zero null and v columns
+// change neither S, the null logits nor P·V; the padded output columns are
+// dropped).  At D 64 a warp owns 16 query rows (one m16 tile), so O and the
+// fragments take the registers they take at D 32 with 32 rows.
 //
 // What bounds it: one exp per logit on the special-function unit (16 per
 // clock per SM: 1.46 ms per layer at 6.12 G logits), ahead of the products
@@ -46,68 +51,84 @@ using namespace vit;
 
 namespace {
 
-constexpr int D = ATT_D;        // head dim
-constexpr int LDV = ATT_LDT;    // bf16 pitch of a staged V row
-constexpr int LD8 = 48;         // byte pitch of a staged int8 row
 constexpr int BKV = 64;         // keys of a streamed tile
-constexpr int WR = 32;          // query rows a warp owns: two m16 tiles
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int BQ = WARPS * WR;  // query rows a block owns: 128
 constexpr int STAGES = 3;       // depth of the cp.async ring
 constexpr int MIN_BLOCKS = 3;   // per SM, for __launch_bounds__
 constexpr int MAX_NULL = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the tiling of head dim D (32 or 64: an int8 k step is 32 codes): MT m16
+// tiles of query rows a warp (32 rows at D 32, 16 at D 64, where O and the
+// fragments of 32 rows would double), int8 rows at a pitch of D + 16 bytes
+// (48 or 80: conflict-free ldmatrix), V rows at att_ldt<D>() bf16
+template <int D>
+struct Int8Cfg {
+    static constexpr int LDV = att_ldt<D>();   // bf16 pitch of a staged V row
+    static constexpr int LD8 = D + 16;         // byte pitch of an int8 row
+    static constexpr int KS = D / 32;          // int8 k32 steps
+    static constexpr int MT = D == 64 ? 1 : 2;
+    static constexpr int WR = 16 * MT;         // query rows a warp owns
+    static constexpr int BQ = WARPS * WR;      // query rows a block owns
+};
+
 struct Strides {
     long long b, h, n;
 };
 
+template <int D>
 struct Smem {
-    signed char q[BQ * LD8];
-    signed char k[STAGES][BKV * LD8];
-    bf16 v[STAGES][BKV * LDV];
+    signed char q[Int8Cfg<D>::BQ * Int8Cfg<D>::LD8];
+    signed char k[STAGES][BKV * Int8Cfg<D>::LD8];
+    bf16 v[STAGES][BKV * Int8Cfg<D>::LDV];
 };
 
-// ROWS rows (32 int8 codes each) of src from row0 into dst at pitch LD8,
-// zero past nrows: two 16-byte chunks per row
-template <int ROWS>
+// ROWS rows (D int8 codes each) of src from row0 into dst at pitch LD8,
+// zero past nrows: D / 16 chunks of 16 bytes per row
+template <int ROWS, int D>
 __device__ __forceinline__ void copy_rows8(signed char* dst,
                                            const signed char* src,
                                            long long sn, int row0, int nrows,
                                            int tid) {
+    constexpr int SHIFT = D == 32 ? 1 : 2, LD8 = Int8Cfg<D>::LD8;
 #pragma unroll
-    for (int i = 0; i < ROWS * 2 / THREADS; ++i) {
-        const int e = tid + THREADS * i, r = e >> 1, c = (e & 1) * 16;
+    for (int i = 0; i < (ROWS << SHIFT) / THREADS; ++i) {
+        const int e = tid + THREADS * i, r = e >> SHIFT;
+        const int c = (e & ((1 << SHIFT) - 1)) * 16;
         const bool ok = row0 + r < nrows;
         cp_async16(dst + r * LD8 + c, ok ? src + (row0 + r) * sn + c : src, ok);
     }
 }
 
 // One 64-key tile (ks int8 at pitch LD8, vs bf16 at LDV) against the warp's
-// 32 queries (qa).  c2: qe·log2e of the lane's rows [m16 tile][half]; b2:
-// B·log2e.  MASK: keys at or past kv_left are not keys (the last tile).
-template <bool MASK>
-__device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
-                                            float (&l)[2][2],
-                                            const uint32_t (&qa)[2][4],
-                                            const float (&c2)[2][2], float b2,
-                                            const signed char* ks,
-                                            const bf16* vs, int kv_left,
-                                            int lane) {
-    constexpr int NT = BKV / 8;
+// MT·16 queries (qa).  c2: qe·log2e of the lane's rows [m16 tile][half];
+// b2: B·log2e.  MASK: keys at or past kv_left are not keys (the last tile).
+template <bool MASK, int D, int MT>
+__device__ __forceinline__ void attend_tile(
+    float (&o)[MT][D / 8][4], float (&l)[MT][2],
+    const uint32_t (&qa)[MT][D / 32][4], const float (&c2)[MT][2], float b2,
+    const signed char* ks, const bf16* vs, int kv_left, int lane) {
+    constexpr int NT = BKV / 8, KS = D / 32, LD8 = Int8Cfg<D>::LD8;
     const int t = lane & 3;
-    float s[NT][2][4];
+    float s[NT][MT][4];
 #pragma unroll
     for (int jp = 0; jp < NT / 2; ++jp) {
-        uint32_t b[4];   // {b0, b1} of keys 16jp.., then of 16jp + 8..
-        ldsm_x4_s8(b, ks + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD8 +
-                          (lane & 8) * 2);
+        uint32_t b[KS][4];   // per k step: {b0, b1} of keys 16jp.., then of
+                             // 16jp + 8..
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
+        for (int kc = 0; kc < KS; ++kc)
+            ldsm_x4_s8(b[kc], ks + (jp * 16 + (lane & 7) +
+                                    ((lane >> 4) << 3)) * LD8 +
+                                  (lane & 8) * 2 + kc * 32);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
             int c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
-            mma_s8(c0, qa[mt], b[0], b[1]);
-            mma_s8(c1, qa[mt], b[2], b[3]);
+#pragma unroll
+            for (int kc = 0; kc < KS; ++kc) {
+                mma_s8(c0, qa[mt][kc], b[kc][0], b[kc][1]);
+                mma_s8(c1, qa[mt][kc], b[kc][2], b[kc][3]);
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) {   // exactly S
                 s[2 * jp][mt][e] = (float)c0[e];
@@ -117,12 +138,12 @@ __device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
     }
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-        uint32_t pa[2][4];
+        uint32_t pa[MT][4];
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
             const int j = 2 * kk + jj;
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < MT; ++mt) {
                 float p[4];
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
@@ -140,11 +161,12 @@ __device__ __forceinline__ void attend_tile(float (&o)[2][4][4],
                             __uint_as_float(hi & 0xffff0000u);
             }
         }
-        acc_times_tile(o, pa, vs, kk * 16, lane);   // O += P·V
+        acc_times_tile<MT, D>(o, pa, vs, kk * 16, lane);   // O += P·V
     }
 }
 
-// one block per (128 queries, batch·head); warp w owns queries 32w..32w+31
+// one block per (BQ queries, batch·head); warp w owns queries WR·w ..
+template <int D>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_static_int8_kernel(const signed char* __restrict__ q8,
                          const signed char* __restrict__ k8,
@@ -157,7 +179,10 @@ flash_static_int8_kernel(const signed char* __restrict__ q8,
                          bf16* __restrict__ out, Strides qs, Strides ks,
                          Strides vs, Strides os, Strides es, int H, int Nq,
                          int Nkv, int n_null) {
-    __shared__ __align__(128) Smem sm;
+    using C = Int8Cfg<D>;
+    constexpr int MT = C::MT, WR = C::WR, BQ = C::BQ, LD8 = C::LD8;
+    constexpr int KS = C::KS, DL = D / 4;   // DL: null dims a lane takes
+    __shared__ __align__(128) Smem<D> sm;
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -167,27 +192,28 @@ flash_static_int8_kernel(const signed char* __restrict__ q8,
     const bf16* vb = v + b * vs.b + h * vs.h;
 
     // the first group: the block's queries
-    copy_rows8<BQ>(sm.q, q8 + b * qs.b + h * qs.h, qs.n, q0, Nq, tid);
+    copy_rows8<BQ, D>(sm.q, q8 + b * qs.b + h * qs.h, qs.n, q0, Nq, tid);
     cp_async_commit();
 
     const int n_tiles = (Nkv + BKV - 1) / BKV;
     auto issue = [&](int tile) {
         if (tile < n_tiles) {
             const int st = tile % STAGES;
-            copy_rows8<BKV>(sm.k[st], kb, ks.n, tile * BKV, Nkv, tid);
-            copy_rows<BKV, THREADS>(sm.v[st], vb, vs.n, tile * BKV, Nkv, tid);
+            copy_rows8<BKV, D>(sm.k[st], kb, ks.n, tile * BKV, Nkv, tid);
+            copy_rows<BKV, THREADS, D>(sm.v[st], vb, vs.n, tile * BKV, Nkv,
+                                       tid);
         }
         cp_async_commit();   // an empty group past the end keeps the count
     };
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
-    // the lane's four rows: [m16 tile][half] = tile row warp·32 + 16mt +
-    // 8half + g; padded rows (≥ Nq) take qe = qn = 0 and are never stored
+    // the lane's rows: [m16 tile][half] = tile row warp·WR + 16mt + 8half
+    // + g; padded rows (≥ Nq) take qe = qn = 0 and are never stored
     const float bound = *bound_ptr, b2 = bound * LOG2E;
-    float c2[2][2], qn_r[2][2];
+    float c2[MT][2], qn_r[MT][2];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             const int row = q0 + warp * WR + mt * 16 + half * 8 + g;
@@ -203,38 +229,41 @@ flash_static_int8_kernel(const signed char* __restrict__ q8,
 
     cp_async_wait<STAGES - 1>();   // this thread's queries
     __syncthreads();
-    uint32_t qa[2][4];
+    uint32_t qa[MT][KS][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4_s8(qa[mt], sm.q + (warp * WR + mt * 16 + (lane & 15)) * LD8 +
-                               (lane >> 4) * 16);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kc = 0; kc < KS; ++kc)
+            ldsm_x4_s8(qa[mt][kc],
+                       sm.q + (warp * WR + mt * 16 + (lane & 15)) * LD8 +
+                           (lane >> 4) * 16 + kc * 32);
 
-    float o[2][4][4], l[2][2];
+    float o[MT][D / 8][4], l[MT][2];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
         l[mt][0] = l[mt][1] = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) o[mt][nt][e] = 0.f;
     }
 
-    // the nulls seed O and l: lane t of a row's quad takes dims 8t..8t+7
+    // the nulls seed O and l: lane t of a row's quad takes dims DL·t ..
     for (int j = 0; j < n_null; ++j) {
-        const float* nkj = nk + ((size_t)h * n_null + j) * D + 8 * t;
+        const float* nkj = nk + ((size_t)h * n_null + j) * D + DL * t;
         const bf16* nvj = nv + ((size_t)h * n_null + j) * D + 2 * t;
-        float nkf[8];
+        float nkf[DL];
 #pragma unroll
-        for (int d = 0; d < 8; ++d) nkf[d] = nkj[d];
+        for (int d = 0; d < DL; ++d) nkf[d] = nkj[d];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 const signed char* qr =
-                    sm.q + (warp * WR + mt * 16 + half * 8 + g) * LD8 + 8 * t;
+                    sm.q + (warp * WR + mt * 16 + half * 8 + g) * LD8 + DL * t;
                 float sj = 0.f;
 #pragma unroll
-                for (int d = 0; d < 8; ++d) sj += (float)qr[d] * nkf[d];
+                for (int d = 0; d < DL; ++d) sj += (float)qr[d] * nkf[d];
                 sj += __shfl_xor_sync(0xffffffffu, sj, 1);
                 sj += __shfl_xor_sync(0xffffffffu, sj, 2);
                 const float p0 =
@@ -242,7 +271,7 @@ flash_static_int8_kernel(const signed char* __restrict__ q8,
                 if (t == 0) l[mt][half] += p0;
                 const float pb = bf16_round(p0);
 #pragma unroll
-                for (int nt = 0; nt < 4; ++nt) {
+                for (int nt = 0; nt < D / 8; ++nt) {
                     o[mt][nt][2 * half] += pb * __bfloat162float(nvj[nt * 8]);
                     o[mt][nt][2 * half + 1] +=
                         pb * __bfloat162float(nvj[nt * 8 + 1]);
@@ -258,16 +287,16 @@ flash_static_int8_kernel(const signed char* __restrict__ q8,
         const bf16* vt = sm.v[tile % STAGES];
         const int kv_left = Nkv - tile * BKV;
         if (kv_left >= BKV)
-            attend_tile<false>(o, l, qa, c2, b2, kt, vt, BKV, lane);
+            attend_tile<false, D, MT>(o, l, qa, c2, b2, kt, vt, BKV, lane);
         else
-            attend_tile<true>(o, l, qa, c2, b2, kt, vt, kv_left, lane);
+            attend_tile<true, D, MT>(o, l, qa, c2, b2, kt, vt, kv_left, lane);
     }
     cp_async_wait<0>();
 
     // out = O / l
     bf16* ob = out + b * os.b + h * os.h;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             float lt = l[mt][half];
@@ -276,17 +305,36 @@ flash_static_int8_kernel(const signed char* __restrict__ q8,
             const int row = q0 + warp * WR + mt * 16 + half * 8 + g;
             if (row >= Nq) continue;
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
+            for (int nt = 0; nt < D / 8; ++nt)
                 *reinterpret_cast<uint32_t*>(ob + row * os.n + nt * 8 + 2 * t) =
                     pack_bf16(o[mt][nt][2 * half] / lt,
                               o[mt][nt][2 * half + 1] / lt);
         }
 }
 
-static_assert(sizeof(Smem) <= 48 * 1024, "static shared memory");
-static_assert(BKV * LD8 % 16 == 0 && BQ * LD8 % 16 == 0 &&
-                  sizeof(bf16) * BKV * LDV % 16 == 0,
-              "stages must keep 16-byte alignment");
+template <int D>
+constexpr bool smem_fits() {
+    using C = Int8Cfg<D>;
+    return sizeof(Smem<D>) <= 48 * 1024 && BKV * C::LD8 % 16 == 0 &&
+           C::BQ * C::LD8 % 16 == 0 && sizeof(bf16) * BKV * C::LDV % 16 == 0;
+}
+static_assert(smem_fits<32>() && smem_fits<64>(),
+              "static shared memory, 16-byte aligned stages");
+
+template <int D>
+int launch_d(const void* q8, const void* k8, const void* v, const void* qe,
+             const void* qn, const void* nk, const void* nv,
+             const void* bound, void* out, Strides qs, Strides ks,
+             Strides vs, Strides os, Strides es, int B, int H, int Nq,
+             int Nkv, int n_null, void* stream) {
+    dim3 grid((Nq + Int8Cfg<D>::BQ - 1) / Int8Cfg<D>::BQ, B * H);
+    flash_static_int8_kernel<D><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const signed char*)q8, (const signed char*)k8, (const bf16*)v,
+        (const float*)qe, (const float*)qn, (const float*)nk,
+        (const bf16*)nv, (const float*)bound, (bf16*)out, qs, ks, vs, os, es,
+        H, Nq, Nkv, n_null);
+    return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -297,16 +345,19 @@ VIT_API int vit_flash_static_int8_fwd(
     long long ksh, long long ksn, long long vsb, long long vsh, long long vsn,
     long long osb, long long osh, long long osn, long long esb,
     long long esh, long long esn, int B, int H, int Nq, int Nkv, int n_null,
-    void* stream) {
+    int D, void* stream) {
     if (Nkv < 0 || n_null < 0 || n_null > MAX_NULL || Nkv + n_null < 1)
         return (int)cudaErrorInvalidValue;
-    dim3 grid((Nq + BQ - 1) / BQ, B * H);
-    flash_static_int8_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const signed char*)q8, (const signed char*)k8, (const bf16*)v,
-        (const float*)qe, (const float*)qn, (const float*)nk,
-        (const bf16*)nv, (const float*)bound, (bf16*)out,
-        Strides{qsb, qsh, qsn}, Strides{ksb, ksh, ksn},
-        Strides{vsb, vsh, vsn}, Strides{osb, osh, osn},
-        Strides{esb, esh, esn}, H, Nq, Nkv, n_null);
-    return (int)cudaGetLastError();
+    const Strides qs{qsb, qsh, qsn}, ks{ksb, ksh, ksn}, vs{vsb, vsh, vsn},
+        os{osb, osh, osn}, es{esb, esh, esn};
+    switch (D) {
+        case 32:
+            return launch_d<32>(q8, k8, v, qe, qn, nk, nv, bound, out, qs, ks,
+                                vs, os, es, B, H, Nq, Nkv, n_null, stream);
+        case 64:
+            return launch_d<64>(q8, k8, v, qe, qn, nk, nv, bound, out, qs, ks,
+                                vs, os, es, B, H, Nq, Nkv, n_null, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }

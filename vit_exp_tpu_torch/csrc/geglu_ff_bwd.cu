@@ -1,6 +1,6 @@
 // K8: fused GEGLU feed-forward backward.  Replaces
 // vit_exp_tpu/ops/geglu_ff.py::_ff_bwd_kernel.  The model width D is a
-// runtime argument of every stage: a multiple of 64 up to DX_MAX_D (the
+// runtime argument of every stage: a multiple of 16 up to DX_MAX_D (the
 // dx row pass holds a row in registers); 2I a multiple of 16.
 //
 // With x̂ = (x − μ)·inv, y = bf16(x̂·γ + β), h = y@W1 (fp32, [val | gate]):
@@ -29,7 +29,7 @@
 //     column tiles of one token tile together, so y and dO come from
 //     device memory once and W1, W2 (9.4 MB) stay in L2.
 //   geglu_bwd_dy_kernel: dy = dh·W1ᵀ (K = 2I, N = D) in 128 × 128 tiles
-//     (the last one masked where D % 128 == 64), two blocks per SM,
+//     (the last one masked where D % 128 != 0), two blocks per SM,
 //     written in fp32.
 //   geglu_bwd_dx_kernel<CH>: a row pass, one warp per row, CH 8-column
 //     chunks a lane (CH = ceil(D / 256), one instance each up to
@@ -57,7 +57,7 @@ namespace {
 
 constexpr int DX_ROWS = 64;     // rows of a dx block (one dγ/dβ partial)
 constexpr int SEG_STEP = 32;    // weight-GEMM segments are multiples of it
-constexpr int D_STEP = 64;      // D is a multiple of it
+constexpr int D_STEP = 16;      // D is a multiple of it
 constexpr int DX_MAX_CH = 8;    // 8-column chunks a lane holds in dx
 constexpr int DX_MAX_D = 256 * DX_MAX_CH;
 

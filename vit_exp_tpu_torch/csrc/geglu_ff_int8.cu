@@ -33,7 +33,10 @@
 //     128 × 128 tiles.
 // Both products hold 64 accumulators a lane at two blocks of 8 warps per
 // SM.  act costs 453 MB written and read, a8 113 MB (≈ 0.2 ms at 3.35
-// TB/s together).  Any M; D and 2I multiples of 64 (|y8·W1| ≤ D·127² stays
+// TB/s together).  Any M; D a multiple of 16 and 2I of 32 (int8 rows of
+// y8 and a8 in 16-byte pieces; the wrapper zero-pads I to a multiple of 16
+// where 2I is only a multiple of 16: zero val and gate columns give act 0,
+// which moves neither the amax nor the product) (|y8·W1| ≤ D·127² stays
 // below 2²⁴ up to D 1,040, so the conversion is exact there).
 #include "gemm_mma.cuh"
 
@@ -250,7 +253,7 @@ geglu_int8_o_kernel(const s8* __restrict__ a8, const float* __restrict__ sa,
 }
 
 bool shapes_ok(int M, int D, int I2) {
-    return M >= 1 && D >= 64 && D % 64 == 0 && I2 >= 64 && I2 % 64 == 0;
+    return M >= 1 && D >= 16 && D % 16 == 0 && I2 >= 32 && I2 % 32 == 0;
 }
 
 unsigned row_blocks(int M) {
@@ -262,7 +265,7 @@ unsigned row_blocks(int M) {
 VIT_API int vit_geglu_int8_y(const void* x, const void* mu, const void* inv,
                              const void* gamma, const void* beta, void* y8,
                              void* sy, int M, int D, void* stream) {
-    if (!shapes_ok(M, D, 64)) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(M, D, 32)) return (int)cudaErrorInvalidValue;
     geglu_int8_y_kernel<<<row_blocks(M), ROW_WARPS * 32, 0,
                           (cudaStream_t)stream>>>(
         (const bf16*)x, (const float*)mu, (const float*)inv,
@@ -288,7 +291,7 @@ VIT_API int vit_geglu_int8_h(const void* y8, const void* sy, const void* w1t,
 
 VIT_API int vit_geglu_int8_q(const void* act, const void* amax_part, void* a8,
                              void* sa, int M, int I2, void* stream) {
-    if (!shapes_ok(M, 64, I2)) return (int)cudaErrorInvalidValue;
+    if (!shapes_ok(M, 16, I2)) return (int)cudaErrorInvalidValue;
     const int inner = I2 / 2;
     geglu_int8_q_kernel<<<row_blocks(M), ROW_WARPS * 32, 0,
                           (cudaStream_t)stream>>>(

@@ -14,8 +14,9 @@
 // normalised x never reaches device memory.
 //
 // What bounds it: 65.2 GFLOP at 55,296 tokens, K = F = 768 (0.066 ms at
-// the bf16 tensor-core peak).  Any M; K % 32 == 0 and F % 64 == 0 (the
-// mainloop itself needs rows of a multiple of 8 elements).  No atomics:
+// the bf16 tensor-core peak).  Any M; K % 16 == 0 and F % 16 == 0 (the
+// mainloop itself needs rows of a multiple of 8 elements and masks its
+// tiles' tails; the epilogue masks columns past F).  No atomics:
 // two launches on the same inputs give the same bits.
 #include "gemm_mma.cuh"
 
@@ -84,7 +85,7 @@ ln_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
 VIT_API int vit_ln_qkv_fwd(const void* x, const void* mu, const void* inv,
                            const void* w, const void* c, void* out, int M,
                            int K, int F, int Fq, void* stream) {
-    if (M < 1 || K < 32 || K % 32 || F < 64 || F % 64 || Fq < 0 || Fq > F)
+    if (M < 1 || K < 16 || K % 16 || F < 16 || F % 16 || Fq < 0 || Fq > F)
         return (int)cudaErrorInvalidValue;
     cudaError_t e = allow_smem(ln_qkv_kernel, Cfg::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;

@@ -25,7 +25,8 @@
 // of q, k, v written (0.051 ms at 3.35 TB/s), plus the 42 MB of x8 written
 // and read again between the stages.  |x8·W| ≤ K·127² stays below 2²⁴ up to
 // K 1,040, so the conversion to fp32 is exact there (above, it rounds once,
-// as the twin's does).  Any M; K % 16 == 0, K ≤ 2048, F % 128 == 0.
+// as the twin's does).  Any M; K % 16 == 0, K ≤ 2048, F % 16 == 0 (the
+// epilogue masks the columns past F).
 //
 // K14's kernel (proj_int8_kernel), one pass: a block owns 64 rows of x
 // (bf16, M × K).  It quantizes them per row (s_x = max|x| / 127) with
@@ -45,7 +46,8 @@
 // K 256, F 768: 113 MB of x and out (0.034 ms), not its 22 G int8
 // operations.  |acc| ≤ K·127² < 2²⁴, so out equals the twin's bits.  Any
 // M; K % 16 == 0, K ≤ 1024 (the rows and the ring in 227 KB of shared
-// memory), F % 128 == 0.
+// memory), F % 16 == 0 (the last column tile's weights past F are
+// zero-filled, its scales read as 0 and its columns past F not stored).
 #include "gemm_mma.cuh"
 
 using namespace vit;
@@ -195,8 +197,8 @@ ln_qkv_int8_mm_kernel(const s8* __restrict__ x8, const float* __restrict__ sx,
 }
 
 bool qkv_shapes_ok(int M, int K, int F) {
-    return M >= 1 && K >= 16 && K % 16 == 0 && K <= MAX_K && F >= 128 &&
-           F % 128 == 0;
+    return M >= 1 && K >= 16 && K % 16 == 0 && K <= MAX_K && F >= 16 &&
+           F % 16 == 0;
 }
 
 template <int CHUNKS>
@@ -255,7 +257,8 @@ proj_int8_kernel(const bf16* __restrict__ x, const s8* __restrict__ wt,
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int wm = (warp / C::WN) * C::WTM, wn = (warp % C::WN) * C::WTN;
     const int m0 = blockIdx.x * PJ_ROWS;
-    const int ksteps = kp / PJ_BK, total = (F / PJ_COLS) * ksteps;
+    const int ksteps = kp / PJ_BK;
+    const int total = (F + PJ_COLS - 1) / PJ_COLS * ksteps;
     const Mat8 w{wt, K, F, K};
 
     auto issue = [&](int s) {
@@ -363,8 +366,10 @@ proj_int8_kernel(const bf16* __restrict__ x, const s8* __restrict__ wt,
 #pragma unroll
             for (int nt = 0; nt < C::NT; ++nt) {
                 const int cl = nt * 8 + 2 * (lane & 3);   // in the warp's tile
-                const float2 s2 = *reinterpret_cast<const float2*>(
-                    sc + tile * PJ_COLS + wn + cl);
+                const int col = tile * PJ_COLS + wn + cl;   // F % 16 == 0
+                const float2 s2 =
+                    col < F ? *reinterpret_cast<const float2*>(sc + col)
+                            : make_float2(0.f, 0.f);
 #pragma unroll
                 for (int half = 0; half < 2; ++half) {
                     const int rl = half * 8 + (lane >> 2);
@@ -383,9 +388,9 @@ proj_int8_kernel(const bf16* __restrict__ x, const s8* __restrict__ wt,
                 const int c = lane + 32 * i, rl = c / ROW_CHUNKS;
                 const int cc = (c - rl * ROW_CHUNKS) * 8;
                 const int gr = m0 + wm + mt * 16 + rl;
-                if (gr < M)
-                    *reinterpret_cast<uint4*>(out + (size_t)gr * F +
-                                              tile * PJ_COLS + wn + cc) =
+                const int col = tile * PJ_COLS + wn + cc;
+                if (gr < M && col < F)
+                    *reinterpret_cast<uint4*>(out + (size_t)gr * F + col) =
                         *reinterpret_cast<const uint4*>(so + rl * PJ_LDO +
                                                         cc);
             }
@@ -411,7 +416,7 @@ int launch_proj(const void* x, const void* wt, const void* sc, void* out,
 
 VIT_API int vit_ln_qkv_int8_x(const void* x, const void* mu, void* x8,
                               void* sx, int M, int K, void* stream) {
-    if (!qkv_shapes_ok(M, K, 128)) return (int)cudaErrorInvalidValue;
+    if (!qkv_shapes_ok(M, K, 16)) return (int)cudaErrorInvalidValue;
     switch ((K + ROW_CHUNK - 1) / ROW_CHUNK) {
         case 1: return launch_x<1>(x, mu, x8, sx, M, K, stream);
         case 2: return launch_x<2>(x, mu, x8, sx, M, K, stream);
@@ -443,8 +448,7 @@ VIT_API int vit_ln_qkv_int8_mm(const void* x8, const void* sx, const void* mu,
 
 VIT_API int vit_proj_int8_fwd(const void* x, const void* wt, const void* sc,
                               void* out, int M, int K, int F, void* stream) {
-    if (M < 1 || K < 16 || K % 16 || K > PJ_MAX_K || F < PJ_COLS ||
-        F % PJ_COLS)
+    if (M < 1 || K < 16 || K % 16 || K > PJ_MAX_K || F < 16 || F % 16)
         return (int)cudaErrorInvalidValue;
     switch ((K + ROW_CHUNK - 1) / ROW_CHUNK) {
         case 1: return launch_proj<1>(x, wt, sc, out, M, K, F, stream);

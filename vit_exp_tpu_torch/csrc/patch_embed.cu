@@ -12,7 +12,9 @@
 // x[bt, :, hi·p1 .., wi·p2 ..].  An implicit GEMM: M = tokens, N = D, K = n
 // in the reference feature order k = (ch·p1 + r)·p2 + j.  kc: (D, n) bf16,
 // rows of n (index-major for gemm_mma.cuh's ldmatrix).  Output bf16
-// (BT, H/p1, W/p2, D), and μ and Σbf16(x²), fp32 (BT, H/p1, W/p2), written
+// (BT, H/p1, W/p2, D) with D a multiple of 16 (the column tiles past D are
+// zero-filled, their columns never written), and μ and Σbf16(x²), fp32
+// (BT, H/p1, W/p2), written
 // by the blocks of the first column tile.
 //
 // What bounds it at batch 4 (x 442 MB, n 4,000, 55,296 tokens, D 768): the
@@ -22,7 +24,7 @@
 //   token rows made of whole patch rows of tokens (tg = PE_TOKENS / ws of
 //   them, ws = W / p2; 4 × 24 = 96 at production, never straddling a frame)
 //   and PE_COLS = 256 output columns (D 768: three column tiles; a D that
-//   is a multiple of 128 only leaves the last tile's upper half idle).  The
+//   is not a multiple of 256 leaves the last tile's upper warps idle).  The
 //   column tiles of one token tile are neighbours in the grid, so the video
 //   is read from device memory about once and re-read from L2.
 // - A k step is R whole patch rows (R·p2 a multiple of 16: R 4, 80 deep at
@@ -247,8 +249,9 @@ patch_embed_kernel(const PeArgs a) {
 
     // token = (y − μ·csum)·inv + dvec on the accumulators, staged per warp
     // in shared memory (after red) and written as 16-byte row pieces; a
-    // warp whose columns lie past D (D % 128 == 0, the last column tile of
-    // a D that is not a multiple of PE_COLS) has nothing to write
+    // warp whose columns lie past D (the last column tile of a D that is
+    // not a multiple of PE_COLS) has nothing to write, and one that
+    // straddles D writes the 8-column pieces below it (D % 16 == 0)
     if (n0 + wn >= a.D) return;
     constexpr int LDO = C::WTN + 8;   // bf16: a warp's 8 rows hit 8 banks
     bf16* so = reinterpret_cast<bf16*>(smem_raw + 2 * PE_TOKENS * 4) +
@@ -264,10 +267,13 @@ patch_embed_kernel(const PeArgs a) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
         const int cl = nt * 8 + 2 * (lane & 3);   // in the warp's tile
-        const float2 cs = *reinterpret_cast<const float2*>(a.csum + n0 + wn +
-                                                           cl);
-        const float2 dv = *reinterpret_cast<const float2*>(a.dvec + n0 + wn +
-                                                           cl);
+        const bool in = n0 + wn + cl < a.D;       // D even: both columns
+        const float2 cs =
+            in ? *reinterpret_cast<const float2*>(a.csum + n0 + wn + cl)
+               : make_float2(0.f, 0.f);
+        const float2 dv =
+            in ? *reinterpret_cast<const float2*>(a.dvec + n0 + wn + cl)
+               : make_float2(0.f, 0.f);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -287,7 +293,7 @@ patch_embed_kernel(const PeArgs a) {
     for (int c = lane; c < C::WTM * ROW_CHUNKS; c += 32) {
         const int rl = c / ROW_CHUNKS, cc = (c - rl * ROW_CHUNKS) * 8;
         const int m = token(wm + rl);
-        if (m >= 0)
+        if (m >= 0 && n0 + wn + cc < a.D)
             *reinterpret_cast<uint4*>(a.out + (size_t)m * a.D + n0 + wn + cc) =
                 *reinterpret_cast<const uint4*>(so + rl * LDO + cc);
     }
@@ -311,12 +317,12 @@ int gcd(int u, int v) { return v ? gcd(v, u % v) : u; }
 // does not take them: bf16 video rows of W % 8 == 0, an even p2 whose k step
 // is 16, 32, 48 or 80 deep (R·p2 with R = 16 / gcd(p2, 16)), at most
 // PE_TOKENS tokens per patch row, n = CPT·p1·p2 a multiple of 8 (kc's rows
-// of 16-byte pieces), D a multiple of 128, and at most 227 KB of shared
+// of 16-byte pieces), D a multiple of 16, and at most 227 KB of shared
 // memory
 VIT_API int vit_patch_embed_check(int BT, int CPT, int H, int W, int p1,
                                   int p2, int D) {
     if (BT < 1 || CPT < 1 || p1 < 1 || H < p1 || H % p1 || p2 < 2 ||
-        p2 % 2 || W < p2 || W % p2 || W % 8 || D < 128 || D % 128)
+        p2 % 2 || W < p2 || W % p2 || W % 8 || D < 16 || D % 16)
         return 0;
     const int ws = W / p2, R = 16 / gcd(p2, 16), ks = R * p2 / 16;
     if (ws > PE_TOKENS || (ks != 1 && ks != 2 && ks != 3 && ks != 5) ||

@@ -36,16 +36,18 @@ def kernel_refusals(arch, *, fuse_qkv: bool = False,
     """What the card's kernels refuse in this arch's widths, one line per
     kernel family, named with its constraint (empty when they take it):
     the attention kernels' head dim, the GEGLU kernels' D and 2I, K8's
-    largest D and, with ``fuse_qkv`` in bf16, K3's widths.  The patch
-    embedding asks the kernel library (``patch_embed_refusal``)."""
+    largest D and, with ``fuse_qkv``, K3's widths in bf16 or, at int8,
+    K12/K13's and K14's.  The patch embedding asks the kernel library
+    (``patch_embed_refusal``)."""
     from vit_exp_tpu_torch.ops import geglu_ff
-    from vit_exp_tpu_torch.ops.flash_attention import HEAD_DIM
+    from vit_exp_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
+    from vit_exp_tpu_torch.ops.fused_proj import PROJ_WIDTH_STEP
 
     out = []
-    if arch.dim_head != HEAD_DIM:
+    if arch.dim_head > MAX_HEAD_DIM:
         out.append(f"the attention kernels (K1, K15, the backward pair, the "
-                   f"int8 attention) take head dim {HEAD_DIM}; got "
-                   f"{arch.dim_head}")
+                   f"int8 attention) take head dims up to {MAX_HEAD_DIM}; "
+                   f"got {arch.dim_head}")
     d, step = arch.dim, geglu_ff.FF_WIDTH_STEP
     i2 = 2 * int(4.0 * (2.0 / 3.0) * d)   # GEGLUFeedForward's 2·inner
     if d % step or i2 % step:
@@ -53,9 +55,17 @@ def kernel_refusals(arch, *, fuse_qkv: bool = False,
                    f"multiples of {step}; got D {d}, 2I {i2}")
     elif d > geglu_ff.K8_MAX_D:
         out.append(f"K8 takes D up to {geglu_ff.K8_MAX_D}; got D {d}")
-    f = 3 * arch.heads * arch.dim_head
-    if fuse_qkv and not int8 and (d % 32 or f % 64):
-        out.append(f"K3 takes K % 32 == 0 and F % 64 == 0; got K {d}, F {f}")
+    inner = arch.heads * arch.dim_head
+    f, step = 3 * inner, PROJ_WIDTH_STEP
+    if fuse_qkv and not int8 and (d % step or f % step):
+        out.append(f"K3 takes K and F multiples of {step}; got K {d}, F {f}")
+    if fuse_qkv and int8:
+        if d % step or d > 2048 or f % step:
+            out.append(f"K12/K13 take K a multiple of {step} up to 2048 and "
+                       f"F a multiple of {step}; got K {d}, F {f}")
+        if inner % step or inner > 1024 or d % step:
+            out.append(f"K14 takes K a multiple of {step} up to 1024 and F "
+                       f"a multiple of {step}; got K {inner}, F {d}")
     return out
 
 
@@ -71,7 +81,7 @@ def patch_embed_refusal(arch) -> List[str]:
         return []
     return [f"the patch-embed kernel does not take patch {p} over {size} "
             f"pixels at D {arch.dim} (ops/patches.py::patch_embed_check "
-            f"lists its constraints, D % 128 == 0 among them)"]
+            f"lists its constraints, D % 16 == 0 among them)"]
 
 
 def build_image_encoder(arch, *, device="cuda",

@@ -26,6 +26,22 @@ def empty_param(*shape, policy: Policy, device) -> nn.Parameter:
                                     dtype=policy.param_dtype))
 
 
+# the standard deviation of a standard normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` (variance_scaling(1, "fan_in",
+    "truncated_normal")): a normal truncated at two of its standard
+    deviations, rescaled so that the variance is 1/fan_in.  No weight
+    exceeds 2/(0.8796·√fan_in), which sets the int8 path's per-channel
+    weight scales."""
+    std = 1.0 / math.sqrt(fan_in) / _TRUNCATED_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
 class Linear(nn.Module):
     """y = x @ Wᵀ (+ b) in the compute dtype; weight is (out, in) as in
     torch.nn.Linear."""
@@ -38,9 +54,7 @@ class Linear(nn.Module):
         self.bias = empty_param(d_out, policy=policy, device=device) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        # lecun normal, as the JAX package's Dense init
-        nn.init.normal_(self.weight, 0.0, 1.0 / math.sqrt(self.weight.shape[1]),
-                        generator=generator)
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -65,9 +79,7 @@ class ConvParams(nn.Module):
         self.bias = empty_param(c_out, policy=policy, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        fan_in = self.weight[0].numel()
-        nn.init.normal_(self.weight, 0.0, 1.0 / math.sqrt(fan_in),
-                        generator=generator)
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
         nn.init.zeros_(self.bias)
 
 

@@ -37,17 +37,17 @@ L = ctypes.c_longlong
 # C signature of every entry point (return type is int: a cudaError_t)
 SIGNATURES = {
     # q, k, v, nk, nv, bound, out, lse (or null), q/k/v/out strides
-    # (b, h, n) ×4, B, H, Nq, Nkv, n_null, scale, stream
-    "vit_flash_static_fwd": [P] * 8 + [L] * 12 + [I, I, I, I, I, F, P],
+    # (b, h, n) ×4, B, H, Nq, Nkv, n_null, head dim, scale, stream
+    "vit_flash_static_fwd": [P] * 8 + [L] * 12 + [I] * 6 + [F, P],
     # q, k, v, out, lse (or null), q/k/v/out strides (b, h, n) ×4, B, H, Nq,
-    # Nkv, scale, stream
-    "vit_flash_online_fwd": [P] * 5 + [L] * 12 + [I, I, I, I, F, P],
+    # Nkv, head dim, scale, stream
+    "vit_flash_online_fwd": [P] * 5 + [L] * 12 + [I] * 5 + [F, P],
     # q, k, v, dout, lse, delta, dk, dv, q/k/v/dout/dk/dv strides ×6,
-    # B, H, Nq, Nkv, scale, stream
-    "vit_flash_bwd_dkv": [P] * 8 + [L] * 18 + [I, I, I, I, F, P],
+    # B, H, Nq, Nkv, head dim, scale, stream
+    "vit_flash_bwd_dkv": [P] * 8 + [L] * 18 + [I] * 5 + [F, P],
     # q, k, v, dout, lse, delta, dq, q/k/v/dout/dq strides ×5,
-    # B, H, Nq, Nkv, scale, stream
-    "vit_flash_bwd_dq": [P] * 7 + [L] * 15 + [I, I, I, I, F, P],
+    # B, H, Nq, Nkv, head dim, scale, stream
+    "vit_flash_bwd_dq": [P] * 7 + [L] * 15 + [I] * 5 + [F, P],
     # x, mu, inv, gamma, beta, y, M, D, stream
     "vit_geglu_bwd_y": [P] * 6 + [I, I, P],
     # y, dout, w1, w2, dh, act, M, D, I2, stream
@@ -74,8 +74,8 @@ SIGNATURES = {
     # BT, CPT, H, W, p1, p2, D (no launch: the shared memory, 0 if refused)
     "vit_patch_embed_check": [I] * 7,
     # q8, k8, v, qe, qn, nk, nv, bound, out, q8/k8/v/out/qe strides
-    # (b, h, n) ×5, B, H, Nq, Nkv, n_null, stream
-    "vit_flash_static_int8_fwd": [P] * 9 + [L] * 15 + [I] * 5 + [P],
+    # (b, h, n) ×5, B, H, Nq, Nkv, n_null, head dim, stream
+    "vit_flash_static_int8_fwd": [P] * 9 + [L] * 15 + [I] * 6 + [P],
     # x, mu, inv, gamma, beta, y8, sy, M, D, stream
     "vit_geglu_int8_y": [P] * 7 + [I, I, P],
     # y8, sy, w1t, s1, act, amax partials, M, D, I2, stream

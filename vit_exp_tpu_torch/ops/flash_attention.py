@@ -32,6 +32,13 @@ the host.  On request K1 also writes lse = B + log l (natural log; l summed
 over the bf16-rounded p, nulls included), which the backward recomputes p
 from.
 
+Head dims.  The kernels are template instances at head dim 16, 32 and 64
+(the int8 attention at 32 and 64: its k step is 32 codes); the wrappers
+zero-pad any other head dim up to 64 to the next instance
+(``kernel_head_dim``, ``pad_head``), as JAX's ``_prep4`` pads d, and drop
+the padded output columns: zero columns add nothing to q·k, to the null
+logits, to the int8 amax or to P·V.  A head dim above 64 is refused.
+
 The backward replaces vit_exp_tpu/ops/flash_attention.py::_bwd_fused_kernel
 (K5, exact tiling) and ::_dq_kernel / ::_dkv_kernel (K6/K7, ragged kv) with
 one pair of CUDA C++ kernels, csrc/flash_bwd.cu: ``attention_bwd_dkv`` is
@@ -89,13 +96,40 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from vit_exp_tpu_torch.core.precision import acc_dtype
 from vit_exp_tpu_torch.ops import _build
 from vit_exp_tpu_torch.ops.geglu_ff import int8_scale, quant_rows
 
-HEAD_DIM = 32
+# the head dims the bf16 attention kernels are built for (csrc/flash_fwd.cu,
+# csrc/flash_bwd.cu) and the int8 kernel's (csrc/flash_static_int8.cu: an
+# int8 k step is 32 codes); any other head dim up to MAX_HEAD_DIM runs
+# zero-padded to the next instance
+HEAD_DIMS = (16, 32, 64)
+INT8_HEAD_DIMS = (32, 64)
+MAX_HEAD_DIM = 64
 MAX_NULL = 8
+
+
+def kernel_head_dim(d: int, instances=HEAD_DIMS) -> int:
+    """The kernel instance head dim d runs at: the smallest one ≥ d.
+    Raises above MAX_HEAD_DIM, a head dim no kernel takes."""
+    for dp in instances:
+        if d <= dp:
+            return dp
+    raise ValueError(f"the attention kernels take head dims up to "
+                     f"{MAX_HEAD_DIM}; got {d}")
+
+
+def pad_head(t: Optional[torch.Tensor], dp: int):
+    """t with its last (head) dim zero-padded to dp; t itself when it is
+    dp wide already (or None).  Exact for the attention kernels: the zero
+    columns add nothing to q·k, to the null logits or to P·V, and the
+    output's padded columns, zero, are dropped."""
+    if t is None or t.shape[-1] == dp:
+        return t
+    return F.pad(t, (0, dp - t.shape[-1]))
 
 
 def attention_static_plain(q, k, v, nk, nv, bound, scale: float,
@@ -144,10 +178,10 @@ def _check_qkv(q, k, v, what: str):
     b, h, nq, d = q.shape
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError(f"{what} takes bf16 q, k and v")
-    if (d != HEAD_DIM or k.shape != v.shape or k.shape[:2] != (b, h)
+    if (d > MAX_HEAD_DIM or k.shape != v.shape or k.shape[:2] != (b, h)
             or k.shape[3] != d):
-        raise ValueError(f"{what} takes head dim {HEAD_DIM} and matching "
-                         f"shapes; got q {tuple(q.shape)}, k "
+        raise ValueError(f"{what} takes head dims up to {MAX_HEAD_DIM} and "
+                         f"matching shapes; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
 
 
@@ -161,7 +195,8 @@ def _heads_last_like(t: torch.Tensor) -> torch.Tensor:
 def attention_static(q, k, v, nk, nv, bound, scale: float,
                      save_lse: bool = False):
     """Kernel K1 on CUDA tensors, the plain version on CPU tensors.
-    Returns (b, h, nq, d), laid out in memory as (b, nq, h, d), and with
+    Returns (b, h, nq, d), laid out in memory as (b, nq, h, d) (a view of
+    the kernel's (b, nq, h, D) output where d runs padded to D), and with
     ``save_lse`` also lse (b, h, nq) fp32."""
     if q.device.type == "cpu":
         return attention_static_plain(q, k, v, nk, nv, bound, scale, save_lse)
@@ -178,6 +213,8 @@ def attention_static(q, k, v, nk, nv, bound, scale: float,
         raise ValueError(f"attention_static kernel takes at most {MAX_NULL} "
                          f"bf16 nulls of shape (h, n_null, d); got "
                          f"{tuple(nk.shape)}")
+    dp = kernel_head_dim(d)
+    q, k, v, nk, nv = (pad_head(t, dp) for t in (q, k, v, nk, nv))
     nk, nv = nk.contiguous(), nv.contiguous()
     if nk.data_ptr() % 16 or nv.data_ptr() % 16:   # staged by cp.async
         nk, nv = nk.clone(), nv.clone()
@@ -190,8 +227,9 @@ def attention_static(q, k, v, nk, nv, bound, scale: float,
     _build.launch("vit_flash_static_fwd",
                   *(t.data_ptr() for t in (q, k, v, nk, nv, bound, out)),
                   None if lse is None else lse.data_ptr(),
-                  *strides, b, h, nq, nkv, n_null, float(scale))
+                  *strides, b, h, nq, nkv, n_null, dp, float(scale))
     attention_static.launches += 1
+    out = out[..., :d]
     return (out, lse) if save_lse else out
 
 
@@ -247,14 +285,16 @@ def attention_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
     _check_qkv(q, k, v, "attention_bwd_dkv kernel")
     b, h, nq, d = q.shape
     nkv = k.shape[2]
+    dp = kernel_head_dim(d)
+    q, k, v, dout = (pad_head(t, dp) for t in (q, k, v, dout))
     dk, dv = _heads_last_like(k), _heads_last_like(v)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     strides = _bwd_strides(q, k, v, dout, ((dk, "dk"), (dv, "dv")))
     _build.launch("vit_flash_bwd_dkv",
                   *(t.data_ptr() for t in (q, k, v, dout, lse, delta, dk, dv)),
-                  *strides, b, h, nq, nkv, float(scale))
+                  *strides, b, h, nq, nkv, dp, float(scale))
     attention_bwd_dkv.launches += 1
-    return dk, dv
+    return dk[..., :d], dv[..., :d]
 
 
 attention_bwd_dkv.launches = 0
@@ -269,14 +309,16 @@ def attention_bwd_dq(q, k, v, dout, lse, delta, scale: float):
     _check_qkv(q, k, v, "attention_bwd_dq kernel")
     b, h, nq, d = q.shape
     nkv = k.shape[2]
+    dp = kernel_head_dim(d)
+    q, k, v, dout = (pad_head(t, dp) for t in (q, k, v, dout))
     dq = _heads_last_like(q)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     strides = _bwd_strides(q, k, v, dout, ((dq, "dq"),))
     _build.launch("vit_flash_bwd_dq",
                   *(t.data_ptr() for t in (q, k, v, dout, lse, delta, dq)),
-                  *strides, b, h, nq, nkv, float(scale))
+                  *strides, b, h, nq, nkv, dp, float(scale))
     attention_bwd_dq.launches += 1
-    return dq
+    return dq[..., :d]
 
 
 attention_bwd_dq.launches = 0
@@ -371,7 +413,8 @@ def attention_online_plain(q, k, v, scale: float, save_lse: bool = False):
 
 def attention_online(q, k, v, scale: float, save_lse: bool = False):
     """Kernel K15 on CUDA tensors, the plain version on CPU tensors.
-    Returns (b, h, nq, d), laid out in memory as (b, nq, h, d), and with
+    Returns (b, h, nq, d), laid out in memory as (b, nq, h, d) (a view of
+    the kernel's (b, nq, h, D) output where d runs padded to D), and with
     ``save_lse`` also lse (b, h, nq) fp32."""
     if q.device.type == "cpu":
         return attention_online_plain(q, k, v, scale, save_lse)
@@ -381,6 +424,8 @@ def attention_online(q, k, v, scale: float, save_lse: bool = False):
     nkv = k.shape[2]
     if nkv < 1:
         raise ValueError("attention_online kernel needs at least one key")
+    dp = kernel_head_dim(d)
+    q, k, v = (pad_head(t, dp) for t in (q, k, v))
     out = _heads_last_like(q)
     lse = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
            if save_lse else None)
@@ -389,8 +434,9 @@ def attention_online(q, k, v, scale: float, save_lse: bool = False):
     _build.launch("vit_flash_online_fwd",
                   *(t.data_ptr() for t in (q, k, v, out)),
                   None if lse is None else lse.data_ptr(),
-                  *strides, b, h, nq, nkv, float(scale))
+                  *strides, b, h, nq, nkv, dp, float(scale))
     attention_online.launches += 1
+    out = out[..., :d]
     return (out, lse) if save_lse else out
 
 
@@ -502,7 +548,7 @@ def attention_static_int8_plain(q8, k8, v, qe, qn, nk, nv, bound):
 def attention_static_int8(q8, k8, v, qe, qn, nk, nv, bound):
     """The int8 attention kernel (K9/K10) on CUDA tensors, the plain version
     on CPU tensors.  Returns bf16 (b, h, nq, d), laid out in memory as
-    (b, nq, h, d)."""
+    (b, nq, h, d) (a view of (b, nq, h, D) where d runs padded to D)."""
     if q8.device.type == "cpu":
         return attention_static_int8_plain(q8, k8, v, qe, qn, nk, nv, bound)
     b, h, nq, d = q8.shape
@@ -519,19 +565,21 @@ def attention_static_int8(q8, k8, v, qe, qn, nk, nv, bound):
             or qn.dtype != torch.float32):
         raise ValueError("attention_static_int8 kernel takes int8 q/k, bf16 "
                          "v and null v, fp32 null k, qe and qn")
-    if (d != HEAD_DIM or k8.shape != v.shape or k8.shape[:2] != (b, h)
+    if (d > MAX_HEAD_DIM or k8.shape != v.shape or k8.shape[:2] != (b, h)
             or k8.shape[3] != d or qe.shape != (b, h, nq)
             or qn.shape != qe.shape or qn.stride() != qe.stride()
             or n_null > MAX_NULL or nk.shape != nv.shape
             or nk.shape[::2] != (h, d)):
-        raise ValueError(f"attention_static_int8 kernel takes head dim "
-                         f"{HEAD_DIM}, at most {MAX_NULL} nulls and matching "
-                         f"shapes; got q8 {tuple(q8.shape)}, k8 "
+        raise ValueError(f"attention_static_int8 kernel takes head dims up "
+                         f"to {MAX_HEAD_DIM}, at most {MAX_NULL} nulls and "
+                         f"matching shapes; got q8 {tuple(q8.shape)}, k8 "
                          f"{tuple(k8.shape)}, v {tuple(v.shape)}, qe "
                          f"{tuple(qe.shape)}, nk {tuple(nk.shape)}")
+    dp = kernel_head_dim(d, INT8_HEAD_DIMS)
+    q8, k8, v, nk, nv = (pad_head(t, dp) for t in (q8, k8, v, nk, nv))
     nk, nv = nk.contiguous(), nv.contiguous()
     bound = bound.float().reshape(())
-    out = torch.empty((b, nq, h, d), device=q8.device,
+    out = torch.empty((b, nq, h, dp), device=q8.device,
                       dtype=torch.bfloat16).transpose(1, 2)
     strides = [s for t, name in ((q8, "q8"), (k8, "k8"), (v, "v"),
                                  (out, "out"))
@@ -539,9 +587,9 @@ def attention_static_int8(q8, k8, v, qe, qn, nk, nv, bound):
     _build.launch("vit_flash_static_int8_fwd",
                   *(t.data_ptr() for t in (q8, k8, v, qe, qn, nk, nv, bound,
                                            out)),
-                  *strides, *qe.stride(), b, h, nq, nkv, n_null)
+                  *strides, *qe.stride(), b, h, nq, nkv, n_null, dp)
     attention_static_int8.launches += 1
-    return out
+    return out[..., :d]
 
 
 attention_static_int8.launches = 0

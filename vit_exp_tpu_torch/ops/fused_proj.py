@@ -57,6 +57,11 @@ from vit_exp_tpu_torch.core.precision import acc_dtype
 from vit_exp_tpu_torch.ops.geglu_ff import (int8_matmul, ln_stats, quant_rows,
                                             quantize_per_channel)
 
+# K3's, K12/K13's and K14's widths K and F are multiples of it: rows of
+# whole 16-byte pieces (16 int8 codes, two of 8 bf16); the kernels mask the
+# tails of their tiles
+PROJ_WIDTH_STEP = 16
+
 
 def ln_qkv_plain(x2, mu, inv, wf, c, fq: int):
     """Plain version of K3.  x2: (M, K); mu/inv: (M, 1) fp32; wf: (K, F)
@@ -77,12 +82,14 @@ def ln_qkv(x2, mu, inv, wf, c, fq: int):
     F = wf.shape[1]
     if x2.dtype != torch.bfloat16 or wf.dtype != torch.bfloat16:
         raise ValueError("ln_qkv kernel takes bf16 x and W")
-    if (M < 1 or K < 32 or K % 32 or F < 64 or F % 64 or wf.shape[0] != K
-            or c.numel() != F or mu.numel() != M or inv.numel() != M
-            or not 0 <= fq <= F):
-        raise ValueError(f"ln_qkv kernel takes M ≥ 1, K % 32 == 0, F % 64 == "
-                         f"0 and matching shapes; got x {tuple(x2.shape)}, W "
-                         f"{tuple(wf.shape)}, c {tuple(c.shape)}, fq {fq}")
+    step = PROJ_WIDTH_STEP
+    if (M < 1 or K < step or K % step or F < step or F % step
+            or wf.shape[0] != K or c.numel() != F or mu.numel() != M
+            or inv.numel() != M or not 0 <= fq <= F):
+        raise ValueError(f"ln_qkv kernel takes M ≥ 1, K % {step} == 0, F % "
+                         f"{step} == 0 and matching shapes; got x "
+                         f"{tuple(x2.shape)}, W {tuple(wf.shape)}, c "
+                         f"{tuple(c.shape)}, fq {fq}")
     x2, wf = x2.contiguous(), wf.contiguous()
     mu, inv, c = (t.float().contiguous() for t in (mu, inv, c))
     out = torch.empty((M, F), device=x2.device, dtype=x2.dtype)
@@ -187,19 +194,21 @@ def ln_qkv_int8_plain(x2, mu, inv, w8, sc, c, fq: int, fk: int):
 def _check_w8a8(name, x2, w8, sc):
     M, K = x2.shape
     F = w8.shape[1]
+    step = PROJ_WIDTH_STEP
     if x2.dtype != torch.bfloat16 or w8.dtype != torch.int8:
         raise ValueError(f"{name} kernel takes bf16 x and int8 W")
-    if K % 16 or K > 2048 or F % 128 or w8.shape[0] != K or sc.numel() != F:
-        raise ValueError(f"{name} kernel takes K a multiple of 16 up to 2048, "
-                         f"F a multiple of 128 and matching shapes; got x "
-                         f"{tuple(x2.shape)}, W {tuple(w8.shape)}")
+    if (K < step or K % step or K > 2048 or F < step or F % step
+            or w8.shape[0] != K or sc.numel() != F):
+        raise ValueError(f"{name} kernel takes K a multiple of {step} up to "
+                         f"2048, F a multiple of {step} and matching shapes; "
+                         f"got x {tuple(x2.shape)}, W {tuple(w8.shape)}")
     return M, K, F
 
 
 def _check_k13(x2, mu, inv, w8, sc, c, fq, fk):
     """Raise unless K12/K13's two kernels take these operands."""
     M, K, F = _check_w8a8("ln_qkv_int8", x2, w8, sc)
-    if (M < 1 or K < 16 or F < 128 or c.numel() != F or mu.numel() != M
+    if (M < 1 or c.numel() != F or mu.numel() != M
             or inv.numel() != M or not (0 < fq and 0 < fk and fq + fk < F)):
         raise ValueError(f"ln_qkv_int8 kernel: bad x {tuple(x2.shape)}, c "
                          f"{tuple(c.shape)}, mu/inv {mu.numel()}/"
@@ -264,13 +273,13 @@ def ln_qkv_int8_mm(x8, sx, mu, inv, w8t, sc, c, fq: int, fk: int,
     F = w8t.shape[0]
     if (x8.dtype != torch.int8 or w8t.dtype != torch.int8
             or dtype != torch.bfloat16 or M < 1 or K < 16 or K % 16
-            or K > 2048 or F < 128 or F % 128 or w8t.shape[1] != K
+            or K > 2048 or F < 16 or F % 16 or w8t.shape[1] != K
             or any(t.numel() != M for t in (sx, mu, inv))
             or sc.numel() != F or c.numel() != F
             or not (0 < fq and 0 < fk and fq + fk < F)):
         raise ValueError(f"ln_qkv_int8_mm kernel takes int8 x8 (M ≥ 1, K a "
                          f"multiple of 16 up to 2048), one s_x, μ and inv per "
-                         f"row, int8 Wᵀ (F a multiple of 128, K), F scales "
+                         f"row, int8 Wᵀ (F a multiple of 16, K), F scales "
                          f"and colsums, 0 < fq, 0 < fk, fq + fk < F, and "
                          f"writes bf16; got x8 {tuple(x8.shape)} {x8.dtype}, "
                          f"Wᵀ {tuple(w8t.shape)} {w8t.dtype}, fq {fq}, fk "

@@ -18,7 +18,7 @@ the one-pass oracle): ``geglu_ff_x`` (x̂ = bf16((x − μ)·inv)),
 and gate in one lane's registers, the GEGLU on them → act in bf16; h never
 reaches device memory) and ``geglu_ff_o`` (out = act@W2).  Rounding points
 follow the TPU kernel: x̂, h, gelu and act are bf16.  D and 2I multiples of
-64, any M.
+16 (rows of 16-byte pieces), any M.
 
 Kernel K8 (``geglu_ff_bwd``) replaces vit_exp_tpu/ops/geglu_ff.py::
 _ff_bwd_kernel (``_ff_bwd_impl``).  CUDA C++, csrc/geglu_ff_bwd.cu: a chain
@@ -36,7 +36,7 @@ and ``sum_rows`` (the partials summed in a fixed order, as are the dγ/dβ
 partials).  Its rounding follows the TPU backward, not the forward: y =
 bf16(x̂·γ + β), h = y@W1 in fp32 with no bf16 round, gelu'(g) = Φ(g) +
 g·φ(g), dh and act bf16, dy fp32.  D is read from the operands: a multiple
-of 64 up to K8_MAX_D; 2I a multiple of 16; any M.
+of 16 up to K8_MAX_D; 2I a multiple of 16; any M.
 ``GEGLUFeedForwardFn`` is the ``torch.autograd.Function`` that ties K2 and
 K8 together; it saves what the JAX VJP saves: x, μ, inv, γ, β, W1, W2.
 
@@ -59,8 +59,12 @@ oracle): ``geglu_ff_int8_y`` (y → codes y8 and scale s_y),
 amax per AMAX_TILE columns), ``geglu_ff_int8_q`` (s_a from the partials,
 codes a8) and ``geglu_ff_int8_o`` (a8@W2 · s_a · s_W2).  The int8 operands
 are index-major: the weights go in transposed, W1ᵀ (2I, D) and W2ᵀ (D, I),
-made per call next to the per-call quantization.  Serving only: no
-backward, and it raises on inputs that require grad.
+made per call next to the per-call quantization.  D and 2I multiples of 16;
+the stages' int8 rows of a8 need I a multiple of 16, so where it is not,
+``geglu_ff_int8`` zero-pads the val and gate columns of W1 and the rows of
+W2 to the next one (exact: a zero column's act is 0, which moves neither
+s_a nor the product).  Serving only: no backward, and it raises on inputs
+that require grad.
 """
 
 from __future__ import annotations
@@ -103,7 +107,8 @@ def _check_bf16(name, *tensors):
 
 # K2's stages on the card (csrc/geglu_ff.cu): x̂, then act, then out.  Each
 # has its plain twin; composed, the twins give geglu_ff_plain's bits.
-FF_WIDTH_STEP = 64   # D and 2I of K2 and K11 are multiples of it
+FF_WIDTH_STEP = 16   # D and 2I of K2, K8 and K11 are multiples of it
+K11_INNER_STEP = 16  # I of K11's stages: a8's int8 rows in 16-byte pieces
 
 
 def _check_ff_widths(name, D, I2):
@@ -111,6 +116,13 @@ def _check_ff_widths(name, D, I2):
             or I2 % FF_WIDTH_STEP:
         raise ValueError(f"{name} kernel takes D and 2I multiples of "
                          f"{FF_WIDTH_STEP}; got D {D}, 2I {I2}")
+
+
+def _check_k11_inner(name, inner):
+    if inner % K11_INNER_STEP:
+        raise ValueError(f"{name} kernel takes I a multiple of "
+                         f"{K11_INNER_STEP} (geglu_ff_int8 pads it); got I "
+                         f"{inner}")
 
 
 def _check_ln_rows(name, x2, mu, inv):
@@ -380,6 +392,7 @@ def geglu_ff_int8_h(y8, sy, w1t, s1):
     M, D = y8.shape
     I2 = w1t.shape[0]
     _check_ff_widths("geglu_ff_int8_h", D, I2)
+    _check_k11_inner("geglu_ff_int8_h", I2 // 2)
     if M < 1 or sy.numel() != M or w1t.shape[1] != D or s1.numel() != I2:
         raise ValueError(f"geglu_ff_int8_h kernel takes y8 (M ≥ 1, D), one "
                          f"s_y per row, W1ᵀ (2I, D) and 2I scales; got y8 "
@@ -415,6 +428,7 @@ def geglu_ff_int8_q(act, amax_part):
     _build.require_cuda("geglu_ff_int8_q", act, amax_part)
     M, inner = act.shape
     _check_ff_widths("geglu_ff_int8_q", FF_WIDTH_STEP, 2 * inner)
+    _check_k11_inner("geglu_ff_int8_q", inner)
     if (act.dtype != torch.float32 or amax_part.dtype != torch.float32
             or M < 1 or amax_part.shape != (M, -(-inner // AMAX_TILE))):
         raise ValueError(f"geglu_ff_int8_q kernel takes fp32 act (M ≥ 1, I) "
@@ -450,6 +464,7 @@ def geglu_ff_int8_o(a8, sa, w2t, s2, dtype=torch.bfloat16):
     M, inner = a8.shape
     D = w2t.shape[0]
     _check_ff_widths("geglu_ff_int8_o", D, 2 * inner)
+    _check_k11_inner("geglu_ff_int8_o", inner)
     if (dtype != torch.bfloat16 or M < 1 or sa.numel() != M
             or w2t.shape[1] != inner or s2.numel() != D):
         raise ValueError(f"geglu_ff_int8_o kernel takes a8 (M ≥ 1, I), one "
@@ -471,14 +486,36 @@ geglu_ff_int8_o.launches = 0
 def geglu_ff_int8(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2):
     """Kernel K11 (four kernels: y8, act, a8, out) on CUDA tensors, the
     plain stages on CPU tensors.  Arguments as ``geglu_ff_int8_plain``'s;
-    W1 and W2 go to the kernels transposed.  On the card every operand is
-    checked before the first launch."""
+    W1 and W2 go to the stages transposed, I zero-padded to a multiple of
+    K11_INNER_STEP (``k11_weights``).  On the card every operand is checked
+    before the first launch."""
     if x2.device.type != "cpu":
         _check_k11(x2, mu, inv, gamma, beta, w1q, s1, w2q, s2)
+    w1t, s1, w2t = k11_weights(w1q, s1, w2q)
     y8, sy = geglu_ff_int8_y(x2, mu, inv, gamma, beta)
-    a8, sa = geglu_ff_int8_q(*geglu_ff_int8_h(y8, sy, w1q.t().contiguous(),
-                                              s1))
-    return geglu_ff_int8_o(a8, sa, w2q.t().contiguous(), s2, x2.dtype)
+    a8, sa = geglu_ff_int8_q(*geglu_ff_int8_h(y8, sy, w1t, s1))
+    return geglu_ff_int8_o(a8, sa, w2t, s2, x2.dtype)
+
+
+def k11_weights(w1q, s1, w2q):
+    """K11's weight operands from W1 (D, 2I) [val | gate], its 2I scales
+    and W2 (I, D): W1ᵀ (2I', D), 2I' scales and W2ᵀ (D, I'), with I' = I
+    rounded up to K11_INNER_STEP.  The transposes are written into buffers
+    of that width (the one copy each), the padding as zero val and gate
+    rows at scale 1 and zero W2ᵀ columns: the padded act columns are
+    exactly 0, so s_a and the output keep their bits."""
+    D, i2 = w1q.shape
+    inner = i2 // 2
+    ip = -(-inner // K11_INNER_STEP) * K11_INNER_STEP
+    w1t = w1q.new_empty((2, ip, D))
+    w1t[:, :inner] = w1q.t().reshape(2, inner, D)
+    w1t[:, inner:] = 0
+    s1p = s1.new_ones((2, ip))
+    s1p[:, :inner] = s1.reshape(2, inner)
+    w2t = w2q.new_empty((D, ip))
+    w2t[:, :inner] = w2q.t()
+    w2t[:, inner:] = 0
+    return w1t.reshape(2 * ip, D), s1p.reshape(2 * ip), w2t
 
 
 def fused_geglu_ff_int8(x: torch.Tensor, gamma, beta, w1, w2, *,
@@ -506,7 +543,7 @@ def fused_geglu_ff_int8(x: torch.Tensor, gamma, beta, w1, w2, *,
 # and dβ.  Each stage has its plain twin; composed, the twins are
 # geglu_ff_bwd_plain.  The width D comes from the operands: a multiple of
 # FF_WIDTH_STEP up to K8_MAX_D (dx holds a row in registers); 2I a multiple
-# of 16.
+# of FF_WIDTH_STEP.
 K8_MAX_D = 2048
 DX_ROWS = 64         # rows of a dx block: one dγ/dβ partial row each
 PLAIN_CHUNK = 4096   # token rows per fp32 product in the plain twins

@@ -123,7 +123,7 @@ def patch_embed_check(x: torch.Tensor, kc: torch.Tensor, p1: int, p2: int):
             f"p2 {p2}, D {D}: it needs H % p1 == W % p2 == 0, an even p2 "
             f"whose k step R·p2 (R = 16 / gcd(p2, 16)) is 16, 32, 48 or 80, "
             f"CPT·p1·p2 % 8 == 0, W % 8 == 0, W ≤ 640 (320 where p2 % 4 != 0), "
-            f"W / p2 ≤ 96, D % 128 == 0 and "
+            f"W / p2 ≤ 96, D % 16 == 0 and "
             f"at most 227 KB of shared memory")
 
 
