@@ -6,9 +6,9 @@
 1. Requires a CUDA device (exits non-zero without one) and prints the card's
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc`` and
-   prints ptxas's registers and spills for the kernels on gemm_mma.cuh
-   (K2's, K3, K8's, K11's, K12/K13's, K14), the patch embedding and the
-   int8 attention (none may spill).
+   prints ptxas's registers and spills for the GEMM kernels (K2's and
+   K8's on gemm_wgmma.cuh; K3, K11's, K12/K13's and K14 on gemm_mma.cuh),
+   the patch embedding and the int8 attention (none may spill).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
    tokens, width 768; one row per launch counter: K1, K2's three kernels
@@ -32,7 +32,8 @@
    scaled_dot_product_attention on the same inputs (a yardstick, never on
    the path; its backward is timed once per input set and shared by the
    pair's two rows), for K8's weight GEMM torch.mm's, for the products
-   of K2, K3, K11, K12/K13 and K14 torch.mm's and torch._int_mm's, and for
+   of K2, K8's dh (two calls) and dy, K3, K11, K12/K13 and K14 torch.mm's
+   and torch._int_mm's, and for
    the patch embedding F.conv2d on bf16 operands and torch.mm over a
    pre-built patch matrix (the products only, not the same function).
    Checks that K1
@@ -637,9 +638,9 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
     """The training path's kernel rows at its shapes: K1 with lse, the two
     attention backward kernels (each against its outputs of the plain
     backward twin) and K8's six kernels, one row each (each row's kernel and
-    twin take the kernel chain's inputs; the weight GEMM's row carries
-    torch.mm as its yardstick).  Checks first that K8 as a whole gives the
-    same bits twice."""
+    twin take the kernel chain's inputs; the dh, dy and weight GEMM rows
+    carry torch.mm on their products as yardsticks).  Checks first that K8
+    as a whole gives the same bits twice."""
     from vit_exp_tpu_torch.ops import flash_attention as fa
     from vit_exp_tpu_torch.ops.attention import l2norm
 
@@ -700,9 +701,10 @@ def training_kernel_cases(device, arch=ARCH, batch=BATCH, seed=2):
 
 def k8_cases(device, d, inner, m, g, tag=""):
     """K8's six kernels at width d, 2I = 2·inner and m tokens, one row each
-    (each row's kernel and twin take the kernel chain's inputs; the weight
-    GEMM's row carries torch.mm as its yardstick; ``tag`` ends each row's
-    name).  Checks first that K8 as a whole gives the same bits twice."""
+    (each row's kernel and twin take the kernel chain's inputs; the dh, dy
+    and weight GEMM rows carry torch.mm on their products as yardsticks;
+    ``tag`` ends each row's name).  Checks first that K8 as a whole gives
+    the same bits twice."""
     from vit_exp_tpu_torch.ops import geglu_ff
 
     bf = torch.bfloat16
@@ -739,11 +741,17 @@ def k8_cases(device, d, inner, m, g, tag=""):
              "the GEGLU derivative)", "cuda", ff_bwd, k8,
              lambda: geglu_ff.geglu_bwd_dh(y, dout_ff, w1, w2),
              lambda: geglu_ff.geglu_bwd_dh_plain(y, dout_ff, w1, w2), "K8dh",
-             {"bf16": 2 * m * d * 3 * inner}, nbytes(y, dout_ff, w1, w2)),
+             {"bf16": 2 * m * d * 3 * inner}, nbytes(y, dout_ff, w1, w2),
+             product_timer("K8's dh stage: torch.mm(dO, W2ᵀ) + torch.mm(y, "
+                           "W1), products only, two calls",
+                           lambda: (torch.mm(dout_ff, w2.t()),
+                                    torch.mm(y, w1)))),
         Case("K8 GEGLU backward, token phase: dy = dh·W1ᵀ (fp32)", "cuda",
              ff_bwd, k8, lambda: geglu_ff.geglu_bwd_dy(dh_, w1),
              lambda: geglu_ff.geglu_bwd_dy_plain(dh_, w1), "K8dy",
-             {"bf16": 2 * m * 2 * inner * d}, nbytes(dh_, w1)),
+             {"bf16": 2 * m * 2 * inner * d}, nbytes(dh_, w1),
+             product_timer("K8's dy stage: torch.mm(dh, W1ᵀ), bf16 out",
+                           lambda: torch.mm(dh_, w1.t()))),
         Case("K8 GEGLU backward, token phase: dx and the dgamma/dbeta "
              "partials", "cuda", ff_bwd, k8,
              lambda: geglu_ff.geglu_bwd_dx(x, mu, inv, gamma, dy),

@@ -13,7 +13,9 @@ the attention kernels at head dims 8, 16, 24 and 64 (forward, backward and
 int8, at the blocking's edges, twice bitwise equal), the GEMM families and
 the patch embedding at the tiny configs' widths (D 48, 2I 256, F 96; K11
 also at 2I 272), the two tiny configs through build_ctclip and a step on
-the kernels, and the refusals past the limits (head dim 72, D 40).
+the kernels, and the refusals past the limits (head dim 72, D 40).  The
+SASS of the built library: K2's and K8's five product kernels issue wgmma
+on TMA loads and no mma.sync, K3's kernel mma.sync.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -34,11 +36,14 @@ so they are held bit for bit.
 """
 
 import math
+import re
+import subprocess
+from pathlib import Path
 
 import pytest
 import torch
 
-from vit_exp_tpu_torch.ops import fused_proj, geglu_ff, patches
+from vit_exp_tpu_torch.ops import _build, fused_proj, geglu_ff, patches
 from vit_exp_tpu_torch.ops import flash_attention as fa
 from vit_exp_tpu_torch.ops.attention import l2norm, logit_bound
 
@@ -584,6 +589,37 @@ def test_k8_refuses_a_width_before_any_launch(dev, d):
         with pytest.raises(ValueError, match="multiple of 16"):
             call()
     assert [f.launches for f in K8_STAGES] == before
+
+
+# K2's and K8's products on the wgmma mainloop of csrc/gemm_wgmma.cuh
+WGMMA_KERNELS = ("geglu_ff_h_kernel", "geglu_ff_o_kernel",
+                 "geglu_bwd_dh_kernel", "geglu_bwd_dy_kernel", "wgrad_kernel")
+
+
+def _sass_of(name, sass):
+    """The SASS of the one kernel of the library whose symbol holds name."""
+    found = [text for fn, text in sass.items() if name in fn]
+    assert len(found) == 1, (name, sorted(sass))
+    return found[0]
+
+
+def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
+    """cuobjdump -sass (beside nvcc) of the built library: each of the five
+    redesigned kernels issues wgmma (HGMMA) on operands loaded by TMA
+    (UTMALDG) and no mma.sync (HMMA); K3's kernel, still on gemm_mma.cuh,
+    issues HMMA and no HGMMA, so the check tells the two routes apart."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
+                         capture_output=True, text=True, check=True).stdout
+    sass = {part.split("\n", 1)[0].strip(): part
+            for part in re.split(r"Function : ", out)[1:]}
+    hmma = re.compile(r"\bHMMA\b")
+    for name in WGMMA_KERNELS:
+        text = _sass_of(name, sass)
+        assert "HGMMA" in text and "UTMALDG" in text, name
+        assert not hmma.search(text), name
+    text = _sass_of("ln_qkv_kernel", sass)
+    assert hmma.search(text) and "HGMMA" not in text
 
 
 def test_no_wrapper_returns_a_graphless_result(dev):

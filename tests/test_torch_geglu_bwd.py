@@ -6,11 +6,12 @@
   before K8 was staged and against JAX's ``_ff_bwd_impl`` run with
   ``interpret=True``, all in fp32,
   with token counts that are multiples of no tile (128-token dh/dy tiles,
-  64-row dx blocks, 32-token weight-GEMM steps).  Relative L2 ≤ 1e-5:
+  64-row dx blocks, 64-token weight-GEMM steps).  Relative L2 ≤ 1e-5:
   fp32 on every side, the sums blocked in another order (measured ≤ 4.3e-7).
 - The weight GEMM's split plan covers [0, M) once, in order, in segments
   that start at multiples of the token step, at the production shapes and
-  at the edges.
+  at the edges; that step is the kernel's k step (csrc), so no TMA box
+  of a segment reaches into the next one.
 - The int8 attention's logits: every S in [−516,128, 516,128] (32 ·
   127²) converts to fp32 exactly, as the kernel converts it; and the
   alternative it was measured against, an s32 accumulator started at
@@ -134,6 +135,25 @@ def test_wgrad_plan_covers_the_tokens_once_in_order(m, p, q):
     # at most about WGRAD_BLOCKS blocks, and no more segments than steps
     assert splits <= max(1, -(-tff.WGRAD_BLOCKS // tiles))
     assert splits <= -(-m // tff.WGRAD_STEP)
+
+
+def test_wgrad_segments_are_whole_k_steps_of_the_kernel():
+    """The plan's token step is the weight GEMM's k step in csrc: the
+    kernel loads a segment in boxes of STEP_K tokens and refuses a segment
+    that is not a multiple of SEG_STEP, so the two must agree."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(tff.__file__).resolve().parent.parent / "csrc"
+    step_k = re.search(r"constexpr int STEP_K = (\d+);",
+                       (csrc / "gemm_wgmma.cuh").read_text())
+    assert step_k and int(step_k.group(1)) == tff.WGRAD_STEP
+    assert "constexpr int SEG_STEP = STEP_K;" in (
+        csrc / "geglu_ff_bwd.cu").read_text()
+    for m in (1, 63, 64, 65, 4113, 55296):
+        splits, seg = tff.wgrad_plan(m, 768, 4096)
+        starts = [s * seg for s in range(splits)]
+        assert all(t % tff.WGRAD_STEP == 0 for t in starts)
 
 
 def test_wgrad_partials_sum_to_the_product():

@@ -440,8 +440,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(tmp_path):
         assert (by == "bytes") == (pipe == "bytes"), c.name
         assert ("exp" in c.ops) == (c.counter in ATTENTION_COUNTERS), c.name
         assert (c.library is not None) == (c.counter in (
-            "K1", "dKdV", "dQ", "K15", "K8w", "K2h", "K2o", "K3", "K4",
-            "K11h", "K11o", "K13mm", "K14"))
+            "K1", "dKdV", "dQ", "K15", "K8dh", "K8dy", "K8w", "K2h", "K2o",
+            "K3", "K4", "K11h", "K11o", "K13mm", "K14"))
     for attn_impl in ("pallas_static", "pallas"):
         res, launches, kern, batch = cs.compare_train_steps(
             cpu, arch, BertConfig.tiny(), 2, TEXT_LEN, attn_impl=attn_impl)

@@ -39,6 +39,13 @@ __device__ __forceinline__ uint2 quant8x8(const float (&v)[8], float s) {
     return out;
 }
 
+// let kernel take `bytes` of dynamic shared memory (above 48 KB)
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)

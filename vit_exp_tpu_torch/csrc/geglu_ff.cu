@@ -10,44 +10,49 @@
 // register file of an SM nor its 227 KB of shared memory, and a block that
 // owns fewer tokens streams every weight tile from L2 for a handful of
 // tokens.  So K2 is three kernels, each a stage with its plain twin in
-// ops/geglu_ff.py; the two products run on the mma.sync mainloop of
-// gemm_mma.cuh (a cp.async ring, ldmatrix/.trans, fp32 accumulators in
-// registers):
+// ops/geglu_ff.py; the two products run on the wgmma mainloop of
+// gemm_wgmma.cuh (TMA loads by a producer warp into an mbarrier ring, two
+// consumer warpgroups on wgmma, fp32 accumulators in registers, a
+// persistent grid of one block per SM):
 //   geglu_ff_x_kernel: x̂ in bf16 (M × D), a row pass, bytes bound.
-//   geglu_ff_h_kernel: per tile of 128 tokens × 64 inner columns c,
-//     val = x̂·W1'[:, c] and gate = x̂·W1'[:, I + c] (one A tile, two
-//     k-major B tiles per step), so val and gate of one (token, column)
-//     sit in one lane and the GEGLU runs on the accumulators (started at
-//     d1): both rounded to bf16, gelu_erf of gate rounded, times val,
-//     rounded.  It writes act in bf16 (M × I); h (453 MB at 55,296 tokens)
-//     never leaves the chip.  The grid runs the column tiles of one token tile together,
-//     so x̂ comes from device memory once and W1' stays in L2.
+//   geglu_ff_h_kernel: per tile of 128 tokens × 128 inner columns c, one
+//     wgmma of N 256 reads x̂ (index-major) against the val columns
+//     W1'[:, c] and the gate columns W1'[:, I + c] (two k-major B tiles
+//     side by side, from two tensor maps), so val and gate of one (token,
+//     column) sit in one lane and the GEGLU runs on the accumulators
+//     (started at d1): both rounded to bf16, gelu_erf of gate rounded,
+//     times val, rounded.  It writes act in bf16 (M × I); h (453 MB at
+//     55,296 tokens) never leaves the chip.  The tiles run column tile
+//     fastest, so x̂ comes from device memory once and W1' stays in L2.
 //   geglu_ff_o_kernel: out = act·W2 (K = I, N = D; W2 is (I, D): a k-major
-//     B) in 128 × 128 tiles, rounded to bf16.
+//     B) in 128 × 256 tiles, rounded to bf16.
+//   Both write through a swizzled staging tile and TMA stores, so the
+//   consumers start the next tile while the copies run.
 // What bounds it: 522 GFLOP at 55,296 tokens, D 768, 2I 4096 (0.528 ms at
 // the bf16 tensor-core peak); act costs 226 MB written and read again
 // (≈ 0.135 ms at 3.35 TB/s), the price of a design that fits the card.
-// Both GEMMs hold 64 accumulators a lane at two blocks of 8 warps per SM.
-// No atomics: two launches on the same inputs give the same bits.  Any M;
-// D and 2I multiples of 16 (rows of 16-byte pieces; the mainloop masks the
-// tails of its tiles, the epilogues their columns).
-#include "gemm_mma.cuh"
+// Both products hold 128 accumulators a consumer thread.  No atomics: two
+// launches on the same inputs give the same bits.  Any M; D and 2I
+// multiples of 16 (rows of 16-byte pieces for TMA, whose loads are
+// zero-filled past the matrices' ends and whose stores are clipped there).
+#include "gemm_wgmma.cuh"
 
 using namespace vit;
 
 namespace {
 
-// act: 128 tokens × 64 inner columns, two B operands (val, gate columns of
-// W1', k-major); 8 warps of 32 × 32 per product
-constexpr int H_TOKENS = 128, H_COLS = 64, H_BK = 64, H_STAGES = 3;
-constexpr int H_WM = 4, H_WN = 2, H_BLOCKS = 2;
-using HCfg = GemmCfg<H_TOKENS, H_COLS, H_BK, H_WM, H_WN, H_STAGES, false,
-                     true, 2>;
-// out: 128 tokens × 128 output columns; 8 warps of 64 × 32
-constexpr int O_TOKENS = 128, O_COLS = 128, O_BK = 64, O_STAGES = 3;
-constexpr int O_WM = 2, O_WN = 4, O_BLOCKS = 2;
-using OCfg = GemmCfg<O_TOKENS, O_COLS, O_BK, O_WM, O_WN, O_STAGES, false,
-                     true, 1>;
+// act: 128 tokens × 128 inner columns; B = [val | gate] columns of W1';
+// act leaves through a staging of 64 × 128 a consumer
+constexpr int H_COLS = 128, H_STAGES = 4;
+using HGemm = WgGemm<H_COLS, 2, false, true>;
+using HOut = Staging<H_COLS / 64>;
+using HRing = Ring<H_STAGES, HGemm::STAGE_BYTES, 2 * HOut::BYTES>;
+// out: 128 tokens × 256 output columns, leaving in two halves of 64 × 128
+// a consumer
+constexpr int O_COLS = 256, O_STAGES = 4;
+using OGemm = WgGemm<O_COLS, 1, false, true>;
+using OOut = Staging<2>;
+using ORing = Ring<O_STAGES, OGemm::STAGE_BYTES, 2 * OOut::BYTES>;
 
 __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
@@ -79,101 +84,141 @@ geglu_ff_x_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
     *reinterpret_cast<uint4*>(xn + (size_t)r * D + c) = out;
 }
 
-// act for 128 tokens × 64 inner columns; grid (I / 64, tokens / 128)
-__global__ void __launch_bounds__(HCfg::THREADS, H_BLOCKS)
-geglu_ff_h_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ w1,
-                  const float* __restrict__ d1, bf16* __restrict__ act, int M,
-                  int D, int inner) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int n0 = blockIdx.x * H_COLS, m0 = blockIdx.y * H_TOKENS;
-    // h starts at d1 (val column c at d1[c], gate at d1[I + c]), so the
-    // epilogue holds no d1 operands
-    float h[2][HCfg::MT][HCfg::NT][4];
-#pragma unroll
-    for (int nt = 0; nt < HCfg::NT; ++nt) {
-        const int col = n0 + acc_col<HCfg>(nt, 0);
-        float2 dv = make_float2(0.f, 0.f), dg = dv;
-        if (col < inner) {   // inner % 8 == 0
-            dv = *reinterpret_cast<const float2*>(d1 + col);
-            dg = *reinterpret_cast<const float2*>(d1 + inner + col);
+// act for tiles of 128 tokens × 128 inner columns, column tile fastest
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+geglu_ff_h_kernel(const __grid_constant__ CUtensorMap xn_map,
+                  const __grid_constant__ CUtensorMap val_map,
+                  const __grid_constant__ CUtensorMap gate_map,
+                  const __grid_constant__ CUtensorMap act_map,
+                  const float* __restrict__ d1, int M, int D, int inner) {
+    extern __shared__ unsigned char smem_raw[];
+    HRing ring(smem_raw);
+    ring.init();
+    const int col_tiles = (inner + H_COLS - 1) / H_COLS;
+    const int tiles = (M + TILE_M - 1) / TILE_M * col_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const b[2] = {&val_map, &gate_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int n0 = t % col_tiles * H_COLS;
+                const int b_n0[2] = {n0, n0};
+                produce<HGemm>(ring, &xn_map, t / col_tiles * TILE_M, b, b_n0,
+                               0, D);
+            }
         }
-#pragma unroll
-        for (int mt = 0; mt < HCfg::MT; ++mt)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                h[0][mt][nt][2 * half] = dv.x;
-                h[0][mt][nt][2 * half + 1] = dv.y;
-                h[1][mt][nt][2 * half] = dg.x;
-                h[1][mt][nt][2 * half + 1] = dg.y;
-            }
+        return;
     }
-    const Mat w1vg[2] = {{w1, 2 * inner, D, inner},
-                         {w1 + inner, 2 * inner, D, inner}};
-    gemm_mainloop<HCfg>(h, Mat{xn, D, M, D}, w1vg, m0, n0, 0, D,
-                        reinterpret_cast<bf16*>(smem_raw));
+    consumer_regs();
+    constexpr int G0 = H_COLS / 8;   // the first n8 tile of the gate columns
+    const HOut out(ring.extra());
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / col_tiles * TILE_M + consumer_row0();
+        const int n0 = t % col_tiles * H_COLS;
+        // h starts at d1 (val column c at d1[c], gate at d1[I + c]), so the
+        // epilogue holds no d1 operands
+        float h[HGemm::N / 8][4];
+#pragma unroll
+        for (int j = 0; j < G0; ++j) {
+            const int col = n0 + wg_col(j, 0);
+            float2 dv = make_float2(0.f, 0.f), dg = dv;
+            if (col < inner) {   // inner % 8 == 0
+                dv = *reinterpret_cast<const float2*>(d1 + col);
+                dg = *reinterpret_cast<const float2*>(d1 + inner + col);
+            }
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                h[j][2 * half] = dv.x;
+                h[j][2 * half + 1] = dv.y;
+                h[G0 + j][2 * half] = dg.x;
+                h[G0 + j][2 * half + 1] = dg.y;
+            }
+        }
+        consume<HGemm>(ring, h, 0, D);
 
-    // val and gate rounded to bf16 (h's rounding point), each lane's
-    // column pair packed in one register: 32 registers, not 64, are live
-    // when the GELU's temporaries need theirs
-    uint32_t hv[HCfg::MT][HCfg::NT][2], hg[HCfg::MT][HCfg::NT][2];
+        // the GEGLU: val and gate rounded to bf16 (h's rounding point),
+        // lane-local (row, column); rows and columns past M and I are
+        // dropped by the stores
+        out.acquire();
 #pragma unroll
-    for (int mt = 0; mt < HCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < HCfg::NT; ++nt)
+        for (int j = 0; j < G0; ++j)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                hv[mt][nt][half] = pack_bf16(h[0][mt][nt][2 * half],
-                                             h[0][mt][nt][2 * half + 1]);
-                hg[mt][nt][half] = pack_bf16(h[1][mt][nt][2 * half],
-                                             h[1][mt][nt][2 * half + 1]);
+                const int col = wg_col(j, 0);
+                const float2 val = bf16x2_to_float2(
+                    pack_bf16(h[j][2 * half], h[j][2 * half + 1]));
+                const float2 g = bf16x2_to_float2(
+                    pack_bf16(h[G0 + j][2 * half], h[G0 + j][2 * half + 1]));
+                out.put(col >> 6, wg_row(2 * half), col & 63,
+                        pack_bf16(bf16_round(gelu_erf(g.x)) * val.x,
+                                  bf16_round(gelu_erf(g.y)) * val.y));
             }
-    // the GEGLU: lane-local (row, column)
+        const CUtensorMap* maps[H_COLS / 64];
+        int cols[H_COLS / 64];
 #pragma unroll
-    for (int mt = 0; mt < HCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < HCfg::NT; ++nt)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + acc_row<HCfg>(mt, 2 * half);
-                const int col = n0 + acc_col<HCfg>(nt, 0);
-                if (row >= M || col >= inner) continue;
-                const float2 val = bf16x2_to_float2(hv[mt][nt][half]);
-                const float2 g = bf16x2_to_float2(hg[mt][nt][half]);
-                store_bf16x2(act + (size_t)row * inner + col,
-                             bf16_round(gelu_erf(g.x)) * val.x,
-                             bf16_round(gelu_erf(g.y)) * val.y);
-            }
+        for (int c = 0; c < H_COLS / 64; ++c) {
+            maps[c] = &act_map;
+            cols[c] = n0 + 64 * c;
+        }
+        out.release(maps, cols, m0);
+    }
+    out.drain();
 }
 
-// out = act · W2 in bf16; grid (D / 128, tokens / 128)
-__global__ void __launch_bounds__(OCfg::THREADS, O_BLOCKS)
-geglu_ff_o_kernel(const bf16* __restrict__ act, const bf16* __restrict__ w2,
-                  bf16* __restrict__ out, int M, int D, int inner) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int n0 = blockIdx.x * O_COLS, m0 = blockIdx.y * O_TOKENS;
-    float acc[1][OCfg::MT][OCfg::NT][4];
-#pragma unroll
-    for (int mt = 0; mt < OCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < OCfg::NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0.f;
-    const Mat w2m[1] = {{w2, D, inner, D}};
-    gemm_mainloop<OCfg>(acc, Mat{act, inner, M, inner}, w2m, m0, n0, 0, inner,
-                        reinterpret_cast<bf16*>(smem_raw));
-#pragma unroll
-    for (int mt = 0; mt < OCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < OCfg::NT; ++nt)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + acc_row<OCfg>(mt, 2 * half);
-                const int col = n0 + acc_col<OCfg>(nt, 0);
-                if (row >= M || col >= D) continue;   // D % 8 == 0
-                store_bf16x2(out + (size_t)row * D + col,
-                             acc[0][mt][nt][2 * half],
-                             acc[0][mt][nt][2 * half + 1]);
+// out = act · W2 in bf16 for tiles of 128 tokens × 256 columns
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+geglu_ff_o_kernel(const __grid_constant__ CUtensorMap act_map,
+                  const __grid_constant__ CUtensorMap w2_map,
+                  const __grid_constant__ CUtensorMap out_map, int M, int D,
+                  int inner) {
+    extern __shared__ unsigned char smem_raw[];
+    ORing ring(smem_raw);
+    ring.init();
+    const int col_tiles = (D + O_COLS - 1) / O_COLS;
+    const int tiles = (M + TILE_M - 1) / TILE_M * col_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const b[1] = {&w2_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int b_n0[1] = {t % col_tiles * O_COLS};
+                produce<OGemm>(ring, &act_map, t / col_tiles * TILE_M, b,
+                               b_n0, 0, inner);
             }
+        }
+        return;
+    }
+    consumer_regs();
+    const OOut out(ring.extra());
+    const CUtensorMap* const maps[2] = {&out_map, &out_map};
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / col_tiles * TILE_M + consumer_row0();
+        const int n0 = t % col_tiles * O_COLS;
+        float acc[OGemm::N / 8][4];
+#pragma unroll
+        for (int j = 0; j < OGemm::N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        consume<OGemm>(ring, acc, 0, inner);
+        // two halves of 128 columns (the stores drop what lies past M, D)
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {
+            out.acquire();
+#pragma unroll
+            for (int j = 0; j < OGemm::N / 16; ++j)
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int jj = part * OGemm::N / 16 + j;
+                    const int col = wg_col(j, 0);
+                    out.put(col >> 6, wg_row(2 * half), col & 63,
+                            pack_bf16(acc[jj][2 * half],
+                                      acc[jj][2 * half + 1]));
+                }
+            const int cols[2] = {n0 + part * 128, n0 + part * 128 + 64};
+            out.release(maps, cols, m0);
+        }
+    }
+    out.drain();
 }
 
 bool shapes_ok(int M, int D, int I2) {
@@ -196,24 +241,40 @@ VIT_API int vit_geglu_ff_h(const void* xn, const void* w1, const void* d1,
                            void* act, int M, int D, int I2, void* stream) {
     if (!shapes_ok(M, D, I2)) return (int)cudaErrorInvalidValue;
     const int inner = I2 / 2;
-    cudaError_t e = allow_smem(geglu_ff_h_kernel, HCfg::SMEM_BYTES);
+    // x̂ index-major; the val and gate columns of W1' (D, 2I) k-major;
+    // act in boxes of 64 × 64
+    CUtensorMap xn_map, val_map, gate_map, act_map;
+    if (!tma_map(&xn_map, xn, M, D, D, TILE_M) ||
+        !tma_map(&val_map, w1, D, inner, I2, 64) ||
+        !tma_map(&gate_map, (const bf16*)w1 + inner, D, inner, I2, 64) ||
+        !tma_map(&act_map, act, M, inner, inner, 64))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(geglu_ff_h_kernel, HRing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((inner + H_COLS - 1) / H_COLS, (M + H_TOKENS - 1) / H_TOKENS);
-    geglu_ff_h_kernel<<<grid, HCfg::THREADS, HCfg::SMEM_BYTES,
-                        (cudaStream_t)stream>>>(
-        (const bf16*)xn, (const bf16*)w1, (const float*)d1, (bf16*)act, M, D,
-        inner);
+    const long long tiles = (long long)((M + TILE_M - 1) / TILE_M) *
+                            ((inner + H_COLS - 1) / H_COLS);
+    geglu_ff_h_kernel<<<persistent_blocks(tiles), GEMM_THREADS,
+                        HRing::SMEM_BYTES, (cudaStream_t)stream>>>(
+        xn_map, val_map, gate_map, act_map, (const float*)d1, M, D, inner);
     return (int)cudaGetLastError();
 }
 
 VIT_API int vit_geglu_ff_o(const void* act, const void* w2, void* out, int M,
                            int D, int I2, void* stream) {
     if (!shapes_ok(M, D, I2)) return (int)cudaErrorInvalidValue;
-    cudaError_t e = allow_smem(geglu_ff_o_kernel, OCfg::SMEM_BYTES);
+    const int inner = I2 / 2;
+    // act index-major; W2 (I, D) k-major; out in boxes of 64 × 64
+    CUtensorMap act_map, w2_map, out_map;
+    if (!tma_map(&act_map, act, M, inner, inner, TILE_M) ||
+        !tma_map(&w2_map, w2, inner, D, D, 64) ||
+        !tma_map(&out_map, out, M, D, D, 64))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(geglu_ff_o_kernel, ORing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((D + O_COLS - 1) / O_COLS, (M + O_TOKENS - 1) / O_TOKENS);
-    geglu_ff_o_kernel<<<grid, OCfg::THREADS, OCfg::SMEM_BYTES,
-                        (cudaStream_t)stream>>>(
-        (const bf16*)act, (const bf16*)w2, (bf16*)out, M, D, I2 / 2);
+    const long long tiles = (long long)((M + TILE_M - 1) / TILE_M) *
+                            ((D + O_COLS - 1) / O_COLS);
+    geglu_ff_o_kernel<<<persistent_blocks(tiles), GEMM_THREADS,
+                        ORing::SMEM_BYTES, (cudaStream_t)stream>>>(
+        act_map, w2_map, out_map, M, D, inner);
     return (int)cudaGetLastError();
 }

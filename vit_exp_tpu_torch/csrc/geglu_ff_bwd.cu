@@ -13,79 +13,73 @@
 // The TPU kernel accumulates dW1 (D × 2I) and dW2 (I × D) in
 // fp32 VMEM (19 MB at D 768, 2I 4096) over a grid that runs in order.  A
 // Hopper block has 227 KB of shared memory, blocks run in no order, and
-// the fp32 sums of dy (tokens × D) and dW do not fit on chip, so the work is a chain of
-// tensor-core GEMMs with fused epilogues on the mainloop of gemm_mma.cuh
-// (mma.sync m16n8k16, a cp.async ring, accumulators in registers):
+// the fp32 sums of dy (tokens × D) and dW do not fit on chip, so the work
+// is a chain of tensor-core GEMMs with fused epilogues on the wgmma
+// mainloop of gemm_wgmma.cuh (TMA loads by a producer warp into an
+// mbarrier ring, two consumer warpgroups on wgmma, fp32 accumulators in
+// registers, a persistent grid of one block per SM):
 // - token phase (per token: 3·D·I + D·2I multiply-adds, 870 GFLOP at
 //   55,296 tokens, D 768, 2I 4096, tensor-core bound):
 //   geglu_bwd_y_kernel: y = bf16(x̂·γ + β) once (the weight phase needs it
 //     too).  Bytes bound.
-//   geglu_bwd_dh_kernel: per tile of 128 tokens × 64 inner columns c,
-//     dact = dO·W2[c, :]ᵀ, then val = y·W1[:, c] and gate = y·W1[:, I + c]
-//     (one A tile, two B tiles per step), all three in the same lanes'
-//     registers, so the GEGLU derivative (erf, exp, two products) runs on
-//     the accumulators and the epilogue writes dh and act in bf16.  Every
-//     staged weight tile serves the block's 128 tokens; the grid runs the
-//     column tiles of one token tile together, so y and dO come from
+//   geglu_bwd_dh_kernel: per tile of 128 tokens × 64 inner columns c, two
+//     mainloops in sequence on one ring: dact = dO·W2[c, :]ᵀ (W2 is (I,
+//     D): an index-major B), then val = y·W1[:, c] and gate = y·W1[:, I + c]
+//     (two k-major B tiles side by side, one wgmma of N 128), all three in
+//     the same lanes' registers, so the GEGLU derivative (erf, exp, two
+//     products) runs on the accumulators and the epilogue writes dh and act
+//     in bf16 through a swizzled staging tile and TMA stores.  The tiles
+//     run column tile fastest, so y and dO come from
 //     device memory once and W1, W2 (9.4 MB) stay in L2.
-//   geglu_bwd_dy_kernel: dy = dh·W1ᵀ (K = 2I, N = D) in 128 × 128 tiles
-//     (the last one masked where D % 128 != 0), two blocks per SM,
-//     written in fp32.
+//   geglu_bwd_dy_kernel: dy = dh·W1ᵀ (K = 2I, N = D; W1 is (D, 2I): an
+//     index-major B) in 128 × 256 tiles, written in fp32.
 //   geglu_bwd_dx_kernel<CH>: a row pass, one warp per row, CH 8-column
 //     chunks a lane (CH = ceil(D / 256), one instance each up to
 //     DX_MAX_D / 256): the LayerNorm row sums, dx, and per-block partial
 //     sums of dγ and dβ over 64 rows.
 // - weight phase (522 GFLOP): wgrad_kernel, dW = Aᵀ B over tokens (A and
-//   B token-major, read k-major by ldmatrix.trans) in 128 × 128 tiles,
-//   split into token segments (the plan is ops/geglu_ff.py::wgrad_plan);
-//   each segment writes an fp32 partial and sum_rows_kernel adds the
-//   partials in a fixed order, as it does the dγ/dβ partials.
-// Tilings, from trials on an H100: steps of 64 ran dh and dy faster than
-// steps of 32 (the weight GEMM alike either way), dh with a 4-stage ring
-// a little faster than with 3 (dy holds two blocks per SM with 3); 128 × 256 tiles of 64 × 64 per warp (over 220
-// registers, one block per SM) were no faster than 128 × 128 at two
-// blocks per SM; 192-token dh tiles spilled at the 168-register cap of 12
-// warps.
+//   B token-major: both k-major, read through wgmma's transpose bits) in
+//   128 × 256 tiles, split into token segments of whole k steps (the plan
+//   is ops/geglu_ff.py::wgrad_plan); each segment writes an fp32 partial
+//   and sum_rows_kernel adds the partials in a fixed order, as it does the
+//   dγ/dβ partials.
+// dh holds 96 accumulators a consumer thread, dy and the weight GEMM 128.
+// What bounds each product stage: its tensor-core operations (dh 522,
+// dy 348, the weight GEMMs 522 GFLOP at D 768, 2I 4096).
 // No atomics: two launches on the same inputs give the same bits.  The
 // intermediates (y, dh, act: 0.68 GB at 55,296 tokens and D 768, and dy
 // in fp32, 0.17 GB) pass through device memory: ≈ 0.5 ms of the 3.35 TB/s.
-#include "gemm_mma.cuh"
+#include "gemm_wgmma.cuh"
 
 using namespace vit;
 
 namespace {
 
 constexpr int DX_ROWS = 64;     // rows of a dx block (one dγ/dβ partial)
-constexpr int SEG_STEP = 32;    // weight-GEMM segments are multiples of it
+constexpr int SEG_STEP = STEP_K;   // weight-GEMM segments are whole k steps
 constexpr int D_STEP = 16;      // D is a multiple of it
 constexpr int DX_MAX_CH = 8;    // 8-column chunks a lane holds in dx
 constexpr int DX_MAX_D = 256 * DX_MAX_CH;
 
-// dh: 128 tokens × 64 inner columns; dact = dO · W2ᵀ (W2 is (I, D):
-// index-major B), then h = y · W1 (k-major B, two B operands: the val and
-// gate columns); 8 warps of 32 × 32 per product: 96 accumulators a lane,
-// one block per SM
-constexpr int DH_TOKENS = 128, DH_COLS = 64, DH_BK = 64, DH_STAGES = 4;
-constexpr int DH_WM = 4, DH_WN = 2, DH_BLOCKS = 1;
-using DactCfg = GemmCfg<DH_TOKENS, DH_COLS, DH_BK, DH_WM, DH_WN, DH_STAGES,
-                        false, false, 1>;
-using HCfg = GemmCfg<DH_TOKENS, DH_COLS, DH_BK, DH_WM, DH_WN, DH_STAGES,
-                     false, true, 2>;
-constexpr int DH_SMEM = DactCfg::SMEM_BYTES > HCfg::SMEM_BYTES
-                            ? DactCfg::SMEM_BYTES : HCfg::SMEM_BYTES;
-static_assert(DactCfg::MT == HCfg::MT && DactCfg::NT == HCfg::NT,
-              "dact, val and gate share the lanes' accumulator layout");
-// dy = dh · W1ᵀ (W1 is (D, 2I): index-major B); 8 warps of 64 × 32
-constexpr int DY_TOKENS = 128, DY_COLS = 128, DY_BK = 64, DY_STAGES = 3;
-constexpr int DY_WM = 2, DY_WN = 4, DY_BLOCKS = 2;
-using DyCfg = GemmCfg<DY_TOKENS, DY_COLS, DY_BK, DY_WM, DY_WN, DY_STAGES,
-                      false, false, 1>;
-// dW = Aᵀ B over tokens, both token-major: k-major A and B; 8 warps of
-// 64 × 32
-constexpr int WG_P = 128, WG_Q = 128, WG_BK = 32, WG_STAGES = 4;
-constexpr int WG_WM = 2, WG_WN = 4, WG_BLOCKS = 2;
-using WgCfg = GemmCfg<WG_P, WG_Q, WG_BK, WG_WM, WG_WN, WG_STAGES, true, true,
-                      1>;
+// dh: 128 tokens × 64 inner columns; dact = dO · W2ᵀ (index-major B),
+// then h = y · W1 ([val | gate], k-major B tiles): 32 + 64 accumulators;
+// dh (its val and gate halves) leaves first through a staging of 64 × 128
+// a consumer, then act.  (128 columns ran 10% faster in a trial, but its
+// 192 accumulators spill at 232 and 240 registers.)
+constexpr int DH_COLS = 64, DH_STAGES = 6;
+constexpr int DH_PRODUCER_REGS = 24, DH_CONSUMER_REGS = 240;
+using DactGemm = WgGemm<DH_COLS, 1, false, false>;
+using HGemm = WgGemm<DH_COLS, 2, false, true>;
+using DhOut = Staging<2 * DH_COLS / 64>;
+using DhRing = Ring<DH_STAGES, HGemm::STAGE_BYTES, 2 * DhOut::BYTES>;
+// dy = dh · W1ᵀ (index-major B): 128 tokens × 256 columns
+constexpr int DY_COLS = 256, DY_STAGES = 4;
+using DyGemm = WgGemm<DY_COLS, 1, false, false>;
+using DyRing = Ring<DY_STAGES, DyGemm::STAGE_BYTES>;
+// dW = Aᵀ B over tokens, both token-major (k-major): 128 × 256 tiles
+constexpr int WG_P = TILE_M, WG_Q = 256, WG_STAGES = 4;
+using WgradGemm = WgGemm<WG_Q, 1, true, true>;
+using WgRing = Ring<WG_STAGES, WgradGemm::STAGE_BYTES>;
 
 // y = bf16((x − μ)·inv·γ + β), 8 elements per thread
 __global__ void __launch_bounds__(256)
@@ -114,48 +108,70 @@ geglu_bwd_y_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
     *reinterpret_cast<uint4*>(y + (size_t)r * D + c) = out;
 }
 
-// dh and act for 128 tokens × 64 inner columns; grid (I / 64, tokens / 128)
-__global__ void __launch_bounds__(DactCfg::THREADS, DH_BLOCKS)
-geglu_bwd_dh_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
-                    const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                    bf16* __restrict__ dh, bf16* __restrict__ act, int M,
-                    int D, int inner) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-    const int n0 = blockIdx.x * DH_COLS, m0 = blockIdx.y * DH_TOKENS;
-
-    float da[1][DactCfg::MT][DactCfg::NT][4];
-    float h[2][HCfg::MT][HCfg::NT][4];
+// dh and act for tiles of 128 tokens × 64 inner columns, column tile
+// fastest
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+geglu_bwd_dh_kernel(const __grid_constant__ CUtensorMap y_map,
+                    const __grid_constant__ CUtensorMap dout_map,
+                    const __grid_constant__ CUtensorMap val_map,
+                    const __grid_constant__ CUtensorMap gate_map,
+                    const __grid_constant__ CUtensorMap w2_map,
+                    const __grid_constant__ CUtensorMap dhv_map,
+                    const __grid_constant__ CUtensorMap dhg_map,
+                    const __grid_constant__ CUtensorMap act_map, int M, int D,
+                    int inner) {
+    extern __shared__ unsigned char smem_raw[];
+    DhRing ring(smem_raw);
+    ring.init();
+    const int col_tiles = (inner + DH_COLS - 1) / DH_COLS;
+    const int tiles = (M + TILE_M - 1) / TILE_M * col_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs<DH_PRODUCER_REGS, DH_CONSUMER_REGS>();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const w2t[1] = {&w2_map};
+            const CUtensorMap* const vg[2] = {&val_map, &gate_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int m0 = t / col_tiles * TILE_M;
+                const int n0 = t % col_tiles * DH_COLS;
+                const int n1[1] = {n0}, n2[2] = {n0, n0};
+                produce<DactGemm>(ring, &dout_map, m0, w2t, n1, 0, D);
+                produce<HGemm>(ring, &y_map, m0, vg, n2, 0, D);
+            }
+        }
+        return;
+    }
+    consumer_regs<DH_PRODUCER_REGS, DH_CONSUMER_REGS>();
+    constexpr int G0 = DH_COLS / 8;   // the first n8 tile of the gate columns
+    const DhOut out(ring.extra());
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / col_tiles * TILE_M + consumer_row0();
+        const int n0 = t % col_tiles * DH_COLS;
+        float da[DactGemm::N / 8][4], h[HGemm::N / 8][4];
 #pragma unroll
-    for (int mt = 0; mt < HCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < HCfg::NT; ++nt)
+        for (int j = 0; j < G0; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                da[0][mt][nt][e] = h[0][mt][nt][e] = h[1][mt][nt][e] = 0.f;
+                da[j][e] = h[j][e] = h[G0 + j][e] = 0.f;
+        consume<DactGemm>(ring, da, 0, D);
+        consume<HGemm>(ring, h, 0, D);
 
-    const Mat w2t[1] = {{w2, D, inner, D}};
-    gemm_mainloop<DactCfg>(da, Mat{dout, D, M, D}, w2t, m0, n0, 0, D, smem);
-    const Mat w1vg[2] = {{w1, 2 * inner, D, inner},
-                         {w1 + inner, 2 * inner, D, inner}};
-    gemm_mainloop<HCfg>(h, Mat{y, D, M, D}, w1vg, m0, n0, 0, D, smem);
-
-    // the GEGLU derivative on the accumulators: lane-local (row, column)
+        // the GEGLU derivative on the accumulators, lane-local (row,
+        // column): dh's val and gate halves go to the staging at once, act
+        // waits as bf16 pairs and follows; rows and columns past M and I
+        // are dropped by the stores
+        constexpr int C = DH_COLS / 64;   // chunks of one output
+        uint32_t act_pairs[G0][2];
+        out.acquire();
 #pragma unroll
-    for (int mt = 0; mt < HCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < HCfg::NT; ++nt)
+        for (int j = 0; j < G0; ++j)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                const int row = m0 + acc_row<HCfg>(mt, 2 * half);
-                const int col = n0 + acc_col<HCfg>(nt, 0);
-                if (row >= M || col >= inner) continue;   // inner % 8 == 0
                 float dv[2], dg[2], ac[2];
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                    const float val = h[0][mt][nt][2 * half + e];
-                    const float g = h[1][mt][nt][2 * half + e];
-                    const float d = da[0][mt][nt][2 * half + e];
+                    const float val = h[j][2 * half + e];
+                    const float g = h[G0 + j][2 * half + e];
+                    const float d = da[j][2 * half + e];
                     const float cdf = 0.5f * (1.f + erff(g * 0.70710678118654752f));
                     const float gelu = g * cdf;
                     const float pdf = expf(-0.5f * g * g) * 0.3989422804014327f;
@@ -163,42 +179,84 @@ geglu_bwd_dh_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
                     dg[e] = d * val * (cdf + g * pdf);
                     ac[e] = gelu * val;
                 }
-                bf16* dhr = dh + (size_t)row * (2 * inner);
-                store_bf16x2(dhr + col, dv[0], dv[1]);
-                store_bf16x2(dhr + inner + col, dg[0], dg[1]);
-                store_bf16x2(act + (size_t)row * inner + col, ac[0], ac[1]);
+                const int col = wg_col(j, 0), row = wg_row(2 * half);
+                out.put(col >> 6, row, col & 63, pack_bf16(dv[0], dv[1]));
+                out.put(C + (col >> 6), row, col & 63, pack_bf16(dg[0], dg[1]));
+                act_pairs[j][half] = pack_bf16(ac[0], ac[1]);
             }
-}
-
-// dy = dh · W1ᵀ in fp32; grid (D / DY_COLS, tokens / DY_TOKENS), rounded up
-__global__ void __launch_bounds__(DyCfg::THREADS, DY_BLOCKS)
-geglu_bwd_dy_kernel(const bf16* __restrict__ dh, const bf16* __restrict__ w1,
-                    float* __restrict__ dy, int M, int D, int I2) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int n0 = blockIdx.x * DY_COLS, m0 = blockIdx.y * DY_TOKENS;
-    float acc[1][DyCfg::MT][DyCfg::NT][4];
+        const CUtensorMap* dh_maps[2 * C];
+        int cols[2 * C];
 #pragma unroll
-    for (int mt = 0; mt < DyCfg::MT; ++mt)
+        for (int c = 0; c < C; ++c) {
+            dh_maps[c] = &dhv_map;
+            dh_maps[C + c] = &dhg_map;
+            cols[c] = cols[C + c] = n0 + 64 * c;
+        }
+        out.release(dh_maps, cols, m0);
+        out.acquire();
 #pragma unroll
-        for (int nt = 0; nt < DyCfg::NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0.f;
-    const Mat w1m[1] = {{w1, I2, D, I2}};
-    gemm_mainloop<DyCfg>(acc, Mat{dh, I2, M, I2}, w1m, m0, n0, 0, I2,
-                         reinterpret_cast<bf16*>(smem_raw));
-#pragma unroll
-    for (int mt = 0; mt < DyCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < DyCfg::NT; ++nt)
+        for (int j = 0; j < G0; ++j)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                const int row = m0 + acc_row<DyCfg>(mt, 2 * half);
-                const int col = n0 + acc_col<DyCfg>(nt, 0);
+                const int col = wg_col(j, 0);
+                out.put(col >> 6, wg_row(2 * half), col & 63,
+                        act_pairs[j][half]);
+            }
+        const CUtensorMap* act_maps[C];
+        int act_cols[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            act_maps[c] = &act_map;
+            act_cols[c] = n0 + 64 * c;
+        }
+        out.release(act_maps, act_cols, m0);
+    }
+    out.drain();
+}
+
+// dy = dh · W1ᵀ in fp32 for tiles of 128 tokens × 256 columns
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+geglu_bwd_dy_kernel(const __grid_constant__ CUtensorMap dh_map,
+                    const __grid_constant__ CUtensorMap w1_map,
+                    float* __restrict__ dy, int M, int D, int I2) {
+    extern __shared__ unsigned char smem_raw[];
+    DyRing ring(smem_raw);
+    ring.init();
+    const int col_tiles = (D + DY_COLS - 1) / DY_COLS;
+    const int tiles = (M + TILE_M - 1) / TILE_M * col_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const b[1] = {&w1_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int b_n0[1] = {t % col_tiles * DY_COLS};
+                produce<DyGemm>(ring, &dh_map, t / col_tiles * TILE_M, b,
+                                b_n0, 0, I2);
+            }
+        }
+        return;
+    }
+    consumer_regs();
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / col_tiles * TILE_M + consumer_row0();
+        const int n0 = t % col_tiles * DY_COLS;
+        float acc[DyGemm::N / 8][4];
+#pragma unroll
+        for (int j = 0; j < DyGemm::N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        consume<DyGemm>(ring, acc, 0, I2);
+#pragma unroll
+        for (int j = 0; j < DyGemm::N / 8; ++j)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int row = m0 + wg_row(2 * half);
+                const int col = n0 + wg_col(j, 0);
                 if (row >= M || col >= D) continue;   // D % 8 == 0
                 *reinterpret_cast<float2*>(dy + (size_t)row * D + col) =
-                    make_float2(acc[0][mt][nt][2 * half],
-                                acc[0][mt][nt][2 * half + 1]);
+                    make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
             }
+    }
 }
 
 // dx and the dγ/dβ partials of 64 rows; one warp per row, lane l holds
@@ -276,39 +334,55 @@ geglu_bwd_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
     }
 }
 
-// part[s] = A[seg s]ᵀ B[seg s] with A (M, P), B (M, Q) bf16 row-major (row
-// pitches lda, ldb) and part (S, P, Q) fp32; grid (Q / WG_Q, P / WG_P, S)
-__global__ void __launch_bounds__(WgCfg::THREADS, WG_BLOCKS)
-wgrad_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-             float* __restrict__ part, int M, int P, int Q, int lda, int ldb,
-             int seg) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int q0 = blockIdx.x * WG_Q, p0 = blockIdx.y * WG_P;
-    const int s = blockIdx.z, t0 = s * seg, t1 = min(M, t0 + seg);
-    float acc[1][WgCfg::MT][WgCfg::NT][4];
+// part[s] = A[seg s]ᵀ B[seg s] with A (M, P), B (M, Q) bf16 row-major
+// (read through a_map, b_map) and part (S, P, Q) fp32, for tiles of 128 ×
+// 256 outputs of one segment, segment slowest, column tile fastest
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+wgrad_kernel(const __grid_constant__ CUtensorMap a_map,
+             const __grid_constant__ CUtensorMap b_map,
+             float* __restrict__ part, int M, int P, int Q, int S, int seg) {
+    extern __shared__ unsigned char smem_raw[];
+    WgRing ring(smem_raw);
+    ring.init();
+    const int q_tiles = (Q + WG_Q - 1) / WG_Q;
+    const int seg_tiles = (P + WG_P - 1) / WG_P * q_tiles;
+    const int tiles = S * seg_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const b[1] = {&b_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int s = t / seg_tiles, r = t % seg_tiles;
+                const int b_n0[1] = {r % q_tiles * WG_Q};
+                produce<WgradGemm>(ring, &a_map, r / q_tiles * WG_P, b, b_n0,
+                                   s * seg, min(M, (s + 1) * seg));
+            }
+        }
+        return;
+    }
+    consumer_regs();
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int s = t / seg_tiles, r = t % seg_tiles;
+        const int p0 = r / q_tiles * WG_P + consumer_row0();
+        const int q0 = r % q_tiles * WG_Q;
+        float acc[WgradGemm::N / 8][4];
 #pragma unroll
-    for (int mt = 0; mt < WgCfg::MT; ++mt)
+        for (int j = 0; j < WgradGemm::N / 8; ++j)
 #pragma unroll
-        for (int nt = 0; nt < WgCfg::NT; ++nt)
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        consume<WgradGemm>(ring, acc, s * seg, min(M, (s + 1) * seg));
+        float* out = part + (size_t)s * P * Q;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0.f;
-    const Mat bm[1] = {{b, ldb, M, Q}};
-    gemm_mainloop<WgCfg>(acc, Mat{a, lda, M, P}, bm, p0, q0, t0, t1,
-                         reinterpret_cast<bf16*>(smem_raw));
-    float* out = part + (size_t)s * P * Q;
-#pragma unroll
-    for (int mt = 0; mt < WgCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < WgCfg::NT; ++nt)
+        for (int j = 0; j < WgradGemm::N / 8; ++j)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                const int row = p0 + acc_row<WgCfg>(mt, 2 * half);
-                const int col = q0 + acc_col<WgCfg>(nt, 0);
+                const int row = p0 + wg_row(2 * half);
+                const int col = q0 + wg_col(j, 0);
                 if (row >= P || col >= Q) continue;   // Q % 8 == 0
                 *reinterpret_cast<float2*>(out + (size_t)row * Q + col) =
-                    make_float2(acc[0][mt][nt][2 * half],
-                                acc[0][mt][nt][2 * half + 1]);
+                    make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
             }
+    }
 }
 
 // out[i] = Σ_s part[s·N + i], s in order: a deterministic reduction
@@ -357,13 +431,28 @@ VIT_API int vit_geglu_bwd_dh(const void* y, const void* dout, const void* w1,
     const int inner = I2 / 2;
     if (!width_ok(D) || M < 1 || inner < 8 || inner % 8 || I2 % 2)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = allow_smem(geglu_bwd_dh_kernel, DH_SMEM);
+    // y and dO index-major; W2 (I, D) index-major; the val and gate
+    // columns of W1 (D, 2I) k-major; out: dh's val and gate halves (M × I
+    // each, pitch 2I) and act in boxes of 64 × 64
+    CUtensorMap y_map, dout_map, val_map, gate_map, w2_map, dhv_map, dhg_map,
+        act_map;
+    if (!tma_map(&y_map, y, M, D, D, TILE_M) ||
+        !tma_map(&dout_map, dout, M, D, D, TILE_M) ||
+        !tma_map(&val_map, w1, D, inner, I2, 64) ||
+        !tma_map(&gate_map, (const bf16*)w1 + inner, D, inner, I2, 64) ||
+        !tma_map(&w2_map, w2, inner, D, D, DH_COLS) ||
+        !tma_map(&dhv_map, dh, M, inner, I2, 64) ||
+        !tma_map(&dhg_map, (const bf16*)dh + inner, M, inner, I2, 64) ||
+        !tma_map(&act_map, act, M, inner, inner, 64))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(geglu_bwd_dh_kernel, DhRing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((inner + DH_COLS - 1) / DH_COLS, (M + DH_TOKENS - 1) / DH_TOKENS);
-    geglu_bwd_dh_kernel<<<grid, DactCfg::THREADS, DH_SMEM,
-                          (cudaStream_t)stream>>>(
-        (const bf16*)y, (const bf16*)dout, (const bf16*)w1, (const bf16*)w2,
-        (bf16*)dh, (bf16*)act, M, D, inner);
+    const long long tiles = (long long)((M + TILE_M - 1) / TILE_M) *
+                            ((inner + DH_COLS - 1) / DH_COLS);
+    geglu_bwd_dh_kernel<<<persistent_blocks(tiles), GEMM_THREADS,
+                          DhRing::SMEM_BYTES, (cudaStream_t)stream>>>(
+        y_map, dout_map, val_map, gate_map, w2_map, dhv_map, dhg_map, act_map,
+        M, D, inner);
     return (int)cudaGetLastError();
 }
 
@@ -371,12 +460,18 @@ VIT_API int vit_geglu_bwd_dy(const void* dh, const void* w1, void* dy, int M,
                              int D, int I2, void* stream) {
     if (!width_ok(D) || M < 1 || I2 < 8 || I2 % 8)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = allow_smem(geglu_bwd_dy_kernel, DyCfg::SMEM_BYTES);
+    // dh and W1 (D, 2I) index-major
+    CUtensorMap dh_map, w1_map;
+    if (!tma_map(&dh_map, dh, M, I2, I2, TILE_M) ||
+        !tma_map(&w1_map, w1, D, I2, I2, DY_COLS))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(geglu_bwd_dy_kernel, DyRing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((D + DY_COLS - 1) / DY_COLS, (M + DY_TOKENS - 1) / DY_TOKENS);
-    geglu_bwd_dy_kernel<<<grid, DyCfg::THREADS, DyCfg::SMEM_BYTES,
-                          (cudaStream_t)stream>>>(
-        (const bf16*)dh, (const bf16*)w1, (float*)dy, M, D, I2);
+    const long long tiles = (long long)((M + TILE_M - 1) / TILE_M) *
+                            ((D + DY_COLS - 1) / DY_COLS);
+    geglu_bwd_dy_kernel<<<persistent_blocks(tiles), GEMM_THREADS,
+                          DyRing::SMEM_BYTES, (cudaStream_t)stream>>>(
+        dh_map, w1_map, (float*)dy, M, D, I2);
     return (int)cudaGetLastError();
 }
 
@@ -407,12 +502,17 @@ VIT_API int vit_wgrad(const void* a, const void* b, void* part, int M, int P,
         seg % SEG_STEP || seg < SEG_STEP || (long long)(S - 1) * seg >= M ||
         (long long)S * seg < M)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = allow_smem(wgrad_kernel, WgCfg::SMEM_BYTES);
+    // A (M, P) and B (M, Q) token-major: k-major operands
+    CUtensorMap a_map, b_map;
+    if (!tma_map(&a_map, a, M, P, lda, 64) || !tma_map(&b_map, b, M, Q, ldb, 64))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(wgrad_kernel, WgRing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((Q + WG_Q - 1) / WG_Q, (P + WG_P - 1) / WG_P, S);
-    wgrad_kernel<<<grid, WgCfg::THREADS, WgCfg::SMEM_BYTES,
-                   (cudaStream_t)stream>>>(
-        (const bf16*)a, (const bf16*)b, (float*)part, M, P, Q, lda, ldb, seg);
+    const long long tiles = (long long)S * ((P + WG_P - 1) / WG_P) *
+                            ((Q + WG_Q - 1) / WG_Q);
+    wgrad_kernel<<<persistent_blocks(tiles), GEMM_THREADS, WgRing::SMEM_BYTES,
+                   (cudaStream_t)stream>>>(a_map, b_map, (float*)part, M, P, Q,
+                                           S, seg);
     return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
-// GEMM mainloop of the port's matrix kernels on mma.sync (geglu_ff_bwd.cu,
-// geglu_ff.cu, geglu_ff_int8.cu, ln_qkv.cu, ln_qkv_int8.cu; K14 in
-// ln_qkv_int8.cu and patch_embed.cu use its operand tiles and fragment
-// loads in loops of their own):
+// GEMM mainloop of the port's matrix kernels on mma.sync (geglu_ff_int8.cu,
+// ln_qkv.cu, ln_qkv_int8.cu; K14 in ln_qkv_int8.cu and patch_embed.cu use
+// its operand tiles and fragment loads in loops of their own; K2's and K8's
+// products run on gemm_wgmma.cuh):
 // acc[j][m, n] += Σ_k A(m, k) · B_j(k, n)
 // with the accumulators held in registers, for two operand types T:
 // bf16 (fp32 accumulators, mma.sync m16n8k16) and int8 (int32
@@ -214,13 +214,6 @@ __device__ __forceinline__ void gemm_mainloop(
     }
     cp_async_wait<0>();
     __syncthreads();
-}
-
-// let kernel take `bytes` of dynamic shared memory (above 48 KB)
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // (row, column) of accumulator element e of tile (mt, nt) within the block

@@ -11,8 +11,10 @@ Kernel K2 (``geglu_ff``) replaces vit_exp_tpu/ops/geglu_ff.py::_ff_kernel
 multiply-adds (522 GFLOP at 55,296 tokens, D 768, 2I 4096), so it is bound
 by tensor-core throughput.  The TPU kernel keeps each block's (tokens, 2I)
 intermediate in VMEM; no Hopper SM holds a useful token tile of it, so K2
-is three stages on the GEMM mainloop of csrc/gemm_mma.cuh, each a kernel
-with its plain twin here (composed by ``geglu_ff``; ``geglu_ff_plain`` stays
+is three stages, the two products on the wgmma mainloop of
+csrc/gemm_wgmma.cuh (TMA, an mbarrier ring, a producer warp and two
+consumer warpgroups, a persistent grid), each a kernel with its plain twin
+here (composed by ``geglu_ff``; ``geglu_ff_plain`` stays
 the one-pass oracle): ``geglu_ff_x`` (x̂ = bf16((x − μ)·inv)),
 ``geglu_ff_h`` (h = x̂@W1' + d1 for a tile of tokens × inner columns, val
 and gate in one lane's registers, the GEGLU on them → act in bf16; h never
@@ -22,8 +24,8 @@ follow the TPU kernel: x̂, h, gelu and act are bf16.  D and 2I multiples of
 
 Kernel K8 (``geglu_ff_bwd``) replaces vit_exp_tpu/ops/geglu_ff.py::
 _ff_bwd_kernel (``_ff_bwd_impl``).  CUDA C++, csrc/geglu_ff_bwd.cu: a chain
-of tensor-core GEMMs with fused epilogues on the mainloop of
-csrc/gemm_mma.cuh, each stage a kernel with its plain twin here (composed
+of tensor-core GEMMs with fused epilogues on the wgmma mainloop of
+csrc/gemm_wgmma.cuh, each stage a kernel with its plain twin here (composed
 by ``geglu_ff_bwd`` and ``geglu_ff_bwd_plain``).  Token phase:
 ``geglu_bwd_y`` (y = bf16(x̂·γ + β)),
 ``geglu_bwd_dh`` (dact = dO@W2ᵀ, val and gate = y@W1 for a tile of tokens
@@ -547,9 +549,10 @@ def fused_geglu_ff_int8(x: torch.Tensor, gamma, beta, w1, w2, *,
 K8_MAX_D = 2048
 DX_ROWS = 64         # rows of a dx block: one dγ/dβ partial row each
 PLAIN_CHUNK = 4096   # token rows per fp32 product in the plain twins
-WGRAD_TILE = 128     # output tile edge of the weight GEMM
-WGRAD_STEP = 32      # tokens per k step of the weight GEMM
-# blocks a weight GEMM aims for: 4 waves at 2 blocks per SM of 132
+WGRAD_TILE = 128     # the plan's output tile edge
+WGRAD_STEP = 64      # tokens per k step of the weight GEMM
+# WGRAD_TILE² tiles a weight GEMM aims for: 4 waves of the kernel's 128 ×
+# 256 tiles over 132 SMs
 WGRAD_BLOCKS = 1056
 
 
