@@ -6,9 +6,10 @@
 1. Requires a CUDA device (exits non-zero without one) and prints the card's
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc`` and
-   prints ptxas's registers and spills for the GEMM kernels (K2's and
-   K8's on gemm_wgmma.cuh; K3, K11's, K12/K13's and K14 on gemm_mma.cuh),
-   the patch embedding and the int8 attention (none may spill).
+   prints ptxas's registers and spills for the GEMM kernels (K2's, K3's,
+   K8's and K12/K13's products on gemm_wgmma.cuh, K12/K13's in its int8
+   form; K11's and K14 on gemm_mma.cuh), the patch embedding and the int8
+   attention (none may spill).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
    tokens, width 768; one row per launch counter: K1, K2's three kernels
@@ -320,9 +321,13 @@ def check(ok: bool, what) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches, after one warm-up."""
+    """Mean device time of fn() over iters launches, after one warm-up.
+    The start event follows the warm-up on the stream without a host
+    synchronisation, so the host's work for the first timed launch
+    overlaps the warm-up on the device and is not counted as device time
+    (a wrapper whose host work outlasts its kernel is still timed at its
+    own rate)."""
     fn()
-    torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(iters):
@@ -876,6 +881,9 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
                  f"K12/K13 over {m} tokens (x8, product)", device)
     x8, sx = fused_proj.ln_qkv_int8_x(x, mu)
     qkv_mm = (x8, sx, mu, inv, w8.t().contiguous(), sc, c, hd, hd)
+    print(f"K12/K13's product at F {3 * hd}, fq {hd}, fk {hd}: column tiles "
+          f"stored by {fused_proj.k13_store_routes(3 * hd, hd, hd)}",
+          flush=True)
 
     # K9/K10: the prologue's int8 q/k and scales, v in place
     def heads(t):

@@ -14,8 +14,10 @@ int8, at the blocking's edges, twice bitwise equal), the GEMM families and
 the patch embedding at the tiny configs' widths (D 48, 2I 256, F 96; K11
 also at 2I 272), the two tiny configs through build_ctclip and a step on
 the kernels, and the refusals past the limits (head dim 72, D 40).  The
-SASS of the built library: K2's and K8's five product kernels issue wgmma
-on TMA loads and no mma.sync, K3's kernel mma.sync.
+SASS of the built library: K2's, K3's and K8's product kernels issue bf16
+wgmma on TMA loads and no mma.sync, K12/K13's product int8 wgmma on TMA
+loads and no int8 mma.sync; the patch embedding and K14 still issue
+mma.sync.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -591,35 +593,55 @@ def test_k8_refuses_a_width_before_any_launch(dev, d):
     assert [f.launches for f in K8_STAGES] == before
 
 
-# K2's and K8's products on the wgmma mainloop of csrc/gemm_wgmma.cuh
+# the products on the wgmma mainloop of csrc/gemm_wgmma.cuh: K2's, K8's and
+# K3's in bf16, K12/K13's in int8
 WGMMA_KERNELS = ("geglu_ff_h_kernel", "geglu_ff_o_kernel",
-                 "geglu_bwd_dh_kernel", "geglu_bwd_dy_kernel", "wgrad_kernel")
+                 "geglu_bwd_dh_kernel", "geglu_bwd_dy_kernel", "wgrad_kernel",
+                 "ln_qkv_kernel")
+WGMMA_INT8_KERNELS = ("ln_qkv_int8_mm_kernel",)
+
+
+def _sass_all(name, sass):
+    """The SASS of each kernel of the library whose symbol holds name (every
+    instance of a template), at least one."""
+    found = [text for fn, text in sass.items() if name in fn]
+    assert found, (name, sorted(sass))
+    return found
 
 
 def _sass_of(name, sass):
     """The SASS of the one kernel of the library whose symbol holds name."""
-    found = [text for fn, text in sass.items() if name in fn]
+    found = _sass_all(name, sass)
     assert len(found) == 1, (name, sorted(sass))
     return found[0]
 
 
 def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
-    """cuobjdump -sass (beside nvcc) of the built library: each of the five
-    redesigned kernels issues wgmma (HGMMA) on operands loaded by TMA
-    (UTMALDG) and no mma.sync (HMMA); K3's kernel, still on gemm_mma.cuh,
-    issues HMMA and no HGMMA, so the check tells the two routes apart."""
+    """cuobjdump -sass (beside nvcc) of the built library: each bf16 kernel
+    on gemm_wgmma.cuh (K2's two products, K8's three, K3) issues wgmma
+    (HGMMA) on operands loaded by TMA (UTMALDG) and no mma.sync (HMMA);
+    K12/K13's product issues int8 wgmma (IGMMA) on TMA loads and no int8
+    mma.sync (IMMA).  The patch embedding (HMMA, no HGMMA) and K14 (IMMA,
+    no IGMMA), still on gemm_mma.cuh, are the witnesses that the check
+    tells the two routes apart in each type."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                          capture_output=True, text=True, check=True).stdout
     sass = {part.split("\n", 1)[0].strip(): part
             for part in re.split(r"Function : ", out)[1:]}
-    hmma = re.compile(r"\bHMMA\b")
+    hmma, imma = re.compile(r"\bHMMA\b"), re.compile(r"\bIMMA\b")
     for name in WGMMA_KERNELS:
         text = _sass_of(name, sass)
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert not hmma.search(text), name
-    text = _sass_of("ln_qkv_kernel", sass)
-    assert hmma.search(text) and "HGMMA" not in text
+    for name in WGMMA_INT8_KERNELS:
+        text = _sass_of(name, sass)
+        assert "IGMMA" in text and "UTMALDG" in text, name
+        assert not imma.search(text), name
+    for text in _sass_all("patch_embed_kernel", sass):
+        assert hmma.search(text) and "HGMMA" not in text
+    for text in _sass_all("proj_int8_kernel", sass):
+        assert imma.search(text) and "IGMMA" not in text
 
 
 def test_no_wrapper_returns_a_graphless_result(dev):
@@ -781,12 +803,17 @@ def _k13_case(dev, m, k, f, fq, seed=10):
     return x, mu, inv, w8, sc, c, fq, (f - fq) // 2
 
 
-@pytest.mark.parametrize("k,f,fq", QKV_KFQ + [(96, 384, 128)])
+@pytest.mark.parametrize("k,f,fq", QKV_KFQ + [(96, 384, 128), (96, 384, 68)])
 @pytest.mark.parametrize("m", QKV_M)
 def test_k12_k13_matches_plain(dev, m, k, f, fq):
     """The two stages against their twins on the kernel chain's inputs, bit
     for bit (the same fp32 operations on exact integer sums): x8 and s_x,
-    then q, k, v; two launches give the same bits."""
+    then q, k, v; two launches give the same bits.  The product's column
+    tiles go by TMA stores or from the registers
+    (fused_proj.k13_store_routes): all by TMA at fq 256 and at (384, 128),
+    both kinds at fq 64 (a chunk straddles fq + fk), and at fq 68 every
+    output's rows are off 16 bytes (136 and 316 bytes), so all from the
+    registers."""
     x, mu, inv, w8, sc, c, fq, fk = _k13_case(dev, m, k, f, fq)
     w8t = w8.t().contiguous()
     before = [fn.launches for fn in K13_STAGES]

@@ -14,6 +14,9 @@
   the last bit of the dequantizing products at most).
 - The row pass's codes and scales equal JAX's canonical quantization
   (``geglu_ff._quant_rows``) of x − μ bit for bit, half-way ties included.
+- The product kernel's store routes (``k13_store_routes``: a column tile by
+  TMA stores or from the registers) at the widths the card tests and the
+  configs use, and its tile width is the kernel's.
 """
 
 import jax.numpy as jnp
@@ -109,3 +112,33 @@ def test_k13_row_pass_rounds_ties_half_to_even():
     assert torch.equal(x8[1], x8[0]) and sx.flatten().tolist() == [1.0, 1.0]
     np.testing.assert_array_equal(x8.numpy(), np.asarray(q_j))
     np.testing.assert_array_equal(sx.numpy(), np.asarray(s_j))
+
+
+@pytest.mark.parametrize("f,fq,fk,routes", [
+    (768, 256, 256, ["tma"] * 6),          # the full width
+    (96, 32, 32, ["registers"]),           # the tiny configs: chunk 0
+                                           # holds q and k
+    (768, 64, 352, ["tma"] * 3 + ["registers"] + ["tma"] * 2),  # 416 in
+                                           # the chunk at 384
+    (384, 128, 128, ["tma"] * 3),
+    (384, 68, 158, ["registers"] * 3),     # rows of 136 and 316 bytes
+    (768, 100, 300, ["registers"] * 4 + ["tma"] * 2),  # q, k rows of
+                                           # 200, 600 bytes; v (736) from
+                                           # 512 on
+])
+def test_k13_store_routes(f, fq, fk, routes):
+    assert tproj.k13_store_routes(f, fq, fk) == routes
+
+
+def test_k13_store_routes_follow_the_kernels_tiles():
+    """The routes' tile and chunk are the kernel's (csrc MM_COLS, 64-column
+    staging chunks)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tproj.__file__).resolve().parent.parent / "csrc"
+           / "ln_qkv_int8.cu").read_text()
+    cols = re.search(r"constexpr int MM_COLS = (\d+),", src)
+    assert cols and int(cols.group(1)) == tproj.K13_TILE_COLS
+    assert "for (int ch = 0; ch < MM_COLS / 64; ++ch)" in src
+    assert tproj.K13_STORE_CHUNK == 64

@@ -51,13 +51,11 @@ using s8 = signed char;
 constexpr int AMAX_TILE = 64;
 constexpr int H_TOKENS = 128, H_BK = 128, H_STAGES = 3;
 constexpr int H_WM = 4, H_WN = 2, H_BLOCKS = 2;
-using HCfg = GemmCfg<H_TOKENS, AMAX_TILE, H_BK, H_WM, H_WN, H_STAGES, false,
-                     false, 2, s8>;
+using HCfg = GemmCfg<H_TOKENS, AMAX_TILE, H_BK, H_WM, H_WN, H_STAGES, 2, s8>;
 // out: 128 tokens × 128 output columns; 8 warps of 64 × 32
 constexpr int O_TOKENS = 128, O_COLS = 128, O_BK = 128, O_STAGES = 3;
 constexpr int O_WM = 2, O_WN = 4, O_BLOCKS = 2;
-using OCfg = GemmCfg<O_TOKENS, O_COLS, O_BK, O_WM, O_WN, O_STAGES, false,
-                     false, 1, s8>;
+using OCfg = GemmCfg<O_TOKENS, O_COLS, O_BK, O_WM, O_WN, O_STAGES, 1, s8>;
 constexpr int ROW_WARPS = 8;   // tokens per block of the row passes
 
 // 8 fp32 values from p (32-byte aligned) in two 16-byte loads

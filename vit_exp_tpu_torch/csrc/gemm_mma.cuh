@@ -1,18 +1,17 @@
-// GEMM mainloop of the port's matrix kernels on mma.sync (geglu_ff_int8.cu,
-// ln_qkv.cu, ln_qkv_int8.cu; K14 in ln_qkv_int8.cu and patch_embed.cu use
-// its operand tiles and fragment loads in loops of their own; K2's and K8's
-// products run on gemm_wgmma.cuh):
+// GEMM mainloop of the port's matrix kernels on mma.sync (geglu_ff_int8.cu:
+// K11's products; K14 in ln_qkv_int8.cu and patch_embed.cu use its operand
+// tiles and fragment loads in loops of their own; K2's, K3's, K8's and
+// K12/K13's products run on gemm_wgmma.cuh):
 // acc[j][m, n] += Σ_k A(m, k) · B_j(k, n)
 // with the accumulators held in registers, for two operand types T:
 // bf16 (fp32 accumulators, mma.sync m16n8k16) and int8 (int32
 // accumulators, m16n8k32).
 //
 // - Operands are row-major matrices of T in device memory (MatT), stored
-//   either index-major, (index, k) (A as M × K, B as N × K), or k-major,
-//   (k, index) (A stored K × M, B stored K × N), which ldmatrix.trans reads
-//   transposed; ldmatrix has no .trans for 8-bit elements, so int8
-//   operands are index-major only.  M, N and K are free: rows and columns
-//   past a Mat's ends, or at or past k_end, are zero-filled by cp.async.
+//   index-major, (index, k): A as M × K, B as N × K (a caller transposes a
+//   k-major B once; ldmatrix has no .trans for 8-bit elements).  M, N and
+//   K are free: rows and columns past a Mat's ends, or at or past k_end,
+//   are zero-filled by cp.async.
 //   The contiguous extent, the row pitch and every tile origin along it
 //   must be multiples of 16 bytes (8 bf16, 16 int8), and the pointer
 //   16-byte aligned.
@@ -49,34 +48,29 @@ using Mat = MatT<bf16>;
 using Mat8 = MatT<signed char>;
 
 // one operand's tile of IDX (output rows or columns) × BK (depth), staged
-// as it is stored: [IDX][BK] index-major or [BK][IDX] k-major, each row
-// padded by 16 bytes (VEC elements)
-template <int IDX, int BK, bool KMAJOR, class T = bf16>
+// as it is stored, [IDX][BK], each row padded by 16 bytes (VEC elements)
+template <int IDX, int BK, class T = bf16>
 struct OperandTile {
     static constexpr int VEC = 16 / (int)sizeof(T);   // a 16-byte chunk
-    static constexpr int ROWS = KMAJOR ? BK : IDX;
-    static constexpr int COLS = KMAJOR ? IDX : BK;
-    static constexpr int LD = COLS + VEC;
+    static constexpr int LD = BK + VEC;
     static constexpr int LD16 = LD * (int)sizeof(T) / 2;   // in b16 units
-    static constexpr int ELEMS = ROWS * LD;
-    static constexpr int CHUNKS = ROWS * COLS / VEC;
+    static constexpr int ELEMS = IDX * LD;
+    static constexpr int CHUNKS = IDX * BK / VEC;
 
     // the tile at index i0 and depth k0 of m, zero where k ≥ k_end
     template <int THREADS>
     __device__ __forceinline__ static void load(T* dst, const MatT<T>& m,
                                                 int i0, int k0, int k_end,
                                                 int tid) {
-        const int r0 = KMAJOR ? k0 : i0, c0 = KMAJOR ? i0 : k0;
-        const int r_end = KMAJOR ? min(m.rows, k_end) : m.rows;
-        const int c_end = KMAJOR ? m.cols : min(m.cols, k_end);
+        const int c_end = min(m.cols, k_end);
 #pragma unroll
         for (int i = 0; i < (CHUNKS + THREADS - 1) / THREADS; ++i) {
             const int e = tid + i * THREADS;
             if (CHUNKS % THREADS == 0 || e < CHUNKS) {
-                const int r = e / (COLS / VEC), c = (e % (COLS / VEC)) * VEC;
-                const bool ok = r0 + r < r_end && c0 + c < c_end;
+                const int r = e / (BK / VEC), c = (e % (BK / VEC)) * VEC;
+                const bool ok = i0 + r < m.rows && k0 + c < c_end;
                 cp_async16(dst + r * LD + c,
-                           ok ? m.p + (long long)(r0 + r) * m.ld + c0 + c : m.p,
+                           ok ? m.p + (long long)(i0 + r) * m.ld + k0 + c : m.p,
                            ok);
             }
         }
@@ -85,26 +79,19 @@ struct OperandTile {
 
 // the A fragment (m16 × 16 b16 of depth) at tile offsets (mi, ki), mma.sync's
 // A layout; LD and ki in b16 units
-template <bool KMAJOR, int LD>
+template <int LD>
 __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
                                        int mi, int ki, int lane) {
-    if (KMAJOR)   // matrices (m0-7, k0-7), (m8-15, k0-7), (m0-7, k8-15), ...
-        ldsm_x4_t(a, s + (ki + (lane & 7) + ((lane >> 4) << 3)) * LD + mi +
-                         (lane & 8));
-    else
-        ldsm_x4(a, s + (mi + (lane & 15)) * LD + ki + ((lane >> 4) << 3));
+    ldsm_x4(a, s + (mi + (lane & 15)) * LD + ki + ((lane >> 4) << 3));
 }
 
 // the B fragments of two n8 tiles (16 b16 of depth × n16 at tile offsets
 // ni, ki): {b0, b1} of columns ni .. ni + 7, then of ni + 8 .. ni + 15
-template <bool KMAJOR, int LD>
+template <int LD>
 __device__ __forceinline__ void frag_b2(uint32_t (&b)[4], const bf16* s,
                                         int ni, int ki, int lane) {
-    if (KMAJOR)
-        ldsm_x4_t(b, s + (ki + (lane & 15)) * LD + ni + ((lane >> 4) << 3));
-    else
-        ldsm_x4(b, s + (ni + (lane & 7) + ((lane >> 4) << 3)) * LD + ki +
-                       (lane & 8));
+    ldsm_x4(b, s + (ni + (lane & 7) + ((lane >> 4) << 3)) * LD + ki +
+                   (lane & 8));
 }
 
 // the accumulator type and the mma.sync of an operand type
@@ -127,25 +114,22 @@ template <> struct MmaOf<signed char> {
 };
 
 template <int BM_, int BN_, int BK_, int WM_, int WN_, int STAGES_,
-          bool A_KMAJOR_, bool B_KMAJOR_, int NB_ = 1, class T_ = bf16>
+          int NB_ = 1, class T_ = bf16>
 struct GemmCfg {
     using T = T_;
     using Acc = typename MmaOf<T>::Acc;
     static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
     static constexpr int STAGES = STAGES_, NB = NB_;
-    static constexpr bool A_KMAJOR = A_KMAJOR_, B_KMAJOR = B_KMAJOR_;
     static constexpr int THREADS = WM * WN * 32;
     static constexpr int WTM = BM / WM, WTN = BN / WN;   // a warp's tile
     static constexpr int MT = WTM / 16, NT = WTN / 8;
     static constexpr int BK16 = BK * (int)sizeof(T) / 2;   // depth in b16
-    using TA = OperandTile<BM, BK, A_KMAJOR, T>;
-    using TB = OperandTile<BN, BK, B_KMAJOR, T>;
+    using TA = OperandTile<BM, BK, T>;
+    using TB = OperandTile<BN, BK, T>;
     static constexpr int STAGE_ELEMS = TA::ELEMS + NB * TB::ELEMS;
     static constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * (int)sizeof(T);
     static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BK16 % 16 == 0,
                   "warp tiles of m16 × n16 steps, 32-byte k steps");
-    static_assert(sizeof(T) == 2 || (!A_KMAJOR && !B_KMAJOR),
-                  "int8 operands are index-major (no ldmatrix.trans)");
     static_assert(STAGE_ELEMS * sizeof(T) % 16 == 0,
                   "stages keep 16-byte alignment");
 };
@@ -191,16 +175,14 @@ __device__ __forceinline__ void gemm_mainloop(
             uint32_t af[C::MT][4];
 #pragma unroll
             for (int mt = 0; mt < C::MT; ++mt)
-                frag_a<C::A_KMAJOR, C::TA::LD16>(af[mt], sa, wm + mt * 16,
-                                                 kk, lane);
+                frag_a<C::TA::LD16>(af[mt], sa, wm + mt * 16, kk, lane);
 #pragma unroll
             for (int j = 0; j < C::NB; ++j) {
                 const bf16* sb = sa + B_OFF + j * B_STRIDE;
 #pragma unroll
                 for (int np = 0; np < C::NT / 2; ++np) {
                     uint32_t bf[4];
-                    frag_b2<C::B_KMAJOR, C::TB::LD16>(bf, sb, wn + np * 16,
-                                                      kk, lane);
+                    frag_b2<C::TB::LD16>(bf, sb, wn + np * 16, kk, lane);
 #pragma unroll
                     for (int mt = 0; mt < C::MT; ++mt) {
                         MmaOf<typename C::T>::run(acc[j][mt][2 * np], af[mt],

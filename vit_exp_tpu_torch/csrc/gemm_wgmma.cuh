@@ -1,7 +1,10 @@
-// GEMM mainloop of K2's and K8's products on Hopper's tensor cores
-// (geglu_ff.cu: act and out; geglu_ff_bwd.cu: dh, dy and the weight GEMM):
+// GEMM mainloop of the port's products on Hopper's tensor cores (geglu_ff.cu:
+// K2's act and out; geglu_ff_bwd.cu: K8's dh, dy and the weight GEMM;
+// ln_qkv.cu: K3; ln_qkv_int8.cu: K12/K13's product):
 // acc[m, n] += Σ_k A(m, k) · B(k, n) over a block tile of TILE_M rows × N
-// columns, bf16 operands, fp32 accumulators in registers.
+// columns, in two forms: bf16 operands with fp32 accumulators (wgmma
+// m64nNk16) and int8 operands with int32 accumulators (m64nNk32, s8 × s8),
+// the accumulators in registers.
 //
 // - A block is three warpgroups (GEMM_THREADS, one block per SM).
 //   Warpgroup 0 is the producer: it gives registers away (setmaxnreg.dec
@@ -10,34 +13,35 @@
 //   into a ring of stages in dynamic shared memory.  Warpgroups 1 and 2
 //   are the consumers (setmaxnreg.inc to CONSUMER_REGS, or the kernel's
 //   split): consumer c owns rows 64c .. 64c + 63
-//   of the block tile and issues wgmma.mma_async m64nNk16 with both
-//   operands in shared memory, four k16 steps a stage.
+//   of the block tile and issues wgmma.mma_async with both operands in
+//   shared memory, four instructions (k16 bf16 or k32 int8) a stage.
 // - Each stage has a full and an empty mbarrier.  The producer waits until
 //   a stage is empty, arms its full barrier with the stage's bytes
 //   (mbarrier.arrive.expect_tx) and issues the loads, which complete the
 //   transaction; a consumer waits until the stage is full, issues its
 //   group of wgmmas and, once wgmma.wait_group 1 says the group before is
 //   done, releases the stage that group read: one group in flight.
-// - Operands are row-major bf16 matrices in device memory, each read
-//   through a TMA tensor map made on the host (tma_map): index-major,
-//   stored (index, k) (A as M × K, B as N × K; wgmma's K-major), or
-//   k-major, stored (k, index) (A as K × M, B as K × N; wgmma's MN-major,
-//   read through the instruction's transpose bit).  TMA zero-fills a box
-//   past a matrix's edge, so M, N and K are free (an epilogue masks its
-//   stores from the registers; TMA stores clip); the pointer and the pitch
-//   must be multiples of 16 bytes.
+// - Operands are row-major matrices in device memory, each read through a
+//   TMA tensor map made on the host (tma_map): index-major, stored
+//   (index, k) (A as M × K, B as N × K; wgmma's K-major), or, for bf16
+//   only, k-major, stored (k, index) (A as K × M, B as K × N; wgmma's
+//   MN-major, read through the instruction's transpose bit: the 8-bit
+//   forms have none).  TMA zero-fills a box past a matrix's edge, so M, N
+//   and K are free (an epilogue masks its stores from the registers; TMA
+//   stores clip); the pointer and the pitch must be multiples of 16 bytes.
 // - The B tile of a step is NB tiles of BN columns side by side (K2's and
 //   K8's val and gate columns, from two tensor maps or two column origins),
 //   read by one wgmma of N = NB · BN columns, so the A tile is read once.
 // - Shared memory, TMA swizzle and wgmma descriptor agree on the 128-byte
-//   swizzle: a k step is STEP_K = 64 deep (128 bytes of bf16), and every
-//   operand tile is made of 8 KB chunks of 64 rows × 128 bytes, 1024-byte
-//   aligned.  An index-major tile of R index rows is one TMA box of 64 k ×
-//   R rows: rows of 64 k, 8-row groups 1024 bytes apart (the descriptor's
-//   SBO), and a k16 step moves the descriptor 32 bytes along the rows.  A
-//   k-major tile is R / 64 boxes of 64 index × 64 k: rows of 64 index, one
-//   a k; 64-index chunks 8 KB apart (LBO), 8-k groups 1024 bytes apart
-//   (SBO), and a k16 step moves the descriptor 2 KB.
+//   swizzle: a k step is 128 bytes deep (WgGemm::STEP_K: 64 bf16 or 128
+//   int8 codes), and every operand tile is made of 8 KB chunks of 64 rows
+//   × 128 bytes, 1024-byte aligned.  An index-major tile of R index rows is
+//   one TMA box of 128 bytes of k × R rows: 8-row groups 1024 bytes apart
+//   (the descriptor's SBO), and an instruction (32 bytes of k in both
+//   forms) moves the descriptor 32 bytes along the rows.  A k-major tile
+//   is R / 64 boxes of 64 index × 64 k: rows of 64 index, one a k; 64-index
+//   chunks 8 KB apart (LBO), 8-k groups 1024 bytes apart (SBO), and a k16
+//   instruction moves the descriptor 2 KB.
 // - Persistent grid: one block per SM walks the output tiles blockIdx.x,
 //   blockIdx.x + gridDim.x, ...; producer and consumers walk the same
 //   sequence, so the producer loads the next tile's first stages while the
@@ -46,15 +50,18 @@
 // - bf16 outputs may leave through a staging tile in shared memory and TMA
 //   stores (Staging), so that the consumers go on to the next tile while
 //   the copies run.
-// - The accumulators are wgmma's m64nN fp32 layout, which per n8 tile j is
-//   mma.sync's C layout: in a consumer warpgroup, lane l of warp w, g =
-//   l / 4, t = l % 4, holds acc[j][e] at row 16w + g + 8·(e / 2), column
-//   8j + 2t + e % 2 of the consumer's 64 × N tile (wg_row, wg_col).
+// - The accumulators are wgmma's m64nN layout (fp32 or s32 alike), which
+//   per n8 tile j is mma.sync's C layout: in a consumer warpgroup, lane l
+//   of warp w, g = l / 4, t = l % 4, holds acc[j][e] at row 16w + g +
+//   8·(e / 2), column 8j + 2t + e % 2 of the consumer's 64 × N tile
+//   (wg_row, wg_col).
 // No atomics: the tile order is fixed, so two launches give the same bits.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; cuTensorMapEncodeTiled
                     // is reached through the runtime (tma_map), not linked
+
+#include <type_traits>
 
 #include "attn_mma.cuh"
 
@@ -63,7 +70,8 @@ namespace vit {
 constexpr int WG_THREADS = 128;                 // a warpgroup
 constexpr int GEMM_THREADS = 3 * WG_THREADS;    // producer + two consumers
 constexpr int TILE_M = 128;                     // rows of a block tile
-constexpr int STEP_K = 64;                      // depth of a k step
+constexpr int STEP_BYTES = 128;                 // a k step's bytes of a row
+constexpr int STEP_K = 64;                      // depth of a bf16 k step
 constexpr int CHUNK_BYTES = 64 * 128;           // 64 rows of 128 bytes
 // registers a thread after setmaxnreg: the producer warpgroup gives what
 // the consumers take from the block's 168 a thread at launch (ptxas's cap
@@ -77,17 +85,28 @@ __host__ __device__ constexpr bool regs_fit() {
 }
 
 // One GEMM of a block tile: NB B tiles of BN columns (N = NB · BN for the
-// wgmma), A and B index-major (false) or k-major (true).
-template <int BN_, int NB_, bool A_KMAJOR_, bool B_KMAJOR_>
+// wgmma), A and B index-major (false) or k-major (true), operands of T
+// (bf16, or signed char: int8 codes with int32 accumulators).
+template <int BN_, int NB_, bool A_KMAJOR_, bool B_KMAJOR_, class T_ = bf16>
 struct WgGemm {
+    using T = T_;
+    static constexpr bool S8 = std::is_same<T, signed char>::value;
+    using Acc = typename std::conditional<S8, int, float>::type;
     static constexpr int BN = BN_, NB = NB_, N = BN_ * NB_;
     static constexpr bool A_KMAJOR = A_KMAJOR_, B_KMAJOR = B_KMAJOR_;
-    static constexpr int A_BYTES = TILE_M * 128;   // TILE_M rows × STEP_K
-    static constexpr int B_BYTES = BN * 128;
+    static constexpr int STEP_K = STEP_BYTES / (int)sizeof(T);   // k a step
+    static constexpr int A_BYTES = TILE_M * STEP_BYTES;
+    static constexpr int B_BYTES = BN * STEP_BYTES;
     static constexpr int STAGE_BYTES = A_BYTES + NB * B_BYTES;
-    // a k16 step's move of each descriptor, in bytes
-    static constexpr int A_K16 = A_KMAJOR ? 16 * 128 : 32;
-    static constexpr int B_K16 = B_KMAJOR ? 16 * 128 : 32;
+    // an instruction's move of each descriptor along k, in bytes: 32 bytes
+    // of a row index-major (k16 bf16, k32 int8), 16 rows of 128 bytes
+    // k-major
+    static constexpr int A_INSTR = A_KMAJOR ? 16 * 128 : 32;
+    static constexpr int B_INSTR = B_KMAJOR ? 16 * 128 : 32;
+    static_assert(S8 || std::is_same<T, bf16>::value, "bf16 or int8 codes");
+    static_assert(!S8 || (!A_KMAJOR && !B_KMAJOR),
+                  "8-bit wgmma has no transpose: int8 operands are "
+                  "index-major");
     static_assert(BN % 64 == 0 && (N == 64 || N == 128 || N == 256),
                   "B tiles of whole 64-column chunks; wgmma N of 64, 128 "
                   "or 256");
@@ -171,6 +190,13 @@ __device__ __forceinline__ void fence_acc(float (&acc)[J][4]) {
     for (int j = 0; j < J; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[j][e])::"memory");
+}
+template <int J>
+__device__ __forceinline__ void fence_acc(int (&acc)[J][4]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(acc[j][e])::"memory");
 }
 
 template <int P = PRODUCER_REGS, int C = CONSUMER_REGS>
@@ -312,6 +338,135 @@ struct Wgmma<256, TA, TB> {
     }
 };
 
+// d (64 × N s32, the layout above) += A (64 × 32) · B (32 × N), int8 codes
+// read from shared memory through descriptors, both index-major (the 8-bit
+// forms have no transpose)
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<64> {
+    __device__ __forceinline__ static void run(int (&d)[8][4],
+                                               uint64_t da, uint64_t db) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p;\n}\n"
+            : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+              "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+              "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+              "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+              "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+              "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+              "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+              "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+            : "l"(da), "l"(db), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaS8<128> {
+    __device__ __forceinline__ static void run(int (&d)[16][4],
+                                               uint64_t da, uint64_t db) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, "
+            "%40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, "
+            "%56, %57, %58, %59, %60, %61, %62, %63}, "
+            "%64, %65, p;\n}\n"
+            : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+              "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+              "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+              "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+              "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+              "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+              "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+              "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+              "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+              "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+              "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+              "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+              "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+              "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+              "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+              "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+            : "l"(da), "l"(db), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaS8<256> {
+    __device__ __forceinline__ static void run(int (&d)[32][4],
+                                               uint64_t da, uint64_t db) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %130, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, "
+            "%40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, "
+            "%56, %57, %58, %59, %60, %61, %62, %63, "
+            "%64, %65, %66, %67, %68, %69, %70, %71, "
+            "%72, %73, %74, %75, %76, %77, %78, %79, "
+            "%80, %81, %82, %83, %84, %85, %86, %87, "
+            "%88, %89, %90, %91, %92, %93, %94, %95, "
+            "%96, %97, %98, %99, %100, %101, %102, %103, "
+            "%104, %105, %106, %107, %108, %109, %110, %111, "
+            "%112, %113, %114, %115, %116, %117, %118, %119, "
+            "%120, %121, %122, %123, %124, %125, %126, %127}, "
+            "%128, %129, p;\n}\n"
+            : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+              "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+              "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+              "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+              "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+              "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+              "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+              "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+              "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+              "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+              "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+              "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+              "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+              "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+              "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+              "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3]),
+              "+r"(d[16][0]), "+r"(d[16][1]), "+r"(d[16][2]), "+r"(d[16][3]),
+              "+r"(d[17][0]), "+r"(d[17][1]), "+r"(d[17][2]), "+r"(d[17][3]),
+              "+r"(d[18][0]), "+r"(d[18][1]), "+r"(d[18][2]), "+r"(d[18][3]),
+              "+r"(d[19][0]), "+r"(d[19][1]), "+r"(d[19][2]), "+r"(d[19][3]),
+              "+r"(d[20][0]), "+r"(d[20][1]), "+r"(d[20][2]), "+r"(d[20][3]),
+              "+r"(d[21][0]), "+r"(d[21][1]), "+r"(d[21][2]), "+r"(d[21][3]),
+              "+r"(d[22][0]), "+r"(d[22][1]), "+r"(d[22][2]), "+r"(d[22][3]),
+              "+r"(d[23][0]), "+r"(d[23][1]), "+r"(d[23][2]), "+r"(d[23][3]),
+              "+r"(d[24][0]), "+r"(d[24][1]), "+r"(d[24][2]), "+r"(d[24][3]),
+              "+r"(d[25][0]), "+r"(d[25][1]), "+r"(d[25][2]), "+r"(d[25][3]),
+              "+r"(d[26][0]), "+r"(d[26][1]), "+r"(d[26][2]), "+r"(d[26][3]),
+              "+r"(d[27][0]), "+r"(d[27][1]), "+r"(d[27][2]), "+r"(d[27][3]),
+              "+r"(d[28][0]), "+r"(d[28][1]), "+r"(d[28][2]), "+r"(d[28][3]),
+              "+r"(d[29][0]), "+r"(d[29][1]), "+r"(d[29][2]), "+r"(d[29][3]),
+              "+r"(d[30][0]), "+r"(d[30][1]), "+r"(d[30][2]), "+r"(d[30][3]),
+              "+r"(d[31][0]), "+r"(d[31][1]), "+r"(d[31][2]), "+r"(d[31][3])
+            : "l"(da), "l"(db), "r"(1));
+    }
+};
+
 // ---------------------------------------------------------------------------
 // The ring, the producer's loads, the consumers' mainloop
 // ---------------------------------------------------------------------------
@@ -382,14 +537,14 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
 
 // The producer's k steps of one GEMM of a tile: A's rows m0 .. through
 // map a, B tile j's columns b_n0[j] .. through map b[j], depth k_begin ..
-// k_end in steps of STEP_K.
+// k_end in steps of G::STEP_K.
 template <class G, class R>
 __device__ __forceinline__ void produce(R& ring, const CUtensorMap* a, int m0,
                                         const CUtensorMap* const (&b)[G::NB],
                                         const int (&b_n0)[G::NB], int k_begin,
                                         int k_end) {
     static_assert(G::STAGE_BYTES <= R::STAGE_BYTES, "a stage holds the step");
-    for (int k0 = k_begin; k0 < k_end; k0 += STEP_K) {
+    for (int k0 = k_begin; k0 < k_end; k0 += G::STEP_K) {
         mbar_wait(ring.empty(), ring.phase ^ 1);
         const uint32_t full = ring.full(), st = ring.data();
         mbar_expect_tx(full, G::STAGE_BYTES);
@@ -406,22 +561,27 @@ __device__ __forceinline__ void produce(R& ring, const CUtensorMap* a, int m0,
 // steps): acc += its 64 rows of A · the N columns of B.  Returns with every
 // wgmma done and every stage it read released.
 template <class G, class R>
-__device__ __forceinline__ void consume(R& ring, float (&acc)[G::N / 8][4],
+__device__ __forceinline__ void consume(R& ring,
+                                        typename G::Acc (&acc)[G::N / 8][4],
                                         int k_begin, int k_end) {
     const int cw = threadIdx.x / WG_THREADS - 1;   // consumer 0 or 1
     const bool signals = threadIdx.x % WG_THREADS == 0;
     uint32_t held = 0;   // the empty barrier of the stage read a step before
     fence_acc(acc);
-    for (int k0 = k_begin; k0 < k_end; k0 += STEP_K) {
+    for (int k0 = k_begin; k0 < k_end; k0 += G::STEP_K) {
         mbar_wait(ring.full(), ring.phase);
         const uint32_t a = ring.data() + cw * CHUNK_BYTES;
         const uint32_t b = ring.data() + G::A_BYTES;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < STEP_K / 16; ++kk)
-            Wgmma<G::N, G::A_KMAJOR, G::B_KMAJOR>::run(
-                acc, smem_desc<G::A_KMAJOR>(a + kk * G::A_K16),
-                smem_desc<G::B_KMAJOR>(b + kk * G::B_K16));
+        for (int kk = 0; kk < STEP_BYTES / 32; ++kk) {
+            const uint64_t da = smem_desc<G::A_KMAJOR>(a + kk * G::A_INSTR);
+            const uint64_t db = smem_desc<G::B_KMAJOR>(b + kk * G::B_INSTR);
+            if constexpr (G::S8)
+                WgmmaS8<G::N>::run(acc, da, db);
+            else
+                Wgmma<G::N, G::A_KMAJOR, G::B_KMAJOR>::run(acc, da, db);
+        }
         wgmma_commit();
         wgmma_wait<1>();   // the group before is done: its stage is free
         if (held && signals) mbar_arrive(held);
@@ -524,13 +684,10 @@ struct Staging {
 // Host side
 // ---------------------------------------------------------------------------
 
-// A TMA map of the row-major bf16 matrix p (rows × cols, pitch ld
-// elements), read or written in boxes of 64 columns × box_rows rows in the
-// 128-byte swizzle: zero past its edges on loads, clipped on stores.
-// False where the encoder refuses it (a pointer or pitch off 16 bytes) or
-// its encoder cannot be reached.
-inline bool tma_map(CUtensorMap* map, const void* p, long long rows,
-                    long long cols, long long ld, int box_rows) {
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point query
+// (no -lcuda);
+// null where it cannot be reached
+inline decltype(&cuTensorMapEncodeTiled) tma_encoder() {
     using Encode = decltype(&cuTensorMapEncodeTiled);
     static const Encode encode = [] {
         void* fn = nullptr;
@@ -542,13 +699,32 @@ inline bool tma_map(CUtensorMap* map, const void* p, long long rows,
             fn = nullptr;
         return reinterpret_cast<Encode>(fn);
     }();
+    return encode;
+}
+
+// A TMA map of the row-major matrix p of T (bf16, or signed char: int8
+// codes, copied bit for bit as UINT8), rows × cols at a pitch of ld
+// elements, read or written in boxes of 128 bytes of columns (64 bf16, 128
+// codes) × box_rows rows in the 128-byte swizzle: zero past its edges on
+// loads, clipped on stores.  False where the encoder refuses it (a pointer
+// or pitch off 16 bytes) or cannot be reached.
+template <class T = bf16>
+inline bool tma_map(CUtensorMap* map, const void* p, long long rows,
+                    long long cols, long long ld, int box_rows) {
+    static_assert(std::is_same<T, bf16>::value ||
+                      std::is_same<T, signed char>::value,
+                  "bf16 or int8 codes");
+    const auto encode = tma_encoder();
     if (encode == nullptr) return false;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t pitch[1] = {(cuuint64_t)ld * sizeof(bf16)};
-    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+    const cuuint64_t pitch[1] = {(cuuint64_t)ld * sizeof(T)};
+    const cuuint32_t box[2] = {(cuuint32_t)(STEP_BYTES / sizeof(T)),
+                               (cuuint32_t)box_rows};
     const cuuint32_t step[2] = {1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<void*>(p), dims, pitch, box, step,
+    return encode(map,
+                  sizeof(T) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  2, const_cast<void*>(p), dims, pitch, box, step,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

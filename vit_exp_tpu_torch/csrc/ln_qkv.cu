@@ -3,81 +3,126 @@
 //
 // t = x @ W with W = [γ⊙Wq | Wkv] (K × F, row-major bf16); the first Fq
 // columns become inv·(t − μ·c) (the LayerNorm applied after the product),
-// the rest stay t (projections of the pre-LN x).  One kernel on the
-// mma.sync mainloop of gemm_mma.cuh: A = x index-major, B = W k-major (read
-// by ldmatrix.trans), 128 tokens × 128 columns per block, 8 warps of 64 ×
-// 32, a 3-stage cp.async ring of 64-deep k steps, fp32 accumulators in
-// registers (K2's out-stage configuration).  The epilogue works on the
-// accumulators in place: μ and inv once per lane row, c once per column,
-// the correction on each q column (decided per column: Fq may fall inside
-// a column tile) and two adjacent columns stored as one bf16x2.  So the
-// normalised x never reaches device memory.
+// the rest stay t (projections of the pre-LN x).  One kernel on the Hopper
+// mainloop of gemm_wgmma.cuh: a producer warp's TMA loads into an mbarrier
+// ring, two consumer warpgroups on wgmma m64n256k16 with fp32 accumulators
+// in registers, a persistent grid of one block per SM.  A = x index-major
+// (M × K), B = W k-major (read through the transpose bit), 128 tokens ×
+// 256 columns a tile, column tile fastest (x comes from device memory once,
+// W stays in L2).  The epilogue works on the accumulators: μ and inv once
+// per lane row, c once per column, the correction on each q column
+// (decided per column: Fq may fall inside a column tile), then the bf16
+// tile leaves through a swizzled staging in shared memory by TMA stores
+// (K2's out stage), so the consumers go on to the next tile while the
+// copies run.  The normalised x never reaches device memory.
 //
 // What bounds it: 65.2 GFLOP at 55,296 tokens, K = F = 768 (0.066 ms at
-// the bf16 tensor-core peak).  Any M; K % 16 == 0 and F % 16 == 0 (the
-// mainloop itself needs rows of a multiple of 8 elements and masks its
-// tiles' tails; the epilogue masks columns past F).  No atomics:
-// two launches on the same inputs give the same bits.
-#include "gemm_mma.cuh"
+// the bf16 tensor-core peak; x in and out are 170 MB, 0.051 ms).  K is only
+// 12 k steps a tile, so the epilogue of one tile overlaps the loads of the
+// next but not the products.  Any M; K % 16 == 0 and F % 16 == 0 (TMA's
+// 16-byte pitches; its loads zero-fill past M, K and F, its stores clip).
+// No atomics: two launches on the same inputs give the same bits.
+#include "gemm_wgmma.cuh"
 
 using namespace vit;
 
 namespace {
 
-constexpr int TOKENS = 128, COLS = 128, BK = 64, STAGES = 3;
-constexpr int WM = 2, WN = 4, BLOCKS = 2;
-using Cfg = GemmCfg<TOKENS, COLS, BK, WM, WN, STAGES, false, true, 1>;
+// 128 tokens × 256 columns; out leaves through a staging of PART columns
+// a consumer at a time
+constexpr int COLS = 256, STAGES = 4, PART = 128;
+using QGemm = WgGemm<COLS, 1, false, true>;
+using QOut = Staging<PART / 64>;
+using QRing = Ring<STAGES, QGemm::STAGE_BYTES, 2 * QOut::BYTES>;
 
-// out = [inv·(t − μ·c) | t] in bf16; grid (F / 128, tokens / 128)
-__global__ void __launch_bounds__(Cfg::THREADS, BLOCKS)
-ln_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
-              const float* __restrict__ inv, const bf16* __restrict__ w,
-              const float* __restrict__ c, bf16* __restrict__ out, int M,
-              int K, int F, int Fq) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int n0 = blockIdx.x * COLS, m0 = blockIdx.y * TOKENS;
-    float acc[1][Cfg::MT][Cfg::NT][4];
-#pragma unroll
-    for (int mt = 0; mt < Cfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < Cfg::NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0.f;
-    const Mat wm[1] = {{w, F, K, F}};
-    gemm_mainloop<Cfg>(acc, Mat{x, K, M, K}, wm, m0, n0, 0, K,
-                       reinterpret_cast<bf16*>(smem_raw));
-
-    // c of this lane's columns (0 where no q column is)
-    float cc[Cfg::NT][2];
-#pragma unroll
-    for (int nt = 0; nt < Cfg::NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            const int col = n0 + acc_col<Cfg>(nt, e);
-            cc[nt][e] = col < Fq ? c[col] : 0.f;
-        }
-#pragma unroll
-    for (int mt = 0; mt < Cfg::MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int row = m0 + acc_row<Cfg>(mt, 2 * half);
-            if (row >= M) continue;
-            const float m = mu[row], iv = inv[row];
-#pragma unroll
-            for (int nt = 0; nt < Cfg::NT; ++nt) {
-                const int col = n0 + acc_col<Cfg>(nt, 0);
-                if (col >= F) continue;   // F % 8 == 0
-                float t[2];
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    t[e] = acc[0][mt][nt][2 * half + e];
-                    if (col + e < Fq)   // no fused multiply-add, as the twin
-                        t[e] = __fmul_rn(
-                            iv, __fsub_rn(t[e], __fmul_rn(m, cc[nt][e])));
-                }
-                store_bf16x2(out + (size_t)row * F + col, t[0], t[1]);
+// out = [inv·(t − μ·c) | t] in bf16 for tiles of 128 tokens × 256 columns
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+ln_qkv_kernel(const __grid_constant__ CUtensorMap x_map,
+              const __grid_constant__ CUtensorMap w_map,
+              const __grid_constant__ CUtensorMap out_map,
+              const float* __restrict__ mu, const float* __restrict__ inv,
+              const float* __restrict__ c, int M, int K, int F, int Fq) {
+    extern __shared__ unsigned char smem_raw[];
+    QRing ring(smem_raw);
+    ring.init();
+    const int col_tiles = (F + COLS - 1) / COLS;
+    const int tiles = (M + TILE_M - 1) / TILE_M * col_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const b[1] = {&w_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int b_n0[1] = {t % col_tiles * COLS};
+                produce<QGemm>(ring, &x_map, t / col_tiles * TILE_M, b, b_n0,
+                               0, K);
             }
         }
+        return;
+    }
+    consumer_regs();
+    const QOut out(ring.extra());
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / col_tiles * TILE_M + consumer_row0();
+        const int n0 = t % col_tiles * COLS;
+        // μ and inv of the lane's two rows, loaded while the products run
+        // (a row past M is not stored)
+        float rm[2], ri[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int row = min(m0 + wg_row(2 * half), M - 1);
+            rm[half] = mu[row];
+            ri[half] = inv[row];
+        }
+        float acc[QGemm::N / 8][4];
+#pragma unroll
+        for (int j = 0; j < QGemm::N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        consume<QGemm>(ring, acc, 0, K);
+        // parts of PART columns (the stores drop what lies past M, F)
+#pragma unroll
+        for (int part = 0; part < QGemm::N / PART; ++part) {
+            // the part's outputs first, packed, so that the loads of c are
+            // not held behind the staging's stores and the wait for the
+            // staging overlaps the math
+            uint32_t y[PART / 8][2];
+#pragma unroll
+            for (int j = 0; j < PART / 8; ++j) {
+                const int jj = part * PART / 8 + j;
+                const int col = n0 + part * PART + wg_col(j, 0);
+                // c of the pair's q columns (0 on kv columns and past F)
+                const float c0 = col < Fq ? c[col] : 0.f;
+                const float c1 = col + 1 < Fq ? c[col + 1] : 0.f;
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    float t0 = acc[jj][2 * half], t1 = acc[jj][2 * half + 1];
+                    const float m = rm[half], iv = ri[half];
+                    if (col < Fq)   // no fused multiply-add, as the twin
+                        t0 = __fmul_rn(iv, __fsub_rn(t0, __fmul_rn(m, c0)));
+                    if (col + 1 < Fq)
+                        t1 = __fmul_rn(iv, __fsub_rn(t1, __fmul_rn(m, c1)));
+                    y[j][half] = pack_bf16(t0, t1);
+                }
+            }
+            out.acquire();
+#pragma unroll
+            for (int j = 0; j < PART / 8; ++j) {
+                const int cl = wg_col(j, 0);   // within the part
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    out.put(cl >> 6, wg_row(2 * half), cl & 63, y[j][half]);
+            }
+            const CUtensorMap* maps[PART / 64];
+            int cols[PART / 64];
+#pragma unroll
+            for (int ch = 0; ch < PART / 64; ++ch) {
+                maps[ch] = &out_map;
+                cols[ch] = n0 + part * PART + 64 * ch;
+            }
+            out.release(maps, cols, m0);
+        }
+    }
+    out.drain();
 }
 
 }  // namespace
@@ -87,12 +132,19 @@ VIT_API int vit_ln_qkv_fwd(const void* x, const void* mu, const void* inv,
                            int K, int F, int Fq, void* stream) {
     if (M < 1 || K < 16 || K % 16 || F < 16 || F % 16 || Fq < 0 || Fq > F)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = allow_smem(ln_qkv_kernel, Cfg::SMEM_BYTES);
+    // x index-major; W (K, F) k-major; out in boxes of 64 × 64
+    CUtensorMap x_map, w_map, out_map;
+    if (!tma_map(&x_map, x, M, K, K, TILE_M) ||
+        !tma_map(&w_map, w, K, F, F, 64) ||
+        !tma_map(&out_map, out, M, F, F, 64))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(ln_qkv_kernel, QRing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((F + COLS - 1) / COLS, (M + TOKENS - 1) / TOKENS);
-    ln_qkv_kernel<<<grid, Cfg::THREADS, Cfg::SMEM_BYTES,
-                    (cudaStream_t)stream>>>(
-        (const bf16*)x, (const float*)mu, (const float*)inv, (const bf16*)w,
-        (const float*)c, (bf16*)out, M, K, F, Fq);
+    const long long tiles =
+        (long long)((M + TILE_M - 1) / TILE_M) * ((F + COLS - 1) / COLS);
+    ln_qkv_kernel<<<persistent_blocks(tiles), GEMM_THREADS,
+                    QRing::SMEM_BYTES, (cudaStream_t)stream>>>(
+        x_map, w_map, out_map, (const float*)mu, (const float*)inv,
+        (const float*)c, M, K, F, Fq);
     return (int)cudaGetLastError();
 }

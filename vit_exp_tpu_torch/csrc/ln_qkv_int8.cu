@@ -13,20 +13,30 @@
 //   ln_qkv_int8_x_kernel: x, μ → x8 (M × K) and s_x (M); a row pass, one
 //     warp per token, the row read once with 16-byte loads and held in
 //     registers (K ≤ 2048), bytes bound.
-//   ln_qkv_int8_mm_kernel: x8·W on the mainloop of gemm_mma.cuh with int8
-//     operands (mma.sync m16n8k32, int32 accumulators in registers, a
-//     cp.async ring), 128 tokens × 128 columns per block, 8 warps of 64 ×
-//     32, 128-deep k steps; ldmatrix has no .trans for 8-bit data, so the
-//     wrapper passes Wᵀ (F × K).  The epilogue dequantizes the accumulators
-//     in place and writes q, k or v per column (Fq and Fq + Fk may fall
-//     inside a column tile), two adjacent columns of one output as one
-//     bf16x2.  No fused multiply-add: the twin rounds each product and sum.
+//   ln_qkv_int8_mm_kernel: x8·W on the int8 form of gemm_wgmma.cuh's
+//     Hopper mainloop: a producer warp's TMA loads of x8 (M × K) and Wᵀ
+//     (F × K, the wrapper's transpose: 8-bit wgmma reads only index-major
+//     operands) into an mbarrier ring, two consumer warpgroups on wgmma
+//     m64n128k32 s8 with int32 accumulators in registers, 128-deep k
+//     steps, 128 tokens × 128 columns a tile (six stages: a tile's k steps
+//     at K 768 load while the one before runs its epilogue), a persistent
+//     grid.  The
+//     epilogue dequantizes the accumulators in the twin's order (no fused
+//     multiply-add: the twin rounds each product and sum) and writes q, k
+//     or v per column.  A tile whose 64-column chunks each lie in one
+//     output (every tile at the full width, where Fq = Fk = Fv = 256)
+//     leaves through a swizzled staging by TMA stores, one map per output,
+//     at the chunk's column in it; a tile with a chunk that straddles Fq
+//     or Fq + Fk, or whose output's pitch is not whole 16-byte units, is
+//     stored from the registers, two adjacent columns of one output as one
+//     bf16x2.
 // What bounds it at 55,296 tokens, K 768, F 768: 85 MB of x read and 85 MB
 // of q, k, v written (0.051 ms at 3.35 TB/s), plus the 42 MB of x8 written
 // and read again between the stages.  |x8·W| ≤ K·127² stays below 2²⁴ up to
 // K 1,040, so the conversion to fp32 is exact there (above, it rounds once,
-// as the twin's does).  Any M; K % 16 == 0, K ≤ 2048, F % 16 == 0 (the
-// epilogue masks the columns past F).
+// as the twin's does).  Any M; K % 16 == 0, K ≤ 2048 (the row pass), F %
+// 16 == 0; any 0 < Fq, 0 < Fk, Fq + Fk < F (TMA zero-fills its loads past
+// M, K and F and clips its stores; the register stores mask).
 //
 // K14's kernel (proj_int8_kernel), one pass: a block owns 64 rows of x
 // (bf16, M × K).  It quantizes them per row (s_x = max|x| / 127) with
@@ -49,6 +59,7 @@
 // memory), F % 16 == 0 (the last column tile's weights past F are
 // zero-filled, its scales read as 0 and its columns past F not stored).
 #include "gemm_mma.cuh"
+#include "gemm_wgmma.cuh"
 
 using namespace vit;
 
@@ -63,10 +74,13 @@ using s8 = signed char;
 constexpr int ROW_WARPS = 8;      // tokens per block of the row pass
 constexpr int ROW_CHUNK = 256;    // columns of one 16-byte load per lane
 constexpr int MAX_K = 2048;       // 8 chunks: 32 registers of a held row
-constexpr int MM_TOKENS = 128, MM_COLS = 128, MM_BK = 128, MM_STAGES = 3;
-constexpr int MM_WM = 2, MM_WN = 4, MM_BLOCKS = 2;
-using MmCfg = GemmCfg<MM_TOKENS, MM_COLS, MM_BK, MM_WM, MM_WN, MM_STAGES,
-                      false, false, 1, s8>;
+// the product: 128 tokens × 128 columns a tile on the int8 form of
+// gemm_wgmma.cuh, six 128-deep k steps in the ring (all of K 768); q, k
+// and v leave through a staging of MM_PART columns a consumer at a time
+constexpr int MM_COLS = 128, MM_STAGES = 6, MM_PART = 128;
+using MmGemm = WgGemm<MM_COLS, 1, false, false, s8>;
+using MmOut = Staging<MM_PART / 64>;
+using MmRing = Ring<MM_STAGES, MmGemm::STAGE_BYTES, 2 * MmOut::BYTES>;
 
 // x8 and s_x; one warp per token, lane l holds columns 8(l + 32i) .. + 7
 // for i < CHUNKS
@@ -121,79 +135,184 @@ __device__ __forceinline__ OutCol qkv_col(bf16* q, bf16* k, bf16* v, int col,
     return {v + (col - Fq - Fk), Fv};
 }
 
-// q = inv·deq, k/v = deq + μ·c with deq = (x8·W)·s_x·s_W; grid (F / 128,
-// tokens / 128)
-__global__ void __launch_bounds__(MmCfg::THREADS, MM_BLOCKS)
-ln_qkv_int8_mm_kernel(const s8* __restrict__ x8, const float* __restrict__ sx,
+// the output (0 q, 1 k, 2 v) of column col, and output o's first column
+__device__ __forceinline__ int qkv_out(int col, int Fq, int Fk) {
+    return col < Fq ? 0 : col < Fq + Fk ? 1 : 2;
+}
+__device__ __forceinline__ int qkv_start(int o, int Fq, int Fk) {
+    return o == 0 ? 0 : o == 1 ? Fq : Fq + Fk;
+}
+
+// Whether the tile at column n0 leaves by TMA stores: each of its 64-column
+// chunks holds columns of one output only (to F), and that output has a
+// map (bit o of maps: its pitch and pointer are whole 16-byte units)
+__device__ __forceinline__ bool tile_by_tma(int n0, int F, int Fq, int Fk,
+                                            int maps) {
+#pragma unroll
+    for (int ch = 0; ch < MM_COLS / 64; ++ch) {
+        const int c0 = n0 + 64 * ch;
+        if (c0 >= F) break;
+        const int o = qkv_out(c0, Fq, Fk);
+        const int end = o == 2 ? F : qkv_start(o + 1, Fq, Fk);
+        if (min(c0 + 64, F) > end || !(maps >> o & 1)) return false;
+    }
+    return true;
+}
+
+// q = inv·deq, k/v = deq + μ·c with deq = (x8·W)·s_x·s_W, for tiles of 128
+// tokens × MM_COLS columns, column tile fastest
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+ln_qkv_int8_mm_kernel(const __grid_constant__ CUtensorMap x8_map,
+                      const __grid_constant__ CUtensorMap wt_map,
+                      const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const float* __restrict__ sx,
                       const float* __restrict__ mu,
                       const float* __restrict__ inv,
-                      const s8* __restrict__ wt, const float* __restrict__ sc,
+                      const float* __restrict__ sc,
                       const float* __restrict__ c, bf16* __restrict__ q,
                       bf16* __restrict__ k, bf16* __restrict__ v, int M,
-                      int K, int F, int Fq, int Fk) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int n0 = blockIdx.x * MM_COLS, m0 = blockIdx.y * MM_TOKENS;
-    int acc[1][MmCfg::MT][MmCfg::NT][4];
-#pragma unroll
-    for (int mt = 0; mt < MmCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < MmCfg::NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0;
-    const Mat8 wm[1] = {{wt, K, F, K}};
-    gemm_mainloop<MmCfg>(acc, Mat8{x8, K, M, K}, wm, m0, n0, 0, K,
-                         reinterpret_cast<s8*>(smem_raw));
-
-    // s_x, μ and inv of the lane's rows, loaded once
-    float rs[MmCfg::MT][2], rm[MmCfg::MT][2], ri[MmCfg::MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MmCfg::MT; ++mt)
+                      int K, int F, int Fq, int Fk, int maps) {
+    extern __shared__ unsigned char smem_raw[];
+    MmRing ring(smem_raw);
+    ring.init();
+    const int col_tiles = (F + MM_COLS - 1) / MM_COLS;
+    const int tiles = (M + TILE_M - 1) / TILE_M * col_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const b[1] = {&wt_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int b_n0[1] = {t % col_tiles * MM_COLS};
+                produce<MmGemm>(ring, &x8_map, t / col_tiles * TILE_M, b,
+                                b_n0, 0, K);
+            }
+        }
+        return;
+    }
+    consumer_regs();
+    const MmOut out(ring.extra());
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / col_tiles * TILE_M + consumer_row0();
+        const int n0 = t % col_tiles * MM_COLS;
+        // s_x, μ and inv of the lane's two rows, loaded while the products
+        // run (a row past M is not stored)
+        float rs[2], rm[2], ri[2];
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-            const int row = min(m0 + acc_row<MmCfg>(mt, 2 * half), M - 1);
-            rs[mt][half] = sx[row];
-            rm[mt][half] = mu[row];
-            ri[mt][half] = inv[row];
+            const int row = min(m0 + wg_row(2 * half), M - 1);
+            rs[half] = sx[row];
+            rm[half] = mu[row];
+            ri[half] = inv[row];
         }
-    // per column pair: its scales, colsums and outputs, then its rows
+        int acc[MmGemm::N / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < MmCfg::NT; ++nt) {
-        const int col = n0 + acc_col<MmCfg>(nt, 0);
-        if (col >= F) continue;   // F % 8 == 0
-        const float2 s2 = *reinterpret_cast<const float2*>(sc + col);
-        const float2 c2 = *reinterpret_cast<const float2*>(c + col);
-        const OutCol o0 = qkv_col(q, k, v, col, Fq, Fk, F - Fq - Fk);
-        const OutCol o1 = qkv_col(q, k, v, col + 1, Fq, Fk, F - Fq - Fk);
-        // one bf16x2 store a row when both columns lie in one output at an
-        // even pitch from a 4-byte aligned start
-        const bool pair = o1.p == o0.p + 1 && o1.ld == o0.ld &&
-                          (o0.ld & 1) == 0 &&
-                          (reinterpret_cast<size_t>(o0.p) & 3) == 0;
+        for (int j = 0; j < MmGemm::N / 8; ++j)
 #pragma unroll
-        for (int mt = 0; mt < MmCfg::MT; ++mt)
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+        consume<MmGemm>(ring, acc, 0, K);
+
+        // y of the accumulator pair a0, a1 of row half at column col (even,
+        // < F) with the pair's scales s2 and colsums c2, in the twin's
+        // order without fused multiply-adds
+        auto pair = [&](int a0, int a1, int half, int col, float2 s2,
+                        float2 c2) {
+            const float s = half ? rs[1] : rs[0], m = half ? rm[1] : rm[0];
+            const float iv = half ? ri[1] : ri[0];
+            const float d0 = __fmul_rn(__fmul_rn((float)a0, s), s2.x);
+            const float d1 = __fmul_rn(__fmul_rn((float)a1, s), s2.y);
+            return make_float2(
+                col < Fq ? __fmul_rn(iv, d0) : __fadd_rn(d0, __fmul_rn(m, c2.x)),
+                col + 1 < Fq ? __fmul_rn(iv, d1)
+                             : __fadd_rn(d1, __fmul_rn(m, c2.y)));
+        };
+        // the scales and colsums of the pair at column col, once for both
+        // rows
+        auto cols2 = [&](int col, float2& s2, float2& c2) {
+            s2 = *reinterpret_cast<const float2*>(sc + col);
+            c2 = *reinterpret_cast<const float2*>(c + col);
+        };
+        if (tile_by_tma(n0, F, Fq, Fk, maps)) {
+            // parts of MM_PART columns through the staging; each chunk to
+            // its output's map at its column there (the stores drop what
+            // lies past M and past the output's width)
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + acc_row<MmCfg>(mt, 2 * half);
-                if (row >= M) continue;
-                const int* a = acc[0][mt][nt] + 2 * half;
-                const float s = rs[mt][half], m = rm[mt][half];
-                const float iv = ri[mt][half];
-                const float d0 = __fmul_rn(__fmul_rn((float)a[0], s), s2.x);
-                const float d1 = __fmul_rn(__fmul_rn((float)a[1], s), s2.y);
-                const float y0 = col < Fq ? __fmul_rn(iv, d0)
-                                          : __fadd_rn(d0, __fmul_rn(m, c2.x));
-                const float y1 = col + 1 < Fq
-                                     ? __fmul_rn(iv, d1)
-                                     : __fadd_rn(d1, __fmul_rn(m, c2.y));
-                bf16* p0 = o0.p + (size_t)row * o0.ld;
-                if (pair) {
-                    store_bf16x2(p0, y0, y1);
-                } else {   // the pair straddles Fq or Fq + Fk, or is odd
-                    *p0 = __float2bfloat16(y0);
-                    o1.p[(size_t)row * o1.ld] = __float2bfloat16(y1);
+            for (int part = 0; part < MmGemm::N / MM_PART; ++part) {
+                // the part's outputs first, packed, so that the loads of
+                // the column constants are not held behind the staging's
+                // stores and the wait for the staging overlaps the math
+                uint32_t y[MM_PART / 8][2];
+#pragma unroll
+                for (int j = 0; j < MM_PART / 8; ++j) {
+                    const int jj = part * MM_PART / 8 + j;
+                    const int col = n0 + part * MM_PART + wg_col(j, 0);
+                    float2 s2 = make_float2(0.f, 0.f), c2 = s2;
+                    if (col < F) cols2(col, s2, c2);   // F % 16 == 0
+#pragma unroll
+                    for (int half = 0; half < 2; ++half) {
+                        const float2 v2 = pair(acc[jj][2 * half],
+                                               acc[jj][2 * half + 1], half,
+                                               col, s2, c2);
+                        y[j][half] = pack_bf16(v2.x, v2.y);
+                    }
+                }
+                out.acquire();
+#pragma unroll
+                for (int j = 0; j < MM_PART / 8; ++j) {
+                    const int cl = wg_col(j, 0);
+#pragma unroll
+                    for (int half = 0; half < 2; ++half)
+                        out.put(cl >> 6, wg_row(2 * half), cl & 63,
+                                y[j][half]);
+                }
+                const CUtensorMap* maps2[MM_PART / 64];
+                int cols[MM_PART / 64];
+#pragma unroll
+                for (int ch = 0; ch < MM_PART / 64; ++ch) {
+                    const int c0 = n0 + part * MM_PART + 64 * ch;
+                    const int o = qkv_out(min(c0, F - 1), Fq, Fk);
+                    maps2[ch] = o == 0 ? &q_map : o == 1 ? &k_map : &v_map;
+                    cols[ch] = c0 - qkv_start(o, Fq, Fk);
+                }
+                out.release(maps2, cols, m0);
+            }
+        } else {
+            // a chunk straddles Fq or Fq + Fk, or its output has no map:
+            // stores from the registers, a column pair as one bf16x2 where
+            // both columns lie in one output at an even pitch from a
+            // 4-byte aligned start, else as two scalars
+#pragma unroll
+            for (int j = 0; j < MmGemm::N / 8; ++j) {
+                const int col = n0 + wg_col(j, 0);
+                if (col >= F) continue;
+                const OutCol o0 = qkv_col(q, k, v, col, Fq, Fk, F - Fq - Fk);
+                const OutCol o1 =
+                    qkv_col(q, k, v, col + 1, Fq, Fk, F - Fq - Fk);
+                const bool both = o1.p == o0.p + 1 && o1.ld == o0.ld &&
+                                  (o0.ld & 1) == 0 &&
+                                  (reinterpret_cast<size_t>(o0.p) & 3) == 0;
+                float2 s2, c2;
+                cols2(col, s2, c2);
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int row = m0 + wg_row(2 * half);
+                    if (row >= M) continue;
+                    const float2 y = pair(acc[j][2 * half],
+                                          acc[j][2 * half + 1], half, col, s2,
+                                          c2);
+                    bf16* p0 = o0.p + (size_t)row * o0.ld;
+                    if (both) {
+                        store_bf16x2(p0, y.x, y.y);
+                    } else {
+                        *p0 = __float2bfloat16(y.x);
+                        o1.p[(size_t)row * o1.ld] = __float2bfloat16(y.y);
+                    }
                 }
             }
+        }
     }
+    out.drain();
 }
 
 bool qkv_shapes_ok(int M, int K, int F) {
@@ -222,8 +341,8 @@ constexpr int PJ_MAX_K = 1024;
 // pitch (bf16) of a warp's staging tile of out: rows of WTN + 8, so the
 // bf16x2 writes of a warp's eight rows fall on distinct banks
 constexpr int PJ_LDO = PJ_COLS / PJ_WN + 8;
-using PjCfg = GemmCfg<PJ_ROWS, PJ_COLS, PJ_BK, PJ_WM, PJ_WN, PJ_STAGES,
-                      false, false, 1, s8>;
+using PjCfg = GemmCfg<PJ_ROWS, PJ_COLS, PJ_BK, PJ_WM, PJ_WN, PJ_STAGES, 1,
+                      s8>;
 
 // the depth padded to whole k steps, and the shared memory of a launch
 __host__ __device__ inline int pj_depth(int K) {
@@ -348,7 +467,7 @@ proj_int8_kernel(const bf16* __restrict__ x, const s8* __restrict__ wt,
 #pragma unroll
             for (int np = 0; np < C::NT / 2; ++np) {
                 uint32_t bfr[4];
-                frag_b2<false, C::TB::LD16>(bfr, sb, wn + np * 16, kk, lane);
+                frag_b2<C::TB::LD16>(bfr, sb, wn + np * 16, kk, lane);
 #pragma unroll
                 for (int mt = 0; mt < C::MT; ++mt) {
                     mma_s8(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
@@ -435,14 +554,31 @@ VIT_API int vit_ln_qkv_int8_mm(const void* x8, const void* sx, const void* mu,
                                int K, int F, int Fq, int Fk, void* stream) {
     if (!qkv_shapes_ok(M, K, F) || Fq < 1 || Fk < 1 || Fq + Fk >= F)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = allow_smem(ln_qkv_int8_mm_kernel, MmCfg::SMEM_BYTES);
+    // x8 (M × K) and Wᵀ (F × K), both index-major; q, k and v each in boxes
+    // of 64 × 64 where its pitch and pointer are whole 16-byte units (bit
+    // o of maps), else its tiles are stored from the registers
+    CUtensorMap x8_map, wt_map, out_map[3] = {};
+    if (!tma_map<s8>(&x8_map, x8, M, K, K, TILE_M) ||
+        !tma_map<s8>(&wt_map, wt, F, K, K, MM_COLS))
+        return (int)cudaErrorInvalidValue;
+    void* const outs[3] = {q, k, v};
+    const int widths[3] = {Fq, Fk, F - Fq - Fk};
+    int maps = 0;
+    for (int o = 0; o < 3; ++o) {
+        if (widths[o] % 8 || reinterpret_cast<size_t>(outs[o]) % 16) continue;
+        if (!tma_map(&out_map[o], outs[o], M, widths[o], widths[o], 64))
+            return (int)cudaErrorInvalidValue;
+        maps |= 1 << o;
+    }
+    cudaError_t e = allow_smem(ln_qkv_int8_mm_kernel, MmRing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((F + MM_COLS - 1) / MM_COLS, (M + MM_TOKENS - 1) / MM_TOKENS);
-    ln_qkv_int8_mm_kernel<<<grid, MmCfg::THREADS, MmCfg::SMEM_BYTES,
-                            (cudaStream_t)stream>>>(
-        (const s8*)x8, (const float*)sx, (const float*)mu, (const float*)inv,
-        (const s8*)wt, (const float*)sc, (const float*)c, (bf16*)q, (bf16*)k,
-        (bf16*)v, M, K, F, Fq, Fk);
+    const long long tiles = (long long)((M + TILE_M - 1) / TILE_M) *
+                            ((F + MM_COLS - 1) / MM_COLS);
+    ln_qkv_int8_mm_kernel<<<persistent_blocks(tiles), GEMM_THREADS,
+                            MmRing::SMEM_BYTES, (cudaStream_t)stream>>>(
+        x8_map, wt_map, out_map[0], out_map[1], out_map[2], (const float*)sx,
+        (const float*)mu, (const float*)inv, (const float*)sc,
+        (const float*)c, (bf16*)q, (bf16*)k, (bf16*)v, M, K, F, Fq, Fk, maps);
     return (int)cudaGetLastError();
 }
 

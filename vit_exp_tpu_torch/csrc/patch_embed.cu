@@ -62,8 +62,7 @@ constexpr int PE_ROW_COPIES = 5;   // W ≤ 32·5·4 = 640 bf16 (p2 % 4 == 0)
 
 // the tiling of a step of KS k16 slices (k depth 16·KS)
 template <int KS>
-using PeCfg = GemmCfg<PE_TOKENS, PE_COLS, 16 * KS, PE_WM, PE_WN, PE_STAGES,
-                      false, false>;
+using PeCfg = GemmCfg<PE_TOKENS, PE_COLS, 16 * KS, PE_WM, PE_WN, PE_STAGES>;
 
 struct PeArgs {
     const bf16* x;
@@ -107,7 +106,7 @@ template <int KS, int CB>
 __global__ void __launch_bounds__(PeCfg<KS>::THREADS, PE_BLOCKS)
 patch_embed_kernel(const PeArgs a) {
     using C = PeCfg<KS>;
-    using TA = OperandTile<PE_TOKENS, 16 * KS, false>;
+    using TA = OperandTile<PE_TOKENS, 16 * KS>;
     constexpr int BK = C::BK, MT = C::MT, NT = C::NT, NW = C::THREADS / 32;
     constexpr int EPC = CB / 2;   // bf16 of one copy
     static_assert(MT <= C::WN, "one warp column per m16 tile's statistics");
@@ -187,8 +186,7 @@ patch_embed_kernel(const PeArgs a) {
             uint32_t af[MT][4];
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
-                frag_a<false, TA::LD16>(af[mt], sa, wm + mt * 16, s * 16,
-                                        lane);
+                frag_a<TA::LD16>(af[mt], sa, wm + mt * 16, s * 16, lane);
                 if (mt == wq) {
                     const uint32_t a2[4] = {
                         sq_bf16x2(af[mt][0]), sq_bf16x2(af[mt][1]),
@@ -200,8 +198,7 @@ patch_embed_kernel(const PeArgs a) {
 #pragma unroll
             for (int np = 0; np < NT / 2; ++np) {
                 uint32_t bfr[4];
-                frag_b2<false, C::TB::LD16>(bfr, sb, wn + np * 16, s * 16,
-                                            lane);
+                frag_b2<C::TB::LD16>(bfr, sb, wn + np * 16, s * 16, lane);
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
                     mma(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);

@@ -12,11 +12,12 @@ weights the product really multiplies.
 
 Kernel K3 (``ln_qkv``) replaces vit_exp_tpu/ops/fused_proj.py::_fwd_kernel
 (``_fwd_impl``).  CUDA C++, csrc/ln_qkv.cu.  A (M, 768) × (768, 768) product
-at M = 55,296: tensor-core bound (65 GFLOP).  One kernel on the mma.sync
-mainloop of csrc/gemm_mma.cuh (128 × 128 output tiles, a cp.async ring, fp32
-accumulators in registers) whose epilogue applies the LayerNorm correction
-to the q columns only, on the accumulators, so the normalised x never
-reaches device memory.
+at M = 55,296: tensor-core bound (65 GFLOP).  One kernel on the Hopper
+mainloop of csrc/gemm_wgmma.cuh (TMA loads into an mbarrier ring, wgmma with
+fp32 accumulators in registers, 128 × 256 output tiles, a persistent grid)
+whose epilogue applies the LayerNorm correction to the q columns only, on
+the accumulators, and stores by TMA, so the normalised x never reaches
+device memory.
 
 ``LNQKVFn`` makes it differentiable; its backward is plain torch, as the JAX
 package's is (``_core_bwd``).  Training keeps the unfused projections
@@ -34,8 +35,9 @@ grad) has two kernels here, CUDA C++ in csrc/ln_qkv_int8.cu:
   quantization), and writes q = inv·deq and k/v = deq + μ·colsum(Wkv),
   the colsums those of the dequantized weights.  Two stages, each a kernel
   with its plain twin: ``ln_qkv_int8_x`` (the row pass: x8 and s_x) and
-  ``ln_qkv_int8_mm`` (x8·W on the int8 form of gemm_mma.cuh, the
-  dequantization in the epilogue; W goes in transposed, as Wᵀ).  Composed,
+  ``ln_qkv_int8_mm`` (x8·W on the int8 wgmma form of gemm_wgmma.cuh, the
+  dequantization in the epilogue; W goes in transposed, as Wᵀ: 8-bit wgmma
+  reads only index-major operands).  Composed,
   the twins give ``ln_qkv_int8_plain``'s bits.
 - ``proj_int8`` replaces ::_proj_int8_kernel (K14, ``int8_proj``), the
   bias-free W8A8 out-projection: per-token activation scales times
@@ -260,6 +262,34 @@ def ln_qkv_int8_mm_plain(x8, sx, mu, inv, w8t, sc, c, fq: int, fk: int,
     q = inv * deq[:, :fq]
     kv = deq[:, fq:] + mu * c[fq:]
     return q.to(dtype), kv[:, :fk].to(dtype), kv[:, fk:].to(dtype)
+
+
+# the columns of a tile of K12/K13's product kernel (csrc/ln_qkv_int8.cu,
+# MM_COLS) and the chunks its epilogue stores by TMA
+K13_TILE_COLS, K13_STORE_CHUNK = 128, 64
+
+
+def k13_store_routes(f: int, fq: int, fk: int) -> list:
+    """How K12/K13's product kernel stores each of its column tiles, as its
+    epilogue decides (``tile_by_tma`` in csrc/ln_qkv_int8.cu): "tma" (a
+    staging in shared memory, then one TMA store a 64-column chunk, to the
+    map of its output) where every chunk of the tile, up to f, holds
+    columns of one output whose rows are whole 16-byte units (a width that
+    is a multiple of 8), else "registers" (stores straight from the
+    accumulators).  The wrapper's outputs are fresh allocations, so their
+    pointers are 16-byte aligned, which the kernel's host side checks too.
+    At the full width (q, k, v 256 each) every tile goes by TMA; at the
+    tiny configs' (fq 32, f 96) the one tile goes from the registers."""
+    widths = (fq, fk, f - fq - fk)
+    ends = (fq, fq + fk, f)
+    routes = []
+    for n0 in range(0, f, K13_TILE_COLS):
+        tma = True
+        for c0 in range(n0, min(n0 + K13_TILE_COLS, f), K13_STORE_CHUNK):
+            o = 0 if c0 < fq else 1 if c0 < fq + fk else 2
+            tma &= min(c0 + K13_STORE_CHUNK, f) <= ends[o] and widths[o] % 8 == 0
+        routes.append("tma" if tma else "registers")
+    return routes
 
 
 def ln_qkv_int8_mm(x8, sx, mu, inv, w8t, sc, c, fq: int, fk: int,
