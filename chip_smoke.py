@@ -7,9 +7,9 @@
    name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc`` and
    prints ptxas's registers and spills for the GEMM kernels (K2's, K3's,
-   K8's and K12/K13's products on gemm_wgmma.cuh, K12/K13's in its int8
-   form; K11's and K14 on gemm_mma.cuh), the patch embedding and the int8
-   attention (none may spill).
+   K8's, K11's and K12/K13's products and K14 on gemm_wgmma.cuh, K11's,
+   K12/K13's and K14 in its int8 form), the patch embedding (on
+   gemm_mma.cuh) and the int8 attention (none may spill).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
    tokens, width 768; one row per launch counter: K1, K2's three kernels
@@ -923,6 +923,8 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
     xo = randn(m, hd, std=0.3).to(bf)
     wo8, so = geglu_ff.quantize_per_channel(randn(hd, d, std=hd ** -0.5))
     xo8 = geglu_ff.quant_rows(xo)[0]
+    same_bits_twice(lambda: (fused_proj.proj_int8(xo, wo8, so),),
+                    f"K14 over {m} rows")
 
     proj = "vit_exp_tpu_torch/csrc/ln_qkv_int8.cu"
     k13 = "vit_exp_tpu/ops/fused_proj.py:260"
@@ -967,8 +969,8 @@ def int8_kernel_cases(device, arch=ARCH, batch=BATCH, seed=4):
              int_mm_timer("K12/K13's product", x8, qkv_mm[4].t()),
              exact=True),
         Case("K14 W8A8 out-projection (one kernel: the rows quantized "
-             "into shared memory, Wᵀ through a cp.async ring, int8 "
-             "mma.sync)", "cuda", proj,
+             "into shared memory as wgmma's resident A, Wᵀ by TMA through "
+             "an mbarrier ring, int8 wgmma)", "cuda", proj,
              "vit_exp_tpu/ops/fused_proj.py:358",
              lambda: fused_proj.proj_int8(xo, wo8, so),
              lambda: fused_proj.proj_int8_plain(xo, wo8, so), "K14",

@@ -9,15 +9,19 @@ against another checkout's kernels.
 Builds the kernel library of this checkout (``_build.build``) and prints
 ptxas's registers, spills and wgmma notes for the product kernels on
 ``csrc/gemm_wgmma.cuh``: K2's act and out, K8's dh, dy and weight GEMM, K3
-(the LN + q/kv projection, bf16) and K12/K13's product (int8).  At
-production shape (55,296 tokens, D 768, 2I 4,096; K3 and K12/K13 at K = F =
-768 with q 256 columns wide, k and v 256 each) it runs each stage against
-its plain twin (relative L2 ≤ 1e-2; K12/K13's product bit for bit) and
-twice for the same bits, then times it (mean of 20 launches after a
-warm-up, CUDA events) beside its bound (operations at 989 TFLOP/s bf16 or
-1,979 TOP/s int8, or bytes at 3.35 TB/s, the larger) and one library call
-on the same products (torch.mm, torch._int_mm for K12/K13; a yardstick,
-never on the path).  --stages takes a comma-separated subset.
+(the LN + q/kv projection, bf16), K12/K13's product, K11's act and out and
+K14 (int8).  At production shape (55,296 tokens, D 768, 2I 4,096; K3 and
+K12/K13 at K = F = 768 with q 256 columns wide, k and v 256 each; K14 at K
+256, F 768) it runs each stage against its plain twin (relative L2 ≤ 1e-2
+on every output, K11's act also on its partial amaxes; K12/K13's product
+and K14 bit for bit) and twice for the same bits, then times it (mean of
+20 launches after a warm-up, CUDA events) beside its bound (operations at
+989 TFLOP/s bf16 or 1,979 TOP/s int8, or bytes at 3.35 TB/s, the larger)
+and one library call on the same products (torch.mm, torch._int_mm for the
+int8 stages; a yardstick, never on the path).  Beside K14 it times the
+two-kernel alternative on the same library: K12/K13's row pass with μ = 0,
+then its product with inv = 1 and zero column sums, which give K14's bits.
+--stages takes a comma-separated subset.
 
 --parent DIR: the root of another checkout (a ``git archive`` of the parent
 commit, unpacked under ``build/``).  Its ``csrc/`` is built with this
@@ -35,8 +39,10 @@ turns (parent, this, this, parent).
 
 --variants: instead, builds each entry of VARIANTS (a copy of a source
 with some lines rewritten: another tiling, another store path, an
-ablation) into a library of its own and times its stage on the same
-inputs, with its relative L2 against the twin and ptxas's spill bytes.
+ablation; or a design that was not shipped, kept in
+``scripts/gemm_wgmma_variants/``) into a library of its own and times its
+stage on the same inputs, with its relative L2 against the twin and
+ptxas's spill bytes.
 
 Prints the card's name and power limit as nvidia-smi gives them, and one
 JSON line with every number.
@@ -67,9 +73,12 @@ F3, FQ, FK = 768, 256, 256   # K3's and K12/K13's columns: q, k, v
 STAGE_KERNEL = {"K2h": "geglu_ff_h_kernel", "K2o": "geglu_ff_o_kernel",
                 "K8dh": "geglu_bwd_dh_kernel", "K8dy": "geglu_bwd_dy_kernel",
                 "K8w": "wgrad_kernel", "K3": "ln_qkv_kernel",
-                "K13mm": "ln_qkv_int8_mm_kernel"}
+                "K13mm": "ln_qkv_int8_mm_kernel",
+                "K11h": "geglu_int8_h_kernel", "K11o": "geglu_int8_o_kernel",
+                "K14": "proj_int8_kernel"}
 KERNELS = tuple(STAGE_KERNEL.values())
-EXACT = ("K13mm",)   # held to the twin bit for bit
+EXACT = ("K13mm", "K14")   # held to the twin bit for bit
+KP = 256   # K14's depth: 8 heads × 32
 PEAK_BF16, PEAK_INT8, HBM = 989e12, 1979e12, 3.35e12
 RTOL = 1e-2
 
@@ -154,7 +163,26 @@ class Lib:
                                        p["mu3"], p["inv3"], p["w8t"],
                                        p["sc"], p["c8"], p["o_q"], p["o_k"],
                                        p["o_v"], M, D, F3, FQ, FK),
+            "K11h": lambda: self.call("vit_geglu_int8_h", p["y8"], p["sy"],
+                                      p["w1t"], p["s1"], p["o_act32"],
+                                      p["o_part"], M, D, I2),
+            "K11o": lambda: self.call("vit_geglu_int8_o", p["a8"], p["sa"],
+                                      p["w2t"], p["s2"], p["o_out8"], M, D,
+                                      I2),
+            "K14": lambda: self.call("vit_proj_int8_fwd", p["xp"], p["wpt"],
+                                     p["sp"], p["o_p"], M, KP, F3),
         }
+
+    def k14_two_kernels(self, t):
+        """K14's function as two launches of K12/K13's kernels: the row
+        pass with μ = 0 (x − 0 = x), then the product with inv = 1 and zero
+        column sums over three 256-column outputs (1·d = d, d + 0·0 = d)."""
+        p = {k: v.data_ptr() for k, v in t.items() if torch.is_tensor(v)}
+        self.call("vit_ln_qkv_int8_x", p["xp"], p["zeros_m"], p["o_xp8"],
+                  p["o_sxp"], M, KP)
+        self.call("vit_ln_qkv_int8_mm", p["o_xp8"], p["o_sxp"], p["zeros_m"],
+                  p["ones_m"], p["wpt"], p["sp"], p["zeros_f"], p["o_p3q"],
+                  p["o_p3k"], p["o_p3v"], M, KP, F3, FQ, FK)
 
 
 def inputs(device) -> dict:
@@ -188,6 +216,25 @@ def inputs(device) -> dict:
     x8, sx = fused_proj.ln_qkv_int8_x_plain(x3, mu3)
     t.update(x3=x3, mu3=mu3.contiguous(), inv3=inv3.contiguous(), wf=wf,
              c3=c3, x8=x8, sx=sx, w8t=w8.t().contiguous(), sc=sc, c8=c8)
+    # K11's act and out: the operands as geglu_ff_int8 hands them over (W1ᵀ,
+    # W2ᵀ), y8 from x, a8 from the twin's act; K14: the attention output
+    # (M, 256) against a (256, 768) weight, Wᵀ as the wrapper passes it
+    y8, sy = geglu_ff.geglu_ff_int8_y_plain(
+        x, mu, inv, torch.rand(D, generator=g, device=device) + 0.5,
+        0.1 * torch.randn(D, generator=g, device=device))
+    w1q, s1 = geglu_ff.quantize_per_channel(randn(D, I2, std=D ** -0.5))
+    w2q, s2 = geglu_ff.quantize_per_channel(randn(inner, D,
+                                                  std=inner ** -0.5))
+    w1t, s1, w2t = geglu_ff.k11_weights(w1q, s1, w2q)
+    a8, sa = geglu_ff.geglu_ff_int8_q_plain(
+        *geglu_ff.geglu_ff_int8_h_plain(y8, sy, w1t, s1))
+    wp8, sp = geglu_ff.quantize_per_channel(randn(KP, F3, std=KP ** -0.5))
+    t.update(y8=y8, sy=sy, w1t=w1t, s1=s1, a8=a8, sa=sa, w2t=w2t, s2=s2,
+             xp=randn(M, KP, std=0.3), wp8=wp8, wpt=wp8.t().contiguous(),
+             sp=sp, zeros_m=torch.zeros(M, 1, device=device),
+             ones_m=torch.ones(M, 1, device=device),
+             zeros_f=torch.zeros(F3, device=device))
+    t["xp8"] = geglu_ff.quant_rows(t["xp"])[0]
     empty = torch.empty
     t.update(o_act=empty(M, inner, device=device, dtype=bf),
              o_out=empty(M, D, device=device, dtype=bf),
@@ -199,14 +246,24 @@ def inputs(device) -> dict:
              o_q3=empty(M, F3, device=device, dtype=bf),
              o_q=empty(M, FQ, device=device, dtype=bf),
              o_k=empty(M, FK, device=device, dtype=bf),
-             o_v=empty(M, F3 - FQ - FK, device=device, dtype=bf))
+             o_v=empty(M, F3 - FQ - FK, device=device, dtype=bf),
+             o_act32=empty(M, inner, device=device),
+             o_part=empty(M, -(-inner // geglu_ff.AMAX_TILE), device=device),
+             o_out8=empty(M, D, device=device, dtype=bf),
+             o_p=empty(M, F3, device=device, dtype=bf),
+             o_xp8=empty(M, KP, device=device, dtype=torch.int8),
+             o_sxp=empty(M, 1, device=device),
+             o_p3q=empty(M, FQ, device=device, dtype=bf),
+             o_p3k=empty(M, FK, device=device, dtype=bf),
+             o_p3v=empty(M, F3 - FQ - FK, device=device, dtype=bf))
     return t
 
 
 def outputs(t, stage):
     return {"K2h": ("o_act",), "K2o": ("o_out",), "K8dh": ("o_dh", "o_act8"),
             "K8dy": ("o_dy",), "K8w": ("o_dw1", "o_dw2"), "K3": ("o_q3",),
-            "K13mm": ("o_q", "o_k", "o_v")}[stage]
+            "K13mm": ("o_q", "o_k", "o_v"), "K11h": ("o_act32", "o_part"),
+            "K11o": ("o_out8",), "K14": ("o_p",)}[stage]
 
 
 def twins(t) -> dict:
@@ -225,6 +282,11 @@ def twins(t) -> dict:
         "K13mm": list(fused_proj.ln_qkv_int8_mm_plain(
             t["x8"], t["sx"], t["mu3"], t["inv3"], t["w8t"], t["sc"],
             t["c8"], FQ, FK)),
+        "K11h": list(f.geglu_ff_int8_h_plain(t["y8"], t["sy"], t["w1t"],
+                                             t["s1"])),
+        "K11o": [f.geglu_ff_int8_o_plain(t["a8"], t["sa"], t["w2t"],
+                                         t["s2"])],
+        "K14": [fused_proj.proj_int8_plain(t["xp"], t["wp8"], t["sp"])],
     }
 
 
@@ -254,7 +316,10 @@ def bounds(t) -> dict:
            "K8dy": 2 * M * I2 * D / PEAK_BF16,
            "K8w": 2 * M * D * 3 * inner / PEAK_BF16,
            "K3": 2 * M * D * F3 / PEAK_BF16,
-           "K13mm": 2 * M * D * F3 / PEAK_INT8}
+           "K13mm": 2 * M * D * F3 / PEAK_INT8,
+           "K11h": 2 * M * D * I2 / PEAK_INT8,
+           "K11o": 2 * M * inner * D / PEAK_INT8,
+           "K14": 2 * M * KP * F3 / PEAK_INT8}
     nb = {s: sum(t[k].numel() * t[k].element_size() for k in ks) for s, ks in
           {"K2h": ("xn", "w1p", "d1", "o_act"), "K2o": ("act", "w2", "o_out"),
            "K8dh": ("y", "dout", "w1", "w2", "o_dh", "o_act8"),
@@ -262,13 +327,16 @@ def bounds(t) -> dict:
            "K8w": ("y", "dh", "act", "dout", "o_dw1", "o_dw2"),
            "K3": ("x3", "mu3", "inv3", "wf", "c3", "o_q3"),
            "K13mm": ("x8", "sx", "mu3", "inv3", "w8t", "sc", "c8", "o_q",
-                     "o_k", "o_v")}.items()}
+                     "o_k", "o_v"),
+           "K11h": ("y8", "sy", "w1t", "s1", "o_act32", "o_part"),
+           "K11o": ("a8", "sa", "w2t", "s2", "o_out8"),
+           "K14": ("xp", "wpt", "sp", "o_p")}.items()}
     return {s: max(ops[s], nb[s] / HBM) * 1e3 for s in ops}
 
 
 def library_yardsticks(t, stages) -> dict:
     """One library call on each stage's products, the products only:
-    torch.mm (bf16 out), torch._int_mm (int32 out) for K12/K13."""
+    torch.mm (bf16 out), torch._int_mm (int32 out) for the int8 stages."""
     mm = torch.mm
     calls = {
         "K2h": lambda: mm(t["xn"], t["w1p"]),
@@ -278,6 +346,9 @@ def library_yardsticks(t, stages) -> dict:
         "K8w": lambda: (mm(t["y"].t(), t["dh"]), mm(t["act"].t(), t["dout"])),
         "K3": lambda: mm(t["x3"], t["wf"]),
         "K13mm": lambda: torch._int_mm(t["x8"], t["w8t"].t()),
+        "K11h": lambda: torch._int_mm(t["y8"], t["w1t"].t()),
+        "K11o": lambda: torch._int_mm(t["a8"], t["w2t"].t()),
+        "K14": lambda: torch._int_mm(t["xp8"], t["wpt"].t()),
     }
     return {s: cuda_ms(calls[s]) for s in stages}
 
@@ -342,6 +413,18 @@ def stage_trial(parent: Path | None, stages) -> dict:
                 times[s][who].append(cuda_ms(fn))
     lib_ms = library_yardsticks(t, stages)
     bnd = bounds(t)
+    if "K14" in ref:
+        two = lambda: libs["this"].k14_two_kernels(t)   # noqa: E731
+        two()
+        torch.cuda.synchronize()
+        same = torch.equal(torch.cat([t["o_p3q"], t["o_p3k"], t["o_p3v"]],
+                                     dim=1), ref["K14"][0])
+        two_ms = cuda_ms(two)
+        res["rows"]["K14"].update(two_kernels_ms=two_ms,
+                                  two_kernels_bits_of_the_twin=same)
+        print(f"K14's two-kernel alternative (the row pass, then K12/K13's "
+              f"product): {two_ms:.4f} ms, the twin's bits: {same}",
+              flush=True)
     for s in ref:
         row = res["rows"][s]
         row.update({f"{k}_ms": statistics.mean(v) for k, v in times[s].items()},
@@ -415,8 +498,8 @@ def rates(parent: Path) -> dict:
 
 # Variants of one source (a copy rewritten line by line, built alone into a
 # library of its own) and the stage each one times: (label, source,
-# {shipped text: variant text}, stage).  Ablations drop work, so only their
-# time is read.
+# {shipped text: variant text}, stage); a source is a file of csrc/, or a
+# path from the root.  Ablations drop work, so only their time is read.
 K2O_STAGED = """#pragma unroll
         for (int part = 0; part < 2; ++part) {
             out.acquire();"""
@@ -447,6 +530,31 @@ K13_CONVERT_ONLY = """        auto pair = [&](int a0, int a1, int half, int col,
                         float2 c2) {
             return make_float2((float)a0, (float)a1);
         };"""
+K11H_DESIGNS = "scripts/gemm_wgmma_variants/k11_act_designs.cu"
+K11H_TILE_GELU = """                __fadd_rn(1.f, erff(__fmul_rn(g, 0.70710678118654752f))));
+            act[j][e] = __fmul_rn(gelu, val);"""
+K11H_STAGED = """                for (int half = 0; half < 2; ++half)
+                    out.put(col >> 5, wg_row(2 * half), col & 31,
+                            make_float2(act[jj][2 * half],
+                                        act[jj][2 * half + 1]));"""
+K11H_DIRECT = """                for (int half = 0; half < 2; ++half) {
+                    const int row = m0 + wg_row(2 * half);
+                    const int c = n0 + part * H_PART + col;
+                    if (row < M && c < inner)
+                        *reinterpret_cast<float2*>(
+                            act_ptr + (size_t)row * inner + c) =
+                            make_float2(act[jj][2 * half],
+                                        act[jj][2 * half + 1]);
+                }"""
+K14_CODES = """                    if (c >= K) continue;
+                    const bf16* xs = reinterpret_cast<const bf16*>(&raw[b][c8]);
+                    float y[8];"""
+K14_CONSUME = """            consume<PjGemm>(ring, acc, 0, K, codes, PJ_ROWS * STEP_BYTES);"""
+K14_START = """    if (cw == 1 && cw < n)
+        asm volatile("bar.sync 3, %0;\\n" ::"n"(2 * WG_THREADS) : "memory");"""
+K14_HANDOFF = """        if (cw == 0 && i == 0 && n > 1)
+            asm volatile("bar.arrive 3, %0;\\n" ::"n"(2 * WG_THREADS)
+                         : "memory");"""
 VARIANTS = [
     ("K2o shipped", "geglu_ff.cu", {}, "K2o"),
     ("K2o 3 stages", "geglu_ff.cu",
@@ -519,6 +627,67 @@ VARIANTS = [
      "ln_qkv_int8.cu", {K13_EPILOGUE: K13_CONVERT_ONLY}, "K13mm"),
     ("K13mm ablation: no stores (the staging filled, no TMA store)",
      "ln_qkv_int8.cu", {"out.release(maps2, cols, m0);": ""}, "K13mm"),
+    ("K11h shipped", "geglu_ff_int8.cu", {}, "K11h"),
+    ("K11h 4 stages, 64 columns staged at a time", "geglu_ff_int8.cu",
+     {"H_COLS = 128, H_STAGES = 3, H_PART = 128":
+      "H_COLS = 128, H_STAGES = 4, H_PART = 64"}, "K11h"),
+    ("K11h 64 columns (val | gate as N 128), 6 stages", "geglu_ff_int8.cu",
+     {"H_COLS = 128, H_STAGES = 3, H_PART = 128":
+      "H_COLS = 64, H_STAGES = 6, H_PART = 64"}, "K11h"),
+    ("K11h stores from the registers", "geglu_ff_int8.cu",
+     {K11H_STAGED: K11H_DIRECT, "out.release(maps, cols, m0);": "",
+      "float* __restrict__ amax_part, int M, int D, int inner) {":
+      "float* __restrict__ amax_part, float* act_ptr, int M, int D, "
+      "int inner) {",
+      "(const float*)s1, (float*)amax_part, M, D, inner);":
+      "(const float*)s1, (float*)amax_part, (float*)act, M, D, inner);"},
+     "K11h"),
+    ("K11h ping-pong: 128 × (64 | 64) tiles, one consumer each, 3 stages "
+     "a ring", K11H_DESIGNS, {}, "K11h"),
+    ("K11h ping-pong ablation: act = gelu without erf", K11H_DESIGNS,
+     {K11H_TILE_GELU: K11H_TILE_GELU.replace("erff(", "(")}, "K11h"),
+    ("K11h overlapped: 128 × (64 | 64), the epilogue between the next "
+     "tile's k steps", K11H_DESIGNS,
+     {"#define DESIGN 1": "#define DESIGN 2"}, "K11h"),
+    ("K11h overlapped ablation: no epilogue math", K11H_DESIGNS,
+     {"#define DESIGN 1": "#define DESIGN 2",
+      "if (j * ks / HV_G0 != s) continue;": "if (j >= 0) continue;"},
+     "K11h"),
+    ("K11h ablation: act = gelu without erf", "geglu_ff_int8.cu",
+     {"erff(__fmul_rn(g, 0.70710678118654752f))":
+      "__fmul_rn(g, 0.70710678118654752f)"}, "K11h"),
+    ("K11h ablation: no stores (the staging filled, no TMA store)",
+     "geglu_ff_int8.cu", {"out.release(maps, cols, m0);": ""}, "K11h"),
+    ("K11h ablation: the mainloop only (no epilogue)", "geglu_ff_int8.cu",
+     {"consume<HGemm>(ring, h, 0, D);":
+      "consume<HGemm>(ring, h, 0, D);\n        if (D > 0) continue;"},
+     "K11h"),
+    ("K11o shipped", "geglu_ff_int8.cu", {}, "K11o"),
+    ("K11o 3 stages", "geglu_ff_int8.cu",
+     {"O_COLS = 256, O_STAGES = 4, O_PART = 128":
+      "O_COLS = 256, O_STAGES = 3, O_PART = 128"}, "K11o"),
+    ("K11o 128 columns, 6 stages", "geglu_ff_int8.cu",
+     {"O_COLS = 256, O_STAGES = 4, O_PART = 128":
+      "O_COLS = 128, O_STAGES = 6, O_PART = 128"}, "K11o"),
+    ("K11o ablation: no stores (the staging filled, no TMA store)",
+     "geglu_ff_int8.cu", {"out.release(outs, cols, m0);": ""}, "K11o"),
+    ("K11o ablation: the mainloop only (no epilogue)", "geglu_ff_int8.cu",
+     {"consume<OGemm>(ring, acc, 0, inner);":
+      "consume<OGemm>(ring, acc, 0, inner);\n        if (D > 0) continue;"},
+     "K11o"),
+    ("K14 shipped", "ln_qkv_int8.cu", {}, "K14"),
+    ("K14 64 columns, 4 stages a ring", "ln_qkv_int8.cu",
+     {"PJ_ROWS = 64, PJ_COLS = 128, PJ_STAGES = 2":
+      "PJ_ROWS = 64, PJ_COLS = 64, PJ_STAGES = 4"}, "K14"),
+    ("K14 the consumers in step (no half-tile offset)", "ln_qkv_int8.cu",
+     {K14_START: "", K14_HANDOFF: ""}, "K14"),
+    ("K14 ablation: no codes written", "ln_qkv_int8.cu",
+     {K14_CODES: K14_CODES.replace("(c >= K)", "(c >= 0)")}, "K14"),
+    ("K14 ablation: no stores (the staging filled, no TMA store)",
+     "ln_qkv_int8.cu", {"out.release(maps, cols, m0);": ""}, "K14"),
+    ("K14 ablation: no epilogue (the codes and the products only)",
+     "ln_qkv_int8.cu", {K14_CONSUME: K14_CONSUME + "\n            if (K > 0) "
+                        "continue;"}, "K14"),
 ]
 
 
@@ -533,7 +702,7 @@ def variant_trial(stages) -> dict:
 
     def build(i, v):
         label, src, subs, _ = v
-        text = (_build.CSRC / src).read_text()
+        text = (ROOT / src if "/" in src else _build.CSRC / src).read_text()
         for a, b in subs.items():
             if text.count(a) != 1:
                 raise RuntimeError(f"{label}: {a!r} not found once")
@@ -552,7 +721,7 @@ def variant_trial(stages) -> dict:
         spills = [m.group(2) for m in re.finditer(
             r"entry function '(\w+)'[^\n]*\n(?:[^\n]*\n){0,2}?[^\n]*?"
             r"(\d+) bytes spill stores", log)
-            if STAGE_KERNEL[stage] in m.group(1)]
+            if STAGE_KERNEL[stage].removesuffix("_kernel") in m.group(1)]
         st = Lib(lib).stages(t)[stage]
         st()
         torch.cuda.synchronize()

@@ -15,9 +15,9 @@ the patch embedding at the tiny configs' widths (D 48, 2I 256, F 96; K11
 also at 2I 272), the two tiny configs through build_ctclip and a step on
 the kernels, and the refusals past the limits (head dim 72, D 40).  The
 SASS of the built library: K2's, K3's and K8's product kernels issue bf16
-wgmma on TMA loads and no mma.sync, K12/K13's product int8 wgmma on TMA
-loads and no int8 mma.sync; the patch embedding and K14 still issue
-mma.sync.
+wgmma on TMA loads and no mma.sync, K11's two products, K12/K13's product
+and K14 int8 wgmma on TMA loads and no int8 mma.sync; the patch embedding
+and the int8 attention still issue mma.sync.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -594,11 +594,13 @@ def test_k8_refuses_a_width_before_any_launch(dev, d):
 
 
 # the products on the wgmma mainloop of csrc/gemm_wgmma.cuh: K2's, K8's and
-# K3's in bf16, K12/K13's in int8
+# K3's in bf16, K11's two, K12/K13's and K14 in int8 (K14 one instance per
+# 256 columns of K)
 WGMMA_KERNELS = ("geglu_ff_h_kernel", "geglu_ff_o_kernel",
                  "geglu_bwd_dh_kernel", "geglu_bwd_dy_kernel", "wgrad_kernel",
                  "ln_qkv_kernel")
-WGMMA_INT8_KERNELS = ("ln_qkv_int8_mm_kernel",)
+WGMMA_INT8_KERNELS = ("geglu_int8_h_kernel", "geglu_int8_o_kernel",
+                      "ln_qkv_int8_mm_kernel", "proj_int8_kernel")
 
 
 def _sass_all(name, sass):
@@ -620,10 +622,11 @@ def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
     """cuobjdump -sass (beside nvcc) of the built library: each bf16 kernel
     on gemm_wgmma.cuh (K2's two products, K8's three, K3) issues wgmma
     (HGMMA) on operands loaded by TMA (UTMALDG) and no mma.sync (HMMA);
-    K12/K13's product issues int8 wgmma (IGMMA) on TMA loads and no int8
-    mma.sync (IMMA).  The patch embedding (HMMA, no HGMMA) and K14 (IMMA,
-    no IGMMA), still on gemm_mma.cuh, are the witnesses that the check
-    tells the two routes apart in each type."""
+    each int8 one (K11's two products, K12/K13's product, every instance
+    of K14) issues int8 wgmma (IGMMA) on TMA loads and no int8 mma.sync
+    (IMMA).  The patch embedding (HMMA, no HGMMA, on gemm_mma.cuh) and the
+    int8 attention (IMMA through attn_mma.cuh's mma_s8, no IGMMA) are the
+    witnesses that the check tells the two routes apart in each type."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                          capture_output=True, text=True, check=True).stdout
@@ -635,12 +638,12 @@ def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
         assert "HGMMA" in text and "UTMALDG" in text, name
         assert not hmma.search(text), name
     for name in WGMMA_INT8_KERNELS:
-        text = _sass_of(name, sass)
-        assert "IGMMA" in text and "UTMALDG" in text, name
-        assert not imma.search(text), name
+        for text in _sass_all(name, sass):
+            assert "IGMMA" in text and "UTMALDG" in text, name
+            assert not imma.search(text), name
     for text in _sass_all("patch_embed_kernel", sass):
         assert hmma.search(text) and "HGMMA" not in text
-    for text in _sass_all("proj_int8_kernel", sass):
+    for text in _sass_all("flash_static_int8_kernel", sass):
         assert imma.search(text) and "IGMMA" not in text
 
 
@@ -870,6 +873,25 @@ def test_k14_matches_plain(dev, m, k):
     assert out.shape == (m, 768) and torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("m,k,f", [(4113, 32, 48), (4113, 1024, 768),
+                                   (100, 1024, 48), (4113, 400, 96)])
+def test_k14_at_the_edges_of_k(dev, m, k, f):
+    """K14 bit for bit its twin at the widths its codes and ring bound:
+    K 32 (one k step, mostly zero-filled), K 1,024 (eight resident k
+    steps), K 400 (a partial last k step), at rows that are not whole
+    64-row tiles and at F that ends inside a column tile."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = _randn(g, m, k)
+    w8, sc = geglu_ff.quantize_per_channel(
+        torch.randn(k, f, generator=g, device=dev))
+    out = fused_proj.proj_int8(x, w8, sc)
+    again = fused_proj.proj_int8(x, w8, sc)
+    ref = fused_proj.proj_int8_plain(x, w8, sc)
+    torch.cuda.synchronize()
+    assert out.shape == (m, f) and torch.equal(out, ref)
+    assert torch.equal(out, again)
+
+
 def test_k14_refuses_before_any_launch(dev):
     g = torch.Generator(device=dev).manual_seed(12)
     before = fused_proj.proj_int8.launches
@@ -1093,6 +1115,18 @@ def test_k2_k8_k11_at_the_tiny_widths(dev, m):
     test_k8_matches_plain(dev, m, 128, 48)
     for i2 in (256, 272):
         test_k11_matches_plain(dev, m, 48, i2)
+
+
+# I 1,040 is a multiple of 16 but not of the act kernel's 128-column tile:
+# the last tile's val box runs past I, where its map zero-fills (one map
+# over [val | gate] would read gate rows there)
+@pytest.mark.parametrize("m", [50, 4113])
+def test_k11_where_i_ends_inside_an_act_tile(dev, m):
+    test_k11_matches_plain(dev, m, 384, 2080)
+
+
+def test_k11_stages_where_i_ends_inside_an_act_tile(dev):
+    test_k11_stages_match_their_twins(dev, 384, 2080)
 
 
 def test_gemm_stages_at_the_tiny_widths(dev):

@@ -1,5 +1,5 @@
 // PTX helpers of the attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_static_int8.cu) and of gemm_mma.cuh: cp.async copies into a
+// flash_static_int8.cu) and of gemm_mma.cuh (bf16): cp.async copies into a
 // shared-memory ring, ldmatrix fragment loads (int8 rows read as b16 units),
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and m16n8k32 (int8 in,
 // int32 accumulate) and ex2.approx, plus the fragment patterns of a warp's

@@ -13,32 +13,42 @@
 // a token before the second product may start, and a 128-token act tile in
 // fp32 (1 MB at I 2048) fits no SM.  So act goes through device memory in
 // fp32 (no rounding point moves), and K11 is four kernels, each a stage with
-// its plain twin in ops/geglu_ff.py; the products run on the mainloop of
-// gemm_mma.cuh with int8 operands (mma.sync m16n8k32, int32 accumulators in
-// registers, a cp.async ring).  ldmatrix has no .trans for 8-bit data, so
-// both operands are index-major: the wrapper passes W1ᵀ (2I × D) and W2ᵀ
-// (D × I).
+// its plain twin in ops/geglu_ff.py.  The two products run on the int8 form
+// of gemm_wgmma.cuh's Hopper mainloop: a producer warp's TMA loads into an
+// mbarrier ring, two consumer warpgroups on wgmma m64nNk32 s8 with int32
+// accumulators in registers, 128-deep k steps, a persistent grid of one
+// block per SM.  8-bit wgmma reads index-major operands only, so the
+// wrapper passes W1ᵀ (2I × D) and W2ᵀ (D × I).
 //   geglu_int8_y_kernel: y → y8 (M × D) and s_y (M); a row pass, one warp
 //     per token, bytes bound.
-//   geglu_int8_h_kernel: per tile of 128 tokens × 64 inner columns c, val
-//     = y8·W1ᵀ[c]ᵀ and gate = y8·W1ᵀ[I + c]ᵀ (one A tile, two B tiles per
-//     step) in the same lanes; the epilogue converts, scales by s_y then
-//     s_W1, takes the GELU and the product and writes act in fp32 (M × I),
-//     and for each token the amax of its 64 columns: one partial per column
-//     tile, (M, I / 64).  A max is order-free: no atomics, the same bits
-//     from run to run.
+//   geglu_int8_h_kernel: per tile of 128 tokens × H_COLS inner columns c,
+//     one wgmma of N 2·H_COLS reads y8 against the val rows W1ᵀ[c] and the
+//     gate rows W1ᵀ[I + c] (two B tiles side by side, from two tensor maps:
+//     each map ends at I rows, so TMA zero-fills a val box that runs past I
+//     instead of reading gate rows), so val and gate of one (token, column)
+//     sit in one lane.  The epilogue converts, scales by s_y then s_W1,
+//     takes the GELU and the product, and writes act in fp32 (M × I)
+//     through a swizzled staging and TMA stores; each token's amax over
+//     each 64 columns (AMAX_TILE) lies in one quad of lanes (two shuffles):
+//     one partial per 64-column tile, (M, ⌈I / 64⌉).  A max is order-free:
+//     no atomics, the same bits from run to run.
 //   geglu_int8_q_kernel: a row pass, one warp per token: s_a from the
 //     token's partials, then a8 (M × I) from act, read once.
 //   geglu_int8_o_kernel: out = a8·W2 with the epilogue ·s_a·s_W2 → bf16,
-//     128 × 128 tiles.
-// Both products hold 64 accumulators a lane at two blocks of 8 warps per
-// SM.  act costs 453 MB written and read, a8 113 MB (≈ 0.2 ms at 3.35
-// TB/s together).  Any M; D a multiple of 16 and 2I of 32 (int8 rows of
-// y8 and a8 in 16-byte pieces; the wrapper zero-pads I to a multiple of 16
-// where 2I is only a multiple of 16: zero val and gate columns give act 0,
-// which moves neither the amax nor the product) (|y8·W1| ≤ D·127² stays
-// below 2²⁴ up to D 1,040, so the conversion is exact there).
-#include "gemm_mma.cuh"
+//     128 × O_COLS tiles, through a swizzled staging and TMA stores.
+// The epilogues do the twins' fp32 operations in the twins' order without
+// fused multiply-adds, so the products' bits are those of the mma.sync
+// design they replace.  act's epilogue (an erff and seven fp32 operations
+// on each of M·I values) is bound by instruction issue and costs about as
+// much as its products; consumers that run it beside another tile's
+// wgmmas (ping-pong, or slices between the next tile's k steps) measured
+// slower than both consumers sharing each tile (PERF.md).  act costs 453 MB written and read, a8 113 MB (≈ 0.2
+// ms at 3.35 TB/s together).  Any M; D and 2I multiples of 16, I a multiple
+// of 16 (the wrapper zero-pads it: zero val and gate columns give act 0,
+// which moves neither the amax nor the product); every row pitch is then
+// whole 16-byte units, as TMA needs (|y8·W1| ≤ D·127² stays below 2²⁴ up to
+// D 1,040, so the conversion is exact there).
+#include "gemm_wgmma.cuh"
 
 using namespace vit;
 
@@ -46,16 +56,22 @@ namespace {
 
 using s8 = signed char;
 
-// act: 128 tokens × 64 inner columns (AMAX_TILE), two B operands (val and
-// gate rows of W1ᵀ); 8 warps of 32 × 32 per product
-constexpr int AMAX_TILE = 64;
-constexpr int H_TOKENS = 128, H_BK = 128, H_STAGES = 3;
-constexpr int H_WM = 4, H_WN = 2, H_BLOCKS = 2;
-using HCfg = GemmCfg<H_TOKENS, AMAX_TILE, H_BK, H_WM, H_WN, H_STAGES, 2, s8>;
-// out: 128 tokens × 128 output columns; 8 warps of 64 × 32
-constexpr int O_TOKENS = 128, O_COLS = 128, O_BK = 128, O_STAGES = 3;
-constexpr int O_WM = 2, O_WN = 4, O_BLOCKS = 2;
-using OCfg = GemmCfg<O_TOKENS, O_COLS, O_BK, O_WM, O_WN, O_STAGES, 1, s8>;
+// act: 128 tokens × H_COLS inner columns a tile, B = [val | gate] rows of
+// W1ᵀ; act leaves through a staging of 64 × H_PART fp32 a consumer at a
+// time
+constexpr int AMAX_TILE = 64;   // inner columns of one partial amax
+constexpr int H_COLS = 128, H_STAGES = 3, H_PART = 128;
+using HGemm = WgGemm<H_COLS, 2, false, false, s8>;
+using HOut = Staging<H_PART / 32>;
+using HRing = Ring<H_STAGES, HGemm::STAGE_BYTES, 2 * HOut::BYTES>;
+static_assert(H_COLS % AMAX_TILE == 0 && H_COLS % H_PART == 0,
+              "whole partials and parts a tile");
+// out: 128 tokens × 256 output columns, leaving in two halves of 64 × 128
+// a consumer
+constexpr int O_COLS = 256, O_STAGES = 4, O_PART = 128;
+using OGemm = WgGemm<O_COLS, 1, false, false, s8>;
+using OOut = Staging<O_PART / 64>;
+using ORing = Ring<O_STAGES, OGemm::STAGE_BYTES, 2 * OOut::BYTES>;
 constexpr int ROW_WARPS = 8;   // tokens per block of the row passes
 
 // 8 fp32 values from p (32-byte aligned) in two 16-byte loads
@@ -110,86 +126,125 @@ geglu_int8_y_kernel(const bf16* __restrict__ x, const float* __restrict__ mu,
     }
 }
 
-// act and its partial amax for 128 tokens × 64 inner columns; grid
-// (I / 64, tokens / 128)
-__global__ void __launch_bounds__(HCfg::THREADS, H_BLOCKS)
-geglu_int8_h_kernel(const s8* __restrict__ y8, const float* __restrict__ sy,
-                    const s8* __restrict__ w1t, const float* __restrict__ s1,
-                    float* __restrict__ act, float* __restrict__ amax_part,
-                    int M, int D, int inner) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int n0 = blockIdx.x * AMAX_TILE, m0 = blockIdx.y * H_TOKENS;
-    int h[2][HCfg::MT][HCfg::NT][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int mt = 0; mt < HCfg::MT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < HCfg::NT; ++nt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) h[j][mt][nt][e] = 0;
-    const Mat8 w1vg[2] = {{w1t, D, inner, D},
-                          {w1t + (size_t)inner * D, D, inner, D}};
-    gemm_mainloop<HCfg>(h, Mat8{y8, D, M, D}, w1vg, m0, n0, 0, D,
-                        reinterpret_cast<s8*>(smem_raw));
-
-    // the GEGLU on the accumulators, and each lane row's amax
-    float amax[HCfg::MT][2];
-#pragma unroll
-    for (int mt = 0; mt < HCfg::MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            amax[mt][half] = 0.f;
-            const int row = m0 + acc_row<HCfg>(mt, 2 * half);
-            if (row >= M) continue;
-            const float s = sy[row];
-#pragma unroll
-            for (int nt = 0; nt < HCfg::NT; ++nt) {
-                const int col = n0 + acc_col<HCfg>(nt, 0);
-                if (col >= inner) continue;   // inner % 8 == 0
-                float a[2];
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const float val = __fmul_rn(
-                        __fmul_rn((float)h[0][mt][nt][2 * half + e], s),
-                        s1[col + e]);
-                    const float g = __fmul_rn(
-                        __fmul_rn((float)h[1][mt][nt][2 * half + e], s),
-                        s1[inner + col + e]);
-                    const float gelu = __fmul_rn(
-                        __fmul_rn(0.5f, g),
-                        __fadd_rn(1.f,
-                                  erff(__fmul_rn(g, 0.70710678118654752f))));
-                    a[e] = __fmul_rn(gelu, val);
-                    amax[mt][half] = fmaxf(amax[mt][half], fabsf(a[e]));
-                }
-                *reinterpret_cast<float2*>(act + (size_t)row * inner + col) =
-                    make_float2(a[0], a[1]);
+// act and its partial amaxes for tiles of 128 tokens × H_COLS inner
+// columns, column tile fastest (y8 comes from device memory once, W1ᵀ stays
+// in L2)
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+geglu_int8_h_kernel(const __grid_constant__ CUtensorMap y8_map,
+                    const __grid_constant__ CUtensorMap val_map,
+                    const __grid_constant__ CUtensorMap gate_map,
+                    const __grid_constant__ CUtensorMap act_map,
+                    const float* __restrict__ sy, const float* __restrict__ s1,
+                    float* __restrict__ amax_part, int M, int D, int inner) {
+    extern __shared__ unsigned char smem_raw[];
+    HRing ring(smem_raw);
+    ring.init();
+    const int col_tiles = (inner + H_COLS - 1) / H_COLS;
+    const int tiles = (M + TILE_M - 1) / TILE_M * col_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const b[2] = {&val_map, &gate_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int n0 = t % col_tiles * H_COLS;
+                const int b_n0[2] = {n0, n0};
+                produce<HGemm>(ring, &y8_map, t / col_tiles * TILE_M, b, b_n0,
+                               0, D);
             }
         }
-    // a row's amax over the lanes of its quad, then over the WN warps that
-    // share it (through the drained ring)
-    float* red = reinterpret_cast<float*>(smem_raw);   // [WN][128]
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-    for (int mt = 0; mt < HCfg::MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            float v = amax[mt][half];
-            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-            if ((lane & 3) == 0)
-                red[(warp % H_WN) * H_TOKENS + acc_row<HCfg>(mt, 2 * half)] =
-                    v;
-        }
-    __syncthreads();
-    const int r = threadIdx.x;
-    if (r < H_TOKENS && m0 + r < M) {
-        float v = red[r];
-#pragma unroll
-        for (int w = 1; w < H_WN; ++w) v = fmaxf(v, red[w * H_TOKENS + r]);
-        amax_part[(size_t)(m0 + r) * gridDim.x + blockIdx.x] = v;
+        return;
     }
+    consumer_regs();
+    constexpr int G0 = H_COLS / 8;   // the first n8 tile of the gate columns
+    constexpr int PT = AMAX_TILE / 8;   // n8 tiles of one partial amax
+    const int parts = (inner + AMAX_TILE - 1) / AMAX_TILE;
+    const HOut out(ring.extra());
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / col_tiles * TILE_M + consumer_row0();
+        const int n0 = t % col_tiles * H_COLS;
+        // s_y of the lane's two rows, loaded while the products run (a row
+        // past M is not stored)
+        float rs[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+            rs[half] = sy[min(m0 + wg_row(2 * half), M - 1)];
+        int h[HGemm::N / 8][4];
+#pragma unroll
+        for (int j = 0; j < HGemm::N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) h[j][e] = 0;
+        consume<HGemm>(ring, h, 0, D);
+
+        // the GEGLU on the accumulators, in the twin's order without fused
+        // multiply-adds: val and gate of a column are lane-local; columns
+        // past I have zero sums and read zero scales, so their act is 0
+        float act[G0][4], amax[2][H_COLS / AMAX_TILE];
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int p = 0; p < H_COLS / AMAX_TILE; ++p) amax[half][p] = 0.f;
+#pragma unroll
+        for (int j = 0; j < G0; ++j) {
+            const int col = n0 + wg_col(j, 0);
+            float2 sv = make_float2(0.f, 0.f), sg = sv;
+            if (col < inner) {   // inner % 16 == 0
+                sv = *reinterpret_cast<const float2*>(s1 + col);
+                sg = *reinterpret_cast<const float2*>(s1 + inner + col);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float s = rs[e >> 1];
+                const float val = __fmul_rn(__fmul_rn((float)h[j][e], s),
+                                            e & 1 ? sv.y : sv.x);
+                const float g = __fmul_rn(__fmul_rn((float)h[G0 + j][e], s),
+                                          e & 1 ? sg.y : sg.x);
+                const float gelu = __fmul_rn(
+                    __fmul_rn(0.5f, g),
+                    __fadd_rn(1.f, erff(__fmul_rn(g, 0.70710678118654752f))));
+                act[j][e] = __fmul_rn(gelu, val);
+                amax[e >> 1][j / PT] =
+                    fmaxf(amax[e >> 1][j / PT], fabsf(act[j][e]));
+            }
+        }
+        // a row's 64 columns of a partial lie in the quad of lanes that
+        // holds the row
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int p = 0; p < H_COLS / AMAX_TILE; ++p) {
+                float v = amax[half][p];
+                v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+                v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+                const int row = m0 + wg_row(2 * half);
+                const int c0 = n0 + p * AMAX_TILE;
+                if ((threadIdx.x & 3) == 0 && row < M && c0 < inner)
+                    amax_part[(size_t)row * parts + c0 / AMAX_TILE] = v;
+            }
+        // act in parts of H_PART columns through the staging (the stores
+        // drop what lies past M and I)
+#pragma unroll
+        for (int part = 0; part < H_COLS / H_PART; ++part) {
+            out.acquire();
+#pragma unroll
+            for (int j = 0; j < H_PART / 8; ++j) {
+                const int jj = part * H_PART / 8 + j, col = wg_col(j, 0);
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    out.put(col >> 5, wg_row(2 * half), col & 31,
+                            make_float2(act[jj][2 * half],
+                                        act[jj][2 * half + 1]));
+            }
+            const CUtensorMap* maps[H_PART / 32];
+            int cols[H_PART / 32];
+#pragma unroll
+            for (int c = 0; c < H_PART / 32; ++c) {
+                maps[c] = &act_map;
+                cols[c] = n0 + part * H_PART + 32 * c;
+            }
+            out.release(maps, cols, m0);
+        }
+    }
+    out.drain();
 }
 
 // a8 and s_a; one warp per token, lane l takes columns 8(l + 32i) ..
@@ -214,40 +269,86 @@ geglu_int8_q_kernel(const float* __restrict__ act,
     }
 }
 
-// out = bf16(a8·W2 · s_a · s_W2); grid (D / 128, tokens / 128)
-__global__ void __launch_bounds__(OCfg::THREADS, O_BLOCKS)
-geglu_int8_o_kernel(const s8* __restrict__ a8, const float* __restrict__ sa,
-                    const s8* __restrict__ w2t, const float* __restrict__ s2,
-                    bf16* __restrict__ out, int M, int D, int inner) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int n0 = blockIdx.x * O_COLS, m0 = blockIdx.y * O_TOKENS;
-    int acc[1][OCfg::MT][OCfg::NT][4];
-#pragma unroll
-    for (int mt = 0; mt < OCfg::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < OCfg::NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[0][mt][nt][e] = 0;
-    const Mat8 w2m[1] = {{w2t, inner, D, inner}};
-    gemm_mainloop<OCfg>(acc, Mat8{a8, inner, M, inner}, w2m, m0, n0, 0,
-                        inner, reinterpret_cast<s8*>(smem_raw));
-#pragma unroll
-    for (int mt = 0; mt < OCfg::MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int row = m0 + acc_row<OCfg>(mt, 2 * half);
-            if (row >= M) continue;
-            const float s = sa[row];
-#pragma unroll
-            for (int nt = 0; nt < OCfg::NT; ++nt) {
-                const int col = n0 + acc_col<OCfg>(nt, 0);
-                if (col >= D) continue;   // D % 8 == 0
-                const int* c = acc[0][mt][nt] + 2 * half;
-                store_bf16x2(out + (size_t)row * D + col,
-                             __fmul_rn(__fmul_rn((float)c[0], s), s2[col]),
-                             __fmul_rn(__fmul_rn((float)c[1], s), s2[col + 1]));
+// out = bf16((a8·W2)·s_a·s_W2) for tiles of 128 tokens × O_COLS columns,
+// column tile fastest
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+geglu_int8_o_kernel(const __grid_constant__ CUtensorMap a8_map,
+                    const __grid_constant__ CUtensorMap w2t_map,
+                    const __grid_constant__ CUtensorMap out_map,
+                    const float* __restrict__ sa, const float* __restrict__ s2,
+                    int M, int D, int inner) {
+    extern __shared__ unsigned char smem_raw[];
+    ORing ring(smem_raw);
+    ring.init();
+    const int col_tiles = (D + O_COLS - 1) / O_COLS;
+    const int tiles = (M + TILE_M - 1) / TILE_M * col_tiles;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        producer_regs();
+        if (threadIdx.x == 0) {
+            const CUtensorMap* const b[1] = {&w2t_map};
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int b_n0[1] = {t % col_tiles * O_COLS};
+                produce<OGemm>(ring, &a8_map, t / col_tiles * TILE_M, b, b_n0,
+                               0, inner);
             }
         }
+        return;
+    }
+    consumer_regs();
+    const OOut out(ring.extra());
+    const CUtensorMap* outs[O_PART / 64];
+#pragma unroll
+    for (int c = 0; c < O_PART / 64; ++c) outs[c] = &out_map;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / col_tiles * TILE_M + consumer_row0();
+        const int n0 = t % col_tiles * O_COLS;
+        float rs[2];   // s_a of the lane's two rows
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+            rs[half] = sa[min(m0 + wg_row(2 * half), M - 1)];
+        int acc[OGemm::N / 8][4];
+#pragma unroll
+        for (int j = 0; j < OGemm::N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+        consume<OGemm>(ring, acc, 0, inner);
+        // parts of O_PART columns: the part's outputs first, packed, so that
+        // the loads of the column scales are not held behind the staging's
+        // stores (the stores drop what lies past M and D)
+#pragma unroll
+        for (int part = 0; part < O_COLS / O_PART; ++part) {
+            uint32_t y[O_PART / 8][2];
+#pragma unroll
+            for (int j = 0; j < O_PART / 8; ++j) {
+                const int jj = part * O_PART / 8 + j;
+                const int col = n0 + part * O_PART + wg_col(j, 0);
+                float2 s = make_float2(0.f, 0.f);
+                if (col < D)   // D % 16 == 0
+                    s = *reinterpret_cast<const float2*>(s2 + col);
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    y[j][half] = pack_bf16(
+                        __fmul_rn(__fmul_rn((float)acc[jj][2 * half],
+                                            rs[half]), s.x),
+                        __fmul_rn(__fmul_rn((float)acc[jj][2 * half + 1],
+                                            rs[half]), s.y));
+            }
+            out.acquire();
+#pragma unroll
+            for (int j = 0; j < O_PART / 8; ++j) {
+                const int col = wg_col(j, 0);
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    out.put(col >> 6, wg_row(2 * half), col & 63, y[j][half]);
+            }
+            int cols[O_PART / 64];
+#pragma unroll
+            for (int c = 0; c < O_PART / 64; ++c)
+                cols[c] = n0 + part * O_PART + 64 * c;
+            out.release(outs, cols, m0);
+        }
+    }
+    out.drain();
 }
 
 bool shapes_ok(int M, int D, int I2) {
@@ -276,14 +377,23 @@ VIT_API int vit_geglu_int8_h(const void* y8, const void* sy, const void* w1t,
                              int D, int I2, void* stream) {
     if (!shapes_ok(M, D, I2)) return (int)cudaErrorInvalidValue;
     const int inner = I2 / 2;
-    cudaError_t e = allow_smem(geglu_int8_h_kernel, HCfg::SMEM_BYTES);
+    // y8 (M × D) and W1ᵀ's val and gate rows (I × D each) index-major; act
+    // (M × I fp32) in boxes of 64 rows × 32 columns
+    CUtensorMap y8_map, val_map, gate_map, act_map;
+    if (!tma_map<s8>(&y8_map, y8, M, D, D, TILE_M) ||
+        !tma_map<s8>(&val_map, w1t, inner, D, D, H_COLS) ||
+        !tma_map<s8>(&gate_map, (const s8*)w1t + (size_t)inner * D, inner, D,
+                     D, H_COLS) ||
+        !tma_map<float>(&act_map, act, M, inner, inner, 64))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(geglu_int8_h_kernel, HRing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((inner + AMAX_TILE - 1) / AMAX_TILE,
-              (M + H_TOKENS - 1) / H_TOKENS);
-    geglu_int8_h_kernel<<<grid, HCfg::THREADS, HCfg::SMEM_BYTES,
-                          (cudaStream_t)stream>>>(
-        (const s8*)y8, (const float*)sy, (const s8*)w1t, (const float*)s1,
-        (float*)act, (float*)amax_part, M, D, inner);
+    const long long tiles = (long long)((M + TILE_M - 1) / TILE_M) *
+                            ((inner + H_COLS - 1) / H_COLS);
+    geglu_int8_h_kernel<<<persistent_blocks(tiles), GEMM_THREADS,
+                          HRing::SMEM_BYTES, (cudaStream_t)stream>>>(
+        y8_map, val_map, gate_map, act_map, (const float*)sy,
+        (const float*)s1, (float*)amax_part, M, D, inner);
     return (int)cudaGetLastError();
 }
 
@@ -302,12 +412,20 @@ VIT_API int vit_geglu_int8_o(const void* a8, const void* sa, const void* w2t,
                              const void* s2, void* out, int M, int D, int I2,
                              void* stream) {
     if (!shapes_ok(M, D, I2)) return (int)cudaErrorInvalidValue;
-    cudaError_t e = allow_smem(geglu_int8_o_kernel, OCfg::SMEM_BYTES);
+    const int inner = I2 / 2;
+    // a8 (M × I) and W2ᵀ (D × I) index-major; out in boxes of 64 × 64
+    CUtensorMap a8_map, w2t_map, out_map;
+    if (!tma_map<s8>(&a8_map, a8, M, inner, inner, TILE_M) ||
+        !tma_map<s8>(&w2t_map, w2t, D, inner, inner, O_COLS) ||
+        !tma_map(&out_map, out, M, D, D, 64))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(geglu_int8_o_kernel, ORing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((D + O_COLS - 1) / O_COLS, (M + O_TOKENS - 1) / O_TOKENS);
-    geglu_int8_o_kernel<<<grid, OCfg::THREADS, OCfg::SMEM_BYTES,
-                          (cudaStream_t)stream>>>(
-        (const s8*)a8, (const float*)sa, (const s8*)w2t, (const float*)s2,
-        (bf16*)out, M, D, I2 / 2);
+    const long long tiles = (long long)((M + TILE_M - 1) / TILE_M) *
+                            ((D + O_COLS - 1) / O_COLS);
+    geglu_int8_o_kernel<<<persistent_blocks(tiles), GEMM_THREADS,
+                          ORing::SMEM_BYTES, (cudaStream_t)stream>>>(
+        a8_map, w2t_map, out_map, (const float*)sa, (const float*)s2, M, D,
+        inner);
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // GEMM mainloop of the port's products on Hopper's tensor cores (geglu_ff.cu:
 // K2's act and out; geglu_ff_bwd.cu: K8's dh, dy and the weight GEMM;
-// ln_qkv.cu: K3; ln_qkv_int8.cu: K12/K13's product):
+// ln_qkv.cu: K3; ln_qkv_int8.cu: K12/K13's product and K14;
+// geglu_ff_int8.cu: K11's act and out):
 // acc[m, n] += Σ_k A(m, k) · B(k, n) over a block tile of TILE_M rows × N
 // columns, in two forms: bf16 operands with fp32 accumulators (wgmma
 // m64nNk16) and int8 operands with int32 accumulators (m64nNk32, s8 × s8),
@@ -29,9 +30,16 @@
 //   forms have none).  TMA zero-fills a box past a matrix's edge, so M, N
 //   and K are free (an epilogue masks its stores from the registers; TMA
 //   stores clip); the pointer and the pitch must be multiples of 16 bytes.
-// - The B tile of a step is NB tiles of BN columns side by side (K2's and
-//   K8's val and gate columns, from two tensor maps or two column origins),
-//   read by one wgmma of N = NB · BN columns, so the A tile is read once.
+// - The B tile of a step is NB tiles of BN columns side by side (K2's, K8's
+//   and K11's val and gate columns, from two tensor maps or two column
+//   origins), read by one wgmma of N = NB · BN columns, so the A tile is
+//   read once.
+// - A may instead be resident (WgGemm's A_RES: K14): a consumer writes its
+//   rows of A once into shared memory, in the layout a TMA box would give
+//   them (a k step's rows × 128 bytes, one k step after the other), and the
+//   ring carries only B.  Written by st.shared, they need
+//   fence.proxy.async.shared::cta and a warpgroup barrier before the first
+//   wgmma that reads them (the async proxy).
 // - Shared memory, TMA swizzle and wgmma descriptor agree on the 128-byte
 //   swizzle: a k step is 128 bytes deep (WgGemm::STEP_K: 64 bf16 or 128
 //   int8 codes), and every operand tile is made of 8 KB chunks of 64 rows
@@ -47,9 +55,13 @@
 //   sequence, so the producer loads the next tile's first stages while the
 //   consumers run this tile's epilogue.  Mainloops may run in sequence on
 //   one tile (K8's dh: dO·W2ᵀ, then y·W1): the ring's position carries on.
-// - bf16 outputs may leave through a staging tile in shared memory and TMA
-//   stores (Staging), so that the consumers go on to the next tile while
-//   the copies run.
+// - Or each consumer warpgroup has a ring of its own (Ring's RINGS 2, K14),
+//   whose stages it alone reads (one arrival empties a stage), fed by a
+//   producer thread of its own, and walks tiles of its own: the two
+//   consumers then run apart, one's epilogue beside the other's wgmmas.
+// - bf16 or fp32 outputs may leave through a staging tile in shared memory
+//   and TMA stores (Staging), so that the consumers go on to the next tile
+//   while the copies run.
 // - The accumulators are wgmma's m64nN layout (fp32 or s32 alike), which
 //   per n8 tile j is mma.sync's C layout: in a consumer warpgroup, lane l
 //   of warp w, g = l / 4, t = l % 4, holds acc[j][e] at row 16w + g +
@@ -86,18 +98,23 @@ __host__ __device__ constexpr bool regs_fit() {
 
 // One GEMM of a block tile: NB B tiles of BN columns (N = NB · BN for the
 // wgmma), A and B index-major (false) or k-major (true), operands of T
-// (bf16, or signed char: int8 codes with int32 accumulators).
-template <int BN_, int NB_, bool A_KMAJOR_, bool B_KMAJOR_, class T_ = bf16>
+// (bf16, or signed char: int8 codes with int32 accumulators); A from the
+// ring, or resident in shared memory (A_RES, index-major).
+template <int BN_, int NB_, bool A_KMAJOR_, bool B_KMAJOR_, class T_ = bf16,
+          bool A_RES_ = false>
 struct WgGemm {
     using T = T_;
     static constexpr bool S8 = std::is_same<T, signed char>::value;
     using Acc = typename std::conditional<S8, int, float>::type;
     static constexpr int BN = BN_, NB = NB_, N = BN_ * NB_;
     static constexpr bool A_KMAJOR = A_KMAJOR_, B_KMAJOR = B_KMAJOR_;
+    static constexpr bool A_RES = A_RES_;
     static constexpr int STEP_K = STEP_BYTES / (int)sizeof(T);   // k a step
-    static constexpr int A_BYTES = TILE_M * STEP_BYTES;
+    static constexpr int A_BYTES = TILE_M * STEP_BYTES;   // a k step of A
     static constexpr int B_BYTES = BN * STEP_BYTES;
-    static constexpr int STAGE_BYTES = A_BYTES + NB * B_BYTES;
+    // a stage: A's step (unless resident), then the B tiles
+    static constexpr int B_OFFSET = A_RES ? 0 : A_BYTES;
+    static constexpr int STAGE_BYTES = B_OFFSET + NB * B_BYTES;
     // an instruction's move of each descriptor along k, in bytes: 32 bytes
     // of a row index-major (k16 bf16, k32 int8), 16 rows of 128 bytes
     // k-major
@@ -107,6 +124,7 @@ struct WgGemm {
     static_assert(!S8 || (!A_KMAJOR && !B_KMAJOR),
                   "8-bit wgmma has no transpose: int8 operands are "
                   "index-major");
+    static_assert(!A_RES || !A_KMAJOR, "a resident A is index-major");
     static_assert(BN % 64 == 0 && (N == 64 || N == 128 || N == 256),
                   "B tiles of whole 64-column chunks; wgmma N of 64, 128 "
                   "or 256");
@@ -471,28 +489,33 @@ struct WgmmaS8<256> {
 // The ring, the producer's loads, the consumers' mainloop
 // ---------------------------------------------------------------------------
 
-// STAGES stages of STAGE_BYTES in dynamic shared memory (SMEM_BYTES: the
-// stages 1024-aligned, then EXTRA bytes for the epilogue's staging, then a
-// full and an empty mbarrier per stage); each thread of a role keeps its
-// own position (stage, phase) in it
-template <int STAGES_, int STAGE_BYTES_, int EXTRA = 0>
+// RINGS rings of STAGES stages of STAGE_BYTES in dynamic shared memory
+// (SMEM_BYTES: the stages 1024-aligned, then EXTRA bytes for the
+// epilogue's staging, then a full and an empty mbarrier per stage); a Ring
+// object is ring `id` of them, and each thread of a role keeps its own
+// position (stage, phase) in it.  One ring is read by both consumers, two
+// are one a consumer.
+template <int STAGES_, int STAGE_BYTES_, int EXTRA = 0, int RINGS = 1>
 struct Ring {
     static constexpr int STAGES = STAGES_, STAGE_BYTES = STAGE_BYTES_;
     static constexpr int SMEM_BYTES =
-        1024 + STAGES * STAGE_BYTES + EXTRA + 16 * STAGES;
+        1024 + RINGS * STAGES * STAGE_BYTES + EXTRA + 16 * STAGES * RINGS;
     static_assert(STAGE_BYTES % 1024 == 0 && EXTRA % 1024 == 0,
                   "stages and staging keep the swizzle's 1024-byte alignment");
     static_assert(SMEM_BYTES <= 232448, "a block's shared memory on sm_90");
-    uint32_t base, bars;
+    static_assert(RINGS == 1 || RINGS == 2, "one shared ring, or one a consumer");
+    uint32_t area, base, bars;
     int stage = 0;
     uint32_t phase = 0;
 
-    __device__ __forceinline__ explicit Ring(unsigned char* smem)
-        : base((smem_u32(smem) + 1023) & ~1023u),
-          bars(base + STAGES * STAGE_BYTES + EXTRA) {}
+    __device__ __forceinline__ explicit Ring(unsigned char* smem, int id = 0)
+        : area((smem_u32(smem) + 1023) & ~1023u),
+          base(area + id * STAGES * STAGE_BYTES),
+          bars(area + RINGS * STAGES * STAGE_BYTES + EXTRA +
+               16 * STAGES * id) {}
     // the epilogue's staging area
     __device__ __forceinline__ uint32_t extra() const {
-        return base + STAGES * STAGE_BYTES;
+        return area + RINGS * STAGES * STAGE_BYTES;
     }
     __device__ __forceinline__ uint32_t data() const {
         return base + stage * STAGE_BYTES;
@@ -507,14 +530,17 @@ struct Ring {
             phase ^= 1;
         }
     }
-    // the barriers: full takes the producer's arrival (and the loads'
-    // bytes), empty one arrival per consumer warpgroup; every thread of
-    // the block calls it
+    // every ring's barriers: full takes the producer's arrival (and the
+    // loads' bytes), empty one arrival per consumer warpgroup that reads
+    // the ring; every thread of the block calls it
     __device__ __forceinline__ void init() const {
         if (threadIdx.x == 0) {
-            for (int s = 0; s < STAGES; ++s) {
-                mbar_init(bars + 8 * s, 1);
-                mbar_init(bars + 8 * (STAGES + s), 2);
+            const uint32_t all = area + RINGS * STAGES * STAGE_BYTES + EXTRA;
+            for (int s = 0; s < RINGS * STAGES; ++s) {
+                const int r = s / STAGES, i = s % STAGES;
+                mbar_init(all + 16 * STAGES * r + 8 * i, 1);
+                mbar_init(all + 16 * STAGES * r + 8 * (STAGES + i),
+                          RINGS == 1 ? 2 : 1);
             }
             asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
         }
@@ -536,8 +562,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
 }
 
 // The producer's k steps of one GEMM of a tile: A's rows m0 .. through
-// map a, B tile j's columns b_n0[j] .. through map b[j], depth k_begin ..
-// k_end in steps of G::STEP_K.
+// map a (none where A is resident), B tile j's columns b_n0[j] .. through
+// map b[j], depth k_begin .. k_end in steps of G::STEP_K.
 template <class G, class R>
 __device__ __forceinline__ void produce(R& ring, const CUtensorMap* a, int m0,
                                         const CUtensorMap* const (&b)[G::NB],
@@ -548,30 +574,35 @@ __device__ __forceinline__ void produce(R& ring, const CUtensorMap* a, int m0,
         mbar_wait(ring.empty(), ring.phase ^ 1);
         const uint32_t full = ring.full(), st = ring.data();
         mbar_expect_tx(full, G::STAGE_BYTES);
-        load_tile<G::A_KMAJOR, TILE_M>(st, a, m0, k0, full);
+        if constexpr (!G::A_RES)
+            load_tile<G::A_KMAJOR, TILE_M>(st, a, m0, k0, full);
 #pragma unroll
         for (int j = 0; j < G::NB; ++j)
-            load_tile<G::B_KMAJOR, G::BN>(st + G::A_BYTES + j * G::B_BYTES,
+            load_tile<G::B_KMAJOR, G::BN>(st + G::B_OFFSET + j * G::B_BYTES,
                                           b[j], b_n0[j], k0, full);
         ring.advance();
     }
 }
 
 // A consumer warpgroup's k steps of one GEMM of a tile (the producer's
-// steps): acc += its 64 rows of A · the N columns of B.  Returns with every
-// wgmma done and every stage it read released.
+// steps): acc += its 64 rows of A · the N columns of B.  A from the ring
+// (consumer c's rows 64c ..), or resident: the warpgroup's 64 rows of k
+// step s at a_res + s · a_step.  Returns with every wgmma done and every
+// stage it read released.
 template <class G, class R>
 __device__ __forceinline__ void consume(R& ring,
                                         typename G::Acc (&acc)[G::N / 8][4],
-                                        int k_begin, int k_end) {
+                                        int k_begin, int k_end,
+                                        uint32_t a_res = 0, int a_step = 0) {
     const int cw = threadIdx.x / WG_THREADS - 1;   // consumer 0 or 1
     const bool signals = threadIdx.x % WG_THREADS == 0;
     uint32_t held = 0;   // the empty barrier of the stage read a step before
     fence_acc(acc);
     for (int k0 = k_begin; k0 < k_end; k0 += G::STEP_K) {
         mbar_wait(ring.full(), ring.phase);
-        const uint32_t a = ring.data() + cw * CHUNK_BYTES;
-        const uint32_t b = ring.data() + G::A_BYTES;
+        const uint32_t a = G::A_RES ? a_res + k0 / G::STEP_K * a_step
+                                    : ring.data() + cw * CHUNK_BYTES;
+        const uint32_t b = ring.data() + G::B_OFFSET;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < STEP_BYTES / 32; ++kk) {
@@ -626,14 +657,15 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
         : "memory");
 }
 
-// A consumer warpgroup's bf16 outputs of a tile leave through its own
-// staging area: CHUNKS chunks of 64 rows × 64 columns in the 128-byte
-// swizzle, which the accumulator layout writes without bank conflicts (the
-// 8 rows of a store fall on 8 distinct 16-byte units).  One thread then
-// stores each chunk with TMA (cp.async.bulk.tensor, which drops what falls
-// past the matrix's edges, so the stores need no mask) and the warpgroup
-// goes on to its next tile while the copies run; the staging's next use
-// waits only until they have read it.  The ring's EXTRA holds 2 · BYTES.
+// A consumer warpgroup's outputs of a tile leave through its own staging
+// area: CHUNKS chunks of 64 rows × 128 bytes (64 bf16 or 32 fp32 columns)
+// in the 128-byte swizzle, which the accumulator layout writes without bank
+// conflicts (the 8 rows of a store fall on 8 distinct 16-byte units).  One
+// thread then stores each chunk with TMA (cp.async.bulk.tensor, which drops
+// what falls past the matrix's edges, so the stores need no mask) and the
+// warpgroup goes on to its next tile while the copies run; the staging's
+// next use waits only until they have read it.  The ring's EXTRA holds 2 ·
+// BYTES.
 template <int CHUNKS>
 struct Staging {
     static constexpr int BYTES = CHUNKS * CHUNK_BYTES;   // a consumer's
@@ -648,13 +680,25 @@ struct Staging {
             asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         wg_sync();
     }
-    // a bf16 pair (pack_bf16) at (row, col .. col + 1) of chunk c: row <
-    // 64, col even < 64
+    // the address of byte b < 128 of row `row` < 64 of chunk c
+    __device__ __forceinline__ uint32_t at(int c, int row, int b) const {
+        return base + c * CHUNK_BYTES + row * 128 +
+               (((b >> 4) ^ (row & 7)) << 4) + (b & 15);
+    }
+    // a bf16 pair (pack_bf16) at (row, col .. col + 1) of chunk c: col
+    // even < 64
     __device__ __forceinline__ void put(int c, int row, int col,
                                         uint32_t pair) const {
-        const uint32_t addr = base + c * CHUNK_BYTES + row * 128 +
-                              (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(pair)
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at(c, row, 2 * col)),
+                     "r"(pair)
+                     : "memory");
+    }
+    // an fp32 pair at (row, col .. col + 1) of chunk c: col even < 32
+    __device__ __forceinline__ void put(int c, int row, int col,
+                                        float2 pair) const {
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         at(c, row, 4 * col)),
+                     "f"(pair.x), "f"(pair.y)
                      : "memory");
     }
     // every thread of the warpgroup: store chunk c < N at (column col[c],
@@ -702,18 +746,19 @@ inline decltype(&cuTensorMapEncodeTiled) tma_encoder() {
     return encode;
 }
 
-// A TMA map of the row-major matrix p of T (bf16, or signed char: int8
-// codes, copied bit for bit as UINT8), rows × cols at a pitch of ld
-// elements, read or written in boxes of 128 bytes of columns (64 bf16, 128
-// codes) × box_rows rows in the 128-byte swizzle: zero past its edges on
-// loads, clipped on stores.  False where the encoder refuses it (a pointer
-// or pitch off 16 bytes) or cannot be reached.
+// A TMA map of the row-major matrix p of T (bf16, fp32, or signed char:
+// int8 codes, copied bit for bit as UINT8), rows × cols at a pitch of ld
+// elements, read or written in boxes of 128 bytes of columns (64 bf16, 32
+// fp32, 128 codes) × box_rows rows in the 128-byte swizzle: zero past its
+// edges on loads, clipped on stores.  False where the encoder refuses it (a
+// pointer or pitch off 16 bytes) or cannot be reached.
 template <class T = bf16>
 inline bool tma_map(CUtensorMap* map, const void* p, long long rows,
                     long long cols, long long ld, int box_rows) {
     static_assert(std::is_same<T, bf16>::value ||
+                      std::is_same<T, float>::value ||
                       std::is_same<T, signed char>::value,
-                  "bf16 or int8 codes");
+                  "bf16, fp32 or int8 codes");
     const auto encode = tma_encoder();
     if (encode == nullptr) return false;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
@@ -722,8 +767,9 @@ inline bool tma_map(CUtensorMap* map, const void* p, long long rows,
                                (cuuint32_t)box_rows};
     const cuuint32_t step[2] = {1, 1};
     return encode(map,
-                  sizeof(T) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  sizeof(T) == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                  : sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                   2, const_cast<void*>(p), dims, pitch, box, step,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

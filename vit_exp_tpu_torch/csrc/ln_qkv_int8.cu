@@ -38,27 +38,28 @@
 // 16 == 0; any 0 < Fq, 0 < Fk, Fq + Fk < F (TMA zero-fills its loads past
 // M, K and F and clips its stores; the register stores mask).
 //
-// K14's kernel (proj_int8_kernel), one pass: a block owns 64 rows of x
-// (bf16, M × K).  It quantizes them per row (s_x = max|x| / 127) with
-// 16-byte loads, a warp's rows held in its registers eight at a time
-// (their loads in flight together), and writes the codes
-// once into shared memory as plain rows for ldmatrix (pitch K + 16 bytes,
-// K padded with zero codes to whole 128-deep k steps).  Meanwhile a
-// cp.async ring streams Wᵀ (F × K int8, the wrapper's transpose; it stays in
-// L2) in tiles of 128 columns × 128 of depth, gemm_mma.cuh's int8 operand
-// tiles; the products run on mma.sync m16n8k32 with int32 accumulators in
-// registers, and after the last k step of each column tile the epilogue
-// dequantizes them in the twin's order, (acc·s_x)·s_W without FMA, into a
-// staging tile per warp in shared memory (16 rows at a time), which the
-// warp writes out as 16-byte row pieces (bf16x2 stores straight from the accumulators ran
-// 1.5× slower as a whole).  The ring runs on across column tiles, so the
-// next tile's weights arrive during an epilogue.  Bound at M = 55,296,
-// K 256, F 768: 113 MB of x and out (0.034 ms), not its 22 G int8
-// operations.  |acc| ≤ K·127² < 2²⁴, so out equals the twin's bits.  Any
-// M; K % 16 == 0, K ≤ 1024 (the rows and the ring in 227 KB of shared
-// memory), F % 16 == 0 (the last column tile's weights past F are
-// zero-filled, its scales read as 0 and its columns past F not stored).
-#include "gemm_mma.cuh"
+// K14's kernel (proj_int8_kernel), one pass on the int8 form of
+// gemm_wgmma.cuh with A resident, in tiles of 64 rows of x (bf16, M × K) ×
+// all F columns, which a block's two consumer warpgroups take in turns,
+// each from a ring of its own (a persistent grid walks the tiles).  Each
+// warp of a consumer quantizes 16 rows of its tile (s_x = max|x| / 127,
+// up to 16 rows' 16-byte loads in flight) and writes the codes once into
+// shared memory in the layout a TMA box would give them (128-byte swizzle,
+// a k step's 64 rows × 128 bytes after the other), then fences them into
+// the async proxy.  A producer warp per consumer streams Wᵀ (F × K int8,
+// the wrapper's transpose: 8-bit wgmma reads index-major operands only; it
+// stays in L2) by TMA in tiles of PJ_COLS columns × 128 of depth through
+// that consumer's ring.  The consumer walks F's column tiles: wgmma m64nNk32 s8
+// with A from its resident codes, then (acc·s_x)·s_W without FMA, the
+// twin's order, to bf16 through a swizzled staging and TMA stores.  The
+// second consumer starts half a tile late, so that one's quantization runs
+// beside the other's products and stores.  Bound at M = 55,296, K 256, F
+// 768: 113 MB of x and out (0.034 ms), not its 22 G int8 operations.
+// |acc| ≤ K·127² < 2²⁴, so out equals the twin's bits.  Any M; K % 16 ==
+// 0, K ≤ 1024 (two consumers' codes, 128 KB, the rings and the staging in
+// 227 KB of shared memory), F % 16 == 0 (TMA zero-fills Wᵀ past F and K,
+// so codes past K multiply zeros; the scales past F read as 0, and the
+// stores drop the columns past F and the rows past M).
 #include "gemm_wgmma.cuh"
 
 using namespace vit;
@@ -334,200 +335,186 @@ int launch_x(const void* x, const void* mu, void* x8, void* sx, int M, int K,
 // K14
 // ---------------------------------------------------------------------------
 
-// the tile line (scripts/patch_embed_tile_trial.py rewrites it)
-constexpr int PJ_ROWS = 64, PJ_COLS = 128, PJ_BK = 128, PJ_STAGES = 2;
-constexpr int PJ_WM = 2, PJ_WN = 4, PJ_BLOCKS = 3;
-constexpr int PJ_MAX_K = 1024;
-// pitch (bf16) of a warp's staging tile of out: rows of WTN + 8, so the
-// bf16x2 writes of a warp's eight rows fall on distinct banks
-constexpr int PJ_LDO = PJ_COLS / PJ_WN + 8;
-using PjCfg = GemmCfg<PJ_ROWS, PJ_COLS, PJ_BK, PJ_WM, PJ_WN, PJ_STAGES, 1,
-                      s8>;
+// Tiles of PJ_ROWS rows × all F columns, which the two consumers take in
+// turns (tile i of a block to consumer i % 2), each from a ring of its own
+// that producer warp c feeds with Wᵀ's column tiles; each consumer's codes
+// of its tile's rows are resident (room for K up to PJ_MAX_K); out leaves
+// through a staging of PJ_ROWS × PJ_COLS a consumer
+constexpr int PJ_ROWS = 64, PJ_COLS = 128, PJ_STAGES = 2, PJ_MAX_K = 1024;
+using PjGemm = WgGemm<PJ_COLS, 1, false, false, s8, true>;
+using PjOut = Staging<PJ_COLS / 64>;
+constexpr int PJ_CODES = PJ_ROWS * PJ_MAX_K;   // a consumer's codes
+using PjRing = Ring<PJ_STAGES, PjGemm::STAGE_BYTES,
+                    2 * PjOut::BYTES + 2 * PJ_CODES, 2>;
 
-// the depth padded to whole k steps, and the shared memory of a launch
-__host__ __device__ inline int pj_depth(int K) {
-    return (K + PJ_BK - 1) / PJ_BK * PJ_BK;
-}
-int pj_smem(int K) {
-    return PJ_STAGES * PjCfg::TB::ELEMS + PJ_ROWS * (pj_depth(K) + 16) +
-           PJ_ROWS * (int)sizeof(float) +
-           PjCfg::THREADS / 32 * 16 * PJ_LDO * (int)sizeof(bf16);
-}
-
-// out = (x8·W)·s_x·s_W; one block per PJ_ROWS rows; lane l of a row's warp
-// quantizes columns 8(l + 32i) .. + 7 for i < CHUNKS
+// out = (x8·W)·s_x·s_W for tiles of PJ_ROWS rows, all F columns each; lane
+// l of a row's warp quantizes columns 8(l + 32i) .. + 7 for i < CHUNKS
 template <int CHUNKS>
-__global__ void __launch_bounds__(PjCfg::THREADS, PJ_BLOCKS)
-proj_int8_kernel(const bf16* __restrict__ x, const s8* __restrict__ wt,
-                 const float* __restrict__ sc, bf16* __restrict__ out, int M,
-                 int K, int F) {
-    using C = PjCfg;
-    constexpr int NW = C::THREADS / 32;
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+proj_int8_kernel(const bf16* __restrict__ x,
+                 const __grid_constant__ CUtensorMap wt_map,
+                 const __grid_constant__ CUtensorMap out_map,
+                 const float* __restrict__ sc, int M, int K, int F) {
+    extern __shared__ unsigned char smem_raw[];
+    PjRing(smem_raw).init();
+    const int tiles = (M + PJ_ROWS - 1) / PJ_ROWS;
+    const int col_tiles = (F + PJ_COLS - 1) / PJ_COLS;
+    // the block's tiles t_i = blockIdx.x + i · gridDim.x, i < n
+    const int n = (tiles - (int)blockIdx.x + gridDim.x - 1) / gridDim.x;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x < WG_THREADS) {   // the producer: Wᵀ's tiles only
+        producer_regs();
+        if (warp < 2 && lane == 0) {   // warp c feeds consumer c's ring
+            PjRing ring(smem_raw, warp);
+            const CUtensorMap* const b[1] = {&wt_map};
+            for (int i = warp; i < n; i += 2)
+                for (int ct = 0; ct < col_tiles; ++ct) {
+                    const int b_n0[1] = {ct * PJ_COLS};
+                    produce<PjGemm>(ring, nullptr, 0, b, b_n0, 0, K);
+                }
+        }
+        return;
+    }
+    consumer_regs();
     // rows a warp loads at once: RB·CHUNKS 16-byte loads in flight a lane
-    constexpr int RB = CHUNKS == 1 ? 8 : CHUNKS == 2 ? 4 : 2;
-    static_assert(PJ_ROWS % (NW * RB) == 0, "whole batches of rows");
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    const int kp = pj_depth(K), lda = kp + 16;   // row pitch in bytes
-    s8* ring = reinterpret_cast<s8*>(smem_raw);
-    s8* sa = ring + C::STAGES * C::TB::ELEMS;
-    float* srow = reinterpret_cast<float*>(sa + PJ_ROWS * lda);
-    bf16* so = reinterpret_cast<bf16*>(srow + PJ_ROWS) +
-               (threadIdx.x >> 5) * 16 * PJ_LDO;   // the warp's out tile
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int wm = (warp / C::WN) * C::WTM, wn = (warp % C::WN) * C::WTN;
-    const int m0 = blockIdx.x * PJ_ROWS;
-    const int ksteps = kp / PJ_BK;
-    const int total = (F + PJ_COLS - 1) / PJ_COLS * ksteps;
-    const Mat8 w{wt, K, F, K};
-
-    auto issue = [&](int s) {
-        if (s < total) {
-            const int nt = s / ksteps;
-            C::TB::template load<C::THREADS>(
-                ring + (s % C::STAGES) * C::TB::ELEMS, w, nt * PJ_COLS,
-                (s - nt * ksteps) * PJ_BK, K, tid);
-        }
-        cp_async_commit();   // an empty group past the end keeps the count
-    };
+    constexpr int RB = CHUNKS == 1 ? 16 : CHUNKS == 2 ? 8 : 4;
+    const int cw = threadIdx.x / WG_THREADS - 1, w = warp & 3;
+    PjRing ring(smem_raw, cw);
+    const PjOut out(ring.extra());
+    // the consumer's codes: k step s at codes + s · PJ_ROWS · 128
+    const uint32_t codes = ring.extra() + 2 * PjOut::BYTES + cw * PJ_CODES;
+    unsigned char* const codes_p = smem_raw + (codes - smem_u32(smem_raw));
+    const CUtensorMap* maps[PJ_COLS / 64];
 #pragma unroll
-    for (int s = 0; s < C::STAGES - 1; ++s) issue(s);
-
-    // the block's rows, quantized once into sa while the first weight
-    // tiles arrive: a warp loads RB rows at a time (all their loads in
-    // flight together), then reduces and quantizes them; zero codes past K
-    // (to kp) and past M
-    for (int r0 = warp; r0 < PJ_ROWS; r0 += NW * RB) {
-        uint4 raw[RB][CHUNKS];
-        float amax[RB];
+    for (int c = 0; c < PJ_COLS / 64; ++c) maps[c] = &out_map;
+    // consumer 1 starts its first tile's rows when consumer 0 has its
+    // codes (named barrier 3), so that the two run half a tile apart
+    if (cw == 1 && cw < n)
+        asm volatile("bar.sync 3, %0;\n" ::"n"(2 * WG_THREADS) : "memory");
+    for (int i = cw; i < n; i += 2) {
+        const int m0 = (blockIdx.x + i * gridDim.x) * PJ_ROWS;
+        // warp w quantizes rows 16w .. 16w + 15 of the tile, the rows its
+        // lanes hold in the accumulator layout: lane l keeps the scales of
+        // rows 16w + l / 4 and + 8.  The codes may be rewritten: consume
+        // waited for the previous tile's wgmmas.
+        float rs[2];
 #pragma unroll
-        for (int b = 0; b < RB; ++b) {
-            const int gr = m0 + r0 + b * NW;
-            const bf16* xr = x + (size_t)min(gr, M - 1) * K;
-            amax[b] = 0.f;
+        for (int r0 = 0; r0 < 16; r0 += RB) {
+            uint4 raw[RB][CHUNKS];
 #pragma unroll
-            for (int i = 0; i < CHUNKS; ++i) {
-                const int c = 8 * lane + ROW_CHUNK * i;
-                raw[b][i] = make_uint4(0, 0, 0, 0);
-                if (gr < M && c < K)   // K % 16 == 0
-                    raw[b][i] = *reinterpret_cast<const uint4*>(xr + c);
+            for (int b = 0; b < RB; ++b) {
+                const int gr = m0 + 16 * w + r0 + b;
+                const bf16* xr = x + (size_t)min(gr, M - 1) * K;
+#pragma unroll
+                for (int c8 = 0; c8 < CHUNKS; ++c8) {
+                    const int c = 8 * lane + ROW_CHUNK * c8;
+                    raw[b][c8] = make_uint4(0, 0, 0, 0);
+                    if (gr < M && c < K)   // K % 16 == 0
+                        raw[b][c8] = *reinterpret_cast<const uint4*>(xr + c);
+                }
             }
-        }
+            float amax[RB], sr[RB];
 #pragma unroll
-        for (int b = 0; b < RB; ++b) {
+            for (int b = 0; b < RB; ++b) {
+                amax[b] = 0.f;
 #pragma unroll
-            for (int i = 0; i < CHUNKS; ++i) {
-                const bf16* xs = reinterpret_cast<const bf16*>(&raw[b][i]);
+                for (int c8 = 0; c8 < CHUNKS; ++c8) {
+                    const bf16* xs = reinterpret_cast<const bf16*>(&raw[b][c8]);
 #pragma unroll
-                for (int j = 0; j < 8; ++j)
-                    amax[b] = fmaxf(amax[b], fabsf(__bfloat162float(xs[j])));
+                    for (int j = 0; j < 8; ++j)
+                        amax[b] = fmaxf(amax[b], fabsf(__bfloat162float(xs[j])));
+                }
             }
-            const int r = r0 + b * NW;
-            const float sr = quant_scale(warp_max(amax[b]));
-            if (lane == 0) srow[r] = sr;
-            s8* dst = sa + r * lda;
 #pragma unroll
-            for (int i = 0; i < CHUNKS; ++i) {
-                const int c = 8 * lane + ROW_CHUNK * i;
-                if (c >= K) continue;
-                const bf16* xs = reinterpret_cast<const bf16*>(&raw[b][i]);
-                float y[8];
-#pragma unroll
-                for (int j = 0; j < 8; ++j) y[j] = __bfloat162float(xs[j]);
-                *reinterpret_cast<uint2*>(dst + c) = quant8x8(y, sr);
+            for (int b = 0; b < RB; ++b) {
+                sr[b] = quant_scale(warp_max(amax[b]));
+                const int rr = r0 + b;   // the row within the warp's 16
+                if (lane >> 2 == (rr & 7)) rs[rr >> 3] = sr[b];
             }
-            for (int c = K + 8 * lane; c < kp; c += 256)
-                *reinterpret_cast<uint2*>(dst + c) = make_uint2(0, 0);
-        }
-    }
-
-    int acc[C::MT][C::NT][4];
+            // row r's k step c / 128 at codes_p + (c / 128)·PJ_ROWS·128,
+            // its 16-byte unit swizzled (the layout of a TMA box)
 #pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt)
+            for (int b = 0; b < RB; ++b) {
+                const int r = 16 * w + r0 + b;
 #pragma unroll
-        for (int nt = 0; nt < C::NT; ++nt)
+                for (int c8 = 0; c8 < CHUNKS; ++c8) {
+                    const int c = 8 * lane + ROW_CHUNK * c8;
+                    if (c >= K) continue;
+                    const bf16* xs = reinterpret_cast<const bf16*>(&raw[b][c8]);
+                    float y[8];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-    const bf16* sa16 = reinterpret_cast<const bf16*>(sa);
-    const int lda16 = lda / 2;
-    for (int s = 0; s < total; ++s) {
-        cp_async_wait<C::STAGES - 2>();   // this thread's copies of step s
-        __syncthreads();   // copies and codes visible; the oldest stage free
-        issue(s + C::STAGES - 1);
-        const int tile = s / ksteps, ks = s - tile * ksteps;
-        const bf16* sb = reinterpret_cast<const bf16*>(
-            ring + (s % C::STAGES) * C::TB::ELEMS);
-#pragma unroll
-        for (int kk = 0; kk < C::BK16; kk += 16) {
-            uint32_t af[C::MT][4];
-            const int ka = ks * (PJ_BK / 2) + kk;   // in b16 units
-#pragma unroll
-            for (int mt = 0; mt < C::MT; ++mt)
-                ldsm_x4(af[mt], sa16 + (wm + mt * 16 + (lane & 15)) * lda16 +
-                                    ka + ((lane >> 4) << 3));
-#pragma unroll
-            for (int np = 0; np < C::NT / 2; ++np) {
-                uint32_t bfr[4];
-                frag_b2<C::TB::LD16>(bfr, sb, wn + np * 16, kk, lane);
-#pragma unroll
-                for (int mt = 0; mt < C::MT; ++mt) {
-                    mma_s8(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-                    mma_s8(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
+                    for (int j = 0; j < 8; ++j) y[j] = __bfloat162float(xs[j]);
+                    *reinterpret_cast<uint2*>(
+                        codes_p + (c >> 7) * (PJ_ROWS * STEP_BYTES) +
+                        r * 128 + ((((c & 127) >> 4) ^ (r & 7)) << 4) +
+                        (c & 15)) = quant8x8(y, sr[b]);
                 }
             }
         }
-        if (ks != ksteps - 1) continue;
-        // the column tile is done: per m16 tile, dequantize in the twin's
-        // order into the warp's staging tile, then write its 16 rows as
-        // 16-byte pieces
-        constexpr int ROW_CHUNKS = C::WTN / 8;   // 16-byte chunks of a row
+        // the codes, written by st.shared, reach the async proxy that
+        // wgmma reads through
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wg_sync();
+        if (cw == 0 && i == 0 && n > 1)
+            asm volatile("bar.arrive 3, %0;\n" ::"n"(2 * WG_THREADS)
+                         : "memory");
+        for (int ct = 0; ct < col_tiles; ++ct) {
+            const int n0 = ct * PJ_COLS;
+            int acc[PjGemm::N / 8][4];
 #pragma unroll
-        for (int mt = 0; mt < C::MT; ++mt) {
+            for (int j = 0; j < PjGemm::N / 8; ++j)
 #pragma unroll
-            for (int nt = 0; nt < C::NT; ++nt) {
-                const int cl = nt * 8 + 2 * (lane & 3);   // in the warp's tile
-                const int col = tile * PJ_COLS + wn + cl;   // F % 16 == 0
-                const float2 s2 =
-                    col < F ? *reinterpret_cast<const float2*>(sc + col)
-                            : make_float2(0.f, 0.f);
+                for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+            consume<PjGemm>(ring, acc, 0, K, codes, PJ_ROWS * STEP_BYTES);
+            // the outputs first, packed, then the staging (the stores drop
+            // what lies past M and F)
+            uint32_t y[PJ_COLS / 8][2];
 #pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const int rl = half * 8 + (lane >> 2);
-                    int* a = acc[mt][nt] + 2 * half;
-                    const float sr = srow[wm + mt * 16 + rl];
-                    store_bf16x2(
-                        so + rl * PJ_LDO + cl,
-                        __fmul_rn(__fmul_rn((float)a[0], sr), s2.x),
-                        __fmul_rn(__fmul_rn((float)a[1], sr), s2.y));
-                    a[0] = a[1] = 0;
-                }
+            for (int j = 0; j < PJ_COLS / 8; ++j) {
+                const int col = n0 + wg_col(j, 0);
+                float2 s = make_float2(0.f, 0.f);
+                if (col < F)   // F % 16 == 0
+                    s = *reinterpret_cast<const float2*>(sc + col);
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    y[j][half] = pack_bf16(
+                        __fmul_rn(__fmul_rn((float)acc[j][2 * half], rs[half]),
+                                  s.x),
+                        __fmul_rn(
+                            __fmul_rn((float)acc[j][2 * half + 1], rs[half]),
+                            s.y));
             }
-            __syncwarp();
+            out.acquire();
 #pragma unroll
-            for (int i = 0; i < 16 * ROW_CHUNKS / 32; ++i) {
-                const int c = lane + 32 * i, rl = c / ROW_CHUNKS;
-                const int cc = (c - rl * ROW_CHUNKS) * 8;
-                const int gr = m0 + wm + mt * 16 + rl;
-                const int col = tile * PJ_COLS + wn + cc;
-                if (gr < M && col < F)
-                    *reinterpret_cast<uint4*>(out + (size_t)gr * F + col) =
-                        *reinterpret_cast<const uint4*>(so + rl * PJ_LDO +
-                                                        cc);
+            for (int j = 0; j < PJ_COLS / 8; ++j) {
+                const int col = wg_col(j, 0);
+#pragma unroll
+                for (int half = 0; half < 2; ++half)
+                    out.put(col >> 6, wg_row(2 * half), col & 63, y[j][half]);
             }
-            __syncwarp();   // the staging tile is free again
+            int cols[PJ_COLS / 64];
+#pragma unroll
+            for (int c = 0; c < PJ_COLS / 64; ++c) cols[c] = n0 + 64 * c;
+            out.release(maps, cols, m0);
         }
     }
+    out.drain();
 }
 
 template <int CHUNKS>
 int launch_proj(const void* x, const void* wt, const void* sc, void* out,
                 int M, int K, int F, void* stream) {
-    const int smem = pj_smem(K);
-    cudaError_t e = allow_smem(proj_int8_kernel<CHUNKS>, smem);
+    // Wᵀ (F × K) index-major; out (M × F) in boxes of 64 × 64
+    CUtensorMap wt_map, out_map;
+    if (!tma_map<s8>(&wt_map, wt, F, K, K, PJ_COLS) ||
+        !tma_map(&out_map, out, M, F, F, 64))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(proj_int8_kernel<CHUNKS>, PjRing::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     proj_int8_kernel<CHUNKS>
-        <<<(unsigned)((M + PJ_ROWS - 1) / PJ_ROWS), PjCfg::THREADS, smem,
-           (cudaStream_t)stream>>>((const bf16*)x, (const s8*)wt,
-                                   (const float*)sc, (bf16*)out, M, K, F);
+        <<<persistent_blocks((M + PJ_ROWS - 1) / PJ_ROWS), GEMM_THREADS,
+           PjRing::SMEM_BYTES, (cudaStream_t)stream>>>(
+            (const bf16*)x, wt_map, out_map, (const float*)sc, M, K, F);
     return (int)cudaGetLastError();
 }
 

@@ -186,7 +186,7 @@ patch_embed_kernel(const PeArgs a) {
             uint32_t af[MT][4];
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
-                frag_a<TA::LD16>(af[mt], sa, wm + mt * 16, s * 16, lane);
+                frag_a<TA::LD>(af[mt], sa, wm + mt * 16, s * 16, lane);
                 if (mt == wq) {
                     const uint32_t a2[4] = {
                         sq_bf16x2(af[mt][0]), sq_bf16x2(af[mt][1]),
@@ -198,7 +198,7 @@ patch_embed_kernel(const PeArgs a) {
 #pragma unroll
             for (int np = 0; np < NT / 2; ++np) {
                 uint32_t bfr[4];
-                frag_b2<C::TB::LD16>(bfr, sb, wn + np * 16, s * 16, lane);
+                frag_b2<C::TB::LD>(bfr, sb, wn + np * 16, s * 16, lane);
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
                     mma(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);

@@ -41,11 +41,13 @@ grad) has two kernels here, CUDA C++ in csrc/ln_qkv_int8.cu:
   the twins give ``ln_qkv_int8_plain``'s bits.
 - ``proj_int8`` replaces ::_proj_int8_kernel (K14, ``int8_proj``), the
   bias-free W8A8 out-projection: per-token activation scales times
-  per-channel weight scales.  One kernel: a block owns 128 token rows,
-  quantizes them once into shared memory, and streams Wᵀ (transposed per
-  call, as for K12/K13) through a cp.async ring into int8 mma.sync
-  products (m16n8k32, int32 accumulators in registers) whose epilogue
-  dequantizes in the twin's order; its output equals the twin's bits.
+  per-channel weight scales.  One kernel on the int8 form of
+  gemm_wgmma.cuh: each of a block's two consumer warpgroups takes tiles of
+  64 token rows in turn, quantizes them once into shared memory in the
+  layout wgmma reads, and streams Wᵀ (transposed per call, as for K12/K13)
+  by TMA through a ring of its own into wgmma m64nNk32 s8 products (int32
+  accumulators in registers) whose epilogue dequantizes in the twin's
+  order; its output equals the twin's bits.
 At M = 55,296 both are bound by the bytes of x and of the outputs (171 MB
 and 113 MB), not by their 65 and 22 G int8 operations.
 """
@@ -367,8 +369,9 @@ def proj_int8_plain(x2, w8, sc):
 
 def proj_int8(x2, w8, sc):
     """Kernel K14 on CUDA tensors, the plain version on CPU tensors.  The
-    kernel takes W transposed (F × K: ldmatrix has no .trans for 8-bit
-    data) and K up to 1024 (its rows and ring share 227 KB)."""
+    kernel takes W transposed (F × K: 8-bit wgmma reads index-major operands
+    only) and K up to 1024 (its resident codes, ring and staging share 227
+    KB)."""
     if x2.device.type == "cpu":
         return proj_int8_plain(x2, w8, sc)
     _build.require_cuda("proj_int8", x2, w8, sc)

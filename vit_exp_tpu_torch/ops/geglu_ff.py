@@ -53,15 +53,17 @@ the int8 tensor cores.  Its rounding points differ from K2's: y = x̂·γ + β
 stays fp32 and is quantized per token, h = acc·s_y·s_W1 stays fp32, act =
 gelu_erf(gate)·val stays fp32 and is quantized per token over its whole
 I-wide row, so the second product starts only once every column of a
-token's act is known; the output is rounded once.  Four stages on the int8
-GEMM mainloop (mma.sync m16n8k32), each a kernel with its plain twin here
+token's act is known; the output is rounded once.  Four stages, the two
+products on the int8 form of the Hopper mainloop of csrc/gemm_wgmma.cuh
+(TMA loads, wgmma m64nNk32 s8), each a kernel with its plain twin here
 (composed by ``geglu_ff_int8``; ``geglu_ff_int8_plain`` stays the one-pass
 oracle): ``geglu_ff_int8_y`` (y → codes y8 and scale s_y),
 ``geglu_ff_int8_h`` (act in fp32 through device memory, and each token's
 amax per AMAX_TILE columns), ``geglu_ff_int8_q`` (s_a from the partials,
 codes a8) and ``geglu_ff_int8_o`` (a8@W2 · s_a · s_W2).  The int8 operands
-are index-major: the weights go in transposed, W1ᵀ (2I, D) and W2ᵀ (D, I),
-made per call next to the per-call quantization.  D and 2I multiples of 16;
+are index-major (8-bit wgmma has no transpose): the weights go in
+transposed, W1ᵀ (2I, D) and W2ᵀ (D, I), made per call next to the per-call
+quantization.  D and 2I multiples of 16;
 the stages' int8 rows of a8 need I a multiple of 16, so where it is not,
 ``geglu_ff_int8`` zero-pads the val and gate columns of W1 and the rows of
 W2 to the next one (exact: a zero column's act is 0, which moves neither
