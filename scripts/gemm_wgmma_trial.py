@@ -10,7 +10,8 @@ Builds the kernel library of this checkout (``_build.build``) and prints
 ptxas's registers, spills and wgmma notes for the product kernels on
 ``csrc/gemm_wgmma.cuh``: K2's act and out, K8's dh, dy and weight GEMM, K3
 (the LN + q/kv projection, bf16), K12/K13's product, K11's act and out and
-K14 (int8).  At production shape (55,296 tokens, D 768, 2I 4,096; K3 and
+K14 (int8), and the attention backward pair of ``csrc/flash_bwd.cu`` (its
+PTX pieces live in ``gemm_wgmma.cuh``).  At production shape (55,296 tokens, D 768, 2I 4,096; K3 and
 K12/K13 at K = F = 768 with q 256 columns wide, k and v 256 each; K14 at K
 256, F 768) it runs each stage against its plain twin (relative L2 ≤ 1e-2
 on every output, K11's act also on its partial amaxes; K12/K13's product
@@ -21,6 +22,13 @@ and one library call on the same products (torch.mm, torch._int_mm for the
 int8 stages; a yardstick, never on the path).  Beside K14 it times the
 two-kernel alternative on the same library: K12/K13's row pass with μ = 0,
 then its product with inv = 1 and zero column sums, which give K14's bits.
+The pair's stages (dKdV32, dQ32, dKdV64, dQ64; a trailing c: over the K15
+route's 13,826 keys, 2 nulls concatenated in front, else the static
+route's 13,824) run at batch 4, 8 heads, 13,824 queries on heads-last
+(b, n, h, d) views, lse from K15 with lse, against the plain backward twin
+(relative L2 ≤ 1e-2), with their bound (tensor-core operations, or one exp
+per logit at 16 per clock per SM at clocks.max.sm, or bytes) and one SDPA
+backward (forward and backward, less the forward) as the yardstick.
 --stages takes a comma-separated subset.
 
 --parent DIR: the root of another checkout (a ``git archive`` of the parent
@@ -67,6 +75,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from vit_exp_tpu_torch.ops import _build, fused_proj, geglu_ff  # noqa: E402
+from vit_exp_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 M, D, I2 = 55_296, 768, 4_096
 F3, FQ, FK = 768, 256, 256   # K3's and K12/K13's columns: q, k, v
@@ -76,6 +85,14 @@ STAGE_KERNEL = {"K2h": "geglu_ff_h_kernel", "K2o": "geglu_ff_o_kernel",
                 "K13mm": "ln_qkv_int8_mm_kernel",
                 "K11h": "geglu_int8_h_kernel", "K11o": "geglu_int8_o_kernel",
                 "K14": "proj_int8_kernel"}
+# the backward pair: (kernel, head dim, over the K15 route's nulls)
+ATTN_STAGES = {f"{kind}{d}{'c' if cat else ''}": (kind, d, cat)
+               for kind in ("dKdV", "dQ") for d in (32, 64)
+               for cat in (False, True)}
+STAGE_KERNEL.update({s: "flash_bwd_dkv_kernel" if kind == "dKdV"
+                     else "flash_bwd_dq_kernel"
+                     for s, (kind, _, _) in ATTN_STAGES.items()})
+BATCH, HEADS, NQ, N_NULL = 4, 8, 13_824, 2
 KERNELS = tuple(STAGE_KERNEL.values())
 EXACT = ("K13mm", "K14")   # held to the twin bit for bit
 KP = 256   # K14's depth: 8 heads × 32
@@ -171,7 +188,23 @@ class Lib:
                                       I2),
             "K14": lambda: self.call("vit_proj_int8_fwd", p["xp"], p["wpt"],
                                      p["sp"], p["o_p"], M, KP, F3),
+            **{s: self.pair(t, kind, attn_prefix(d, cat))
+               for s, (kind, d, cat) in ATTN_STAGES.items()
+               if attn_prefix(d, cat) + "q" in t},
         }
+
+    def pair(self, t, kind, pre):
+        """One kernel of the backward pair through its C entry point."""
+        q, k, v, o = (t[pre + n] for n in ("q", "k", "v", "dout"))
+        outs = [t[pre + n] for n in (("dk", "dv") if kind == "dKdV"
+                                     else ("dq",))]
+        strides = [s for x in (q, k, v, o, *outs) for s in x.stride()[:3]]
+        b, h, nq, d = q.shape
+        name = "vit_flash_bwd_dkv" if kind == "dKdV" else "vit_flash_bwd_dq"
+        ptrs = [x.data_ptr() for x in (q, k, v, o, t[pre + "lse"],
+                                       t[pre + "delta"], *outs)]
+        return lambda: self.call(name, *ptrs, *strides, b, h, nq, k.shape[2],
+                                 d, t[pre + "scale"])
 
     def k14_two_kernels(self, t):
         """K14's function as two launches of K12/K13's kernels: the row
@@ -183,6 +216,48 @@ class Lib:
         self.call("vit_ln_qkv_int8_mm", p["o_xp8"], p["o_sxp"], p["zeros_m"],
                   p["ones_m"], p["wpt"], p["sp"], p["zeros_f"], p["o_p3q"],
                   p["o_p3k"], p["o_p3v"], M, KP, F3, FQ, FK)
+
+
+def attn_prefix(d, cat) -> str:
+    return f"a{d}{'c' if cat else ''}_"
+
+
+def attn_inputs(device, t, stages) -> None:
+    """The pair's operands for each (head dim, route) among stages, into t:
+    q, k, v and dO as heads-last (b, n, h, d) views (k and v contiguous
+    after the nulls' concatenation on the K15 route), lse from K15 with
+    lse, δ = rowsum(dO ⊙ O), and the outputs laid out as the wrappers
+    leave them."""
+    g = torch.Generator(device=device).manual_seed(23)
+    bf = torch.bfloat16
+
+    def heads(n, d, std=1.0, unit=False):
+        x = torch.randn(BATCH, n, HEADS, d, generator=g, device=device) * std
+        if unit:
+            x = x / x.norm(dim=-1, keepdim=True)
+        return x.to(bf).transpose(1, 2)
+
+    for d, cat in sorted({ATTN_STAGES[s][1:] for s in stages
+                          if s in ATTN_STAGES}):
+        pre = attn_prefix(d, cat)
+        q, k, v = heads(NQ, d, unit=True), heads(NQ, d, unit=True), heads(NQ, d)
+        if cat:
+            nk = torch.randn(HEADS, N_NULL, d, generator=g, device=device)
+            nk = (nk / nk.norm(dim=-1, keepdim=True)).to(bf)
+            nv = torch.randn(HEADS, N_NULL, d, generator=g,
+                             device=device).to(bf)
+            k = torch.cat([nk[None].expand(BATCH, -1, -1, -1), k], dim=2)
+            v = torch.cat([nv[None].expand(BATCH, -1, -1, -1), v], dim=2)
+        scale = d ** -0.5
+        dout = heads(NQ, d, std=1e-3)
+        with torch.no_grad():
+            out, lse = fa.attention_online(q, k, v, scale, save_lse=True)
+        delta = (dout.float() * out.float()).sum(-1)
+        t.update({pre + "q": q, pre + "k": k, pre + "v": v,
+                  pre + "dout": dout, pre + "lse": lse, pre + "delta": delta,
+                  pre + "scale": scale, pre + "dq": fa._heads_last_like(q),
+                  pre + "dk": fa._heads_last_like(k),
+                  pre + "dv": fa._heads_last_like(v)})
 
 
 def inputs(device) -> dict:
@@ -260,34 +335,52 @@ def inputs(device) -> dict:
 
 
 def outputs(t, stage):
+    if stage in ATTN_STAGES:
+        kind, d, cat = ATTN_STAGES[stage]
+        pre = attn_prefix(d, cat)
+        return (pre + "dk", pre + "dv") if kind == "dKdV" else (pre + "dq",)
     return {"K2h": ("o_act",), "K2o": ("o_out",), "K8dh": ("o_dh", "o_act8"),
             "K8dy": ("o_dy",), "K8w": ("o_dw1", "o_dw2"), "K3": ("o_q3",),
             "K13mm": ("o_q", "o_k", "o_v"), "K11h": ("o_act32", "o_part"),
             "K11o": ("o_out8",), "K14": ("o_p",)}[stage]
 
 
-def twins(t) -> dict:
-    """Each stage's plain outputs, in the order of outputs()."""
+def twins(t, stages) -> dict:
+    """Each of stages' plain outputs, in the order of outputs()."""
     f = geglu_ff
-    return {
-        "K2h": [f.geglu_ff_h_plain(t["xn"], t["w1p"], t["d1"])],
-        "K2o": [f.geglu_ff_o_plain(t["act"], t["w2"])],
-        "K8dh": list(f.geglu_bwd_dh_plain(t["y"], t["dout"], t["w1"],
-                                          t["w2"])),
-        "K8dy": [f.geglu_bwd_dy_plain(t["dh"], t["w1"])],
-        "K8w": [f.wgrad_partials_plain(t["y"], t["dh"], *t["plans"][0]),
-                f.wgrad_partials_plain(t["act"], t["dout"], *t["plans"][1])],
-        "K3": [fused_proj.ln_qkv_plain(t["x3"], t["mu3"], t["inv3"], t["wf"],
-                                       t["c3"], FQ)],
-        "K13mm": list(fused_proj.ln_qkv_int8_mm_plain(
+    pairs = {}
+
+    def pair(stage):
+        kind, d, cat = ATTN_STAGES[stage]
+        pre = attn_prefix(d, cat)
+        if pre not in pairs:
+            pairs[pre] = fa.attention_bwd_plain(*(t[pre + n] for n in (
+                "q", "k", "v", "dout", "lse", "delta", "scale")))
+        dq, dk, dv = pairs[pre]
+        return [dk, dv] if kind == "dKdV" else [dq]
+
+    calls = {
+        "K2h": lambda: [f.geglu_ff_h_plain(t["xn"], t["w1p"], t["d1"])],
+        "K2o": lambda: [f.geglu_ff_o_plain(t["act"], t["w2"])],
+        "K8dh": lambda: list(f.geglu_bwd_dh_plain(t["y"], t["dout"],
+                                                  t["w1"], t["w2"])),
+        "K8dy": lambda: [f.geglu_bwd_dy_plain(t["dh"], t["w1"])],
+        "K8w": lambda: [
+            f.wgrad_partials_plain(t["y"], t["dh"], *t["plans"][0]),
+            f.wgrad_partials_plain(t["act"], t["dout"], *t["plans"][1])],
+        "K3": lambda: [fused_proj.ln_qkv_plain(t["x3"], t["mu3"], t["inv3"],
+                                               t["wf"], t["c3"], FQ)],
+        "K13mm": lambda: list(fused_proj.ln_qkv_int8_mm_plain(
             t["x8"], t["sx"], t["mu3"], t["inv3"], t["w8t"], t["sc"],
             t["c8"], FQ, FK)),
-        "K11h": list(f.geglu_ff_int8_h_plain(t["y8"], t["sy"], t["w1t"],
-                                             t["s1"])),
-        "K11o": [f.geglu_ff_int8_o_plain(t["a8"], t["sa"], t["w2t"],
-                                         t["s2"])],
-        "K14": [fused_proj.proj_int8_plain(t["xp"], t["wp8"], t["sp"])],
+        "K11h": lambda: list(f.geglu_ff_int8_h_plain(t["y8"], t["sy"],
+                                                     t["w1t"], t["s1"])),
+        "K11o": lambda: [f.geglu_ff_int8_o_plain(t["a8"], t["sa"], t["w2t"],
+                                                 t["s2"])],
+        "K14": lambda: [fused_proj.proj_int8_plain(t["xp"], t["wp8"],
+                                                   t["sp"])],
     }
+    return {s: pair(s) if s in ATTN_STAGES else calls[s]() for s in stages}
 
 
 def rel(a, b) -> float:
@@ -306,6 +399,39 @@ def cuda_ms(fn, iters=20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def exp_rate() -> float:
+    """Exps a second on the special-function unit: 16 per clock per SM at
+    the SM clock nvidia-smi reports as clocks.max.sm."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * mhz * 1e6
+
+
+def attn_bounds(t, stages) -> dict:
+    """The pair's stages: the largest of its products at the bf16 peak, one
+    exp a logit, and its bytes (each input read once, each output written
+    once)."""
+    out, rate = {}, None
+    for s in stages:
+        if s not in ATTN_STAGES:
+            continue
+        rate = rate or exp_rate()
+        kind, d, cat = ATTN_STAGES[s]
+        pre = attn_prefix(d, cat)
+        q, k = t[pre + "q"], t[pre + "k"]
+        logits = q.shape[0] * q.shape[1] * q.shape[2] * k.shape[2]
+        products = 4 if kind == "dKdV" else 3
+        nb = sum(t[n].numel() * t[n].element_size()
+                 for n in [pre + n for n in ("q", "k", "v", "dout", "lse",
+                                             "delta")] + list(outputs(t, s)))
+        out[s] = max(products * 2 * logits * d / PEAK_BF16, logits / rate,
+                     nb / HBM) * 1e3
+    return out
 
 
 def bounds(t) -> dict:
@@ -350,7 +476,29 @@ def library_yardsticks(t, stages) -> dict:
         "K11o": lambda: torch._int_mm(t["a8"], t["w2t"].t()),
         "K14": lambda: torch._int_mm(t["xp8"], t["wpt"].t()),
     }
-    return {s: cuda_ms(calls[s]) for s in stages}
+    sdpa = {}
+
+    def sdpa_backward(stage):
+        """One SDPA backward on contiguous copies of the stage's q, k, v
+        and dO: forward and backward, less the forward."""
+        pre = attn_prefix(*ATTN_STAGES[stage][1:])
+        if pre not in sdpa:
+            qc, kc, vc = (t[pre + n].contiguous().requires_grad_()
+                          for n in ("q", "k", "v"))
+            g, scale = t[pre + "dout"].contiguous(), t[pre + "scale"]
+
+            def fwd():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qc, kc, vc, scale=scale)
+
+            with torch.no_grad():
+                t_fwd = cuda_ms(fwd)
+            sdpa[pre] = cuda_ms(lambda: torch.autograd.grad(
+                fwd(), (qc, kc, vc), g)) - t_fwd
+        return sdpa[pre]
+
+    return {s: sdpa_backward(s) if s in ATTN_STAGES else cuda_ms(calls[s])
+            for s in stages}
 
 
 def stage_errors(t, ref, s) -> list:
@@ -377,7 +525,8 @@ def stage_trial(parent: Path | None, stages) -> dict:
             print(f"parent, ptxas {line}", flush=True)
         libs["parent"] = Lib(ppath)
     t = inputs(device)
-    ref = {s: r for s, r in twins(t).items() if s in stages}
+    attn_inputs(device, t, stages)
+    ref = twins(t, stages)
     res = {"card": card(), "rows": {}}
     order = ["parent", "this", "this", "parent"] if parent else ["this"]
     times = {s: {k: [] for k in libs} for s in ref}
@@ -412,7 +561,7 @@ def stage_trial(parent: Path | None, stages) -> dict:
             if s in stages:
                 times[s][who].append(cuda_ms(fn))
     lib_ms = library_yardsticks(t, stages)
-    bnd = bounds(t)
+    bnd = {**bounds(t), **attn_bounds(t, stages)}
     if "K14" in ref:
         two = lambda: libs["this"].k14_two_kernels(t)   # noqa: E731
         two()
@@ -433,7 +582,9 @@ def stage_trial(parent: Path | None, stages) -> dict:
         print(f"{s}: this {row['this_ms']:.4f} ms"
               + (f", parent {row['parent_ms']:.4f} ms" if parent else "")
               + f", bound {bnd[s]:.4f} ms (share {row['share']:.3f}), "
-              f"the library on the products {lib_ms[s]:.4f} ms", flush=True)
+              + ("one SDPA backward" if s in ATTN_STAGES
+                 else "the library on the products")
+              + f" {lib_ms[s]:.4f} ms", flush=True)
     return res
 
 
@@ -555,7 +706,109 @@ K14_START = """    if (cw == 1 && cw < n)
 K14_HANDOFF = """        if (cw == 0 && i == 0 && n > 1)
             asm volatile("bar.arrive 3, %0;\\n" ::"n"(2 * WG_THREADS)
                          : "memory");"""
+BWD_DS = "s[j][e] * fmaf(dp[j][e], scale, e & 1 ? nd.y : nd.x)"
+BWD_IN_STEP = "scripts/gemm_wgmma_variants/flash_bwd_in_step.cu"
+# S and dP with their A operand (K, V; Q, dO) read from shared memory
+BWD_SS = {
+    """                                             const uint32_t (&a)[D / 16][4],
+                                             uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        WgmmaRS<BT, 0>::run(s, a[kk], Tile<D>::rows(b, kk), kk > 0);""":
+    """                                             uint32_t a, uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BT, 0, 0>::run(s, Tile<D>::rows(a, kk), Tile<D>::rows(b, kk),
+                             kk > 0);""",
+    """        rows_product<D>(s, ka, qt);
+        rows_product<D>(dp, va, qt + T::BYTES);""":
+    """        rows_product<D>(s, kc, qt);
+        rows_product<D>(dp, vc, qt + T::BYTES);""",
+    """        rows_product<D>(s, qa, kt);
+        rows_product<D>(dp, oa, kt + T::BYTES);""":
+    """        rows_product<D>(s, qc, kt);
+        rows_product<D>(dp, oc, kt + T::BYTES);""",
+    """    load_rows<D>(ka, kc);
+    load_rows<D>(va, vc);""": "",
+    """    load_rows<D>(qa, qc);
+    load_rows<D>(oa, oc);""": ""}
+BWD_EXP = "s[j][e] = exp2_approx(fmaf(s[j][e], c2, e & 1 ? nl.y : nl.x));"
+BWD_EXP_OFF = "s[j][e] = fmaf(s[j][e], c2, e & 1 ? nl.y : nl.x);"
+BWD_PACK_LOP = {f"a[i][{k}] = pack_bf16(x[{r}][{e}], x[{r}][{e + 1}]);":
+                f"a[i][{k}] = __float_as_uint(x[{r}][{e}]) ^ "
+                f"__float_as_uint(x[{r}][{e + 1}]);"
+                for k, r, e in ((0, "2 * i", 0), (1, "2 * i", 2),
+                                (2, "2 * i + 1", 0), (3, "2 * i + 1", 2))}
+BWD_LOGITS = """    auto logits = [&](uint32_t qt) {
+        rows_product<D>(s, ka, qt);
+        rows_product<D>(dp, va, qt + T::BYTES);
+    };"""
+BWD_GRADS = """        acc_product<D>(dva, pa, qt + T::BYTES);
+        acc_product<D>(dka, dsa, qt);"""
+BWD_MATH = """    auto math = [&](uint32_t qt) {"""
+BWD_MATH_OFF = BWD_MATH + """
+        if (held && signals) mbar_arrive(held);
+        if (qt != 0xffffffffu) return;"""
+BWD_LOGITS_OFF = """    auto logits = [&](uint32_t qt) {
+        wgmma_commit();
+        wgmma_commit();
+    };"""
+BWD_DKV_WAIT = """        wgmma_wait<1>();
+        fence_acc(s);
+        if (held && signals) mbar_arrive(held);
+#pragma unroll
+        for (int j = 0; j < BT / 8; ++j) {"""
+BWD_DQ_WAIT = """        wgmma_wait<1>();
+        fence_acc(s);
+        if (held && signals) mbar_arrive(held);
+#pragma unroll
+        for (int j = 0; j < BT / 8; ++j)
+#pragma unroll"""
 VARIANTS = [
+    ("dKdV32 shipped", "flash_bwd.cu", {}, "dKdV32"),
+    ("dKdV32 consumers in step (no turns at the tensor cores)", BWD_IN_STEP,
+     {}, "dKdV32"),
+    ("dKdV32 S and dP with K, V from shared memory", "flash_bwd.cu",
+     BWD_SS, "dKdV32"),
+    ("dKdV32 6 stages", "flash_bwd.cu",
+     {"constexpr int STAGES = 4;": "constexpr int STAGES = 6;"}, "dKdV32"),
+    ("dKdV32 the exps after dP's products too", "flash_bwd.cu",
+     {BWD_DKV_WAIT: BWD_DKV_WAIT.replace("wait<1>", "wait<0>")}, "dKdV32"),
+    ("dKdV32 dS as the parent's p · (dP − δ) · scale", "flash_bwd.cu",
+     {"q < Nq ? -ds[q] * scale : 0.f": "q < Nq ? ds[q] : 0.f",
+      "q + 1 < Nq ? -ds[q + 1] * scale": "q + 1 < Nq ? ds[q + 1]",
+      BWD_DS: "s[j][e] * (dp[j][e] - (e & 1 ? nd.y : nd.x)) * scale"},
+     "dKdV32"),
+    ("dKdV32 ablation: no exps (p = S·scale·log2e − lse·log2e)",
+     "flash_bwd.cu", {BWD_EXP: BWD_EXP_OFF}, "dKdV32"),
+    ("dKdV32 ablation: no exps, no dS arithmetic (dS = dP)",
+     "flash_bwd.cu", {BWD_EXP: BWD_EXP_OFF, BWD_DS: "dp[j][e]"}, "dKdV32"),
+    ("dKdV32 ablation: bf16 packs as one LOP3 (no F2FP)", "flash_bwd.cu",
+     BWD_PACK_LOP, "dKdV32"),
+    ("dKdV32 ablation: the products only (no exps, no dS arithmetic, "
+     "LOP3 packs)", "flash_bwd.cu",
+     {BWD_EXP: BWD_EXP_OFF, BWD_DS: "dp[j][e]", **BWD_PACK_LOP}, "dKdV32"),
+    ("dKdV32 ablation: no Sᵀ, dPᵀ products (the math on stale registers)",
+     "flash_bwd.cu", {BWD_LOGITS: BWD_LOGITS_OFF}, "dKdV32"),
+    ("dKdV32 ablation: the stream only (each stage waited for and "
+     "released)", "flash_bwd.cu",
+     {BWD_LOGITS: BWD_LOGITS_OFF, BWD_GRADS: "", BWD_MATH: BWD_MATH_OFF},
+     "dKdV32"),
+    ("dQ32 shipped", "flash_bwd.cu", {}, "dQ32"),
+    ("dQ32 consumers in step (no turns at the tensor cores)", BWD_IN_STEP,
+     {}, "dQ32"),
+    ("dQ32 three consumer warpgroups (192 queries a block)",
+     "scripts/gemm_wgmma_variants/flash_bwd_dq3.cu", {}, "dQ32"),
+    ("dQ32 S and dP with Q, dO from shared memory", "flash_bwd.cu",
+     BWD_SS, "dQ32"),
+    ("dQ32 2 stages", "flash_bwd.cu",
+     {"constexpr int STAGES = 4;": "constexpr int STAGES = 2;",
+      "constexpr int LOADERS = 3;": "constexpr int LOADERS = 2;"}, "dQ32"),
+    ("dQ32 the exps after dP's products too", "flash_bwd.cu",
+     {BWD_DQ_WAIT: BWD_DQ_WAIT.replace("wait<1>", "wait<0>")}, "dQ32"),
+    ("dQ32 ablation: no exps", "flash_bwd.cu",
+     {"s[j][e] = exp2_approx(fmaf(s[j][e], c2, nl[e >> 1]));":
+      "s[j][e] = fmaf(s[j][e], c2, nl[e >> 1]);"}, "dQ32"),
     ("K2o shipped", "geglu_ff.cu", {}, "K2o"),
     ("K2o 3 stages", "geglu_ff.cu",
      {"O_COLS = 256, O_STAGES = 4": "O_COLS = 256, O_STAGES = 3"}, "K2o"),
@@ -696,8 +949,9 @@ def variant_trial(stages) -> dict:
     inputs (mean of 20 launches after a warm-up), in the list's order."""
     device = torch.device("cuda")
     t = inputs(device)
-    ref = twins(t)
+    attn_inputs(device, t, stages)
     variants = [v for v in VARIANTS if v[3] in stages]
+    ref = twins(t, sorted({v[3] for v in variants}))
     work = Path(tempfile.mkdtemp(prefix="wgmma_variants_"))
 
     def build(i, v):

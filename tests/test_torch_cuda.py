@@ -14,10 +14,11 @@ int8, at the blocking's edges, twice bitwise equal), the GEMM families and
 the patch embedding at the tiny configs' widths (D 48, 2I 256, F 96; K11
 also at 2I 272), the two tiny configs through build_ctclip and a step on
 the kernels, and the refusals past the limits (head dim 72, D 40).  The
-SASS of the built library: K2's, K3's and K8's product kernels issue bf16
-wgmma on TMA loads and no mma.sync, K11's two products, K12/K13's product
-and K14 int8 wgmma on TMA loads and no int8 mma.sync; the patch embedding
-and the int8 attention still issue mma.sync.
+SASS of the built library: K2's, K3's and K8's product kernels and every
+instance of the attention backward pair issue bf16 wgmma on TMA loads and
+no mma.sync, K11's two products, K12/K13's product
+and K14 int8 wgmma on TMA loads and no int8 mma.sync; the attention
+forwards, the patch embedding and the int8 attention still issue mma.sync.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -329,31 +330,52 @@ def test_k1_lse_matches_plain(dev, nq, nkv, n_null):
     assert _rel(lse, lse_p) < 1e-5
 
 
-def _bwd_inputs(dev, nq, nkv, n_null):
+def _bwd_inputs(dev, nq, nkv, n_null, d=32, fused=False):
     """The backward pair's inputs from K1 with lse: q, k, v, dout, lse, δ,
     scale, with the nulls and the bound for the whole op.  δ carries a
     seeded lse cotangent (δ − glse, as OnlineAttention passes it), so dS
-    is not the near-cancellation p·(dP − δ) that a single key gives."""
-    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null)
+    is not the near-cancellation p·(dP − δ) that a single key gives.
+    ``fused``: q, k and v are views of one (b, n, 3·h·d) buffer, as the
+    fused projection leaves them (rows 3·h·d apart; nq == nkv)."""
+    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null, d=d)
+    if fused:
+        b, h = q.shape[:2]
+        qkv = torch.empty(b, nq, 3, h, d, device=dev, dtype=torch.bfloat16)
+        for i, t in enumerate((q, k, v)):
+            qkv[:, :, i] = t.transpose(1, 2)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        assert q.stride(2) == 3 * h * d
     bound = torch.tensor(scale, device=dev)
     g = torch.Generator(device=dev).manual_seed(5)
-    dout = _randn(g, 2, nq, 3, 32).transpose(1, 2)
+    dout = _randn(g, 2, nq, 3, d).transpose(1, 2)
     glse = torch.randn(2, 3, nq, generator=g, device=dev)
     out, lse = fa.attention_static(q, k, v, nk, nv, bound, scale, save_lse=True)
     delta = (dout.float() * out.float()).sum(-1) - glse
     return (q, k, v, dout, lse, delta, scale), (nk, nv, bound)
 
 
-# every edge of the kernels' blocking (blocks of 128 rows, tiles of 64):
-# one query or one key, ragged tails of 1 and 2 past 128 and 256, fewer
-# keys than a tile, exact blocks, and the old square cases
-@pytest.mark.parametrize("nq,nkv,n_null", [
-    (100, 100, 0), (100, 100, 2), (150, 150, 8), (1, 300, 0), (300, 1, 0),
-    (129, 130, 2), (257, 258, 0), (200, 13, 8), (128, 128, 0), (64, 1, 1)])
-def test_attention_backward_matches_plain(dev, nq, nkv, n_null):
+# every edge of the kernels' blocking (blocks of 128 rows, two consumers of
+# 64, streamed tiles of 64): one query or one key, ragged tails of 1 and 2
+# past 64, 128, 192 and 256, fewer keys than a tile, exact blocks, the old
+# square cases, query counts off a multiple of 4 (lse and δ rows not 16-byte
+# aligned), q/k/v as views of the fused projection's buffer, head dims 16
+# and 64 (the 32- and 128-byte swizzles); (nq, nkv, n_null, d, fused)
+BWD_EDGES = [
+    (100, 100, 0, 32, False), (100, 100, 2, 32, False),
+    (150, 150, 8, 32, False), (1, 300, 0, 32, False), (300, 1, 0, 32, False),
+    (129, 130, 2, 32, False), (257, 258, 0, 32, False),
+    (200, 13, 8, 32, False), (128, 128, 0, 32, False), (64, 1, 1, 32, False),
+    (65, 193, 0, 32, False), (193, 65, 2, 32, False),
+    (101, 129, 1, 32, False), (150, 150, 2, 32, True), (65, 65, 0, 32, True),
+    (65, 129, 2, 16, False), (129, 129, 0, 16, True), (193, 1, 0, 16, False),
+    (65, 129, 2, 64, False), (129, 129, 0, 64, True), (1, 193, 1, 64, False)]
+
+
+@pytest.mark.parametrize("nq,nkv,n_null,d,fused", BWD_EDGES)
+def test_attention_backward_matches_plain(dev, nq, nkv, n_null, d, fused):
     """The dk/dv and dq kernels against the plain backward twin, and the
     whole differentiable op (null terms included) against its plain path."""
-    bwd, (nk, nv, bound) = _bwd_inputs(dev, nq, nkv, n_null)
+    bwd, (nk, nv, bound) = _bwd_inputs(dev, nq, nkv, n_null, d, fused)
     q, k, v, dout, lse, delta, scale = bwd
     before = (fa.attention_bwd_dkv.launches, fa.attention_bwd_dq.launches)
     got = fa.attention_bwd(*bwd)
@@ -387,9 +409,10 @@ def test_attention_backward_matches_plain(dev, nq, nkv, n_null):
             assert _rel(a, r) < 1e-2
 
 
-def test_attention_backward_is_deterministic(dev):
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_attention_backward_is_deterministic(dev, d):
     """No atomics: the pair gives the same bits on the same inputs."""
-    bwd, _ = _bwd_inputs(dev, 257, 258, 0)
+    bwd, _ = _bwd_inputs(dev, 257, 258, 0, d)
     before = (fa.attention_bwd_dkv.launches, fa.attention_bwd_dq.launches)
     first = fa.attention_bwd(*bwd)
     second = fa.attention_bwd(*bwd)
@@ -626,7 +649,10 @@ def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
     of K14) issues int8 wgmma (IGMMA) on TMA loads and no int8 mma.sync
     (IMMA).  The patch embedding (HMMA, no HGMMA, on gemm_mma.cuh) and the
     int8 attention (IMMA through attn_mma.cuh's mma_s8, no IGMMA) are the
-    witnesses that the check tells the two routes apart in each type."""
+    witnesses that the check tells the two routes apart in each type.
+    Every instance (D 16, 32, 64) of the attention backward pair issues
+    HGMMA on UTMALDG loads and no HMMA; the attention forwards K1/K15
+    (mma.sync) are its bf16 HMMA witness."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                          capture_output=True, text=True, check=True).stdout
@@ -641,6 +667,14 @@ def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
         for text in _sass_all(name, sass):
             assert "IGMMA" in text and "UTMALDG" in text, name
             assert not imma.search(text), name
+    for name in ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"):
+        found = _sass_all(name, sass)
+        assert len(found) == 3, (name, len(found))   # D 16, 32, 64
+        for text in found:
+            assert "HGMMA" in text and "UTMALDG" in text, name
+            assert not hmma.search(text), name
+    for text in _sass_all("flash_fwd_kernel", sass):
+        assert hmma.search(text) and "HGMMA" not in text
     for text in _sass_all("patch_embed_kernel", sass):
         assert hmma.search(text) and "HGMMA" not in text
     for text in _sass_all("flash_static_int8_kernel", sass):

@@ -12,6 +12,9 @@ seeded numpy inputs, b = 1, h = 2.
   forward and the exact-tiling ``_bwd_fused_kernel`` (K5) with the null
   terms outside, against the port's ``flash_attention`` (StaticAttention).
 
+Besides, the wrappers' checks of what TMA reads (meta tensors), and the
+zero-row identity that lets the dK/dV kernel run without a query mask.
+
 Tolerances, relative L2 per gradient (q, k, v and the nulls): 1e-5 in
 fp32, where the two sides differ only in summation order (measured
 ≤ 3.2e-7); 1e-2 in bf16, where both round p, dS and the outputs to bf16 but
@@ -91,14 +94,53 @@ def test_pair_twin_matches_jax_concat_ragged(dtype):
         assert a.dtype == getattr(torch, dtype) and _rel(a, r) < tol, name
 
 
-def test_pair_refuses_rows_past_32_bit_offsets():
-    """The kernels take row offsets in 32 bits: a q, k, v or dO whose rows
-    reach 2^31 elements is refused before any launch."""
-    big = torch.empty((1, 1, 2 ** 20, 2 ** 11), device="meta")[..., :D]
-    small = torch.empty((1, 1, 4, D), device="meta")
-    for args in ((big, small, small, small), (small, small, small, big)):
-        with pytest.raises(ValueError, match="2\\^31"):
+@pytest.mark.parametrize("which", range(4), ids=["q", "k", "v", "dout"])
+def test_pair_takes_what_tma_reads(which):
+    """The kernels read q, k, v and dO through 4-D TMA tensor maps with
+    64-bit strides: rows reaching 2^31 elements pass the wrappers' checks;
+    a row stride off 16 bytes (36 bf16) or a head dim that is not
+    contiguous, in any one of the four, is refused before any launch."""
+    bf = torch.bfloat16
+    small = torch.empty((1, 1, 4, D), device="meta", dtype=bf)
+    big = torch.empty((1, 1, 2 ** 20, 2 ** 11), device="meta",
+                      dtype=bf)[..., :D]
+    args = [small] * 4
+    args[which] = big
+    strides = tfa._bwd_strides(*args, ())
+    assert strides[3 * which:3 * which + 3] == [2 ** 31, 2 ** 31, 2 ** 11]
+    odd = torch.empty((1, 1, 4, 36), device="meta", dtype=bf)[..., :D]
+    cols = torch.empty((1, 1, D, 4), device="meta", dtype=bf).transpose(2, 3)
+    for bad in (odd, cols):
+        args[which] = bad
+        with pytest.raises(ValueError, match="16-byte"):
             tfa._bwd_strides(*args, ())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zero_rows_past_the_ends_add_exact_zeros(dtype):
+    """What lets the dK/dV kernel drop its query mask for TMA's zero fill,
+    pinned on the plain twin: a q/dO row of zeros with lse = δ = 0 has p = 1
+    and dS = 0, so its Pᵀ dO and dSᵀ Q terms are exact zeros; a k/v row of
+    zeros adds dS·0 to dQ.  Appending 58 such query rows and 19 such key rows
+    leaves every real row's dQ, dK and dV bit for bit as it was."""
+    tdt = getattr(torch, dtype)
+    nq, nkv, pq, pk = 70, 45, 58, 19
+    q, k, v, _, _, g = (torch.from_numpy(x).to(tdt)
+                        for x in _inputs(nq, nkv, seed=52, logit_scale=3.0))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = tfa.attention_online_plain(q, k, v, scale, save_lse=True)
+    delta = (g.to(lse.dtype) * out.to(lse.dtype)).sum(-1)
+    base = tfa.attention_bwd_plain(q, k, v, g, lse, delta, scale)
+
+    def rows(t, n):
+        return torch.cat([t, t.new_zeros(t.shape[:2] + (n,) + t.shape[3:])],
+                         dim=2)
+
+    got = tfa.attention_bwd_plain(rows(q, pq), rows(k, pk), rows(v, pk),
+                                  rows(g, pq), rows(lse, pq),
+                                  rows(delta, pq), scale)
+    for a, r, n in zip(got, base, (nq, nkv, nkv)):
+        assert torch.equal(a[:, :, :n], r)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

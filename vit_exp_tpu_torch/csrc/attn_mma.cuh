@@ -1,5 +1,7 @@
-// PTX helpers of the attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_static_int8.cu) and of gemm_mma.cuh (bf16): cp.async copies into a
+// PTX helpers of the attention forwards (flash_fwd.cu,
+// flash_static_int8.cu), of gemm_mma.cuh (bf16) and, through
+// gemm_wgmma.cuh, of the backward pair (flash_bwd.cu: pack_bf16,
+// exp2_approx, smem_u32): cp.async copies into a
 // shared-memory ring, ldmatrix fragment loads (int8 rows read as b16 units),
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and m16n8k32 (int8 in,
 // int32 accumulate) and ex2.approx, plus the fragment patterns of a warp's
@@ -36,13 +38,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                      smem_u32(dst)),
                  "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src)
                  : "memory");
 }
 

@@ -1,7 +1,9 @@
 // GEMM mainloop of the port's products on Hopper's tensor cores (geglu_ff.cu:
 // K2's act and out; geglu_ff_bwd.cu: K8's dh, dy and the weight GEMM;
 // ln_qkv.cu: K3; ln_qkv_int8.cu: K12/K13's product and K14;
-// geglu_ff_int8.cu: K11's act and out):
+// geglu_ff_int8.cu: K11's act and out), and the PTX pieces of the
+// attention backward pair (flash_bwd.cu: descriptors in the 64- and 32-byte
+// swizzles, wgmma with A in registers, 4-D tensor maps):
 // acc[m, n] += Σ_k A(m, k) · B(k, n) over a block tile of TILE_M rows × N
 // columns, in two forms: bf16 operands with fp32 accumulators (wgmma
 // m64nNk16) and int8 operands with int32 accumulators (m64nNk32, s8 × s8),
@@ -179,14 +181,60 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
         : "memory");
 }
 
-// the descriptor of an operand tile at shared address addr in the 128-byte
-// swizzle (layout type 1): index-major, SBO 1024 (LBO unused, 1); k-major,
-// LBO = the 8 KB between 64-index chunks, SBO 1024
-template <bool KMAJOR>
+// the box at coordinates (c0, c1, c2, c3) of a 4-D tensor map (tma_map_4d)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// 32 bits at a shared address
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+    uint32_t v;
+    asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+    return v;
+}
+
+// where TMA puts byte `off` of a tile of SW-byte rows in the swizzle of SW
+// bytes (the tile on a 1024-byte boundary): its 16-byte unit XOR the row
+// bits above 128 bytes
+template <int SW>
+__host__ __device__ constexpr uint32_t swizzled(uint32_t off) {
+    return off ^ (((off >> 7) & (SW / 16 - 1)) << 4);
+}
+
+// two fp32 at a shared address (8-byte aligned), and back
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+    float2 v;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(v.x), "=f"(v.y)
+                 : "r"(addr));
+    return v;
+}
+__device__ __forceinline__ void sts_f2(uint32_t addr, float2 v) {
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x),
+                 "f"(v.y)
+                 : "memory");
+}
+
+// the descriptor of an operand tile at shared address addr in the swizzle
+// of SW bytes (128: layout type 1; 64: type 2; 32: type 3), rows of SW
+// bytes: index-major, SBO = 8 rows (LBO unused, 1); k-major, LBO = 64 rows
+// (the 8 KB between 64-index chunks at SW 128), SBO = 8 rows of k.  The
+// swizzle is a function of the address, so tiles sit on 1024-byte
+// boundaries and an instruction's step moves the address only.
+template <bool KMAJOR, int SW = 128>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+    static_assert(SW == 128 || SW == 64 || SW == 32, "a TMA swizzle span");
     return (uint64_t)((addr & 0x3FFFF) >> 4) |
-           (uint64_t)(KMAJOR ? CHUNK_BYTES >> 4 : 1) << 16 |
-           (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
+           (uint64_t)(KMAJOR ? 64 * SW >> 4 : 1) << 16 |
+           (uint64_t)(8 * SW >> 4) << 32 |
+           (uint64_t)(SW == 128 ? 1 : SW == 64 ? 2 : 3) << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -229,14 +277,16 @@ __device__ __forceinline__ void consumer_regs() {
 }
 
 // d (64 × N fp32, the layout above) += A (64 × 16) · B (16 × N), both read
-// from shared memory through descriptors; TA, TB: k-major (transposed)
+// from shared memory through descriptors; TA, TB: k-major (transposed);
+// scale_d 0: d = A · B (d's values are not read)
 template <int N, int TA, int TB>
 struct Wgmma;
 
 template <int TA, int TB>
 struct Wgmma<64, TA, TB> {
     __device__ __forceinline__ static void run(float (&d)[8][4],
-                                               uint64_t da, uint64_t db) {
+                                               uint64_t da, uint64_t db,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\n"
             "setp.ne.b32 p, %34, 0;\n"
@@ -254,14 +304,15 @@ struct Wgmma<64, TA, TB> {
               "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
               "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
               "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-            : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+            : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
     }
 };
 
 template <int TA, int TB>
 struct Wgmma<128, TA, TB> {
     __device__ __forceinline__ static void run(float (&d)[16][4],
-                                               uint64_t da, uint64_t db) {
+                                               uint64_t da, uint64_t db,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\n"
             "setp.ne.b32 p, %66, 0;\n"
@@ -291,14 +342,15 @@ struct Wgmma<128, TA, TB> {
               "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
               "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
               "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-            : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+            : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
     }
 };
 
 template <int TA, int TB>
 struct Wgmma<256, TA, TB> {
     __device__ __forceinline__ static void run(float (&d)[32][4],
-                                               uint64_t da, uint64_t db) {
+                                               uint64_t da, uint64_t db,
+                                               int scale_d = 1) {
         asm volatile(
             "{\n.reg .pred p;\n"
             "setp.ne.b32 p, %130, 0;\n"
@@ -352,7 +404,85 @@ struct Wgmma<256, TA, TB> {
               "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
               "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
               "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-            : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+            : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+    }
+};
+
+// d (64 × N fp32) += A (64 × 16 bf16, in registers) · B (16 × N, read from
+// shared memory through a descriptor; TB: k-major, through the transpose
+// bit; scale_d 0: d = A · B).  A is the m16n8k16 A fragment of each warp's
+// 16 rows (warp w of the
+// warpgroup: rows 16w ..): {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8,
+// 2t+8..)}, which is two adjacent n8 tiles of an accumulator (the layout
+// above) packed to bf16 pairs: a product's output feeds the next product
+// from the registers.  The registers of a and d belong to the wgmma until a
+// wgmma.wait_group covers it.
+template <int N, int TB>
+struct WgmmaRS;
+
+template <int TB>
+struct WgmmaRS<16, TB> {
+    __device__ __forceinline__ static void run(float (&d)[2][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d = 1) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7"
+            "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+              "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+              "r"(scale_d), "n"(TB));
+    }
+};
+
+template <int TB>
+struct WgmmaRS<32, TB> {
+    __device__ __forceinline__ static void run(float (&d)[4][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d = 1) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %21, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15"
+            "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+              "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+              "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+              "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+              "r"(scale_d), "n"(TB));
+    }
+};
+
+template <int TB>
+struct WgmmaRS<64, TB> {
+    __device__ __forceinline__ static void run(float (&d)[8][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d = 1) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31"
+            "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+              "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+              "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+              "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+              "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+              "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+              "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+              "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+              "r"(scale_d), "n"(TB));
     }
 };
 
@@ -494,8 +624,10 @@ struct WgmmaS8<256> {
 // epilogue's staging, then a full and an empty mbarrier per stage); a Ring
 // object is ring `id` of them, and each thread of a role keeps its own
 // position (stage, phase) in it.  One ring is read by both consumers, two
-// are one a consumer.
-template <int STAGES_, int STAGE_BYTES_, int EXTRA = 0, int RINGS = 1>
+// are one a consumer.  A stage fills with FULL arrivals (the producer's, and
+// any threads that write part of it with st.shared before they arrive).
+template <int STAGES_, int STAGE_BYTES_, int EXTRA = 0, int RINGS = 1,
+          int FULL = 1>
 struct Ring {
     static constexpr int STAGES = STAGES_, STAGE_BYTES = STAGE_BYTES_;
     static constexpr int SMEM_BYTES =
@@ -531,14 +663,14 @@ struct Ring {
         }
     }
     // every ring's barriers: full takes the producer's arrival (and the
-    // loads' bytes), empty one arrival per consumer warpgroup that reads
-    // the ring; every thread of the block calls it
+    // loads' bytes; FULL arrivals in all), empty one arrival per consumer
+    // warpgroup that reads the ring; every thread of the block calls it
     __device__ __forceinline__ void init() const {
         if (threadIdx.x == 0) {
             const uint32_t all = area + RINGS * STAGES * STAGE_BYTES + EXTRA;
             for (int s = 0; s < RINGS * STAGES; ++s) {
                 const int r = s / STAGES, i = s % STAGES;
-                mbar_init(all + 16 * STAGES * r + 8 * i, 1);
+                mbar_init(all + 16 * STAGES * r + 8 * i, FULL);
                 mbar_init(all + 16 * STAGES * r + 8 * (STAGES + i),
                           RINGS == 1 ? 2 : 1);
             }
@@ -773,6 +905,37 @@ inline bool tma_map(CUtensorMap* map, const void* p, long long rows,
                   2, const_cast<void*>(p), dims, pitch, box, step,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D TMA map of a (b, h, n, d) bf16 view with a contiguous head dim of
+// d elements (2d = 32, 64 or 128 bytes, the swizzle span, so that the box
+// is the layout smem_desc<..., 2d> reads) and (b, h, n) strides in
+// elements, multiples of 16 bytes: dims (d, n, h, b) in any stride order,
+// boxes of d × box_rows × 1 × 1, zero past n on loads.  A dim of extent 1
+// is never stepped: it takes the span of the dims before it as its stride.
+// False where the encoder refuses it or cannot be reached.
+inline bool tma_map_4d(CUtensorMap* map, const void* p, int B, int H, int N,
+                       int d, long long sb, long long sh, long long sn,
+                       int box_rows) {
+    const auto encode = tma_encoder();
+    if (encode == nullptr || (d != 16 && d != 32 && d != 64)) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)N, (cuuint64_t)H,
+                                (cuuint64_t)B};
+    long long pn = N > 1 ? 2 * sn : 2LL * d;
+    long long ph = H > 1 ? 2 * sh : pn * N;
+    long long pb = B > 1 ? 2 * sb : (pn * N > ph * H ? pn * N : ph * H);
+    const cuuint64_t pitch[3] = {(cuuint64_t)pn, (cuuint64_t)ph,
+                                 (cuuint64_t)pb};
+    const cuuint32_t box[4] = {(cuuint32_t)d, (cuuint32_t)box_rows, 1, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    const CUtensorMapSwizzle swizzle = d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(p), dims, pitch, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -17,7 +17,7 @@ via ``_flash_core_static``), and K15 (``attention_online``, below) replaces
 softmax policies.  With head dim 32 the two products per logit are cheap
 next to the exp: at 13,824 tokens and 32 (batch · head) rows it is 6.1 G
 logits per layer, bound by the exp unit (≈ 1.5-1.65 ms on an H100) more than
-by the products (0.79 ms).  The design is the backward pair's: one block
+by the products (0.79 ms).  One block
 owns 128 queries of one (batch, head), four warps 32 each; K and V stream in
 64-key tiles through a 3-stage ``cp.async`` ring; S = QKᵀ and O += P·V are
 ``mma.sync`` products whose accumulators never leave registers (p is packed
@@ -43,12 +43,18 @@ The backward replaces vit_exp_tpu/ops/flash_attention.py::_bwd_fused_kernel
 (K5, exact tiling) and ::_dq_kernel / ::_dkv_kernel (K6/K7, ragged kv) with
 one pair of CUDA C++ kernels, csrc/flash_bwd.cu: ``attention_bwd_dkv`` is
 parallel over blocks of 128 keys and ``attention_bwd_dq`` over blocks of
-128 queries, each walking the other axis in 64-row tiles (no atomics, so
-bit-reproducible).  The logits S, dP and the p and dS formed from them stay
-in ``mma.sync`` registers and feed the next product from there; tiles
-stream through a 3-stage ``cp.async`` ring; p = exp2(S·scale·log2e −
-lse·log2e).  So the pair is bound by its tensor-core products (7 per logit)
-and the exp, not by shared-memory traffic (design notes in the source).
+128 queries, each walking the other axis in 64-row tiles (no atomics and a
+fixed order, so bit-reproducible).  Both are built on Hopper's pieces
+(csrc/gemm_wgmma.cuh): a producer warp's TMA loads (4-D tensor maps over
+the strided (b, h, n, d) views, rows past the end zero-filled) into an
+``mbarrier`` ring, and two consumer warpgroups of 64 rows whose seven
+products are ``wgmma``: S and dP from shared memory, dV, dK and dQ with p
+and dS as register A operands, so S, dP, p and dS never leave registers;
+p = exp2(S·scale·log2e − lse·log2e), the exps of one warpgroup running
+beside the other's products.  At head dim 32 the products and the exps
+bound it about equally (design notes in the source).  The kernels read
+lse and δ as they are; the wrappers check what TMA takes (a contiguous
+head dim, 16-byte aligned pointers and strides).
 δ = rowsum(dO·O) and the null-kv terms are plain torch, as
 the JAX package keeps them outside its kernels.  ``StaticAttention`` is the
 ``torch.autograd.Function`` that ties forward and backward together; the
@@ -266,11 +272,10 @@ def attention_bwd_plain(q, k, v, dout, lse, delta, scale: float):
 
 
 def _bwd_strides(q, k, v, dout, grads):
-    for t, name in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout")):
-        if t.shape[2] * t.stride(2) >= 2 ** 31:   # 32-bit row offsets
-            raise ValueError(f"attention backward kernels: {name} has "
-                             f"{t.shape[2]} rows of stride {t.stride(2)}, "
-                             f"past 2^31 elements")
+    """The (b, h, n) strides of q, k, v, dout and the gradients, each
+    checked: TMA reads q, k, v and dout through 4-D tensor maps (16-byte
+    aligned pointers and strides, any stride order, any size), and the
+    gradients leave from the registers at 64-bit offsets."""
     return [s for t, name in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout"),
                               *grads)
             for s in _row_strides(t, name)]
