@@ -8,8 +8,10 @@
 2. Builds the hand-written kernels from ``vit_exp_tpu_torch/csrc`` and
    prints ptxas's registers and spills for the GEMM kernels (K2's, K3's,
    K8's, K11's and K12/K13's products and K14 on gemm_wgmma.cuh, K11's,
-   K12/K13's and K14 in its int8 form), the patch embedding (on
-   gemm_mma.cuh) and the int8 attention (none may spill).
+   K12/K13's and K14 in its int8 form), the attention forwards K1/K15 and
+   the backward pair (on gemm_wgmma.cuh's pieces, each head-dim instance),
+   the patch embedding (on gemm_mma.cuh) and the int8 attention (none may
+   spill, and ptxas may serialise no wgmma of the attention kernels).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
    tokens, width 768; one row per launch counter: K1, K2's three kernels
@@ -995,7 +997,7 @@ def same_bits_twice(fn, what: str) -> None:
 def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
     """The run_train path's attention rows (attn_impl="pallas") at its
     shapes: K15 with and without lse over the 2 nulls concatenated in
-    front of k/v (13,826 keys at full width, so the last 64-key tile holds
+    front of k/v (13,826 keys at full width, so the last 128-key tile holds
     2 keys), and the backward pair over the same concatenated kv, each
     against its plain twin; SDPA on the same q and concatenated k/v as the
     yardstick.  Checks first that K15 and the pair are bitwise
@@ -1069,8 +1071,9 @@ def online_kernel_cases(device, arch=ARCH, batch=BATCH, seed=6):
 
 # the kernels whose ptxas registers and spills are printed (and must not
 # spill): K1/K15 and the backward pair (each head-dim instance printed
-# too), K2's three, K3, K8's six, the int8 attention, K11's four, K12/K13's
-# two, the patch embedding and K14
+# too; ptxas may serialise none of their wgmmas), K2's three, K3, K8's six,
+# the int8 attention, K11's four, K12/K13's two, the patch embedding and
+# K14
 ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                      "flash_bwd_dq_kernel", "flash_static_int8_kernel")
 REPORTED_KERNELS = ATTENTION_KERNELS[:3] + (
@@ -1107,6 +1110,17 @@ def ptxas_entries(log: str, names) -> list:
                 out.append((entry, int(m.group(1)), *spills))
             entry = None
     return out
+
+
+def wgmma_serialized(log: str, names) -> list:
+    """ptxas's notes that it serialised the wgmmas of an entry function
+    whose (mangled) name holds one of ``names`` (C7510-C7520, "wgmma ...
+    serialized ... in the function '<entry>'"), and any such note that
+    names no function."""
+    return [line.strip() for line in log.splitlines()
+            if "wgmma" in line and "serialized" in line
+            and (any(name in line for name in names)
+                 or "function '" not in line)]
 
 
 def ptxas_report(log: str, names) -> dict:
@@ -4815,6 +4829,10 @@ def main() -> int:
     check(set(ptxas) == set(REPORTED_KERNELS)
           and all(st == ld == 0 for _, st, ld in ptxas.values()),
           ("ptxas registers and spills", ptxas))
+    serialized = wgmma_serialized(build_log, ATTENTION_KERNELS[:3])
+    print(f"ptxas wgmma serialisation notes in K1/K15 and the backward pair: "
+          f"{len(serialized)}", flush=True)
+    check(not serialized, ("ptxas serialised wgmmas", serialized))
 
     b_cls, b_seg = mixed_batches()
     rows = {}

@@ -10,8 +10,9 @@ Builds the kernel library of this checkout (``_build.build``) and prints
 ptxas's registers, spills and wgmma notes for the product kernels on
 ``csrc/gemm_wgmma.cuh``: K2's act and out, K8's dh, dy and weight GEMM, K3
 (the LN + q/kv projection, bf16), K12/K13's product, K11's act and out and
-K14 (int8), and the attention backward pair of ``csrc/flash_bwd.cu`` (its
-PTX pieces live in ``gemm_wgmma.cuh``).  At production shape (55,296 tokens, D 768, 2I 4,096; K3 and
+K14 (int8), the attention backward pair of ``csrc/flash_bwd.cu`` and the
+attention forwards K1/K15 of ``csrc/flash_fwd.cu`` (their PTX pieces live
+in ``gemm_wgmma.cuh``).  At production shape (55,296 tokens, D 768, 2I 4,096; K3 and
 K12/K13 at K = F = 768 with q 256 columns wide, k and v 256 each; K14 at K
 256, F 768) it runs each stage against its plain twin (relative L2 ≤ 1e-2
 on every output, K11's act also on its partial amaxes; K12/K13's product
@@ -29,6 +30,15 @@ route's 13,824) run at batch 4, 8 heads, 13,824 queries on heads-last
 (relative L2 ≤ 1e-2), with their bound (tensor-core operations, or one exp
 per logit at 16 per clock per SM at clocks.max.sm, or bytes) and one SDPA
 backward (forward and backward, less the forward) as the yardstick.
+The forwards' stages (K1_16 .. K15_64l: the policy, the head dim, a
+trailing l with lse) run at the same shape, K1 on strided heads-last q, k
+and v with 2 nulls per head (13,824 keys), K15 on the nulls concatenated
+in front of contiguous k and v (13,826); K15ring on a 4-shard ring's chunk
+(3,456 queries and keys, no nulls, lse) and K15tp4, K15tp2 on a
+tensor-parallel rank's 4 and 2 heads (batch 1, 13,826 keys, lse).  Each
+is held to its plain twin (relative L2 ≤ 1e-2 on the output, 1e-5 on
+lse), with its bound (as the pair's) and one SDPA forward on contiguous
+copies (the nulls prepended) as the yardstick.
 --stages takes a comma-separated subset.
 
 --parent DIR: the root of another checkout (a ``git archive`` of the parent
@@ -92,7 +102,20 @@ ATTN_STAGES = {f"{kind}{d}{'c' if cat else ''}": (kind, d, cat)
 STAGE_KERNEL.update({s: "flash_bwd_dkv_kernel" if kind == "dKdV"
                      else "flash_bwd_dq_kernel"
                      for s, (kind, _, _) in ATTN_STAGES.items()})
+# the forwards: (policy, head dim, with lse, shape); shapes (batch, heads,
+# queries, keys before the nulls, nulls): the production layer, a 4-shard
+# ring's chunk, a tensor-parallel rank's heads at model 2 and 4
+FWD_SHAPES = {"full": (4, 8, 13_824, 13_824, 2), "ring": (4, 8, 3_456, 3_456, 0),
+              "tp4": (1, 4, 13_824, 13_824, 2), "tp2": (1, 2, 13_824, 13_824, 2)}
+FWD_STAGES = {f"{kind}_{d}{'l' if lse else ''}": (kind, d, lse, "full")
+              for kind in ("K1", "K15") for d in (16, 32, 64)
+              for lse in (False, True)}
+FWD_STAGES.update(K15ring=("K15", 32, True, "ring"),
+                  K15tp4=("K15", 32, True, "tp4"),
+                  K15tp2=("K15", 32, True, "tp2"))
+STAGE_KERNEL.update({s: "flash_fwd_kernel" for s in FWD_STAGES})
 BATCH, HEADS, NQ, N_NULL = 4, 8, 13_824, 2
+LSE_RTOL = 1e-5
 KERNELS = tuple(STAGE_KERNEL.values())
 EXACT = ("K13mm", "K14")   # held to the twin bit for bit
 KP = 256   # K14's depth: 8 heads × 32
@@ -191,7 +214,31 @@ class Lib:
             **{s: self.pair(t, kind, attn_prefix(d, cat))
                for s, (kind, d, cat) in ATTN_STAGES.items()
                if attn_prefix(d, cat) + "q" in t},
+            **{s: self.forward(t, s) for s in FWD_STAGES
+               if "fo_" + s in t},
         }
+
+    def forward(self, t, stage):
+        """K1 or K15 through its C entry point, into the stage's buffers."""
+        kind, d, lse, shape = FWD_STAGES[stage]
+        pre = fwd_prefix(d, shape)
+        out, lse_t = t["fo_" + stage], t.get("fl_" + stage)
+        q, scale = t[pre + "q"], t[pre + "scale"]
+        b, h, nq, _ = q.shape
+        lp = None if lse_t is None else lse_t.data_ptr()
+        if kind == "K1":
+            k, v, nk, nv = (t[pre + n] for n in ("k", "v", "nk", "nv"))
+            strides = [x for y in (q, k, v, out) for x in y.stride()[:3]]
+            ptrs = [x.data_ptr() for x in (q, k, v, nk, nv, t[pre + "bound"],
+                                           out)]
+            return lambda: self.call("vit_flash_static_fwd", *ptrs, lp,
+                                     *strides, b, h, nq, k.shape[2],
+                                     nk.shape[1], d, scale)
+        k, v = t[pre + "kc"], t[pre + "vc"]
+        strides = [x for y in (q, k, v, out) for x in y.stride()[:3]]
+        ptrs = [x.data_ptr() for x in (q, k, v, out)]
+        return lambda: self.call("vit_flash_online_fwd", *ptrs, lp, *strides,
+                                 b, h, nq, k.shape[2], d, scale)
 
     def pair(self, t, kind, pre):
         """One kernel of the backward pair through its C entry point."""
@@ -220,6 +267,55 @@ class Lib:
 
 def attn_prefix(d, cat) -> str:
     return f"a{d}{'c' if cat else ''}_"
+
+
+def fwd_prefix(d, shape) -> str:
+    return f"f{d}{shape}_"
+
+
+def fwd_inputs(device, t, stages) -> None:
+    """The forwards' operands for each (head dim, shape) among stages, into
+    t: q, k and v as strided heads-last (b, n, h, d) views (k and v of one
+    (b, n, 2·h·d) buffer, as the projection leaves them), q and k
+    l2-normalised, 2 nulls per head and the bound for K1; k and v with the
+    nulls concatenated in front (contiguous) for K15; each stage's output
+    (and lse) laid out as the wrappers leave them."""
+    g = torch.Generator(device=device).manual_seed(24)
+    bf = torch.bfloat16
+
+    def unit(x):
+        return x / x.norm(dim=-1, keepdim=True)
+
+    for d, shape in sorted({(FWD_STAGES[s][1], FWD_STAGES[s][3])
+                            for s in stages if s in FWD_STAGES}):
+        pre = fwd_prefix(d, shape)
+        b, h, nq, nkv, n_null = FWD_SHAPES[shape]
+        q = unit(torch.randn(b, nq, h, d, generator=g, device=device)).to(bf)
+        kv = torch.randn(b, nkv, 2, h, d, generator=g, device=device)
+        kv[:, :, 0] = unit(kv[:, :, 0])
+        kv = kv.to(bf).reshape(b, nkv, 2 * h * d)
+        k = kv[..., :h * d].reshape(b, nkv, h, d).transpose(1, 2)
+        v = kv[..., h * d:].reshape(b, nkv, h, d).transpose(1, 2)
+        nk = unit(torch.randn(h, max(n_null, 1), d, generator=g,
+                              device=device)).to(bf)[:, :n_null].contiguous()
+        nv = torch.randn(h, max(n_null, 1), d, generator=g,
+                         device=device).to(bf)[:, :n_null].contiguous()
+        scale = d ** -0.5
+        t.update({pre + "q": q.transpose(1, 2), pre + "k": k, pre + "v": v,
+                  pre + "nk": nk, pre + "nv": nv, pre + "scale": scale,
+                  pre + "bound": torch.tensor(scale, device=device),
+                  pre + "kc": torch.cat([nk[None].expand(b, -1, -1, -1), k],
+                                        dim=2),
+                  pre + "vc": torch.cat([nv[None].expand(b, -1, -1, -1), v],
+                                        dim=2)})
+    for s in stages:
+        if s not in FWD_STAGES:
+            continue
+        _, d, lse, shape = FWD_STAGES[s]
+        q = t[fwd_prefix(d, shape) + "q"]
+        t["fo_" + s] = fa._heads_last_like(q)
+        if lse:
+            t["fl_" + s] = torch.empty(q.shape[:3], device=device)
 
 
 def attn_inputs(device, t, stages) -> None:
@@ -335,6 +431,9 @@ def inputs(device) -> dict:
 
 
 def outputs(t, stage):
+    if stage in FWD_STAGES:
+        return ("fo_" + stage,) + (("fl_" + stage,) if FWD_STAGES[stage][2]
+                                   else ())
     if stage in ATTN_STAGES:
         kind, d, cat = ATTN_STAGES[stage]
         pre = attn_prefix(d, cat)
@@ -380,7 +479,20 @@ def twins(t, stages) -> dict:
         "K14": lambda: [fused_proj.proj_int8_plain(t["xp"], t["wp8"],
                                                    t["sp"])],
     }
-    return {s: pair(s) if s in ATTN_STAGES else calls[s]() for s in stages}
+    def forward(stage):
+        kind, d, lse, shape = FWD_STAGES[stage]
+        pre = fwd_prefix(d, shape)
+        q, scale = t[pre + "q"], t[pre + "scale"]
+        if kind == "K1":
+            r = fa.attention_static_plain(q, *(t[pre + n] for n in (
+                "k", "v", "nk", "nv", "bound")), scale, save_lse=lse)
+        else:
+            r = fa.attention_online_plain(q, t[pre + "kc"], t[pre + "vc"],
+                                          scale, save_lse=lse)
+        return list(r) if lse else [r]
+
+    return {s: pair(s) if s in ATTN_STAGES else forward(s)
+            if s in FWD_STAGES else calls[s]() for s in stages}
 
 
 def rel(a, b) -> float:
@@ -430,6 +542,29 @@ def attn_bounds(t, stages) -> dict:
                  for n in [pre + n for n in ("q", "k", "v", "dout", "lse",
                                              "delta")] + list(outputs(t, s)))
         out[s] = max(products * 2 * logits * d / PEAK_BF16, logits / rate,
+                     nb / HBM) * 1e3
+    return out
+
+
+def fwd_bounds(t, stages) -> dict:
+    """The forwards' stages: the largest of their two products at the bf16
+    peak, one exp a logit, and their bytes (each input read once, each
+    output written once)."""
+    out, rate = {}, None
+    for s in stages:
+        if s not in FWD_STAGES:
+            continue
+        rate = rate or exp_rate()
+        kind, d, _, shape = FWD_STAGES[s]
+        pre = fwd_prefix(d, shape)
+        q = t[pre + "q"]
+        names = ("k", "v", "nk", "nv") if kind == "K1" else ("kc", "vc")
+        nkv = t[pre + "kc"].shape[2]   # the nulls included
+        logits = q.shape[0] * q.shape[1] * q.shape[2] * nkv
+        nb = sum(t[n].numel() * t[n].element_size()
+                 for n in [pre + "q"] + [pre + n for n in names]
+                 + list(outputs(t, s)))
+        out[s] = max(2 * 2 * logits * d / PEAK_BF16, logits / rate,
                      nb / HBM) * 1e3
     return out
 
@@ -497,8 +632,21 @@ def library_yardsticks(t, stages) -> dict:
                 fwd(), (qc, kc, vc), g)) - t_fwd
         return sdpa[pre]
 
-    return {s: sdpa_backward(s) if s in ATTN_STAGES else cuda_ms(calls[s])
-            for s in stages}
+    def sdpa_forward(stage):
+        """One SDPA forward on contiguous copies of the stage's q and k, v
+        with the nulls in front."""
+        _, d, _, shape = FWD_STAGES[stage]
+        pre = fwd_prefix(d, shape)
+        if pre + "sdpa" not in sdpa:
+            qc, kc, vc = (t[pre + n].contiguous() for n in ("q", "kc", "vc"))
+            with torch.no_grad():
+                sdpa[pre + "sdpa"] = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qc, kc, vc, scale=t[pre + "scale"]))
+        return sdpa[pre + "sdpa"]
+
+    return {s: sdpa_backward(s) if s in ATTN_STAGES else sdpa_forward(s)
+            if s in FWD_STAGES else cuda_ms(calls[s]) for s in stages}
 
 
 def stage_errors(t, ref, s) -> list:
@@ -526,6 +674,7 @@ def stage_trial(parent: Path | None, stages) -> dict:
         libs["parent"] = Lib(ppath)
     t = inputs(device)
     attn_inputs(device, t, stages)
+    fwd_inputs(device, t, stages)
     ref = twins(t, stages)
     res = {"card": card(), "rows": {}}
     order = ["parent", "this", "this", "parent"] if parent else ["this"]
@@ -546,7 +695,10 @@ def stage_trial(parent: Path | None, stages) -> dict:
             print(f"{who} {s}: rel L2 against the twin {errs} (≤ {RTOL}; "
                   f"an exact stage: 0 where the bits are the twin's), same "
                   f"bits twice: {same}", flush=True)
-            res["rows"].setdefault(s, {})[f"{who}_rel_l2"] = max(errs)
+            res["rows"].setdefault(s, {})[f"{who}_rel_l2"] = errs[0] if (
+                s in FWD_STAGES) else max(errs)
+            if s in FWD_STAGES and FWD_STAGES[s][2]:
+                res["rows"][s][f"{who}_lse_rel"] = errs[1]
             res["rows"][s][f"{who}_same_bits"] = same
             if who == "this":
                 kept[s] = first
@@ -561,7 +713,7 @@ def stage_trial(parent: Path | None, stages) -> dict:
             if s in stages:
                 times[s][who].append(cuda_ms(fn))
     lib_ms = library_yardsticks(t, stages)
-    bnd = {**bounds(t), **attn_bounds(t, stages)}
+    bnd = {**bounds(t), **attn_bounds(t, stages), **fwd_bounds(t, stages)}
     if "K14" in ref:
         two = lambda: libs["this"].k14_two_kernels(t)   # noqa: E731
         two()
@@ -583,6 +735,7 @@ def stage_trial(parent: Path | None, stages) -> dict:
               + (f", parent {row['parent_ms']:.4f} ms" if parent else "")
               + f", bound {bnd[s]:.4f} ms (share {row['share']:.3f}), "
               + ("one SDPA backward" if s in ATTN_STAGES
+                 else "one SDPA forward" if s in FWD_STAGES
                  else "the library on the products")
               + f" {lib_ms[s]:.4f} ms", flush=True)
     return res
@@ -764,7 +917,182 @@ BWD_DQ_WAIT = """        wgmma_wait<1>();
 #pragma unroll
         for (int j = 0; j < BT / 8; ++j)
 #pragma unroll"""
+# the forwards: the parent's mma.sync design (a copy of its source) and its
+# ablations, which test whether its time is its products' plus its exps'
+FWD_MMA_SYNC = "scripts/gemm_wgmma_variants/flash_fwd_mma_sync.cu"
+PFWD_EXP = "p[e] = exp2_approx(fmaf(s[j][mt][e], c2, -m[mt][e >> 1]));"
+PFWD_EXP_OFF = "p[e] = fmaf(s[j][mt][e], c2, -m[mt][e >> 1]);"
+PFWD_S = "        rows_times_rows<MT, D>(s[j], qa, ks, j * 8, lane);"
+# S from one shared-memory value a lane and n8 tile (the tile's, so that
+# the exps stay per tile) instead of the products
+PFWD_S_OFF = """        {
+            const float x = __bfloat162float(
+                ks[(j * 8 + (lane >> 2)) * att_ldt<D>() + (lane & 3)]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    s[j][mt][e] = x * (e + 1 + 4 * mt);
+        }"""
+PFWD_PV = "        acc_times_tile<MT, D>(o, pa, vs, kk * 16, lane);   // O += P·V"
+PFWD_TILE = "        if (kv_left >= BKV) {"
+PFWD_STREAM = "        if (kv_left >= 0) continue;\n" + PFWD_TILE
+FWD_EXP = "s[j][e] = exp2_approx(fmaf(s[j][e], c2, -m[e >> 1]));"
+FWD_EXP_OFF = "s[j][e] = fmaf(s[j][e], c2, -m[e >> 1]);"
+FWD_S = "        WgmmaRS<N, 0>::run(s, qa[kk], Fwd<D>::rows(tile, kk), kk > 0);"
+FWD_PV = "        WgmmaRS<D, 1>::run(o, pa[i], Fwd<D>::kmajor(tile, i));"
+FWD_NO_PRODUCTS = {FWD_S: "        {}", FWD_PV: "        {}"}
+FWD_MATH = "    auto math = [&](int t) {\n"
+FWD_STREAM = {**FWD_NO_PRODUCTS, FWD_MATH: FWD_MATH + """\
+        if (held && signals) mbar_arrive(held);
+        if (t >= 0) return;
+"""}
+FWD_IN_STEP = {"__device__ __forceinline__ void my_turn(int cw) {":
+               "__device__ __forceinline__ void my_turn(int cw) {\n"
+               "    if (cw >= 0) return;",
+               "__device__ __forceinline__ void your_turn(int cw) {":
+               "__device__ __forceinline__ void your_turn(int cw) {\n"
+               "    if (cw >= 0) return;"}
+# p rounded to bf16 on the integer pipe (u + 0x7fff + bit 16, the high
+# halves paired by PRMT) instead of F2FP
+FWD_PACK = """        a[i][0] = pack_bf16(x[2 * i][0], x[2 * i][1]);
+        a[i][1] = pack_bf16(x[2 * i][2], x[2 * i][3]);
+        a[i][2] = pack_bf16(x[2 * i + 1][0], x[2 * i + 1][1]);
+        a[i][3] = pack_bf16(x[2 * i + 1][2], x[2 * i + 1][3]);"""
+FWD_INT_ROUND = {FWD_PACK: FWD_PACK.replace("pack_bf16(", "pack_int("),
+                 "// two adjacent n8 tiles of an accumulator": """\
+__device__ __forceinline__ uint32_t bf16_high(float x) {
+    const uint32_t u = __float_as_uint(x);
+    return u + 0x7fffu + ((u >> 16) & 1u);
+}
+__device__ __forceinline__ uint32_t pack_int(float lo, float hi) {
+    return __byte_perm(bf16_high(lo), bf16_high(hi), 0x7632);
+}
+
+// two adjacent n8 tiles of an accumulator"""}
+# K1's l summed by FADD from the bf16 pairs (unpacked by SHL/LOP), not by
+# the tensor cores
+FWD_L_FADD = {
+    "    constexpr bool ONES = !ONLINE;   // K1's l from the tensor cores":
+    "    constexpr bool ONES = false;",
+    "// the k16 A fragments of the warpgroup's 64 rows": """\
+__device__ __forceinline__ float pair_sum(uint32_t v) {
+    return __uint_as_float(v << 16) + __uint_as_float(v & 0xffff0000u);
+}
+template <int I>
+__device__ __forceinline__ void add_bf16_sums(float (&l)[2],
+                                              const uint32_t (&a)[I][4]) {
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+        l[0] += pair_sum(a[i][0]) + pair_sum(a[i][2]);
+        l[1] += pair_sum(a[i][1]) + pair_sum(a[i][3]);
+    }
+}
+
+// the k16 A fragments of the warpgroup's 64 rows""",
+    "        pack_a<2>(pn, sn);\n":
+    "        pack_a<2>(pn, sn);\n        add_bf16_sums(l, pn);\n",
+    "        pack_a<BN / 8>(pa, s);\n":
+    "        pack_a<BN / 8>(pa, s);\n"
+    "        if (!ONLINE) add_bf16_sums(l, pa);\n"}
+FWD_POLY_DEF = """\
+// 2^x by a degree-5 polynomial on the FMA pipe (relative error 3.4e-7), 0
+// below 2^-126 as ex2.approx.ftz: x = n + f, n = round(x) by the 1.5·2^23
+// shift, 2^f on [−0.5, 0.5], n added to the exponent field
+__device__ __forceinline__ float exp2_poly(float x) {
+    const float xc = fmaxf(x, -127.f);
+    const float j = __fadd_rn(xc, 12582912.f);
+    const float f = __fsub_rn(xc, __fsub_rn(j, 12582912.f));
+    float p = 1.2915660627186298e-3f;
+    p = fmaf(p, f, 9.668532758951187e-3f);
+    p = fmaf(p, f, 5.5516887456178665e-2f);
+    p = fmaf(p, f, 0.24022264778614044f);
+    p = fmaf(p, f, 0.6931464672088623f);
+    p = fmaf(p, f, 1.f);
+    const float r =
+        __uint_as_float(__float_as_uint(p) + (__float_as_uint(j) << 23));
+    return x < -126.f ? 0.f : r;
+}
+
+"""
+
+
+def fwd_poly(n):
+    """n of the 16 n8 tiles of a 128-key tile (a lane's 4n of 64 values)
+    take their exps from exp2_poly, the rest from the exp unit."""
+    return {"// The exps of one tile's S in s, in place":
+            FWD_POLY_DEF + "// The exps of one tile's S in s, in place",
+            FWD_EXP: f"s[j][e] = j < {n} ? exp2_poly(fmaf(s[j][e], c2, "
+                     f"-m[e >> 1])) : exp2_approx(fmaf(s[j][e], c2, "
+                     f"-m[e >> 1]));"}
+FWD_C = "    static constexpr int C = 3;"
+FWD_BN = "    static constexpr int BN = D == 64 ? 64 : 128;"
+FWD_STAGES_4 = "    static constexpr int STAGES = 4;"
+
+
+def fwd_variants(stage):
+    """The forward's variants of one stage: at D 32 (K1_32, K15_32) the
+    parent's design and its ablations, then the shipped design's, its
+    ablations and its options; at D 16 and 64 the options of the tiling."""
+    kind, d = FWD_STAGES[stage][:2]
+    shipped = (f"{stage} shipped", "flash_fwd.cu", {}, stage)
+    in_step = (f"{stage} consumers in step", "flash_fwd.cu", FWD_IN_STEP,
+               stage)
+    if d == 64:
+        c2 = {FWD_C: "    static constexpr int C = 2;",
+              FWD_BN: "    static constexpr int BN = 128;"}
+        return [shipped, in_step,
+                (f"{stage} two consumers, 128-key tiles", "flash_fwd.cu", c2,
+                 stage),
+                (f"{stage} two consumers, 128-key tiles, in step",
+                 "flash_fwd.cu", {**c2, **FWD_IN_STEP}, stage)]
+    if d == 16:
+        return [shipped, in_step]
+    out = [
+        (f"{stage} parent design (mma.sync, cp.async ring)", FWD_MMA_SYNC,
+         {}, stage),
+        (f"{stage} parent ablation: no exps", FWD_MMA_SYNC,
+         {PFWD_EXP: PFWD_EXP_OFF}, stage),
+        (f"{stage} parent ablation: no products (S from one shared value a "
+         f"lane and n8 tile, no P·V)", FWD_MMA_SYNC,
+         {PFWD_S: PFWD_S_OFF, PFWD_PV: ""}, stage),
+        (f"{stage} parent ablation: the stream only", FWD_MMA_SYNC,
+         {PFWD_TILE: PFWD_STREAM}, stage),
+        shipped,
+        (f"{stage} ablation: no exps", "flash_fwd.cu",
+         {FWD_EXP: FWD_EXP_OFF}, stage),
+        (f"{stage} ablation: no products (the exps on stale registers)",
+         "flash_fwd.cu", FWD_NO_PRODUCTS, stage),
+        (f"{stage} ablation: the stream only", "flash_fwd.cu", FWD_STREAM,
+         stage),
+        in_step,
+        (f"{stage} packs on the integer pipe", "flash_fwd.cu", FWD_INT_ROUND,
+         stage),
+        (f"{stage} two consumers", "flash_fwd.cu",
+         {FWD_C: "    static constexpr int C = 2;"}, stage),
+        (f"{stage} 64-key tiles", "flash_fwd.cu",
+         {FWD_BN: "    static constexpr int BN = 64;"}, stage),
+        (f"{stage} 64-key tiles, 6 stages", "flash_fwd.cu",
+         {FWD_BN: "    static constexpr int BN = 64;",
+          FWD_STAGES_4: "    static constexpr int STAGES = 6;"}, stage),
+        (f"{stage} 6 stages", "flash_fwd.cu",
+         {FWD_STAGES_4: "    static constexpr int STAGES = 6;"}, stage),
+        *((f"{stage} {n} of 16 n8 tiles' exps by a polynomial",
+           "flash_fwd.cu", fwd_poly(n), stage) for n in (3, 5)),
+        (f"{stage} 4 of 16 n8 tiles' exps by a polynomial, in step",
+         "flash_fwd.cu", {**fwd_poly(4), **FWD_IN_STEP}, stage),
+    ]
+    if kind == "K1":
+        out += [(f"{stage} l summed by FADD (not the tensor cores)",
+                 "flash_fwd.cu", FWD_L_FADD, stage),
+                (f"{stage} l summed by FADD, in step", "flash_fwd.cu",
+                 {**FWD_L_FADD, **FWD_IN_STEP}, stage)]
+    return out
+
+
 VARIANTS = [
+    *(v for st in ("K1_32", "K15_32", "K1_16", "K15_16", "K1_64", "K15_64")
+      for v in fwd_variants(st)),
     ("dKdV32 shipped", "flash_bwd.cu", {}, "dKdV32"),
     ("dKdV32 consumers in step (no turns at the tensor cores)", BWD_IN_STEP,
      {}, "dKdV32"),
@@ -950,6 +1278,7 @@ def variant_trial(stages) -> dict:
     device = torch.device("cuda")
     t = inputs(device)
     attn_inputs(device, t, stages)
+    fwd_inputs(device, t, stages)
     variants = [v for v in VARIANTS if v[3] in stages]
     ref = twins(t, sorted({v[3] for v in variants}))
     work = Path(tempfile.mkdtemp(prefix="wgmma_variants_"))
@@ -968,10 +1297,23 @@ def variant_trial(stages) -> dict:
                            "-I", str(_build.CSRC), "-o", str(lib), str(cu)])
         return lib, log
 
+    def try_build(i, v):
+        try:
+            return build(i, v)
+        except RuntimeError as e:   # reported, and the rest still run
+            print(f"variant {v[0]}: build failed: {str(e)[-2000:]}",
+                  flush=True)
+            return None
+
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
-        built = list(pool.map(lambda iv: build(*iv), enumerate(variants)))
+        built = list(pool.map(lambda iv: try_build(*iv),
+                              enumerate(variants)))
     out = {}
-    for (label, _, _, stage), (lib, log) in zip(variants, built):
+    for (label, _, _, stage), got in zip(variants, built):
+        if got is None:
+            out[label] = dict(build_failed=True)
+            continue
+        lib, log = got
         spills = [m.group(2) for m in re.finditer(
             r"entry function '(\w+)'[^\n]*\n(?:[^\n]*\n){0,2}?[^\n]*?"
             r"(\d+) bytes spill stores", log)
@@ -979,7 +1321,8 @@ def variant_trial(stages) -> dict:
         st = Lib(lib).stages(t)[stage]
         st()
         torch.cuda.synchronize()
-        errs = stage_errors(t, ref, stage)
+        errs = stage_errors(t, ref, stage)[:1 if stage in FWD_STAGES
+                                               else None]
         ms = statistics.mean(cuda_ms(st) for _ in range(2))
         out[label] = dict(ms=ms, rel_l2=max(errs),
                           spill_bytes=max(map(int, spills or [0])))
@@ -1010,7 +1353,7 @@ def main() -> int:
     res = stage_trial(args.parent, stages)
     bad = [s for s, r in res["rows"].items()
            if r["this_rel_l2"] > (0 if s in EXACT else RTOL)
-           or not r["this_same_bits"]]
+           or r.get("this_lse_rel", 0) > LSE_RTOL or not r["this_same_bits"]]
     if args.rates and args.parent is not None:
         res["rates"] = rates(args.parent.resolve())
     print(f"card: {res['card']}", flush=True)

@@ -16,9 +16,10 @@ also at 2I 272), the two tiny configs through build_ctclip and a step on
 the kernels, and the refusals past the limits (head dim 72, D 40).  The
 SASS of the built library: K2's, K3's and K8's product kernels and every
 instance of the attention backward pair issue bf16 wgmma on TMA loads and
-no mma.sync, K11's two products, K12/K13's product
-and K14 int8 wgmma on TMA loads and no int8 mma.sync; the attention
-forwards, the patch embedding and the int8 attention still issue mma.sync.
+no mma.sync, as do every instance of the attention forwards K1/K15;
+K11's two products, K12/K13's product
+and K14 int8 wgmma on TMA loads and no int8 mma.sync; the patch embedding
+and the int8 attention still issue mma.sync.
 
 They need an NVIDIA GPU and nvcc and skip without them.  This file imports
 no JAX, so on the card it runs without the repo's conftest:
@@ -81,17 +82,26 @@ def _close(a, r):
         ).abs().max()
 
 
-# the edges of the forward's blocking (blocks of 128 queries, 64-key tiles,
-# K1's nulls in one 16-key tile): nq 13, 129 and 200 (not multiples of
-# 128), kv tails of 1 and 2 keys (65, 130), 0, 2 and 8 nulls
-FWD_EDGES = [(100, 70, 2), (64, 64, 0), (13, 200, 8), (129, 65, 2),
-             (200, 130, 0), (13, 65, 8), (129, 130, 8), (200, 65, 0)]
+# the edges of the forward's blocking (blocks of 128 queries, two consumers
+# of 64, 128-key tiles, K1's nulls in one 16-key tile): nq ending inside a
+# consumer's 64 rows (13, 100, 200) and one past a block (129, 257), nkv of
+# 1, ending inside the first 128-key tile (65, 70) and the last (130, 200,
+# 300), on a tile (64, 128, 256) and one past it (129, 257), 0, 1, 2 and 8
+# nulls, head dims 16, 32 and 64 (the 32-, 64- and 128-byte swizzles)
+FWD_EDGES = [(100, 70, 2, 32), (64, 64, 0, 32), (13, 200, 8, 32),
+             (129, 65, 2, 32), (200, 130, 0, 32), (13, 65, 8, 32),
+             (129, 130, 8, 32), (200, 65, 0, 32), (100, 1, 0, 32),
+             (64, 128, 1, 32), (257, 129, 8, 32), (129, 256, 2, 16),
+             (100, 300, 8, 16), (13, 1, 2, 16), (64, 129, 0, 64),
+             (200, 257, 8, 64), (129, 1, 1, 64)]
 
 
-@pytest.mark.parametrize("nq,nkv,n_null", FWD_EDGES)
-def test_k1_matches_plain(dev, nq, nkv, n_null):
+@pytest.mark.parametrize("nq,nkv,n_null,d", FWD_EDGES)
+def test_k1_matches_plain(dev, nq, nkv, n_null, d):
+    """q a strided heads-last view, k and v contiguous; twice on the same
+    inputs for the same bits."""
     g = torch.Generator(device=dev).manual_seed(0)
-    b, h, d = 2, 3, 32
+    b, h = 2, 3
     q = l2norm(_randn(g, b, nq, h, d)).transpose(1, 2)      # strided view
     k = l2norm(_randn(g, b, h, nkv, d))
     v = _randn(g, b, h, nkv, d)
@@ -101,10 +111,12 @@ def test_k1_matches_plain(dev, nq, nkv, n_null):
     bound = torch.tensor(scale, device=dev)
     before = fa.attention_static.launches
     out = fa.attention_static(q, k, v, nk, nv, bound, scale)
+    again = fa.attention_static(q, k, v, nk, nv, bound, scale)
     ref = fa.attention_static_plain(q, k, v, nk, nv, bound, scale)
     torch.cuda.synchronize()
-    assert fa.attention_static.launches == before + 1
+    assert fa.attention_static.launches == before + 2
     assert out.shape == (b, h, nq, d)
+    assert torch.equal(out, again)   # no atomics
     _close(out, ref)
 
 
@@ -301,6 +313,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                 dev, 70, 70, 2, d=72))):
         with pytest.raises(ValueError, match="up to 64"):
             call()
+    # K1 and K15 need a key (K1's nulls alone are refused too)
+    q, k, v, nk, nv, scale = _attn_case(dev, 70, 1, 2)
+    with pytest.raises(ValueError, match="at least one key"):
+        fa.attention_static(q, k[:, :, :0], v[:, :, :0], nk, nv, bound, scale)
+    with pytest.raises(ValueError, match="at least one key"):
+        fa.attention_online(q, k[:, :, :0], v[:, :, :0], scale)
     assert [f.launches for f in counters] == before
 
 
@@ -315,17 +333,22 @@ def _attn_case(dev, nq, nkv, n_null, seed=4, d=32):
     return q, k, v, nk, nv, 1.0 / math.sqrt(d)
 
 
-@pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (13, 200, 8),
-                                           (128, 64, 0), (129, 65, 0),
-                                           (200, 130, 2), (13, 130, 8)])
-def test_k1_lse_matches_plain(dev, nq, nkv, n_null):
-    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null)
+@pytest.mark.parametrize("nq,nkv,n_null,d", [
+    (100, 70, 2, 32), (13, 200, 8, 32), (128, 64, 0, 32), (129, 65, 0, 32),
+    (200, 130, 2, 32), (13, 130, 8, 32), (100, 1, 2, 32), (257, 129, 0, 16),
+    (129, 128, 0, 16), (64, 256, 8, 64), (13, 300, 1, 64)])
+def test_k1_lse_matches_plain(dev, nq, nkv, n_null, d):
+    """q, k and v strided heads-last views; twice for the same bits."""
+    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null, d=d)
     bound = torch.tensor(scale, device=dev)
-    out, lse = fa.attention_static(q, k, v, nk, nv, bound, scale, save_lse=True)
+    runs = [fa.attention_static(q, k, v, nk, nv, bound, scale, save_lse=True)
+            for _ in range(2)]
     ref, lse_p = fa.attention_static_plain(q, k, v, nk, nv, bound, scale,
                                            save_lse=True)
     torch.cuda.synchronize()
+    out, lse = runs[0]
     assert lse.shape == (2, 3, nq) and lse.dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
     _close(out, ref)
     assert _rel(lse, lse_p) < 1e-5
 
@@ -423,10 +446,11 @@ def test_attention_backward_is_deterministic(dev, d):
         assert torch.equal(a, b)
 
 
-def _online_case(dev, nq, nkv, n_null, seed=9):
+def _online_case(dev, nq, nkv, n_null, seed=9, d=32):
     """K15's inputs as the model makes them: q/k scaled past unit norm so
-    the running max moves, the nulls concatenated in front of k/v."""
-    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null, seed)
+    the running max moves, the nulls concatenated in front of k/v (a
+    contiguous k/v; strided heads-last views without nulls)."""
+    q, k, v, nk, nv, scale = _attn_case(dev, nq, nkv, n_null, seed, d=d)
     q, k = q * 3, k * 3
     if n_null:
         b = q.shape[0]
@@ -435,36 +459,43 @@ def _online_case(dev, nq, nkv, n_null, seed=9):
     return q, k, v, scale
 
 
-@pytest.mark.parametrize("nq,nkv,n_null", [(100, 70, 2), (13, 200, 8),
-                                           (128, 64, 0), (64, 1, 1),
-                                           (129, 63, 2), (200, 128, 2),
-                                           (13, 129, 1), (200, 1, 0)])
-def test_k15_matches_plain(dev, nq, nkv, n_null):
-    """With and without lse, at ragged q and kv (the tail tile masked)."""
-    q, k, v, scale = _online_case(dev, nq, nkv, n_null)
+@pytest.mark.parametrize("nq,nkv,n_null,d", [
+    (100, 70, 2, 32), (13, 200, 8, 32), (128, 64, 0, 32), (64, 1, 1, 32),
+    (129, 63, 2, 32), (200, 128, 2, 32), (13, 129, 1, 32), (200, 1, 0, 32),
+    (129, 127, 1, 32), (257, 300, 0, 32), (100, 254, 2, 16),
+    (13, 126, 2, 16), (64, 1, 0, 64), (200, 129, 8, 64), (257, 256, 0, 64)])
+def test_k15_matches_plain(dev, nq, nkv, n_null, d):
+    """With and without lse (the same bits), at ragged q and kv (the tail
+    tile masked), and with lse twice for the same bits."""
+    q, k, v, scale = _online_case(dev, nq, nkv, n_null, d=d)
     before = fa.attention_online.launches
     out = fa.attention_online(q, k, v, scale)
     out2, lse = fa.attention_online(q, k, v, scale, save_lse=True)
+    out3, lse3 = fa.attention_online(q, k, v, scale, save_lse=True)
     ref, lse_p = fa.attention_online_plain(q, k, v, scale, save_lse=True)
     torch.cuda.synchronize()
-    assert fa.attention_online.launches == before + 2
-    assert out.shape == (2, 3, nq, 32) and lse.shape == (2, 3, nq)
+    assert fa.attention_online.launches == before + 3
+    assert out.shape == (2, 3, nq, d) and lse.shape == (2, 3, nq)
     assert torch.equal(out, out2)
+    assert torch.equal(out2, out3) and torch.equal(lse, lse3)
     _close(out, ref)
     assert _rel(lse, lse_p) < 1e-5
 
 
-def _wide_case(dev, nq, nkv, n_null):
-    """Logits spread over [-144, 144] (scale 1, q/k rows of norm 12): most p
-    lie far below the row's largest, many below 2^-126, where
-    ex2.approx.ftz flushes them to 0."""
-    q, k, v, nk, nv, _ = _attn_case(dev, nq, nkv, n_null, seed=12)
-    return q * 12, k * 12, v, None if nk is None else nk * 12, nv, 1.0
+def _wide_case(dev, nq, nkv, n_null, d=32):
+    """Logits spread over [-144, 144] · (d/32)^½ (q/k rows of norm 12, scale
+    (d/32)^½, which keeps a row's spread as at d 32 where the cosines of
+    random unit rows narrow with d): most p lie far below the row's
+    largest, many below 2^-126, where ex2.approx.ftz flushes them to 0."""
+    q, k, v, nk, nv, _ = _attn_case(dev, nq, nkv, n_null, seed=12, d=d)
+    return (q * 12, k * 12, v, None if nk is None else nk * 12, nv,
+            (d / 32) ** 0.5)
 
 
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("online", [False, True], ids=["K1", "K15"])
-def test_forward_wide_logit_spread(dev, online):
-    q, k, v, nk, nv, scale = _wide_case(dev, 200, 300, 0 if online else 8)
+def test_forward_wide_logit_spread(dev, online, d):
+    q, k, v, nk, nv, scale = _wide_case(dev, 200, 300, 0 if online else 8, d)
     keys = k if online else torch.cat(
         [nk[None].expand(q.shape[0], -1, -1, -1), k], dim=2)
     logits = q.float() @ keys.float().transpose(-1, -2) * scale
@@ -650,9 +681,9 @@ def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
     (IMMA).  The patch embedding (HMMA, no HGMMA, on gemm_mma.cuh) and the
     int8 attention (IMMA through attn_mma.cuh's mma_s8, no IGMMA) are the
     witnesses that the check tells the two routes apart in each type.
-    Every instance (D 16, 32, 64) of the attention backward pair issues
-    HGMMA on UTMALDG loads and no HMMA; the attention forwards K1/K15
-    (mma.sync) are its bf16 HMMA witness."""
+    Every instance (D 16, 32, 64) of the attention backward pair and of
+    the attention forwards K1/K15 issues HGMMA on UTMALDG loads and no
+    HMMA."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                          capture_output=True, text=True, check=True).stdout
@@ -673,8 +704,11 @@ def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
         for text in found:
             assert "HGMMA" in text and "UTMALDG" in text, name
             assert not hmma.search(text), name
-    for text in _sass_all("flash_fwd_kernel", sass):
-        assert hmma.search(text) and "HGMMA" not in text
+    found = _sass_all("flash_fwd_kernel", sass)
+    assert len(found) == 6, len(found)   # K1, K15 × D 16, 32, 64
+    for text in found:
+        assert "HGMMA" in text and "UTMALDG" in text
+        assert not hmma.search(text)
     for text in _sass_all("patch_embed_kernel", sass):
         assert hmma.search(text) and "HGMMA" not in text
     for text in _sass_all("flash_static_int8_kernel", sass):

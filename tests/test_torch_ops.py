@@ -175,7 +175,8 @@ def test_l2norm_matches():
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("n,n_null", [(40, 2), (64, 0), (13, 8)])
+# (1, 1): one key and one null, the edges of K1's kv loop and null tile
+@pytest.mark.parametrize("n,n_null", [(40, 2), (64, 0), (13, 8), (1, 1)])
 def test_flash_attention_k1_matches_pallas_static(n, n_null):
     q, k, v, null_k, null_v, *_ = _attn_inputs(9, n=n, n_null=max(n_null, 1))
     null_k, null_v = null_k[:, :n_null], null_v[:, :n_null]

@@ -1,6 +1,6 @@
-// PTX helpers of the attention forwards (flash_fwd.cu,
-// flash_static_int8.cu), of gemm_mma.cuh (bf16) and, through
-// gemm_wgmma.cuh, of the backward pair (flash_bwd.cu: pack_bf16,
+// PTX helpers of the int8 attention (flash_static_int8.cu, K9/K10), of
+// gemm_mma.cuh (bf16: the patch embedding) and, through gemm_wgmma.cuh, of
+// the bf16 attention kernels (flash_fwd.cu, flash_bwd.cu: pack_bf16,
 // exp2_approx, smem_u32): cp.async copies into a
 // shared-memory ring, ldmatrix fragment loads (int8 rows read as b16 units),
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and m16n8k32 (int8 in,
@@ -82,15 +82,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
         : "memory");
 }
 
-// two 8 × 8 bf16 matrices; lanes 0-7 and 8-15 give the row addresses
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-        : "=r"(r[0]), "=r"(r[1])
-        : "r"(smem_u32(p))
-        : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -145,57 +136,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
     float y;
     asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
     return y;
-}
-
-// A fragments of a warp's MT m16 tiles of staged rows (MT · 16 rows × D/16
-// k16 steps over the head dim)
-template <int MT, int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[MT][D / 16][4],
-                                       const bf16* s, int lane) {
-    constexpr int LDT = att_ldt<D>();
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks)
-            ldsm_x4(a[mt][ks], s + (mt * 16 + (lane & 15)) * LDT + ks * 16 +
-                                   (lane >> 4) * 8);
-}
-
-// S (the warp's MT · 16 rows × tile rows r0..r0+7, one n8 tile) = A·tileᵀ
-// over the head dim; the B fragments are plain ldmatrix loads of the 8 tile
-// rows: {b0, b1} of k step 0, then of k step 1, ... (D 16: one .x2; else
-// one .x4 per 32 dims)
-template <int MT, int D>
-__device__ __forceinline__ void rows_times_rows(
-    float (&s)[MT][4], const uint32_t (&a)[MT][D / 16][4], const bf16* tile,
-    int r0, int lane) {
-    constexpr int LDT = att_ldt<D>();
-    if constexpr (D == 16) {
-        uint32_t b[2];
-        ldsm_x2(b, tile + (r0 + (lane & 7)) * LDT + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[mt][e] = 0.f;
-            mma(s[mt], a[mt][0], b[0], b[1]);
-        }
-    } else {
-        uint32_t b[D / 32][4];
-#pragma unroll
-        for (int kc = 0; kc < D / 32; ++kc)
-            ldsm_x4(b[kc], tile + (r0 + (lane & 7)) * LDT + kc * 32 +
-                               (lane >> 3) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[mt][e] = 0.f;
-#pragma unroll
-            for (int kc = 0; kc < D / 32; ++kc) {
-                mma(s[mt], a[mt][2 * kc], b[kc][0], b[kc][1]);
-                mma(s[mt], a[mt][2 * kc + 1], b[kc][2], b[kc][3]);
-            }
-        }
-    }
 }
 
 // acc (the warp's MT · 16 rows × D) += a (MT · 16 × 16: its k16 A

@@ -12,345 +12,505 @@
 //   lse = B + log l.
 // out = O / l in bf16; lse (natural-log units, fp32, (batch·head, Nq)) only
 // when the pointer is not null: the statistic the backward pair
-// (flash_bwd.cu) recomputes p from.  q, k, v and out are addressed through
-// (batch, head, row) strides with a contiguous head dim D of 16, 32 or 64,
-// one template instance each (the wrapper zero-pads any other d ≤ 64 to the
-// next instance: zero columns change neither S nor P·V, and the padded
-// output columns are dropped).
+// (flash_bwd.cu) recomputes p from.  q, k and v are read through 4-D tensor
+// maps of their (batch, head, row) strides, out is written through its
+// strides; the head dim D is 16, 32 or 64, one template instance each (the
+// wrapper zero-pads any other d ≤ 64 to the next instance: zero columns
+// change neither S nor P·V, and the padded output columns are dropped).
 //
-// What bounds it.  Per logit: two products of 2·32 operations on the
-// tensor cores (0.79 ms at the production shape, 6.12 G logits per layer,
-// at the bf16 peak; mma.sync reaches a part of that) and one exp on the
-// special-function unit, 16 per clock per SM: ≈ 1.65 ms per layer at
-// 1.755 GHz, the tighter of the two.  Around them a handful of fp32
-// operations (scale, max, sum, pack).  The design keeps everything else off
-// the critical path (it is the backward pair's, flash_bwd.cu):
-// - S, p and O never leave registers.  Products are PTX mma.sync.m16n8k16
-//   (bf16 in, fp32 accumulate); two adjacent n8 accumulator tiles of p,
-//   packed to bf16, are exactly one k16 A fragment of P·V.  K15 rescales O
-//   and l in registers once per tile.  The row max is a quad reduction (two
-//   shfl_xor over the 4 lanes of a row); l stays per lane and is reduced
-//   once at the end (its partial sums share the row's rescale).
-// - 4 warps of 32 query rows (two m16 tiles), 128 queries per block: every
-//   K and V fragment read by ldmatrix serves 32 queries.  Q's A fragments
-//   are loaded once and stay in registers.
-// - K and V stream in 64-key tiles through a 3-stage cp.async ring
-//   (16-byte cp.async.cg, zero fill past the end): tile t + 2 loads while
-//   tile t computes, one barrier per tile.  Rows padded to 80 bytes, so
-//   ldmatrix is conflict-free.
+// What bounds it on an H100.  Per logit: one exp on the special-function
+// unit (16 per clock per SM: 1.46 ms per layer at the production shape, 6.12
+// G logits, at clocks.max.sm) and two products of 2·D operations on the
+// tensor cores (0.79 ms at D 32 at the bf16 peak).  Around them a handful of
+// fp32 operations (scale, max, sum) and a bf16 pack per two p.  The design
+// keeps the exp unit fed while the products run beside it, on
+// gemm_wgmma.cuh's pieces (those of the backward pair, flash_bwd.cu):
+// - A block is four warpgroups (512 threads, one block per SM) and owns
+//   192 queries of one (batch, head).  In the producer warpgroup one thread
+//   issues the TMA loads: the block's queries (and K1's null K and V) once,
+//   then each K tile of BN keys (128; 64 at D 64) and its V tile into a
+//   4-stage mbarrier ring; rows past Nq and Nkv arrive as zeros.  The three
+//   consumer warpgroups own 64 queries each and 160 registers a thread (24
+//   a producer thread: the launch's 128 × 512).  Three consumers, not two:
+//   the exps of a tile wait on its S, its row max (K15) and the pack of
+//   the tile before, and a third warp on each scheduler keeps the exp unit
+//   busy through those waits (two ran 15-63% slower at D 32).
+// - Both products are wgmma with A in registers: S = Q Kᵀ with the
+//   consumer's Q read once into k16 A fragments and the K tile an
+//   index-major B (one m64nBN group of D/16 instructions); O += P V with P
+//   the S accumulators packed to bf16 (two adjacent n8 tiles are one k16 A
+//   fragment) and the V tile read k-major through the transpose bit.  S, p
+//   and O never leave registers.  Tiles lie in the swizzle of a row's 2D
+//   bytes (32, 64 or 128), in the tensor maps and the descriptors alike.
+// - K1's l comes from the tensor cores, as the TPU kernel's ones column
+//   does: beside each P V instruction an m64n8k16 wgmma of the same P
+//   against a tile of bf16 ones sums exactly the bf16 p that P V takes (12%
+//   faster than unpacking and adding them).  K15's l sums the fp32 p.
+// - Overlap: the consumers take turns at the tensor cores (named barriers
+//   3-5, as the backward pair does): in its turn a consumer issues S of
+//   tile t, then P V of tile t − 1, and hands the turn over; its exps of
+//   tile t start once S is done and run beside its own P V and the other
+//   consumers' products.  The first turn (S only) and the last (P V only)
+//   are peeled, so that no wgmma sits under a branch (ptxas serialises
+//   wgmmas there).
 // - p = ex2.approx(S · scale·log2e − m·log2e): one FFMA and one MUFU per
-//   logit; m is kept in log2 units (K1: the per-block constant B·log2e).
-//   A p below 2^-126 flushes to 0: K15's p are relative to the row max;
-//   K1's are rounded to bf16, whose denormals stop at 2^-133.
-// - Masking: keys ≥ Nkv (zero-filled) get S = −∞, only in the last tile (a
-//   uniform branch); query rows past Nq are zero-filled and never stored.
-//   K1's nulls are one extra 16-key tile staged once beside Q and masked
-//   past n_null: the same code path as a kv tile, a quarter of one tile's
-//   work, against a per-lane fp32 loop over the nulls.
+//   logit; m is kept in log2 units (K1: the constant B·log2e).  A p below
+//   2^-126 flushes to 0: K15's p are relative to the row max; K1's are
+//   rounded to bf16, whose denormals stop at 2^-133.  K15 takes the row max
+//   of a whole tile (a quad reduction, two shuffles a row) and rescales O
+//   and l once per tile, O after its P V of the tile before is done; its l
+//   stays per lane and is reduced once at the end.
+// - Masking: keys past Nkv (zero rows) get S = −∞ in the last tile only (a
+//   uniform branch around register code); query rows past Nq are zeros and
+//   are never stored.  K1's nulls are a 16-key tile loaded once beside Q
+//   and taken before the first kv tile, masked past n_null (every column
+//   when there is none: the phase has no branch).
 // - No atomics: two launches on the same inputs give the same bits.
-// - Registers: __launch_bounds__ asks for three blocks (12 warps) per SM,
-//   a cap of 168.  At D 32, O is 32 fp32 per lane, Q's fragments 16, a
-//   64-key S 64.  K1 takes a 64-key tile in one pass (156 registers on an
-//   H100 build); K15 also keeps its rescale live beside S and spilled at 64
-//   keys, so it takes two 32-key passes per tile (168, no spill).  Two
-//   blocks per SM with one 64-key pass ran slower in a trial; four blocks
-//   (a cap of 128) spill.  D 16 keeps D 32's tiling with half of O and Q.
-//   D 64 would double O and Q at 32 rows a warp, so a warp owns 16 query
-//   rows (one m16 tile: O 32 fp32, Q 16 registers, as at D 32) and K/V
-//   stream in 32-key tiles, which keeps the ring in 48 KB of static shared
-//   memory.  The ptxas counts are in build/torch_kernels/*.log.
-#include "attn_mma.cuh"
+// The ptxas counts and notes are in build/torch_kernels/*.log; the trial's
+// ablations and options are scripts/gemm_wgmma_trial.py --variants.
+#include "gemm_wgmma.cuh"
 
 using namespace vit;
 
 namespace {
 
+constexpr int BQ = 64;           // queries of a consumer warpgroup
 constexpr int NULL_ROWS = 16;    // K1's nulls: one k16 tile
 constexpr int MAX_NULL = 8;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int STAGES = 3;        // depth of the cp.async ring
-constexpr int MIN_BLOCKS = 3;    // per SM, for __launch_bounds__
+constexpr int FWD_PRODUCER_REGS = 24;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-// the tiling of head dim D: MT m16 tiles of query rows a warp (32 rows at
-// D 16 and 32, 16 at D 64), BKV keys a streamed tile, and the keys a warp
-// takes through S → p → P·V at once: a whole tile (K1) or 32 (K15)
-template <int D>
-struct FwdCfg {
-    static constexpr int LDT = att_ldt<D>();
-    static constexpr int MT = D == 64 ? 1 : 2;
-    static constexpr int WR = 16 * MT;          // query rows a warp owns
-    static constexpr int BQ = WARPS * WR;       // query rows a block owns
-    static constexpr int BKV = D == 64 ? 32 : 64;
-    static constexpr int SUB_STATIC = BKV, SUB_ONLINE = 32;
-};
 
 struct Strides {
     long long b, h, n;
 };
 
+constexpr int round_kb(int bytes) { return (bytes + 1023) / 1024 * 1024; }
+
+// The tiling of head dim D: C consumer warpgroups of 64 queries, BN keys a
+// streamed tile (64 at D 64, whose O and Q take twice the registers),
+// STAGES stages.  Tiles of rows as TMA leaves them: rows of 2D bytes in the
+// swizzle of 2D bytes; a stage is a K tile and its V tile; the block's own
+// area holds the consumers' queries, K1's null K and V, a tile of ones,
+// then a barrier.
 template <int D>
-struct Smem {
-    bf16 q[FwdCfg<D>::BQ * FwdCfg<D>::LDT];
-    bf16 nk[NULL_ROWS * FwdCfg<D>::LDT];
-    bf16 nv[NULL_ROWS * FwdCfg<D>::LDT];
-    bf16 k[STAGES][FwdCfg<D>::BKV * FwdCfg<D>::LDT];
-    bf16 v[STAGES][FwdCfg<D>::BKV * FwdCfg<D>::LDT];
+struct Fwd {
+    static_assert(D == 16 || D == 32 || D == 64, "head dims 16, 32, 64");
+    static constexpr int C = 3;
+    static constexpr int BN = D == 64 ? 64 : 128;
+    static constexpr int STAGES = 4;
+    static constexpr int THREADS = (1 + C) * WG_THREADS;
+    // a consumer thread's registers after setmaxnreg: what the producer's 24
+    // leave of the launch's 65,536 / THREADS a thread (steps of 8)
+    static constexpr int REGS =
+        ((65536 / THREADS / 8 * 8) * (1 + C) - FWD_PRODUCER_REGS) / C / 8 * 8;
+    static constexpr int SW = 2 * D;
+    static constexpr int KV_BYTES = BN * SW;
+    static constexpr int Q_BYTES = BQ * SW;
+    static constexpr int NULL_BYTES = round_kb(NULL_ROWS * SW);
+    static constexpr int NK_OFF = round_kb(C * Q_BYTES);   // null K, then V
+    static constexpr int ONES_OFF = NK_OFF + 2 * NULL_BYTES;
+    static constexpr int OWN = ONES_OFF + 1024;
+    using R = Ring<STAGES, 2 * KV_BYTES, OWN + 1024, 1, 1, C>;
+    static_assert(REGS <= 256 && FWD_PRODUCER_REGS + C * REGS <=
+                                     (65536 / THREADS / 8 * 8) * (1 + C),
+                  "the warpgroups' registers fit the block's");
+    // index-major (rows × D, k along the row): k16 step kk
+    __device__ __forceinline__ static uint64_t rows(uint32_t a, int kk) {
+        return smem_desc<false, SW>(a + 32 * kk);
+    }
+    // k-major (the rows are k, D the index): k16 step i, 16 rows further
+    __device__ __forceinline__ static uint64_t kmajor(uint32_t a, int i) {
+        return smem_desc<true, SW>(a + 16 * SW * i);
+    }
 };
 
 __device__ __forceinline__ float neg_inf() {
     return __int_as_float(0xff800000);
 }
 
-// One tile of KEYS keys staged at pitch LDT (ks, vs) against the warp's
-// MT·16 queries (qa).  MASK: keys at or past kv_left are not keys (the last
-// kv tile, K1's nulls).  ONLINE (K15): m is the running row max in log2
-// units, O and l are rescaled by ex2(m_old − m_new); else (K1) m holds
-// B·log2e and never moves, and l sums the bf16-rounded p.  Lane (g, t)
-// holds rows g and g + 8 of each m16 tile (index half), keys 2t, 2t + 1 of
-// each n8 tile.
-template <int KEYS, bool MASK, bool ONLINE, int D, int MT>
-__device__ __forceinline__ void attend_tile(float (&o)[MT][D / 8][4],
-                                            float (&m)[MT][2],
-                                            float (&l)[MT][2],
-                                            const uint32_t (&qa)[MT][D / 16][4],
-                                            const bf16* ks, const bf16* vs,
-                                            int kv_left, float c2, int lane) {
-    constexpr int NT = KEYS / 8;
-    const int t = lane & 3;
-    float s[NT][MT][4];
+template <int J>
+__device__ __forceinline__ void zero(float (&a)[J][4]) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-        rows_times_rows<MT, D>(s[j], qa, ks, j * 8, lane);
-    if (MASK) {
+    for (int j = 0; j < J; ++j)
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+        for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
+}
+
+// two adjacent n8 tiles of an accumulator, as bf16 pairs: the k16 A
+// fragment of step i
+template <int J>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[J / 2][4],
+                                       const float (&x)[J][4]) {
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    if (j * 8 + 2 * t + (e & 1) >= kv_left)
-                        s[j][mt][e] = neg_inf();
-    }
-    if (ONLINE) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                float mx = neg_inf();
-#pragma unroll
-                for (int j = 0; j < NT; ++j)
-                    mx = fmaxf(mx, fmaxf(s[j][mt][2 * half],
-                                         s[j][mt][2 * half + 1]));
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-                // finite: the pass's first key is a key
-                const float m_new = fmaxf(m[mt][half], mx * c2);
-                const float corr = exp2_approx(m[mt][half] - m_new);
-                m[mt][half] = m_new;
-                l[mt][half] *= corr;
-#pragma unroll
-                for (int nt = 0; nt < D / 8; ++nt) {
-                    o[mt][nt][2 * half] *= corr;
-                    o[mt][nt][2 * half + 1] *= corr;
-                }
-            }
-    }
-#pragma unroll
-    for (int kk = 0; kk < KEYS / 16; ++kk) {
-        uint32_t pa[MT][4];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-            const int j = 2 * kk + jj;
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-                float p[4];
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    p[e] = exp2_approx(fmaf(s[j][mt][e], c2, -m[mt][e >> 1]));
-                const uint32_t lo = pack_bf16(p[0], p[1]);
-                const uint32_t hi = pack_bf16(p[2], p[3]);
-                pa[mt][2 * jj] = lo;
-                pa[mt][2 * jj + 1] = hi;
-                if (ONLINE) {
-                    l[mt][0] += p[0] + p[1];
-                    l[mt][1] += p[2] + p[3];
-                } else {   // the bf16 values the P·V operand holds
-                    l[mt][0] += __uint_as_float(lo << 16) +
-                                __uint_as_float(lo & 0xffff0000u);
-                    l[mt][1] += __uint_as_float(hi << 16) +
-                                __uint_as_float(hi & 0xffff0000u);
-                }
-            }
-        }
-        acc_times_tile<MT, D>(o, pa, vs, kk * 16, lane);   // O += P·V
+    for (int i = 0; i < J / 2; ++i) {
+        a[i][0] = pack_bf16(x[2 * i][0], x[2 * i][1]);
+        a[i][1] = pack_bf16(x[2 * i][2], x[2 * i][3]);
+        a[i][2] = pack_bf16(x[2 * i + 1][0], x[2 * i + 1][1]);
+        a[i][3] = pack_bf16(x[2 * i + 1][2], x[2 * i + 1][3]);
     }
 }
 
-// one block per (BQ queries, batch·head); warp w owns queries WR·w ..;
-// each staged tile goes through attend_tile in passes of SUB keys
-template <bool ONLINE, int D>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ nk,
-                 const bf16* __restrict__ nv,
-                 const float* __restrict__ bound_ptr, bf16* __restrict__ out,
-                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
-                 Strides os, int H, int Nq, int Nkv, int n_null, float scale) {
-    using C = FwdCfg<D>;
-    constexpr int MT = C::MT, WR = C::WR, BQ = C::BQ, BKV = C::BKV;
-    constexpr int LDT = C::LDT;
-    constexpr int SUB = ONLINE ? C::SUB_ONLINE : C::SUB_STATIC;
-    __shared__ __align__(128) Smem<D> sm;
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int b = blockIdx.y / H, h = blockIdx.y % H;
-    const int q0 = blockIdx.x * BQ;
-    const bf16* kb = k + b * ks.b + h * ks.h;
-    const bf16* vb = v + b * vs.b + h * vs.h;
-    const float c2 = scale * LOG2E;
-
-    // the first group: the block's queries and K1's nulls
-    copy_rows<BQ, THREADS, D>(sm.q, q + b * qs.b + h * qs.h, qs.n, q0, Nq,
-                              tid);
-    if (!ONLINE && n_null > 0) {
-        const size_t n0 = (size_t)h * n_null * D;
-        copy_rows<NULL_ROWS, THREADS, D>(sm.nk, nk + n0, D, 0, n_null, tid);
-        copy_rows<NULL_ROWS, THREADS, D>(sm.nv, nv + n0, D, 0, n_null, tid);
-    }
-    cp_async_commit();
-
-    const int n_tiles = (Nkv + BKV - 1) / BKV;
-    auto issue = [&](int tile) {
-        if (tile < n_tiles) {
-            const int st = tile % STAGES;
-            copy_rows<BKV, THREADS, D>(sm.k[st], kb, ks.n, tile * BKV, Nkv,
-                                       tid);
-            copy_rows<BKV, THREADS, D>(sm.v[st], vb, vs.n, tile * BKV, Nkv,
-                                       tid);
+// the k16 A fragments of the warpgroup's 64 rows of a tile (rows × D, as
+// TMA left it): a[kk] holds columns 16kk .. 16kk + 15, read once
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t (&a)[D / 16][4],
+                                          uint32_t tile) {
+    const int w = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
+    const int t4 = threadIdx.x & 3;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int row = 16 * w + g + 8 * (k & 1);
+            const int col = 16 * kk + 2 * t4 + 8 * (k >> 1);
+            a[kk][k] = lds_u32(tile + swizzled<Fwd<D>::SW>(
+                                          row * Fwd<D>::SW + 2 * col));
         }
-        cp_async_commit();   // an empty group past the end keeps the count
-    };
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) issue(s);
+}
 
-    cp_async_wait<STAGES - 1>();   // this thread's queries and nulls
-    __syncthreads();
-    uint32_t qa[MT][D / 16][4];
-    load_a<MT, D>(qa, sm.q + warp * WR * LDT, lane);
-
-    float o[MT][D / 8][4], m[MT][2], l[MT][2];
-    const float m0 = ONLINE ? neg_inf() : *bound_ptr * LOG2E;
+// S (64 × N) = Q · tileᵀ over the head dim: Q the consumer's A fragments,
+// the tile's N rows index-major; one wgmma group
+template <int N, int D>
+__device__ __forceinline__ void logits(float (&s)[N / 8][4],
+                                       const uint32_t (&qa)[D / 16][4],
+                                       uint32_t tile) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int kk = 0; kk < D / 16; ++kk)
+        WgmmaRS<N, 0>::run(s, qa[kk], Fwd<D>::rows(tile, kk), kk > 0);
+    wgmma_commit();
+}
+
+// O += P · tile (P: 64 × K in registers, k16 fragments; the tile's K rows
+// read k-major), and for K1 (ONES) lacc += P · ones: each of its 8 columns
+// sums the bf16 p of a row, as the TPU kernel's ones column in v does; one
+// wgmma group
+template <int K, int D, bool ONES>
+__device__ __forceinline__ void times_v(float (&o)[D / 8][4],
+                                        float (&lacc)[1][4],
+                                        const uint32_t (&pa)[K / 16][4],
+                                        uint32_t tile, uint32_t ones) {
+#pragma unroll
+    for (int i = 0; i < K / 16; ++i) {
+        WgmmaRS<D, 1>::run(o, pa[i], Fwd<D>::kmajor(tile, i));
+        if (ONES) WgmmaRS<8, 0>::run(lacc, pa[i], smem_desc<false, 32>(ones));
+    }
+    wgmma_commit();
+}
+
+// The exps of one tile's S in s, in place (s becomes p in fp32).  MASK:
+// columns at or past kv_left are not keys.  ONLINE (K15): m is the running
+// row max in log2 units; the tile's max moves it, corr = ex2(m_old − m_new)
+// rescales l here and O in the caller, and l adds the fp32 p.  Else (K1) m
+// holds B·log2e and l is the tensor cores' (times_v).
+// Lane (g, t) holds rows g (e 0, 1) and g + 8 (e 2, 3), columns 8j + 2t, +1.
+template <int J, bool MASK, bool ONLINE>
+__device__ __forceinline__ void exps(float (&s)[J][4], float (&m)[2],
+                                     float (&l)[2], float (&corr)[2],
+                                     float c2, int kv_left) {
+    const int col2 = 2 * (threadIdx.x & 3);
+    if (MASK) {
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                if (8 * j + col2 + (e & 1) >= kv_left) s[j][e] = neg_inf();
+    }
+    if (ONLINE) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-            m[mt][half] = m0;
-            l[mt][half] = 0.f;
+            float mx = neg_inf();
+#pragma unroll
+            for (int j = 0; j < J; ++j)
+                mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            // finite: every tile holds a key
+            const float m_new = fmaxf(m[half], mx * c2);
+            corr[half] = exp2_approx(m[half] - m_new);
+            m[half] = m_new;
         }
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[mt][nt][e] = 0.f;
     }
-    if (!ONLINE && n_null > 0)
-        attend_tile<NULL_ROWS, true, false, D, MT>(o, m, l, qa, sm.nk, sm.nv,
-                                                   n_null, c2, lane);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            s[j][e] = exp2_approx(fmaf(s[j][e], c2, -m[e >> 1]));
+            if (ONLINE) sum[e >> 1] += s[j][e];
+        }
+    if (ONLINE) {
+        l[0] = fmaf(l[0], corr[0], sum[0]);
+        l[1] = fmaf(l[1], corr[1], sum[1]);
+    }
+}
 
-    for (int tile = 0; tile < n_tiles; ++tile) {
-        cp_async_wait<STAGES - 2>();   // this thread's copies of the tile
-        __syncthreads();   // every copy visible; the oldest stage is free
-        issue(tile + STAGES - 1);
-        const bf16* kt = sm.k[tile % STAGES];
-        const bf16* vt = sm.v[tile % STAGES];
-        const int kv_left = Nkv - tile * BKV;
-        if (kv_left >= BKV) {
+// The C consumer warpgroups take turns at the tensor cores (named barriers
+// 3 .. 2 + C, two warpgroups' 256 threads each): warpgroup c waits for its
+// turn (bar.sync 3 + c), issues its wgmmas of a tile, and hands the turn
+// to the next (bar.arrive 3 + (c + 1) % C).  The last consumer hands
+// consumer 0 the first turn and skips its last hand-over, so every arrival
+// meets a wait.
+__device__ __forceinline__ void my_turn(int cw) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(3 + cw), "n"(2 * WG_THREADS)
+                 : "memory");
+}
+template <int C>
+__device__ __forceinline__ void your_turn(int cw) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(3 + (cw + 1) % C),
+                 "n"(2 * WG_THREADS)
+                 : "memory");
+}
+
+// One block per (64·C queries, batch·head); consumer c owns queries 64c ..
+// of the block.  Per BN-key tile: S = Q Kᵀ, p in its registers, O += P V.
+template <bool ONLINE, int D>
+__global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap nk_map,
+                 const __grid_constant__ CUtensorMap nv_map,
+                 const float* __restrict__ bound_ptr, bf16* __restrict__ out,
+                 float* __restrict__ lse, Strides os, int H, int Nq, int Nkv,
+                 int n_null, float scale) {
+    using F = Fwd<D>;
+    using R = typename F::R;
+    constexpr int C = F::C, BN = F::BN;
+    constexpr bool ONES = !ONLINE;   // K1's l from the tensor cores
+    extern __shared__ unsigned char smem_raw[];
+    R ring(smem_raw);
+    const uint32_t own = ring.extra(), own_bar = own + F::OWN;
+    const uint32_t nkt = own + F::NK_OFF, nvt = nkt + F::NULL_BYTES;
+    const uint32_t ones = own + F::ONES_OFF;
+    if (threadIdx.x == 0) mbar_init(own_bar, 1);
+    ring.init();
+    const int b = blockIdx.y / H, h = blockIdx.y % H;
+    const int q0 = blockIdx.x * C * BQ;
+    const int n_tiles = (Nkv + BN - 1) / BN;
+    if (threadIdx.x < WG_THREADS) {   // the producer
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+            FWD_PRODUCER_REGS));
+        if (threadIdx.x == 0) {
+            mbar_expect_tx(own_bar, C * F::Q_BYTES +
+                                        (ONLINE ? 0 : 2 * NULL_ROWS * F::SW));
 #pragma unroll
-            for (int c = 0; c < BKV / SUB; ++c)
-                attend_tile<SUB, false, ONLINE, D, MT>(
-                    o, m, l, qa, kt + c * SUB * LDT, vt + c * SUB * LDT, SUB,
-                    c2, lane);
-        } else {   // the last tile: passes holding a key, masked
-            for (int c = 0; c * SUB < kv_left; ++c)
-                attend_tile<SUB, true, ONLINE, D, MT>(
-                    o, m, l, qa, kt + c * SUB * LDT, vt + c * SUB * LDT,
-                    kv_left - c * SUB, c2, lane);
+            for (int c = 0; c < C; ++c)
+                tma_load_4d(own + c * F::Q_BYTES, &q_map, 0, q0 + BQ * c, h,
+                            b, own_bar);
+            if constexpr (!ONLINE) {
+                tma_load_4d(nkt, &nk_map, 0, 0, h, 0, own_bar);
+                tma_load_4d(nvt, &nv_map, 0, 0, h, 0, own_bar);
+            }
+            for (int t = 0; t < n_tiles; ++t) {
+                mbar_wait(ring.empty(), ring.phase ^ 1);
+                const uint32_t st = ring.data(), full = ring.full();
+                mbar_expect_tx(full, 2 * F::KV_BYTES);
+                tma_load_4d(st, &k_map, 0, t * BN, h, b, full);
+                tma_load_4d(st + F::KV_BYTES, &v_map, 0, t * BN, h, b, full);
+                ring.advance();
+            }
         }
+        return;
     }
-    cp_async_wait<0>();
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F::REGS));
+    const int cw = threadIdx.x / WG_THREADS - 1;
+    const bool signals = threadIdx.x % WG_THREADS == 0;
+    const float c2 = scale * LOG2E;
+    const float m0 = ONLINE ? neg_inf() : *bound_ptr * LOG2E;
+    float o[D / 8][4], s[BN / 8][4], lacc[1][4];
+    float m[2] = {m0, m0}, l[2] = {0.f, 0.f}, corr[2];
+    zero(o);
+    zero(s);
+    zero(lacc);
+    uint32_t qa[D / 16][4], pa[BN / 16][4];
+    uint32_t held = 0;   // the empty barrier of the stage read a tile before
+    if constexpr (ONES) {
+        // a 1 KB tile of bf16 ones, written by the consumers' threads (with
+        // no branch: ptxas serialises wgmmas behind a divergent path) and
+        // made visible to wgmma (the async proxy) before any reads it
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                         ones + 4 * ((threadIdx.x - WG_THREADS) % 256)),
+                     "r"(0x3f803f80u)
+                     : "memory");
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 2, %0;\n" ::"n"(C * WG_THREADS) : "memory");
+    }
+    mbar_wait(own_bar, 0);
+    load_rows<D>(qa, own + cw * F::Q_BYTES);
+    if constexpr (!ONLINE) {
+        // K1's nulls before the first kv tile: S, p and P V of one 16-key
+        // tile, masked past n_null, done before the turns begin
+        float sn[2][4];
+        uint32_t pn[1][4];
+        zero(sn);
+        wgmma_fence();
+        logits<NULL_ROWS, D>(sn, qa, nkt);
+        wgmma_wait<0>();
+        fence_acc(sn);
+        exps<2, true, false>(sn, m, l, corr, c2, n_null);
+        pack_a<2>(pn, sn);
+        wgmma_fence();
+        times_v<NULL_ROWS, D, ONES>(o, lacc, pn, nvt, ones);
+        wgmma_wait<0>();
+        fence_acc(o);
+        fence_acc(lacc);
+    }
+    // once S of tile t (and the groups issued before it) is done: p in
+    // place while P V of tile t − 1 runs; then, that done too, the stage
+    // before is released, K15's O rescaled, and p packed as A fragments
+    auto math = [&](int t) {
+        wgmma_wait<1>();
+        fence_acc(s);
+        const int kv_left = Nkv - t * BN;
+        if (kv_left >= BN)
+            exps<BN / 8, false, ONLINE>(s, m, l, corr, c2, kv_left);
+        else
+            exps<BN / 8, true, ONLINE>(s, m, l, corr, c2, kv_left);
+        wgmma_wait<0>();
+        fence_acc(o);
+        fence_acc(lacc);
+        fence_acc(s);
+        if (held && signals) mbar_arrive(held);
+        if (ONLINE) {
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+        }
+        pack_a<BN / 8>(pa, s);
+    };
+    if (cw == C - 1) your_turn<C>(cw);
+    // turn t issues S of tile t and P V of tile t − 1; the first turn's
+    // empty group stands for the P V of no tile
+    mbar_wait(ring.full(), ring.phase);
+    uint32_t kt = ring.data();
+    my_turn(cw);
+    wgmma_fence();
+    logits<BN, D>(s, qa, kt);
+    wgmma_commit();
+    your_turn<C>(cw);
+    math(0);
+    for (int t = 1; t < n_tiles; ++t) {
+        held = ring.empty();
+        const uint32_t before = kt;
+        ring.advance();
+        mbar_wait(ring.full(), ring.phase);
+        kt = ring.data();
+        my_turn(cw);
+        wgmma_fence();
+        logits<BN, D>(s, qa, kt);
+        times_v<BN, D, ONES>(o, lacc, pa, before + F::KV_BYTES, ones);
+        your_turn<C>(cw);
+        math(t);
+    }
+    held = ring.empty();
+    my_turn(cw);
+    wgmma_fence();
+    times_v<BN, D, ONES>(o, lacc, pa, kt + F::KV_BYTES, ones);
+    if (cw != C - 1) your_turn<C>(cw);
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_acc(lacc);
+    if (signals) mbar_arrive(held);
 
     // out = O / l; lse = m + log l (K1: B + log l)
     bf16* ob = out + b * os.b + h * os.h;
+    const int r0 = q0 + BQ * cw;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            float lt = l[mt][half];
+    for (int half = 0; half < 2; ++half) {
+        float lt = l[half];
+        if (ONES) {   // every column of lacc holds the row's sum
+            lt = lacc[0][2 * half];
+        } else {
             lt += __shfl_xor_sync(0xffffffffu, lt, 1);
             lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-            const int row = q0 + warp * WR + mt * 16 + half * 8 + g;
-            if (row >= Nq) continue;
-#pragma unroll
-            for (int nt = 0; nt < D / 8; ++nt)
-                *reinterpret_cast<uint32_t*>(ob + row * os.n + nt * 8 + 2 * t) =
-                    pack_bf16(o[mt][nt][2 * half] / lt,
-                              o[mt][nt][2 * half + 1] / lt);
-            if (lse != nullptr && t == 0)
-                lse[(size_t)blockIdx.y * Nq + row] =
-                    (ONLINE ? m[mt][half] * LN2 : *bound_ptr) + logf(lt);
         }
+        const int row = r0 + wg_row(2 * half);
+        if (row >= Nq) continue;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<uint32_t*>(ob + row * os.n + wg_col(j, 0)) =
+                pack_bf16(o[j][2 * half] / lt, o[j][2 * half + 1] / lt);
+        if (lse != nullptr && (threadIdx.x & 3) == 0)
+            lse[(size_t)blockIdx.y * Nq + row] =
+                (ONLINE ? m[half] * LN2 : *bound_ptr) + logf(lt);
+    }
 }
 
 template <int D>
 constexpr bool smem_fits() {
-    using C = FwdCfg<D>;
-    return sizeof(Smem<D>) <= 48 * 1024 &&
-           sizeof(bf16) * C::BKV * C::LDT % 16 == 0 &&
-           sizeof(bf16) * C::BQ * C::LDT % 16 == 0 &&
-           sizeof(bf16) * NULL_ROWS * C::LDT % 16 == 0 &&
-           C::BKV % C::SUB_STATIC == 0 && C::BKV % C::SUB_ONLINE == 0;
+    return Fwd<D>::R::SMEM_BYTES <= 232448 && Fwd<D>::Q_BYTES % 1024 == 0 &&
+           Fwd<D>::KV_BYTES % 1024 == 0;
 }
 static_assert(smem_fits<16>() && smem_fits<32>() && smem_fits<64>(),
-              "static shared memory, 16-byte aligned stages, whole passes");
+              "the ring fits, tiles keep the swizzle's 1024-byte alignment");
 
 template <bool ONLINE, int D>
-int launch_d(const void* q, const void* k, const void* v, const void* nk,
-             const void* nv, const void* bound, void* out, void* lse,
-             Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
-             int Nq, int Nkv, int n_null, float scale, void* stream) {
-    dim3 grid((Nq + FwdCfg<D>::BQ - 1) / FwdCfg<D>::BQ, B * H);
-    flash_fwd_kernel<ONLINE, D><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)nk,
-        (const bf16*)nv, (const float*)bound, (bf16*)out, (float*)lse, qs, ks,
-        vs, os, H, Nq, Nkv, n_null, scale);
+int launch_d(const CUtensorMap (&maps)[5], const void* bound, void* out,
+             void* lse, Strides os, int B, int H, int Nq, int Nkv,
+             int n_null, float scale, void* stream) {
+    using F = Fwd<D>;
+    constexpr int smem = F::R::SMEM_BYTES;
+    cudaError_t e = allow_smem(flash_fwd_kernel<ONLINE, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((Nq + F::C * BQ - 1) / (F::C * BQ), B * H);
+    flash_fwd_kernel<ONLINE, D>
+        <<<grid, F::THREADS, smem, (cudaStream_t)stream>>>(
+            maps[0], maps[1], maps[2], maps[3], maps[4], (const float*)bound,
+            (bf16*)out, (float*)lse, os, H, Nq, Nkv, n_null, scale);
     return (int)cudaGetLastError();
 }
 
-// K1 (ONLINE false) or K15 at head dim D (16, 32 or 64)
+// K1 (ONLINE false) or K15 at head dim D (16, 32 or 64).  q, k and v as 4-D
+// tensor maps in boxes of 64 query rows and BN key rows; K1's nulls (h,
+// n_null, d), contiguous, in boxes of 16 rows (K15: none, k's and v's maps
+// stand in)
+template <bool ONLINE, int D>
+int launch_maps(const void* q, const void* k, const void* v, const void* nk,
+                const void* nv, const void* bound, void* out, void* lse,
+                Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
+                int Nq, int Nkv, int n_null, float scale, void* stream) {
+    CUtensorMap maps[5];
+    const int nn = n_null > 0 ? n_null : 1;   // K1 without nulls: a dummy row
+    if (!tma_map_4d(&maps[0], q, B, H, Nq, D, qs.b, qs.h, qs.n, BQ) ||
+        !tma_map_4d(&maps[1], k, B, H, Nkv, D, ks.b, ks.h, ks.n, Fwd<D>::BN) ||
+        !tma_map_4d(&maps[2], v, B, H, Nkv, D, vs.b, vs.h, vs.n, Fwd<D>::BN))
+        return (int)cudaErrorInvalidValue;
+    if (ONLINE) {
+        maps[3] = maps[1];
+        maps[4] = maps[2];
+    } else if (!tma_map_4d(&maps[3], nk, 1, H, nn, D, 0, (long long)nn * D, D,
+                           NULL_ROWS) ||
+               !tma_map_4d(&maps[4], nv, 1, H, nn, D, 0, (long long)nn * D, D,
+                           NULL_ROWS)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    return launch_d<ONLINE, D>(maps, bound, out, lse, os, B, H, Nq, Nkv,
+                               n_null, scale, stream);
+}
+
 template <bool ONLINE>
 int launch(const void* q, const void* k, const void* v, const void* nk,
            const void* nv, const void* bound, void* out, void* lse,
            Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
            int Nq, int Nkv, int n_null, int D, float scale, void* stream) {
-    // K15 needs a key in every row; K1 may run on its nulls alone
-    if (Nkv < (ONLINE ? 1 : 0) || n_null < 0 || n_null > MAX_NULL)
+    if (B < 1 || H < 1 || Nq < 1 || Nkv < 1 || n_null < 0 ||
+        n_null > MAX_NULL)
         return (int)cudaErrorInvalidValue;
     switch (D) {
         case 16:
-            return launch_d<ONLINE, 16>(q, k, v, nk, nv, bound, out, lse, qs,
-                                        ks, vs, os, B, H, Nq, Nkv, n_null,
-                                        scale, stream);
+            return launch_maps<ONLINE, 16>(q, k, v, nk, nv, bound, out, lse,
+                                           qs, ks, vs, os, B, H, Nq, Nkv,
+                                           n_null, scale, stream);
         case 32:
-            return launch_d<ONLINE, 32>(q, k, v, nk, nv, bound, out, lse, qs,
-                                        ks, vs, os, B, H, Nq, Nkv, n_null,
-                                        scale, stream);
+            return launch_maps<ONLINE, 32>(q, k, v, nk, nv, bound, out, lse,
+                                           qs, ks, vs, os, B, H, Nq, Nkv,
+                                           n_null, scale, stream);
         case 64:
-            return launch_d<ONLINE, 64>(q, k, v, nk, nv, bound, out, lse, qs,
-                                        ks, vs, os, B, H, Nq, Nkv, n_null,
-                                        scale, stream);
+            return launch_maps<ONLINE, 64>(q, k, v, nk, nv, bound, out, lse,
+                                           qs, ks, vs, os, B, H, Nq, Nkv,
+                                           n_null, scale, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -2,8 +2,9 @@
 // K2's act and out; geglu_ff_bwd.cu: K8's dh, dy and the weight GEMM;
 // ln_qkv.cu: K3; ln_qkv_int8.cu: K12/K13's product and K14;
 // geglu_ff_int8.cu: K11's act and out), and the PTX pieces of the
-// attention backward pair (flash_bwd.cu: descriptors in the 64- and 32-byte
-// swizzles, wgmma with A in registers, 4-D tensor maps):
+// attention kernels (flash_bwd.cu, the backward pair; flash_fwd.cu, the
+// forwards K1/K15: descriptors in the 64- and 32-byte swizzles, wgmma with
+// A in registers, 4-D tensor maps):
 // acc[m, n] += Σ_k A(m, k) · B(k, n) over a block tile of TILE_M rows × N
 // columns, in two forms: bf16 operands with fp32 accumulators (wgmma
 // m64nNk16) and int8 operands with int32 accumulators (m64nNk32, s8 × s8),
@@ -421,6 +422,23 @@ template <int N, int TB>
 struct WgmmaRS;
 
 template <int TB>
+struct WgmmaRS<8, TB> {
+    __device__ __forceinline__ static void run(float (&d)[1][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d = 1) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %9, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3"
+            "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+              "r"(scale_d), "n"(TB));
+    }
+};
+
+template <int TB>
 struct WgmmaRS<16, TB> {
     __device__ __forceinline__ static void run(float (&d)[2][4],
                                                const uint32_t (&a)[4],
@@ -481,6 +499,45 @@ struct WgmmaRS<64, TB> {
               "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
               "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
               "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+              "r"(scale_d), "n"(TB));
+    }
+};
+
+template <int TB>
+struct WgmmaRS<128, TB> {
+    __device__ __forceinline__ static void run(float (&d)[16][4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d = 1) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, "
+            "%40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, "
+            "%56, %57, %58, %59, %60, %61, %62, %63"
+            "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+              "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+              "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+              "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+              "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+              "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+              "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+              "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+              "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+              "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+              "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+              "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+              "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+              "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+              "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+              "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
               "r"(scale_d), "n"(TB));
     }
@@ -625,9 +682,11 @@ struct WgmmaS8<256> {
 // object is ring `id` of them, and each thread of a role keeps its own
 // position (stage, phase) in it.  One ring is read by both consumers, two
 // are one a consumer.  A stage fills with FULL arrivals (the producer's, and
-// any threads that write part of it with st.shared before they arrive).
+// any threads that write part of it with st.shared before they arrive) and
+// empties with READERS arrivals, one per consumer warpgroup that reads it
+// (0: both consumers of one ring, or the one of a ring of its own).
 template <int STAGES_, int STAGE_BYTES_, int EXTRA = 0, int RINGS = 1,
-          int FULL = 1>
+          int FULL = 1, int READERS = 0>
 struct Ring {
     static constexpr int STAGES = STAGES_, STAGE_BYTES = STAGE_BYTES_;
     static constexpr int SMEM_BYTES =
@@ -672,7 +731,7 @@ struct Ring {
                 const int r = s / STAGES, i = s % STAGES;
                 mbar_init(all + 16 * STAGES * r + 8 * i, FULL);
                 mbar_init(all + 16 * STAGES * r + 8 * (STAGES + i),
-                          RINGS == 1 ? 2 : 1);
+                          READERS ? READERS : RINGS == 1 ? 2 : 1);
             }
             asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
         }

@@ -17,20 +17,26 @@ via ``_flash_core_static``), and K15 (``attention_online``, below) replaces
 softmax policies.  With head dim 32 the two products per logit are cheap
 next to the exp: at 13,824 tokens and 32 (batch · head) rows it is 6.1 G
 logits per layer, bound by the exp unit (≈ 1.5-1.65 ms on an H100) more than
-by the products (0.79 ms).  One block
-owns 128 queries of one (batch, head), four warps 32 each; K and V stream in
-64-key tiles through a 3-stage ``cp.async`` ring; S = QKᵀ and O += P·V are
-``mma.sync`` products whose accumulators never leave registers (p is packed
-from S's accumulators into P·V's A fragment); p = bf16(exp2(S·scale·log2e −
-B·log2e)), one FFMA and one ex2 per logit, with the row sum l in registers.
-The nulls are one 16-key tile staged beside the queries; O/l is written once
-at the end.  Ragged q and kv tails are masked, and q/k/v/out are read and
-written through strides, so the (b, n, h·d) projection output is used in
-place and the output lands in the (b, n, h·d) layout the out-projection
-reads.  B arrives as a device pointer: the forward never synchronises with
-the host.  On request K1 also writes lse = B + log l (natural log; l summed
-over the bf16-rounded p, nulls included), which the backward recomputes p
-from.
+by the products (0.79 ms).  The kernel is built on Hopper's pieces
+(csrc/gemm_wgmma.cuh): one block owns 192 queries of one (batch, head); a
+producer warp's TMA loads (4-D tensor maps over the strided (b, h, n, d)
+views, rows past the end zero-filled) feed K and V in 128-key tiles (64 at
+head dim 64) through an ``mbarrier`` ring; three consumer warpgroups of 64
+queries take turns at the tensor cores, S = QKᵀ and O += P·V as ``wgmma``
+with Q and P as register A operands, so S, p and O never leave registers,
+and each consumer's exps run beside its own P·V and the others' products.
+p = bf16(exp2(S·scale·log2e − B·log2e)), one FFMA and one ex2 per logit;
+the row sum l of the bf16 p comes from the tensor cores (P against a tile
+of ones, as the TPU kernel's ones column in v).  The nulls are one 16-key
+tile taken before the first kv tile; O/l is written once at the end.  Ragged q and kv tails are
+masked, and q/k/v/out are read and written through strides, so the (b, n,
+h·d) projection output is used in place and the output lands in the (b, n,
+h·d) layout the out-projection reads.  B arrives as a device pointer: the
+forward never synchronises with the host.  On request K1 also writes lse =
+B + log l (natural log; l summed over the bf16-rounded p, nulls included),
+which the backward recomputes p from.  The wrappers check what TMA takes (a
+contiguous head dim, 16-byte aligned pointers and strides) and at least
+one key.
 
 Head dims.  The kernels are template instances at head dim 16, 32 and 64
 (the int8 attention at 32 and 64: its k step is 32 codes); the wrappers
@@ -65,10 +71,10 @@ vit_exp_tpu/ops/flash_attention.py::_fwd_kernel (``_flash_fwd``, via
 ``_flash_core``), the forward of the JAX package's training default
 (attn_impl="pallas").  It is K1's kernel template (csrc/flash_fwd.cu) under
 its other policy: the nulls are ordinary keys at the front of k/v (nkv =
-13,826 at production, so the last 64-key tile holds 2 keys and the rest is
-masked), and a running max m (log2 units, a quad reduction per row)
-replaces the bound, with the per-tile correction exp2(m − m_new) on l and
-O in registers.  As the TPU kernel does, l sums the fp32 p and only the
+13,826 at production, so the last 128-key tile holds 2 keys and the rest is
+masked), and a running max m (log2 units, a quad reduction per row over a
+128-key tile) replaces the bound, with the per-tile correction exp2(m −
+m_new) on l and O in registers.  As the TPU kernel does, l sums the fp32 p and only the
 P·V operand is p rounded to bf16; lse = m + log l.
 ``OnlineAttention`` runs it forward and the flash_bwd.cu pair backward over
 all nkv keys (the JAX ``_flash_bwd_concat`` route), so the null gradients
@@ -213,6 +219,8 @@ def attention_static(q, k, v, nk, nv, bound, scale: float,
         nk = nv = torch.zeros((h, 1, d), device=q.device, dtype=q.dtype)
     _build.require_cuda("attention_static", q, k, v, nk, nv, bound)
     _check_qkv(q, k, v, "attention_static kernel")
+    if nkv < 1:
+        raise ValueError("attention_static kernel needs at least one key")
     if (nk.dtype != torch.bfloat16 or nv.dtype != torch.bfloat16
             or n_null > MAX_NULL or nk.shape != nv.shape
             or nk.shape[::2] != (h, d)):
@@ -222,7 +230,7 @@ def attention_static(q, k, v, nk, nv, bound, scale: float,
     dp = kernel_head_dim(d)
     q, k, v, nk, nv = (pad_head(t, dp) for t in (q, k, v, nk, nv))
     nk, nv = nk.contiguous(), nv.contiguous()
-    if nk.data_ptr() % 16 or nv.data_ptr() % 16:   # staged by cp.async
+    if nk.data_ptr() % 16 or nv.data_ptr() % 16:   # read by TMA
         nk, nv = nk.clone(), nv.clone()
     bound = bound.float().reshape(())
     out = _heads_last_like(q)
