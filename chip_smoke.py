@@ -10,8 +10,9 @@
    K8's, K11's and K12/K13's products and K14 on gemm_wgmma.cuh, K11's,
    K12/K13's and K14 in its int8 form), the attention forwards K1/K15 and
    the backward pair (on gemm_wgmma.cuh's pieces, each head-dim instance),
-   the patch embedding (on gemm_mma.cuh) and the int8 attention (none may
-   spill, and ptxas may serialise no wgmma of the attention kernels).
+   the patch embedding (on gemm_wgmma.cuh, each copy-width instance) and
+   the int8 attention (none may spill, and ptxas may serialise no wgmma of
+   the attention kernels or of the patch embedding).
 3. Holds each kernel against its plain PyTorch version at the shapes of the
    serving, training, int8 serving and run_train paths (batch 4, 13,824
    tokens, width 768; one row per launch counter: K1, K2's three kernels
@@ -4829,9 +4830,10 @@ def main() -> int:
     check(set(ptxas) == set(REPORTED_KERNELS)
           and all(st == ld == 0 for _, st, ld in ptxas.values()),
           ("ptxas registers and spills", ptxas))
-    serialized = wgmma_serialized(build_log, ATTENTION_KERNELS[:3])
-    print(f"ptxas wgmma serialisation notes in K1/K15 and the backward pair: "
-          f"{len(serialized)}", flush=True)
+    serialized = wgmma_serialized(build_log, ATTENTION_KERNELS[:3]
+                                  + ("patch_embed_kernel",))
+    print(f"ptxas wgmma serialisation notes in K1/K15, the backward pair and "
+          f"the patch embedding: {len(serialized)}", flush=True)
     check(not serialized, ("ptxas serialised wgmmas", serialized))
 
     b_cls, b_seg = mixed_batches()

@@ -10,9 +10,9 @@ Builds the kernel library of this checkout (``_build.build``) and prints
 ptxas's registers, spills and wgmma notes for the product kernels on
 ``csrc/gemm_wgmma.cuh``: K2's act and out, K8's dh, dy and weight GEMM, K3
 (the LN + q/kv projection, bf16), K12/K13's product, K11's act and out and
-K14 (int8), the attention backward pair of ``csrc/flash_bwd.cu`` and the
-attention forwards K1/K15 of ``csrc/flash_fwd.cu`` (their PTX pieces live
-in ``gemm_wgmma.cuh``).  At production shape (55,296 tokens, D 768, 2I 4,096; K3 and
+K14 (int8), the attention backward pair of ``csrc/flash_bwd.cu``, the
+attention forwards K1/K15 of ``csrc/flash_fwd.cu`` and the patch embedding
+of ``csrc/patch_embed.cu`` (their PTX pieces live in ``gemm_wgmma.cuh``).  At production shape (55,296 tokens, D 768, 2I 4,096; K3 and
 K12/K13 at K = F = 768 with q 256 columns wide, k and v 256 each; K14 at K
 256, F 768) it runs each stage against its plain twin (relative L2 ≤ 1e-2
 on every output, K11's act also on its partial amaxes; K12/K13's product
@@ -39,6 +39,14 @@ tensor-parallel rank's 4 and 2 heads (batch 1, 13,826 keys, lse).  Each
 is held to its plain twin (relative L2 ≤ 1e-2 on the output, 1e-5 on
 lse), with its bound (as the pair's) and one SDPA forward on contiguous
 copies (the nulls prepended) as the yardstick.
+The patch embedding's stages (``csrc/patch_embed.cu``): PE at production
+shape (batch 4: video (96, 10, 480, 480) bf16, p 20, D 768) and PE10 at the
+planted path's (batch 32: (384, 10, 120, 120), p 10, D 384), held to
+``patch_embed_plain`` (relative L2 ≤ 1e-2 on the tokens, 1e-5 on μ and
+Σx²), with their bound (the product's operations, or bytes) and two
+yardsticks on the product alone: ``F.conv2d`` on bf16 operands
+(library_ms) and ``torch.mm`` over a pre-built patch matrix
+(library_mm_ms).
 --stages takes a comma-separated subset.
 
 --parent DIR: the root of another checkout (a ``git archive`` of the parent
@@ -84,7 +92,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from vit_exp_tpu_torch.ops import _build, fused_proj, geglu_ff  # noqa: E402
+from vit_exp_tpu_torch.ops import _build, fused_proj, geglu_ff, patches  # noqa: E402
 from vit_exp_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 M, D, I2 = 55_296, 768, 4_096
@@ -114,6 +122,13 @@ FWD_STAGES.update(K15ring=("K15", 32, True, "ring"),
                   K15tp4=("K15", 32, True, "tp4"),
                   K15tp2=("K15", 32, True, "tp2"))
 STAGE_KERNEL.update({s: "flash_fwd_kernel" for s in FWD_STAGES})
+# the patch embedding: (BT, CPT, H, W, p1, p2, D); batch 4 of the production
+# arch (24 frames a volume) and batch 32 of the planted arch (12)
+PE_STAGES = {"PE": (96, 10, 480, 480, 20, 20, 768),
+             "PE10": (384, 10, 120, 120, 10, 10, 384)}
+STAGE_KERNEL.update({s: "patch_embed_kernel" for s in PE_STAGES})
+PE_EPS = 1e-5
+STATS_RTOL = 1e-5   # μ and Σx² against the twin
 BATCH, HEADS, NQ, N_NULL = 4, 8, 13_824, 2
 LSE_RTOL = 1e-5
 KERNELS = tuple(STAGE_KERNEL.values())
@@ -216,7 +231,17 @@ class Lib:
                if attn_prefix(d, cat) + "q" in t},
             **{s: self.forward(t, s) for s in FWD_STAGES
                if "fo_" + s in t},
+            **{s: self.patch_embed(t, s) for s in PE_STAGES
+               if pe_prefix(s) + "x" in t},
         }
+
+    def patch_embed(self, t, stage):
+        """The patch embedding through its C entry point."""
+        pre = pe_prefix(stage)
+        ptrs = [t[pre + n].data_ptr() for n in ("x", "kc", "csum", "dvec",
+                                                 "tok", "mu", "sq")]
+        return lambda: self.call("vit_patch_embed_fwd", *ptrs,
+                                 *PE_STAGES[stage], PE_EPS)
 
     def forward(self, t, stage):
         """K1 or K15 through its C entry point, into the stage's buffers."""
@@ -271,6 +296,41 @@ def attn_prefix(d, cat) -> str:
 
 def fwd_prefix(d, shape) -> str:
     return f"f{d}{shape}_"
+
+
+def pe_prefix(stage) -> str:
+    return f"pe{stage}_"
+
+
+def pe_inputs(device, t, stages) -> None:
+    """The patch embedding's operands for each of its stages among stages,
+    into t, as fused_patch_embed hands them over: the video (BT, CPT, H, W)
+    bf16, kc = (γ⊙W)ᵀ (D, n) bf16, csum and dvec (D,) fp32 from seeded
+    LayerNorm and Linear weights; the tokens, μ and Σx² as the wrapper
+    allocates them."""
+    g = torch.Generator(device=device).manual_seed(25)
+    for s in stages:
+        if s not in PE_STAGES:
+            continue
+        bt, cpt, h, w, p1, p2, d = PE_STAGES[s]
+        n = cpt * p1 * p2
+        gamma = 1 + 0.1 * torch.randn(n, generator=g, device=device)
+        beta = 0.1 * torch.randn(n, generator=g, device=device)
+        wt = torch.randn(n, d, generator=g, device=device) / n ** 0.5
+        kf = wt * gamma[:, None]
+        pre = pe_prefix(s)
+        t.update({pre + "x": torch.randn(bt, cpt, h, w, generator=g,
+                                         device=device).to(torch.bfloat16),
+                  pre + "kc": kf.t().to(torch.bfloat16).contiguous(),
+                  pre + "csum": kf.sum(0).contiguous(),
+                  pre + "dvec": (beta @ wt + 0.1 * torch.randn(
+                      d, generator=g, device=device)).contiguous(),
+                  pre + "tok": torch.empty(bt, h // p1, w // p2, d,
+                                           device=device,
+                                           dtype=torch.bfloat16),
+                  pre + "mu": torch.empty(bt, h // p1, w // p2,
+                                          device=device)})
+        t[pre + "sq"] = torch.empty_like(t[pre + "mu"])
 
 
 def fwd_inputs(device, t, stages) -> None:
@@ -431,6 +491,8 @@ def inputs(device) -> dict:
 
 
 def outputs(t, stage):
+    if stage in PE_STAGES:
+        return tuple(pe_prefix(stage) + n for n in ("tok", "mu", "sq"))
     if stage in FWD_STAGES:
         return ("fo_" + stage,) + (("fl_" + stage,) if FWD_STAGES[stage][2]
                                    else ())
@@ -491,8 +553,16 @@ def twins(t, stages) -> dict:
                                           scale, save_lse=lse)
         return list(r) if lse else [r]
 
+    def patch_embed(stage):
+        pre = pe_prefix(stage)
+        _, _, _, _, p1, p2, _ = PE_STAGES[stage]
+        return list(patches.patch_embed_plain(
+            *(t[pre + n] for n in ("x", "kc", "csum", "dvec")), p1, p2,
+            PE_EPS))
+
     return {s: pair(s) if s in ATTN_STAGES else forward(s)
-            if s in FWD_STAGES else calls[s]() for s in stages}
+            if s in FWD_STAGES else patch_embed(s) if s in PE_STAGES
+            else calls[s]() for s in stages}
 
 
 def rel(a, b) -> float:
@@ -566,6 +636,23 @@ def fwd_bounds(t, stages) -> dict:
                  + list(outputs(t, s)))
         out[s] = max(2 * 2 * logits * d / PEAK_BF16, logits / rate,
                      nb / HBM) * 1e3
+    return out
+
+
+def pe_bounds(t, stages) -> dict:
+    """The patch embedding's stages: the larger of the product's operations
+    at the bf16 peak and its bytes (each input read once, each output
+    written once)."""
+    out = {}
+    for s in stages:
+        if s not in PE_STAGES:
+            continue
+        bt, cpt, h, w, p1, p2, d = PE_STAGES[s]
+        m, n = bt * (h // p1) * (w // p2), cpt * p1 * p2
+        pre = pe_prefix(s)
+        nb = sum(t[pre + k].numel() * t[pre + k].element_size() for k in (
+            "x", "kc", "csum", "dvec", "tok", "mu", "sq"))
+        out[s] = max(2 * m * n * d / PEAK_BF16, nb / HBM) * 1e3
     return out
 
 
@@ -645,8 +732,36 @@ def library_yardsticks(t, stages) -> dict:
                         qc, kc, vc, scale=t[pre + "scale"]))
         return sdpa[pre + "sdpa"]
 
+    def conv(stage):
+        """F.conv2d on the stage's bf16 video and kc: the strided product
+        alone."""
+        bt, cpt, h, w, p1, p2, d = PE_STAGES[stage]
+        pre = pe_prefix(stage)
+        kc4 = t[pre + "kc"].reshape(d, cpt, p1, p2)
+        return cuda_ms(lambda: torch.nn.functional.conv2d(
+            t[pre + "x"], kc4, stride=(p1, p2)))
+
     return {s: sdpa_backward(s) if s in ATTN_STAGES else sdpa_forward(s)
-            if s in FWD_STAGES else cuda_ms(calls[s]) for s in stages}
+            if s in FWD_STAGES else conv(s) if s in PE_STAGES
+            else cuda_ms(calls[s]) for s in stages}
+
+
+def pe_mm_yardsticks(t, stages) -> dict:
+    """torch.mm of each patch-embedding stage's video as a pre-built
+    (tokens, n) patch matrix (built once, outside the timing; feature order
+    (c, p1, p2)) and kcᵀ: the product alone."""
+    out = {}
+    for s in stages:
+        if s in PE_STAGES:
+            bt, cpt, h, w, p1, p2, _ = PE_STAGES[s]
+            pre = pe_prefix(s)
+            a = t[pre + "x"].reshape(bt, cpt, h // p1, p1, w // p2,
+                                     p2).permute(0, 2, 4, 1, 3, 5).reshape(
+                -1, cpt * p1 * p2)
+            b = t[pre + "kc"].t()
+            out[s] = cuda_ms(lambda: torch.mm(a, b))
+            del a
+    return out
 
 
 def stage_errors(t, ref, s) -> list:
@@ -675,6 +790,7 @@ def stage_trial(parent: Path | None, stages) -> dict:
     t = inputs(device)
     attn_inputs(device, t, stages)
     fwd_inputs(device, t, stages)
+    pe_inputs(device, t, stages)
     ref = twins(t, stages)
     res = {"card": card(), "rows": {}}
     order = ["parent", "this", "this", "parent"] if parent else ["this"]
@@ -696,9 +812,11 @@ def stage_trial(parent: Path | None, stages) -> dict:
                   f"an exact stage: 0 where the bits are the twin's), same "
                   f"bits twice: {same}", flush=True)
             res["rows"].setdefault(s, {})[f"{who}_rel_l2"] = errs[0] if (
-                s in FWD_STAGES) else max(errs)
+                s in FWD_STAGES or s in PE_STAGES) else max(errs)
             if s in FWD_STAGES and FWD_STAGES[s][2]:
                 res["rows"][s][f"{who}_lse_rel"] = errs[1]
+            if s in PE_STAGES:
+                res["rows"][s][f"{who}_stats_rel"] = max(errs[1:])
             res["rows"][s][f"{who}_same_bits"] = same
             if who == "this":
                 kept[s] = first
@@ -713,7 +831,9 @@ def stage_trial(parent: Path | None, stages) -> dict:
             if s in stages:
                 times[s][who].append(cuda_ms(fn))
     lib_ms = library_yardsticks(t, stages)
-    bnd = {**bounds(t), **attn_bounds(t, stages), **fwd_bounds(t, stages)}
+    mm_ms = pe_mm_yardsticks(t, stages)
+    bnd = {**bounds(t), **attn_bounds(t, stages), **fwd_bounds(t, stages),
+           **pe_bounds(t, stages)}
     if "K14" in ref:
         two = lambda: libs["this"].k14_two_kernels(t)   # noqa: E731
         two()
@@ -731,13 +851,18 @@ def stage_trial(parent: Path | None, stages) -> dict:
         row.update({f"{k}_ms": statistics.mean(v) for k, v in times[s].items()},
                    bound_ms=bnd[s], library_ms=lib_ms[s])
         row["share"] = bnd[s] / row["this_ms"]
+        if s in mm_ms:
+            row["library_mm_ms"] = mm_ms[s]
         print(f"{s}: this {row['this_ms']:.4f} ms"
               + (f", parent {row['parent_ms']:.4f} ms" if parent else "")
               + f", bound {bnd[s]:.4f} ms (share {row['share']:.3f}), "
               + ("one SDPA backward" if s in ATTN_STAGES
                  else "one SDPA forward" if s in FWD_STAGES
+                 else "F.conv2d on bf16" if s in PE_STAGES
                  else "the library on the products")
-              + f" {lib_ms[s]:.4f} ms", flush=True)
+              + f" {lib_ms[s]:.4f} ms"
+              + (f", torch.mm over a pre-built patch matrix "
+                 f"{mm_ms[s]:.4f} ms" if s in mm_ms else ""), flush=True)
     return res
 
 
@@ -1090,6 +1215,84 @@ def fwd_variants(stage):
     return out
 
 
+# the patch embedding's variants: PR 10's design, the two routes that lost
+# (the video staged in every column tile with shared-memory-A wgmma and
+# the statistics in the lanes; the video staged once per token tile by a
+# cluster of the column tiles, forwarded by DSMEM), the shipped design's
+# options, and ablations (each removes one part; only the time is read)
+PE_MMA_SYNC = "scripts/gemm_wgmma_variants/patch_embed_mma_sync.cu"
+PE_PER_TILE = "scripts/gemm_wgmma_variants/patch_embed_per_tile.cu"
+PE_VIDEO_CLUSTER = "scripts/gemm_wgmma_variants/patch_embed_video_cluster.cu"
+PE_NO_COPIES = {"for (int i = 0; i < TILE_M / G; ++i) {":
+                "for (int i = 0; i < 0; ++i) {"}
+PE_NO_READS = {"const bool ok = kin && base >= 0;": "const bool ok = false;"}
+PE_NO_KC = {"if (pt == 0) {": "if (pt == 0 && k0 < 0) {",
+            "1 + WG_THREADS, 8 * PE_CM>": "WG_THREADS, 8 * PE_CM>"}
+PE_PRODUCT = """                WgmmaRS<PE_COLS, 0>::run(acc, fa[kk],
+                                         smem_desc<false>(bt + kk * 32));"""
+PE_STATS = """                WgmmaRS<8, 0>::run(st[0], fa[kk], smem_desc<false, 32>(ones));
+                WgmmaRS<8, 0>::run(st[1], fq[kk], smem_desc<false, 32>(ones));"""
+PE_NO_PRODUCTS = {PE_PRODUCT: ""}
+PE_NO_STATS = {PE_STATS: ""}
+
+
+def pe_variants(stage):
+    return [
+        (f"{stage} shipped", "patch_embed.cu", {}, stage),
+        (f"{stage} PR 10's design (mma.sync from a cp.async ring, 96-token "
+         "tiles)", PE_MMA_SYNC, {}, stage),
+        (f"{stage} route (a): shared-memory-A wgmma, the statistics in the "
+         "lanes from the tile, no kc multicast", PE_PER_TILE, {}, stage),
+        (f"{stage} the video staged once per token tile (the column tiles "
+         "a cluster, DSMEM forwarding), no kc multicast", PE_VIDEO_CLUSTER,
+         {}, stage),
+        (f"{stage} the same, clusters of one", PE_VIDEO_CLUSTER,
+         {"a.cs = cluster_size(col_tiles);": "a.cs = 1;"}, stage),
+        (f"{stage} no kc multicast (clusters of one)", "patch_embed.cu",
+         {"PE_CM = 2;": "PE_CM = 1;"}, stage),
+        (f"{stage} kc multicast to clusters of 4", "patch_embed.cu",
+         {"PE_CM = 2;": "PE_CM = 4;"}, stage),
+        (f"{stage} 3 stages", "patch_embed.cu",
+         {"PE_STAGES = 4": "PE_STAGES = 3"}, stage),
+        (f"{stage} 4 lanes a token (a warp's copy: 8 neighbouring tokens, "
+         "16 k each)", "patch_embed.cu", {"PE_LPT = 16;": "PE_LPT = 4;"},
+         stage),
+        (f"{stage} 8 lanes a token", "patch_embed.cu",
+         {"PE_LPT = 16;": "PE_LPT = 8;"}, stage),
+        (f"{stage} one lane a token (a warp's copy: 32 neighbouring tokens, "
+         "one piece each)", "patch_embed.cu", {"PE_LPT = 16;": "PE_LPT = 1;"},
+         stage),
+        (f"{stage} producer 56 registers, consumers 224", "patch_embed.cu",
+         {"PE_PRODUCER_REGS = 40, PE_CONSUMER_REGS = 232":
+          "PE_PRODUCER_REGS = 56, PE_CONSUMER_REGS = 224"}, stage),
+        (f"{stage} video copies with an L2 prefetch of 128 bytes",
+         "patch_embed.cu", {"cp.async.ca.shared.global [%0]":
+                            "cp.async.ca.shared.global.L2::128B [%0]"},
+         stage),
+        (f"{stage} video copies with an L2 prefetch of 256 bytes",
+         "patch_embed.cu", {"cp.async.ca.shared.global [%0]":
+                            "cp.async.ca.shared.global.L2::256B [%0]"},
+         stage),
+        (f"{stage} ablation: no video copies", "patch_embed.cu",
+         PE_NO_COPIES, stage),
+        (f"{stage} ablation: no video reads (the copies zero-fill)",
+         "patch_embed.cu", PE_NO_READS, stage),
+        (f"{stage} ablation: no kc loads", "patch_embed.cu", PE_NO_KC, stage),
+        (f"{stage} ablation: no products", "patch_embed.cu", PE_NO_PRODUCTS,
+         stage),
+        (f"{stage} ablation: no statistics", "patch_embed.cu", PE_NO_STATS,
+         stage),
+        (f"{stage} ablation: no token stores (the staging filled, no TMA "
+         "store)", "patch_embed.cu",
+         {"out.release(maps, cols, m0);": ""}, stage),
+        (f"{stage} ablation: the products alone (no video copies, no "
+         "statistics)", "patch_embed.cu", {**PE_NO_COPIES, **PE_NO_STATS},
+         stage),
+        (f"{stage} ablation: the stream alone (no products, no statistics)",
+         "patch_embed.cu", {**PE_NO_PRODUCTS, **PE_NO_STATS}, stage),
+    ]
+
+
 VARIANTS = [
     *(v for st in ("K1_32", "K15_32", "K1_16", "K15_16", "K1_64", "K15_64")
       for v in fwd_variants(st)),
@@ -1269,6 +1472,7 @@ VARIANTS = [
     ("K14 ablation: no epilogue (the codes and the products only)",
      "ln_qkv_int8.cu", {K14_CONSUME: K14_CONSUME + "\n            if (K > 0) "
                         "continue;"}, "K14"),
+    *(v for st in PE_STAGES for v in pe_variants(st)),
 ]
 
 
@@ -1279,6 +1483,7 @@ def variant_trial(stages) -> dict:
     t = inputs(device)
     attn_inputs(device, t, stages)
     fwd_inputs(device, t, stages)
+    pe_inputs(device, t, stages)
     variants = [v for v in VARIANTS if v[3] in stages]
     ref = twins(t, sorted({v[3] for v in variants}))
     work = Path(tempfile.mkdtemp(prefix="wgmma_variants_"))
@@ -1321,8 +1526,8 @@ def variant_trial(stages) -> dict:
         st = Lib(lib).stages(t)[stage]
         st()
         torch.cuda.synchronize()
-        errs = stage_errors(t, ref, stage)[:1 if stage in FWD_STAGES
-                                               else None]
+        errs = stage_errors(t, ref, stage)[
+            :1 if stage in FWD_STAGES or stage in PE_STAGES else None]
         ms = statistics.mean(cuda_ms(st) for _ in range(2))
         out[label] = dict(ms=ms, rel_l2=max(errs),
                           spill_bytes=max(map(int, spills or [0])))
@@ -1353,7 +1558,9 @@ def main() -> int:
     res = stage_trial(args.parent, stages)
     bad = [s for s, r in res["rows"].items()
            if r["this_rel_l2"] > (0 if s in EXACT else RTOL)
-           or r.get("this_lse_rel", 0) > LSE_RTOL or not r["this_same_bits"]]
+           or r.get("this_lse_rel", 0) > LSE_RTOL
+           or r.get("this_stats_rel", 0) > STATS_RTOL
+           or not r["this_same_bits"]]
     if args.rates and args.parent is not None:
         res["rates"] = rates(args.parent.resolve())
     print(f"card: {res['card']}", flush=True)

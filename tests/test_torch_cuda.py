@@ -211,14 +211,21 @@ def _pe_case(dev, bt, cpt, h, w, p1, p2, d, seed=3):
 
 
 # (bt, cpt, H, W, p1, p2, D): p2 20 at W 480 (the production patch row,
-# 24 tokens) with token counts that do not fill the last 96-token tile,
-# small even p2 (k steps 16, 48 and 80 deep), and the planted arch's patch
-# 10 over 120 at D 384, whose CPT·p1 = 100 patch rows end in a part-filled
-# k step of R = 8 (as does 1 × 4 rows at p2 6)
+# 24 tokens: 128-token tiles begin inside patch rows) with token counts
+# that do not fill the last tile, small even p2 (4-byte pieces where p2 %
+# 4 != 0), the planted arch's patch 10 over 120 at D 384 (n 1,000 ends
+# inside a 64-k step), and at the design's edges: 11 × 11 tokens a frame
+# (tiles straddle frames and begin inside patch rows, 363 tokens end inside
+# the third tile), n 400 at p 20 (CPT 1: 6¼ k steps), the tiny configs' D 48
+# at p 8 over 32 (16 tokens a frame, 8 frames a tile), D 128 and 256 (fewer
+# than three 256-column tiles), W 36 (W % 8 != 0) and 97 tokens a patch row
 PE_SHAPES = [(1, 10, 40, 480, 20, 20, 768), (3, 10, 60, 480, 20, 20, 128),
              (2, 4, 48, 48, 8, 6, 384), (3, 2, 24, 64, 4, 8, 128),
              (2, 4, 40, 80, 10, 10, 256), (3, 10, 120, 120, 10, 10, 384),
-             (2, 1, 48, 48, 4, 6, 128)]
+             (2, 1, 48, 48, 4, 6, 128), (3, 2, 220, 220, 20, 20, 256),
+             (2, 1, 60, 480, 20, 20, 384), (9, 4, 32, 32, 8, 8, 48),
+             (2, 2, 100, 200, 20, 20, 256), (2, 4, 48, 36, 8, 6, 384),
+             (2, 4, 48, 776, 8, 8, 384)]
 
 
 @pytest.mark.parametrize("shape", PE_SHAPES)
@@ -264,10 +271,10 @@ def test_patch_embed_refuses_before_any_launch(dev):
     """Each shape or type the kernel does not take raises before a
     launch, never through the plain twin."""
     good = (2, 4, 48, 48, 8, 6, 384)
-    bad = [dict(p2=5), dict(w=36, p2=6),     # odd p2; W·2 % 16 != 0
+    bad = [dict(p2=5), dict(w=50),           # odd p2; W % p2
            dict(cpt=1, p1=3),                # n = CPT·p1·p2 = 18: not % 8
            dict(d=40), dict(h=44),           # D % 16; H % p1
-           dict(w=776, p2=8)]                # 97 tokens per patch row
+           dict(h=4)]                        # H < p1: no patch row
     names = ("bt", "cpt", "h", "w", "p1", "p2", "d")
     before = patches.patch_embed.launches
     for change in bad:
@@ -653,6 +660,8 @@ def test_k8_refuses_a_width_before_any_launch(dev, d):
 WGMMA_KERNELS = ("geglu_ff_h_kernel", "geglu_ff_o_kernel",
                  "geglu_bwd_dh_kernel", "geglu_bwd_dy_kernel", "wgrad_kernel",
                  "ln_qkv_kernel")
+# kernels with one template instance per copy width (8- and 4-byte pieces)
+WGMMA_PAIRED_KERNELS = ("patch_embed_kernel",)
 WGMMA_INT8_KERNELS = ("geglu_int8_h_kernel", "geglu_int8_o_kernel",
                       "ln_qkv_int8_mm_kernel", "proj_int8_kernel")
 
@@ -675,15 +684,15 @@ def _sass_of(name, sass):
 def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
     """cuobjdump -sass (beside nvcc) of the built library: each bf16 kernel
     on gemm_wgmma.cuh (K2's two products, K8's three, K3) issues wgmma
-    (HGMMA) on operands loaded by TMA (UTMALDG) and no mma.sync (HMMA);
-    each int8 one (K11's two products, K12/K13's product, every instance
-    of K14) issues int8 wgmma (IGMMA) on TMA loads and no int8 mma.sync
-    (IMMA).  The patch embedding (HMMA, no HGMMA, on gemm_mma.cuh) and the
-    int8 attention (IMMA through attn_mma.cuh's mma_s8, no IGMMA) are the
-    witnesses that the check tells the two routes apart in each type.
-    Every instance (D 16, 32, 64) of the attention backward pair and of
-    the attention forwards K1/K15 issues HGMMA on UTMALDG loads and no
-    HMMA."""
+    (HGMMA) on operands loaded by TMA (UTMALDG) and no mma.sync (HMMA),
+    as does each instance (8- and 4-byte pieces) of the patch embedding
+    (kc by TMA); each int8 one (K11's two products, K12/K13's product,
+    every instance of K14) issues int8 wgmma (IGMMA) on TMA loads and no
+    int8 mma.sync (IMMA).  The int8 attention (IMMA through attn_mma.cuh's
+    mma_s8, no IGMMA) is the witness that the check tells the two routes
+    apart.  Every instance (D 16, 32, 64) of the attention backward pair
+    and of the attention forwards K1/K15 issues HGMMA on UTMALDG loads and
+    no HMMA."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                          capture_output=True, text=True, check=True).stdout
@@ -709,8 +718,12 @@ def test_k2_k8_products_run_on_wgmma_fed_by_tma(dev):
     for text in found:
         assert "HGMMA" in text and "UTMALDG" in text
         assert not hmma.search(text)
-    for text in _sass_all("patch_embed_kernel", sass):
-        assert hmma.search(text) and "HGMMA" not in text
+    for name in WGMMA_PAIRED_KERNELS:
+        found = _sass_all(name, sass)
+        assert len(found) == 2, (name, len(found))
+        for text in found:
+            assert "HGMMA" in text and "UTMALDG" in text, name
+            assert not hmma.search(text), name
     for text in _sass_all("flash_static_int8_kernel", sass):
         assert imma.search(text) and "IGMMA" not in text
 

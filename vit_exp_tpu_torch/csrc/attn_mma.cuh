@@ -1,7 +1,8 @@
 // PTX helpers of the int8 attention (flash_static_int8.cu, K9/K10), of
-// gemm_mma.cuh (bf16: the patch embedding) and, through gemm_wgmma.cuh, of
-// the bf16 attention kernels (flash_fwd.cu, flash_bwd.cu: pack_bf16,
-// exp2_approx, smem_u32): cp.async copies into a
+// the forwards' earlier design kept for the trial
+// (scripts/gemm_wgmma_variants/flash_fwd_mma_sync.cu) and, through
+// gemm_wgmma.cuh, of the Hopper kernels (pack_bf16, exp2_approx,
+// smem_u32): cp.async copies into a
 // shared-memory ring, ldmatrix fragment loads (int8 rows read as b16 units),
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and m16n8k32 (int8 in,
 // int32 accumulate) and ex2.approx, plus the fragment patterns of a warp's

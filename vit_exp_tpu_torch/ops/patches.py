@@ -14,12 +14,14 @@ vit_exp_tpu/ops/patches.py).
 Kernel ``patch_embed`` replaces vit_exp_tpu/ops/patches.py::_stats_kernel
 (K4, ``_patch_stats_pallas``) together with the strided product
 ``_conv_f32`` and the fix-ups of ``fused_patch_embed`` beside it.  CUDA
-C++, csrc/patch_embed.cu: an implicit GEMM (tokens × D × n) on the bf16
-tensor cores with fp32 accumulators, which stages raw video rows, takes
-the patch statistics from its A fragments as they pass (x² rounded to the
-input dtype before it is summed, as the TPU kernel does) and applies the
-LayerNorm fix-up in its epilogue.  At batch 4 it is bound by the 340
-GFLOP of the product.  Its plain twin ``patch_embed_plain`` is the
+C++, csrc/patch_embed.cu: an implicit GEMM (tokens × D × n) on Hopper's
+``wgmma`` with fp32 accumulators, kc read by TMA (multicast to a cluster
+of two token tiles), each token's patch-row pieces copied straight into
+the swizzled operand tile; it takes the patch statistics from the same
+operand fragments on the tensor cores (x² rounded to the input dtype
+before it is summed, as the TPU kernel does) and applies the LayerNorm
+fix-up in its epilogue.  At batch 4 it is bound by the 340 GFLOP of the
+product.  Its plain twin ``patch_embed_plain`` is the
 statistics, ``F.conv2d`` with fp32 accumulation and the fp32 fix-ups,
 rounded once.
 
@@ -120,11 +122,8 @@ def patch_embed_check(x: torch.Tensor, kc: torch.Tensor, p1: int, p2: int):
     if not _build.lib().vit_patch_embed_check(bt, cpt, H, W, p1, p2, D):
         raise ValueError(
             f"patch_embed kernel does not take x {tuple(x.shape)}, p1 {p1}, "
-            f"p2 {p2}, D {D}: it needs H % p1 == W % p2 == 0, an even p2 "
-            f"whose k step R·p2 (R = 16 / gcd(p2, 16)) is 16, 32, 48 or 80, "
-            f"CPT·p1·p2 % 8 == 0, W % 8 == 0, W ≤ 640 (320 where p2 % 4 != 0), "
-            f"W / p2 ≤ 96, D % 16 == 0 and "
-            f"at most 227 KB of shared memory")
+            f"p2 {p2}, D {D}: it needs H % p1 == W % p2 == 0, an even p2, "
+            f"CPT·p1·p2 % 8 == 0, D % 16 == 0 and fewer than 2^31 tokens")
 
 
 def patch_embed(x: torch.Tensor, kc: torch.Tensor, csum: torch.Tensor,
